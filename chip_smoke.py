@@ -9,7 +9,11 @@ L = 256, C = 20 labels, batch chunk 1024) on random weights made from
 1. print the card's name and power limit;
 2. build every kernel of the path from ``pio_tpu_torch/ops/csrc`` with nvcc;
 3. hold each kernel against its plain PyTorch version on the card, and time
-   kernel, plain version, the library call and the bound (CUDA events);
+   kernel, plain version, the library call and the bound (CUDA events),
+   printing beside each time the share of weight-0 slots, the achieved
+   gather rate and the previous design's time; then check the edge shapes
+   of the launch plan (one slot, an unaligned row view, no bags, a bag of
+   weight-0 slots), each called twice for the same bits;
 4. build a full-width model from a synthetic 20-label corpus;
 5. serve 8 ``POST /queries.json`` through the port's query server, checked
    against a CPU copy of the model run through the plain version;
@@ -79,6 +83,22 @@ LABELS = [
 # bf16 tables convert to f32 exactly before the multiply, so the same limit.
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-4}
 CONF_TOL = 1e-5  # served confidence vs the CPU copy (f32 softmax)
+# device ms of the kernel's previous design (one 128-thread block per bag
+# walking L slot by slot, 4-byte loads, padding read), measured by this
+# script at commit 1f8eded on an NVIDIA H100 80GB HBM3 at 700 W
+PREV_KERNEL_MS = {
+    "serving f32": 0.02732, "serving bf16": 0.02222, "one query f32": 0.01473,
+    "wide f32": 0.04500, "served batch (TF-IDF bags)": 0.02431,
+    "served query (TF-IDF bag)": 0.01176,
+}
+# shapes the launch plan treats apart: name -> (B, L, D, table is a row view)
+EDGE_SHAPES = {
+    "one slot": (1, 1, 128, False),
+    # D = 130 and a pointer one row in: 8-byte (f32) or 4-byte (bf16) lanes
+    "unaligned row view": (3, 7, 130, True),
+    "no bags": (0, 8, 128, False),
+    "zero-weight bag": (4, 16, 128, False),
+}
 
 
 def log(msg: str) -> None:
@@ -118,24 +138,61 @@ def timed_in_turns(fns: dict, rounds: int = 3) -> dict:
     return {n: float(np.median(v)) for n, v in runs.items()}
 
 
-def bound(ids: np.ndarray, D: int, elem_bytes: int) -> dict:
-    """Least time the card could take for one embedding bag over ``ids``.
+def bound(ids: np.ndarray, w: np.ndarray, D: int, elem_bytes: int) -> dict:
+    """Least time the card could take for one embedding bag over these bags.
 
-    Bytes: each distinct table row touched, read once, plus the ids and
-    weights (4 B each per slot) and the f32 output. Operations: one f32
-    multiply-add (2 flops) per slot and column. Also the time of the
-    B·L·D row bytes the gather issues, for reference.
+    The work depends on the data: a slot of weight 0 needs no row. Bytes:
+    each distinct table row of a non-zero slot, read once, plus the ids and
+    weights of every slot (4 B each) and the f32 output. Operations: one
+    f32 multiply-add (2 flops) per non-zero slot and column. Also the time
+    of the row bytes the gather of the non-zero slots issues, for reference.
     """
     B, L = ids.shape
-    rows = len(np.unique(ids))
+    live = w != 0
+    nnz = int(live.sum())
+    rows = len(np.unique(ids[live]))
     io = 8 * B * L + 4 * B * D
     bytes_ms = (rows * D * elem_bytes + io) / PEAK_BYTES_S * 1e3
-    ops_ms = 2 * B * L * D / PEAK_F32_FLOP_S * 1e3
+    ops_ms = 2 * nnz * D / PEAK_F32_FLOP_S * 1e3
     return {
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "gather_bytes_ms": (B * L * D * elem_bytes + io) / PEAK_BYTES_S * 1e3,
+        "gather_bytes_ms": (nnz * D * elem_bytes + io) / PEAK_BYTES_S * 1e3,
         "distinct_rows": rows,
+        "nonzero_slots": nnz,
+        "zero_share": 1 - nnz / max(1, B * L),
+    }
+
+
+def run_twice(name: str, table, ids, w) -> torch.Tensor:
+    """The kernel's output; fails unless a second call gives the same bits."""
+    out = embedding.embedding_bag(table, ids, w)
+    again = embedding.embedding_bag(table, ids, w)
+    torch.cuda.synchronize()
+    if not torch.equal(out, again):
+        raise AssertionError(f"{name}: two calls on the same inputs differ")
+    return out
+
+
+def max_err(name: str, out, ref, tol: float) -> float:
+    if out.shape != ref.shape or not torch.isfinite(out).all():
+        raise AssertionError(f"{name}: kernel output not finite / bad shape")
+    err = float((out - ref).abs().max()) if out.numel() else 0.0
+    if err > tol:
+        raise AssertionError(f"{name}: kernel vs plain max |err| {err} > {tol}")
+    return err
+
+
+def case_row(name, table, ids_np, tol, err) -> dict:
+    B, L = ids_np.shape
+    V, D = table.shape
+    align = embedding._align(table.data_ptr())
+    plan = embedding._plan(B, L, D, table.element_size(), align)
+    return {
+        "case": name, "B": B, "L": L, "V": V, "D": D,
+        "dtype": str(table.dtype).replace("torch.", ""),
+        "align": align, "plan": plan._asdict(),
+        "max_abs_err": err, "tol": tol,
     }
 
 
@@ -144,14 +201,8 @@ def check_kernel(name, table, ids_np, w_np, tol) -> dict:
     dev = table.device
     ids = torch.from_numpy(ids_np).to(dev)
     w = torch.from_numpy(w_np).to(dev)
-    out = embedding.embedding_bag(table, ids, w)
-    ref = embedding.embedding_bag_plain(table, ids, w)
-    torch.cuda.synchronize()
-    if out.shape != ref.shape or not torch.isfinite(out).all():
-        raise AssertionError(f"{name}: kernel output not finite / bad shape")
-    err = float((out - ref).abs().max())
-    if err > tol:
-        raise AssertionError(f"{name}: kernel vs plain max |err| {err} > {tol}")
+    out = run_twice(name, table, ids, w)
+    err = max_err(name, out, embedding.embedding_bag_plain(table, ids, w), tol)
     w_lib = w.to(table.dtype)  # F.embedding_bag wants weights of the table type
     times = timed_in_turns({
         "kernel_ms": lambda: embedding.embedding_bag(table, ids, w),
@@ -160,14 +211,33 @@ def check_kernel(name, table, ids_np, w_np, tol) -> dict:
             ids, table, per_sample_weights=w_lib, mode="sum"
         ),
     })
-    B, L = ids_np.shape
-    V, D = table.shape
+    elem = table.element_size()
     row = {
-        "case": name, "B": B, "L": L, "V": V, "D": D,
-        "dtype": str(table.dtype).replace("torch.", ""),
-        "max_abs_err": err, "tol": tol, **times,
-        **bound(ids_np, D, table.element_size()),
+        **case_row(name, table, ids_np, tol, err), **times,
+        "prev_kernel_ms": PREV_KERNEL_MS.get(name),
+        **bound(ids_np, w_np, table.shape[1], elem),
     }
+    # row bytes the kernel read (non-zero slots) per second of its time
+    row["gather_tb_s"] = (row["nonzero_slots"] * table.shape[1] * elem
+                          / row["kernel_ms"] / 1e9)
+    log(f"  {json.dumps(row)}")
+    return row
+
+
+def check_edge(name, table, ids_np, w_np, tol) -> dict:
+    """Kernel vs plain version at a shape the plan treats apart (untimed)."""
+    dev = table.device
+    ids = torch.from_numpy(ids_np).to(dev)
+    w = torch.from_numpy(w_np).to(dev)
+    before = embedding.KERNEL_LAUNCHES
+    out = run_twice(name, table, ids, w)
+    if len(ids_np) and embedding.KERNEL_LAUNCHES != before + 2:
+        raise AssertionError(f"{name}: the wrapper did not launch the kernel")
+    err = max_err(name, out, embedding.embedding_bag_plain(table, ids, w), tol)
+    zero_bags = torch.from_numpy(~w_np.any(axis=1)).to(dev)
+    if out[zero_bags].any():
+        raise AssertionError(f"{name}: a bag of weight-0 slots is not 0")
+    row = case_row(name, table, ids_np, tol, err)
     log(f"  {json.dumps(row)}")
     return row
 
@@ -195,12 +265,33 @@ def phase_kernels(rng, dev) -> list:
     rows.append(check_kernel(
         "one query f32", table, ids[:1].copy(), w[:1].copy(), TOL[torch.float32]
     ))
+    query = torch.from_numpy(ids[:1].copy()).to(dev)
+    zeros = torch.zeros(query.shape, device=dev)
+    # where one bag's time goes: the same launch with every weight 0 reads
+    # ids and weights but no row; an empty kernel is the launch alone
+    log("  one query, without its rows: " + json.dumps(timed_in_turns({
+        "zero_weights_ms": lambda: embedding.embedding_bag(table, query, zeros),
+        "empty_kernel_ms": lambda: torch.cuda._sleep(1),
+    })))
     del table
     wide = torch.from_numpy(
         rng.standard_normal((50000, 256), dtype=np.float32)
     ).to(dev)
     ids, w = random_bags(rng, 4096, 64, 50000)
     rows.append(check_kernel("wide f32", wide, ids, w, TOL[torch.float32]))
+    del wide
+    log("  edge shapes (untimed)")
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, (B, L, D, view) in EDGE_SHAPES.items():
+            full = torch.from_numpy(
+                rng.standard_normal((1001, D), dtype=np.float32)
+            ).to(dev, dtype)
+            # view "row 1 on": a contiguous table whose pointer is off by a row
+            table = full[1:] if view else full[:1000]
+            ids, w = random_bags(rng, B, L, 1000)
+            if name == "zero-weight bag":
+                w[1] = 0.0
+            check_edge(f"{name} {str(dtype)[6:]}", table, ids, w, TOL[dtype])
     return rows
 
 

@@ -20,7 +20,9 @@ would hide the kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -72,10 +74,94 @@ def _kernel(suffix: str):
         from pio_tpu_torch.ops import _build
 
         fn = getattr(_build.load("embedding_bag"), f"pio_embedding_bag_{suffix}")
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _KERNELS[suffix] = fn
     return fn
+
+
+#: warps the H100 holds resident at once (132 SMs x 64): the plan gives a
+#: bag more warps until the grid has about this many
+_RESIDENT_WARPS = 132 * 64
+#: fewest warps a block gets when bags have few warps each (an SM holds at
+#: most 32 blocks, so one-warp blocks would fill half of it)
+_MIN_BLOCK_WARPS = 4
+#: most warps a bag gets: on the H100 one bag of 256 slots (chip_smoke.py's
+#: one-query shape) took longer on 32 warps, the kernel's widest block,
+#: than on 16, though 32 put all its row loads in flight at once
+_MAX_BAG_WARPS = 16
+_WARP = 32
+#: B, L and D index the kernel in int32, with a step of up to 8192 slots
+_MAX_DIM = 1 << 30
+
+
+class Plan(NamedTuple):
+    """Launch geometry of the CUDA kernel (see ``csrc/embedding_bag.cu``).
+
+    Each lane reads ``vec_bytes`` of a row; ``col_slice`` columns of D go to
+    one block (grid y walks the slices), read by groups of
+    ``group_lanes`` lanes; a bag has ``warps_per_bag`` warps, and a block
+    ``bags_per_block`` bags. Slot ``l`` of a bag goes to group
+    ``l % groups_per_bag``.
+    """
+
+    vec_bytes: int
+    warps_per_bag: int
+    bags_per_block: int
+    col_slice: int
+    group_lanes: int
+    grid: Tuple[int, int]
+
+    @property
+    def threads(self) -> int:
+        return self.warps_per_bag * self.bags_per_block * _WARP
+
+    @property
+    def groups_per_bag(self) -> int:
+        return self.warps_per_bag * (_WARP // self.group_lanes)
+
+    @property
+    def smem_bytes(self) -> int:
+        """f32 partial rows of every warp, summed across a bag's warps."""
+        if self.warps_per_bag == 1:
+            return 0
+        return self.warps_per_bag * self.bags_per_block * self.col_slice * 4
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(B: int, L: int, D: int, elem_bytes: int, align: int = 16) -> Plan:
+    """Launch geometry for ``B`` bags of ``L`` slots over a ``[V, D]`` table
+    of ``elem_bytes`` elements whose pointer is ``align``-byte aligned.
+
+    The widest of 16/8/4/2-byte lanes that divides the row bytes and the
+    alignment; lanes across the columns, at most a warp per slice; then
+    as many warps per bag (at most 16) as the bag has slots for, until the
+    grid fills the card; small bags share a block.
+    """
+    if min(B, L) < 0 or D < 1 or elem_bytes not in (2, 4):
+        raise ValueError(f"no plan for B={B} L={L} D={D} elem_bytes={elem_bytes}")
+    vec = next(v for v in (16, 8, 4, 2)
+               if v >= elem_bytes and (D * elem_bytes) % v == 0 and align % v == 0)
+    per_lane = vec // elem_bytes
+    group_lanes = min(_WARP, _pow2_at_least(-(-D // per_lane)))
+    col_slice = group_lanes * per_lane
+    slices = -(-D // col_slice)
+    groups_per_warp = _WARP // group_lanes
+    useful = max(1, -(-L // groups_per_warp))  # warps that get a slot
+    wanted = max(1, _RESIDENT_WARPS // max(1, B * slices))
+    warps = min(_MAX_BAG_WARPS, useful, wanted)
+    bags = max(1, min(B, -(-_MIN_BLOCK_WARPS // warps)))
+    return Plan(vec, warps, bags, col_slice, group_lanes,
+                (-(-B // bags), slices))
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+def _align(ptr: int) -> int:
+    """Byte alignment of a device pointer, capped at 16 (the widest lane)."""
+    return min(16, ptr & -ptr) if ptr else 16
 
 
 def _embedding_bag_cuda(table, ids, weights) -> torch.Tensor:
@@ -85,16 +171,20 @@ def _embedding_bag_cuda(table, ids, weights) -> torch.Tensor:
         raise ValueError("embedding_bag's CUDA kernel needs contiguous inputs")
     B, L = ids.shape
     V, D = table.shape
-    if max(B, L, D) > np.iinfo(np.int32).max:
-        raise ValueError(f"shape (B={B}, L={L}, D={D}) overflows int32")
+    if max(B, L, D) > _MAX_DIM:
+        raise ValueError(f"shape (B={B}, L={L}, D={D}) is over the kernel's "
+                         f"int indexing (at most {_MAX_DIM})")
     out = torch.empty((B, D), dtype=torch.float32, device=table.device)
     if B == 0 or D == 0:
         return out
+    ptr = table.data_ptr()
+    plan = _plan(B, L, D, table.element_size(), _align(ptr))
     fn = _kernel(_TABLE_DTYPES[table.dtype])
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(table.data_ptr(), ids.data_ptr(), weights.data_ptr(),
-                 out.data_ptr(), B, L, D, stream)
+        err = fn(ptr, ids.data_ptr(), weights.data_ptr(), out.data_ptr(),
+                 B, L, D, plan.vec_bytes, plan.warps_per_bag,
+                 plan.bags_per_block, plan.col_slice, stream)
     if err != 0:
         raise RuntimeError(f"embedding_bag kernel launch failed: CUDA error {err}")
     with _COUNT_LOCK:
@@ -110,8 +200,12 @@ def embedding_bag(
     ``table`` float32 or bfloat16 ``[V, D]``; ``ids`` int32 ``[B, L]`` in
     ``[0, V)`` (pad with any valid row and weight 0); ``weights`` float32
     ``[B, L]``. On CUDA tensors this launches the kernel (inputs must be
-    contiguous; ids are not range-checked on the card); on CPU tensors it
-    runs :func:`embedding_bag_plain`.
+    contiguous; ids are not range-checked on the card), whatever D and the
+    table's alignment; on CPU tensors it runs :func:`embedding_bag_plain`.
+
+    The kernel reads no row for a slot of weight 0, where the plain version
+    adds ``0 · row``: the two differ only where such a row holds inf or NaN.
+    It sums in a fixed order, so two calls give the same bits.
     """
     _check(table, ids, weights)
     if table.device.type == "cuda":

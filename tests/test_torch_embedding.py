@@ -140,23 +140,143 @@ def test_build_targets_hopper_and_keys_on_source():
     assert (_build.CSRC / _build.SOURCES["embedding_bag"]).is_file()
 
 
+# (B, L, D, table is a row view one row in): the served shapes and the
+# shapes the launch plan treats apart
+SHAPES = [
+    pytest.param(1, 256, 128, False, id="query"),
+    pytest.param(1024, 256, 128, False, id="serving"),
+    pytest.param(4096, 64, 256, False, id="wide"),
+    pytest.param(1, 1, 128, False, id="one-slot"),
+    pytest.param(3, 7, 130, True, id="unaligned-view"),
+    pytest.param(0, 8, 128, False, id="no-bags"),
+    pytest.param(37, 300, 192, False, id="ragged-d"),
+]
+DTYPES = [pytest.param(torch.float32, id="f32"),
+          pytest.param(torch.bfloat16, id="bf16")]
+
+
+def _bags(rng, B, L, V):
+    """Seeded bags with L2-normalised weights (|out| ~ 1, as TF-IDF bags
+    give); bag 1, where there is one, has only weight-0 slots."""
+    ids = rng.integers(0, V, size=(B, L), dtype=np.int32)
+    w = rng.random((B, L), dtype=np.float32) + 0.01
+    w /= np.linalg.norm(w, axis=1, keepdims=True)
+    if B > 1:
+        w[1] = 0.0
+    return ids, w.astype(np.float32)
+
+
+def _table(rng, V, D, view):
+    """[V, D] f32 table; with ``view`` a contiguous slice one row in, so
+    its pointer is off by D*elem bytes."""
+    full = rng.standard_normal((V + 1, D), dtype=np.float32)
+    return full[1:] if view else full[:V]
+
+
+@pytest.mark.parametrize("B, L, D, view", SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_plan_covers_every_slot_and_column_once(B, L, D, view, dtype):
+    elem = torch.tensor([], dtype=dtype).element_size()
+    # a fresh allocation is 16-byte aligned; one row in is D*elem bytes on
+    align = min(16, (D * elem) & -(D * elem)) if view else 16
+    plan = temb._plan(B, L, D, elem, align)
+    per_lane = plan.vec_bytes // elem
+    G = plan.group_lanes
+    assert plan.vec_bytes >= elem
+    assert (D * elem) % plan.vec_bytes == 0 and align % plan.vec_bytes == 0
+    assert plan.col_slice == G * per_lane and 32 % G == 0
+    assert plan.threads <= 1024
+    assert plan.smem_bytes <= 48 * 1024  # no opt-in to more shared memory
+    gx, gy = plan.grid
+    assert gx * plan.bags_per_block >= B > (gx - 1) * plan.bags_per_block
+    # columns: slices x lanes x elements per lane, each column of D once
+    cols = (np.arange(gy)[:, None, None] * plan.col_slice
+            + np.arange(G)[None, :, None] * per_lane
+            + np.arange(per_lane)[None, None, :]).ravel()
+    assert np.array_equal(np.sort(cols[cols < D]), np.arange(D))
+    assert (gy - 1) * plan.col_slice < D  # no slice without a column
+    # threads of one column slice, as the kernel indexes them:
+    # (bag, group, lane within group) once each for every live bag
+    t = np.arange(gx * plan.threads)
+    bx, warp, lane = t // plan.threads, t % plan.threads // 32, t % 32
+    bag = bx * plan.bags_per_block + warp // plan.warps_per_bag
+    group = (warp % plan.warps_per_bag) * (32 // G) + lane // G
+    key = (bag * plan.groups_per_bag + group) * G + lane % G
+    live = key[bag < B]
+    assert len(np.unique(live)) == len(live) == B * plan.groups_per_bag * G
+    # slots: group g takes l = g, g + groups_per_bag, ...: each slot once
+    slots = np.concatenate(
+        [np.arange(g, L, plan.groups_per_bag) for g in range(plan.groups_per_bag)]
+    )
+    assert np.array_equal(np.sort(slots), np.arange(L))
+    per_group = -(-L // plan.groups_per_bag)
+    assert plan.warps_per_bag * (32 // G) * per_group >= L
+
+
+@pytest.mark.parametrize(
+    "B, L, D, elem, align, vec",
+    [
+        (1, 256, 128, 4, 16, 16),  # a 512 B row: one float4 a lane
+        (1024, 256, 128, 2, 16, 16),  # 8 bf16 a lane, half a warp a row
+        (3, 7, 130, 4, 8, 8),  # 520 B rows, pointer one row in
+        (3, 7, 130, 2, 4, 4),  # 260 B rows
+        (2, 3, 129, 2, 16, 2),  # 258 B rows: one bf16 a lane
+    ],
+)
+def test_plan_takes_the_widest_lane_the_rows_allow(B, L, D, elem, align, vec):
+    assert temb._plan(B, L, D, elem, align).vec_bytes == vec
+
+
+def test_plan_splits_one_bag_across_warps():
+    # a served query: one block of 16 warps, each group 16 slots, so the
+    # 256 row loads go out in two steps of 8 a thread
+    query = temb._plan(1, 256, 128, 4)
+    assert query.grid == (1, 1) and query.warps_per_bag == 16
+    assert query.groups_per_bag * 16 == 256
+    # a batch chunk fills the card with fewer warps a bag
+    batch = temb._plan(1024, 256, 128, 4)
+    assert batch.warps_per_bag < query.warps_per_bag
+    assert batch.grid[0] * batch.threads // 32 >= 132 * 32
+
+
+@pytest.mark.parametrize("B, L, D, view", SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cpu_matches_xla_at_plan_shapes(B, L, D, view, dtype):
+    # bf16 tables widen to f32 exactly in both; the same f32 products,
+    # summed in another order: 1e-5 at |out| ~ 1
+    rng = np.random.default_rng(11)
+    table = _table(rng, 50, D, view)
+    ids, w = _bags(rng, B, L, 50)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    ref = np.asarray(_embedding_bag_xla(
+        jnp.asarray(table, jdt), jnp.asarray(ids), jnp.asarray(w)
+    ))
+    out = _port(table, ids, w, dtype=dtype)
+    assert out.shape == (B, D) and out.dtype == np.float32
+    np.testing.assert_allclose(out, ref, atol=1e-5)
+    if B > 1:
+        assert not out[1].any()  # the bag of weight-0 slots
+
+
 @pytest.mark.cuda
-def test_kernel_matches_plain_on_card(cuda_device):
+@pytest.mark.parametrize("B, L, D, view", SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_kernel_matches_plain_on_card(cuda_device, B, L, D, view, dtype):
     rng = np.random.default_rng(3)
-    for dtype in (torch.float32, torch.bfloat16):
-        table = torch.from_numpy(
-            rng.standard_normal((1000, 192), dtype=np.float32)
-        ).to(cuda_device, dtype)
-        ids = torch.from_numpy(
-            rng.integers(0, 1000, (37, 300), dtype=np.int32)
-        ).to(cuda_device)
-        w = torch.from_numpy(rng.random((37, 300), dtype=np.float32)).to(
-            cuda_device
-        )
-        before = temb.KERNEL_LAUNCHES
-        out = temb.embedding_bag(table, ids, w)
-        torch.cuda.synchronize()
-        assert temb.KERNEL_LAUNCHES == before + 1
-        ref = temb.embedding_bag_plain(table, ids, w)
-        # same f32 products, another summation order (|out| ~ 10 at L=300)
-        torch.testing.assert_close(out, ref, atol=1e-3, rtol=0)
+    full = torch.from_numpy(
+        rng.standard_normal((1001, D), dtype=np.float32)
+    ).to(cuda_device, dtype)
+    table = full[1:] if view else full[:1000]
+    assert table.is_contiguous()
+    ids, w = (torch.from_numpy(a).to(cuda_device) for a in _bags(rng, B, L, 1000))
+    before = temb.KERNEL_LAUNCHES
+    out = temb.embedding_bag(table, ids, w)
+    again = temb.embedding_bag(table, ids, w)
+    torch.cuda.synchronize()
+    assert temb.KERNEL_LAUNCHES == before + (2 if B else 0)
+    assert torch.equal(out, again)  # fixed summation order
+    ref = temb.embedding_bag_plain(table, ids, w)
+    # same f32 products, another summation order (|out| ~ 1)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    if B > 1:
+        assert not out[1].any()
