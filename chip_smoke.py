@@ -10,10 +10,12 @@ L = 256, C = 20 labels, batch chunk 1024) on random weights made from
 2. build every kernel of the path from ``pio_tpu_torch/ops/csrc`` with nvcc;
 3. hold each kernel against its plain PyTorch version on the card, and time
    kernel, plain version, the library call and the bound (CUDA events),
-   printing beside each time the share of weight-0 slots, the achieved
-   gather rate and the previous design's time; then check the edge shapes
-   of the launch plan (one slot, an unaligned row view, no bags, a bag of
-   weight-0 slots), each called twice for the same bits;
+   printing beside each time the share of weight-0 slots and the achieved
+   gather rate, and on a line of its own the previous design's recorded
+   time; time each batch shape again at the plans that other SM
+   residencies would give; then check the edge shapes of the launch plan
+   (one slot, an unaligned row view, no bags, a bag of weight-0 slots),
+   each called twice for the same bits;
 4. build a full-width model from a synthetic 20-label corpus;
 5. serve 8 ``POST /queries.json`` through the port's query server, checked
    against a CPU copy of the model run through the plain version;
@@ -85,7 +87,8 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-4}
 CONF_TOL = 1e-5  # served confidence vs the CPU copy (f32 softmax)
 # device ms of the kernel's previous design (one 128-thread block per bag
 # walking L slot by slot, 4-byte loads, padding read), measured by this
-# script at commit 1f8eded on an NVIDIA H100 80GB HBM3 at 700 W
+# script at commit 1f8eded on an NVIDIA H100 80GB HBM3 at 700 W. Printed
+# for comparison on a line of its own, never in the kernels' JSON line.
 PREV_KERNEL_MS = {
     "serving f32": 0.02732, "serving bf16": 0.02222, "one query f32": 0.01473,
     "wide f32": 0.04500, "served batch (TF-IDF bags)": 0.02431,
@@ -99,6 +102,9 @@ EDGE_SHAPES = {
     "no bags": (0, 8, 128, False),
     "zero-weight bag": (4, 16, 128, False),
 }
+# warps of the kernel an SM holds, as the plan may assume it; at B = 1024,
+# D = 128 on 132 SMs these give a bag 2, 4, 8 and 16 warps
+SWEEP_WARPS_PER_SM = (16, 32, 64, 128)
 
 
 def log(msg: str) -> None:
@@ -186,14 +192,32 @@ def max_err(name: str, out, ref, tol: float) -> float:
 def case_row(name, table, ids_np, tol, err) -> dict:
     B, L = ids_np.shape
     V, D = table.shape
-    align = embedding._align(table.data_ptr())
-    plan = embedding._plan(B, L, D, table.element_size(), align)
     return {
         "case": name, "B": B, "L": L, "V": V, "D": D,
         "dtype": str(table.dtype).replace("torch.", ""),
-        "align": align, "plan": plan._asdict(),
+        "align": embedding._align(table.data_ptr()),
+        "plan": embedding._plan_for(table, B, L)._asdict(),
         "max_abs_err": err, "tol": tol,
     }
+
+
+def plan_sweep(name, table, ids, w, ref, tol) -> None:
+    """Kernel time at the plans that other SM residencies would give."""
+    B, L = ids.shape
+    plans = {k: embedding._plan_for(table, B, L, warps_per_sm=k)
+             for k in SWEEP_WARPS_PER_SM}
+    for k, plan in plans.items():
+        max_err(f"{name}, plan for {k} warps an SM",
+                embedding._launch(table, ids, w, plan), ref, tol)
+    times = timed_in_turns({
+        k: (lambda plan=plan: embedding._launch(table, ids, w, plan))
+        for k, plan in plans.items()
+    })
+    log("  plan sweep: " + json.dumps([
+        {"warps_per_sm": k, "warps_per_bag": p.warps_per_bag,
+         "bags_per_block": p.bags_per_block, "kernel_ms": times[k]}
+        for k, p in plans.items()
+    ]))
 
 
 def check_kernel(name, table, ids_np, w_np, tol) -> dict:
@@ -202,7 +226,8 @@ def check_kernel(name, table, ids_np, w_np, tol) -> dict:
     ids = torch.from_numpy(ids_np).to(dev)
     w = torch.from_numpy(w_np).to(dev)
     out = run_twice(name, table, ids, w)
-    err = max_err(name, out, embedding.embedding_bag_plain(table, ids, w), tol)
+    ref = embedding.embedding_bag_plain(table, ids, w)
+    err = max_err(name, out, ref, tol)
     w_lib = w.to(table.dtype)  # F.embedding_bag wants weights of the table type
     times = timed_in_turns({
         "kernel_ms": lambda: embedding.embedding_bag(table, ids, w),
@@ -214,13 +239,17 @@ def check_kernel(name, table, ids_np, w_np, tol) -> dict:
     elem = table.element_size()
     row = {
         **case_row(name, table, ids_np, tol, err), **times,
-        "prev_kernel_ms": PREV_KERNEL_MS.get(name),
         **bound(ids_np, w_np, table.shape[1], elem),
     }
     # row bytes the kernel read (non-zero slots) per second of its time
     row["gather_tb_s"] = (row["nonzero_slots"] * table.shape[1] * elem
                           / row["kernel_ms"] / 1e9)
     log(f"  {json.dumps(row)}")
+    log(f"  recorded, not measured in this run: the previous design's "
+        f"kernel_ms {PREV_KERNEL_MS[name]} (commit 1f8eded, NVIDIA H100 "
+        f"80GB HBM3 at 700 W)")
+    if len(ids_np) > 1:
+        plan_sweep(name, table, ids, w, ref, tol)
     return row
 
 

@@ -47,8 +47,9 @@
 //    differs from the plain version's 0*row only where a skipped row holds
 //    inf or NaN (0*inf is NaN there, nothing here).
 //
-// Launch geometry is chosen on the host (pio_tpu_torch/ops/embedding.py:
-// _plan) and passed in; the entry points check it and return
+// Launch geometry is chosen on the host alone (pio_tpu_torch/ops/embedding.py:
+// _plan) and passed in whole: grid, block size and shared memory are
+// launched as given. The entry points only check it and return
 // cudaErrorInvalidValue for a geometry the kernel cannot run.
 //
 // Element types: f32 and bf16 tables (converted to f32 exactly before the
@@ -140,7 +141,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
                          const int32_t* __restrict__ ids,
                          const float* __restrict__ weights,
                          float* __restrict__ out, int B, int L, int D,
-                         int warps_per_bag, int group_lanes) {
+                         int warps_per_bag, int bags_per_block,
+                         int group_lanes) {
   using Raw = typename RawVec<VEC>::type;
   constexpr int kEpl = VEC / sizeof(T);  // elements per lane
   // [bags_per_block][warps_per_bag][col_slice] partial rows
@@ -148,7 +150,6 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 
   const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
-  const int bags_per_block = blockDim.x / kWarp / warps_per_bag;
   const int bag_local = warp / warps_per_bag;
   const int warp_in_bag = warp % warps_per_bag;
   const int64_t bag = static_cast<int64_t>(blockIdx.x) * bags_per_block +
@@ -232,55 +233,62 @@ bool aligned(const void* p, int bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
+// The host's plan (pio_tpu_torch/ops/embedding.py: Plan), as it is launched.
+struct Geometry {
+  int warps_per_bag, bags_per_block, group_lanes;
+  int grid_x, grid_y, threads, smem_bytes;
+};
+
+// Whether the kernel can run `g` on these arguments and covers every bag
+// and column once: the plan is checked here, never recomputed.
+template <typename T, int VEC>
+bool runs(const Geometry& g, const void* table, const void* out, int B,
+          int D) {
+  constexpr int kEpl = VEC / sizeof(T);
+  const int64_t col_slice = static_cast<int64_t>(g.group_lanes) * kEpl;
+  const int64_t warps = static_cast<int64_t>(g.warps_per_bag) * g.bags_per_block;
+  const int64_t smem_needed = g.warps_per_bag > 1 ? warps * col_slice * 4 : 0;
+  return g.group_lanes >= 1 && g.group_lanes <= kWarp &&
+         (g.group_lanes & (g.group_lanes - 1)) == 0 && g.warps_per_bag >= 1 &&
+         g.bags_per_block >= 1 && g.threads == warps * kWarp &&
+         g.threads <= kMaxThreads && g.smem_bytes >= smem_needed &&
+         g.smem_bytes <= kMaxSharedBytes && g.grid_x >= 1 && g.grid_y >= 1 &&
+         g.grid_y <= 65535 &&
+         static_cast<int64_t>(g.grid_x) * g.bags_per_block >= B &&
+         static_cast<int64_t>(g.grid_y) * col_slice >= D && D % kEpl == 0 &&
+         aligned(table, VEC) && aligned(out, kEpl * sizeof(float));
+}
+
 template <typename T, int VEC>
 int launch_vec(const void* table, const void* ids, const void* weights,
-               void* out, int B, int L, int D, int warps_per_bag,
-               int bags_per_block, int col_slice, cudaStream_t stream) {
-  constexpr int kEpl = VEC / sizeof(T);
-  const int group_lanes = col_slice / kEpl;
-  if (col_slice <= 0 || col_slice % kEpl != 0 || group_lanes > kWarp ||
-      (group_lanes & (group_lanes - 1)) != 0 || warps_per_bag < 1 ||
-      bags_per_block < 1 || D % kEpl != 0 || !aligned(table, VEC) ||
-      !aligned(out, kEpl * sizeof(float))) {
+               void* out, int B, int L, int D, const Geometry& g,
+               cudaStream_t stream) {
+  if (!runs<T, VEC>(g, table, out, B, D)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int64_t threads =
-      static_cast<int64_t>(warps_per_bag) * bags_per_block * kWarp;
-  const int64_t smem =
-      warps_per_bag > 1 ? threads / kWarp * col_slice * 4 : 0;  // f32
-  const int64_t slices = (static_cast<int64_t>(D) + col_slice - 1) / col_slice;
-  if (threads > kMaxThreads || smem > kMaxSharedBytes || slices > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const dim3 grid((B + bags_per_block - 1) / bags_per_block,
-                  static_cast<unsigned>(slices));
-  embedding_bag_kernel<T, VEC><<<grid, static_cast<unsigned>(threads),
-                                 static_cast<size_t>(smem), stream>>>(
-      static_cast<const T*>(table), static_cast<const int32_t*>(ids),
-      static_cast<const float*>(weights), static_cast<float*>(out), B, L, D,
-      warps_per_bag, group_lanes);
+  embedding_bag_kernel<T, VEC>
+      <<<dim3(g.grid_x, g.grid_y), g.threads, g.smem_bytes, stream>>>(
+          static_cast<const T*>(table), static_cast<const int32_t*>(ids),
+          static_cast<const float*>(weights), static_cast<float*>(out), B, L,
+          D, g.warps_per_bag, g.bags_per_block, g.group_lanes);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch(const void* table, const void* ids, const void* weights, void* out,
-           int B, int L, int D, int vec_bytes, int warps_per_bag,
-           int bags_per_block, int col_slice, void* stream) {
+           int B, int L, int D, int vec_bytes, const Geometry& g,
+           void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   switch (vec_bytes) {
     case 16:
-      return launch_vec<T, 16>(table, ids, weights, out, B, L, D,
-                               warps_per_bag, bags_per_block, col_slice, s);
+      return launch_vec<T, 16>(table, ids, weights, out, B, L, D, g, s);
     case 8:
-      return launch_vec<T, 8>(table, ids, weights, out, B, L, D,
-                              warps_per_bag, bags_per_block, col_slice, s);
+      return launch_vec<T, 8>(table, ids, weights, out, B, L, D, g, s);
     case 4:
-      return launch_vec<T, 4>(table, ids, weights, out, B, L, D,
-                              warps_per_bag, bags_per_block, col_slice, s);
+      return launch_vec<T, 4>(table, ids, weights, out, B, L, D, g, s);
     case 2:
       if constexpr (sizeof(T) == 2) {
-        return launch_vec<T, 2>(table, ids, weights, out, B, L, D,
-                                warps_per_bag, bags_per_block, col_slice, s);
+        return launch_vec<T, 2>(table, ids, weights, out, B, L, D, g, s);
       }
       break;
     default:
@@ -292,24 +300,20 @@ int launch(const void* table, const void* ids, const void* weights, void* out,
 }  // namespace
 
 // Plain C interface, loaded with ctypes. Requires B >= 1 and D >= 1; the
-// last four ints are the launch geometry of _plan. Returns
-// cudaGetLastError() after the launch (0 = cudaSuccess), or
-// cudaErrorInvalidValue without launching for a geometry it cannot run.
-extern "C" int pio_embedding_bag_f32(const void* table, const void* ids,
-                                     const void* weights, void* out, int B,
-                                     int L, int D, int vec_bytes,
-                                     int warps_per_bag, int bags_per_block,
-                                     int col_slice, void* stream) {
-  return launch<float>(table, ids, weights, out, B, L, D, vec_bytes,
-                       warps_per_bag, bags_per_block, col_slice, stream);
-}
+// ints after D are the host's plan: lane width, warps a bag, bags a block,
+// lanes a row group, grid x and y, threads a block and shared-memory bytes.
+// Returns cudaGetLastError() after the launch (0 = cudaSuccess), or
+// cudaErrorInvalidValue without launching for a plan it cannot run.
+#define PIO_EMBEDDING_BAG_ENTRY(NAME, T)                                      \
+  extern "C" int NAME(const void* table, const void* ids, const void* weights, \
+                      void* out, int B, int L, int D, int vec_bytes,           \
+                      int warps_per_bag, int bags_per_block, int group_lanes,  \
+                      int grid_x, int grid_y, int threads, int smem_bytes,     \
+                      void* stream) {                                          \
+    const Geometry g{warps_per_bag, bags_per_block, group_lanes, grid_x,       \
+                     grid_y,        threads,        smem_bytes};               \
+    return launch<T>(table, ids, weights, out, B, L, D, vec_bytes, g, stream); \
+  }
 
-extern "C" int pio_embedding_bag_bf16(const void* table, const void* ids,
-                                      const void* weights, void* out, int B,
-                                      int L, int D, int vec_bytes,
-                                      int warps_per_bag, int bags_per_block,
-                                      int col_slice, void* stream) {
-  return launch<__nv_bfloat16>(table, ids, weights, out, B, L, D, vec_bytes,
-                               warps_per_bag, bags_per_block, col_slice,
-                               stream);
-}
+PIO_EMBEDDING_BAG_ENTRY(pio_embedding_bag_f32, float)
+PIO_EMBEDDING_BAG_ENTRY(pio_embedding_bag_bf16, __nv_bfloat16)

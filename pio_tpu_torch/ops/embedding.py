@@ -74,15 +74,20 @@ def _kernel(suffix: str):
         from pio_tpu_torch.ops import _build
 
         fn = getattr(_build.load("embedding_bag"), f"pio_embedding_bag_{suffix}")
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        # table, ids, weights, out; B, L, D and the plan's 8 ints; stream
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _KERNELS[suffix] = fn
     return fn
 
 
-#: warps the H100 holds resident at once (132 SMs x 64): the plan gives a
-#: bag more warps until the grid has about this many
-_RESIDENT_WARPS = 132 * 64
+#: SMs of an H100 SXM; the wrapper reads the card's own count instead
+_H100_SMS = 132
+#: warps of this kernel an SM holds at once: ``__launch_bounds__(1024, 1)``
+#: lets ptxas use up to 64 registers a thread, and 64 K registers / 64 / 32
+#: lanes = 32 warps. The plan gives a bag more warps until the grid has
+#: about SMs x this many.
+_WARPS_PER_SM = 32
 #: fewest warps a block gets when bags have few warps each (an SM holds at
 #: most 32 blocks, so one-warp blocks would fill half of it)
 _MIN_BLOCK_WARPS = 4
@@ -102,7 +107,8 @@ class Plan(NamedTuple):
     one block (grid y walks the slices), read by groups of
     ``group_lanes`` lanes; a bag has ``warps_per_bag`` warps, and a block
     ``bags_per_block`` bags. Slot ``l`` of a bag goes to group
-    ``l % groups_per_bag``.
+    ``l % groups_per_bag``. The kernel is launched with exactly this grid,
+    block size and shared memory; the C side only checks them.
     """
 
     vec_bytes: int
@@ -129,9 +135,11 @@ class Plan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=256)
-def _plan(B: int, L: int, D: int, elem_bytes: int, align: int = 16) -> Plan:
+def _plan(B: int, L: int, D: int, elem_bytes: int, align: int = 16,
+          sms: int = _H100_SMS, warps_per_sm: int = _WARPS_PER_SM) -> Plan:
     """Launch geometry for ``B`` bags of ``L`` slots over a ``[V, D]`` table
-    of ``elem_bytes`` elements whose pointer is ``align``-byte aligned.
+    of ``elem_bytes`` elements whose pointer is ``align``-byte aligned, on
+    a card of ``sms`` SMs that each hold ``warps_per_sm`` of its warps.
 
     The widest of 16/8/4/2-byte lanes that divides the row bytes and the
     alignment; lanes across the columns, at most a warp per slice; then
@@ -148,7 +156,7 @@ def _plan(B: int, L: int, D: int, elem_bytes: int, align: int = 16) -> Plan:
     slices = -(-D // col_slice)
     groups_per_warp = _WARP // group_lanes
     useful = max(1, -(-L // groups_per_warp))  # warps that get a slot
-    wanted = max(1, _RESIDENT_WARPS // max(1, B * slices))
+    wanted = max(1, sms * warps_per_sm // max(1, B * slices))
     warps = min(_MAX_BAG_WARPS, useful, wanted)
     bags = max(1, min(B, -(-_MIN_BLOCK_WARPS // warps)))
     return Plan(vec, warps, bags, col_slice, group_lanes,
@@ -164,8 +172,38 @@ def _align(ptr: int) -> int:
     return min(16, ptr & -ptr) if ptr else 16
 
 
-def _embedding_bag_cuda(table, ids, weights) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _plan_for(table: torch.Tensor, B: int, L: int, **kw) -> Plan:
+    """The plan for ``B`` bags of ``L`` slots over this CUDA ``table``."""
+    return _plan(B, L, table.shape[1], table.element_size(),
+                 _align(table.data_ptr()), _sm_count(table.device), **kw)
+
+
+def _launch(table, ids, weights, plan: Plan) -> torch.Tensor:
+    """Launch the kernel with ``plan`` on the current stream (B, D >= 1)."""
     global KERNEL_LAUNCHES
+    B, L = ids.shape
+    D = table.shape[1]
+    out = torch.empty((B, D), dtype=torch.float32, device=table.device)
+    fn = _kernel(_TABLE_DTYPES[table.dtype])
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(table.data_ptr(), ids.data_ptr(), weights.data_ptr(),
+                 out.data_ptr(), B, L, D, plan.vec_bytes, plan.warps_per_bag,
+                 plan.bags_per_block, plan.group_lanes, *plan.grid,
+                 plan.threads, plan.smem_bytes, stream)
+    if err != 0:
+        raise RuntimeError(f"embedding_bag kernel launch failed: CUDA error {err}")
+    with _COUNT_LOCK:
+        KERNEL_LAUNCHES += 1
+    return out
+
+
+def _embedding_bag_cuda(table, ids, weights) -> torch.Tensor:
     if not (table.is_contiguous() and ids.is_contiguous()
             and weights.is_contiguous()):
         raise ValueError("embedding_bag's CUDA kernel needs contiguous inputs")
@@ -174,22 +212,9 @@ def _embedding_bag_cuda(table, ids, weights) -> torch.Tensor:
     if max(B, L, D) > _MAX_DIM:
         raise ValueError(f"shape (B={B}, L={L}, D={D}) is over the kernel's "
                          f"int indexing (at most {_MAX_DIM})")
-    out = torch.empty((B, D), dtype=torch.float32, device=table.device)
     if B == 0 or D == 0:
-        return out
-    ptr = table.data_ptr()
-    plan = _plan(B, L, D, table.element_size(), _align(ptr))
-    fn = _kernel(_TABLE_DTYPES[table.dtype])
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(ptr, ids.data_ptr(), weights.data_ptr(), out.data_ptr(),
-                 B, L, D, plan.vec_bytes, plan.warps_per_bag,
-                 plan.bags_per_block, plan.col_slice, stream)
-    if err != 0:
-        raise RuntimeError(f"embedding_bag kernel launch failed: CUDA error {err}")
-    with _COUNT_LOCK:
-        KERNEL_LAUNCHES += 1
-    return out
+        return torch.empty((B, D), dtype=torch.float32, device=table.device)
+    return _launch(table, ids, weights, _plan_for(table, B, L))
 
 
 def embedding_bag(

@@ -8,6 +8,9 @@ reference arithmetic), the Pallas kernel in interpret mode (as
 the card: its test is marked ``cuda`` and skips here.
 """
 
+import contextlib
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -233,10 +236,59 @@ def test_plan_splits_one_bag_across_warps():
     query = temb._plan(1, 256, 128, 4)
     assert query.grid == (1, 1) and query.warps_per_bag == 16
     assert query.groups_per_bag * 16 == 256
-    # a batch chunk fills the card with fewer warps a bag
+    # a batch chunk fills the card with fewer warps a bag: as many as the
+    # 132 SMs hold at 32 warps each, and not one warp a bag more
     batch = temb._plan(1024, 256, 128, 4)
     assert batch.warps_per_bag < query.warps_per_bag
-    assert batch.grid[0] * batch.threads // 32 >= 132 * 32
+    warps = batch.grid[0] * batch.threads // 32
+    assert warps <= 132 * 32 < warps + 1024
+
+
+@pytest.mark.parametrize("sms", [132, 114, 66])
+@pytest.mark.parametrize("warps_per_sm", [16, 32, 64])
+def test_plan_fills_the_card_it_is_given(sms, warps_per_sm):
+    # the batch chunk's warps a bag follow the card's SM count and residency
+    plan = temb._plan(1024, 256, 128, 4, 16, sms, warps_per_sm)
+    assert plan.warps_per_bag == max(1, sms * warps_per_sm // 1024)
+    assert plan.grid == (-(-1024 // plan.bags_per_block), 1)
+
+
+def test_plan_for_reads_the_cards_sm_count(monkeypatch):
+    monkeypatch.setattr(temb, "_sm_count", lambda device: 66)
+    table = torch.zeros(10, 128)
+    assert temb._plan_for(table, 1024, 256) == temb._plan(1024, 256, 128, 4,
+                                                          16, 66)
+
+
+@pytest.mark.parametrize("err", [0, 700])
+def test_launch_passes_the_plan_as_the_c_entry_takes_it(monkeypatch, err):
+    # the C entry launches the grid, block size and shared memory it is
+    # given: 4 pointers, B, L, D, the plan's 8 ints in this order, stream
+    calls = []
+
+    def entry(*args):
+        calls.append(args)
+        return err
+
+    monkeypatch.setattr(temb, "_kernel", lambda suffix: entry)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=7))
+    monkeypatch.setattr(temb, "KERNEL_LAUNCHES", 0)
+    table = torch.zeros(10, 130)
+    ids = torch.zeros(3, 5, dtype=torch.int32)
+    plan = temb._plan(3, 5, 130, 4, 8)
+    if err:
+        with pytest.raises(RuntimeError, match="CUDA error 700"):
+            temb._launch(table, ids, torch.zeros(3, 5), plan)
+    else:
+        assert temb._launch(table, ids, torch.zeros(3, 5), plan).shape == (3, 130)
+    (args,) = calls
+    assert len(args) == 16 and args[4:7] == (3, 5, 130) and args[15] == 7
+    assert args[7:15] == (plan.vec_bytes, plan.warps_per_bag,
+                          plan.bags_per_block, plan.group_lanes, *plan.grid,
+                          plan.threads, plan.smem_bytes)
+    assert temb.KERNEL_LAUNCHES == (0 if err else 1)
 
 
 @pytest.mark.parametrize("B, L, D, view", SHAPES)
