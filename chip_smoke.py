@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (pio_tpu_torch) on one GPU.
 
-Drives the port's text-classification serving path at the template's full
-width (V = 65537 TF-IDF rows with the pad row, H = 128, bag width
-L = 256, C = 20 labels, batch chunk 1024) on random weights made from
-``--seed``, through the hand-written CUDA embedding-bag kernel:
+Drives the port's text-classification serving and training paths at the
+template's full width (V = 65537 TF-IDF rows with the pad row, H = 128,
+bag width L = 256, C = 20 labels, batch chunk 1024), on weights and a
+corpus made from ``--seed``, through the hand-written CUDA embedding-bag
+kernels (the forward, and the backward's bag scatter and bag dot):
 
 1. print the card's name and power limit;
 2. build every kernel of the path from ``pio_tpu_torch/ops/csrc`` with nvcc;
-3. hold each kernel against its plain PyTorch version on the card, and time
-   kernel, plain version, the library call and the bound (CUDA events),
+3. hold the forward kernel against its plain PyTorch version on the card, and
+   time kernel, plain version, the library call and the bound (CUDA events),
    printing beside each time the share of weight-0 slots and the achieved
    gather rate, and on a line of its own the previous design's recorded
    time; time each batch shape again at the plans that other SM
@@ -21,7 +22,21 @@ L = 256, C = 20 labels, batch chunk 1024) on random weights made from
    against a CPU copy of the model run through the plain version;
 6. run ``MLPAlgorithm.batch_predict`` over 1024 queries and check it against
    the loop of ``predict`` and the CPU copy;
-7. check that the served path launched the kernel (launch counters).
+7. check that the served path launched the kernel (launch counters);
+8. hold the backward kernels (bag scatter for d_table, bag dot for d_w)
+   against their plain versions at the training shape (11314 bags of 256
+   slots over the f32 and bf16 tables), the NB shape (one column over
+   20 x 65537 rows) and the edge shapes, each twice for the same bits and
+   timed (kernel, plain version, the library's autograd, the bound); then
+   drive both gradients through the port's differentiable ``embedding_bag``;
+9. ingest a synthetic 20-label corpus of 11314 documents (the size of the
+   public 20 Newsgroups train split) as ``$set`` events, ``run_train`` the
+   ``mlp`` (200 full-batch Adam steps) and ``nb`` algorithms on the card,
+   split one training step into its parts (CUDA events), and hold 5
+   training steps through the kernels against 5 through the plain versions
+   from the same initial parameters;
+10. ``load_models_for_instance`` and serve the trained models through the
+   query server, checked against a CPU copy of the same persisted blob.
 
 Usage: ``python3 chip_smoke.py [--seed N]``. Exits non-zero when no CUDA
 device is available or any phase fails. The line before the last holds
@@ -47,11 +62,16 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from pio_tpu_torch.controller.engine import EngineParams, get_engine_factory  # noqa: E402
 from pio_tpu_torch.convert import text_mlp_from_reference  # noqa: E402
+from pio_tpu_torch.data.event import Event  # noqa: E402
+from pio_tpu_torch.models import mlp  # noqa: E402
+from pio_tpu_torch.models.naive_bayes import train_multinomial_nb_bags  # noqa: E402
 from pio_tpu_torch.models.tfidf import TfIdfVectorizer  # noqa: E402
 from pio_tpu_torch.ops import _build  # noqa: E402
 from pio_tpu_torch.ops import embedding  # noqa: E402
 from pio_tpu_torch.parallel.context import ComputeContext  # noqa: E402
 from pio_tpu_torch.server.query_server import create_query_server  # noqa: E402
+from pio_tpu_torch.storage.records import App  # noqa: E402
+from pio_tpu_torch.storage.registry import Storage  # noqa: E402
 from pio_tpu_torch.templates.textclassification import (  # noqa: E402
     MLPAlgorithm,
     MLPParams,
@@ -59,6 +79,11 @@ from pio_tpu_torch.templates.textclassification import (  # noqa: E402
     _query_bag,
     _stack_bags,
 )
+from pio_tpu_torch.workflow.core_workflow import (  # noqa: E402
+    load_models_for_instance,
+    run_train,
+)
+from pio_tpu_torch.workflow.engine_json import build_engine, variant_from_dict  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, f32 outside the
 # tensor cores (the kernel's FMAs are f32 whatever the table type)
@@ -105,6 +130,35 @@ EDGE_SHAPES = {
 # warps of the kernel an SM holds, as the plan may assume it; at B = 1024,
 # D = 128 on 132 SMs these give a bag 2, 4, 8 and 16 warps
 SWEEP_WARPS_PER_SM = (16, 32, 64, 128)
+
+N_DOCS = 11314  # documents of the public 20 Newsgroups train split
+N_WORDS = 70000  # distinct synthetic words: the vocabulary caps at V - 1
+APP = "newsgroups-synthetic"
+COMPARE_STEPS = 5
+# backward kernels vs plain versions, f32: the same f32 products summed in
+# another order. d_table rows sum ~45 products of O(0.1) at the training
+# shape, d_w is a 128-term dot of O(1) values (|d_w| ~ 11): 1e-4 and
+# 1e-4·sqrt(D) leave two orders of magnitude over f32 rounding.
+BWD_TOL = 1e-4
+# a bf16 d_table is the f32 sum rounded once: where the two f32 sums differ
+# in the last bit, the roundings may land one bf16 step apart, at most
+# 2^-7 of the value
+BF16_STEP = 2.0 ** -7
+# 5 Adam steps through the kernels vs through the plain versions, from one
+# init: gradients differ by f32 rounding of sums in another order (~1e-7
+# relative), and Adam divides by sqrt(v) + 1e-8, so a weight moves at most
+# lr·|dg|/1e-8 apart where |g| is tiny (a few 1e-6 at these gradients'
+# 1e-12 rounding) and far less elsewhere; 1e-4 over 5 steps of lr 0.01
+TRAIN_TOL = 1e-4
+# NB log-probabilities, card vs the plain version on the CPU: feature sums
+# in another order (f32, ~1e-7 relative) move log theta (~ -11) by ~1e-7
+NB_TOL = 1e-5
+#: the launch counters of embedding.py, by kernel name
+COUNTERS = {
+    "embedding_bag": "KERNEL_LAUNCHES",
+    "embedding_bag_backward_table": "BACKWARD_TABLE_LAUNCHES",
+    "embedding_bag_backward_weights": "BACKWARD_WEIGHTS_LAUNCHES",
+}
 
 
 def log(msg: str) -> None:
@@ -309,7 +363,7 @@ def phase_kernels(rng, dev) -> list:
     ids, w = random_bags(rng, 4096, 64, 50000)
     rows.append(check_kernel("wide f32", wide, ids, w, TOL[torch.float32]))
     del wide
-    log("  edge shapes (untimed)")
+    log("  edge shapes")
     for dtype in (torch.float32, torch.bfloat16):
         for name, (B, L, D, view) in EDGE_SHAPES.items():
             full = torch.from_numpy(
@@ -474,6 +528,417 @@ def phase_batch(gpu, cpu, queries):
     return launches, qs
 
 
+def use_memory_storage() -> None:
+    """Point the port's three storage repositories at this process's memory:
+    nothing is written around the checkout."""
+    for repo in ("METADATA", "EVENTDATA", "MODELDATA"):
+        os.environ[f"PIO_STORAGE_REPOSITORIES_{repo}_SOURCE"] = "MEM"
+    os.environ["PIO_STORAGE_SOURCES_MEM_TYPE"] = "memory"
+
+
+def reset_counts() -> None:
+    for attr in COUNTERS.values():
+        setattr(embedding, attr, 0)
+
+
+def read_counts() -> dict:
+    return {name: getattr(embedding, attr) for name, attr in COUNTERS.items()}
+
+
+def bound_of(n_bytes: int, flops: int) -> dict:
+    """The larger of bytes over the HBM rate and f32 flops over the f32 peak."""
+    bytes_ms = n_bytes / PEAK_BYTES_S * 1e3
+    ops_ms = flops / PEAK_F32_FLOP_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def scatter_bound(ids: np.ndarray, w: np.ndarray, D: int, n_rows: int,
+                  out_bytes: int) -> dict:
+    """d_table: every slot's id and weight read once (8 B), each g row once
+    (f32), every row of d_table written once; one f32 multiply-add per
+    non-zero slot and column (a weight-0 slot adds nothing)."""
+    B, L = ids.shape
+    nnz = int((w != 0).sum())
+    return bound_of(8 * B * L + 4 * B * D + n_rows * D * out_bytes, 2 * nnz * D)
+
+
+def dot_bound(ids: np.ndarray, D: int, elem_bytes: int) -> dict:
+    """d_w: ids, each g row and each distinct table row of any slot (weight
+    0 or not) read once, d_w written once; one multiply-add per slot and
+    column."""
+    B, L = ids.shape
+    rows = len(np.unique(ids))
+    return bound_of(8 * B * L + 4 * B * D + rows * D * elem_bytes, 2 * B * L * D)
+
+
+def launched_twice(name: str, run, counter: str, launches: bool) -> torch.Tensor:
+    """``run()`` twice: the same bits, and the wrapper's counter up by 2
+    where it launches the kernel."""
+    before = getattr(embedding, counter)
+    out, again = run(), run()
+    torch.cuda.synchronize()
+    if launches and getattr(embedding, counter) != before + 2:
+        raise AssertionError(f"{name}: the wrapper did not launch its kernel")
+    if not torch.equal(out, again):
+        raise AssertionError(f"{name}: two calls on the same inputs differ")
+    return out
+
+
+def check_scatter(name, g, ids, w, n_rows, dtype) -> dict:
+    """Bag scatter vs its plain version; then kernel/plain/library times."""
+    B, L = ids.shape
+    D = g.shape[1]
+    plan = embedding.bag_plan(ids, w, n_rows)
+
+    def run():
+        return embedding.embedding_bag_backward_table(g, ids, w, n_rows, dtype, plan=plan)
+
+    def plain():
+        return embedding.embedding_bag_backward_table_plain(g, ids, w, n_rows, dtype)
+
+    ref = plain().float()
+    tol = BWD_TOL
+    if dtype == torch.bfloat16 and ref.numel():
+        tol = BF16_STEP * float(ref.abs().max())
+    out = launched_twice(name, run, "BACKWARD_TABLE_LAUNCHES", n_rows * D > 0)
+    row = {"case": name, "B": B, "L": L, "rows": n_rows, "D": D,
+           "dtype": str(dtype)[6:],
+           "max_abs_err": max_err(name, out.float(), ref, tol), "tol": tol}
+    if B and n_rows * D:
+        row["geometry"] = embedding._scatter_geometry(g, n_rows)._asdict()
+    fns = {"kernel_ms": run, "plain_ms": plain}
+    if B * L:  # the library takes no empty batch of bags
+        table = torch.zeros((n_rows, D), dtype=dtype, device=g.device,
+                            requires_grad=True)
+        lib_out = F.embedding_bag(ids, table, per_sample_weights=w.to(dtype),
+                                  mode="sum")
+        g_lib = g.to(dtype)
+        fns["library_ms"] = lambda: torch.autograd.grad(
+            lib_out, [table], g_lib, retain_graph=True)
+    row.update({"library_ms": None, **timed_in_turns(fns)})
+    row["plan_ms"] = float(np.median([
+        host_ms(lambda: embedding.bag_plan(ids, w, n_rows)) for _ in range(3)
+    ]))
+    row.update(scatter_bound(ids.cpu().numpy(), w.cpu().numpy(), D, n_rows,
+                             out.element_size()))
+    log(f"  scatter {json.dumps(row)}")
+    return row
+
+
+def check_dot(name, g, table, ids, w) -> dict:
+    """Bag dot vs its plain version; then kernel/plain/library times."""
+    B, L = ids.shape
+    D = table.shape[1]
+
+    def run():
+        return embedding.embedding_bag_backward_weights(g, table, ids)
+
+    def plain():
+        return embedding.embedding_bag_backward_weights_plain(g, table, ids)
+
+    tol = BWD_TOL * D ** 0.5
+    out = launched_twice(name, run, "BACKWARD_WEIGHTS_LAUNCHES", B * L * D > 0)
+    row = {"case": name, "B": B, "L": L, "V": table.shape[0], "D": D,
+           "dtype": str(table.dtype)[6:],
+           "max_abs_err": max_err(name, out, plain(), tol), "tol": tol}
+    zero = ~(w != 0)
+    if bool(zero.any()) and B * L * D and not bool(out[zero].ne(0).any()):
+        raise AssertionError(f"{name}: every weight-0 slot got d_w = 0")
+    if B * L * D:
+        row["geometry"] = embedding._dot_geometry(g, table)._asdict()
+    fns = {"kernel_ms": run, "plain_ms": plain}
+    # PyTorch's CUDA backward of per-sample weights has no bf16 version,
+    # and the library takes no empty batch of bags
+    if table.dtype == torch.float32 and B * L:
+        w_lib = w.clone().requires_grad_(True)
+        lib_out = F.embedding_bag(ids, table, per_sample_weights=w_lib,
+                                  mode="sum")
+        fns["library_ms"] = lambda: torch.autograd.grad(
+            lib_out, [w_lib], g, retain_graph=True)
+    row.update({"library_ms": None, **timed_in_turns(fns)})
+    row.update(dot_bound(ids.cpu().numpy(), D, table.element_size()))
+    log(f"  dot {json.dumps(row)}")
+    return row
+
+
+def card_tensors(dev, *arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
+
+
+def phase_backward(rng, dev) -> dict:
+    """Phase 8: both backward kernels at the training, NB and edge shapes."""
+    log("phase 8: backward kernels vs their plain versions on the card")
+    V, D, B, L = MAX_FEATURES + 1, HIDDEN, N_DOCS, BAG_WIDTH
+    ids_np, w_np = random_bags(rng, B, L, V)
+    w_np[:, -16:] = 0.0  # padding, as short documents leave it
+    g_np = rng.standard_normal((B, D), dtype=np.float32)
+    ids, w, g = card_tensors(dev, ids_np, w_np, g_np)
+    table = torch.from_numpy(rng.standard_normal((V, D), dtype=np.float32)).to(dev)
+    scatter = [check_scatter("training f32", g, ids, w, V, torch.float32),
+               check_scatter("training bf16", g, ids, w, V, torch.bfloat16)]
+    dot = [check_dot("training f32", g, table, ids, w),
+           check_dot("training bf16", g, table.to(torch.bfloat16), ids, w)]
+    C = len(LABELS)
+    y = rng.integers(0, C, size=B)
+    keys = torch.from_numpy((y[:, None] * V + ids_np).astype(np.int32)).to(dev)
+    ones = torch.ones((B, 1), device=dev)
+    scatter.append(check_scatter("nb feature sums", ones, keys, w, C * V,
+                                 torch.float32))
+    log("  edge shapes")
+    edges = {
+        "one slot": (1, 1, 128, False, ""),
+        "no bags": (0, 8, 128, False, ""),
+        "zero-weight bag": (4, 16, 128, False, "zero-bag"),
+        "every slot on one row": (16, 64, 128, False, "one-row"),
+        "unaligned row view": (3, 7, 130, True, ""),
+    }
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, (Be, Le, De, view, pattern) in edges.items():
+            full = torch.from_numpy(
+                rng.standard_normal((1001, De), dtype=np.float32)).to(dev, dtype)
+            tab = full[1:] if view else full[:1000]
+            e_ids, e_w = random_bags(rng, Be, Le, 1000)
+            if pattern == "zero-bag":
+                e_w[1] = 0.0
+            if pattern == "one-row":
+                e_ids[:] = 7
+            gfull = torch.from_numpy(
+                rng.standard_normal((Be + 1, De), dtype=np.float32)).to(dev)
+            e_g = gfull[1:] if view else gfull[:Be]
+            e_ids_t, e_w_t = card_tensors(dev, e_ids, e_w)
+            label = f"{name} {str(dtype)[6:]}"
+            check_scatter(label, e_g, e_ids_t, e_w_t, 1000, dtype)
+            check_dot(label, e_g, tab, e_ids_t, e_w_t)
+    autograd = phase_autograd(table, ids, w, g)
+    return {"scatter": scatter, "dot": dot, "autograd": autograd}
+
+
+def phase_autograd(table, ids, w, g) -> dict:
+    """Both gradients through the port's differentiable ``embedding_bag``, as
+    a caller that learns its bag weights as well as the table asks for them;
+    held against the library's autograd of ``F.embedding_bag``."""
+    log("  both gradients through autograd of the port's embedding_bag")
+    t = table.detach().clone().requires_grad_(True)
+    ww = w.detach().clone().requires_grad_(True)
+    reset_counts()
+    out = embedding.embedding_bag(t, ids, ww)
+    d_t, d_w = torch.autograd.grad(out, [t, ww], g)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    tl = table.detach().clone().requires_grad_(True)
+    wl = w.detach().clone().requires_grad_(True)
+    lib = F.embedding_bag(ids, tl, per_sample_weights=wl, mode="sum")
+    ref_t, ref_w = torch.autograd.grad(lib, [tl, wl], g)
+    errs = {"d_table": max_err("autograd d_table", d_t, ref_t, BWD_TOL),
+            "d_w": max_err("autograd d_w", d_w, ref_w, BWD_TOL * table.shape[1] ** 0.5)}
+    log(f"  launches {launches}; max |err| vs F.embedding_bag's autograd {errs}")
+    if min(launches.values()) != 1:
+        raise AssertionError(f"autograd launched {launches}, want each kernel once")
+    return launches
+
+
+def phase_train(args, dev):
+    """Phase 9: ingest, run_train of mlp and nb, one step split into parts,
+    and 5 steps of kernels vs plain versions."""
+    log(f"phase 9: run_train of mlp and nb on {N_DOCS} synthetic documents")
+    rng = np.random.default_rng(args.seed + 1)
+    t0 = time.perf_counter()
+    docs, labels = synth_corpus(rng, N_DOCS, N_WORDS, coverage=True)
+    app_id = Storage.get_meta_data_apps().insert(App(0, APP))
+    Storage.get_levents().write((
+        Event("$set", "content", f"doc{k}", properties={"text": t, "label": lab})
+        for k, (t, lab) in enumerate(zip(docs, labels))
+    ), app_id)
+    log(f"  corpus made and ingested in {time.perf_counter() - t0:.1f} s")
+    variant = variant_from_dict({
+        "id": "chip-smoke", "engineFactory": "templates.textclassification",
+        "datasource": {"params": {"app_name": APP}},
+        "algorithms": [{"name": "mlp", "params": {}}, {"name": "nb", "params": {}}],
+    })
+    engine, ep = build_engine(variant)
+    ctx = ComputeContext.create(args.seed)
+    reset_counts()
+    t0 = time.perf_counter()
+    iid = run_train(engine, ep, variant, ctx=ctx)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = read_counts()
+    env = Storage.get_meta_data_engine_instances().get(iid).env
+    log(f"  run_train {train_s:.1f} s (host clock); phases {json.dumps(env)}")
+    log(f"  launches {launches}")
+    iterations = ep.algorithm_params_list[0][1].iterations
+    if launches["embedding_bag"] < iterations or \
+            launches["embedding_bag_backward_table"] < iterations + 1:
+        raise AssertionError(f"training launched {launches}")
+
+    # the same prepared bags again, for the parts of one step
+    td = engine.data_source_class(ep.data_source_params).read_training(ctx)
+    pd = engine.preparator_class(ep.preparator_params).prepare(ctx, td)
+    bags = card_tensors(dev, pd.ids, pd.weights, pd.label_codes.astype(np.int64))
+    V, C = pd.vectorizer.n_features, len(pd.label_index)
+    if (V, C, pd.ids.shape[1]) != (MAX_FEATURES + 1, len(LABELS), BAG_WIDTH):
+        raise AssertionError(f"prepared V={V}, C={C}, L={pd.ids.shape[1]}")
+    t0 = time.perf_counter()
+    mlp.train_mlp(ctx, pd.ids, pd.weights, pd.label_codes, V, C)
+    torch.cuda.synchronize()
+    log(f"  train_mlp again, warm: {time.perf_counter() - t0:.3f} s for "
+        f"{iterations} steps (host clock; bags copied in, plan built)")
+    params0 = mlp.init_params(V, HIDDEN, C, ctx.generator(0))
+    step = step_parts(params0, *bags)
+    mask = torch.ones(len(pd.label_codes), device=dev)
+    with torch.no_grad():
+        loss0 = float(mlp._loss(params0, *bags[:2], bags[2], mask, 0.0))
+    log(f"  loss before the first step {loss0}")
+    compare_steps(params0, *bags, mask)
+    return engine, ep, iid, pd, loss0, launches, step
+
+
+def step_parts(params0, ids, w, y, steps: int = 10, warmup: int = 3) -> dict:
+    """Device ms of one full-batch Adam step, split: the forward kernel, the
+    head (relu, matmul, cross-entropy and their backward), the bag scatter
+    (d_w_in), and Adam. CUDA events, median over ``steps`` steps; then the
+    card's own kernel time in 3 more steps (``torch.profiler``)."""
+    V = params0["w_in"].shape[0]
+    mask = torch.ones(len(y), device=y.device)
+    plan = embedding.bag_plan(ids, w, V)
+    params = {k: v.clone().requires_grad_(True) for k, v in params0.items()}
+    opt = torch.optim.Adam(params.values(), lr=mlp.MLPConfig().learning_rate,
+                           betas=(0.9, 0.999), eps=1e-8)
+    head = ["b_in", "w_out", "b_out"]
+    names = ["forward_kernel_ms", "head_ms", "backward_kernel_ms", "adam_ms"]
+
+    def one_step(ev):
+        ev[0].record()
+        with torch.no_grad():
+            h = embedding.embedding_bag(params["w_in"], ids, w)
+        ev[1].record()
+        h.requires_grad_(True)
+        loss = mlp._loss(params, ids, w, y, mask, 0.0, bag=lambda *_: h)
+        grads = torch.autograd.grad(loss, [h] + [params[k] for k in head])
+        ev[2].record()
+        params["w_in"].grad = embedding.embedding_bag_backward_table(
+            grads[0].contiguous(), ids, w, V, plan=plan)
+        ev[3].record()
+        for k, gk in zip(head, grads[1:]):
+            params[k].grad = gk
+        opt.step()
+        ev[4].record()
+
+    times = {n: [] for n in names}
+    for s in range(warmup + steps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        one_step(ev)
+        torch.cuda.synchronize()
+        if s >= warmup:
+            for i, n in enumerate(names):
+                times[n].append(ev[i].elapsed_time(ev[i + 1]))
+    parts = {n: float(np.median(v)) for n, v in times.items()}
+    parts["step_ms"] = sum(parts.values())
+    parts["plan_ms"] = float(np.median([
+        host_ms(lambda: embedding.bag_plan(ids, w, V)) for _ in range(3)]))
+    # the card's own kernel time in the same steps: the span less this is
+    # time the card waited for the host
+    profiled = 3
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA],
+            acc_events=True) as prof:
+        for _ in range(profiled):
+            one_step([torch.cuda.Event(enable_timing=True) for _ in range(5)])
+        torch.cuda.synchronize()
+    kernels = sorted(
+        ((e.key, e.self_device_time_total / profiled / 1e3)
+         for e in prof.key_averages() if e.self_device_time_total > 0),
+        key=lambda kv: -kv[1])
+    parts["device_busy_ms"] = sum(ms for _, ms in kernels)
+    log("  device ms a step by kernel (torch.profiler): " + json.dumps(
+        [[name[:80], ms] for name, ms in kernels[:12]]))
+    log(f"  one step, device ms: {json.dumps(parts)}")
+    return parts
+
+
+def compare_steps(params0, ids, w, y, mask) -> float:
+    """COMPARE_STEPS Adam steps through the kernels and through the plain
+    versions (autograd of embedding_bag_plain) from the same parameters."""
+    cfg = mlp.MLPConfig(iterations=COMPARE_STEPS)
+    kern, kern_loss = mlp._fit(params0, ids, w, y, mask, cfg)
+    plain, plain_loss = mlp._fit(
+        params0, ids, w, y, mask, cfg,
+        bag=lambda t, i, ww, plan: embedding.embedding_bag_plain(t, i, ww))
+    diff = max(float((kern[k] - plain[k]).abs().max()) for k in kern)
+    log(f"  {COMPARE_STEPS} steps, kernels vs plain versions: largest parameter "
+        f"difference {diff} (limit {TRAIN_TOL}); losses {kern_loss.tolist()} vs "
+        f"{plain_loss.tolist()}")
+    if not diff <= TRAIN_TOL:
+        raise AssertionError(f"training through the kernels is {diff} off the plain path")
+    return diff
+
+
+def phase_serve_trained(args, engine, ep, iid, pd, loss0) -> int:
+    """Phase 10: load the persisted models and serve them."""
+    log("phase 10: load_models_for_instance and serve the trained models")
+    ctx = ComputeContext.local(args.seed)
+    gpu = load_models_for_instance(iid, engine, ep, ctx)
+    cpu = load_models_for_instance(iid, engine, ep,
+                                   ComputeContext.local(args.seed, device="cpu"))
+    model = gpu[0].mlp
+    ids, w, y = card_tensors(model.w_in.device, pd.ids, pd.weights,
+                             pd.label_codes.astype(np.int64))
+    with torch.no_grad():
+        params = dict(model.named_buffers())
+        loss = float(mlp._loss(params, ids, w, y, torch.ones(len(y), device=y.device), 0.0))
+        acc = float((model(ids, w).argmax(1) == y).float().mean())
+    log(f"  training set: loss {loss0} before the first step, {loss} after the "
+        f"last; accuracy {acc}")
+    if not loss < loss0:
+        raise AssertionError("training did not lower the loss")
+    nb_plain = train_multinomial_nb_bags(
+        pd.ids, pd.weights, pd.label_codes, pd.vectorizer.n_features,
+        len(pd.label_index), device="cpu")
+    nb_err = float(np.abs(gpu[1].nb.log_theta - nb_plain.log_theta).max())
+    log(f"  NB log theta, card vs plain version on the CPU: max |err| {nb_err}")
+    if not nb_err <= NB_TOL:
+        raise AssertionError(f"NB trained on the card is {nb_err} off the plain version")
+
+    rng = np.random.default_rng(args.seed + 2)
+    texts, labels = synth_corpus(rng, N_HTTP, N_WORDS, coverage=False)
+    serving = engine.make_serving(ep)
+    pairs = engine.algorithms_with_models(ep, cpu)
+    reset_counts()
+    server = create_query_server(engine, ep, gpu, host="127.0.0.1", port=0)
+    with server:
+        conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=60)
+        answers = []
+        for k, text in enumerate(texts):
+            status, got = post(conn, json.dumps({"text": text}).encode())
+            if status != 200:
+                raise AssertionError(f"trained query {k}: HTTP {status} {got}")
+            answers.append(got)
+        conn.close()
+    launches = read_counts()["embedding_bag"]
+    for k, (text, got) in enumerate(zip(texts, answers)):
+        q = Query(text=text)
+        same_answer(got, serving.serve(q, [a.predict(m, q) for a, m in pairs]),
+                    f"trained query {k}")
+    right = sum(a["label"] == lab for a, lab in zip(answers, labels))
+    log(f"  {N_HTTP} answers match the CPU copy of the blob; {right} of "
+        f"{N_HTTP} held-out labels right; kernel launches {launches}")
+    if launches < N_HTTP:
+        raise AssertionError(f"trained serving launched the kernel {launches} times")
+    return launches
+
+
+def kernel_entry(name, source, replaces, launches, row) -> dict:
+    """One kernel of the JSON line, from its main timed row."""
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches, "max_abs_err": row["max_abs_err"],
+        "ms": row["kernel_ms"], "kernel_ms": row["kernel_ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -499,6 +964,7 @@ def main(argv=None) -> int:
         for line in b.log.splitlines():
             log(f"    {line}")
 
+    use_memory_storage()
     rng = np.random.default_rng(args.seed)
     shapes = phase_kernels(rng, dev)
     gpu, cpu, queries = phase_model(args)
@@ -515,24 +981,37 @@ def main(argv=None) -> int:
     shapes.append(check_kernel("served query (TF-IDF bag)", w_in, ids[:1].copy(),
                                w[:1].copy(), TOL[torch.float32]))
 
+    backward = phase_backward(rng, dev)
+    engine, ep, iid, pd, loss0, train_launches, _ = phase_train(args, dev)
+    trained_launches = phase_serve_trained(args, engine, ep, iid, pd, loss0)
+    autograd = backward["autograd"]
+    log(f"main-path launches: serving {http_launches} + {batch_launches}, "
+        f"training {train_launches}, trained serving {trained_launches}, "
+        f"autograd {autograd}")
+
     main_row = shapes[0]
-    summary = {
-        "name": "embedding_bag",
-        "route": "cuda",
-        "source": "pio_tpu_torch/ops/csrc/embedding_bag.cu",
-        "replaces": "pio_tpu/ops/embedding.py:132",
-        "launches": http_launches + batch_launches,
-        "max_abs_err": main_row["max_abs_err"],
-        "max_err": main_row["max_abs_err"],
-        "ms": main_row["kernel_ms"],
-        "kernel_ms": main_row["kernel_ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
-        "shapes": shapes,
-    }
-    print(json.dumps({"kernels": [summary]}))
+    summary = [
+        {**kernel_entry(
+            "embedding_bag", "pio_tpu_torch/ops/csrc/embedding_bag.cu",
+            "pio_tpu/ops/embedding.py:132",
+            http_launches + batch_launches + train_launches["embedding_bag"]
+            + trained_launches + autograd["embedding_bag"], main_row),
+         "shapes": shapes},
+        {**kernel_entry(
+            "embedding_bag_backward_table",
+            "pio_tpu_torch/ops/csrc/embedding_bag_bwd.cu",
+            "pio_tpu/ops/embedding.py:277",
+            train_launches["embedding_bag_backward_table"]
+            + autograd["embedding_bag_backward_table"], backward["scatter"][0]),
+         "shapes": backward["scatter"]},
+        {**kernel_entry(
+            "embedding_bag_backward_weights",
+            "pio_tpu_torch/ops/csrc/embedding_bag_bwd.cu",
+            "pio_tpu/ops/embedding.py:284",
+            autograd["embedding_bag_backward_weights"], backward["dot"][0]),
+         "shapes": backward["dot"]},
+    ]
+    print(json.dumps({"kernels": summary}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

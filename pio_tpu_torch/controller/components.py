@@ -1,10 +1,12 @@
-"""DASE component bases — the serving half: Algorithm and Serving.
+"""DASE component bases: DataSource, Preparator, Algorithm, Serving.
 
-Counterpart of ``pio_tpu/controller/components.py``. Only what the serving
-path calls is here (``predict``, ``batch_predict``, ``warmup_query``,
-``serve``); ``train``, the data source and the preparator come with the
-training slice. Every component is constructed with its Params instance:
-``cls(params)``.
+Counterpart of ``pio_tpu/controller/components.py``. A component receives
+a :class:`~pio_tpu_torch.parallel.context.ComputeContext` (the device and
+seed) where the reference's receive the mesh. Every component is
+constructed with its Params instance: ``cls(params)``. The reference's
+``PersistentModel`` opt-out is not ported: every model of the port
+persists as a pickled blob of host values
+(:mod:`pio_tpu_torch.workflow.core_workflow`).
 """
 
 from __future__ import annotations
@@ -13,7 +15,10 @@ import abc
 from typing import Generic, List, Optional, Sequence, Tuple, TypeVar
 
 from pio_tpu_torch.controller.params import EmptyParams, Params
+from pio_tpu_torch.parallel.context import ComputeContext
 
+TD = TypeVar("TD")  # training data
+PD = TypeVar("PD")  # prepared data
 Q = TypeVar("Q")  # query
 P = TypeVar("P")  # prediction
 M = TypeVar("M")  # model
@@ -28,11 +33,37 @@ class Component(abc.ABC):
         self.params = params if params is not None else self.params_class()
 
 
-class Algorithm(Component, Generic[M, Q, P]):
-    """Answers queries with a trained model."""
+class SanityCheck(abc.ABC):
+    """Opt-in hook called on the training and prepared data after
+    read/prepare."""
+
+    @abc.abstractmethod
+    def sanity_check(self) -> None:
+        """Raise if the data is unusable (e.g. empty training set)."""
+
+
+class DataSource(Component, Generic[TD]):
+    """Reads training data from the event store."""
+
+    @abc.abstractmethod
+    def read_training(self, ctx: ComputeContext) -> TD: ...
+
+
+class Preparator(Component, Generic[TD, PD]):
+    """Training data → prepared data (features)."""
+
+    @abc.abstractmethod
+    def prepare(self, ctx: ComputeContext, training_data: TD) -> PD: ...
+
+
+class Algorithm(Component, Generic[PD, M, Q, P]):
+    """Trains a model on the context's device; answers queries with it."""
 
     #: the dataclass a query JSON object binds to (None: raw dict queries)
     query_class: Optional[type] = None
+
+    @abc.abstractmethod
+    def train(self, ctx: ComputeContext, prepared_data: PD) -> M: ...
 
     @abc.abstractmethod
     def predict(self, model: M, query: Q) -> P: ...

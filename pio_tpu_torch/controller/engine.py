@@ -1,46 +1,163 @@
-"""Engine — binds the serving components and their params.
+"""Engine — binds the DASE components and their params; runs training.
 
-Counterpart of ``pio_tpu/controller/engine.py``, serving half: an engine
-names its algorithms and its serving class, and turns an
-:class:`EngineParams` plus trained models into ``(algorithm, model)``
-pairs for the query server. ``Engine.train`` and ``eval`` come with the
-training slice. Engine factories register by name (``@register_engine``)
-or resolve as ``"module.path:attribute"``.
+Counterpart of ``pio_tpu/controller/engine.py``: an engine names its data
+source, preparator, algorithms and serving class, binds an engine.json
+variant to :class:`EngineParams`, trains (``Engine.train``: read →
+prepare → each algorithm, with per-phase seconds) and turns trained models
+into ``(algorithm, model)`` pairs for the query server. Evaluation
+(``Engine.eval``) and the trace, trainwatch and checkpoint hooks of the
+reference's ``train`` come with later slices. Engine factories register by
+name (``@register_engine``) or resolve as ``"module.path:attribute"``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Any, Callable, Dict, List, Sequence, Tuple, Type
+import logging
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Type
 
-from pio_tpu_torch.controller.components import Algorithm, Serving
-from pio_tpu_torch.controller.params import EmptyParams, Params, ParamsError
+import torch
+
+from pio_tpu_torch.controller.components import (
+    Algorithm,
+    DataSource,
+    Preparator,
+    SanityCheck,
+    Serving,
+)
+from pio_tpu_torch.controller.params import (
+    EmptyParams,
+    Params,
+    ParamsError,
+    params_from_dict,
+)
+from pio_tpu_torch.parallel.context import ComputeContext
+
+log = logging.getLogger("pio_tpu_torch.engine")
 
 
 @dataclasses.dataclass(frozen=True)
 class EngineParams:
-    """Per-deployment parameter bundle: algorithms by name, and serving."""
+    """Per-run parameter bundle."""
 
+    data_source_params: Params = EmptyParams()
+    preparator_params: Params = EmptyParams()
     algorithm_params_list: Tuple[Tuple[str, Params], ...] = ()
     serving_params: Params = EmptyParams()
 
 
 class Engine:
-    """Binds algorithm classes (by engine.json name) and a serving class."""
+    """Binds DASE component classes; ``algorithm_class_map`` maps the
+    names engine.json's ``algorithms[].name`` uses to Algorithm classes."""
 
     def __init__(
         self,
+        data_source_class: Type[DataSource],
+        preparator_class: Type[Preparator],
         algorithm_class_map: Dict[str, Type[Algorithm]],
         serving_class: Type[Serving],
     ):
+        self.data_source_class = data_source_class
+        self.preparator_class = preparator_class
         self.algorithm_class_map = dict(algorithm_class_map)
         self.serving_class = serving_class
+
+    def params_from_variant(self, variant: Dict[str, Any]) -> EngineParams:
+        """Bind an engine.json variant dict to typed EngineParams."""
+
+        def section(name: str) -> Optional[dict]:
+            v = variant.get(name)
+            if v is None:
+                return None
+            if not isinstance(v, dict):
+                raise ParamsError(f"engine.json {name!r} must be an object")
+            return v.get("params", {})
+
+        ds = params_from_dict(
+            self.data_source_class.params_class, section("datasource")
+        )
+        prep = params_from_dict(
+            self.preparator_class.params_class, section("preparator")
+        )
+        serv = params_from_dict(self.serving_class.params_class, section("serving"))
+
+        algos: List[Tuple[str, Params]] = []
+        for entry in variant.get("algorithms", []):
+            name = entry.get("name")
+            if name not in self.algorithm_class_map:
+                raise ParamsError(
+                    f"unknown algorithm {name!r}; engine declares "
+                    f"{sorted(self.algorithm_class_map)}"
+                )
+            algos.append((name, params_from_dict(
+                self.algorithm_class_map[name].params_class,
+                entry.get("params", {}),
+            )))
+        if not algos:
+            # default: every declared algorithm with default params
+            algos = [
+                (name, cls.params_class())
+                for name, cls in self.algorithm_class_map.items()
+            ]
+        return EngineParams(
+            data_source_params=ds,
+            preparator_params=prep,
+            algorithm_params_list=tuple(algos),
+            serving_params=serv,
+        )
 
     def _algorithms(self, engine_params: EngineParams) -> List[Algorithm]:
         return [
             self.algorithm_class_map[name](params)
             for name, params in engine_params.algorithm_params_list
+        ]
+
+    def train(
+        self,
+        ctx: ComputeContext,
+        engine_params: EngineParams,
+        skip_sanity_check: bool = False,
+        stop_after_read: bool = False,
+        stop_after_prepare: bool = False,
+        timings: Optional[dict] = None,
+    ) -> List[Any]:
+        """Run DataSource -> Preparator -> each Algorithm; return models.
+
+        ``timings``, when given, is filled with per-phase wall seconds
+        (``read``, ``prepare``, ``train:<i>_<algo>``), as the reference's.
+        """
+
+        def _phase(name, fn):
+            t0 = time.monotonic()
+            out = fn()
+            if ctx.device.type == "cuda":
+                # the card runs behind the host: a phase ends with its work
+                torch.cuda.synchronize(ctx.device)
+            if timings is not None:
+                timings[name] = round(time.monotonic() - t0, 3)
+            return out
+
+        data_source = self.data_source_class(engine_params.data_source_params)
+        td = _phase("read", lambda: data_source.read_training(ctx))
+        if not skip_sanity_check and isinstance(td, SanityCheck):
+            td.sanity_check()
+        if stop_after_read:
+            log.info("stopping after read_training (stop_after_read)")
+            return []
+        preparator = self.preparator_class(engine_params.preparator_params)
+        pd = _phase("prepare", lambda: preparator.prepare(ctx, td))
+        if not skip_sanity_check and isinstance(pd, SanityCheck):
+            pd.sanity_check()
+        if stop_after_prepare:
+            log.info("stopping after prepare (stop_after_prepare)")
+            return []
+        names = [n for n, _ in engine_params.algorithm_params_list]
+        # index-prefixed: two algorithms of one name keep their own phase
+        return [
+            _phase(f"train:{i}_{names[i]}", lambda a=algo: a.train(ctx, pd))
+            for i, algo in enumerate(self._algorithms(engine_params))
         ]
 
     def make_serving(self, engine_params: EngineParams) -> Serving:

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import json
 import re
 import typing
 from typing import Any, Mapping, Optional, Type, TypeVar
@@ -107,3 +108,11 @@ def params_from_dict(cls: Type[P], d: Optional[Mapping[str, Any]]) -> P:
         return cls(**kwargs)  # type: ignore[return-value]
     except (TypeError, ValueError) as e:
         raise ParamsError(f"{cls.__name__}: {e}") from None
+
+
+def params_to_dict(p: Params) -> dict:
+    return dataclasses.asdict(p)
+
+
+def params_to_json(p: Params) -> str:
+    return json.dumps(params_to_dict(p), sort_keys=True)

@@ -1,20 +1,44 @@
-"""Sparse-input MLP classifier — the text-classification serving model.
+"""Sparse-input MLP classifier — the text-classification model.
 
-Counterpart of ``pio_tpu/models/mlp.py``'s ``MLPModel``: hidden activations
-are ``relu(embedding_bag(W_in, ids, tfidf) + b_in)`` — the hand-written
-CUDA embedding-bag kernel on the card — followed by a dense f32 head
-(``torch.matmul``; TF32 is left off, as PyTorch's default is). Training
-(``train_mlp``) is not ported yet.
+Counterpart of ``pio_tpu/models/mlp.py``: hidden activations are
+``relu(embedding_bag(W_in, ids, tfidf) + b_in)`` — the hand-written CUDA
+embedding-bag kernel on the card — followed by a dense f32 head
+(``torch.matmul``; TF32 is left off, as PyTorch's default is).
+
+:func:`train_mlp` is full-batch Adam on one device, as the reference's
+single-device path: a Python loop of steps where the reference has one
+compiled ``lax.scan``. Each step's backward through the embedding bag is
+the bag-scatter kernel, launched from one :class:`~pio_tpu_torch.ops.
+embedding.BagPlan` built before the first step. The reference's data-
+parallel mesh path comes with the multi-device slice.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import math
+from typing import Dict, Tuple
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from pio_tpu_torch import DeviceLike, resolve_device
+from pio_tpu_torch.ops import embedding as _embedding
 from pio_tpu_torch.ops.embedding import embedding_bag
+
+#: name → parameter, in the reference's pytree order
+Params = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class MLPConfig:
+    hidden: int = 128
+    iterations: int = 200
+    learning_rate: float = 1e-2
+    reg: float = 0.0  # L2 on the dense head
+    seed: int = 0
 
 
 class MLPModel(nn.Module):
@@ -23,7 +47,11 @@ class MLPModel(nn.Module):
     The parameters are copied to the device once, here: the query server
     calls :meth:`logits` per request, and re-shipping the ``[V, H]`` table
     each time would put a multi-MB host→device copy on the hot path (the
-    reference keeps a ``_serve_cache`` for the same reason).
+    reference keeps a ``_serve_cache`` for the same reason). ``w_in`` and
+    the others may be numpy arrays or tensors; the model never aliases
+    them. :mod:`pio_tpu_torch.workflow.core_workflow` persists its
+    parameters as host numpy arrays, and loads them on the device the
+    loading context names.
     """
 
     def __init__(self, w_in, b_in, w_out, b_out, device: DeviceLike = None):
@@ -31,10 +59,11 @@ class MLPModel(nn.Module):
         dev = resolve_device(device)
         for name, value in (("w_in", w_in), ("b_in", b_in),
                             ("w_out", w_out), ("b_out", b_out)):
-            # a copy: the model never aliases the caller's arrays
-            self.register_buffer(name, torch.tensor(
-                np.asarray(value, np.float32), device=dev
-            ))
+            if isinstance(value, torch.Tensor):
+                value = value.detach().to(dev, torch.float32, copy=True)
+            else:
+                value = torch.tensor(np.asarray(value, np.float32), device=dev)
+            self.register_buffer(name, value)
         H = self.w_in.shape[-1]
         if self.w_in.dim() != 2 or self.b_in.shape != (H,) \
                 or self.w_out.shape[0] != H \
@@ -59,8 +88,7 @@ class MLPModel(nn.Module):
 
     def forward(self, ids: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
         """[B, L] int32 ids + f32 weights on the model's device → [B, C]."""
-        h = torch.relu(embedding_bag(self.w_in, ids, weights) + self.b_in)
-        return torch.matmul(h, self.w_out) + self.b_out
+        return _logits(dict(self.named_buffers()), ids, weights)
 
     def logits(self, ids: np.ndarray, weights: np.ndarray) -> np.ndarray:
         """[B, L] numpy bags → [B, C] numpy logits."""
@@ -88,3 +116,98 @@ class MLPModel(nn.Module):
         z = z - z.max(axis=1, keepdims=True)
         e = np.exp(z)
         return e / e.sum(axis=1, keepdims=True)
+
+
+def _logits(params: Params, ids, weights, plan=None,
+            bag=embedding_bag) -> torch.Tensor:
+    h = torch.relu(bag(params["w_in"], ids, weights, plan) + params["b_in"])
+    return torch.matmul(h, params["w_out"]) + params["b_out"]
+
+
+def _loss(params: Params, ids, weights, y, mask, reg: float, plan=None,
+          bag=embedding_bag) -> torch.Tensor:
+    """Masked mean cross-entropy plus ``reg · Σ w_out²`` (reference l.157-167)."""
+    ce = F.cross_entropy(_logits(params, ids, weights, plan, bag), y,
+                         reduction="none")
+    data_loss = torch.sum(ce * mask) / torch.sum(mask)
+    return data_loss + reg * torch.sum(params["w_out"] ** 2)
+
+
+def init_params(V: int, H: int, C: int, generator: torch.Generator) -> Params:
+    """The reference's init (l.146-154): normal draws scaled by ``1/√V``
+    (``w_in``) and ``1/√H`` (``w_out``), zero biases, on the generator's
+    device. The draws are torch's, not jax.random's."""
+    dev = generator.device
+    return {
+        "w_in": torch.randn(V, H, generator=generator, device=dev)
+        * (1.0 / math.sqrt(max(V, 1))),
+        "b_in": torch.zeros(H, device=dev),
+        "w_out": torch.randn(H, C, generator=generator, device=dev)
+        * (1.0 / math.sqrt(H)),
+        "b_out": torch.zeros(C, device=dev),
+    }
+
+
+def _fit(
+    params0: Params,
+    ids: torch.Tensor,
+    weights: torch.Tensor,
+    y: torch.Tensor,
+    mask: torch.Tensor,
+    config: MLPConfig,
+    bag=embedding_bag,
+) -> Tuple[Params, torch.Tensor]:
+    """``config.iterations`` full-batch Adam steps from ``params0`` (the
+    reference's ``fit``), on the tensors' device; ``params0`` is not
+    changed.
+
+    Adam with optax's defaults (β 0.9 / 0.999, ε 1e-8 added to ``√v̂``):
+    torch's and optax's update formulas agree. The bag plan of the
+    backward is built once, here. ``bag`` is the embedding bag the loss
+    runs, ``(table, ids, weights, plan) → [B, D]``. Returns the fitted
+    parameters and the loss before each step (f32 ``[iterations]``, on the
+    device; no step waits for the host).
+    """
+    params = {k: v.detach().clone().requires_grad_(True) for k, v in params0.items()}
+    plan = _embedding.bag_plan(ids, weights, params["w_in"].shape[0])
+    opt = torch.optim.Adam(params.values(), lr=config.learning_rate,
+                           betas=(0.9, 0.999), eps=1e-8)
+    losses = torch.empty(config.iterations, device=ids.device)
+    for step in range(config.iterations):
+        opt.zero_grad()
+        loss = _loss(params, ids, weights, y, mask, config.reg, plan, bag)
+        loss.backward()
+        opt.step()
+        losses[step] = loss.detach()
+    return {k: v.detach() for k, v in params.items()}, losses
+
+
+def train_mlp(
+    ctx,
+    ids: np.ndarray,
+    weights: np.ndarray,
+    y: np.ndarray,
+    n_features: int,
+    n_classes: int,
+    config: MLPConfig = MLPConfig(),
+) -> MLPModel:
+    """Full-batch Adam on the sparse-input MLP, on ``ctx.device``.
+
+    Args:
+        ctx: ComputeContext (its device; the init draws from
+            ``ctx.generator(config.seed)``).
+        ids/weights: [N, L] packed bags (``pack_bags`` layout).
+        y: [N] int class codes.
+        n_features: embedding-table rows V (vectorizer.n_features).
+        n_classes: C.
+    """
+    dev = ctx.device
+    ids_t = torch.from_numpy(np.ascontiguousarray(ids, np.int32)).to(dev)
+    w_t = torch.from_numpy(np.ascontiguousarray(weights, np.float32)).to(dev)
+    y_t = torch.from_numpy(np.asarray(y, np.int64)).to(dev)
+    mask = torch.ones(len(y_t), device=dev)
+    params0 = init_params(n_features, config.hidden, n_classes,
+                          ctx.generator(config.seed))
+    fitted, _ = _fit(params0, ids_t, w_t, y_t, mask, config)
+    return MLPModel(fitted["w_in"], fitted["b_in"], fitted["w_out"],
+                    fitted["b_out"], device=dev)

@@ -2,9 +2,9 @@
 
 Each source under ``csrc/`` compiles on first use into a shared library
 with a plain C interface, under ``build/pio_tpu_torch_kernels/`` at the
-repository root. A library's file name carries a hash of its source and
-the compiler flags, so an edited source rebuilds and an unchanged one is
-loaded as it is. :func:`build_all` starts one ``nvcc`` per source, all at
+repository root. A library's file name carries a hash of its source, of
+every header under ``csrc/`` and of the compiler flags, so an edited source
+or header rebuilds and an unchanged one is loaded as it is. :func:`build_all` starts one ``nvcc`` per source, all at
 once, and waits for them together.
 
 Nothing here runs at import: the CPU tests import the ops modules on
@@ -28,7 +28,10 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pio_tpu_torch_kernels"
 
 #: kernel name → source file under csrc/
-SOURCES: Dict[str, str] = {"embedding_bag": "embedding_bag.cu"}
+SOURCES: Dict[str, str] = {
+    "embedding_bag": "embedding_bag.cu",
+    "embedding_bag_bwd": "embedding_bag_bwd.cu",
+}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -69,9 +72,13 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Target of ``name``: keyed by the source's and the flags' hash."""
-    src = (CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """Target of ``name``: keyed by the hash of its source, the headers
+    under ``csrc/`` (any source may include them) and the flags."""
+    h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 

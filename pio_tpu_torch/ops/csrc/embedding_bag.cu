@@ -57,64 +57,20 @@
 // the host. weights are f32. All arrays are contiguous. The kernel allocates
 // nothing and does not synchronise.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "bag_vec.cuh"
 
 namespace {
 
-constexpr int kWarp = 32;
+using pio_bag::kWarp;
+using pio_bag::aligned;
+using pio_bag::load_if;
+using pio_bag::RawVec;
+using pio_bag::to_f32;
+
 constexpr int kMaxThreads = 1024;
 constexpr int kMaxSharedBytes = 48 * 1024;  // static-launch limit, no opt-in
 // independent row loads a thread has in flight
 constexpr int kUnroll = 8;
-
-template <int VEC>
-struct RawVec;
-template <>
-struct RawVec<16> { using type = uint4; };
-template <>
-struct RawVec<8> { using type = uint2; };
-template <>
-struct RawVec<4> { using type = unsigned int; };
-template <>
-struct RawVec<2> { using type = unsigned short; };
-
-// r = *p where pred, else r unchanged: one predicated non-coherent load and
-// no branch, so the kUnroll loads of a thread stay in flight together. An
-// `if` around __ldg timed slower on the H100, most at one bag.
-__device__ __forceinline__ void load_if(uint4& r, const void* p, bool pred) {
-  asm("{\n\t.reg .pred q;\n\tsetp.ne.b32 q, %5, 0;\n\t"
-      "@q ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%4];\n\t}"
-      : "+r"(r.x), "+r"(r.y), "+r"(r.z), "+r"(r.w)
-      : "l"(p), "r"(static_cast<int>(pred)));
-}
-__device__ __forceinline__ void load_if(uint2& r, const void* p, bool pred) {
-  asm("{\n\t.reg .pred q;\n\tsetp.ne.b32 q, %3, 0;\n\t"
-      "@q ld.global.nc.v2.u32 {%0, %1}, [%2];\n\t}"
-      : "+r"(r.x), "+r"(r.y)
-      : "l"(p), "r"(static_cast<int>(pred)));
-}
-__device__ __forceinline__ void load_if(unsigned int& r, const void* p,
-                                        bool pred) {
-  asm("{\n\t.reg .pred q;\n\tsetp.ne.b32 q, %2, 0;\n\t"
-      "@q ld.global.nc.u32 %0, [%1];\n\t}"
-      : "+r"(r)
-      : "l"(p), "r"(static_cast<int>(pred)));
-}
-__device__ __forceinline__ void load_if(unsigned short& r, const void* p,
-                                        bool pred) {
-  asm("{\n\t.reg .pred q;\n\tsetp.ne.b32 q, %2, 0;\n\t"
-      "@q ld.global.nc.u16 %0, [%1];\n\t}"
-      : "+h"(r)
-      : "l"(p), "r"(static_cast<int>(pred)));
-}
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 // N consecutive floats at p (aligned to 4*N bytes, or 16 for N = 8)
 template <int N>
@@ -227,10 +183,6 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     for (int k = 1; k < warps_per_bag; ++k) s += p[k * col_slice];
     out[b * D + d] = s;
   }
-}
-
-bool aligned(const void* p, int bytes) {
-  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
 // The host's plan (pio_tpu_torch/ops/embedding.py: Plan), as it is launched.

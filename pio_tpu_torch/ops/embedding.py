@@ -10,11 +10,20 @@ it as a Pallas kernel (``_embedding_bag_pallas``); here it is a CUDA C++
 kernel written for Hopper (``csrc/embedding_bag.cu``), built with ``nvcc``
 on first use and called through ``ctypes``.
 
-Dispatch is by the tensors' device and nothing else: a CUDA table always
-launches the kernel, a CPU table takes :func:`embedding_bag_plain`. The
-TPU package's size cutoff between its kernel and an XLA gather is not
-carried over — it was a TPU measurement, and a gather fallback on the card
-would hide the kernel.
+:func:`embedding_bag` is differentiable in ``table`` and ``weights``, as
+the reference's ``custom_vjp`` is. Its backward has two kernels of its own
+(``csrc/embedding_bag_bwd.cu``): the bag scatter for ``d_table``
+(:func:`embedding_bag_backward_table`, launched from a :class:`BagPlan` of
+the slots sorted by row) and the bag dot for ``d_weights``
+(:func:`embedding_bag_backward_weights`). Neither uses atomics: two calls
+give the same bits.
+
+Dispatch is by the tensors' device and nothing else: CUDA tensors always
+launch the kernels, CPU tensors take the plain versions
+(:func:`embedding_bag_plain`, :func:`embedding_bag_backward_table_plain`,
+:func:`embedding_bag_backward_weights_plain`). The TPU package's size
+cutoff between its kernel and an XLA gather is not carried over — it was a
+TPU measurement, and a gather fallback on the card would hide the kernel.
 """
 
 from __future__ import annotations
@@ -29,13 +38,19 @@ import torch
 
 from pio_tpu_torch.utils.numutil import round_up as _round_up
 
-#: launches of the CUDA kernel in this process (tests and chip_smoke.py
-#: reset it to 0 and read it back to show a path went through the kernel)
+#: launches of each CUDA kernel in this process (tests and chip_smoke.py
+#: reset them to 0 and read them back to show a path went through the
+#: kernel): the forward, the bag scatter (d_table) and the bag dot (d_w)
 KERNEL_LAUNCHES = 0
+BACKWARD_TABLE_LAUNCHES = 0
+BACKWARD_WEIGHTS_LAUNCHES = 0
 _COUNT_LOCK = threading.Lock()
 
 _TABLE_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _KERNELS = {}  # table dtype suffix → bound ctypes function
+_BWD_KERNELS = {}  # (kind, table dtype suffix) → bound ctypes function
+#: the plan's int32 slot indices and offsets, and the kernels' int indexing
+_MAX_SLOTS = 2 ** 31 - 1
 
 
 def embedding_bag_plain(
@@ -48,24 +63,20 @@ def embedding_bag_plain(
 
 
 def _check(table: torch.Tensor, ids: torch.Tensor, weights: torch.Tensor):
-    if table.dim() != 2:
-        raise ValueError(f"table must be [V, D], got shape {tuple(table.shape)}")
-    if ids.dim() != 2 or weights.shape != ids.shape:
-        raise ValueError(
-            f"ids and weights must both be [B, L]; got {tuple(ids.shape)} "
-            f"and {tuple(weights.shape)}"
-        )
-    if table.dtype not in _TABLE_DTYPES:
-        raise TypeError(f"table dtype {table.dtype} not in float32/bfloat16")
-    if ids.dtype != torch.int32:
-        raise TypeError(f"ids must be int32, got {ids.dtype}")
-    if weights.dtype != torch.float32:
-        raise TypeError(f"weights must be float32, got {weights.dtype}")
+    _check_table(table)
+    _check_bags(ids, weights)
     if not (table.device == ids.device == weights.device):
         raise ValueError(
             f"table, ids and weights on different devices: {table.device}, "
             f"{ids.device}, {weights.device}"
         )
+
+
+def _check_table(table: torch.Tensor) -> None:
+    if table.dim() != 2:
+        raise ValueError(f"table must be [V, D], got shape {tuple(table.shape)}")
+    if table.dtype not in _TABLE_DTYPES:
+        raise TypeError(f"table dtype {table.dtype} not in float32/bfloat16")
 
 
 def _kernel(suffix: str):
@@ -217,8 +228,40 @@ def _embedding_bag_cuda(table, ids, weights) -> torch.Tensor:
     return _launch(table, ids, weights, _plan_for(table, B, L))
 
 
+def _forward(table, ids, weights) -> torch.Tensor:
+    if table.device.type == "cuda":
+        return _embedding_bag_cuda(table, ids, weights)
+    if table.device.type == "cpu":
+        return embedding_bag_plain(table, ids, weights)
+    raise ValueError(f"embedding_bag: unsupported device {table.device}")
+
+
+class _EmbeddingBag(torch.autograd.Function):
+    """The reference's ``custom_vjp``: no gradient for ``ids``."""
+
+    @staticmethod
+    def forward(ctx, table, ids, weights, plan):
+        ctx.save_for_backward(table, ids, weights)
+        ctx.plan = plan
+        return _forward(table, ids, weights)
+
+    @staticmethod
+    def backward(ctx, g):
+        table, ids, weights = ctx.saved_tensors
+        g = g.contiguous()
+        d_table = d_w = None
+        if ctx.needs_input_grad[0]:
+            d_table = embedding_bag_backward_table(
+                g, ids, weights, table.shape[0], table.dtype, plan=ctx.plan
+            )
+        if ctx.needs_input_grad[2]:
+            d_w = embedding_bag_backward_weights(g, table, ids)
+        return d_table, None, d_w, None
+
+
 def embedding_bag(
-    table: torch.Tensor, ids: torch.Tensor, weights: torch.Tensor
+    table: torch.Tensor, ids: torch.Tensor, weights: torch.Tensor,
+    plan: "BagPlan | None" = None,
 ) -> torch.Tensor:
     """``out[b] = Σ_l weights[b,l] · table[ids[b,l]]`` → float32 ``[B, D]``.
 
@@ -228,16 +271,288 @@ def embedding_bag(
     contiguous; ids are not range-checked on the card), whatever D and the
     table's alignment; on CPU tensors it runs :func:`embedding_bag_plain`.
 
+    Differentiable in ``table`` and ``weights``: the backward runs
+    :func:`embedding_bag_backward_table` (with ``plan``, built here when
+    not given; a trainer that passes the same bags every step builds it
+    once with :func:`bag_plan`) and, when ``weights`` needs a gradient,
+    :func:`embedding_bag_backward_weights`.
+
     The kernel reads no row for a slot of weight 0, where the plain version
     adds ``0 · row``: the two differ only where such a row holds inf or NaN.
     It sums in a fixed order, so two calls give the same bits.
     """
     _check(table, ids, weights)
-    if table.device.type == "cuda":
-        return _embedding_bag_cuda(table, ids, weights)
-    if table.device.type == "cpu":
-        return embedding_bag_plain(table, ids, weights)
-    raise ValueError(f"embedding_bag: unsupported device {table.device}")
+    if torch.is_grad_enabled() and (table.requires_grad or weights.requires_grad):
+        return _EmbeddingBag.apply(table, ids, weights, plan)
+    return _forward(table, ids, weights)
+
+
+# ----------------------------------------------------------------- backward
+def embedding_bag_backward_table_plain(
+    g: torch.Tensor, ids: torch.Tensor, weights: torch.Tensor, n_rows: int,
+    dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """The reference's ``d_table`` (``_bwd``, a segment sum): the
+    ``[B·L, D]`` contributions ``g[b]·w[b,l]`` summed into row ``ids[b,l]``
+    in f32, then cast to ``dtype``."""
+    B, L = ids.shape
+    contrib = (g.float()[:, None, :] * weights.float()[:, :, None]).reshape(
+        B * L, g.shape[1])
+    out = torch.zeros((n_rows, g.shape[1]), dtype=torch.float32, device=g.device)
+    return out.index_add_(0, ids.reshape(-1).long(), contrib).to(dtype)
+
+
+def embedding_bag_backward_weights_plain(
+    g: torch.Tensor, table: torch.Tensor, ids: torch.Tensor
+) -> torch.Tensor:
+    """The reference's ``d_weights``: ``g[b]`` dotted with each gathered
+    row, f32 ``[B, L]``. Materializes the ``[B, L, D]`` gather."""
+    rows = table[ids.long()].float()
+    return torch.einsum("bld,bd->bl", rows, g.float())
+
+
+class BagPlan(NamedTuple):
+    """Launch plan of the bag scatter: the slots of non-zero weight, sorted
+    by their row.
+
+    ``order`` int32 ``[nnz]`` holds flat slot indices ``b·L + l``, stably
+    sorted by ``ids[b, l]`` (so ``(b, l)`` ascending within a row);
+    ``offsets`` int32 ``[n_rows + 1]``: row ``v``'s slots are
+    ``order[offsets[v]:offsets[v + 1]]``. It belongs to the ``ids`` of
+    ``shape`` and to the zero pattern of the weights it was built from.
+    """
+
+    order: torch.Tensor
+    offsets: torch.Tensor
+    n_rows: int
+    shape: Tuple[int, int]
+
+
+def bag_plan(ids: torch.Tensor, weights: torch.Tensor, n_rows: int) -> BagPlan:
+    """The :class:`BagPlan` of these bags over ``n_rows`` rows.
+
+    Bookkeeping on the bags' device with a stable ``torch.sort`` and
+    ``torch.searchsorted``; it waits for the device once (the count of
+    non-zero slots sizes ``order``). Raises ``ValueError`` for an id of a
+    non-zero slot outside ``[0, n_rows)``.
+    """
+    _check_bags(ids, weights)
+    if ids.numel() > _MAX_SLOTS or n_rows >= _MAX_SLOTS:
+        raise ValueError(f"{ids.numel()} slots over {n_rows} rows is over the "
+                         f"plan's int32 indexing")
+    slots = torch.nonzero(weights.reshape(-1) != 0).reshape(-1)
+    keys = ids.reshape(-1)[slots]
+    if keys.numel() and (int(keys.min()) < 0 or int(keys.max()) >= n_rows):
+        raise ValueError(f"bag ids must lie in [0, {n_rows}); got "
+                         f"[{int(keys.min())}, {int(keys.max())}]")
+    keys, perm = torch.sort(keys, stable=True)
+    bounds = torch.arange(n_rows + 1, dtype=keys.dtype, device=keys.device)
+    return BagPlan(
+        order=slots[perm].to(torch.int32),
+        offsets=torch.searchsorted(keys, bounds).to(torch.int32),
+        n_rows=n_rows,
+        shape=tuple(ids.shape),
+    )
+
+
+def _check_bags(ids: torch.Tensor, weights: torch.Tensor) -> None:
+    if ids.dim() != 2 or weights.shape != ids.shape:
+        raise ValueError(
+            f"ids and weights must both be [B, L]; got {tuple(ids.shape)} "
+            f"and {tuple(weights.shape)}"
+        )
+    if ids.dtype != torch.int32:
+        raise TypeError(f"ids must be int32, got {ids.dtype}")
+    if weights.dtype != torch.float32:
+        raise TypeError(f"weights must be float32, got {weights.dtype}")
+
+
+def _check_grad(g: torch.Tensor, ids: torch.Tensor, *others) -> None:
+    if g.dim() != 2 or g.shape[0] != ids.shape[0]:
+        raise ValueError(f"g must be [B, D] with B = {ids.shape[0]}, got "
+                         f"{tuple(g.shape)}")
+    if g.dtype != torch.float32:
+        raise TypeError(f"g must be float32, got {g.dtype}")
+    if any(t.device != g.device for t in (ids, *others)):
+        raise ValueError("g, ids and the other inputs on different devices")
+
+
+def embedding_bag_backward_table(
+    g: torch.Tensor, ids: torch.Tensor, weights: torch.Tensor, n_rows: int,
+    dtype: torch.dtype = torch.float32, plan: BagPlan | None = None,
+) -> torch.Tensor:
+    """``d_table[v] = Σ_{(b,l): ids[b,l]=v} weights[b,l] · g[b]`` →
+    ``[n_rows, D]`` of ``dtype`` (float32 or bfloat16; summed in f32).
+
+    On CUDA tensors this launches the bag scatter from ``plan`` (built with
+    :func:`bag_plan` when not given; a given plan must be of these bags):
+    every row is written once, 0 where no slot lands, slots of weight 0
+    are not read, and two calls give the same bits. On CPU tensors it runs
+    :func:`embedding_bag_backward_table_plain`.
+    """
+    _check_bags(ids, weights)
+    _check_grad(g, ids, weights)
+    if dtype not in _TABLE_DTYPES:
+        raise TypeError(f"d_table dtype {dtype} not in float32/bfloat16")
+    if g.device.type == "cuda":
+        return _backward_table_cuda(g, ids, weights, n_rows, dtype, plan)
+    if g.device.type == "cpu":
+        return embedding_bag_backward_table_plain(g, ids, weights, n_rows, dtype)
+    raise ValueError(f"embedding_bag_backward_table: unsupported device {g.device}")
+
+
+def embedding_bag_backward_weights(
+    g: torch.Tensor, table: torch.Tensor, ids: torch.Tensor
+) -> torch.Tensor:
+    """``d_w[b, l] = Σ_d g[b, d] · table[ids[b, l], d]`` → float32 ``[B, L]``.
+
+    Every slot is read, weight 0 or not: the derivative with respect to a
+    zero weight is not zero. On CUDA tensors this launches the bag dot
+    (fixed summation order, the same bits on every call); on CPU tensors it
+    runs :func:`embedding_bag_backward_weights_plain`.
+    """
+    _check_table(table)
+    if ids.dim() != 2 or ids.dtype != torch.int32:
+        raise TypeError(f"ids must be int32 [B, L], got {ids.dtype} {tuple(ids.shape)}")
+    _check_grad(g, ids, table)
+    if g.shape[1] != table.shape[1]:
+        raise ValueError(f"g has {g.shape[1]} columns, the table {table.shape[1]}")
+    if g.device.type == "cuda":
+        return _backward_weights_cuda(g, table, ids)
+    if g.device.type == "cpu":
+        return embedding_bag_backward_weights_plain(g, table, ids)
+    raise ValueError(f"embedding_bag_backward_weights: unsupported device {g.device}")
+
+
+#: threads a block of either backward kernel (its launch bounds' cap)
+_BWD_THREADS = 256
+
+
+class BwdGeometry(NamedTuple):
+    """Launch geometry of a backward kernel (``csrc/embedding_bag_bwd.cu``):
+    each lane moves ``epl`` elements at once; a group of ``group_lanes``
+    lanes owns one row of ``d_table`` (bag scatter) or one slot at a time,
+    one warp a bag (bag dot). The kernel is launched with exactly these
+    ``grid_x`` blocks of ``threads``; the C side only checks them."""
+
+    epl: int
+    group_lanes: int
+    grid_x: int
+    threads: int
+
+
+def _lane_elems(D: int, *aligned: Tuple[int, int]) -> int:
+    """Most elements a lane moves at once (4, 2 or 1): ``D`` is a multiple
+    of it, and every ``(pointer alignment, element bytes)`` allows it."""
+    return next(e for e in (4, 2, 1)
+                if D % e == 0 and all(a % (e * b) == 0 for a, b in aligned))
+
+
+@functools.lru_cache(maxsize=256)
+def _bwd_geometry(items: int, D: int, epl: int, warp_per_item: bool) -> BwdGeometry:
+    """``items`` rows (one a group) or bags (one a warp) of ``D`` columns."""
+    group = min(_WARP, _pow2_at_least(-(-D // epl)))
+    per_block = _BWD_THREADS // (_WARP if warp_per_item else group)
+    return BwdGeometry(epl, group, max(1, -(-items // per_block)), _BWD_THREADS)
+
+
+def _bwd_kernel(kind: str, suffix: str):
+    fn = _BWD_KERNELS.get((kind, suffix))
+    if fn is None:
+        from pio_tpu_torch.ops import _build
+
+        fn = getattr(_build.load("embedding_bag_bwd"), f"pio_bag_{kind}_{suffix}")
+        # scatter: g, weights, order, offsets, out; dot: table, ids, g, out;
+        # then n_rows or B, L, D, the geometry's 4 ints, stream
+        pointers = 5 if kind == "scatter" else 4
+        fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _BWD_KERNELS[(kind, suffix)] = fn
+    return fn
+
+
+def _call(fn, device, *args) -> None:
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"embedding_bag backward kernel launch failed: CUDA error {err}")
+
+
+def _launch_scatter(g, weights, plan: BagPlan, dtype, geo: BwdGeometry) -> torch.Tensor:
+    """Launch the bag scatter with ``geo`` on the current stream."""
+    global BACKWARD_TABLE_LAUNCHES
+    D = g.shape[1]
+    out = torch.empty((plan.n_rows, D), dtype=dtype, device=g.device)
+    _call(_bwd_kernel("scatter", _TABLE_DTYPES[dtype]), g.device,
+          g.data_ptr(), weights.data_ptr(), plan.order.data_ptr(),
+          plan.offsets.data_ptr(), out.data_ptr(), plan.n_rows,
+          plan.shape[1], D, *geo)
+    with _COUNT_LOCK:
+        BACKWARD_TABLE_LAUNCHES += 1
+    return out
+
+
+def _launch_dot(g, table, ids, geo: BwdGeometry) -> torch.Tensor:
+    """Launch the bag dot with ``geo`` on the current stream."""
+    global BACKWARD_WEIGHTS_LAUNCHES
+    B, L = ids.shape
+    out = torch.empty((B, L), dtype=torch.float32, device=g.device)
+    _call(_bwd_kernel("dot", _TABLE_DTYPES[table.dtype]), g.device,
+          table.data_ptr(), ids.data_ptr(), g.data_ptr(), out.data_ptr(),
+          B, L, table.shape[1], *geo)
+    with _COUNT_LOCK:
+        BACKWARD_WEIGHTS_LAUNCHES += 1
+    return out
+
+
+def _scatter_geometry(g: torch.Tensor, n_rows: int) -> BwdGeometry:
+    """The geometry for a d_table of ``n_rows`` rows from this CUDA ``g``."""
+    # the output is a fresh allocation, 16-byte aligned: any lane width
+    epl = _lane_elems(g.shape[1], (_align(g.data_ptr()), 4))
+    return _bwd_geometry(n_rows, g.shape[1], epl, False)
+
+
+def _dot_geometry(g: torch.Tensor, table: torch.Tensor) -> BwdGeometry:
+    """The geometry for d_w from this CUDA ``g`` and ``table``."""
+    epl = _lane_elems(table.shape[1], (_align(g.data_ptr()), 4),
+                      (_align(table.data_ptr()), table.element_size()))
+    return _bwd_geometry(g.shape[0], table.shape[1], epl, True)
+
+
+def _contiguous(*tensors) -> None:
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("embedding_bag's CUDA kernels need contiguous inputs")
+
+
+def _backward_table_cuda(g, ids, weights, n_rows, dtype, plan) -> torch.Tensor:
+    _contiguous(g, ids, weights)
+    D = g.shape[1]
+    if max(n_rows, D) > _MAX_DIM:
+        raise ValueError(f"d_table of {n_rows} x {D} is over the kernel's int indexing")
+    if n_rows == 0 or D == 0:
+        return torch.zeros((n_rows, D), dtype=dtype, device=g.device)
+    if plan is None:
+        plan = bag_plan(ids, weights, n_rows)
+    if plan.n_rows != n_rows or plan.shape != tuple(ids.shape) \
+            or plan.order.device != g.device:
+        raise ValueError(
+            f"plan of {plan.shape} bags over {plan.n_rows} rows on "
+            f"{plan.order.device} does not fit {tuple(ids.shape)} bags over "
+            f"{n_rows} rows on {g.device}"
+        )
+    return _launch_scatter(g, weights, plan, dtype, _scatter_geometry(g, n_rows))
+
+
+def _backward_weights_cuda(g, table, ids) -> torch.Tensor:
+    _contiguous(g, table, ids)
+    B, L = ids.shape
+    D = table.shape[1]
+    if max(B, L, D) > _MAX_DIM:
+        raise ValueError(f"shape (B={B}, L={L}, D={D}) is over the kernel's "
+                         f"int indexing (at most {_MAX_DIM})")
+    if B == 0 or L == 0 or D == 0:
+        return torch.zeros((B, L), dtype=torch.float32, device=g.device)
+    return _launch_dot(g, table, ids, _dot_geometry(g, table))
 
 
 # --------------------------------------------------- host-side bag packing

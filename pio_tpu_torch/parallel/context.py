@@ -1,13 +1,15 @@
 """ComputeContext — the device and seed threaded through the components.
 
-Counterpart of ``pio_tpu/parallel/context.py``'s ``ComputeContext``. This
-slice runs on one device, so the context holds no mesh; multi-device work
-(a ``torch.distributed`` process group) comes with a later slice.
+Counterpart of ``pio_tpu/parallel/context.py``'s ``ComputeContext``. The
+port runs on one device so far, so the context holds no mesh: ``create``
+and ``local`` give the same single-device context. Multi-device work (a
+``torch.distributed`` process group) comes with a later slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -27,12 +29,23 @@ class ComputeContext:
     seed: int = 0
 
     @staticmethod
+    def create(seed: int = 0, device: DeviceLike = None) -> "ComputeContext":
+        """The context of a run over every device: one device in the port
+        so far, so the same as :meth:`local`."""
+        return ComputeContext.local(seed, device)
+
+    @staticmethod
     def local(seed: int = 0, device: DeviceLike = None) -> "ComputeContext":
         """Single-device context on ``device`` (CUDA by default)."""
         return ComputeContext(device=resolve_device(device), seed=seed)
 
-    def generator(self) -> torch.Generator:
-        """A fresh ``torch.Generator`` on this device, seeded with ``seed``."""
+    @property
+    def num_devices(self) -> int:
+        return 1
+
+    def generator(self, seed: Optional[int] = None) -> torch.Generator:
+        """A fresh ``torch.Generator`` on this device, seeded with ``seed``
+        (the context's own when not given)."""
         g = torch.Generator(device=self.device)
-        g.manual_seed(self.seed)
+        g.manual_seed(self.seed if seed is None else seed)
         return g

@@ -1,0 +1,231 @@
+"""CoreWorkflow — the training run, with its bookkeeping.
+
+Counterpart of the train half of ``pio_tpu/workflow/core_workflow.py``:
+record an EngineInstance as RUNNING, run ``Engine.train``, persist the
+models as one pickled blob with a checksum manifest, and mark the run
+COMPLETED with its per-phase seconds — or FAILED with the error recorded.
+:func:`load_models_for_instance` verifies and loads the blob for serving.
+
+A persisted model holds host values only: every tensor in it is pickled
+as a numpy array, so a blob holds no CUDA storage. Loading puts the
+tensors on the device the caller's context names, so a model trained on
+the card loads on the CPU and the reverse. Not ported yet: the reference's
+PersistentModel opt-out, sharded persistence, the last-known-good
+fallback, checkpoints, the profiler trace and the trainwatch/devicewatch
+telemetry (ROADMAP A), and evaluation runs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import datetime as _dt
+import hashlib
+import io
+import json as _json
+import logging
+import pickle
+import time
+import traceback
+from typing import Any, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from pio_tpu_torch import DeviceLike
+from pio_tpu_torch.controller.engine import Engine, EngineParams
+from pio_tpu_torch.controller.params import params_to_dict, params_to_json
+from pio_tpu_torch.parallel.context import ComputeContext
+from pio_tpu_torch.storage.records import EngineInstance, Model, RunStatus
+from pio_tpu_torch.storage.registry import Storage
+from pio_tpu_torch.workflow.engine_json import EngineVariant
+from pio_tpu_torch.workflow.params import WorkflowParams
+
+log = logging.getLogger("pio_tpu_torch.workflow")
+
+#: Models-store id suffix of the checksum manifest written next to each
+#: pickled blob: {"sha256": ..., "size": ...}. Blob first, manifest second,
+#: as in the reference.
+MANIFEST_SUFFIX = ".manifest"
+
+
+def _utcnow() -> _dt.datetime:
+    return _dt.datetime.now(_dt.timezone.utc)
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """A tensor on any device → its values as a host numpy array."""
+    return t.detach().cpu().numpy()
+
+
+def _tensor_from_host(array: np.ndarray) -> torch.Tensor:
+    """The unpickling side of :class:`_HostPickler`: a CPU tensor (a
+    :class:`_DeviceUnpickler` puts it on its device instead)."""
+    return torch.from_numpy(array)
+
+
+class _HostPickler(pickle.Pickler):
+    """Pickles every tensor as a host numpy array."""
+
+    def reducer_override(self, obj):
+        if isinstance(obj, torch.Tensor):
+            return _tensor_from_host, (_to_host(obj),)
+        return NotImplemented
+
+
+class _DeviceUnpickler(pickle.Unpickler):
+    """Unpickles :class:`_HostPickler`'s tensors onto ``device``."""
+
+    def __init__(self, file, device: torch.device):
+        super().__init__(file)
+        self.device = device
+
+    def find_class(self, module, name):
+        if (module, name) == (__name__, _tensor_from_host.__name__):
+            return lambda array: torch.from_numpy(array).to(self.device)
+        return super().find_class(module, name)
+
+
+def serialize_models(models: Sequence[Any]) -> bytes:
+    """Default model persistence (≙ reference Kryo blob): one pickle of the
+    model list, every tensor in it as a host numpy array."""
+    buf = io.BytesIO()
+    _HostPickler(buf, protocol=pickle.HIGHEST_PROTOCOL).dump(list(models))
+    return buf.getvalue()
+
+
+def deserialize_models(blob: bytes, device: DeviceLike = "cpu") -> List[Any]:
+    """The models of :func:`serialize_models`, their tensors on ``device``.
+    Unpickle only blobs this program wrote."""
+    return _DeviceUnpickler(io.BytesIO(blob), torch.device(device)).load()
+
+
+def run_train(
+    engine: Engine,
+    engine_params: EngineParams,
+    variant: EngineVariant,
+    workflow_params: WorkflowParams = WorkflowParams(),
+    ctx: Optional[ComputeContext] = None,
+) -> str:
+    """Train + persist; returns the engine-instance id (reference
+    ``CoreWorkflow.runTrain``). ``ctx`` defaults to a CUDA context seeded
+    with ``workflow_params.seed``."""
+    if ctx is None:
+        ctx = ComputeContext.create(seed=workflow_params.seed)
+    instances = Storage.get_meta_data_engine_instances()
+    now = _utcnow()
+    instance = EngineInstance(
+        id="",
+        status=RunStatus.RUNNING,
+        start_time=now,
+        end_time=now,
+        engine_id=variant.engine_id,
+        engine_version=variant.engine_version,
+        engine_variant=variant.path or variant.engine_id,
+        engine_factory=variant.engine_factory,
+        batch=workflow_params.batch,
+        env={},
+        jax_conf=variant.jax_conf,
+        data_source_params=params_to_json(engine_params.data_source_params),
+        preparator_params=params_to_json(engine_params.preparator_params),
+        algorithms_params=_json.dumps(
+            [
+                {"name": n, "params": params_to_dict(p)}
+                for n, p in engine_params.algorithm_params_list
+            ],
+            sort_keys=True,
+        ),
+        serving_params=params_to_json(engine_params.serving_params),
+    )
+    instance_id = instances.insert(instance)
+    instance = instances.get(instance_id)
+    log.info("training started: instance %s on %s", instance_id, ctx.device)
+
+    t0 = time.monotonic()
+    timings: dict = {}
+    try:
+        models = engine.train(
+            ctx,
+            engine_params,
+            skip_sanity_check=workflow_params.skip_sanity_check,
+            stop_after_read=workflow_params.stop_after_read,
+            stop_after_prepare=workflow_params.stop_after_prepare,
+            timings=timings,
+        )
+        train_s = time.monotonic() - t0
+        if workflow_params.stop_after_read or workflow_params.stop_after_prepare:
+            instances.update(instance.with_status(RunStatus.ABORTED))
+            log.info("run %s aborted early by stop-after flag", instance_id)
+            return instance_id
+
+        t_persist = time.monotonic()
+        blob = serialize_models(models)
+        models_store = Storage.get_model_data_models()
+        models_store.insert(Model(id=instance_id, models=blob))
+        manifest = _json.dumps(
+            {"sha256": hashlib.sha256(blob).hexdigest(), "size": len(blob)},
+            sort_keys=True,
+        ).encode()
+        models_store.insert(
+            Model(id=instance_id + MANIFEST_SUFFIX, models=manifest)
+        )
+        timings["persist"] = round(time.monotonic() - t_persist, 3)
+
+        instances.update(dataclasses.replace(
+            instance.with_status(RunStatus.COMPLETED),
+            env={
+                "train_seconds": f"{train_s:.3f}",
+                "num_devices": str(ctx.num_devices),
+                "device": str(ctx.device),
+                # per-phase wall seconds (read / prepare / train:<i>_<algo>
+                # / persist)
+                **{f"phase_{k}": str(v) for k, v in timings.items()},
+            },
+        ))
+        log.info("training finished: instance %s (%.2fs, %d model(s))",
+                 instance_id, train_s, len(models))
+        return instance_id
+    except Exception:
+        err = traceback.format_exc()
+        instances.update(dataclasses.replace(
+            instance.with_status(RunStatus.FAILED), env={"error": err[-4000:]}
+        ))
+        log.error("training FAILED: instance %s\n%s", instance_id, err)
+        raise
+
+
+def load_models_for_instance(
+    instance_id: str,
+    engine: Engine,
+    engine_params: EngineParams,
+    ctx: ComputeContext,
+) -> List[Any]:
+    """The persisted models of ``instance_id``, their tensors on
+    ``ctx.device``, one per algorithm of ``engine_params``.
+
+    Raises RuntimeError on a missing record, a blob that fails its
+    manifest's checksum (a missing manifest loads unverified, as in the
+    reference), or a model count that does not match ``engine``'s
+    algorithms.
+    """
+    models_store = Storage.get_model_data_models()
+    record = models_store.get(instance_id)
+    if record is None:
+        raise RuntimeError(f"no models stored for instance {instance_id!r}")
+    manifest = models_store.get(instance_id + MANIFEST_SUFFIX)
+    if manifest is not None:
+        want = _json.loads(manifest.models.decode("utf-8"))["sha256"]
+        got = hashlib.sha256(record.models).hexdigest()
+        if got != want:
+            raise RuntimeError(
+                f"model blob for instance {instance_id!r} failed checksum "
+                f"verification (manifest {want}, blob {got})"
+            )
+    models = deserialize_models(record.models, ctx.device)
+    names = [n for n, _ in engine_params.algorithm_params_list]
+    unknown = [n for n in names if n not in engine.algorithm_class_map]
+    if len(models) != len(names) or unknown:
+        raise RuntimeError(
+            f"instance {instance_id!r} holds {len(models)} model(s); the "
+            f"engine params name algorithms {names}"
+        )
+    return models

@@ -1,0 +1,440 @@
+"""The embedding bag's backward in the port against the JAX package's.
+
+The same seeded numpy inputs go through ``jax.vjp`` of
+``pio_tpu.ops.embedding.embedding_bag`` (its ``custom_vjp``: a segment sum
+for ``d_table``, a gathered dot for ``d_weights``) and through torch
+autograd of ``pio_tpu_torch.ops.embedding.embedding_bag`` on the CPU,
+where the backward runs its plain versions. The two CUDA kernels of the
+backward (bag scatter, bag dot) run only on the card: their tests are
+marked ``cuda`` and skip here.
+"""
+
+import contextlib
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pio_tpu.ops.embedding import embedding_bag as jax_embedding_bag
+from pio_tpu_torch.ops import embedding as temb
+
+V, D, B, L = 40, 24, 6, 9
+
+
+def _case(seed=5, V=V, D=D, B=B, L=L):
+    """Seeded table, bags with repeated ids and weight-0 slots (bag 1 all
+    weight 0, the last two slots of every bag padding), and a cotangent."""
+    rng = np.random.default_rng(seed)
+    table = rng.standard_normal((V, D), dtype=np.float32)
+    ids = rng.integers(0, V, size=(B, L), dtype=np.int32)
+    ids[:, 0] = ids[:, 1]  # a row twice in one bag
+    w = (rng.random((B, L), dtype=np.float32) + 0.01)
+    w[:, -2:] = 0.0
+    if B > 1:
+        w[1] = 0.0
+    g = rng.standard_normal((B, D), dtype=np.float32)
+    return table, ids, w, g
+
+
+def _jax_grads(table, ids, w, g, dtype=jnp.float32):
+    _, vjp = jax.vjp(
+        lambda t, ww: jax_embedding_bag(t, jnp.asarray(ids), ww),
+        jnp.asarray(table, dtype), jnp.asarray(w),
+    )
+    d_table, d_w = vjp(jnp.asarray(g))
+    return (np.asarray(jnp.asarray(d_table, jnp.float32)), np.asarray(d_w))
+
+
+def _port_grads(table, ids, w, g, dtype=torch.float32):
+    t = torch.from_numpy(table).to(dtype).requires_grad_(True)
+    ww = torch.from_numpy(w).requires_grad_(True)
+    out = temb.embedding_bag(t, torch.from_numpy(ids), ww)
+    d_table, d_w = torch.autograd.grad(out, [t, ww], torch.from_numpy(g))
+    assert d_table.dtype == dtype and d_w.dtype == torch.float32
+    return d_table.float().numpy(), d_w.numpy()
+
+
+@pytest.mark.parametrize("seed", [5, 6, 7])
+def test_grads_match_jax_f32(seed):
+    # the same f32 products, summed in another order: 1e-5 at |grad| ~ 1-10
+    want = _jax_grads(*_case(seed))
+    got = _port_grads(*_case(seed))
+    for g_, w_ in zip(got, want):
+        assert g_.shape == w_.shape
+        np.testing.assert_allclose(g_, w_, atol=1e-5, rtol=1e-6)
+
+
+def test_grads_match_jax_bf16_table():
+    # d_table is summed in f32 and cast to bf16 in both: equal up to one
+    # bf16 rounding step (2^-8 relative) where the f32 sums differ in the
+    # last bit; d_w widens the same bf16 rows to f32 exactly
+    case = _case(8)
+    want_t, want_w = _jax_grads(*case, dtype=jnp.bfloat16)
+    got_t, got_w = _port_grads(*case, dtype=torch.bfloat16)
+    np.testing.assert_allclose(got_t, want_t, rtol=2 ** -7, atol=1e-6)
+    np.testing.assert_allclose(got_w, want_w, atol=1e-5, rtol=1e-6)
+
+
+def test_zero_weight_slot_gets_a_weight_gradient():
+    # d out / d w[b, l] = table[ids[b, l]] whatever w[b, l] is
+    table, ids, w, g = _case(9)
+    assert w[1].max() == 0.0
+    _, d_w = _port_grads(table, ids, w, g)
+    want = np.einsum("ld,d->l", table[ids[1]], g[1])
+    assert np.abs(want).min() > 0
+    np.testing.assert_allclose(d_w[1], want, rtol=1e-5)
+    np.testing.assert_allclose(d_w[:, -1], np.einsum("bd,bd->b", table[ids[:, -1]], g),
+                               rtol=1e-5)
+
+
+def test_rows_only_weight_zero_slots_touch_get_zero():
+    table, ids, w, g = _case(10)
+    d_table, _ = _port_grads(table, ids, w, g)
+    live = set(ids[w != 0].tolist())
+    dead = [v for v in range(V) if v not in live]
+    assert dead and not d_table[dead].any()
+    assert all(d_table[v].any() for v in live)
+
+
+def test_no_gradient_for_ids_and_none_without_requires_grad():
+    table, ids, w, g = _case()
+    t = torch.from_numpy(table).requires_grad_(True)
+    out = temb.embedding_bag(t, torch.from_numpy(ids), torch.from_numpy(w))
+    (d_table,) = torch.autograd.grad(out, [t], torch.from_numpy(g))
+    assert d_table.shape == (V, D)
+    with torch.no_grad():
+        assert not temb.embedding_bag(
+            t, torch.from_numpy(ids), torch.from_numpy(w)).requires_grad
+
+
+def test_backward_passes_the_plan_and_skips_d_w_unless_asked(monkeypatch):
+    table, ids, w, g = _case()
+    ids_t, w_t = torch.from_numpy(ids), torch.from_numpy(w)
+    plan = temb.bag_plan(ids_t, w_t, V)
+    seen, real = [], temb.embedding_bag_backward_table
+    monkeypatch.setattr(temb, "embedding_bag_backward_table",
+                        lambda *a, plan=None: seen.append(plan) or real(*a))
+    monkeypatch.setattr(temb, "embedding_bag_backward_weights",
+                        lambda *a: pytest.fail("d_w was not asked for"))
+    t = torch.from_numpy(table).requires_grad_(True)
+    out = temb.embedding_bag(t, ids_t, w_t, plan)
+    torch.autograd.grad(out, [t], torch.from_numpy(g))
+    assert seen == [plan]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_backward_table_plain_is_the_segment_sum(dtype):
+    table, ids, w, g = _case(11)
+    want = np.zeros((V, D), np.float64)
+    np.add.at(want, ids.reshape(-1),
+              (g[:, None, :] * w[:, :, None]).reshape(-1, D).astype(np.float64))
+    got = temb.embedding_bag_backward_table(
+        torch.from_numpy(g), torch.from_numpy(ids), torch.from_numpy(w), V, dtype
+    )
+    assert got.dtype == dtype and got.shape == (V, D)
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=1e-6)
+
+
+def test_plain_backward_of_no_bags_is_zero():
+    g, ids, w = torch.zeros(0, D), torch.zeros((0, L), dtype=torch.int32), torch.zeros(0, L)
+    d_table = temb.embedding_bag_backward_table(g, ids, w, V)
+    assert d_table.shape == (V, D) and not d_table.any()
+    assert temb.embedding_bag_backward_weights(g, torch.ones(V, D), ids).shape == (0, L)
+
+
+def test_nb_keys_and_unit_gradient_give_feature_sums():
+    # kernel A's second caller: key y*V + id, one column, g = 1
+    _, ids, w, _ = _case(12)
+    y = np.arange(B) % 3
+    keys = (y[:, None] * V + ids).astype(np.int32)
+    got = temb.embedding_bag_backward_table(
+        torch.ones(B, 1), torch.from_numpy(keys), torch.from_numpy(w), 3 * V
+    ).reshape(3, V).numpy()
+    want = np.zeros((3, V), np.float64)
+    np.add.at(want, (np.repeat(y, L), ids.reshape(-1)), w.reshape(-1))
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+
+
+# ------------------------------------------------------------------ plan
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_bag_plan_lists_non_zero_slots_by_row_in_slot_order(seed):
+    _, ids, w, _ = _case(seed)
+    plan = temb.bag_plan(torch.from_numpy(ids), torch.from_numpy(w), V)
+    order, offsets = plan.order.numpy(), plan.offsets.numpy()
+    assert plan.order.dtype == plan.offsets.dtype == torch.int32
+    assert plan.n_rows == V and plan.shape == (B, L)
+    assert offsets[0] == 0 and offsets[-1] == len(order) == np.count_nonzero(w)
+    flat_ids, flat_w = ids.reshape(-1), w.reshape(-1)
+    for v in range(V):
+        want = np.flatnonzero((flat_ids == v) & (flat_w != 0))
+        np.testing.assert_array_equal(order[offsets[v]:offsets[v + 1]], want)
+
+
+def test_bag_plan_of_no_bags_has_empty_rows():
+    plan = temb.bag_plan(torch.zeros((0, 8), dtype=torch.int32),
+                         torch.zeros((0, 8)), 5)
+    assert plan.order.numel() == 0
+    assert plan.offsets.tolist() == [0] * 6
+
+
+@pytest.mark.parametrize("bad", [-1, V])
+def test_bag_plan_rejects_ids_out_of_range(bad):
+    _, ids, w, _ = _case()
+    ids[0, 0] = bad
+    with pytest.raises(ValueError, match="must lie in"):
+        temb.bag_plan(torch.from_numpy(ids), torch.from_numpy(w), V)
+
+
+def test_out_of_range_id_of_a_zero_weight_slot_is_not_planned():
+    _, ids, w, _ = _case()
+    ids[1, 0] = V + 5  # bag 1 is all weight 0
+    plan = temb.bag_plan(torch.from_numpy(ids), torch.from_numpy(w), V)
+    assert int(plan.offsets[-1]) == np.count_nonzero(w)
+
+
+def test_given_plan_must_fit_the_bags():
+    _, ids, w, g = _case()
+    ids_t, w_t = torch.from_numpy(ids), torch.from_numpy(w)
+    plan = temb.bag_plan(ids_t, w_t, V)
+    with pytest.raises(ValueError, match="does not fit"):
+        temb._backward_table_cuda(torch.from_numpy(g), ids_t, w_t, V + 1,
+                                  torch.float32, plan)
+    with pytest.raises(ValueError, match="does not fit"):
+        temb._backward_table_cuda(torch.from_numpy(g[:2]), ids_t[:2], w_t[:2],
+                                  V, torch.float32, plan)
+
+
+# -------------------------------------------------------------- geometry
+@pytest.mark.parametrize(
+    "D, aligns, epl",
+    [
+        (128, [(16, 4)], 4),
+        (130, [(16, 4)], 2),  # 520-byte rows
+        (128, [(8, 4)], 2),  # g one odd row in
+        (1, [(16, 4)], 1),  # NB: one column
+        (128, [(16, 4), (8, 2)], 4),  # bf16 table, 8 bytes a lane
+        (128, [(16, 4), (4, 2)], 2),
+        (129, [(16, 4), (16, 2)], 1),
+    ],
+)
+def test_lane_elems_takes_the_widest_the_rows_allow(D, aligns, epl):
+    assert temb._lane_elems(D, *aligns) == epl
+
+
+GEOMETRIES = [
+    pytest.param(65537, 128, 4, id="mlp-d-table"),
+    pytest.param(20 * 65537, 1, 1, id="nb-feature-sums"),
+    pytest.param(7, 130, 2, id="unaligned"),
+    pytest.param(3, 20, 4, id="narrow"),
+    pytest.param(1, 512, 4, id="wide"),
+]
+
+
+@pytest.mark.parametrize("n_rows, D, epl", GEOMETRIES)
+def test_scatter_geometry_covers_every_row_and_column_once(n_rows, D, epl):
+    geo = temb._bwd_geometry(n_rows, D, epl, False)
+    G = geo.group_lanes
+    assert geo.threads == 256 and geo.threads % 32 == 0 and 32 % G == 0
+    per_block = geo.threads // G
+    assert geo.grid_x * per_block >= n_rows > (geo.grid_x - 1) * per_block
+    # columns a lane of a group walks: lane*epl + k*G*epl, epl each
+    cols = np.concatenate([
+        np.arange(c, c + epl)
+        for lane in range(G) for c in range(lane * epl, D, G * epl)
+    ])
+    assert np.array_equal(np.sort(cols), np.arange(D))
+    assert G * epl < 2 * max(D, epl)  # no group has an idle half
+
+
+@pytest.mark.parametrize("n_bags, D, epl", GEOMETRIES)
+def test_dot_geometry_gives_each_bag_one_warp(n_bags, D, epl):
+    geo = temb._bwd_geometry(n_bags, D, epl, True)
+    per_block = geo.threads // 32
+    assert geo.grid_x * per_block >= n_bags > (geo.grid_x - 1) * per_block
+    assert geo.group_lanes == min(32, 1 << max(0, -(-D // epl) - 1).bit_length())
+
+
+def _fake_cuda(monkeypatch, err, calls):
+    def entry(*args):
+        calls.append(args)
+        return err
+
+    monkeypatch.setattr(temb, "_bwd_kernel", lambda kind, suffix: entry)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=7))
+    monkeypatch.setattr(temb, "BACKWARD_TABLE_LAUNCHES", 0)
+    monkeypatch.setattr(temb, "BACKWARD_WEIGHTS_LAUNCHES", 0)
+
+
+@pytest.mark.parametrize("err", [0, 700])
+def test_scatter_launch_passes_plan_and_geometry(monkeypatch, err):
+    # g, weights, order, offsets, out; n_rows, L, D; the geometry's 4 ints;
+    # the stream
+    calls = []
+    _fake_cuda(monkeypatch, err, calls)
+    _, ids, w, g = _case()
+    ids_t, w_t = torch.from_numpy(ids), torch.from_numpy(w)
+    plan = temb.bag_plan(ids_t, w_t, V)
+    geo = temb._bwd_geometry(V, D, 4, False)
+    g_t = torch.from_numpy(g)
+    if err:
+        with pytest.raises(RuntimeError, match="CUDA error 700"):
+            temb._launch_scatter(g_t, w_t, plan, torch.bfloat16, geo)
+    else:
+        out = temb._launch_scatter(g_t, w_t, plan, torch.bfloat16, geo)
+        assert out.shape == (V, D) and out.dtype == torch.bfloat16
+    (args,) = calls
+    assert len(args) == 13
+    assert args[:4] == (g_t.data_ptr(), w_t.data_ptr(), plan.order.data_ptr(),
+                        plan.offsets.data_ptr())
+    assert args[5:8] == (V, L, D) and args[8:12] == tuple(geo) and args[12] == 7
+    assert temb.BACKWARD_TABLE_LAUNCHES == (0 if err else 1)
+    assert temb.BACKWARD_WEIGHTS_LAUNCHES == 0
+
+
+@pytest.mark.parametrize("err", [0, 700])
+def test_dot_launch_passes_geometry(monkeypatch, err):
+    # table, ids, g, out; B, L, D; the geometry's 4 ints; the stream
+    calls = []
+    _fake_cuda(monkeypatch, err, calls)
+    table, ids, _, g = _case()
+    t, ids_t, g_t = (torch.from_numpy(a) for a in (table, ids, g))
+    geo = temb._bwd_geometry(B, D, 4, True)
+    if err:
+        with pytest.raises(RuntimeError, match="CUDA error 700"):
+            temb._launch_dot(g_t, t, ids_t, geo)
+    else:
+        assert temb._launch_dot(g_t, t, ids_t, geo).shape == (B, L)
+    (args,) = calls
+    assert len(args) == 12
+    assert args[:3] == (t.data_ptr(), ids_t.data_ptr(), g_t.data_ptr())
+    assert args[4:7] == (B, L, D) and args[7:11] == tuple(geo) and args[11] == 7
+    assert temb.BACKWARD_WEIGHTS_LAUNCHES == (0 if err else 1)
+
+
+def test_cpu_backward_launches_no_kernel(monkeypatch):
+    monkeypatch.setattr(temb, "BACKWARD_TABLE_LAUNCHES", 0)
+    monkeypatch.setattr(temb, "BACKWARD_WEIGHTS_LAUNCHES", 0)
+    _port_grads(*_case())
+    assert temb.BACKWARD_TABLE_LAUNCHES == temb.BACKWARD_WEIGHTS_LAUNCHES == 0
+
+
+@pytest.mark.parametrize(
+    "call, err",
+    [
+        (lambda g, t, i, w: temb.embedding_bag_backward_table(g.double(), i, w, V), TypeError),
+        (lambda g, t, i, w: temb.embedding_bag_backward_table(g, i.long(), w, V), TypeError),
+        (lambda g, t, i, w: temb.embedding_bag_backward_table(g[:2], i, w, V), ValueError),
+        (lambda g, t, i, w: temb.embedding_bag_backward_table(
+            g, i, w, V, torch.float16), TypeError),
+        (lambda g, t, i, w: temb.embedding_bag_backward_weights(g, t.double(), i), TypeError),
+        (lambda g, t, i, w: temb.embedding_bag_backward_weights(g[:, :3], t, i), ValueError),
+        (lambda g, t, i, w: temb.embedding_bag_backward_weights(g, t, i.long()), TypeError),
+    ],
+    ids=["g-f64", "ids-i64", "g-rows", "dtype-f16", "table-f64", "g-cols", "dot-ids-i64"],
+)
+def test_backward_wrappers_reject_bad_inputs(call, err):
+    table, ids, w, g = (torch.from_numpy(a) for a in _case())
+    with pytest.raises(err):
+        call(g, table, ids, w)
+
+
+def test_build_lists_the_backward_source():
+    from pio_tpu_torch.ops import _build
+
+    assert (_build.CSRC / _build.SOURCES["embedding_bag_bwd"]).is_file()
+    # both libraries key on the shared header as well as their source
+    a, b = (_build.library_path(n) for n in ("embedding_bag", "embedding_bag_bwd"))
+    assert a != b and a.parent == b.parent == _build.BUILD_DIR
+
+
+# ------------------------------------------------------------ on the card
+@pytest.fixture()
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+# (B, L, V, D, table is a row view one row in, pattern): the shapes the
+# kernels treat apart
+CARD_SHAPES = [
+    pytest.param(64, 32, 1000, 128, False, "", id="bags"),
+    pytest.param(1, 1, 1000, 128, False, "", id="one-slot"),
+    pytest.param(0, 8, 1000, 128, False, "", id="no-bags"),
+    pytest.param(4, 16, 1000, 128, False, "zero-bag", id="zero-weight-bag"),
+    pytest.param(16, 64, 1000, 128, False, "one-row", id="every-slot-one-row"),
+    pytest.param(3, 7, 1000, 130, True, "", id="unaligned-view"),
+    pytest.param(32, 16, 3000, 1, False, "", id="one-column"),
+]
+
+
+def _card_case(dev, B, Lc, Vc, Dc, view, pattern, dtype):
+    rng = np.random.default_rng(13)
+    full = torch.from_numpy(
+        rng.standard_normal((Vc + 1, Dc), dtype=np.float32)).to(dev, dtype)
+    table = full[1:] if view else full[:Vc]
+    ids = rng.integers(0, Vc, size=(B, Lc), dtype=np.int32)
+    w = rng.random((B, Lc), dtype=np.float32) + 0.01
+    w /= np.linalg.norm(w, axis=1, keepdims=True) if Lc else 1
+    if pattern == "zero-bag":
+        w[1] = 0.0
+    if pattern == "one-row":
+        ids[:] = 7
+    gfull = torch.from_numpy(rng.standard_normal((B + 1, Dc), dtype=np.float32)).to(dev)
+    g = gfull[1:] if view else gfull[:B]
+    return table, torch.from_numpy(ids).to(dev), torch.from_numpy(w).to(dev), g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B, Lc, Vc, Dc, view, pattern", CARD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_bag_scatter_matches_plain_on_card(cuda_device, B, Lc, Vc, Dc, view,
+                                           pattern, dtype):
+    table, ids, w, g = _card_case(cuda_device, B, Lc, Vc, Dc, view, pattern, dtype)
+    before = temb.BACKWARD_TABLE_LAUNCHES
+    out = temb.embedding_bag_backward_table(g, ids, w, Vc, dtype)
+    again = temb.embedding_bag_backward_table(g, ids, w, Vc, dtype)
+    torch.cuda.synchronize()
+    assert temb.BACKWARD_TABLE_LAUNCHES == before + 2
+    assert torch.equal(out, again)  # no atomics: the same bits
+    ref = temb.embedding_bag_backward_table_plain(g, ids, w, Vc, dtype)
+    # the same f32 products in another order; bf16 one rounding step apart
+    tol = dict(atol=1e-4, rtol=0) if dtype == torch.float32 else dict(atol=1e-4, rtol=2 ** -7)
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B, Lc, Vc, Dc, view, pattern", CARD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_bag_dot_matches_plain_on_card(cuda_device, B, Lc, Vc, Dc, view,
+                                       pattern, dtype):
+    table, ids, w, g = _card_case(cuda_device, B, Lc, Vc, Dc, view, pattern, dtype)
+    before = temb.BACKWARD_WEIGHTS_LAUNCHES
+    out = temb.embedding_bag_backward_weights(g, table, ids)
+    again = temb.embedding_bag_backward_weights(g, table, ids)
+    torch.cuda.synchronize()
+    assert temb.BACKWARD_WEIGHTS_LAUNCHES == before + (2 if B else 0)
+    assert torch.equal(out, again)
+    ref = temb.embedding_bag_backward_weights_plain(g, table, ids)
+    # |d_w| ~ sqrt(D): f32 dot products summed in another order
+    torch.testing.assert_close(out, ref, atol=1e-4 * max(1, Dc) ** 0.5, rtol=0)
+    if pattern == "zero-bag":
+        assert out[1].abs().min() > 0  # weight 0, gradient not 0
+
+
+@pytest.mark.cuda
+def test_autograd_on_card_matches_cpu(cuda_device):
+    table, ids, w, g = _case(14, V=500, D=128, B=32, L=40)
+    want = _port_grads(table, ids, w, g)
+    t = torch.from_numpy(table).to(cuda_device).requires_grad_(True)
+    ww = torch.from_numpy(w).to(cuda_device).requires_grad_(True)
+    out = temb.embedding_bag(t, torch.from_numpy(ids).to(cuda_device), ww)
+    got = torch.autograd.grad(out, [t, ww], torch.from_numpy(g).to(cuda_device))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.cpu().numpy(), b, atol=1e-4)
