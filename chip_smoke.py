@@ -27,14 +27,18 @@ kernels (the forward, and the backward's bag scatter and bag dot):
    against their plain versions at the training shape (11314 bags of 256
    slots over the f32 and bf16 tables), the NB shape (one column over
    20 x 65537 rows) and the edge shapes, each twice for the same bits and
-   timed (kernel, plain version, the library's autograd, the bound); then
-   drive both gradients through the port's differentiable ``embedding_bag``;
+   timed (kernel, plain version, the library's autograd, the bound; for
+   the bag scatter also the bytes its tiling moves through L2 and their
+   rate); time the bag scatter at D = 32, 64 and 128 over the same slots;
+   then drive both gradients through the port's differentiable
+   ``embedding_bag``;
 9. ingest a synthetic 20-label corpus of 11314 documents (the size of the
    public 20 Newsgroups train split) as ``$set`` events, ``run_train`` the
    ``mlp`` (200 full-batch Adam steps) and ``nb`` algorithms on the card,
-   split one training step into its parts (CUDA events), and hold 5
+   split one training step into its parts (CUDA events), hold 5
    training steps through the kernels against 5 through the plain versions
-   from the same initial parameters;
+   from the same initial parameters, and time the bag scatter on the
+   prepared bags (their slots a row printed) against its plain version;
 10. ``load_models_for_instance`` and serve the trained models through the
    query server, checked against a CPU copy of the same persisted blob.
 
@@ -153,6 +157,19 @@ TRAIN_TOL = 1e-4
 # NB log-probabilities, card vs the plain version on the CPU: feature sums
 # in another order (f32, ~1e-7 relative) move log theta (~ -11) by ~1e-7
 NB_TOL = 1e-5
+# device ms of kernel A's first design (one lane group a row of d_table,
+# reading a g row for each non-zero slot), measured by this script at
+# commit 9818f09 on an NVIDIA H100 80GB HBM3 at 700 W. Printed for
+# comparison on a line of its own, never in the kernels' JSON line.
+PREV_SCATTER_MS = {"training f32": 0.1908, "training bf16": 0.1898,
+                   "nb feature sums": 0.0329}
+# the same design's D sweep over the training slots (SWEEP_D), measured by
+# scripts/torch_bag_scatter.py from a checkout of 9818f09 on an NVIDIA H100
+# 80GB HBM3 at 700 W; printed beside this run's sweep
+PREV_D_SWEEP_MS = {32: 0.06061, 64: 0.10552, 128: 0.18978}
+# widths of the D sweep: a kernel bound by bytes takes time in proportion
+# to D, one bound by latency about the same time at each
+SWEEP_D = (32, 64, 128)
 #: the launch counters of embedding.py, by kernel name
 COUNTERS = {
     "embedding_bag": "KERNEL_LAUNCHES",
@@ -563,6 +580,29 @@ def scatter_bound(ids: np.ndarray, w: np.ndarray, D: int, n_rows: int,
     return bound_of(8 * B * L + 4 * B * D + n_rows * D * out_bytes, 2 * nnz * D)
 
 
+def scatter_gathered_bytes(geo, B: int, D: int, n_cells: int, n_rows: int,
+                           out_bytes: int) -> int:
+    """Bytes kernel A's tiling moves through L2: each of a slice's blocks
+    stages the slice of all B g rows once; every column slice reads the 8-
+    byte records of all cells and each row's place and length again; the
+    record build reads each cell's slot and a scattered 32-byte sector of
+    the weights and writes the record; a row's f32 sums go out and back
+    between passes; d_table is written once."""
+    g_staged = geo.grid_x * B * D * 4
+    records = geo.grid_y * (8 * n_cells + 8 * n_rows)
+    build = n_cells * (4 + 32 + 8)
+    partials = 2 * (geo.passes(B) - 1) * n_rows * D * 4
+    return g_staged + records + build + partials + n_rows * D * out_bytes
+
+
+def slots_a_row(plan) -> dict:
+    """Non-zero slots and how many land on each row: mean, p99, max."""
+    per_row = plan.offsets.diff().cpu().numpy()
+    return {"nnz": int(plan.order.numel()), "slots_a_row_mean": float(per_row.mean()),
+            "slots_a_row_p99": float(np.percentile(per_row, 99)),
+            "slots_a_row_max": int(per_row.max())}
+
+
 def dot_bound(ids: np.ndarray, D: int, elem_bytes: int) -> dict:
     """d_w: ids, each g row and each distinct table row of any slot (weight
     0 or not) read once, d_w written once; one multiply-add per slot and
@@ -604,9 +644,13 @@ def check_scatter(name, g, ids, w, n_rows, dtype) -> dict:
     out = launched_twice(name, run, "BACKWARD_TABLE_LAUNCHES", n_rows * D > 0)
     row = {"case": name, "B": B, "L": L, "rows": n_rows, "D": D,
            "dtype": str(dtype)[6:],
-           "max_abs_err": max_err(name, out.float(), ref, tol), "tol": tol}
-    if B and n_rows * D:
-        row["geometry"] = embedding._scatter_geometry(g, n_rows)._asdict()
+           "max_abs_err": max_err(name, out.float(), ref, tol), "tol": tol,
+           **slots_a_row(plan)}
+    if n_rows * D:
+        geo = embedding._scatter_geometry(g, n_rows, dtype)
+        row["geometry"] = geo._asdict()
+        row["gathered_bytes"] = scatter_gathered_bytes(
+            geo, B, D, plan.n_cells, n_rows, out.element_size())
     fns = {"kernel_ms": run, "plain_ms": plain}
     if B * L:  # the library takes no empty batch of bags
         table = torch.zeros((n_rows, D), dtype=dtype, device=g.device,
@@ -622,8 +666,33 @@ def check_scatter(name, g, ids, w, n_rows, dtype) -> dict:
     ]))
     row.update(scatter_bound(ids.cpu().numpy(), w.cpu().numpy(), D, n_rows,
                              out.element_size()))
+    if "gathered_bytes" in row:
+        # the design's bytes through L2, and the bound's, per second of
+        # kernel time
+        row["gathered_tb_s"] = row["gathered_bytes"] / row["kernel_ms"] / 1e9
+        row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
     log(f"  scatter {json.dumps(row)}")
+    if name in PREV_SCATTER_MS:
+        log(f"  recorded, not measured in this run: kernel A's first design "
+            f"{name} kernel_ms {PREV_SCATTER_MS[name]} (commit 9818f09, "
+            f"NVIDIA H100 80GB HBM3 at 700 W)")
     return row
+
+
+def scatter_d_sweep(g, ids, w, n_rows) -> dict:
+    """Kernel A over the same slots at each width of SWEEP_D (the first
+    columns of ``g``), f32, in turns: device ms by D."""
+    plan = embedding.bag_plan(ids, w, n_rows)
+    gs = {D: g[:, :D].contiguous() for D in SWEEP_D}
+    for D, gD in gs.items():
+        max_err(f"D sweep, D = {D}",
+                embedding.embedding_bag_backward_table(gD, ids, w, n_rows, plan=plan),
+                embedding.embedding_bag_backward_table_plain(gD, ids, w, n_rows),
+                BWD_TOL)
+    times = timed_in_turns({D: (lambda gD=gD: embedding.embedding_bag_backward_table(
+        gD, ids, w, n_rows, plan=plan)) for D, gD in gs.items()})
+    return {"kernel_ms_by_D": times,
+            "ms_128_over_32": times[SWEEP_D[-1]] / times[SWEEP_D[0]]}
 
 
 def check_dot(name, g, table, ids, w) -> dict:
@@ -677,6 +746,12 @@ def phase_backward(rng, dev) -> dict:
     table = torch.from_numpy(rng.standard_normal((V, D), dtype=np.float32)).to(dev)
     scatter = [check_scatter("training f32", g, ids, w, V, torch.float32),
                check_scatter("training bf16", g, ids, w, V, torch.bfloat16)]
+    log("  kernel A, D sweep over the training slots (ms in proportion to D: "
+        "bound by bytes; flat: bound by latency): "
+        + json.dumps(scatter_d_sweep(g, ids, w, V)))
+    log(f"  recorded, not measured in this run: kernel A's first design, D "
+        f"sweep kernel_ms_by_D {json.dumps(PREV_D_SWEEP_MS)} (commit 9818f09, "
+        f"NVIDIA H100 80GB HBM3 at 700 W)")
     dot = [check_dot("training f32", g, table, ids, w),
            check_dot("training bf16", g, table.to(torch.bfloat16), ids, w)]
     C = len(LABELS)
@@ -791,7 +866,11 @@ def phase_train(args, dev):
         loss0 = float(mlp._loss(params0, *bags[:2], bags[2], mask, 0.0))
     log(f"  loss before the first step {loss0}")
     compare_steps(params0, *bags, mask)
-    return engine, ep, iid, pd, loss0, launches, step
+    # kernel A on the main path's own bags, against its plain version
+    g = torch.from_numpy(np.random.default_rng(args.seed + 3).standard_normal(
+        (len(pd.ids), HIDDEN), dtype=np.float32)).to(dev)
+    main_bags = check_scatter("main path bags f32", g, *bags[:2], V, torch.float32)
+    return engine, ep, iid, pd, loss0, launches, step, main_bags
 
 
 def step_parts(params0, ids, w, y, steps: int = 10, warmup: int = 3) -> dict:
@@ -982,7 +1061,8 @@ def main(argv=None) -> int:
                                w[:1].copy(), TOL[torch.float32]))
 
     backward = phase_backward(rng, dev)
-    engine, ep, iid, pd, loss0, train_launches, _ = phase_train(args, dev)
+    engine, ep, iid, pd, loss0, train_launches, _, main_bags = phase_train(args, dev)
+    backward["scatter"].append(main_bags)
     trained_launches = phase_serve_trained(args, engine, ep, iid, pd, loss0)
     autograd = backward["autograd"]
     log(f"main-path launches: serving {http_launches} + {batch_launches}, "

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import heapq
 import threading
 from typing import NamedTuple, Tuple
 
@@ -318,40 +319,89 @@ class BagPlan(NamedTuple):
     ``order`` int32 ``[nnz]`` holds flat slot indices ``b·L + l``, stably
     sorted by ``ids[b, l]`` (so ``(b, l)`` ascending within a row);
     ``offsets`` int32 ``[n_rows + 1]``: row ``v``'s slots are
-    ``order[offsets[v]:offsets[v + 1]]``. It belongs to the ``ids`` of
-    ``shape`` and to the zero pattern of the weights it was built from.
+    ``order[offsets[v]:offsets[v + 1]]``; ``bags`` int32 ``[nnz]`` is each
+    listed slot's bag, ``order // L``.
+
+    The kernel reads the same slots in a sliced layout (sliced ELLPACK):
+    ``rows`` int32 ``[n_rows]`` lists the rows by their count of slots,
+    most first (stable), and ``lens`` holds those counts; slice ``s`` is the
+    32 rows at positions ``32 s ... 32 s + 31`` of that order, and slot
+    ``j`` of the row at position ``32 s + i`` is cell
+    ``slice_offsets[s] + 32 j + i`` of ``n_cells``, so that a warp reads one
+    slot of 32 rows as 32 neighbouring cells; ``cell_src`` int32
+    ``[n_cells]`` is each cell's flat slot, -1 for padding. ``schedules``
+    caches, by count of warps, which slices each warp walks.
+
+    It belongs to the ``ids`` of ``shape`` and to the zero pattern of the
+    weights it was built from, not to their values.
     """
 
     order: torch.Tensor
     offsets: torch.Tensor
+    bags: torch.Tensor
+    rows: torch.Tensor
+    lens: torch.Tensor
+    slice_offsets: torch.Tensor
+    cell_src: torch.Tensor
+    n_cells: int
     n_rows: int
     shape: Tuple[int, int]
+    schedules: dict
 
 
 def bag_plan(ids: torch.Tensor, weights: torch.Tensor, n_rows: int) -> BagPlan:
     """The :class:`BagPlan` of these bags over ``n_rows`` rows.
 
-    Bookkeeping on the bags' device with a stable ``torch.sort`` and
-    ``torch.searchsorted``; it waits for the device once (the count of
-    non-zero slots sizes ``order``). Raises ``ValueError`` for an id of a
-    non-zero slot outside ``[0, n_rows)``.
+    Bookkeeping on the bags' device with stable sorts, a
+    ``torch.searchsorted`` and scatters; it waits for the device twice (the
+    count of non-zero slots sizes ``order``, the count of cells the sliced
+    layout). Raises ``ValueError`` for an id of a non-zero slot outside
+    ``[0, n_rows)``.
     """
     _check_bags(ids, weights)
     if ids.numel() > _MAX_SLOTS or n_rows >= _MAX_SLOTS:
         raise ValueError(f"{ids.numel()} slots over {n_rows} rows is over the "
                          f"plan's int32 indexing")
+    dev = ids.device
     slots = torch.nonzero(weights.reshape(-1) != 0).reshape(-1)
     keys = ids.reshape(-1)[slots]
     if keys.numel() and (int(keys.min()) < 0 or int(keys.max()) >= n_rows):
         raise ValueError(f"bag ids must lie in [0, {n_rows}); got "
                          f"[{int(keys.min())}, {int(keys.max())}]")
     keys, perm = torch.sort(keys, stable=True)
-    bounds = torch.arange(n_rows + 1, dtype=keys.dtype, device=keys.device)
+    order = slots[perm]
+    bags = order // max(1, ids.shape[1])
+    offsets = torch.searchsorted(keys, torch.arange(n_rows + 1, dtype=keys.dtype, device=dev))
+    counts = offsets.diff()
+    lens, rows = torch.sort(counts, descending=True, stable=True)
+    # a slice is as wide as its first (longest) row
+    n_slices = -(-n_rows // _WARP)
+    width = lens[::_WARP]
+    slice_offsets = torch.zeros(n_slices + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(width * _WARP, 0, out=slice_offsets[1:])
+    n_cells = int(slice_offsets[-1])
+    if n_cells > _MAX_SLOTS:
+        raise ValueError(f"{n_cells} cells of the sliced layout is over the "
+                         f"plan's int32 indexing")
+    pos_of_row = torch.empty_like(rows)
+    pos_of_row[rows] = torch.arange(n_rows, device=dev)
+    row_of = torch.repeat_interleave(torch.arange(n_rows, device=dev), counts)
+    pos = pos_of_row[row_of]
+    j = torch.arange(len(order), device=dev) - offsets[row_of]
+    cell_src = torch.full((n_cells,), -1, dtype=torch.int32, device=dev)
+    cell_src[slice_offsets[pos // _WARP] + j * _WARP + pos % _WARP] = order.to(torch.int32)
     return BagPlan(
-        order=slots[perm].to(torch.int32),
-        offsets=torch.searchsorted(keys, bounds).to(torch.int32),
+        order=order.to(torch.int32),
+        offsets=offsets.to(torch.int32),
+        bags=bags.to(torch.int32),
+        rows=rows.to(torch.int32),
+        lens=lens.to(torch.int32),
+        slice_offsets=slice_offsets.to(torch.int32),
+        cell_src=cell_src,
+        n_cells=n_cells,
         n_rows=n_rows,
         shape=tuple(ids.shape),
+        schedules={},
     )
 
 
@@ -424,16 +474,16 @@ def embedding_bag_backward_weights(
     raise ValueError(f"embedding_bag_backward_weights: unsupported device {g.device}")
 
 
-#: threads a block of either backward kernel (its launch bounds' cap)
+#: threads a block of the bag dot (its launch bounds' cap)
 _BWD_THREADS = 256
 
 
 class BwdGeometry(NamedTuple):
-    """Launch geometry of a backward kernel (``csrc/embedding_bag_bwd.cu``):
-    each lane moves ``epl`` elements at once; a group of ``group_lanes``
-    lanes owns one row of ``d_table`` (bag scatter) or one slot at a time,
-    one warp a bag (bag dot). The kernel is launched with exactly these
-    ``grid_x`` blocks of ``threads``; the C side only checks them."""
+    """Launch geometry of the bag dot (``csrc/embedding_bag_bwd.cu``, kernel
+    B): each lane moves ``epl`` elements at once; a group of
+    ``group_lanes`` lanes owns one slot at a time, one warp a bag. The
+    kernel is launched with exactly these ``grid_x`` blocks of
+    ``threads``; the C side only checks them."""
 
     epl: int
     group_lanes: int
@@ -449,11 +499,100 @@ def _lane_elems(D: int, *aligned: Tuple[int, int]) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def _bwd_geometry(items: int, D: int, epl: int, warp_per_item: bool) -> BwdGeometry:
-    """``items`` rows (one a group) or bags (one a warp) of ``D`` columns."""
+def _bwd_geometry(B: int, D: int, epl: int) -> BwdGeometry:
+    """``B`` bags (one a warp) of ``D`` columns."""
     group = min(_WARP, _pow2_at_least(-(-D // epl)))
-    per_block = _BWD_THREADS // (_WARP if warp_per_item else group)
-    return BwdGeometry(epl, group, max(1, -(-items // per_block)), _BWD_THREADS)
+    per_block = _BWD_THREADS // _WARP
+    return BwdGeometry(epl, group, max(1, -(-B // per_block)), _BWD_THREADS)
+
+
+#: most threads a block of the bag scatter (its launch bounds' cap: 64
+#: registers a thread, one block of 1024 an SM)
+_SCATTER_THREADS = 1024
+#: most shared memory a block of the bag scatter takes (H100, opt-in)
+_SCATTER_SMEM_BYTES = 227 * 1024
+
+
+def _smem_stride(dt: int) -> int:
+    """Floats between two bags' columns in the bag scatter's g buffer: 16
+    bytes of padding above 4 columns spread a quarter warp's reads over the
+    banks (``smem_stride`` in the C side)."""
+    return dt + 4 if dt > 4 else dt
+
+
+class ScatterGeometry(NamedTuple):
+    """Launch geometry of the bag scatter (``csrc/embedding_bag_bwd.cu``,
+    kernel A). Each block stages ``chunk_bags`` bags of ``g``'s ``dt``
+    columns in shared memory, ``vec`` floats a copy (all ``B`` bags when
+    they fit: one pass; else one launch a chunk), and the warps of its
+    ``threads`` walk slices of 32 rows (the plan's schedule); ``grid_x``
+    blocks share the rows of each of the ``grid_y`` column slices. The
+    kernel is launched with exactly this; the C side only checks it."""
+
+    dt: int
+    vec: int
+    threads: int
+    chunk_bags: int
+    grid_x: int
+    grid_y: int
+
+    @property
+    def smem_bytes(self) -> int:
+        return self.chunk_bags * _smem_stride(self.dt) * 4
+
+    def passes(self, B: int) -> int:
+        return max(1, -(-B // self.chunk_bags))
+
+
+def _scatter_slice(B: int, D: int, vec: int) -> Tuple[int, int]:
+    """Columns a block (the widest of 16, 8, 4, 2, 1 that divides ``D``, is
+    a multiple of ``vec`` and lets all ``B`` bags of g fit in shared memory;
+    the narrowest such width when none fits) and bags a pass."""
+    widths = [t for t in (16, 8, 4, 2, 1) if D % t == 0 and t % vec == 0]
+    fits = [t for t in widths if max(1, B) * _smem_stride(t) * 4 <= _SCATTER_SMEM_BYTES]
+    dt = fits[0] if fits else widths[-1]
+    return dt, max(1, min(B, _SCATTER_SMEM_BYTES // (_smem_stride(dt) * 4)))
+
+
+@functools.lru_cache(maxsize=256)
+def _scatter_geo(n_rows: int, B: int, D: int, vec: int, sms: int = _H100_SMS,
+                 blocks_per_sm: int = 1,
+                 threads: int = _SCATTER_THREADS) -> ScatterGeometry:
+    """Kernel A's geometry for ``n_rows`` rows of ``D`` columns from ``B``
+    bags of ``g``, copied ``vec`` floats at a time (``D`` a multiple of it),
+    on a card of ``sms`` SMs that each hold ``blocks_per_sm`` of its blocks.
+
+    The widest column slice whose g fits in shared memory
+    (:func:`_scatter_slice`): the slot records are read once a slice, so
+    fewer slices move fewer bytes. At most ``threads`` a block, fewer for
+    few rows; as many blocks a slice as fill the card once, and no more
+    than the rows need. On the H100 1024 threads were fastest, against 512
+    and 256 and twice the blocks (``scripts/torch_bag_scatter.py --tiles``).
+    """
+    if min(n_rows, D, B + 1) < 1 or vec not in (4, 2, 1) or D % vec:
+        raise ValueError(f"no scatter geometry for {n_rows} rows, B={B}, D={D}, "
+                         f"vec={vec}")
+    dt, chunk = _scatter_slice(B, D, vec)
+    threads = min(threads, _round_up(n_rows, _WARP))
+    slices = D // dt
+    blocks = max(1, min(sms * blocks_per_sm // slices, -(-n_rows // threads)))
+    return ScatterGeometry(dt, vec, threads, chunk, blocks, slices)
+
+
+def _pass_starts(plan: "BagPlan", B: int, chunk_bags: int) -> torch.Tensor:
+    """int32 ``[passes - 1, n_rows]``: for each position of the plan's row
+    order, the first slot ``j`` of its row whose bag is at least
+    ``p · chunk_bags``, for the passes ``p = 1, 2, ...`` of a bag scatter
+    whose g does not fit in shared memory at once."""
+    dev = plan.offsets.device
+    n = plan.n_rows
+    offsets = plan.offsets.long()
+    row_of = torch.repeat_interleave(torch.arange(n, device=dev), offsets.diff())
+    keys = row_of * B + plan.bags.long()  # ascending: by row, then bag
+    bounds = torch.arange(1, -(-B // chunk_bags), device=dev) * chunk_bags
+    rows = plan.rows.long()
+    first = torch.searchsorted(keys, rows[None, :] * B + bounds[:, None])
+    return (first - offsets[rows][None, :]).to(torch.int32)
 
 
 def _bwd_kernel(kind: str, suffix: str):
@@ -462,10 +601,16 @@ def _bwd_kernel(kind: str, suffix: str):
         from pio_tpu_torch.ops import _build
 
         fn = getattr(_build.load("embedding_bag_bwd"), f"pio_bag_{kind}_{suffix}")
-        # scatter: g, weights, order, offsets, out; dot: table, ids, g, out;
-        # then n_rows or B, L, D, the geometry's 4 ints, stream
-        pointers = 5 if kind == "scatter" else 4
-        fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        if kind == "scatter":
+            # g, weights, cell_src, rows, lens, slice_offsets, warp_slices,
+            # warp_starts, j_starts, rec, partial, out; n_rows, B, L, D,
+            # n_cells; the geometry's 6 ints; stream
+            fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+        elif kind == "scatter_occupancy":
+            fn.argtypes = [ctypes.c_int] * 3  # dt, threads, smem bytes
+        else:
+            # table, ids, g, out; B, L, D; the geometry's 4 ints; stream
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _BWD_KERNELS[(kind, suffix)] = fn
     return fn
@@ -478,18 +623,67 @@ def _call(fn, device, *args) -> None:
         raise RuntimeError(f"embedding_bag backward kernel launch failed: CUDA error {err}")
 
 
-def _launch_scatter(g, weights, plan: BagPlan, dtype, geo: BwdGeometry) -> torch.Tensor:
-    """Launch the bag scatter with ``geo`` on the current stream."""
+def _launch_scatter(g, weights, plan: BagPlan, dtype, geo: ScatterGeometry) -> torch.Tensor:
+    """Launch the bag scatter with ``geo`` on the current stream; the slots'
+    records (bag, weight) are gathered into the plan's cells in the same
+    call."""
     global BACKWARD_TABLE_LAUNCHES
-    D = g.shape[1]
-    out = torch.empty((plan.n_rows, D), dtype=dtype, device=g.device)
-    _call(_bwd_kernel("scatter", _TABLE_DTYPES[dtype]), g.device,
-          g.data_ptr(), weights.data_ptr(), plan.order.data_ptr(),
-          plan.offsets.data_ptr(), out.data_ptr(), plan.n_rows,
-          plan.shape[1], D, *geo)
+    B, D = g.shape
+    dev = g.device
+    out = torch.empty((plan.n_rows, D), dtype=dtype, device=dev)
+    rec = torch.empty((plan.n_cells, 2), dtype=torch.int32, device=dev)
+    warp_slices, warp_starts = _schedule(plan, geo.grid_x * geo.threads // _WARP)
+    starts = partial = None
+    if geo.passes(B) > 1:
+        starts = _pass_starts(plan, B, geo.chunk_bags)
+        partial = torch.empty((plan.n_rows, D), dtype=torch.float32, device=dev)
+    _call(_bwd_kernel("scatter", _TABLE_DTYPES[dtype]), dev,
+          g.data_ptr(), weights.data_ptr(), plan.cell_src.data_ptr(),
+          plan.rows.data_ptr(), plan.lens.data_ptr(),
+          plan.slice_offsets.data_ptr(), warp_slices.data_ptr(),
+          warp_starts.data_ptr(), _ptr(starts), rec.data_ptr(), _ptr(partial),
+          out.data_ptr(), plan.n_rows, B, plan.shape[1], D, plan.n_cells, *geo)
     with _COUNT_LOCK:
         BACKWARD_TABLE_LAUNCHES += 1
     return out
+
+
+def _schedule(plan: BagPlan, warps: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(warp_slices, warp_starts)`` on the plan's device: warp ``w`` walks
+    slices ``warp_slices[warp_starts[w]:warp_starts[w + 1]]``. Built once
+    for each count of warps and kept in the plan."""
+    got = plan.schedules.get(warps)
+    if got is None:
+        widths = plan.lens[::_WARP].cpu().numpy()  # one wait for the device
+        dev = plan.lens.device
+        got = tuple(torch.from_numpy(a).to(dev) for a in _lpt(widths, warps))
+        plan.schedules[warps] = got
+    return got
+
+
+#: slot steps a slice costs a warp besides its slots (its rows' order and
+#: lengths, the writes)
+_SLICE_OVERHEAD = 4
+
+
+def _lpt(widths: np.ndarray, warps: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Slices to warps, longest first, each to the warp with the least work
+    so far (ties to the lowest warp): a warp's work is its slices' widths
+    (slot steps) plus ``_SLICE_OVERHEAD`` each. Returns the slices warp by
+    warp, and where each warp's begin (int32)."""
+    heap = [(0, w) for w in range(warps)]
+    lists = [[] for _ in range(warps)]
+    for s in np.argsort(-widths, kind="stable"):
+        work, w = heapq.heappop(heap)
+        lists[w].append(s)
+        heapq.heappush(heap, (work + int(widths[s]) + _SLICE_OVERHEAD, w))
+    slices = np.array([s for one in lists for s in one], dtype=np.int32)
+    starts = np.cumsum([0] + [len(one) for one in lists]).astype(np.int32)
+    return slices, starts
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
 
 
 def _launch_dot(g, table, ids, geo: BwdGeometry) -> torch.Tensor:
@@ -505,18 +699,36 @@ def _launch_dot(g, table, ids, geo: BwdGeometry) -> torch.Tensor:
     return out
 
 
-def _scatter_geometry(g: torch.Tensor, n_rows: int) -> BwdGeometry:
-    """The geometry for a d_table of ``n_rows`` rows from this CUDA ``g``."""
-    # the output is a fresh allocation, 16-byte aligned: any lane width
-    epl = _lane_elems(g.shape[1], (_align(g.data_ptr()), 4))
-    return _bwd_geometry(n_rows, g.shape[1], epl, False)
+def _scatter_geometry(g: torch.Tensor, n_rows: int, dtype=torch.float32,
+                      threads: int = _SCATTER_THREADS) -> ScatterGeometry:
+    """The geometry for a ``dtype`` d_table of ``n_rows`` rows from this
+    CUDA ``g``, at the card's SM count and the kernel's occupancy."""
+    # the output is a fresh allocation, 16-byte aligned
+    B, D = g.shape
+    vec = _lane_elems(D, (_align(g.data_ptr()), 4))
+    dt, chunk = _scatter_slice(B, D, vec)
+    threads = min(threads, _round_up(n_rows, _WARP))
+    per_sm = _scatter_occupancy(g.device, _TABLE_DTYPES[dtype], dt, threads,
+                                chunk * _smem_stride(dt) * 4)
+    return _scatter_geo(n_rows, B, D, vec, _sm_count(g.device), per_sm, threads)
+
+
+@functools.lru_cache(maxsize=None)
+def _scatter_occupancy(device, suffix: str, dt: int, threads: int, smem: int) -> int:
+    """Blocks of the bag scatter an SM of ``device`` holds (the C side asks
+    the CUDA runtime)."""
+    with torch.cuda.device(device):
+        n = _bwd_kernel("scatter_occupancy", suffix)(dt, threads, smem)
+    if n < 1:
+        raise RuntimeError(f"bag scatter occupancy query failed: CUDA error {-n}")
+    return n
 
 
 def _dot_geometry(g: torch.Tensor, table: torch.Tensor) -> BwdGeometry:
     """The geometry for d_w from this CUDA ``g`` and ``table``."""
     epl = _lane_elems(table.shape[1], (_align(g.data_ptr()), 4),
                       (_align(table.data_ptr()), table.element_size()))
-    return _bwd_geometry(g.shape[0], table.shape[1], epl, True)
+    return _bwd_geometry(g.shape[0], table.shape[1], epl)
 
 
 def _contiguous(*tensors) -> None:
@@ -540,7 +752,8 @@ def _backward_table_cuda(g, ids, weights, n_rows, dtype, plan) -> torch.Tensor:
             f"{plan.order.device} does not fit {tuple(ids.shape)} bags over "
             f"{n_rows} rows on {g.device}"
         )
-    return _launch_scatter(g, weights, plan, dtype, _scatter_geometry(g, n_rows))
+    return _launch_scatter(g, weights, plan, dtype,
+                           _scatter_geometry(g, n_rows, dtype))
 
 
 def _backward_weights_cuda(g, table, ids) -> torch.Tensor:

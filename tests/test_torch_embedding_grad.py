@@ -172,6 +172,30 @@ def test_bag_plan_lists_non_zero_slots_by_row_in_slot_order(seed):
     for v in range(V):
         want = np.flatnonzero((flat_ids == v) & (flat_w != 0))
         np.testing.assert_array_equal(order[offsets[v]:offsets[v + 1]], want)
+    assert plan.bags.dtype == torch.int32
+    np.testing.assert_array_equal(plan.bags.numpy(), order // L)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_bag_plan_bags_ascend_within_each_row(seed):
+    # kernel A's cursors walk a row's bags chunk by chunk: never backwards
+    _, ids, w, _ = _case(seed, V=7, B=30, L=12)  # rows hit many times
+    plan = temb.bag_plan(torch.from_numpy(ids), torch.from_numpy(w), 7)
+    bags, offsets = plan.bags.numpy(), plan.offsets.numpy()
+    for v in range(7):
+        row = bags[offsets[v]:offsets[v + 1]]
+        assert len(row) > 1 and np.all(np.diff(row) >= 0)
+        assert row.min() >= 0 and row.max() < 30
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bag_plan_rows_by_slot_count_most_first(seed):
+    _, ids, w, _ = _case(seed)
+    plan = temb.bag_plan(torch.from_numpy(ids), torch.from_numpy(w), V)
+    rows, counts = plan.rows.numpy(), np.diff(plan.offsets.numpy())
+    assert plan.rows.dtype == torch.int32
+    np.testing.assert_array_equal(np.sort(rows), np.arange(V))
+    np.testing.assert_array_equal(rows, np.argsort(-counts, kind="stable"))
 
 
 def test_bag_plan_of_no_bags_has_empty_rows():
@@ -234,25 +258,216 @@ GEOMETRIES = [
 ]
 
 
+#: bags of the training shape: kernel A stages all of g's slice at once
+N_BAGS = 11314
+
+
 @pytest.mark.parametrize("n_rows, D, epl", GEOMETRIES)
 def test_scatter_geometry_covers_every_row_and_column_once(n_rows, D, epl):
-    geo = temb._bwd_geometry(n_rows, D, epl, False)
-    G = geo.group_lanes
-    assert geo.threads == 256 and geo.threads % 32 == 0 and 32 % G == 0
-    per_block = geo.threads // G
-    assert geo.grid_x * per_block >= n_rows > (geo.grid_x - 1) * per_block
-    # columns a lane of a group walks: lane*epl + k*G*epl, epl each
-    cols = np.concatenate([
-        np.arange(c, c + epl)
-        for lane in range(G) for c in range(lane * epl, D, G * epl)
-    ])
-    assert np.array_equal(np.sort(cols), np.arange(D))
-    assert G * epl < 2 * max(D, epl)  # no group has an idle half
+    geo = temb._scatter_geo(n_rows, N_BAGS, D, epl)
+    assert D % geo.dt == 0 and geo.dt % epl == 0 and geo.grid_y * geo.dt == D
+    assert geo.threads % 32 == 0
+    # slices of 32 rows, of lengths as a plan sorts them, to all the warps
+    # of a column slice: each slice (so each row) once
+    n_slices = -(-n_rows // 32)
+    widths = np.sort(np.random.default_rng(n_rows).zipf(1.5, n_slices))[::-1]
+    slices, starts = temb._lpt(widths, geo.grid_x * geo.threads // 32)
+    assert starts[0] == 0 and starts[-1] == n_slices and np.all(np.diff(starts) >= 0)
+    assert np.array_equal(np.sort(slices), np.arange(n_slices))
+
+
+@pytest.mark.parametrize("n_rows, D, epl", GEOMETRIES)
+def test_scatter_geometry_fits_the_budget_the_c_side_checks(n_rows, D, epl):
+    geo = temb._scatter_geo(n_rows, N_BAGS, D, epl)
+    assert geo.threads % 32 == 0 and 32 <= geo.threads <= temb._SCATTER_THREADS
+    assert geo.smem_bytes <= temb._SCATTER_SMEM_BYTES
+    assert temb._smem_stride(geo.dt) % min(4, geo.dt) == 0  # aligned reads
+    assert geo.grid_y <= 65535 and geo.grid_x >= 1
+    # all of g's slice fits: one pass, and no wider slice would
+    assert geo.chunk_bags == N_BAGS and geo.passes(N_BAGS) == 1
+    wider = [t for t in (16, 8, 4, 2) if t > geo.dt and D % t == 0 and t % epl == 0]
+    assert all(N_BAGS * temb._smem_stride(t) * 4 > temb._SCATTER_SMEM_BYTES
+               for t in wider)
+
+
+def test_scatter_geometry_at_the_training_and_nb_shapes():
+    # g [11314, 128] f32: 4 columns a block (181 KB), 32 slices; one block
+    # an SM, 4 blocks a slice on 132 SMs
+    assert temb._scatter_geo(65537, N_BAGS, 128, 4) == temb.ScatterGeometry(
+        4, 4, 1024, N_BAGS, 4, 32)
+    nb = temb._scatter_geo(20 * 65537, N_BAGS, 1, 1, blocks_per_sm=2)
+    assert (nb.dt, nb.grid_x, nb.grid_y, nb.smem_bytes) == (1, 264, 1, 4 * N_BAGS)
+
+
+def test_scatter_geometry_constants_match_the_c_side():
+    import re
+
+    from pio_tpu_torch.ops import _build
+
+    src = (_build.CSRC / _build.SOURCES["embedding_bag_bwd"]).read_text()
+    threads = re.search(r"kScatterThreads = (\d+);", src).group(1)
+    smem = re.search(r"kScatterSmemBytes = (\d+) \* 1024;", src).group(1)
+    assert int(threads) == temb._SCATTER_THREADS
+    assert int(smem) * 1024 == temb._SCATTER_SMEM_BYTES
+    above, pad = map(int, re.search(
+        r"return dt > (\d+) \? dt \+ (\d+) : dt;", src).groups())
+    for dt in (16, 8, 4, 2, 1):
+        assert temb._smem_stride(dt) == (dt + pad if dt > above else dt)
+
+
+def test_scatter_geometry_takes_fewer_threads_and_blocks_for_few_rows():
+    geo = temb._scatter_geo(1000, 64, 128, 4)
+    assert (geo.dt, geo.threads, geo.grid_x, geo.grid_y) == (16, 1024, 1, 8)
+    geo = temb._scatter_geo(40, 64, 128, 4)
+    assert (geo.threads, geo.grid_x) == (64, 1)
+
+
+def test_scatter_geometry_takes_passes_when_g_does_not_fit():
+    geo = temb._scatter_geo(65537, 100_000, 128, 4)
+    # the narrowest slice the copy width allows, chunks of g that fill the
+    # shared memory
+    assert geo.dt == 4 and geo.chunk_bags == temb._SCATTER_SMEM_BYTES // 16
+    assert geo.passes(100_000) == 7 and geo.smem_bytes <= temb._SCATTER_SMEM_BYTES
+
+
+@pytest.mark.parametrize("args", [(0, 8, 16, 4), (5, 8, 16, 3), (5, 8, 6, 4), (5, -1, 16, 4)])
+def test_scatter_geometry_rejects_what_the_kernel_cannot_run(args):
+    with pytest.raises(ValueError, match="no scatter geometry"):
+        temb._scatter_geo(*args)
+
+
+def _walk(plan, g, w, geo):
+    """numpy model of kernel A as the geometry launches it: the records
+    gathered by ``cell_src``; a pass a chunk of bags; in each, every warp walks
+    its scheduled slices, lane i the row at position 32 s + i, through that
+    row's cells of the pass. Returns d_table (f32) and how often each flat
+    slot was added in each column slice."""
+    rows, lens, so, rec_slot = (t.numpy() for t in (
+        plan.rows, plan.lens, plan.slice_offsets, plan.cell_src))
+    n_rows, (B, D), L = plan.n_rows, g.shape, plan.shape[1]
+    flat_w = w.reshape(-1)
+    passes = geo.passes(B)
+    starts = (temb._pass_starts(plan, B, geo.chunk_bags).numpy()
+              if passes > 1 else np.zeros((0, n_rows), np.int32))
+    bounds = [np.zeros(n_rows, np.int64), *starts, lens]
+    warps = geo.grid_x * geo.threads // 32
+    slices, warp_starts = temb._lpt(lens[::32], warps)
+    acc = np.zeros((n_rows, D), np.float32)
+    visits = np.zeros((B * L, geo.grid_y), np.int64)
+    for p in range(passes):
+        b_lo = p * geo.chunk_bags
+        b_hi = min(B, b_lo + geo.chunk_bags)
+        written = np.zeros((n_rows, D), np.int64)
+        for y in range(geo.grid_y):
+            cols = slice(y * geo.dt, (y + 1) * geo.dt)
+            for wp in range(warps):
+                for s in slices[warp_starts[wp]:warp_starts[wp + 1]]:
+                    for pos in range(32 * s, min(n_rows, 32 * s + 32)):
+                        row = rows[pos]
+                        for j in range(bounds[p][pos], bounds[p + 1][pos]):
+                            slot = rec_slot[so[s] + 32 * j + pos % 32]
+                            bag = slot // L
+                            assert b_lo <= bag < b_hi  # staged this pass
+                            acc[row, cols] += flat_w[slot] * g[bag, cols]
+                            visits[slot, y] += 1
+                        written[row, cols] += 1
+        assert (written == 1).all()
+    return acc, visits
+
+
+def _walk_case(pattern):
+    """(g, ids, w, n_rows, vec, chunk_bags or None, most threads a block)"""
+    if pattern == "nb":
+        _, ids, w, _ = _case(12)
+        keys = ((np.arange(B) % 3)[:, None] * V + ids).astype(np.int32)
+        return np.ones((B, 1), np.float32), keys, w, 3 * V, 1, None, 1024
+    sizes = {"bags": dict(), "passes": dict(B=30), "narrow": dict(D=20),
+             "unaligned": dict(D=130), "blocks": dict(V=300, B=40, L=16, D=16),
+             "heavy-row": dict(V=30, B=40, L=16, D=16)}[pattern]
+    _, ids, w, g = _case(15, **sizes)
+    if pattern == "heavy-row":
+        ids[:, ::2] = 7  # 320 slots on row 7, a few on the others
+    vec = {"unaligned": 2}.get(pattern, 4)
+    chunk = {"passes": 7, "heavy-row": 9}.get(pattern)
+    threads = 64 if pattern == "blocks" else 1024
+    return g, ids, w, sizes.get("V", V), vec, chunk, threads
+
+
+@pytest.mark.parametrize("pattern", ["bags", "passes", "narrow", "unaligned",
+                                     "blocks", "heavy-row", "nb"])
+def test_scatter_walk_adds_every_slot_once_a_slice_and_equals_plain(pattern):
+    g, ids, w, n_rows, vec, chunk, threads = _walk_case(pattern)
+    plan = temb.bag_plan(torch.from_numpy(ids), torch.from_numpy(w), n_rows)
+    geo = temb._scatter_geo(n_rows, g.shape[0], g.shape[1], vec, threads=threads)
+    if chunk:
+        geo = geo._replace(chunk_bags=chunk)
+        assert geo.passes(g.shape[0]) > 1
+    if pattern == "blocks":
+        assert geo.grid_x > 1
+    out, visits = _walk(plan, g, w, geo)
+    assert (visits[w.reshape(-1) != 0] == 1).all() and not visits[w.reshape(-1) == 0].any()
+    want = temb.embedding_bag_backward_table_plain(
+        torch.from_numpy(g), torch.from_numpy(ids), torch.from_numpy(w), n_rows)
+    # the same f32 products, summed in the plan's (b, l) order
+    np.testing.assert_allclose(out, want.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_pass_starts_split_each_row_at_the_chunk_bounds():
+    _, ids, w, _ = _case(16, V=9, B=40, L=12)
+    plan = temb.bag_plan(torch.from_numpy(ids), torch.from_numpy(w), 9)
+    starts = temb._pass_starts(plan, 40, 15).numpy()  # passes 0-14, 15-29, 30-39
+    assert starts.shape == (2, 9) and starts.dtype == np.int32
+    bags, offsets = plan.bags.numpy(), plan.offsets.numpy()
+    for pos, row in enumerate(plan.rows.numpy()):
+        mine = bags[offsets[row]:offsets[row + 1]]
+        for p, bound in enumerate((15, 30)):
+            assert starts[p, pos] == np.count_nonzero(mine < bound)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_bag_plan_cells_hold_each_rows_slots_in_order(seed):
+    _, ids, w, _ = _case(seed, V=70, B=30, L=12)  # three slices, the last short
+    plan = temb.bag_plan(torch.from_numpy(ids), torch.from_numpy(w), 70)
+    order, offsets, rows, lens, so, src = (t.numpy() for t in (
+        plan.order, plan.offsets, plan.rows, plan.lens, plan.slice_offsets,
+        plan.cell_src))
+    assert all(t.dtype == torch.int32 for t in plan[:7])
+    assert len(so) == 4 and so[0] == 0 and so[-1] == plan.n_cells == len(src)
+    np.testing.assert_array_equal(lens, np.diff(offsets)[rows])
+    filled = np.zeros(len(src), bool)
+    for pos, row in enumerate(rows):
+        s, i = divmod(pos, 32)
+        assert so[s + 1] - so[s] == 32 * lens[32 * s]  # as wide as its first row
+        q = so[s] + 32 * np.arange(lens[pos]) + i
+        # the row's slots in (b, l) order
+        np.testing.assert_array_equal(src[q], order[offsets[row]:offsets[row + 1]])
+        filled[q] = True
+    assert (src[~filled] == -1).all()
+
+
+def test_lpt_schedule_balances_skewed_slices():
+    # a few slices as wide as a warp's share, many narrow ones (the main
+    # path's bags: rows of up to 576 slots, 36 on average)
+    widths = np.sort(np.concatenate([np.arange(576, 300, -9), np.full(2000, 30)]))[::-1]
+    slices, starts = temb._lpt(widths, 128)
+    work = np.array([widths[slices[a:b]].sum() + temb._SLICE_OVERHEAD * (b - a)
+                     for a, b in zip(starts[:-1], starts[1:])])
+    assert np.array_equal(np.sort(slices), np.arange(len(widths)))
+    assert work.max() <= work.mean() + widths.max() + temb._SLICE_OVERHEAD
+    assert work.max() <= 1.1 * max(work.mean(), widths.max() + temb._SLICE_OVERHEAD)
+
+
+def test_schedule_is_built_once_for_each_count_of_warps():
+    _, ids, w, _ = _case(3)
+    plan = temb.bag_plan(torch.from_numpy(ids), torch.from_numpy(w), V)
+    first = temb._schedule(plan, 4)
+    assert temb._schedule(plan, 4) is first and set(plan.schedules) == {4}
+    assert temb._schedule(plan, 8)[1].numel() == 9
 
 
 @pytest.mark.parametrize("n_bags, D, epl", GEOMETRIES)
 def test_dot_geometry_gives_each_bag_one_warp(n_bags, D, epl):
-    geo = temb._bwd_geometry(n_bags, D, epl, True)
+    geo = temb._bwd_geometry(n_bags, D, epl)
     per_block = geo.threads // 32
     assert geo.grid_x * per_block >= n_bags > (geo.grid_x - 1) * per_block
     assert geo.group_lanes == min(32, 1 << max(0, -(-D // epl) - 1).bit_length())
@@ -272,15 +487,19 @@ def _fake_cuda(monkeypatch, err, calls):
 
 
 @pytest.mark.parametrize("err", [0, 700])
-def test_scatter_launch_passes_plan_and_geometry(monkeypatch, err):
-    # g, weights, order, offsets, out; n_rows, L, D; the geometry's 4 ints;
-    # the stream
+@pytest.mark.parametrize("chunk", [None, 2], ids=["one-pass", "passes"])
+def test_scatter_launch_passes_plan_and_geometry(monkeypatch, err, chunk):
+    # g, weights, cell_src, rows, lens, slice_offsets, warp_slices,
+    # warp_starts, j_starts, rec, partial, out; n_rows, B, L, D, n_cells; the
+    # geometry's 6 ints; the stream — the order the C entry reads them
     calls = []
     _fake_cuda(monkeypatch, err, calls)
     _, ids, w, g = _case()
     ids_t, w_t = torch.from_numpy(ids), torch.from_numpy(w)
     plan = temb.bag_plan(ids_t, w_t, V)
-    geo = temb._bwd_geometry(V, D, 4, False)
+    geo = temb._scatter_geo(V, B, D, 4)
+    if chunk:
+        geo = geo._replace(chunk_bags=chunk)
     g_t = torch.from_numpy(g)
     if err:
         with pytest.raises(RuntimeError, match="CUDA error 700"):
@@ -289,10 +508,17 @@ def test_scatter_launch_passes_plan_and_geometry(monkeypatch, err):
         out = temb._launch_scatter(g_t, w_t, plan, torch.bfloat16, geo)
         assert out.shape == (V, D) and out.dtype == torch.bfloat16
     (args,) = calls
-    assert len(args) == 13
-    assert args[:4] == (g_t.data_ptr(), w_t.data_ptr(), plan.order.data_ptr(),
-                        plan.offsets.data_ptr())
-    assert args[5:8] == (V, L, D) and args[8:12] == tuple(geo) and args[12] == 7
+    assert len(args) == 24
+    slices, warp_starts = plan.schedules[geo.grid_x * geo.threads // 32]
+    assert args[:8] == (g_t.data_ptr(), w_t.data_ptr(), plan.cell_src.data_ptr(),
+                        plan.rows.data_ptr(), plan.lens.data_ptr(),
+                        plan.slice_offsets.data_ptr(), slices.data_ptr(),
+                        warp_starts.data_ptr())
+    # j_starts and partial only for more than one pass; rec scratch, out
+    assert (args[8] != 0) == (args[10] != 0) == bool(chunk)
+    assert args[9] not in args[:9] and args[11] not in args[:11]
+    assert args[12:17] == (V, B, L, D, plan.n_cells)
+    assert args[17:23] == tuple(geo) and args[23] == 7
     assert temb.BACKWARD_TABLE_LAUNCHES == (0 if err else 1)
     assert temb.BACKWARD_WEIGHTS_LAUNCHES == 0
 
@@ -304,7 +530,7 @@ def test_dot_launch_passes_geometry(monkeypatch, err):
     _fake_cuda(monkeypatch, err, calls)
     table, ids, _, g = _case()
     t, ids_t, g_t = (torch.from_numpy(a) for a in (table, ids, g))
-    geo = temb._bwd_geometry(B, D, 4, True)
+    geo = temb._bwd_geometry(B, D, 4)
     if err:
         with pytest.raises(RuntimeError, match="CUDA error 700"):
             temb._launch_dot(g_t, t, ids_t, geo)
@@ -371,6 +597,9 @@ CARD_SHAPES = [
     pytest.param(16, 64, 1000, 128, False, "one-row", id="every-slot-one-row"),
     pytest.param(3, 7, 1000, 130, True, "", id="unaligned-view"),
     pytest.param(32, 16, 3000, 1, False, "", id="one-column"),
+    # one row of 375 slots among light rows, over three chunks of g (the
+    # main path's bags: 35.6 slots a row, at most 576)
+    pytest.param(1500, 32, 1000, 128, False, "heavy-row", id="heavy-row-among-light"),
 ]
 
 
@@ -386,6 +615,8 @@ def _card_case(dev, B, Lc, Vc, Dc, view, pattern, dtype):
         w[1] = 0.0
     if pattern == "one-row":
         ids[:] = 7
+    if pattern == "heavy-row":
+        ids[::4, 0] = 7
     gfull = torch.from_numpy(rng.standard_normal((B + 1, Dc), dtype=np.float32)).to(dev)
     g = gfull[1:] if view else gfull[:B]
     return table, torch.from_numpy(ids).to(dev), torch.from_numpy(w).to(dev), g
