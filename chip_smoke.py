@@ -27,18 +27,18 @@ kernels (the forward, and the backward's bag scatter and bag dot):
    against their plain versions at the training shape (11314 bags of 256
    slots over the f32 and bf16 tables), the NB shape (one column over
    20 x 65537 rows) and the edge shapes, each twice for the same bits and
-   timed (kernel, plain version, the library's autograd, the bound; for
-   the bag scatter also the bytes its tiling moves through L2 and their
-   rate); time the bag scatter at D = 32, 64 and 128 over the same slots;
-   then drive both gradients through the port's differentiable
-   ``embedding_bag``;
+   timed (kernel, plain version, the library's autograd, the bound, the
+   bytes each design moves through L2 and their rate); time both kernels
+   at D = 32, 64 and 128 over the same slots; then drive both gradients
+   through the port's differentiable ``embedding_bag``;
 9. ingest a synthetic 20-label corpus of 11314 documents (the size of the
    public 20 Newsgroups train split) as ``$set`` events, ``run_train`` the
    ``mlp`` (200 full-batch Adam steps) and ``nb`` algorithms on the card,
    split one training step into its parts (CUDA events), hold 5
    training steps through the kernels against 5 through the plain versions
-   from the same initial parameters, and time the bag scatter on the
-   prepared bags (their slots a row printed) against its plain version;
+   from the same initial parameters, and time the bag scatter and the bag
+   dot on the prepared bags (their slots a row printed) against their
+   plain versions;
 10. ``load_models_for_instance`` and serve the trained models through the
    query server, checked against a CPU copy of the same persisted blob.
 
@@ -170,6 +170,20 @@ PREV_D_SWEEP_MS = {32: 0.06061, 64: 0.10552, 128: 0.18978}
 # widths of the D sweep: a kernel bound by bytes takes time in proportion
 # to D, one bound by latency about the same time at each
 SWEEP_D = (32, 64, 128)
+# device ms of kernel B's first design (one warp a bag, a 5-step butterfly
+# a slot), measured by this script at commit 9818f09 on an NVIDIA H100
+# 80GB HBM3 at 700 W. Printed for comparison on a line of its own, never in
+# the kernels' JSON line.
+PREV_DOT_MS = {"training f32": 0.3026, "training bf16": 0.2855}
+# shapes the backward kernels treat apart: name -> (B, L, D, table and g
+# are row views one row in, pattern)
+BWD_EDGE_SHAPES = {
+    "one slot": (1, 1, 128, False, ""),
+    "no bags": (0, 8, 128, False, ""),
+    "zero-weight bag": (4, 16, 128, False, "zero-bag"),
+    "every slot on one row": (16, 64, 128, False, "one-row"),
+    "unaligned row view": (3, 7, 130, True, ""),
+}
 #: the launch counters of embedding.py, by kernel name
 COUNTERS = {
     "embedding_bag": "KERNEL_LAUNCHES",
@@ -603,6 +617,21 @@ def slots_a_row(plan) -> dict:
             "slots_a_row_max": int(per_row.max())}
 
 
+def dot_gathered_bytes(B: int, L: int, D: int, elem_bytes: int, g_rows: int) -> int:
+    """Bytes kernel B moves through L2: a table row for every slot, weight
+    0 or not; the ids and d_w once; ``g_rows`` rows of g."""
+    return B * L * (D * elem_bytes + 8) + g_rows * D * 4
+
+
+def dot_g_rows(geo, B: int, L: int, D: int) -> int:
+    """Rows of g kernel B reads: one a warp where one pass of its lanes
+    covers a row, else one a round of slots (each pass its slice)."""
+    if D <= geo.group_lanes * geo.epl:
+        return geo.warps(B, L)
+    per_round = 32 // geo.group_lanes * min(geo.group_lanes, embedding._DOT_PARTIALS)
+    return B * -(-L // per_round)
+
+
 def dot_bound(ids: np.ndarray, D: int, elem_bytes: int) -> dict:
     """d_w: ids, each g row and each distinct table row of any slot (weight
     0 or not) read once, d_w written once; one multiply-add per slot and
@@ -715,7 +744,10 @@ def check_dot(name, g, table, ids, w) -> dict:
     if bool(zero.any()) and B * L * D and not bool(out[zero].ne(0).any()):
         raise AssertionError(f"{name}: every weight-0 slot got d_w = 0")
     if B * L * D:
-        row["geometry"] = embedding._dot_geometry(g, table)._asdict()
+        geo = embedding._dot_geometry(g, table, L)
+        row["geometry"] = geo._asdict()
+        row["gathered_bytes"] = dot_gathered_bytes(
+            B, L, D, table.element_size(), dot_g_rows(geo, B, L, D))
     fns = {"kernel_ms": run, "plain_ms": plain}
     # PyTorch's CUDA backward of per-sample weights has no bf16 version,
     # and the library takes no empty batch of bags
@@ -727,8 +759,30 @@ def check_dot(name, g, table, ids, w) -> dict:
             lib_out, [w_lib], g, retain_graph=True)
     row.update({"library_ms": None, **timed_in_turns(fns)})
     row.update(dot_bound(ids.cpu().numpy(), D, table.element_size()))
+    if "gathered_bytes" in row:
+        row["gathered_tb_s"] = row["gathered_bytes"] / row["kernel_ms"] / 1e9
+        row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
     log(f"  dot {json.dumps(row)}")
+    if name in PREV_DOT_MS:
+        log(f"  recorded, not measured in this run: kernel B's first design "
+            f"{name} kernel_ms {PREV_DOT_MS[name]} (commit 9818f09, "
+            f"NVIDIA H100 80GB HBM3 at 700 W)")
     return row
+
+
+def dot_d_sweep(g, table, ids) -> dict:
+    """Kernel B over the same slots at each width of SWEEP_D (the first
+    columns of ``g`` and the table), in turns: device ms by D."""
+    cols = {D: (g[:, :D].contiguous(), table[:, :D].contiguous()) for D in SWEEP_D}
+    for D, (gD, tD) in cols.items():
+        max_err(f"kernel B D sweep, D = {D}",
+                embedding.embedding_bag_backward_weights(gD, tD, ids),
+                embedding.embedding_bag_backward_weights_plain(gD, tD, ids),
+                BWD_TOL * D ** 0.5)
+    times = timed_in_turns({D: (lambda gD=gD, tD=tD: embedding.embedding_bag_backward_weights(
+        gD, tD, ids)) for D, (gD, tD) in cols.items()})
+    return {"kernel_ms_by_D": times,
+            "ms_128_over_32": times[SWEEP_D[-1]] / times[SWEEP_D[0]]}
 
 
 def card_tensors(dev, *arrays):
@@ -754,6 +808,8 @@ def phase_backward(rng, dev) -> dict:
         f"NVIDIA H100 80GB HBM3 at 700 W)")
     dot = [check_dot("training f32", g, table, ids, w),
            check_dot("training bf16", g, table.to(torch.bfloat16), ids, w)]
+    log("  kernel B, D sweep over the training slots: "
+        + json.dumps(dot_d_sweep(g, table, ids)))
     C = len(LABELS)
     y = rng.integers(0, C, size=B)
     keys = torch.from_numpy((y[:, None] * V + ids_np).astype(np.int32)).to(dev)
@@ -761,32 +817,29 @@ def phase_backward(rng, dev) -> dict:
     scatter.append(check_scatter("nb feature sums", ones, keys, w, C * V,
                                  torch.float32))
     log("  edge shapes")
-    edges = {
-        "one slot": (1, 1, 128, False, ""),
-        "no bags": (0, 8, 128, False, ""),
-        "zero-weight bag": (4, 16, 128, False, "zero-bag"),
-        "every slot on one row": (16, 64, 128, False, "one-row"),
-        "unaligned row view": (3, 7, 130, True, ""),
-    }
     for dtype in (torch.float32, torch.bfloat16):
-        for name, (Be, Le, De, view, pattern) in edges.items():
-            full = torch.from_numpy(
-                rng.standard_normal((1001, De), dtype=np.float32)).to(dev, dtype)
-            tab = full[1:] if view else full[:1000]
-            e_ids, e_w = random_bags(rng, Be, Le, 1000)
-            if pattern == "zero-bag":
-                e_w[1] = 0.0
-            if pattern == "one-row":
-                e_ids[:] = 7
-            gfull = torch.from_numpy(
-                rng.standard_normal((Be + 1, De), dtype=np.float32)).to(dev)
-            e_g = gfull[1:] if view else gfull[:Be]
-            e_ids_t, e_w_t = card_tensors(dev, e_ids, e_w)
+        for name, spec in BWD_EDGE_SHAPES.items():
+            e_g, tab, e_ids, e_w = bwd_edge_case(rng, dev, dtype, *spec)
             label = f"{name} {str(dtype)[6:]}"
-            check_scatter(label, e_g, e_ids_t, e_w_t, 1000, dtype)
-            check_dot(label, e_g, tab, e_ids_t, e_w_t)
+            check_scatter(label, e_g, e_ids, e_w, 1000, dtype)
+            check_dot(label, e_g, tab, e_ids, e_w)
     autograd = phase_autograd(table, ids, w, g)
     return {"scatter": scatter, "dot": dot, "autograd": autograd}
+
+
+def bwd_edge_case(rng, dev, dtype, B, L, D, view, pattern):
+    """(g, table, ids, weights) on the card for one of BWD_EDGE_SHAPES: a
+    [1000, D] table of ``dtype``, random bags over it."""
+    full = torch.from_numpy(
+        rng.standard_normal((1001, D), dtype=np.float32)).to(dev, dtype)
+    table = full[1:] if view else full[:1000]
+    ids, w = random_bags(rng, B, L, 1000)
+    if pattern == "zero-bag":
+        w[1] = 0.0
+    if pattern == "one-row":
+        ids[:] = 7
+    gfull = torch.from_numpy(rng.standard_normal((B + 1, D), dtype=np.float32)).to(dev)
+    return (gfull[1:] if view else gfull[:B], table, *card_tensors(dev, ids, w))
 
 
 def phase_autograd(table, ids, w, g) -> dict:
@@ -870,7 +923,12 @@ def phase_train(args, dev):
     g = torch.from_numpy(np.random.default_rng(args.seed + 3).standard_normal(
         (len(pd.ids), HIDDEN), dtype=np.float32)).to(dev)
     main_bags = check_scatter("main path bags f32", g, *bags[:2], V, torch.float32)
-    return engine, ep, iid, pd, loss0, launches, step, main_bags
+    # kernel B on the same bags, every slot (padding too), over a table
+    # made from the seed
+    table = torch.from_numpy(np.random.default_rng(args.seed + 4).standard_normal(
+        (V, HIDDEN), dtype=np.float32)).to(dev)
+    main_dot = check_dot("main path bags f32", g, table, *bags[:2])
+    return engine, ep, iid, pd, loss0, launches, step, main_bags, main_dot
 
 
 def step_parts(params0, ids, w, y, steps: int = 10, warmup: int = 3) -> dict:
@@ -1061,8 +1119,10 @@ def main(argv=None) -> int:
                                w[:1].copy(), TOL[torch.float32]))
 
     backward = phase_backward(rng, dev)
-    engine, ep, iid, pd, loss0, train_launches, _, main_bags = phase_train(args, dev)
+    engine, ep, iid, pd, loss0, train_launches, _, main_bags, main_dot = \
+        phase_train(args, dev)
     backward["scatter"].append(main_bags)
+    backward["dot"].append(main_dot)
     trained_launches = phase_serve_trained(args, engine, ep, iid, pd, loss0)
     autograd = backward["autograd"]
     log(f"main-path launches: serving {http_launches} + {batch_launches}, "

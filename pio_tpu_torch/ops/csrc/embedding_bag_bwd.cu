@@ -64,15 +64,29 @@
 //    row's slots of a chunk run from the plan's pass starts, and its sums
 //    go to f32 scratch between launches, so the order is the same.
 //
-// Kernel B computes each d_w element in one group of lanes, one warp a bag:
-// each lane sums its columns in order, then an xor-shuffle butterfly joins
-// the lanes of the group. It must read every slot, weight 0 or not: the
-// derivative with respect to a zero weight is not zero. Each lane moves EPL
-// elements (4, 2 or 1) as one load; kUnroll slots are loaded before any is
-// used, so their row loads are in flight together.
+// Kernel B's design: the slots' row loads back to back, and one shuffle a
+// slot. Its work is a table row a slot, every slot read, weight 0 or not:
+// the derivative with respect to a zero weight is not zero.
+//  - The first version (one warp a bag, 8 rows in flight) spent 30% of its
+//    time (40% in bf16) on a 5-step butterfly a slot, whose sum every lane
+//    got and one stored, and waited each round for its 8 ids before it
+//    could load their rows. It took as long in bf16 as in f32: per-slot
+//    work, not bytes, bound it (PERF.md).
+//  - Now a warp walks `span` slots of a bag, 32 ids at a time, the next 32
+//    loaded while the rows of these are read. A round of 8 slots a lane
+//    group has all 8 rows in flight; a transpose-reduce joins the lanes in
+//    9 shuffles for the 8 slots, and each sum is stored once.
+//  - g's row is loaded once a warp and held in registers where one pass
+//    covers it. bf16 rows load 16 bytes a lane, as f32 rows do.
+//  - The launch bounds hold a thread to 64 registers (a few spill to L1):
+//    32 warps an SM, 256 rows in flight. Fewer warps with more registers
+//    timed slower on the H100. Both types now move about 7.7 TB/s through
+//    L2 at uniform ids, and more at the main path's (repeated rows hit L1):
+//    what bounds it is the L2's rate for random rows, which no sum order
+//    changes.
 //
 // Launch geometry is chosen on the host (embedding.py: _scatter_geometry for
-// A, _bwd_geometry for B) and launched as given; the entry points only
+// A, _dot_geometry for B) and launched as given; the entry points only
 // check it.
 //
 // Element types: f32 and bf16 tables (B widens them to f32 exactly; A rounds
@@ -97,7 +111,7 @@ using pio_bag::to_f32;
 // most threads a block of the bag scatter; the launch bounds hold a thread
 // to 64 registers, so that one block of 1024 fills an SM
 constexpr int kScatterThreads = 1024;
-// slots whose rows (B) or records (A) a thread has in flight
+// slots whose records a thread of kernel A has in flight
 constexpr int kUnroll = 8;
 
 // floats between two bags' columns in the g buffer: DT, padded by 16 bytes
@@ -251,72 +265,142 @@ __global__ void __launch_bounds__(kScatterThreads)
 }
 
 // ---------------------------------------------------------- B. bag dot
-// most threads a block; the launch bounds let ptxas give a thread the
-// registers that kUnroll rows in flight take
-constexpr int kMaxThreads = 256;
+// threads a block of the bag dot, and blocks an SM must hold: the launch
+// bounds give a thread 64 registers, 32 warps an SM
+constexpr int kDotThreads = 256;
+constexpr int kDotMinBlocks = 4;
+// most partial sums a lane holds: the slots of a lane group a round, all
+// of whose rows a lane has in flight at once
+constexpr int kDotPartials = 8;
 
-template <typename T, int EPL>
-__global__ void __launch_bounds__(kMaxThreads)
+// The lanes of a group of G hold NP partial sums each, partial k of lane j
+// over lane j's columns of slot k. Recursive halving: at each of log2(NP)
+// steps a lane keeps one half of its partials, sends the other half to
+// the lane `o` apart and adds what that lane sent; then butterfly steps
+// join the lanes that hold the same slot. Lane j ends with the full sum
+// of slot j / (G / NP): at G = 32 and NP = 8, 4 + 2 + 1 + 1 + 1 = 9
+// shuffles for 8 slots, where a butterfly a slot takes 40. Each sum is
+// formed in one lane, in a fixed order.
+template <int G, int NP>
+__device__ __forceinline__ float transpose_reduce(float (&p)[NP], int j) {
+#pragma unroll
+  for (int step = 0; (1 << step) < G; ++step) {
+    const int o = G >> (step + 1);
+    const int m = NP >> step;  // partials a lane still holds
+    if (m > 1) {
+      const bool upper = (j & o) != 0;
+#pragma unroll
+      for (int i = 0; i < m / 2; ++i) {
+        const float send = upper ? p[i] : p[i + m / 2];
+        const float keep = upper ? p[i + m / 2] : p[i];
+        p[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+      }
+    } else {
+      p[0] += __shfl_xor_sync(0xffffffffu, p[0], o);
+    }
+  }
+  return p[0];
+}
+
+// v = EPL floats at p (aligned to min(16, 4 EPL) bytes) where pred, in
+// loads of at most 16 bytes
+template <int EPL>
+__device__ __forceinline__ void load_floats(float (&v)[EPL], const float* p,
+                                            bool pred) {
+  constexpr int P = EPL < 4 ? EPL : 4;  // floats a load
+  using Raw = typename RawVec<P * sizeof(float)>::type;
+#pragma unroll
+  for (int q = 0; q < EPL; q += P) {
+    Raw r = Raw{};
+    load_if(r, p + q, pred);
+    memcpy(v + q, &r, sizeof(Raw));
+  }
+}
+
+// One warp walks `span` slots of one bag: warp w is bag w / spans_per_bag,
+// slots from (w % spans_per_bag) * span to the bag's end at most. It takes
+// them 32 at a time: lane i loads the id of slot i of the next 32 while
+// the rows of these 32 are read, so no id load waits in front of a row
+// load, and puts them in shared memory for the groups. A round is S =
+// (32 / G) * NP of those slots: group q of G lanes takes NP of them, lane
+// j of the group reading columns j * EPL, + G * EPL, ... of each row (one
+// load of EPL elements a row and pass), all NP rows in flight, and
+// summing g[bag, c] * row[c] in column order into partial k. g's row is
+// loaded once a warp where one pass covers it. transpose_reduce leaves
+// each slot's sum in the first of the lanes that hold it, which stores it.
+template <typename T, int EPL, int G>
+__global__ void __launch_bounds__(kDotThreads, kDotMinBlocks)
     bag_dot_kernel(const T* __restrict__ table,
                    const int32_t* __restrict__ ids,
-                   const float* __restrict__ g, float* __restrict__ out, int B,
-                   int L, int D, int group_lanes) {
+                   const float* __restrict__ g, float* __restrict__ out,
+                   int64_t warps, int spans_per_bag, int span, int L, int D) {
+  constexpr int NP = G < kDotPartials ? G : kDotPartials;
+  constexpr int S = kWarp / G * NP;  // slots a round, at most 32
+  constexpr int kCols = G * EPL;     // columns a pass over a row
+  constexpr int kCopies = G / NP;    // lanes that end with the same slot
   using RawT = typename RawVec<EPL * sizeof(T)>::type;
-  using RawG = typename RawVec<EPL * sizeof(float)>::type;
-  const int warp = threadIdx.x / kWarp;
+  __shared__ __align__(16) int32_t warp_ids[kDotThreads / kWarp][kWarp];
   const int lane = threadIdx.x % kWarp;
-  const int64_t bag =
-      static_cast<int64_t>(blockIdx.x) * (blockDim.x / kWarp) + warp;
-  if (bag >= B) return;  // uniform over the warp
-  const int groups = kWarp / group_lanes;
-  const int group = lane / group_lanes;
-  const int col0 = (lane % group_lanes) * EPL;
+  const int64_t w = static_cast<int64_t>(blockIdx.x) * (blockDim.x / kWarp) +
+                    threadIdx.x / kWarp;
+  if (w >= warps) return;  // uniform over the warp
+  const int64_t bag = w / spans_per_bag;
+  const int begin = static_cast<int>(w - bag * spans_per_bag) * span;
+  const int end = L - begin < span ? L : begin + span;
   const int32_t* bag_ids = ids + bag * L;
   const float* bag_g = g + bag * D;
   float* bag_out = out + bag * L;
+  int32_t* const my_ids = warp_ids[threadIdx.x / kWarp];
+  const int j = lane % G;
+  const int s0 = lane / G * NP;  // the group's first slot in a round
 
-  // the bound is uniform over the warp, so every lane reaches each shuffle
-  for (int base = 0; base < L; base += kUnroll * groups) {
-    int32_t id[kUnroll];
-    bool in[kUnroll];
+  float gv[EPL];  // this lane's columns of g, for the one pass
+  load_floats(gv, bag_g + j * EPL, D <= kCols && j * EPL < D);
+  int32_t next = begin + lane < end ? __ldg(bag_ids + begin + lane) : 0;
+  for (int c0 = begin; c0 < end; c0 += kWarp) {
+    __syncwarp();  // the last 32 ids are read
+    my_ids[lane] = next;
+    __syncwarp();
+    const int n = end - c0 < kWarp ? end - c0 : kWarp;  // slots of these 32
+    if (c0 + kWarp + lane < end) next = __ldg(bag_ids + c0 + kWarp + lane);
+    for (int r0 = 0; r0 < n; r0 += S) {
+      float p[NP];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int l = base + u * groups + group;
-      in[u] = l < L;
-      id[u] = in[u] ? __ldg(bag_ids + l) : 0;
-    }
-    float part[kUnroll];
+      for (int k = 0; k < NP; ++k) p[k] = 0.f;
+      // no shuffle in this loop: lanes past D leave it early
+      for (int c = j * EPL; c < D; c += kCols) {
+        if (D > kCols) load_floats(gv, bag_g + c, true);
+        int32_t id[NP];
+        if constexpr (NP % 4 == 0) {
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) part[u] = 0.f;
-    for (int c = col0; c < D; c += group_lanes * EPL) {
-      RawG gr = RawG{};
-      load_if(gr, bag_g + c, true);
-      const float* gv = reinterpret_cast<const float*>(&gr);
-      RawT r[kUnroll];
+          for (int q = 0; q < NP; q += 4) {
+            const int4 v = *reinterpret_cast<const int4*>(my_ids + r0 + s0 + q);
+            id[q] = v.x;
+            id[q + 1] = v.y;
+            id[q + 2] = v.z;
+            id[q + 3] = v.w;
+          }
+        } else {
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        r[u] = RawT{};
-        load_if(r[u], table + static_cast<int64_t>(id[u]) * D + c, in[u]);
+          for (int k = 0; k < NP; ++k) id[k] = my_ids[r0 + s0 + k];
+        }
+        RawT r[NP];
+#pragma unroll
+        for (int k = 0; k < NP; ++k) {
+          const bool in = r0 + s0 + k < n;
+          r[k] = RawT{};
+          load_if(r[k], table + static_cast<int64_t>(in ? id[k] : 0) * D + c, in);
+        }
+#pragma unroll
+        for (int k = 0; k < NP; ++k) {
+          const T* v = reinterpret_cast<const T*>(&r[k]);
+#pragma unroll
+          for (int e = 0; e < EPL; ++e) p[k] += gv[e] * to_f32(v[e]);
+        }
       }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const T* v = reinterpret_cast<const T*>(&r[u]);
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) part[u] += gv[e] * to_f32(v[e]);
-      }
-    }
-    // the lanes of one group: a butterfly, the same sum in every lane
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      for (int off = group_lanes / 2; off > 0; off >>= 1) {
-        part[u] += __shfl_xor_sync(0xffffffffu, part[u], off);
-      }
-    }
-    if (col0 == 0) {
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        if (in[u]) bag_out[base + u * groups + group] = part[u];
-      }
+      const float sum = transpose_reduce<G, NP>(p, j);
+      const int s = r0 + s0 + j / kCopies;
+      if (j % kCopies == 0 && s < n) bag_out[c0 + s] = sum;
     }
   }
 }
@@ -465,38 +549,75 @@ int scatter_occupancy(int dt, int threads, int smem) {
   }
 }
 
-// Kernel B's geometry (embedding.py: BwdGeometry), as it is launched: each
-// group of `group_lanes` lanes owns one slot at a time, one warp a bag.
-struct Geometry {
-  int epl, group_lanes, grid_x, threads;
+// Kernel B's geometry (embedding.py: DotGeometry), as it is launched:
+// elements a lane loads at once, lanes a group, slots a warp walks (a
+// multiple of 32), grid x and threads a block.
+struct DotGeometry {
+  int epl, group_lanes, span, grid_x, threads;
 };
 
-bool geometry_ok(const Geometry& g, int64_t items, int64_t items_per_block) {
-  return g.group_lanes >= 1 && g.group_lanes <= kWarp &&
-         (g.group_lanes & (g.group_lanes - 1)) == 0 && g.threads >= kWarp &&
-         g.threads % kWarp == 0 && g.threads <= kMaxThreads && g.grid_x >= 1 &&
-         static_cast<int64_t>(g.grid_x) * items_per_block >= items;
+bool dot_geometry_ok(const DotGeometry& geo, int64_t warps) {
+  const int gl = geo.group_lanes;
+  return gl >= 1 && gl <= kWarp && (gl & (gl - 1)) == 0 &&
+         geo.threads >= kWarp && geo.threads % kWarp == 0 &&
+         geo.threads <= kDotThreads && geo.grid_x >= 1 &&
+         static_cast<int64_t>(geo.grid_x) * (geo.threads / kWarp) >= warps;
+}
+
+template <typename T, int EPL, int G>
+int dot_launch(const T* table, const int32_t* ids, const float* g, float* out,
+               int64_t warps, int spans_per_bag, int L, int D,
+               const DotGeometry& geo, cudaStream_t stream) {
+  bag_dot_kernel<T, EPL, G><<<geo.grid_x, geo.threads, 0, stream>>>(
+      table, ids, g, out, warps, spans_per_bag, geo.span, L, D);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int EPL>
 int dot_epl(const void* table, const void* ids, const void* g, void* out,
-            int B, int L, int D, const Geometry& geo, cudaStream_t stream) {
-  if (!geometry_ok(geo, B, geo.threads / kWarp) || D % EPL != 0 ||
-      !aligned(table, EPL * sizeof(T)) || !aligned(g, EPL * sizeof(float))) {
+            int B, int L, int D, const DotGeometry& geo, cudaStream_t stream) {
+  if (geo.span < kWarp || geo.span % kWarp != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  bag_dot_kernel<T, EPL><<<geo.grid_x, geo.threads, 0, stream>>>(
-      static_cast<const T*>(table), static_cast<const int32_t*>(ids),
-      static_cast<const float*>(g), static_cast<float*>(out), B, L, D,
-      geo.group_lanes);
-  return static_cast<int>(cudaGetLastError());
+  const int spans_per_bag = (L - 1) / geo.span + 1;
+  const int64_t warps = static_cast<int64_t>(B) * spans_per_bag;
+  const int g_align = EPL < 4 ? EPL * sizeof(float) : 16;
+  if (!dot_geometry_ok(geo, warps) || D % EPL != 0 ||
+      !aligned(table, EPL * sizeof(T)) || !aligned(g, g_align)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto* t = static_cast<const T*>(table);
+  const auto* i = static_cast<const int32_t*>(ids);
+  const auto* gf = static_cast<const float*>(g);
+  auto* o = static_cast<float*>(out);
+  switch (geo.group_lanes) {
+    case 32:
+      return dot_launch<T, EPL, 32>(t, i, gf, o, warps, spans_per_bag, L, D, geo, stream);
+    case 16:
+      return dot_launch<T, EPL, 16>(t, i, gf, o, warps, spans_per_bag, L, D, geo, stream);
+    case 8:
+      return dot_launch<T, EPL, 8>(t, i, gf, o, warps, spans_per_bag, L, D, geo, stream);
+    case 4:
+      return dot_launch<T, EPL, 4>(t, i, gf, o, warps, spans_per_bag, L, D, geo, stream);
+    case 2:
+      return dot_launch<T, EPL, 2>(t, i, gf, o, warps, spans_per_bag, L, D, geo, stream);
+    default:
+      return dot_launch<T, EPL, 1>(t, i, gf, o, warps, spans_per_bag, L, D, geo, stream);
+  }
 }
 
+// a lane loads at most 16 bytes of a row: 8 elements of a bf16 table
 template <typename T>
 int dot(const void* table, const void* ids, const void* g, void* out, int B,
-        int L, int D, const Geometry& geo, void* stream) {
+        int L, int D, const DotGeometry& geo, void* stream) {
+  if (B < 1 || L < 1 || D < 1) return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   switch (geo.epl) {
+    case 8:
+      if constexpr (sizeof(T) == 2) {
+        return dot_epl<T, 8>(table, ids, g, out, B, L, D, geo, s);
+      }
+      return static_cast<int>(cudaErrorInvalidValue);
     case 4:
       return dot_epl<T, 4>(table, ids, g, out, B, L, D, geo, s);
     case 2:
@@ -550,15 +671,15 @@ int dot(const void* table, const void* ids, const void* g, void* out, int B,
   }
 
 // Kernel B: table [V, D], ids int32 [B, L], g f32 [B, D] → out f32 [B, L].
-// The four ints before the stream are the host's Geometry: elements a lane,
-// lanes a group, grid x and threads a block. Requires B >= 1, L >= 1 and
-// D >= 1.
+// The five ints before the stream are the host's DotGeometry: elements a
+// lane, lanes a group, slots a warp, grid x and threads a block. Requires
+// B >= 1, L >= 1 and D >= 1.
 #define PIO_BAG_DOT_ENTRY(NAME, T)                                           \
   extern "C" int NAME(const void* table, const void* ids, const void* g,     \
                       void* out, int B, int L, int D, int epl,               \
-                      int group_lanes, int grid_x, int threads,              \
+                      int group_lanes, int span, int grid_x, int threads,    \
                       void* stream) {                                        \
-    const Geometry geo{epl, group_lanes, grid_x, threads};                   \
+    const DotGeometry geo{epl, group_lanes, span, grid_x, threads};          \
     return dot<T>(table, ids, g, out, B, L, D, geo, stream);                 \
   }
 

@@ -475,20 +475,30 @@ def embedding_bag_backward_weights(
 
 
 #: threads a block of the bag dot (its launch bounds' cap)
-_BWD_THREADS = 256
+_DOT_THREADS = 256
+#: most partial sums a lane of the bag dot holds (``kDotPartials``)
+_DOT_PARTIALS = 8
+#: slots one warp of the bag dot walks, at most (a multiple of 32)
+_DOT_SPAN = 64
 
 
-class BwdGeometry(NamedTuple):
+class DotGeometry(NamedTuple):
     """Launch geometry of the bag dot (``csrc/embedding_bag_bwd.cu``, kernel
-    B): each lane moves ``epl`` elements at once; a group of
-    ``group_lanes`` lanes owns one slot at a time, one warp a bag. The
-    kernel is launched with exactly these ``grid_x`` blocks of
-    ``threads``; the C side only checks them."""
+    B): each lane loads ``epl`` elements of a row at once; a warp walks
+    ``span`` slots of one bag (a multiple of 32), in rounds of
+    ``32 // group_lanes * min(group_lanes, _DOT_PARTIALS)`` slots, a group
+    of ``group_lanes`` lanes on each row. The kernel is launched with
+    exactly these ``grid_x`` blocks of ``threads``; the C side only checks
+    them."""
 
     epl: int
     group_lanes: int
+    span: int
     grid_x: int
     threads: int
+
+    def warps(self, B: int, L: int) -> int:
+        return B * -(-L // self.span)
 
 
 def _lane_elems(D: int, *aligned: Tuple[int, int]) -> int:
@@ -499,11 +509,31 @@ def _lane_elems(D: int, *aligned: Tuple[int, int]) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def _bwd_geometry(B: int, D: int, epl: int) -> BwdGeometry:
-    """``B`` bags (one a warp) of ``D`` columns."""
+def _dot_geo(B: int, L: int, D: int, epl: int, span: int = _DOT_SPAN) -> DotGeometry:
+    """Kernel B's geometry for ``B`` bags of ``L`` slots and ``D`` columns,
+    ``epl`` elements a load: a group spans the row (at most a warp, then
+    passes); a warp walks ``span`` slots, fewer where the bags are
+    shorter; blocks of up to ``_DOT_THREADS`` threads."""
+    if min(B, L, D) < 1 or epl not in (8, 4, 2, 1) or D % epl or span % _WARP:
+        raise ValueError(f"no dot geometry for B={B}, L={L}, D={D}, epl={epl}, "
+                         f"span={span}")
     group = min(_WARP, _pow2_at_least(-(-D // epl)))
-    per_block = _BWD_THREADS // _WARP
-    return BwdGeometry(epl, group, max(1, -(-B // per_block)), _BWD_THREADS)
+    span = min(span, _round_up(L, _WARP))
+    warps = B * -(-L // span)
+    per_block = min(_DOT_THREADS // _WARP, warps)
+    grid = -(-warps // per_block)
+    if grid > 2 ** 31 - 1:
+        raise ValueError(f"{warps} warps of the bag dot is over a grid's size")
+    return DotGeometry(epl, group, span, grid, per_block * _WARP)
+
+
+def _dot_lane_elems(D: int, elem_bytes: int, table_align: int, g_align: int) -> int:
+    """Most elements of a row a lane of the bag dot loads at once (8, 4, 2
+    or 1; at most 16 bytes): ``D`` is a multiple of it, the table's pointer
+    is aligned to its bytes and g's to its floats' (at most 16)."""
+    return next(e for e in (8, 4, 2, 1)
+                if e * elem_bytes <= 16 and D % e == 0
+                and table_align % (e * elem_bytes) == 0 and g_align % min(16, 4 * e) == 0)
 
 
 #: most threads a block of the bag scatter (its launch bounds' cap: 64
@@ -609,8 +639,8 @@ def _bwd_kernel(kind: str, suffix: str):
         elif kind == "scatter_occupancy":
             fn.argtypes = [ctypes.c_int] * 3  # dt, threads, smem bytes
         else:
-            # table, ids, g, out; B, L, D; the geometry's 4 ints; stream
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+            # table, ids, g, out; B, L, D; the geometry's 5 ints; stream
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _BWD_KERNELS[(kind, suffix)] = fn
     return fn
@@ -686,7 +716,7 @@ def _ptr(t) -> int:
     return 0 if t is None else t.data_ptr()
 
 
-def _launch_dot(g, table, ids, geo: BwdGeometry) -> torch.Tensor:
+def _launch_dot(g, table, ids, geo: DotGeometry) -> torch.Tensor:
     """Launch the bag dot with ``geo`` on the current stream."""
     global BACKWARD_WEIGHTS_LAUNCHES
     B, L = ids.shape
@@ -724,11 +754,12 @@ def _scatter_occupancy(device, suffix: str, dt: int, threads: int, smem: int) ->
     return n
 
 
-def _dot_geometry(g: torch.Tensor, table: torch.Tensor) -> BwdGeometry:
-    """The geometry for d_w from this CUDA ``g`` and ``table``."""
-    epl = _lane_elems(table.shape[1], (_align(g.data_ptr()), 4),
-                      (_align(table.data_ptr()), table.element_size()))
-    return _bwd_geometry(g.shape[0], table.shape[1], epl)
+def _dot_geometry(g: torch.Tensor, table: torch.Tensor, L: int) -> DotGeometry:
+    """The geometry for d_w of bags of ``L`` slots from this CUDA ``g`` and
+    ``table``."""
+    epl = _dot_lane_elems(table.shape[1], table.element_size(),
+                          _align(table.data_ptr()), _align(g.data_ptr()))
+    return _dot_geo(g.shape[0], L, table.shape[1], epl)
 
 
 def _contiguous(*tensors) -> None:
@@ -765,7 +796,7 @@ def _backward_weights_cuda(g, table, ids) -> torch.Tensor:
                          f"int indexing (at most {_MAX_DIM})")
     if B == 0 or L == 0 or D == 0:
         return torch.zeros((B, L), dtype=torch.float32, device=g.device)
-    return _launch_dot(g, table, ids, _dot_geometry(g, table))
+    return _launch_dot(g, table, ids, _dot_geometry(g, table, L))
 
 
 # --------------------------------------------------- host-side bag packing

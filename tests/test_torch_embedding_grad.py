@@ -465,12 +465,166 @@ def test_schedule_is_built_once_for_each_count_of_warps():
     assert temb._schedule(plan, 8)[1].numel() == 9
 
 
+@pytest.mark.parametrize(
+    "D, elem, table_align, g_align, epl",
+    [
+        (128, 4, 16, 16, 4),
+        (128, 2, 16, 16, 8),  # bf16: 16 bytes a lane
+        (128, 2, 8, 16, 4),
+        (128, 2, 16, 8, 2),  # g one odd row in: 8-byte g loads
+        (130, 4, 16, 16, 2),
+        (130, 2, 16, 16, 2),
+        (1, 4, 16, 16, 1),
+    ],
+)
+def test_dot_lane_elems_takes_the_widest_the_rows_allow(D, elem, table_align,
+                                                         g_align, epl):
+    assert temb._dot_lane_elems(D, elem, table_align, g_align) == epl
+
+
 @pytest.mark.parametrize("n_bags, D, epl", GEOMETRIES)
-def test_dot_geometry_gives_each_bag_one_warp(n_bags, D, epl):
-    geo = temb._bwd_geometry(n_bags, D, epl)
+@pytest.mark.parametrize("L", [1, 13, 256])
+def test_dot_geometry_gives_each_span_of_a_bag_one_warp(n_bags, D, epl, L):
+    geo = temb._dot_geo(n_bags, L, D, epl)
+    group = min(32, 1 << max(0, -(-D // epl) - 1).bit_length())
+    assert (geo.epl, geo.group_lanes) == (epl, group)
+    # a warp walks whole rounds of 32 ids; no span longer than the bags
+    assert geo.span % 32 == 0 and geo.span == min(temb._DOT_SPAN, -(-L // 32) * 32)
+    warps = n_bags * -(-L // geo.span)
+    assert geo.warps(n_bags, L) == warps
     per_block = geo.threads // 32
-    assert geo.grid_x * per_block >= n_bags > (geo.grid_x - 1) * per_block
-    assert geo.group_lanes == min(32, 1 << max(0, -(-D // epl) - 1).bit_length())
+    assert geo.threads % 32 == 0 and 1 <= per_block <= temb._DOT_THREADS // 32
+    assert geo.grid_x * per_block >= warps > (geo.grid_x - 1) * per_block
+
+
+@pytest.mark.parametrize("args", [(0, 8, 16, 4), (5, 0, 16, 4), (5, 8, 0, 4),
+                                  (5, 8, 6, 4), (5, 8, 16, 3), (5, 8, 16, 4, 48)])
+def test_dot_geometry_rejects_what_the_kernel_cannot_run(args):
+    with pytest.raises(ValueError, match="no dot geometry"):
+        temb._dot_geo(*args)
+
+
+def test_dot_constants_match_the_c_side():
+    import re
+
+    from pio_tpu_torch.ops import _build
+
+    src = (_build.CSRC / _build.SOURCES["embedding_bag_bwd"]).read_text()
+    assert int(re.search(r"kDotThreads = (\d+);", src).group(1)) == temb._DOT_THREADS
+    assert int(re.search(r"kDotPartials = (\d+);", src).group(1)) == temb._DOT_PARTIALS
+
+
+def _transpose_reduce(p, cols, G):
+    """The lanes' partials (and the columns in each) after kernel B's
+    transpose-reduce across groups of G lanes: halving steps while a lane
+    holds more than one, then butterfly steps."""
+    lanes = np.arange(32)
+    step = 0
+    while (1 << step) < G:
+        o, m = G >> (step + 1), p.shape[1]
+        partner = lanes ^ o
+        if m > 1:
+            upper = (lanes % G & o) != 0
+            keep = np.where(upper[:, None], np.arange(m // 2, m), np.arange(m // 2))
+            p = p[lanes[:, None], keep] + p[partner[:, None], keep]
+            cols = cols[lanes[:, None], keep] + cols[partner[:, None], keep]
+        else:
+            p, cols = p + p[partner], cols + cols[partner]
+        step += 1
+    return p[:, 0], cols[:, 0]
+
+
+def _dot_walk(g, table, ids, geo):
+    """numpy model of kernel B as the geometry launches it: warp w walks
+    slots (w % spans a bag) * span onwards of bag w // spans a bag, 32 ids
+    at a time, in rounds of S = (32 / G) * NP slots; lane j of group q sums
+    columns j * EPL, + G * EPL, ... of slot r0 + q * NP + k into partial k;
+    the transpose-reduce, and the store of the first lane that holds a
+    slot. Returns d_w (f32), how often each slot was stored, and for each
+    slot how often each column reached its stored sum."""
+    B, L = ids.shape
+    D = table.shape[1]
+    G, epl, span = geo.group_lanes, geo.epl, geo.span
+    NP = min(G, temb._DOT_PARTIALS)
+    S, copies = 32 // G * NP, G // NP
+    per_bag = -(-L // span)
+    out = np.zeros((B, L), np.float32)
+    stores = np.zeros((B, L), np.int64)
+    reached = np.zeros((B, L, D), np.int64)
+    for w in range(min(B * per_bag, geo.grid_x * geo.threads // 32)):
+        bag, begin = w // per_bag, w % per_bag * span
+        end = min(L, begin + span)
+        for c0 in range(begin, end, 32):
+            n = min(32, end - c0)
+            for r0 in range(0, n, S):
+                p = np.zeros((32, NP), np.float32)
+                cols = np.zeros((32, NP, D), np.int64)
+                for lane in range(32):
+                    j, s0 = lane % G, lane // G * NP
+                    for c in range(j * epl, D, G * epl):
+                        for k in range(NP):
+                            if r0 + s0 + k < n:
+                                row = table[ids[bag, c0 + r0 + s0 + k]]
+                                for e in range(epl):
+                                    p[lane, k] += g[bag, c + e] * row[c + e]
+                                cols[lane, k, c:c + epl] += 1
+                sums, cols = _transpose_reduce(p, cols, G)
+                for lane in range(32):
+                    j, s0 = lane % G, lane // G * NP
+                    s = r0 + s0 + j // copies
+                    if j % copies == 0 and s < n:
+                        out[bag, c0 + s] = sums[lane]
+                        stores[bag, c0 + s] += 1
+                        reached[bag, c0 + s] += cols[lane]
+    assert stores.sum() == B * L  # no warp beyond the bags stores
+    return out, stores, reached
+
+
+def _dot_inputs(seed, V, D, B, L, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    # bf16 widens to f32 exactly: the model reads the widened table
+    table = torch.from_numpy(rng.standard_normal((V, D), dtype=np.float32)).to(dtype)
+    ids = rng.integers(0, V, size=(B, L), dtype=np.int32)
+    g = rng.standard_normal((B, D), dtype=np.float32)
+    return table.float().numpy(), ids, g
+
+
+@pytest.mark.parametrize("D, epl", [(1, 1), (2, 2), (130, 2)], ids=["d1", "d2", "d130"])
+@pytest.mark.parametrize("L", [1, 13, 256])
+def test_dot_walk_sums_every_slot_over_every_column_once_and_equals_plain(L, D, epl):
+    table, ids, g = _dot_inputs(17, 50, D, 3, L)
+    geo = temb._dot_geo(3, L, D, epl)
+    out, stores, reached = _dot_walk(g, table, ids, geo)
+    # every slot, weight 0 or not, stored once with one sum over all D columns
+    assert (stores == 1).all() and (reached == 1).all()
+    want = temb.embedding_bag_backward_weights_plain(
+        torch.from_numpy(g), torch.from_numpy(table), torch.from_numpy(ids))
+    # the same f32 products, summed lane by lane and then across lanes
+    np.testing.assert_allclose(out, want.numpy(), rtol=1e-5, atol=1e-5 * D ** 0.5)
+
+
+@pytest.mark.parametrize(
+    "dtype, epl, span",
+    [(torch.float32, 4, 64), (torch.bfloat16, 8, 64), (torch.float32, 4, 32),
+     (torch.float32, 4, 256)],
+    ids=["f32", "bf16-16-byte-lanes", "span-32", "span-whole-bag"],
+)
+def test_dot_walk_at_the_training_width_equals_plain(dtype, epl, span):
+    table, ids, g = _dot_inputs(18, 300, 128, 2, 45, dtype)
+    geo = temb._dot_geo(2, 45, 128, epl, span)
+    assert geo.group_lanes == 128 // epl
+    out, stores, reached = _dot_walk(g, table, ids, geo)
+    assert (stores == 1).all() and (reached == 1).all()
+    want = temb.embedding_bag_backward_weights_plain(
+        torch.from_numpy(g), torch.from_numpy(table), torch.from_numpy(ids))
+    np.testing.assert_allclose(out, want.numpy(), rtol=1e-5, atol=1e-4)
+
+
+def test_dot_of_no_bags_launches_nothing(monkeypatch):
+    monkeypatch.setattr(temb, "_launch_dot", lambda *a: pytest.fail("launched"))
+    d_w = temb._backward_weights_cuda(torch.zeros(0, D), torch.ones(V, D),
+                                      torch.zeros((0, L), dtype=torch.int32))
+    assert d_w.shape == (0, L) and d_w.dtype == torch.float32
 
 
 def _fake_cuda(monkeypatch, err, calls):
@@ -525,21 +679,21 @@ def test_scatter_launch_passes_plan_and_geometry(monkeypatch, err, chunk):
 
 @pytest.mark.parametrize("err", [0, 700])
 def test_dot_launch_passes_geometry(monkeypatch, err):
-    # table, ids, g, out; B, L, D; the geometry's 4 ints; the stream
+    # table, ids, g, out; B, L, D; the geometry's 5 ints; the stream
     calls = []
     _fake_cuda(monkeypatch, err, calls)
     table, ids, _, g = _case()
     t, ids_t, g_t = (torch.from_numpy(a) for a in (table, ids, g))
-    geo = temb._bwd_geometry(B, D, 4)
+    geo = temb._dot_geo(B, L, D, 4)
     if err:
         with pytest.raises(RuntimeError, match="CUDA error 700"):
             temb._launch_dot(g_t, t, ids_t, geo)
     else:
         assert temb._launch_dot(g_t, t, ids_t, geo).shape == (B, L)
     (args,) = calls
-    assert len(args) == 12
+    assert len(args) == 13
     assert args[:3] == (t.data_ptr(), ids_t.data_ptr(), g_t.data_ptr())
-    assert args[4:7] == (B, L, D) and args[7:11] == tuple(geo) and args[11] == 7
+    assert args[4:7] == (B, L, D) and args[7:12] == tuple(geo) and args[12] == 7
     assert temb.BACKWARD_WEIGHTS_LAUNCHES == (0 if err else 1)
 
 
@@ -600,6 +754,8 @@ CARD_SHAPES = [
     # one row of 375 slots among light rows, over three chunks of g (the
     # main path's bags: 35.6 slots a row, at most 576)
     pytest.param(1500, 32, 1000, 128, False, "heavy-row", id="heavy-row-among-light"),
+    # L not a multiple of kernel B's tile of 32 slots: a short last tile
+    pytest.param(40, 45, 1000, 128, False, "", id="l-not-a-tile"),
 ]
 
 
