@@ -40,17 +40,38 @@ kernels (the forward, and the backward's bag scatter and bag dot):
    dot on the prepared bags (their slots a row printed) against their
    plain versions;
 10. ``load_models_for_instance`` and serve the trained models through the
-   query server, checked against a CPU copy of the same persisted blob.
+   query server, checked against a CPU copy of the same persisted blob;
+11. ``train_als`` at MovieLens-25M's shape (25 M ratings from a copy of
+   ``bench.py``'s ``_synth_ratings``, rank 16, 10 iterations, reg 0.1):
+   its phases and peak memory, twice for the same bits, float32 against
+   bfloat16 in turns, one half-step a side split into gather + products,
+   segment sum and solve with its launches and bound, each solver at both
+   entity counts, the wire decoded and ``device_pack`` timed, and the
+   peak memory of one iteration at rank 128;
+12. ``train_als`` on the card against the CPU at MovieLens-100K's shape,
+   and each device program card against CPU, both sides;
+13. the recommendation template end to end at that shape: ingest,
+   ``run_train``, ``load_models_for_instance``, 8 ``POST /queries.json``
+   (on the card, then routed by batch size with
+   ``PIO_TPU_SERVE_DEVICE=auto``) and ``batch_predict`` of 1024 against
+   the ``predict`` loop, checked against a CPU copy;
+14. the top-N scorer at full width on phase 11's factors, card against
+   host path.
 
 Usage: ``python3 chip_smoke.py [--seed N]``. Exits non-zero when no CUDA
 device is available or any phase fails. The line before the last holds
 ``nvidia-smi``'s name and power limit, the one before it the kernels' JSON
-summary, and the last line is ``{"ok": true, "device": {...}}``.
+summary, the one before that the recommendation path's device programs
+(``{"programs": [...]}``), and the last line is ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
+import datetime as dt
 import http.client
 import json
 import os
@@ -65,17 +86,20 @@ import torch.nn.functional as F
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from pio_tpu_torch.controller.engine import EngineParams, get_engine_factory  # noqa: E402
+from pio_tpu_torch.controller.params import params_from_dict  # noqa: E402
 from pio_tpu_torch.convert import text_mlp_from_reference  # noqa: E402
 from pio_tpu_torch.data.event import Event  # noqa: E402
-from pio_tpu_torch.models import mlp  # noqa: E402
+from pio_tpu_torch.models import als, mlp  # noqa: E402
 from pio_tpu_torch.models.naive_bayes import train_multinomial_nb_bags  # noqa: E402
 from pio_tpu_torch.models.tfidf import TfIdfVectorizer  # noqa: E402
 from pio_tpu_torch.ops import _build  # noqa: E402
-from pio_tpu_torch.ops import embedding  # noqa: E402
+from pio_tpu_torch.ops import embedding, topn  # noqa: E402
 from pio_tpu_torch.parallel.context import ComputeContext  # noqa: E402
 from pio_tpu_torch.server.query_server import create_query_server  # noqa: E402
 from pio_tpu_torch.storage.records import App  # noqa: E402
 from pio_tpu_torch.storage.registry import Storage  # noqa: E402
+from pio_tpu_torch.templates.recommendation import ALSAlgorithm as RecALS  # noqa: E402
+from pio_tpu_torch.templates.recommendation import Query as RecQuery  # noqa: E402
 from pio_tpu_torch.templates.textclassification import (  # noqa: E402
     MLPAlgorithm,
     MLPParams,
@@ -1065,6 +1089,709 @@ def phase_serve_trained(args, engine, ep, iid, pd, loss0) -> int:
     return launches
 
 
+# ------------------------------------------------ the recommendation path
+# MovieLens-25M's shape (ratings, users, movies), as bench.py defines it
+ML25M_EDGES, ML25M_USERS, ML25M_ITEMS = 25_000_000, 162_541, 59_047
+# MovieLens-100K's shape (the GroupLens ML-100K README): 943 users, 1682
+# items, 100,000 ratings of 1-5 stars
+ML100K_EDGES, ML100K_USERS, ML100K_ITEMS = 100_000, 943, 1682
+# the README quickstart's engine.json: rank 16, 10 iterations, lambda 0.1
+ALS_PARAMS = {"rank": 16, "num_iterations": 10, "lambda_": 0.1}
+# card vs CPU, train_als at the ML-100K shape: the same f32 math in another
+# summation order. On the CPU, changing only the block grouping
+# (blocks_per_chunk 4096 vs 64 vs 8) moves the factors by at most 5.3e-5
+# (|factors| up to 5.2, i.e. 1e-5 of the largest) and the train RMSE by
+# less than 1e-7; ten times that spread:
+ALS_FACTOR_TOL = 1e-4  # of max |factor|
+ALS_RMSE_TOL = 1e-5  # relative
+# a served score vs the CPU copy's: a rank-16 f32 dot of O(1) values in
+# another order (~1e-6 of scores of O(5)); two orders of magnitude over it
+SCORE_TOL = 1e-4
+# the normal equations at ML-100K's shape, card vs CPU: f32 sums of up to
+# a few thousand O(1) products (A entries up to ~1e4): relative 1e-5
+NORMAL_EQ_RTOL = 1e-5
+# the same with bf16 products and implicit weights: the card rounds each
+# weighted row to bf16 (cuBLAS takes bf16 operands), the CPU keeps it f32,
+# so each product may move by 2^-9 of itself, and a sum of positive terms
+# by as much; one bf16 step, 2^-8, as the limit
+BF16_ROW_RTOL = 2.0 ** -8
+N_REC_HTTP = 8
+N_REC_BATCH = 1024
+REC_APP = "movielens-100k-synthetic"
+#: the card the recommendation phases run on
+CARD = torch.device("cuda")
+#: the rank of phase 11's memory check: a large rank, one iteration
+WIDE_RANK = 128
+
+
+@contextlib.contextmanager
+def serve_device(value: str):
+    """``PIO_TPU_SERVE_DEVICE`` set to ``value`` inside the block."""
+    old = os.environ.get("PIO_TPU_SERVE_DEVICE")
+    os.environ["PIO_TPU_SERVE_DEVICE"] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["PIO_TPU_SERVE_DEVICE"]
+        else:
+            os.environ["PIO_TPU_SERVE_DEVICE"] = old
+
+
+def synth_ratings(n_edges: int, n_users: int, n_items: int, seed: int,
+                  stars: str):
+    """A copy of bench.py's _synth_ratings: uniform users, squared-uniform
+    (popularity-skewed) items; half stars 0.5-5.0, or integer stars 1-5."""
+    rng = np.random.default_rng(seed)
+    u = rng.integers(0, n_users, size=n_edges).astype(np.int32)
+    i = (rng.random(n_edges) ** 2 * n_items).astype(np.int32)
+    if stars == "half":
+        r = (rng.integers(1, 11, size=n_edges) * 0.5).astype(np.float32)
+    else:
+        r = rng.integers(1, 6, size=n_edges).astype(np.float32)
+    return u, i, r
+
+
+def count_kernels(fn):
+    """(fn's result, device kernels it launched), from torch.profiler's
+    CUDA activity; copies and fills are not counted."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA],
+            acc_events=True) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if e.self_device_time_total > 0
+            and not e.key.startswith(("Memcpy", "Memset")))
+    return out, n
+
+
+def card_rmse(f, u, i, r) -> float:
+    """Train RMSE of host factors over the ratings, on the card."""
+    P = torch.from_numpy(f.user_factors).to(CARD)
+    Q = torch.from_numpy(f.item_factors).to(CARD)
+    ut, it, rt = (torch.from_numpy(a).to(CARD) for a in (u, i, r))
+    err = 0.0
+    for lo in range(0, len(u), 1 << 22):
+        sl = slice(lo, lo + (1 << 22))
+        pred = (P[ut[sl].long()] * Q[it[sl].long()]).sum(1)
+        err += float(((pred - rt[sl]) ** 2).double().sum())
+    return (err / len(u)) ** 0.5
+
+
+def sorted_layouts(u, i, r, n_users, n_items, cfg):
+    """On the card: the (user, item)-sorted edges and both blocked layouts
+    train_als builds from them (device_pack gives the host packer's bits)."""
+    ut, it, rt = (torch.from_numpy(a).to(CARD) for a in (u, i, r))
+    order = torch.argsort(ut.long() * n_items + it.long(), stable=True)
+    us, its, rs = ut[order], it[order], rt[order]
+    w_u = als._auto_width(len(u), n_users)
+    w_i = als._auto_width(len(u), n_items)
+    counts_u, chunk_u, S_u = als._counts_layout(u, w_u, n_users,
+                                                cfg.blocks_per_chunk)
+    counts_i, chunk_i, S_i = als._counts_layout(i, w_i, n_items,
+                                                cfg.blocks_per_chunk)
+    cu = torch.from_numpy(counts_u.astype(np.int32)).to(CARD)
+    ci = torch.from_numpy(counts_i.astype(np.int32)).to(CARD)
+
+    def pack_user():
+        return als.device_pack(us, its, rs, n_users, w_u, S_u,
+                               assume_sorted=True, counts=cu)
+
+    def pack_item():
+        return als.device_pack(its, us, rs, n_items, w_i, S_i, counts=ci)
+
+    return dict(
+        sorted=(us, its, rs), counts_u=counts_u, cu=cu, ci=ci,
+        user=dict(n=n_users, w=w_u, chunk=chunk_u, S=S_u, pack=pack_user,
+                  blocks=pack_user()),
+        item=dict(n=n_items, w=w_i, chunk=chunk_i, S=S_i, pack=pack_item,
+                  blocks=pack_item()),
+    )
+
+
+def normal_eq_bound(blocks, n_edges, n, n_other, K) -> dict:
+    """partial_normal_eq: each input read once — block ids, other ids and
+    ratings (4 B each), the other side's factor table — and A, b written
+    once; one multiply-add (2 flops) per real edge for each of the K*K
+    entries of A and the K of b (this run's edges, not the padded slots)."""
+    ent, oth, _ = blocks
+    n_bytes = ent.numel() * 4 + oth.numel() * 8 + n_other * K * 4 \
+        + n * (K * K + K) * 4
+    return bound_of(n_bytes, 2 * n_edges * (K * K + K))
+
+
+def solve_bound(n, K, solver) -> dict:
+    """solve_block: A and b read once, x written once; a Cholesky
+    factorization (K^3/3 multiply-adds) and two triangular solves (K^2),
+    LU (2K^3/3 and K^2), or K+8 CG iterations of a K^2 product and ~5K
+    vector work, per entity."""
+    mads = {"cholesky": K ** 3 / 3 + K * K, "lu": 2 * K ** 3 / 3 + K * K,
+            "cg": (K + 8) * (K * K + 5 * K)}[solver]
+    return bound_of(n * (K * K + 2 * K) * 4, int(2 * n * mads))
+
+
+def program_row(name, replaces, shape, launches, ms, bnd, err) -> dict:
+    return {"name": name, "route": "pytorch", "replaces": replaces,
+            "shape": shape, "launches": launches, "ms": ms,
+            "bound_ms": bnd["bound_ms"], "bound_by": bnd["bound_by"],
+            "max_abs_err_cpu": err}
+
+
+def phase_als_full(args, smi) -> dict:
+    """Phase 11: train_als at MovieLens-25M's full shape on the card."""
+    t_phase = time.monotonic()
+    log(f"phase 11: train_als at MovieLens-25M's shape ({ML25M_EDGES} "
+        f"ratings, {ML25M_USERS} users, {ML25M_ITEMS} items), rank 16, 10 "
+        f"iterations, reg 0.1; {smi}")
+    u, i, r = synth_ratings(ML25M_EDGES, ML25M_USERS, ML25M_ITEMS, args.seed,
+                            "half")
+    cfg = als.ALSConfig(rank=16, iterations=10, reg=0.1, seed=args.seed)
+    ctx = ComputeContext.local(args.seed, device=CARD)
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    t0 = time.monotonic()
+    f32 = als.train_als(ctx, u, i, r, ML25M_USERS, ML25M_ITEMS, cfg,
+                        stats=stats)
+    train_s = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  train_als {train_s:.2f} s (host clock): pack {stats['pack_s']:.3f}"
+        f" s, wire {stats['wire_bytes']} B ({stats['encoding']}, n_stream "
+        f"{stats['n_stream']}), h2d {stats['h2d_s']:.3f} s, device "
+        f"{stats['device_s']:.3f} s; peak device memory {peak} B")
+    again = als.train_als(ctx, u, i, r, ML25M_USERS, ML25M_ITEMS, cfg)
+    same = bool(np.array_equal(f32.user_factors, again.user_factors)
+                and np.array_equal(f32.item_factors, again.item_factors))
+    log(f"  two float32 runs give the same bits: {same}")
+    if not same:
+        raise AssertionError("two train_als runs gave different factors")
+
+    lay = sorted_layouts(u, i, r, ML25M_USERS, ML25M_ITEMS, cfg)
+    K = cfg.rank
+    # the wire train_als shipped, rebuilt from the card's sort of the edges
+    us, its, rs = lay["sorted"]
+    r_ship, rating_wire = als._encode_ratings(rs.cpu().numpy())
+    d_lo, d_hi, ovf_idx, ovf_val, wire_b = als._encode_items_delta(
+        its.cpu().numpy(), lay["counts_u"])
+    if stats["encoding"] != f"{rating_wire}+delta12":
+        raise AssertionError(f"train_als shipped {stats['encoding']}")
+    wire = [als._wire_tensor(a, CARD)
+            for a in (d_lo, d_hi, ovf_idx, ovf_val, r_ship)]
+    shapes = (lay["user"]["chunk"], lay["user"]["S"], lay["user"]["w"],
+              lay["item"]["chunk"], lay["item"]["S"], lay["item"]["w"])
+
+    def trained(matmul_dtype, **over):
+        """train_als's device part on this wire, from train_als's init."""
+        run_cfg = dataclasses.replace(cfg, matmul_dtype=matmul_dtype, **over)
+        gen = torch.Generator()
+        gen.manual_seed(cfg.seed)
+        P0 = als._init_factors(ML25M_USERS, run_cfg.rank, gen).to(CARD)
+        Q0 = als._init_factors(ML25M_ITEMS, run_cfg.rank, gen).to(CARD)
+        return als._run_packed(
+            (lay["cu"], lay["ci"], *wire), P0, Q0, run_cfg, shapes,
+            rating_wire, "delta12")
+
+    # float32 against explicit bfloat16, in turns (host clock around the
+    # device part, the card drained before and after)
+    runs = {"float32": [], "bfloat16": []}
+    outs = {}
+    for dtype in ("float32", "bfloat16", "bfloat16", "float32"):
+        runs[dtype].append(host_ms(
+            lambda d=dtype: outs.__setitem__(d, trained(d))) / 1e3)
+    if not (torch.equal(outs["float32"][0].cpu(),
+                        torch.from_numpy(f32.user_factors))
+            and torch.equal(outs["float32"][1].cpu(),
+                            torch.from_numpy(f32.item_factors))):
+        raise AssertionError("the device part on the rebuilt wire differs "
+                             "from train_als")
+    bf16 = als.ALSFactors(*(x.cpu().numpy() for x in outs["bfloat16"]))
+    rmse32, rmse16 = card_rmse(f32, u, i, r), card_rmse(bf16, u, i, r)
+    log(f"  device part, s in turns: float32 {rounded(runs['float32'])}, "
+        f"bfloat16 {rounded(runs['bfloat16'])}; train RMSE float32 {rmse32}, "
+        f"bfloat16 {rmse16}; the float32 run repeats train_als's bits")
+    for f in (f32, bf16):
+        if not (np.isfinite(f.user_factors).all()
+                and np.isfinite(f.item_factors).all()):
+            raise AssertionError("ALS gave non-finite factors")
+    if not rmse32 < 1.5:  # half stars uniform on 0.5-5.0 have sd 1.44
+        raise AssertionError(f"train RMSE {rmse32} no better than the mean")
+    del outs
+    P = torch.from_numpy(f32.user_factors).to(CARD)
+    Q = torch.from_numpy(f32.item_factors).to(CARD)
+    rows, solves = [], {}
+    for side, other, n_other in (("user", Q, ML25M_ITEMS),
+                                 ("item", P, ML25M_USERS)):
+        sd = lay[side]
+        ent, oth, rat = sd["blocks"]
+        c = sd["chunk"]
+        plan = als.segment_plan(ent, c)
+
+        ext = torch.cat([other, other.new_zeros((1, K))])
+
+        def products():
+            for lo, _, _ in plan:
+                als._chunk_partials(oth[lo:lo + c], rat[lo:lo + c], ext,
+                                    False, cfg.alpha)
+
+        part = als._chunk_partials(oth[:c], rat[:c], ext, False, cfg.alpha)
+
+        def segment_sum():
+            # every chunk's sum and carry, on one chunk's partials (every
+            # chunk holds c blocks)
+            acc = torch.zeros((sd["n"], K + 1, K), device=CARD)
+            for _, e0, offsets in plan:
+                als._add_runs(acc, e0, offsets, part)
+
+        def half_step():
+            return als.half_local(sd["blocks"], other, sd["n"], c, cfg, plan)
+
+        def normal_eq():
+            return als.partial_normal_eq(*sd["blocks"], other, sd["n"], c,
+                                         plan=plan)
+
+        _, launches = count_kernels(half_step)
+        A, b = normal_eq()
+        gram = als.gram_of(other)
+        parts = {
+            "gather + products": cuda_ms(products, iters=3, warmup=1),
+            "segment sum": cuda_ms(segment_sum, iters=3, warmup=1),
+            "solve (cholesky)": cuda_ms(lambda: als.solve_block(
+                A, b, gram, cfg.reg, solver="cholesky"), iters=3, warmup=1),
+        }
+        whole = cuda_ms(half_step, iters=3, warmup=1)
+        eq_ms = cuda_ms(normal_eq, iters=3, warmup=1)
+        bnd = normal_eq_bound(sd["blocks"], ML25M_EDGES, sd["n"], n_other, K)
+        log(f"  {side} half-step ({sd['n']} entities, width {sd['w']}, "
+            f"{sd['S']} blocks in chunks of {sd['chunk']}): {whole:.3f} ms, "
+            f"{launches} launches; parts ms "
+            f"{json.dumps({k: round(v, 4) for k, v in parts.items()})}; "
+            f"normal equations {eq_ms:.3f} ms, bound {bnd['bound_ms']:.4f} ms "
+            f"({bnd['bound_by']}); {smi}")
+        x_ref = als.solve_block(A, b, gram, cfg.reg, solver="cholesky")
+        for solver in ("cholesky", "cg", "lu"):
+            ms = cuda_ms(lambda s=solver: als.solve_block(
+                A, b, gram, cfg.reg, solver=s), iters=3, warmup=1)
+            _, n_l = count_kernels(lambda s=solver: als.solve_block(
+                A, b, gram, cfg.reg, solver=s))
+            x = als.solve_block(A, b, gram, cfg.reg, solver=solver)
+            diff = float((x - x_ref).abs().max())
+            solves[(side, solver)] = dict(ms=ms, launches=n_l, diff=diff,
+                                          n=sd["n"])
+            log(f"    solve {solver} at {sd['n']} entities: {ms:.3f} ms, "
+                f"{n_l} launches, max |x - x_cholesky| {diff}")
+            if not diff < 1e-2 * max(1.0, float(x_ref.abs().max())):
+                raise AssertionError(f"{solver} disagrees with cholesky")
+        _, eq_launches = count_kernels(normal_eq)
+        rows.append(program_row(
+            f"partial_normal_eq ({side} side)", "pio_tpu/models/als.py:225",
+            f"{sd['S']} blocks x {sd['w']} x K={K} -> {sd['n']} entities",
+            eq_launches * cfg.iterations, eq_ms, bnd, None))
+        pack_ms = cuda_ms(sd["pack"], iters=3, warmup=1)
+        _, pack_l = count_kernels(sd["pack"])
+        rows.append(program_row(
+            f"device_pack ({side} side)", "pio_tpu/models/als.py:682",
+            f"{ML25M_EDGES} edges -> {sd['S']} x {sd['w']}", pack_l, pack_ms,
+            bound_of(ML25M_EDGES * 12 + sd["n"] * 4 + sd["S"] * (4 + 8 * sd["w"]),
+                     0), None))
+        del A, b, part
+    for side in ("user", "item"):
+        n = lay[side]["n"]
+        for solver in ("cholesky", "cg", "lu"):
+            s = solves[(side, solver)]
+            rows.append(program_row(
+                f"solve_block {solver} ({side} side)",
+                "pio_tpu/models/als.py:312", f"{n} x {K}x{K}",
+                # launches a train_als makes through this solver ("auto")
+                s["launches"] * cfg.iterations
+                if als._solver_for("auto") == solver else 0,
+                s["ms"], solve_bound(n, K, solver), None))
+
+    # the wire decoded on the card
+    def dec_items():
+        return als.decode_items(*wire[:4], lay["cu"], "delta12")
+
+    def dec_ratings():
+        return als.decode_ratings(wire[4], ML25M_EDGES, rating_wire)
+
+    if not (torch.equal(dec_items(), its) and torch.equal(dec_ratings(), rs)):
+        raise AssertionError("the decoded wire differs from the sorted edges")
+    for name, fn, line, nb in (
+        ("decode_items delta12", dec_items, 351,
+         wire_b + 4 * ML25M_USERS + 4 * ML25M_EDGES),
+        (f"decode_ratings {rating_wire}", dec_ratings, 386,
+         r_ship.nbytes + 4 * ML25M_EDGES),
+    ):
+        ms = cuda_ms(fn, iters=5, warmup=1)
+        _, n_l = count_kernels(fn)
+        rows.append(program_row(name, f"pio_tpu/models/als.py:{line}",
+                                f"{ML25M_EDGES} edges", n_l, ms,
+                                bound_of(nb, 0), None))
+    log(f"  wire decoded on the card equals the sorted edges ({len(ovf_idx)} "
+        f"overflow gaps)")
+
+    # one iteration at a large rank: the normal equations' memory is the
+    # accumulator, n*K^2 floats of the larger side, plus one chunk
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    P, Q = trained("float32", rank=WIDE_RANK, iterations=1)
+    torch.cuda.synchronize()
+    wide_s = time.monotonic() - t0
+    wide_peak = torch.cuda.max_memory_allocated()
+    acc = ML25M_USERS * WIDE_RANK * (WIDE_RANK + 1) * 4
+    log(f"  rank {WIDE_RANK}, one iteration: {wide_s:.2f} s (host clock), "
+        f"peak device memory {wide_peak} B with {held} B of this phase's "
+        f"tensors held; the user side's accumulator A, b is {acc} B; {smi}")
+    if not (torch.isfinite(P).all() and torch.isfinite(Q).all()):
+        raise AssertionError(f"rank {WIDE_RANK} gave non-finite factors")
+    del P, Q
+    log(f"  phase 11 {time.monotonic() - t_phase:.1f} s")
+    return dict(factors=f32, rows=rows, solves=solves, same_bits=same)
+
+
+def phase_als_card_vs_cpu(args, smi, rows) -> None:
+    """Phase 12: train_als on the card against the port's train_als on the
+    CPU at MovieLens-100K's shape, and each device program card vs CPU."""
+    t_phase = time.monotonic()
+    log(f"phase 12: train_als card vs CPU at MovieLens-100K's shape "
+        f"({ML100K_EDGES} ratings, {ML100K_USERS} users, {ML100K_ITEMS} "
+        f"items); {smi}")
+    u, i, r = synth_ratings(ML100K_EDGES, ML100K_USERS, ML100K_ITEMS,
+                            args.seed, "int")
+    cfg = als.ALSConfig(rank=16, iterations=10, reg=0.1, seed=args.seed)
+    fits = {}
+    for dev in ("cuda", "cpu"):
+        ctx = ComputeContext.local(args.seed,
+                                   device=CARD if dev == "cuda" else "cpu")
+        fits[dev] = als.train_als(ctx, u, i, r, ML100K_USERS, ML100K_ITEMS, cfg)
+    rm = {}
+    for dev, f in fits.items():
+        pred = (f.user_factors[u] * f.item_factors[i]).sum(1)
+        rm[dev] = float(np.sqrt(np.mean((pred - r) ** 2)))
+    scale = max(np.abs(fits["cpu"].user_factors).max(),
+                np.abs(fits["cpu"].item_factors).max())
+    err = max(np.abs(fits["cuda"].user_factors - fits["cpu"].user_factors).max(),
+              np.abs(fits["cuda"].item_factors - fits["cpu"].item_factors).max())
+    log(f"  train RMSE card {rm['cuda']}, CPU {rm['cpu']}; factors max |card -"
+        f" CPU| {err} (largest |factor| {scale})")
+    if abs(rm["cuda"] - rm["cpu"]) > ALS_RMSE_TOL * rm["cpu"]:
+        raise AssertionError("train RMSE on the card differs from the CPU's")
+    if err > ALS_FACTOR_TOL * scale:
+        raise AssertionError(f"factors on the card are {err} off the CPU's")
+
+    # each device program, card vs CPU, on this data, both sides
+    errs = {}
+    lay = sorted_layouts(u, i, r, ML100K_USERS, ML100K_ITEMS, cfg)
+    us, its, rs = (x.cpu().numpy() for x in lay["sorted"])
+    r_ship, rating_wire = als._encode_ratings(rs)
+    wire = als._encode_items_delta(its, lay["counts_u"])[:4]
+    for d in (CARD, torch.device("cpu")):
+        got_i = als.decode_items(
+            *(als._wire_tensor(a, d) for a in wire),
+            als._wire_tensor(lay["counts_u"].astype(np.int32), d), "delta12")
+        got_r = als.decode_ratings(als._wire_tensor(r_ship, d), len(rs),
+                                   rating_wire)
+        if not (np.array_equal(got_i.cpu().numpy(), its)
+                and np.array_equal(got_r.cpu().numpy(), rs)):
+            raise AssertionError(f"the wire decoded on {d} differs")
+    errs["decode_items delta12"] = errs[f"decode_ratings {rating_wire}"] = 0.0
+    gram = torch.zeros(16, 16)
+    for side, ent, oth, other in (
+            ("user", us, its, fits["cpu"].item_factors),
+            ("item", its, us, fits["cpu"].user_factors)):
+        sd = lay[side]
+        # the host packer on the same (user, item)-sorted edges
+        want = als._pack_blocks(ent, oth, rs, sd["n"], sd["w"], sd["chunk"])
+        blocks_cpu = tuple(x.cpu() for x in sd["blocks"])
+        same = all(np.array_equal(g.numpy(), w)
+                   for g, w in zip(blocks_cpu, want))
+        errs[f"device_pack ({side} side)"] = 0.0 if same else float("inf")
+        if not same:
+            raise AssertionError(f"device_pack ({side} side) on the card "
+                                 f"differs from the host packer")
+        A, b = als.partial_normal_eq(*sd["blocks"],
+                                     torch.from_numpy(other).to(CARD),
+                                     sd["n"], sd["chunk"])
+        A_c, b_c = als.partial_normal_eq(*blocks_cpu, torch.from_numpy(other),
+                                         sd["n"], sd["chunk"])
+        err = max(float((A.cpu() - A_c).abs().max()),
+                  float((b.cpu() - b_c).abs().max()))
+        errs[f"partial_normal_eq ({side} side)"] = err
+        rel = err / float(A_c.abs().max())
+        log(f"  normal equations ({side} side) card vs CPU: max |err| {err} "
+            f"(relative {rel})")
+        if rel > NORMAL_EQ_RTOL:
+            raise AssertionError(f"normal equations ({side} side) differ "
+                                 f"from the CPU's")
+        # explicit bf16: the same bf16 values and exact products in another
+        # order; implicit: the weighted rows round on the card only
+        for implicit, rtol in ((False, NORMAL_EQ_RTOL), (True, BF16_ROW_RTOL)):
+            kw = dict(implicit=implicit, alpha=1.0,
+                      matmul_dtype=torch.bfloat16)
+            A16, _ = als.partial_normal_eq(
+                *sd["blocks"], torch.from_numpy(other).to(CARD), sd["n"],
+                sd["chunk"], **kw)
+            A16_c, _ = als.partial_normal_eq(
+                *blocks_cpu, torch.from_numpy(other), sd["n"], sd["chunk"],
+                **kw)
+            rel16 = float((A16.cpu() - A16_c).abs().max()) / float(
+                A16_c.abs().max())
+            log(f"  bf16 normal equations ({side} side, implicit {implicit})"
+                f" card vs CPU: relative {rel16} (limit {rtol})")
+            if rel16 > rtol:
+                raise AssertionError("bf16 normal equations differ from the "
+                                     "CPU's")
+        for solver in ("cholesky", "cg", "lu"):
+            x = als.solve_block(A, b, gram.to(CARD), cfg.reg, solver=solver)
+            x_c = als.solve_block(A_c, b_c, gram, cfg.reg, solver=solver)
+            errs[f"solve_block {solver} ({side} side)"] = float(
+                (x.cpu() - x_c).abs().max())
+    log(f"  device programs, max |card - CPU|: {json.dumps(errs)}")
+    for row in rows:
+        if row["name"] not in errs:
+            raise AssertionError(f"no card-vs-CPU check for {row['name']}")
+        row["max_abs_err_cpu"] = errs[row["name"]]
+    log(f"  phase 12 {time.monotonic() - t_phase:.1f} s")
+
+
+def rec_events(rng, app_id):
+    u, i, r = synth_ratings(ML100K_EDGES, ML100K_USERS, ML100K_ITEMS,
+                            int(rng.integers(1 << 30)), "int")
+    t0 = dt.datetime(2026, 3, 1, tzinfo=dt.timezone.utc)
+    events = [
+        Event("rate", "user", f"u{a}", "item", f"i{b}",
+              properties={"rating": float(c)},
+              event_time=t0 + dt.timedelta(seconds=k))
+        for k, (a, b, c) in enumerate(zip(u.tolist(), i.tolist(), r.tolist()))
+    ]
+    events += [Event("buy", "user", f"u{k}", "item", f"i{k}", event_time=t0)
+               for k in range(16)]
+    Storage.get_pevents().write(events, app_id)
+    return len(events)
+
+
+def check_served(got: dict, q: RecQuery, cpu_model, where: str) -> None:
+    """A served top-N answer against the CPU copy of the same blob: the
+    scores within SCORE_TOL of the CPU's scores of the same items, in
+    order, and a top-N of the CPU's scores up to ties within SCORE_TOL."""
+    items = [s["item"] for s in got["itemScores"]]
+    served = np.array([s["score"] for s in got["itemScores"]])
+    cpu = RecALS().predict(cpu_model, q).to_dict()
+    code = cpu_model.user_index.get(q.user)
+    if code is None or q.num <= 0:
+        if got != cpu:
+            raise AssertionError(f"{where}: {got} vs CPU copy {cpu}")
+        return
+    full = cpu_model.scorer().scores_batch(np.array([code], np.int32))[0]
+    if q.item:
+        want = full[cpu_model.item_index[q.item]]
+        if items != [q.item] or abs(served[0] - want) > SCORE_TOL:
+            raise AssertionError(f"{where}: {got} vs CPU score {want}")
+        return
+    for it in q.black_list:
+        full[cpu_model.item_index[it]] = -np.inf
+    codes = [cpu_model.item_index[it] for it in items]
+    nth = np.sort(full)[::-1][len(cpu["itemScores"]) - 1]
+    ok = (len(items) == len(cpu["itemScores"]) == len(set(items))
+          and np.all(np.abs(served - full[codes]) <= SCORE_TOL)
+          and np.all(np.diff(served) <= SCORE_TOL)
+          and np.all(full[codes] >= nth - SCORE_TOL))
+    if not ok:
+        raise AssertionError(f"{where}: {got} is not the CPU copy's top-"
+                             f"{q.num} ({cpu})")
+
+
+def serve_bodies(engine, ep, models, bodies):
+    """``POST /queries.json`` of each body through a query server over
+    ``models``: (answers, launches on the card, host clock ms each)."""
+    server = create_query_server(engine, ep, models, host="127.0.0.1", port=0)
+    ms = []
+    with server:
+        conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=60)
+
+        def serve_all():
+            out = []
+            for body in bodies:
+                t = time.perf_counter()
+                status, got = post(conn, json.dumps(body).encode())
+                ms.append((time.perf_counter() - t) * 1e3)
+                if status != 200:
+                    raise AssertionError(f"query {body}: HTTP {status} {got}")
+                out.append(got)
+            return out
+
+        answers, launches = count_kernels(serve_all)
+        conn.close()
+    return answers, launches, ms
+
+
+def phase_rec_template(args, smi) -> dict:
+    """Phase 13: the recommendation template end to end on the card."""
+    t_phase = time.monotonic()
+    log(f"phase 13: templates.recommendation end to end at MovieLens-100K's "
+        f"shape: ingest, run_train, load_models_for_instance, "
+        f"{N_REC_HTTP} POST /queries.json, batch_predict of {N_REC_BATCH}")
+    rng = np.random.default_rng(args.seed + 3)
+    app_id = Storage.get_meta_data_apps().insert(App(0, REC_APP))
+    t0 = time.monotonic()
+    n_events = rec_events(rng, app_id)
+    ingest_s = time.monotonic() - t0
+    variant = variant_from_dict({
+        "id": "rec-chip-smoke", "engineFactory": "templates.recommendation",
+        "datasource": {"params": {"app_name": REC_APP}},
+        "algorithms": [{"name": "als",
+                        "params": {**ALS_PARAMS, "seed": args.seed}}],
+    })
+    engine, ep = build_engine(variant)
+    ctx = ComputeContext.create(args.seed, device=CARD)
+    t0 = time.monotonic()
+    iid, train_launches = count_kernels(
+        lambda: run_train(engine, ep, variant, ctx=ctx))
+    train_s = time.monotonic() - t0
+    inst = Storage.get_meta_data_engine_instances().get(iid)
+    phases = {k: v for k, v in inst.env.items() if k.startswith("phase_")}
+    log(f"  ingest {n_events} events {ingest_s:.2f} s; run_train {train_s:.2f} s"
+        f" (host clock, under the profiler), {train_launches} launches; "
+        f"phases {json.dumps(phases)}; device {inst.env['device']}")
+    if inst.env["device"] != str(CARD):
+        raise AssertionError("run_train did not run on the card")
+    gpu = load_models_for_instance(iid, engine, ep, ctx)
+    cpu = load_models_for_instance(
+        iid, engine, ep, ComputeContext.local(args.seed, device="cpu"))
+    if gpu[0].factors.user_factors.device.type != CARD.type:
+        raise AssertionError("the loaded model is not on the card")
+    users = sorted(gpu[0].user_index.keys())
+    items = list(gpu[0].item_index.keys())
+    bodies = [
+        {"user": users[0], "num": 10},
+        {"user": users[1], "num": 10, "blackList": items[:5]},
+        {"user": users[2], "item": items[7]},
+        {"user": "stranger", "num": 10},
+        {"user": users[3], "num": 0},
+        {"user": users[4], "num": 20},
+        {"user": users[5], "num": 5, "blackList": items[:50]},
+        {"user": users[6]},
+    ]
+    answers, http_launches, ms = serve_bodies(engine, ep, gpu, bodies)
+    for k, (body, got) in enumerate(zip(bodies, answers)):
+        check_served(got, params_from_dict(RecQuery, body), cpu[0],
+                     f"rec query {k}")
+    log(f"  on the card (PIO_TPU_SERVE_DEVICE unset): {N_REC_HTTP} answers "
+        f"match the CPU copy of the blob; {http_launches} launches; host "
+        f"clock ms per request {rounded(ms)}")
+    if gpu[0].scorer().min_device_batch != 1 or http_launches == 0:
+        raise AssertionError("the served path did not score on the card")
+    # the same requests with the reference's routing by batch size
+    with serve_device("auto"):
+        routed = load_models_for_instance(iid, engine, ep, ctx)
+        answers, routed_launches, ms = serve_bodies(engine, ep, routed, bodies)
+    scorer = routed[0].scorer()
+    for k, (body, got) in enumerate(zip(bodies, answers)):
+        check_served(got, params_from_dict(RecQuery, body), cpu[0],
+                     f"rec query {k}, routed by batch size")
+    log(f"  PIO_TPU_SERVE_DEVICE=auto: link round trip "
+        f"{topn._probe_link_rtt_s(str(scorer.device)) * 1e6:.1f} us; top-N "
+        f"to the card from batch {scorer.min_device_batch}, pairs from "
+        f"{scorer.min_pair_batch}; {N_REC_HTTP} answers match the CPU copy; "
+        f"{routed_launches} launches; host clock ms per request {rounded(ms)}")
+
+    algo = RecALS(ep.algorithm_params_list[0][1])
+    qs = [(k, RecQuery(user=users[k % len(users)], num=10))
+          for k in range(N_REC_BATCH)]
+    t0 = time.perf_counter()
+    batch, batch_launches = count_kernels(
+        lambda: dict(algo.batch_predict(gpu[0], qs)))
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    loop = {k: algo.predict(gpu[0], q) for k, q in qs}
+    loop_ms = (time.perf_counter() - t0) * 1e3
+    for k, q in qs:
+        for name, got in (("batch", batch[k]), ("loop", loop[k])):
+            check_served(got.to_dict(), q, cpu[0], f"{name} query {k}")
+    log(f"  batch_predict of {N_REC_BATCH}: {batch_ms:.1f} ms, "
+        f"{batch_launches} launches; the predict loop {loop_ms:.1f} ms (host "
+        f"clock, the batch under the profiler); both match the CPU copy")
+    if batch_launches == 0:
+        raise AssertionError("batch_predict launched nothing on the card")
+    log(f"  phase 13 {time.monotonic() - t_phase:.1f} s; {smi}")
+    return dict(train_launches=train_launches, http_launches=http_launches,
+                routed_launches=routed_launches, batch_launches=batch_launches)
+
+
+def phase_scorer_full(factors, smi, rows) -> None:
+    """Phase 14: the top-N scorer at full width on phase 11's factors."""
+    t_phase = time.monotonic()
+    uf, itf = factors.user_factors, factors.item_factors
+    log(f"phase 14: DeviceTopNScorer at full width ({uf.shape[0]} x "
+        f"{itf.shape[0]}, rank {uf.shape[1]}); {smi}")
+    with serve_device("auto"):
+        auto = topn.DeviceTopNScorer(uf, itf, device=CARD)
+    card = topn.DeviceTopNScorer(uf, itf, warmup=True, device=CARD)
+    if card.min_device_batch != 1:
+        raise AssertionError("a scorer on the card does not score there")
+    host = topn.DeviceTopNScorer(uf, itf, prefer_device=False, device=CARD)
+    log(f"  link round trip {topn._probe_link_rtt_s(str(auto.device)) * 1e6:.1f}"
+        f" us; adaptive routing: top-N to the card from batch "
+        f"{auto.min_device_batch}, pairs from {auto.min_pair_batch}")
+    rng = np.random.default_rng(5)
+    N, K = itf.shape
+    results = {}
+    for B in (1, 512):
+        codes = rng.integers(0, uf.shape[0], B).astype(np.int32)
+        for with_ex in (False, True):
+            ex = rng.integers(0, N, (B, 64)).astype(np.int32) if with_ex else None
+            tag = f"B={B}{' excl 64' if with_ex else ''}"
+            got = {}
+            for name, s in (("card", card), ("host", host)):
+                s.top_n_batch(codes, 10, ex)
+                got[name] = (host_ms(lambda s=s: s.top_n_batch(codes, 10, ex)),
+                             s.top_n_batch(codes, 10, ex))
+            (i_c, v_c), (i_h, v_h) = got["card"][1], got["host"][1]
+            err = float(np.abs(v_c - v_h).max())
+            full = host.scores_batch(codes)
+            if ex is not None:
+                full[np.arange(B)[:, None], ex] = -np.inf
+            tenth = np.sort(full, axis=1)[:, -10]
+            picked = np.take_along_axis(full, i_c, axis=1)
+            if err > SCORE_TOL or not np.all(picked >= tenth[:, None] - SCORE_TOL):
+                raise AssertionError(f"{tag}: card top-N is not the host's")
+            results[tag] = {"card_ms": got["card"][0], "host_ms": got["host"][0],
+                            "max_abs_err": err}
+    log(f"  top_n_batch(n=10), host clock ms: {json.dumps(results)}")
+    codes = rng.integers(0, uf.shape[0], 512).astype(np.int32)
+    sb = {n: host_ms(lambda s=s: s.scores_batch(codes))
+          for n, s in (("card", card), ("host", host))}
+    sb_err = float(np.abs(card.scores_batch(codes) - host.scores_batch(codes)).max())
+    rc = rng.integers(0, uf.shape[0], 100_000).astype(np.int32)
+    cc = rng.integers(0, N, 100_000).astype(np.int32)
+    sp = {n: host_ms(lambda s=s: s.score_pairs(rc, cc))
+          for n, s in (("card", card), ("host", host))}
+    sp_err = float(np.abs(card.score_pairs(rc, cc) - host.score_pairs(rc, cc)).max())
+    log(f"  scores_batch(512) ms {json.dumps(sb)} max |err| {sb_err}; "
+        f"score_pairs(100000) ms {json.dumps(sp)} max |err| {sp_err}")
+    if max(sb_err, sp_err) > SCORE_TOL:
+        raise AssertionError("card scores differ from the host's")
+
+    # the device program alone (CUDA events), with its launches and bound
+    for B in (1, 512):
+        codes_t = torch.from_numpy(rng.integers(0, uf.shape[0], B)).to(CARD)
+
+        def fn(codes_t=codes_t):
+            return topn._topn_fn(card._rows_dev, card._cols_dev, codes_t, 16)
+
+        ms = cuda_ms(fn, iters=10, warmup=2)
+        _, n_l = count_kernels(fn)
+        bnd = bound_of(B * K * 4 + N * K * 4 + B * 16 * 12 + B * 8,
+                       2 * B * N * K)
+        rows.append(program_row(
+            "_topn_fn", "pio_tpu/ops/topn.py:60",
+            f"B={B} x {N} items, K={K}, k=16", n_l, ms, bnd,
+            results[f"B={B}"]["max_abs_err"]))
+    log(f"  phase 14 {time.monotonic() - t_phase:.1f} s")
+
+
 def kernel_entry(name, source, replaces, launches, row) -> dict:
     """One kernel of the JSON line, from its main timed row."""
     return {
@@ -1151,6 +1878,17 @@ def main(argv=None) -> int:
             autograd["embedding_bag_backward_weights"], backward["dot"][0]),
          "shapes": backward["dot"]},
     ]
+
+    # the recommendation path: no hand-written kernel, its device programs
+    # are PyTorch ops (one JSON line of them before the kernels' line)
+    full = phase_als_full(args, smi)
+    phase_als_card_vs_cpu(args, smi, full["rows"])
+    rec = phase_rec_template(args, smi)
+    phase_scorer_full(full["factors"], smi, full["rows"])
+    log(f"recommendation path launches: run_train {rec['train_launches']}, "
+        f"HTTP {rec['http_launches']} (routed by batch size "
+        f"{rec['routed_launches']}), batch_predict {rec['batch_launches']}")
+    print(json.dumps({"programs": full["rows"], "device": smi}))
     print(json.dumps({"kernels": summary}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

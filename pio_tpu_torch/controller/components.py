@@ -74,6 +74,14 @@ class Algorithm(Component, Generic[PD, M, Q, P]):
         """Default: loop predict. Override with one batched device call."""
         return [(i, self.predict(model, q)) for i, q in queries]
 
+    def prepare_for_serving(self, model: M) -> M:
+        """One-time serving preparation at deploy or load (the model side
+        of the reference's ``Engine.prepareDeploy``): for example, build
+        a scorer on the model's device. Runs for the query server and for
+        batch prediction (``Engine.algorithms_with_models``). Default:
+        the model unchanged."""
+        return model
+
     def warmup_query(self, model: M) -> Optional[Q]:
         """A representative query to warm the serving path with, or None."""
         return None

@@ -171,7 +171,11 @@ class Engine:
             raise ValueError(
                 f"{len(algos)} algorithms but {len(models)} models"
             )
-        return list(zip(algos, models))
+        # serving preparation (reference Engine.prepareDeploy), once per
+        # (algorithm, model) pair
+        return [
+            (a, a.prepare_for_serving(m)) for a, m in zip(algos, models)
+        ]
 
 
 # -------------------------------------------------------------- registry

@@ -47,6 +47,9 @@ class EmptyParams(Params):
 def _check_field_type(name: str, value: Any, ftype: Any) -> Any:
     """Best-effort runtime check/coercion for common JSON-able field types."""
     origin = typing.get_origin(ftype)
+    if origin is tuple and isinstance(value, list):
+        # a JSON array binds to a tuple field (a query's black_list)
+        return tuple(value)
     if ftype is Any or origin is not None and origin is not list:
         return value  # Optional/Union/Dict etc. — accept as-is
     if ftype is float and isinstance(value, int) and not isinstance(value, bool):

@@ -1,11 +1,14 @@
 """BiMap — immutable bidirectional map (a copy of ``pio_tpu/data/bimap.py``).
 
 Indexes string labels into dense integer codes and back. Indices are
-assigned over **sorted** keys so index maps are deterministic.
+assigned over **sorted** keys (:meth:`BiMap.string_int`) or by descending
+frequency with lexicographic ties (:meth:`BiMap.string_int_by_frequency`),
+so index maps are deterministic.
 """
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import Dict, Generic, Hashable, Iterable, Iterator, Mapping, Optional, TypeVar
 
 K = TypeVar("K", bound=Hashable)
@@ -74,3 +77,16 @@ class BiMap(Generic[K, V]):
         """Index distinct keys 0..n-1, over the sorted keys."""
         distinct = sorted(set(keys))
         return BiMap({k: i for i, k in enumerate(distinct)})
+
+    @staticmethod
+    def string_int_by_frequency(keys: Iterable[str]) -> "BiMap[str, int]":
+        """Index distinct keys 0..n-1 by DESCENDING occurrence count, ties
+        ordered lexicographically (so the assignment stays deterministic).
+
+        Popular entities get low codes: the hot rows of a factor table
+        cluster together, and the ALS delta item wire gets smaller gaps.
+        Interchangeable with :meth:`string_int` but for the assignment.
+        """
+        counts = Counter(keys)
+        ordered = sorted(counts, key=lambda k: (-counts[k], k))
+        return BiMap({k: i for i, k in enumerate(ordered)})

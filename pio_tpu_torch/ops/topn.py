@@ -1,0 +1,403 @@
+"""Device-resident factor scoring for serving — the port of ``pio_tpu/ops/topn.py``.
+
+The factor tables go to the device once, when the scorer is built (at
+deploy), and each request is one ``[B, K] @ [K, N]`` product and a top-k
+there; only integer codes and the top-N results cross the link.
+
+**Routing.** A scorer on CUDA scores every call on the card. The
+reference's adaptive routing is kept for a scorer on the CPU and as an
+opt-in on the card (``PIO_TPU_SERVE_DEVICE=auto``): what a small request
+costs is mostly the host ↔ device round trip, not the math, so the
+scorer probes both costs once — a 4-byte round trip to the device and
+one host-scored row — and routes each call by batch size: ``B ≥ RTT /
+host_row_cost`` goes to the device, smaller batches to the host mirror
+of the factors (which exists anyway: it is the persisted model).
+``PIO_TPU_SERVE_DEVICE=1|0`` forces the device or the host for every
+call.
+
+**Ties.** ``jax.lax.top_k`` puts the lower index first among equal
+scores; ``torch.topk`` promises no order. The device path ranks a
+composite int64 key — the score's order-preserving bits above the
+complemented column index — so the order is pinned: larger score first,
+then lower index, as on the reference's device path and the host path
+here. NaN scores (diverged factors) rank as ``-inf`` on both paths.
+
+**Exclusions.** A row's exclusion slots are padded with the sentinel
+``n_cols``, which JAX drops as out of bounds. The device table here has
+one spare zero row at ``n_cols``: the sentinel's score lands in that
+column, which is cut off before the top-k.
+
+Batches are cut into chunks of ``_MAX_BATCH_BUCKET`` rows, and the top-k
+width rounds up to a power of two (``_bucket``), as in the reference. The
+reference pads each chunk to a power of two to bound its compilations;
+eager PyTorch compiles nothing, so the chunks run at their own size. The
+reference's native host scorer (``topn_host.cpp``) and its mesh-sharded
+placement are not ported: the host path is the numpy one, and
+:meth:`DeviceTopNScorer.sharding_info` is always None.
+"""
+
+from __future__ import annotations
+
+import functools
+import time
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from pio_tpu_torch import DeviceLike, resolve_device
+from pio_tpu_torch.utils import knobs
+
+#: largest per-dispatch batch; bigger batches loop in chunks of this
+_MAX_BATCH_BUCKET = 512
+
+#: rows a score_pairs dispatch takes at most
+_PAIRS_CHUNK = 1 << 20
+
+
+def _bucket(n: int, cap: int) -> int:
+    """Smallest power of two ≥ n, capped."""
+    b = 1
+    while b < n and b < cap:
+        b <<= 1
+    return min(b, cap)
+
+
+def _ranked(scores: torch.Tensor) -> torch.Tensor:
+    """NaN → -inf and -0.0 → +0.0, in place (the host path's contract)."""
+    scores.nan_to_num_(nan=float("-inf"), posinf=float("inf"),
+                       neginf=float("-inf"))
+    return scores.add_(0.0)
+
+
+def _topk_pinned(scores: torch.Tensor, k: int):
+    """Top-k of each row of float32 ``scores [B, N]``: larger score first,
+    then lower column index. Returns (values, indices int64)."""
+    bits = scores.view(torch.int32).to(torch.int64)
+    # order-preserving map of the float bits onto signed integers
+    ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    n_cols = scores.shape[1]
+    low = 0xFFFFFFFF - torch.arange(n_cols, device=scores.device)
+    # the keys are distinct, so the top-k and its order are unique
+    _, idx = torch.topk(ordered * (1 << 32) + low[None, :], k, dim=1)
+    return scores.gather(1, idx), idx
+
+
+def _topn_fn(rows, cols_ext, codes, k: int, excl=None):
+    """[B,K]@[K,N] and the pinned top-k. ``cols_ext`` is ``[N+1, K]`` with
+    the spare sentinel row last; ``excl`` is ``[B, E]`` column codes, the
+    sentinel ``N`` marking unused slots."""
+    scores = rows[codes] @ cols_ext.T  # [B, N+1], float32
+    if excl is not None:
+        scores.scatter_(1, excl, float("-inf"))
+    n_cols = cols_ext.shape[0] - 1
+    return _topk_pinned(_ranked(scores[:, :n_cols].contiguous()), k)
+
+
+def _scores_fn(rows, cols_ext, codes):
+    return rows[codes] @ cols_ext[:-1].T
+
+
+def _pairs_fn(rows, cols_ext, rcodes, ccodes):
+    return (rows[rcodes] * cols_ext[ccodes]).sum(-1)
+
+
+def _env_mode(device: torch.device) -> str:
+    """``PIO_TPU_SERVE_DEVICE``'s routing: "device", "host" or "auto";
+    unset, "device" on CUDA and "auto" on the CPU."""
+    env = knobs.knob_str("PIO_TPU_SERVE_DEVICE").lower()
+    if env in ("1", "true", "yes", "device"):
+        return "device"
+    if env in ("0", "false", "no", "host"):
+        return "host"
+    if env == "auto" or device.type != "cuda":
+        return "auto"
+    return "device"
+
+
+@functools.lru_cache(maxsize=None)
+def _probe_link_rtt_s(device: str) -> float:
+    """Best of three minimal host → device → host round trips (4 bytes
+    each way): the link's cost, not the math's. Measured once per device
+    in a process."""
+    x = torch.ones(1, dtype=torch.float32)
+    x.to(device).cpu()  # warm the path
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        x.to(device).cpu()
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+class DeviceTopNScorer:
+    """Row-factors × col-factors top-N scorer, resident on ``device``.
+
+    ``rows`` is the query-side table (user factors), ``cols`` the scored
+    items. Either may be a numpy array or a tensor; the scorer keeps a
+    float32 host mirror and a copy on ``device`` (CUDA unless told
+    otherwise; a table already there is not copied). Methods take and
+    return host numpy: only codes and the results cross the link.
+
+    ``prefer_device``: True/False pins every call to the device/host
+    path; None consults ``PIO_TPU_SERVE_DEVICE``, and unset scores on the
+    card when ``device`` is CUDA and routes by batch size on the CPU (see
+    the module docstring). ``link_rtt_s`` overrides the
+    probed round trip (tests inject link speeds). A failed device call
+    raises; it never falls back to the host.
+    """
+
+    def __init__(
+        self,
+        row_factors,
+        col_factors,
+        prefer_device: Optional[bool] = None,
+        warmup: bool = False,
+        link_rtt_s: Optional[float] = None,
+        device: DeviceLike = None,
+    ):
+        self.device = resolve_device(device)
+        rows = _host_f32(row_factors)
+        cols = _host_f32(col_factors)
+        if rows.shape[1] != cols.shape[1]:
+            raise ValueError(
+                f"rank mismatch: rows {rows.shape} vs cols {cols.shape}"
+            )
+        self.n_rows, self.rank = rows.shape
+        self.n_cols = cols.shape[0]
+        self._rows_np = rows
+        self._cols_np = cols
+        self._rows_dev = self._cols_dev = None
+
+        if self.n_rows == 0 or self.n_cols == 0:
+            # nothing to probe or score on the device; the public methods
+            # handle the empty dimensions on the host
+            self.min_device_batch = float("inf")
+            self.min_pair_batch = float("inf")
+            return
+
+        if prefer_device is True:
+            mode = "device"
+        elif prefer_device is False:
+            mode = "host"
+        else:
+            mode = _env_mode(self.device)
+        if mode == "host":
+            self.min_device_batch = float("inf")
+            self.min_pair_batch = float("inf")
+        else:
+            # the single upload of the deploy lifetime, with the spare
+            # sentinel row of the exclusion scatter
+            self._rows_dev = _on_device(row_factors, rows, self.device)
+            cols_dev = _on_device(col_factors, cols, self.device)
+            self._cols_dev = torch.cat(
+                [cols_dev, cols_dev.new_zeros((1, self.rank))]
+            )
+            if mode == "device":
+                self.min_device_batch = 1
+                self.min_pair_batch = 1
+            else:
+                # a pair query is a rank-length dot, ~n_cols× cheaper on
+                # the host than a score row, so its break-even batch is
+                # that much larger
+                rtt = link_rtt_s if link_rtt_s is not None \
+                    else _probe_link_rtt_s(str(self.device))
+                host_row = self._probe_host_row_s()
+                host_pair = max(host_row / self.n_cols, 1e-9)
+                self.min_device_batch = max(1, int(np.ceil(rtt / host_row)))
+                self.min_pair_batch = max(1, int(np.ceil(rtt / host_pair)))
+        if warmup:
+            # the first live request must not pay the first-call costs
+            # (cuBLAS handles, allocator growth) of its route
+            self.top_n_batch(np.zeros(1, np.int32), 16)
+            if self.min_pair_batch <= 1:
+                self.score_pairs(np.zeros(1, np.int32), np.zeros(1, np.int32))
+
+    def sharding_info(self) -> Optional[dict]:
+        """Placement summary of a sharded scorer: None, the port has one
+        device."""
+        return None
+
+    @property
+    def on_device(self) -> bool:
+        """True when at least some batch sizes route to the device."""
+        return self._rows_dev is not None
+
+    def _probe_host_row_s(self) -> float:
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            self._rows_np[0] @ self._cols_np.T
+            best = min(best, time.perf_counter() - t0)
+        return max(best, 1e-7)
+
+    def _route_to_device(self, batch: int) -> bool:
+        return self.on_device and batch >= self.min_device_batch
+
+    def _codes(self, codes: np.ndarray, bound: int) -> torch.Tensor:
+        """Host codes as an int64 tensor on the device, checked against
+        ``[0, bound)`` on the host first: an out-of-range index on the card
+        is a device-side assert, which ends the process's CUDA context."""
+        if codes.size and (int(codes.min()) < 0 or int(codes.max()) >= bound):
+            raise IndexError(f"code out of range [0, {bound})")
+        return torch.from_numpy(
+            np.ascontiguousarray(codes, np.int64)
+        ).to(self.device)
+
+    # ----------------------------------------------------------- device path
+    def _top_n_device(self, codes, n, exclude):
+        B = codes.shape[0]
+        k = _bucket(n, self.n_cols) if n < self.n_cols else self.n_cols
+        idx_out = np.empty((B, k), np.int64)
+        val_out = np.empty((B, k), np.float32)
+        for lo in range(0, B, _MAX_BATCH_BUCKET):
+            chunk = codes[lo:lo + _MAX_BATCH_BUCKET]
+            excl = None
+            if exclude is not None:
+                ex = np.minimum(exclude[lo:lo + _MAX_BATCH_BUCKET],
+                                self.n_cols)  # any code ≥ n_cols: sentinel
+                excl = self._codes(ex, self.n_cols + 1)
+            vals, idx = _topn_fn(
+                self._rows_dev, self._cols_dev,
+                self._codes(chunk, self.n_rows), k, excl,
+            )
+            m = chunk.shape[0]
+            idx_out[lo:lo + m] = idx.cpu().numpy()
+            val_out[lo:lo + m] = vals.cpu().numpy()
+        # an excluded slot surfaces at -inf; pin its index to col 0 so a
+        # caller never reads a code from a fully masked row
+        idx_out = np.where(np.isfinite(val_out), idx_out, 0)
+        return idx_out[:, :n], val_out[:, :n]
+
+    # ------------------------------------------------------------- host path
+    def _top_n_host(self, codes, n, exclude):
+        B = codes.shape[0]
+        # chunk rows so the [chunk, N] score and key planes stay ~100 MB
+        chunk = max(1, (8 << 20) // max(1, self.n_cols))
+        idx_out = np.empty((B, n), np.int64)
+        val_out = np.empty((B, n), np.float32)
+        for lo in range(0, B, chunk):
+            hi = min(B, lo + chunk)
+            ex = exclude[lo:hi] if exclude is not None else None
+            idx_out[lo:hi], val_out[lo:hi] = self._top_n_host_chunk(
+                codes[lo:hi], n, ex
+            )
+        return idx_out, val_out
+
+    def _top_n_host_chunk(self, codes, n, exclude):
+        scores = self._rows_np[codes] @ self._cols_np.T  # [B, N]
+        if exclude is not None:
+            b = np.arange(scores.shape[0])[:, None]
+            keep = exclude < self.n_cols  # sentinel slots stay untouched
+            scores[
+                np.broadcast_to(b, exclude.shape)[keep],
+                exclude[keep],
+            ] = -np.inf
+        # composite u64 keys encode (-score, index): selection and order
+        # are deterministic under ties. NaN maps to -inf; `+ 0.0` makes
+        # -0.0 +0.0 so the two tie
+        scores += np.float32(0.0)
+        np.copyto(scores, -np.inf, where=np.isnan(scores))
+        bits = scores.view(np.uint32)
+        ordered = np.where(
+            (bits >> np.uint32(31)).astype(bool),
+            ~bits, bits | np.uint32(0x80000000),
+        )
+        keys = (
+            ((np.uint32(0xFFFFFFFF) - ordered).astype(np.uint64)
+             << np.uint64(32))
+            | np.arange(self.n_cols, dtype=np.uint64)[None, :]
+        )
+        if n < self.n_cols:
+            part = np.argpartition(keys, n - 1, axis=1)[:, :n]
+        else:
+            part = np.argsort(keys, axis=1)
+        pk = np.take_along_axis(keys, part, axis=1)
+        order = np.argsort(pk, axis=1)
+        idx = np.take_along_axis(part, order, axis=1).astype(np.int64)
+        return idx, np.take_along_axis(scores, idx, axis=1)
+
+    # -------------------------------------------------------------- public
+    def top_n_batch(
+        self,
+        codes: np.ndarray,
+        n: int,
+        exclude: Optional[np.ndarray] = None,
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Top-n col indices and scores for each row code.
+
+        ``exclude``: optional ``[B, E]`` int array of col codes to mask out
+        per row; pad unused slots with any value ≥ ``n_cols``.
+        """
+        codes = np.asarray(codes, np.int32)
+        if codes.ndim != 1:
+            raise ValueError("codes must be 1-D")
+        n = max(1, min(n, self.n_cols))
+        if exclude is not None:
+            exclude = np.asarray(exclude, np.int32)
+            if exclude.ndim != 2 or exclude.shape[0] != codes.shape[0]:
+                raise ValueError("exclude must be [B, E]")
+        if codes.shape[0] == 0 or self.n_cols == 0:
+            b = codes.shape[0]
+            n = 0 if self.n_cols == 0 else n
+            return (np.empty((b, n), np.int64), np.empty((b, n), np.float32))
+        if self._route_to_device(codes.shape[0]):
+            return self._top_n_device(codes, n, exclude)
+        return self._top_n_host(codes, n, exclude)
+
+    def scores_batch(self, codes: np.ndarray) -> np.ndarray:
+        """Full ``[B, n_cols]`` score matrix (host numpy out).
+
+        The result is B × n_cols floats back over the link, so the device
+        route is taken only when the link probe found it free
+        (``min_device_batch == 1``: a local device, or forced).
+        """
+        codes = np.asarray(codes, np.int32)
+        B = codes.shape[0]
+        if B == 0 or self.min_device_batch > 1 or not self.on_device:
+            return self._rows_np[codes] @ self._cols_np.T
+        out = np.empty((B, self.n_cols), np.float32)
+        for lo in range(0, B, _MAX_BATCH_BUCKET):
+            chunk = codes[lo:lo + _MAX_BATCH_BUCKET]
+            s = _scores_fn(self._rows_dev, self._cols_dev,
+                           self._codes(chunk, self.n_rows))
+            out[lo:lo + chunk.shape[0]] = s.cpu().numpy()
+        return out
+
+    def score_pairs(
+        self, row_codes: np.ndarray, col_codes: np.ndarray
+    ) -> np.ndarray:
+        """Per-pair dot products ``rows[rc] · cols[cc]`` → ``[B]``."""
+        rc = np.asarray(row_codes, np.int32)
+        cc = np.asarray(col_codes, np.int32)
+        B = rc.shape[0]
+        if B == 0 or B < self.min_pair_batch or not self.on_device:
+            return np.einsum(
+                "bk,bk->b", self._rows_np[rc], self._cols_np[cc]
+            )
+        out = np.empty(B, np.float32)
+        for lo in range(0, B, _PAIRS_CHUNK):
+            got = _pairs_fn(
+                self._rows_dev, self._cols_dev,
+                self._codes(rc[lo:lo + _PAIRS_CHUNK], self.n_rows),
+                self._codes(cc[lo:lo + _PAIRS_CHUNK], self.n_cols),
+            )
+            out[lo:lo + got.shape[0]] = got.cpu().numpy()
+        return out
+
+
+def _host_f32(table) -> np.ndarray:
+    """A factor table as a C-contiguous float32 host array."""
+    if isinstance(table, torch.Tensor):
+        table = table.detach().cpu().numpy()
+    return np.ascontiguousarray(table, dtype=np.float32)
+
+
+def _on_device(table, host: np.ndarray, device: torch.device) -> torch.Tensor:
+    """``table`` on ``device`` as float32: the tensor itself when it is
+    already there, else one copy of the host mirror."""
+    if isinstance(table, torch.Tensor) and table.dtype == torch.float32 \
+            and table.device.type == device.type \
+            and (device.index is None or table.device.index == device.index):
+        return table.detach()
+    return torch.from_numpy(host).to(device)

@@ -9,16 +9,15 @@ Two event access styles, as in the reference:
 - :class:`LEvents` — single-row CRUD + filtered scans; the low-latency,
   serving-side path (Event Server inserts, feedback loop reads).
 - :class:`PEvents` — bulk access for training (the reference's Spark
-  ``RDD[Event]``), as Python lists.
+  ``RDD[Event]``), as Python lists or a columnar
+  :class:`~pio_tpu_torch.storage.frame.EventFrame` (:meth:`PEvents.find_frame`).
 
 A backend may implement both over the same underlying store (the memory
 backend does).
 
 The port's copy of ``pio_tpu/storage/base.py`` (the port imports nothing of
-``pio_tpu``), without the columnar ``EventFrame`` reads (``find_frame``),
-which come with the storage slice, and without the access-key and
-evaluation-instance stores, which come with the event server and
-evaluation.
+``pio_tpu``), without the access-key and evaluation-instance stores, which
+come with the event server and evaluation.
 """
 
 from __future__ import annotations
@@ -159,7 +158,8 @@ class LEvents(abc.ABC):
 class PEvents(abc.ABC):
     """Bulk event access for training (reference trait ``PEvents``).
 
-    The reference returns ``RDD[Event]``; this returns a Python list.
+    The reference returns ``RDD[Event]``; this returns either a Python list
+    (:meth:`find`) or a columnar :class:`EventFrame` (:meth:`find_frame`).
     """
 
     @abc.abstractmethod
@@ -175,6 +175,12 @@ class PEvents(abc.ABC):
         target_entity_type: Optional[str] = None,
         target_entity_id: Optional[str] = None,
     ) -> List[Event]: ...
+
+    def find_frame(self, app_id: int, **filters):
+        """Columnar bulk read. Default: build from :meth:`find`."""
+        from pio_tpu_torch.storage.frame import EventFrame
+
+        return EventFrame.from_events(self.find(app_id, **filters))
 
     def aggregate_properties(
         self,

@@ -1,16 +1,118 @@
 """Helpers shared by the templates.
 
-The port's copy of ``resolve_app`` from ``pio_tpu/templates/common.py``
-(the port imports nothing of ``pio_tpu``). The device scorer and the
-item-scoring rules come with the recommendation slice.
+The port's copy of ``pio_tpu/templates/common.py`` (the port imports
+nothing of ``pio_tpu``): the app lookup (``resolve_app``), the item-score
+result types, the per-model top-N scorer cache (:class:`DeviceScorerModel`)
+and the k-fold helpers of a data source's ``read_eval``. The item-scoring
+rules of the similar-product and e-commerce templates come with them.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import threading as _threading
 from typing import Optional, Tuple
+
+import numpy as np
+import torch
 
 from pio_tpu_torch.data.store import resolve_channel
 from pio_tpu_torch.storage.registry import Storage
+
+
+@dataclasses.dataclass(frozen=True)
+class ItemScore:
+    item: str
+    score: float
+
+
+@dataclasses.dataclass(frozen=True)
+class PredictedResult:
+    item_scores: Tuple[ItemScore, ...] = ()
+
+    def to_dict(self) -> dict:
+        return {
+            "itemScores": [
+                {"item": s.item, "score": s.score} for s in self.item_scores
+            ]
+        }
+
+
+class DeviceScorerModel:
+    """Lazy per-model :class:`~pio_tpu_torch.ops.topn.DeviceTopNScorer`
+    cache that pickling drops. Subclasses return the (row_factors,
+    col_factors) tensors from :meth:`_scorer_factors`; the scorer lives on
+    their device — the device the model was built or loaded on
+    (``load_models_for_instance`` puts a persisted model's tensors on its
+    context's device), never a default."""
+
+    def _scorer_factors(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        raise NotImplementedError
+
+    def scorer(self, warmup: bool = False):
+        """The scorer, built once per deploy lifetime. Lock-guarded:
+        concurrent first requests in the threaded query server must not
+        each build one and re-run the link probes."""
+        s = self.__dict__.get("_scorer")
+        if s is None:
+            with self.__dict__.setdefault("_scorer_lock", _threading.Lock()):
+                s = self.__dict__.get("_scorer")
+                if s is None:
+                    from pio_tpu_torch.ops.topn import DeviceTopNScorer
+
+                    rows, cols = self._scorer_factors()
+                    s = DeviceTopNScorer(
+                        rows, cols, warmup=warmup, device=rows.device
+                    )
+                    self.__dict__["_scorer"] = s
+        return s
+
+    def __getstate__(self):
+        # the scorer holds device tensors and a lock: never persisted
+        d = dict(self.__dict__)
+        d.pop("_scorer", None)
+        d.pop("_scorer_lock", None)
+        return d
+
+
+def dedup_pair_indices(a, b) -> np.ndarray:
+    """Indices of the first occurrence of each ``(a[i], b[i])`` pair, in
+    order. K-fold holdouts dedupe interactions first so a repeated pair
+    split across folds can't leak the held-out interaction into the
+    training fold."""
+    seen = set()
+    keep = []
+    for idx, pair in enumerate(zip(a, b)):
+        if pair not in seen:
+            seen.add(pair)
+            keep.append(idx)
+    return np.asarray(keep, np.int64)
+
+
+def fold_assignments(n: int, k: int, seed: int = 0) -> np.ndarray:
+    """Deterministic randomized fold labels ``[n] → {0..k-1}``: a seeded
+    permutation, since ``arange(n) % k`` over a time-ordered event frame
+    can put whole users in one fold."""
+    rng = np.random.default_rng(seed)
+    return rng.permutation(n) % k
+
+
+def seen_exclusion_holdout(train_users, train_items, test_users,
+                           test_items, make_query):
+    """The hitrate holdout protocol: per held-out (user, item) pair, a
+    query that black-lists the user's training-fold items (a recommender
+    ranks what it memorized first). User-cold and item-cold pairs are
+    skipped. ``make_query(user, black_list)`` returns the template's
+    query; returns ``[(query, actual)]``."""
+    seen: dict = {}
+    for u, i in zip(train_users, train_items):
+        seen.setdefault(str(u), []).append(str(i))
+    known_items = {str(i) for i in train_items}
+    return [
+        (make_query(str(u), tuple(seen[str(u)])), str(i))
+        for u, i in zip(test_users, test_items)
+        if str(u) in seen and str(i) in known_items
+    ]
 
 
 def resolve_app(params) -> Tuple[int, Optional[int]]:

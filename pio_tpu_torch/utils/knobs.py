@@ -1,0 +1,25 @@
+"""The ``PIO_TPU_*`` environment knobs the port reads, with their defaults.
+
+The port's own reader (the reference's registry is
+``pio_tpu/utils/knobs.py``, which the port does not import). A knob not
+declared here is a programming error, so a misspelt name raises instead
+of reading as unset.
+"""
+
+from __future__ import annotations
+
+import os
+
+#: name → the value an unset (or empty) variable means
+_DEFAULTS = {
+    # scoring placement of the top-N scorer: `device`, `host` or `auto`
+    # (by batch size); unset, a scorer on CUDA scores on the card and one
+    # on the CPU routes by batch size
+    "PIO_TPU_SERVE_DEVICE": "",
+}
+
+
+def knob_str(name: str) -> str:
+    """The knob's value, stripped, or its declared default when unset."""
+    default = _DEFAULTS[name]
+    return os.environ.get(name, "").strip() or default
