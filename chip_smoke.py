@@ -42,7 +42,8 @@ kernels (the forward, and the backward's bag scatter and bag dot):
 10. ``load_models_for_instance`` and serve the trained models through the
    query server, checked against a CPU copy of the same persisted blob;
 11. ``train_als`` at MovieLens-25M's shape (25 M ratings from a copy of
-   ``bench.py``'s ``_synth_ratings``, rank 16, 10 iterations, reg 0.1):
+   ``bench.py``'s ``_synth_ratings``, rank 16, 10 iterations, reg 0.1) on
+   its default route (printed: the packer and the shipment count):
    its phases and peak memory, twice for the same bits, float32 against
    bfloat16 in turns, one half-step a side split into gather + products,
    segment sum and solve with its launches and bound, each solver at both
@@ -56,7 +57,18 @@ kernels (the forward, and the backward's bag scatter and bag dot):
    ``PIO_TPU_SERVE_DEVICE=auto``) and ``batch_predict`` of 1024 against
    the ``predict`` loop, checked against a CPU copy;
 14. the top-N scorer at full width on phase 11's factors, card against
-   host path.
+   host path;
+15. ``train_als`` at MovieLens-25M's shape on the default route: the
+   native packer's wire against the numpy wire array for array, with
+   both host times; the default route once with its phases and peak
+   memory (the native packer, phase 11's bits), and its wall time without
+   stats (3 runs);
+16. the native host scorer at full width on phase 11's factors (B = 1, 64,
+   512) against the numpy host path and the card, and bitwise against
+   numpy on factors whose dot products are exact;
+17. ``run_evaluation`` of ``recommendation_evaluation`` at MovieLens-100K's
+   shape (phase 13's events; 3 folds, a 2 x 2 rank x lambda grid) on the
+   card and on the CPU: the same best params, MSE within EVAL_MSE_RTOL.
 
 Usage: ``python3 chip_smoke.py [--seed N]``. Exits non-zero when no CUDA
 device is available or any phase fails. The line before the last holds
@@ -69,6 +81,7 @@ summary, the one before that the recommendation path's device programs
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import dataclasses
 import datetime as dt
@@ -92,6 +105,7 @@ from pio_tpu_torch.data.event import Event  # noqa: E402
 from pio_tpu_torch.models import als, mlp  # noqa: E402
 from pio_tpu_torch.models.naive_bayes import train_multinomial_nb_bags  # noqa: E402
 from pio_tpu_torch.models.tfidf import TfIdfVectorizer  # noqa: E402
+from pio_tpu_torch import native  # noqa: E402
 from pio_tpu_torch.ops import _build  # noqa: E402
 from pio_tpu_torch.ops import embedding, topn  # noqa: E402
 from pio_tpu_torch.parallel.context import ComputeContext  # noqa: E402
@@ -100,6 +114,7 @@ from pio_tpu_torch.storage.records import App  # noqa: E402
 from pio_tpu_torch.storage.registry import Storage  # noqa: E402
 from pio_tpu_torch.templates.recommendation import ALSAlgorithm as RecALS  # noqa: E402
 from pio_tpu_torch.templates.recommendation import Query as RecQuery  # noqa: E402
+from pio_tpu_torch.templates.recommendation import recommendation_evaluation  # noqa: E402
 from pio_tpu_torch.templates.textclassification import (  # noqa: E402
     MLPAlgorithm,
     MLPParams,
@@ -109,6 +124,7 @@ from pio_tpu_torch.templates.textclassification import (  # noqa: E402
 )
 from pio_tpu_torch.workflow.core_workflow import (  # noqa: E402
     load_models_for_instance,
+    run_evaluation,
     run_train,
 )
 from pio_tpu_torch.workflow.engine_json import build_engine, variant_from_dict  # noqa: E402
@@ -1125,17 +1141,22 @@ WIDE_RANK = 128
 
 
 @contextlib.contextmanager
-def serve_device(value: str):
-    """``PIO_TPU_SERVE_DEVICE`` set to ``value`` inside the block."""
-    old = os.environ.get("PIO_TPU_SERVE_DEVICE")
-    os.environ["PIO_TPU_SERVE_DEVICE"] = value
+def knob(name: str, value: str):
+    """The environment knob ``name`` set to ``value`` inside the block."""
+    old = os.environ.get(name)
+    os.environ[name] = value
     try:
         yield
     finally:
         if old is None:
-            del os.environ["PIO_TPU_SERVE_DEVICE"]
+            del os.environ[name]
         else:
-            os.environ["PIO_TPU_SERVE_DEVICE"] = old
+            os.environ[name] = old
+
+
+def serve_device(value: str):
+    """``PIO_TPU_SERVE_DEVICE`` set to ``value`` inside the block."""
+    return knob("PIO_TPU_SERVE_DEVICE", value)
 
 
 def synth_ratings(n_edges: int, n_users: int, n_items: int, seed: int,
@@ -1256,9 +1277,10 @@ def phase_als_full(args, smi) -> dict:
                         stats=stats)
     train_s = time.monotonic() - t0
     peak = torch.cuda.max_memory_allocated()
-    log(f"  train_als {train_s:.2f} s (host clock): pack {stats['pack_s']:.3f}"
-        f" s, wire {stats['wire_bytes']} B ({stats['encoding']}, n_stream "
-        f"{stats['n_stream']}), h2d {stats['h2d_s']:.3f} s, device "
+    log(f"  train_als {train_s:.2f} s (host clock; the default route: "
+        f"packer {stats['packer']}, n_stream {stats['n_stream']}): pack "
+        f"{stats['pack_s']:.3f} s, wire {stats['wire_bytes']} B "
+        f"({stats['encoding']}), h2d {stats['h2d_s']:.3f} s, device "
         f"{stats['device_s']:.3f} s; peak device memory {peak} B")
     again = als.train_als(ctx, u, i, r, ML25M_USERS, ML25M_ITEMS, cfg)
     same = bool(np.array_equal(f32.user_factors, again.user_factors)
@@ -1448,7 +1470,8 @@ def phase_als_full(args, smi) -> dict:
         raise AssertionError(f"rank {WIDE_RANK} gave non-finite factors")
     del P, Q
     log(f"  phase 11 {time.monotonic() - t_phase:.1f} s")
-    return dict(factors=f32, rows=rows, solves=solves, same_bits=same)
+    return dict(factors=f32, rows=rows, solves=solves, same_bits=same,
+                ratings=(u, i, r))
 
 
 def phase_als_card_vs_cpu(args, smi, rows) -> None:
@@ -1792,6 +1815,167 @@ def phase_scorer_full(factors, smi, rows) -> None:
     log(f"  phase 14 {time.monotonic() - t_phase:.1f} s")
 
 
+#: the held-out MSE of the evaluation sweep, card vs CPU: ten iterations
+#: of the same f32 ALS in another summation order move the factors by up
+#: to ALS_FACTOR_TOL of the largest (1e-4, phase 12), so a held-out
+#: prediction of O(3) by ~1e-3 against errors of O(2): relative 1e-3
+EVAL_MSE_RTOL = 1e-3
+
+
+def exact_quarters(f: np.ndarray) -> np.ndarray:
+    """``f`` rounded to multiples of 1/4 in [-2, 2]: every product and
+    partial sum of a rank-16 dot of two such rows is exact in float32, so
+    any summation order gives the same bits (and ties are common)."""
+    return (np.clip(np.round(f * 4), -8, 8) / 4).astype(np.float32)
+
+
+def phase_als_route(args, smi, full) -> dict:
+    """Phase 15: train_als at MovieLens-25M's shape on the default route,
+    the native packer, against the numpy packer (PR 7's route)."""
+    t_phase = time.monotonic()
+    u, i, r = full["ratings"]
+    U, I = ML25M_USERS, ML25M_ITEMS
+    cfg = als.ALSConfig(rank=16, iterations=10, reg=0.1, seed=args.seed)
+    ctx = ComputeContext.local(args.seed, device=CARD)
+    log(f"phase 15: train_als at MovieLens-25M's shape on the default route "
+        f"(the native packer, one shipment); {smi}")
+
+    # the host pack: the native wire against the numpy wire (PR 7's route)
+    t0 = time.monotonic()
+    native = als._encode_wire(u, i, r, U, I, cfg)
+    native_s = time.monotonic() - t0
+    with knob("PIO_TPU_NO_NATIVE", "1"):
+        t0 = time.monotonic()
+        numpy_wire = als._encode_wire(u, i, r, U, I, cfg)
+        numpy_s = time.monotonic() - t0
+    same_wire = native[1:] == numpy_wire[1:] and all(
+        a.dtype == b.dtype and np.array_equal(a, b)
+        for a, b in zip(native[0], numpy_wire[0]))
+    log(f"  host pack of the whole wire (sort, counts, encoders): native "
+        f"{native_s:.3f} s, numpy {numpy_s:.3f} s (host clock, "
+        f"{os.cpu_count()} cores); {native[4]} B ({native[2]}+{native[3]}); "
+        f"the {len(native[0])} arrays equal: {same_wire}")
+    if not same_wire:
+        raise AssertionError("the native wire differs from the numpy wire")
+    del numpy_wire, native
+
+    # the default route once with stats (phases serialized), its peak
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    st = {}
+    t0 = time.monotonic()
+    f = als.train_als(ctx, u, i, r, U, I, cfg, stats=st)
+    wall = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if st["packer"] != "native" or st["n_stream"] != 1:
+        raise AssertionError(f"train_als took the {st['packer']} packer in "
+                             f"{st['n_stream']} shipments")
+    log(f"  packer {st['packer']}, n_stream {st['n_stream']}: {wall:.3f} s "
+        f"with stats: pack {st['pack_s']:.3f} s, h2d {st['h2d_s']:.4f} s "
+        f"({st['wire_bytes']} B), device {st['device_s']:.3f} s; peak device "
+        f"memory {peak} B")
+    same = (np.array_equal(f.user_factors, full["factors"].user_factors)
+            and np.array_equal(f.item_factors, full["factors"].item_factors))
+    log(f"  the same bits as phase 11's run: {same}")
+    if not same:
+        raise AssertionError("train_als's factors differ from phase 11's")
+
+    # wall time without stats (no synchronization between the phases)
+    walls = [host_ms(lambda: als.train_als(ctx, u, i, r, U, I, cfg)) / 1e3
+             for _ in range(3)]
+    log(f"  train_als wall s without stats: {rounded(walls)}, median "
+        f"{float(np.median(walls)):.4f}; {smi}")
+    log(f"  phase 15 {time.monotonic() - t_phase:.1f} s")
+    return dict(walls=walls, stats=st, peak=peak, pack=(native_s, numpy_s))
+
+
+def median_ms(fn, n: int = 5) -> float:
+    """Median of ``n`` :func:`host_ms` calls of ``fn``."""
+    return float(np.median([host_ms(fn) for _ in range(n)]))
+
+
+def phase_host_scorer(factors, smi) -> None:
+    """Phase 16: the native host scorer at full width on phase 11's
+    factors, against the numpy host path and the card."""
+    t_phase = time.monotonic()
+    uf, itf = factors.user_factors, factors.item_factors
+    log(f"phase 16: the native host scorer at full width ({uf.shape[0]} x "
+        f"{itf.shape[0]}, rank {uf.shape[1]}); {smi}")
+    host = topn.DeviceTopNScorer(uf, itf, prefer_device=False, device=CARD)
+    card = topn.DeviceTopNScorer(uf, itf, warmup=True, device=CARD)
+    rng = np.random.default_rng(6)
+    results = {}
+    for B in (1, 64, 512):
+        codes = rng.integers(0, uf.shape[0], B).astype(np.int32)
+        i_n, v_n = host._top_n_host_native(codes, 10)  # + its mirror
+        i_c, v_c = card.top_n_batch(codes, 10)
+        with knob("PIO_TPU_NO_NATIVE", "1"):
+            i_p, v_p = host.top_n_batch(codes, 10)
+            numpy_ms = median_ms(lambda: host.top_n_batch(codes, 10))
+        native_ms = median_ms(lambda: host._top_n_host_native(codes, 10))
+        card_ms = median_ms(lambda: card.top_n_batch(codes, 10))
+        full = host.scores_batch(codes)
+        tenth = np.sort(full, axis=1)[:, -10]
+        picked = np.take_along_axis(full, i_n, axis=1)
+        err = float(max(np.abs(v_n - v_p).max(), np.abs(v_n - v_c).max()))
+        if err > SCORE_TOL or not np.all(picked >= tenth[:, None] - SCORE_TOL):
+            raise AssertionError(f"B={B}: the native top-N is not numpy's")
+        results[f"B={B}"] = {
+            "native_ms": native_ms, "numpy_ms": numpy_ms, "card_ms": card_ms,
+            "max_abs_err": err,
+            "same_items_numpy": float(np.mean(i_n == i_p)),
+            "same_items_card": float(np.mean(i_n == i_c))}
+    log(f"  top-10, host clock ms (median of 5): {json.dumps(results)}")
+    # bitwise on exact factors at full width, ties included
+    ex = topn.DeviceTopNScorer(exact_quarters(uf), exact_quarters(itf),
+                               prefer_device=False, device=CARD)
+    codes = rng.integers(0, uf.shape[0], 64).astype(np.int32)
+    i_n, v_n = ex._top_n_host_native(codes, 100)
+    i_p, v_p = ex._top_n_host_chunk(codes, 100, None)
+    ties = int(np.sum(np.diff(v_p, axis=1) == 0))
+    same = np.array_equal(i_n, i_p) and np.array_equal(
+        v_n.view(np.uint32), v_p.view(np.uint32))
+    log(f"  exact factors (multiples of 1/4), 64 rows x top-100, {ties} "
+        f"tied neighbours: native and numpy the same indices and bits: {same}")
+    if not same:
+        raise AssertionError("the native host scorer is not numpy's bits")
+    log(f"  phase 16 {time.monotonic() - t_phase:.1f} s")
+
+
+def phase_evaluation(args, smi) -> dict:
+    """Phase 17: run_evaluation of recommendation_evaluation at
+    MovieLens-100K's shape (phase 13's events) on the card and the CPU."""
+    t_phase = time.monotonic()
+    ev = recommendation_evaluation(REC_APP, eval_k=3, ranks=(8, 16),
+                                   lambdas=(0.05, 0.1), num_iterations=10)
+    log(f"phase 17: run_evaluation of recommendation_evaluation at "
+        f"MovieLens-100K's shape (phase 13's {REC_APP} events): 3 folds, "
+        f"rank x lambda grid (8, 16) x (0.05, 0.1), 10 iterations; {smi}")
+    out = {}
+    for name, dev in (("card", CARD), ("cpu", torch.device("cpu"))):
+        ctx = ComputeContext.create(args.seed, device=dev)
+        t0 = time.monotonic()
+        res = run_evaluation(ev, ev.engine_params_generator, ctx=ctx)
+        out[name] = dict(s=time.monotonic() - t0, result=res,
+                         scores=[x.score for x in res.engine_params_scores])
+        log(f"  {name}: {out[name]['s']:.2f} s (host clock), MSE by params "
+            f"{out[name]['scores']}, best index {res.best_index}")
+    done = Storage.get_meta_data_evaluation_instances().get_completed()
+    card, cpu = out["card"], out["cpu"]
+    rel = max(abs(a - b) / b for a, b in zip(card["scores"], cpu["scores"]))
+    log(f"  {len(done)} evaluation instances COMPLETED; MSE card vs CPU: max "
+        f"relative {rel} (limit {EVAL_MSE_RTOL}); same best params: "
+        f"{card['result'].best_index == cpu['result'].best_index}")
+    if len(done) != 2 or not all(np.isfinite(card["scores"])):
+        raise AssertionError("the evaluation did not complete")
+    if card["result"].best_index != cpu["result"].best_index \
+            or rel > EVAL_MSE_RTOL:
+        raise AssertionError("the evaluation on the card differs from the "
+                             "CPU's")
+    log(f"  phase 17 {time.monotonic() - t_phase:.1f} s")
+    return dict(card_s=card["s"], cpu_s=cpu["s"], scores=card["scores"])
+
+
 def kernel_entry(name, source, replaces, launches, row) -> dict:
     """One kernel of the JSON line, from its main timed row."""
     return {
@@ -1821,12 +2005,21 @@ def main(argv=None) -> int:
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 matmul is on; the port computes in f32")
 
-    log("phase 2: build the kernels with nvcc")
-    built = _build.build_all()
+    log("phase 2: build the kernels with nvcc, and the host libraries of "
+        "the recommendation path with g++, at once")
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        t0 = time.monotonic()
+        host_libs = pool.submit(lambda: (
+            native.als_pack_lib(), native.topn_host_lib(),
+            time.monotonic() - t0))
+        built = _build.build_all()
+        host_s = host_libs.result()[2]
     for name, b in built.items():
         log(f"  {name}: {b.path.name} built in {b.seconds:.1f} s")
         for line in b.log.splitlines():
             log(f"    {line}")
+    log(f"  native host libraries (als_pack, topn_host) ready in "
+        f"{host_s:.1f} s")
 
     use_memory_storage()
     rng = np.random.default_rng(args.seed)
@@ -1885,6 +2078,9 @@ def main(argv=None) -> int:
     phase_als_card_vs_cpu(args, smi, full["rows"])
     rec = phase_rec_template(args, smi)
     phase_scorer_full(full["factors"], smi, full["rows"])
+    phase_als_route(args, smi, full)
+    phase_host_scorer(full["factors"], smi)
+    phase_evaluation(args, smi)
     log(f"recommendation path launches: run_train {rec['train_launches']}, "
         f"HTTP {rec['http_launches']} (routed by batch size "
         f"{rec['routed_launches']}), batch_predict {rec['batch_launches']}")

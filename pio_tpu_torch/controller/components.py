@@ -12,7 +12,7 @@ persists as a pickled blob of host values
 from __future__ import annotations
 
 import abc
-from typing import Generic, List, Optional, Sequence, Tuple, TypeVar
+from typing import Any, Generic, List, Optional, Sequence, Tuple, TypeVar
 
 from pio_tpu_torch.controller.params import EmptyParams, Params
 from pio_tpu_torch.parallel.context import ComputeContext
@@ -47,6 +47,11 @@ class DataSource(Component, Generic[TD]):
 
     @abc.abstractmethod
     def read_training(self, ctx: ComputeContext) -> TD: ...
+
+    def read_eval(self, ctx: ComputeContext) -> List[Tuple[TD, Any, list]]:
+        """Eval folds: ``(training data, eval info, [(query, actual)])``.
+        Default: none, so ``Engine.eval`` is a no-op."""
+        return []
 
 
 class Preparator(Component, Generic[TD, PD]):
@@ -92,6 +97,11 @@ class Serving(Component, Generic[Q, P]):
 
     @abc.abstractmethod
     def serve(self, query: Q, predictions: List[P]) -> P: ...
+
+    def supplement(self, query: Q) -> Q:
+        """Hook to enrich the query before the algorithms see it
+        (reference ``LServing.supplementBase``)."""
+        return query
 
 
 class FirstServing(Serving[Q, P]):

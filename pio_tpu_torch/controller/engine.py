@@ -3,9 +3,10 @@
 Counterpart of ``pio_tpu/controller/engine.py``: an engine names its data
 source, preparator, algorithms and serving class, binds an engine.json
 variant to :class:`EngineParams`, trains (``Engine.train``: read →
-prepare → each algorithm, with per-phase seconds) and turns trained models
-into ``(algorithm, model)`` pairs for the query server. Evaluation
-(``Engine.eval``) and the trace, trainwatch and checkpoint hooks of the
+prepare → each algorithm, with per-phase seconds), evaluates
+(``Engine.eval``: per fold of ``read_eval``, prepare, train and serve the
+fold's queries) and turns trained models into ``(algorithm, model)`` pairs
+for the query server. The trace, trainwatch and checkpoint hooks of the
 reference's ``train`` come with later slices. Engine factories register by
 name (``@register_engine``) or resolve as ``"module.path:attribute"``.
 """
@@ -36,6 +37,24 @@ from pio_tpu_torch.controller.params import (
 from pio_tpu_torch.parallel.context import ComputeContext
 
 log = logging.getLogger("pio_tpu_torch.engine")
+
+
+def serve_fold(serving, algorithms, models, qa):
+    """One eval fold's query loop: supplement → per-algorithm
+    ``batch_predict`` → serve. Shared by :meth:`Engine.eval` and the
+    FastEval path (``controller/evaluation.py``), so an algorithm with a
+    batched ``batch_predict`` uses it during evaluation too.
+    Returns ``[(query, prediction, actual)]``."""
+    supplemented = [(serving.supplement(q), actual) for q, actual in qa]
+    indexed = [(i, q) for i, (q, _a) in enumerate(supplemented)]
+    per_algo = [
+        dict(algo.batch_predict(model, indexed))
+        for algo, model in zip(algorithms, models)
+    ]
+    return [
+        (q, serving.serve(q, [preds[i] for preds in per_algo]), actual)
+        for i, (q, actual) in enumerate(supplemented)
+    ]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,6 +178,24 @@ class Engine:
             _phase(f"train:{i}_{names[i]}", lambda a=algo: a.train(ctx, pd))
             for i, algo in enumerate(self._algorithms(engine_params))
         ]
+
+    def eval(
+        self, ctx: ComputeContext, engine_params: EngineParams
+    ) -> List[Tuple[Any, List[Tuple[Any, Any, Any]]]]:
+        """Per fold of the data source's ``read_eval``: ``(eval_info,
+        [(query, prediction, actual)])``, the fold's models trained on
+        ``ctx.device``."""
+        data_source = self.data_source_class(engine_params.data_source_params)
+        preparator = self.preparator_class(engine_params.preparator_params)
+        serving = self.serving_class(engine_params.serving_params)
+        algorithms = self._algorithms(engine_params)
+        results = []
+        for td, eval_info, qa in data_source.read_eval(ctx):
+            pd = preparator.prepare(ctx, td)
+            models = [algo.train(ctx, pd) for algo in algorithms]
+            results.append(
+                (eval_info, serve_fold(serving, algorithms, models, qa)))
+        return results
 
     def make_serving(self, engine_params: EngineParams) -> Serving:
         return self.serving_class(engine_params.serving_params)

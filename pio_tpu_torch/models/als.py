@@ -17,11 +17,13 @@ term is added once, and only the ``α·r·q qᵀ`` correction rides the blocks.
 
 What the port keeps of the reference, and how:
 
-- The host side is numpy, as there: the width rule, the block packer,
+- The host side is the reference's: the width rule, the block packer,
   the (user, item) edge sort and the wire encoders (4-bit half-star
-  ratings, 12-bit item gaps or uint16 planes). The reference's native C++
-  packer (``pio_tpu/native/als_pack.cpp``) is not ported: the port always
-  takes the numpy path, which the reference holds bitwise equal to it.
+  ratings, 12-bit item gaps or uint16 planes), through the native C++
+  packer (``pio_tpu_torch/native/als_pack.cpp``, built with ``g++`` on
+  first use) with each numpy function as its plain version, held bitwise
+  equal to it. A failed build raises; numpy runs only when
+  ``PIO_TPU_NO_NATIVE`` asks for it. ``stats["packer"]`` names the route.
 - The device side builds both blocked layouts from the sorted wire
   (:func:`device_pack`, gathers only) and runs the iterations as a Python
   loop of tensor ops where the reference compiles one ``jit`` program.
@@ -37,11 +39,14 @@ What the port keeps of the reference, and how:
   so the card and the CPU start from the same factors. ``jax.random``
   streams cannot be reproduced; :func:`_run_local` takes the initial
   factors for the tests that hold the port against the reference.
-- :func:`train_als` always runs monolithic (``stats["n_stream"] == 1``):
-  the reference's streamed trainer (``_run_streamed``, above an ~8 MiB
-  wire) and its mesh paths come with later slices, and
-  ``PIO_TPU_ALS_STREAM_MB`` is not read. The reference's ``trainwatch``
-  telemetry is left out; phases are timed with ``time.monotonic``.
+- :func:`train_als` ships the wire in one piece (``stats["n_stream"] ==
+  1``). The reference streams it in chunks above an ~8 MiB wire
+  (``_run_streamed``, ``PIO_TPU_ALS_STREAM_MB``) to hide a TPU's slow
+  host link behind iteration 1's user side. On an NVIDIA H100 the whole
+  wire crosses in tens of milliseconds, and streaming it was measured to
+  hide nothing and to cost time and memory (PERF.md §6), so the port has
+  no streamed route. The reference's mesh paths and its ``trainwatch``
+  telemetry are left out too. Phases are timed with ``time.monotonic``.
 - ``matmul_dtype="auto"`` is float32 (the reference picks bfloat16 on any
   accelerator; here that waits for a measurement that it pays on the
   card). ``"bfloat16"`` gathers from a bf16 table and multiplies bf16
@@ -55,6 +60,7 @@ What the port keeps of the reference, and how:
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import time
 from typing import Optional, Tuple
@@ -63,6 +69,7 @@ import numpy as np
 import torch
 
 from pio_tpu_torch.parallel.context import ComputeContext
+from pio_tpu_torch.utils import knobs
 from pio_tpu_torch.utils.numutil import round_up as _round_up
 
 _SOLVERS = ("auto", "cg", "cholesky", "lu")
@@ -104,6 +111,43 @@ class ALSFactors:
 
 
 # ------------------------------------------------------------------ host side
+def _native_packer():
+    """The C++ packer (``pio_tpu_torch/native/als_pack.cpp``), built on
+    first use; None when ``PIO_TPU_NO_NATIVE`` asks for the numpy routes.
+    A failed build raises ``NativeBuildError``."""
+    if knobs.knob_str("PIO_TPU_NO_NATIVE"):
+        return None
+    from pio_tpu_torch.native import als_pack_lib
+
+    return als_pack_lib()
+
+
+def _ptr(a: np.ndarray, dtype, ctype):
+    """C pointer to ``a``'s buffer. Checks rather than converts: a silent
+    contiguous copy would send the native writes into a discarded
+    temporary (output buffers pass through here too)."""
+    if a.dtype != dtype or not a.flags.c_contiguous:
+        raise ValueError(f"native packer needs a contiguous {np.dtype(dtype)}"
+                         f" array, got {a.dtype} {a.flags}")
+    return a.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def _i32p(a):
+    return _ptr(a, np.int32, ctypes.c_int32)
+
+
+def _i64p(a):
+    return _ptr(a, np.int64, ctypes.c_int64)
+
+
+def _f32p(a):
+    return _ptr(a, np.float32, ctypes.c_float)
+
+
+def _u8p(a):
+    return _ptr(a, np.uint8, ctypes.c_uint8)
+
+
 def _auto_width(n_edges: int, n_entities: int) -> int:
     mean_deg = max(1.0, n_edges / max(1, n_entities))
     w = 1 << int(np.ceil(np.log2(max(8.0, mean_deg / 4))))
@@ -123,16 +167,32 @@ def _pack_blocks(
 
     Returns (block_ent [S], block_other [S,W], block_rating [S,W]);
     ``block_ent`` ascending. Padded slots carry ``other = -1``; padding
-    blocks belong to the last entity, with every slot padded.
+    blocks belong to the last entity, with every slot padded. The native
+    route is ``als_pack_fill``, a stable parallel scatter.
     """
+    native = _native_packer()
+    if counts is None:
+        counts = _entity_counts(ent_idx, n_entities, native)
+    n_blocks = int((-(-counts // width)).sum())
+    S = max(pad_blocks_to, _round_up(max(n_blocks, 1), pad_blocks_to))
+    if native is not None:
+        ent = np.ascontiguousarray(ent_idx, np.int32)
+        block_ent = np.empty(S, np.int32)
+        block_other = np.empty(S * width, np.int32)
+        block_rating = np.empty(S * width, np.float32)
+        native.als_pack_fill(
+            _i32p(ent), _i32p(np.ascontiguousarray(other_idx, np.int32)),
+            _f32p(np.ascontiguousarray(rating, np.float32)), len(ent),
+            n_entities, width,
+            _i64p(np.ascontiguousarray(counts, np.int64)), S,
+            _i32p(block_ent), _i32p(block_other), _f32p(block_rating),
+        )
+        return (block_ent, block_other.reshape(S, width),
+                block_rating.reshape(S, width))
+
     order = np.argsort(ent_idx, kind="stable")
     e = ent_idx[order]
-    if counts is None:
-        counts = np.bincount(e, minlength=n_entities)
     blocks_per_ent = -(-counts // width)  # zero for empty entities
-    n_blocks = int(blocks_per_ent.sum())
-    S = max(pad_blocks_to, _round_up(max(n_blocks, 1), pad_blocks_to))
-
     block_start = np.zeros(n_entities + 1, dtype=np.int64)
     np.cumsum(blocks_per_ent, out=block_start[1:])
     edge_start = np.zeros(n_entities + 1, dtype=np.int64)
@@ -157,12 +217,26 @@ def _pack_blocks(
     )
 
 
-def _counts_layout(ent: np.ndarray, width: int, n_entities: int,
-                   blocks_per_chunk: int):
-    """counts + (chunk, padded block count S) for one side."""
+def _entity_counts(ent: np.ndarray, n_entities: int, native) -> np.ndarray:
+    """int64 degree of each entity; raises ValueError on an id outside
+    ``[0, n_entities)``."""
+    if native is not None:
+        counts = np.zeros(n_entities, np.int64)
+        if native.als_pack_count(
+                _i32p(np.ascontiguousarray(ent, np.int32)), len(ent),
+                n_entities, 1, _i64p(counts)) < 0:
+            raise ValueError("entity index out of range")
+        return counts
     counts = np.bincount(ent, minlength=n_entities)
     if len(counts) > n_entities:
         raise ValueError("entity index out of range")
+    return counts
+
+
+def _counts_layout(ent: np.ndarray, width: int, n_entities: int,
+                   blocks_per_chunk: int):
+    """counts + (chunk, padded block count S) for one side."""
+    counts = _entity_counts(ent, n_entities, _native_packer())
     n_blocks = int((-(-counts // width)).sum())
     chunk = min(blocks_per_chunk, _round_up(max(1, n_blocks), 8))
     S = max(chunk, _round_up(max(n_blocks, 1), chunk))
@@ -213,18 +287,28 @@ def _delta_wire_size(
 ) -> Optional[Tuple[int, int]]:
     """``(wire_bytes, n_ovf)`` of the delta12 encoding without building
     it, or None when it does not apply (ids not segment-sorted, or a gap
-    ≥ 2^16)."""
+    ≥ 2^16). The native route is one count pass, ``als_delta_count``."""
     E = len(ids)
     if E == 0:
         return 0, 0
-    delta = _np_deltas(ids, counts)
-    if int(delta.min()) < 0 or int(delta.max()) >= 65536:
-        return None
-    n_ovf = int((delta > 0xFFF).sum())
+    native = _native_packer()
+    if native is not None:
+        cnt64 = np.ascontiguousarray(counts, np.int64)
+        n_ovf = int(native.als_delta_count(
+            _i32p(np.ascontiguousarray(ids, np.int32)), _i64p(cnt64),
+            len(cnt64)))
+        if n_ovf < 0:
+            return None
+    else:
+        delta = _np_deltas(ids, counts)
+        if int(delta.min()) < 0 or int(delta.max()) >= 65536:
+            return None
+        n_ovf = int((delta > 0xFFF).sum())
     return E + (E + 1) // 2 + 5 * n_ovf, n_ovf
 
 
-def _encode_items_delta(ids: np.ndarray, counts: np.ndarray):
+def _encode_items_delta(ids: np.ndarray, counts: np.ndarray,
+                        n_ovf: Optional[int] = None):
     """12-bit delta item wire over a (user, item)-sorted edge slice.
 
     ``counts`` segments ``ids`` into per-user runs (zero entries allowed;
@@ -232,18 +316,41 @@ def _encode_items_delta(ids: np.ndarray, counts: np.ndarray):
     the previous item of its user (the first edge of a run ships its
     absolute id) as a u8 low byte and a nibble-packed high 4 bits — 1.5
     B/edge — plus a sparse overflow list of ``delta >> 12`` for the gaps ≥
-    4096. Exact for any id space < 2^16 (see :func:`decode_items`).
+    4096. Exact for any id space < 2^16 (see :func:`decode_items`). The
+    native route is ``als_delta_fill`` (``n_ovf``, :func:`_delta_wire_size`'s
+    count, saves its count pass); the caller has checked that the
+    encoding applies.
     Returns ``(d_lo, d_hi, ovf_idx i32, ovf_val u8, wire_bytes)``.
     """
-    if len(ids) == 0:
+    E = len(ids)
+    if E == 0:
         z8 = np.zeros(0, np.uint8)
         return z8, z8, np.zeros(0, np.int32), z8, 0
-    delta = _np_deltas(ids, counts)
-    ovf = np.nonzero(delta > 0xFFF)[0]
-    d_lo = (delta & 0xFF).astype(np.uint8)
-    d_hi = _nibble_pack(((delta >> 8) & 0xF).astype(np.uint8))
-    ovf_idx = ovf.astype(np.int32)
-    ovf_val = (delta[ovf] >> 12).astype(np.uint8)
+    native = _native_packer()
+    if native is not None:
+        ids = np.ascontiguousarray(ids, np.int32)
+        cnt64 = np.ascontiguousarray(counts, np.int64)
+        if n_ovf is None:
+            n_ovf = int(native.als_delta_count(
+                _i32p(ids), _i64p(cnt64), len(cnt64)))
+            if n_ovf < 0:
+                raise ValueError("the delta12 item wire does not apply: ids "
+                                 "not segment-sorted, or a gap >= 2^16")
+        d_lo = np.empty(E, np.uint8)
+        d_hi = np.empty((E + 1) // 2, np.uint8)  # zeroed by als_delta_fill
+        ovf_idx = np.empty(n_ovf, np.int32)
+        ovf_val = np.empty(n_ovf, np.uint8)
+        native.als_delta_fill(
+            _i32p(ids), _i64p(cnt64), len(cnt64), E,
+            _u8p(d_lo), _u8p(d_hi), _i32p(ovf_idx), _u8p(ovf_val),
+        )
+    else:
+        delta = _np_deltas(ids, counts)
+        ovf = np.nonzero(delta > 0xFFF)[0]
+        d_lo = (delta & 0xFF).astype(np.uint8)
+        d_hi = _nibble_pack(((delta >> 8) & 0xF).astype(np.uint8))
+        ovf_idx = ovf.astype(np.int32)
+        ovf_val = (delta[ovf] >> 12).astype(np.uint8)
     bytes_ = d_lo.nbytes + d_hi.nbytes + ovf_idx.nbytes + ovf_val.nbytes
     return d_lo, d_hi, ovf_idx, ovf_val, bytes_
 
@@ -252,26 +359,63 @@ def _encode_ratings(r_sorted: np.ndarray) -> Tuple[np.ndarray, str]:
     """The densest lossless rating wire: ``(wire array, kind)`` with kind
     ∈ {u4, u8, f16, f32} — nibble-packed half-star codes (2 edges/byte),
     byte codes up to 127.5 stars, fp16 where that cast is exact, else raw
-    f32. Every kind round-trips exactly through :func:`decode_ratings`."""
-    r2 = r_sorted * np.float32(2.0)
-    if r2.size and np.all(r2 == np.round(r2)) and float(r2.min()) >= 0.0:
-        if float(r2.max()) <= 15.0:
-            return _nibble_pack(r2.astype(np.uint8)), "u4"
-        if float(r2.max()) <= 255.0:
-            return r2.astype(np.uint8), "u8"
+    f32. Every kind round-trips exactly through :func:`decode_ratings`.
+    The native route checks the half-star grid and writes the byte codes
+    in one pass (``als_rating_codes``)."""
+    native = _native_packer()
+    if native is not None and r_sorted.size:
+        r_sorted = np.ascontiguousarray(r_sorted, np.float32)
+        codes = np.empty(r_sorted.size, np.uint8)
+        mx = native.als_rating_codes(_f32p(r_sorted), r_sorted.size,
+                                     _u8p(codes))
+        if mx >= 0:
+            if mx <= 15:
+                return _nibble_pack(codes), "u4"
+            return codes, "u8"
+    elif native is None:
+        r2 = r_sorted * np.float32(2.0)
+        if r2.size and np.all(r2 == np.round(r2)) and float(r2.min()) >= 0.0:
+            if float(r2.max()) <= 15.0:
+                return _nibble_pack(r2.astype(np.uint8)), "u4"
+            if float(r2.max()) <= 255.0:
+                return r2.astype(np.uint8), "u8"
     r16 = r_sorted.astype(np.float16)
     if np.array_equal(r16.astype(np.float32), r_sorted):
         return r16, "f16"
     return r_sorted, "f32"
 
 
-def _sort_edges_by_user(user_idx, item_idx, rating):
-    """(user, item)-sorted item and rating columns (a stable lexsort).
-    Item-sorted adjacencies make the delta item wire dense; ALS itself is
-    order-invariant within a user."""
-    order = np.lexsort((item_idx, user_idx))
-    return (np.ascontiguousarray(item_idx[order]),
-            np.ascontiguousarray(rating[order]))
+def _sort_edges_by_user(user_idx, item_idx, rating,
+                        counts_u: Optional[np.ndarray] = None):
+    """(user, item)-sorted item and rating columns, numpy's stable
+    ``lexsort`` order. Item-sorted adjacencies make the delta item wire
+    dense; ALS itself is order-invariant within a user. ``counts_u`` (the
+    users' int64 degrees; one entry a user) saves the native route its
+    count: a stable counting sort by user, then a stable sort of each
+    user's items."""
+    native = _native_packer()
+    if native is None:
+        order = np.lexsort((item_idx, user_idx))
+        return (np.ascontiguousarray(item_idx[order]),
+                np.ascontiguousarray(rating[order]))
+    user_idx = np.ascontiguousarray(user_idx, np.int32)
+    if counts_u is None:
+        n_users = int(user_idx.max()) + 1 if len(user_idx) else 0
+        counts_u = _entity_counts(user_idx, n_users, native)
+    counts_u = np.ascontiguousarray(counts_u, np.int64)
+    E = len(user_idx)
+    i_sorted = np.empty(E, np.int32)
+    r_sorted = np.empty(E, np.float32)
+    native.als_sort_by_entity(
+        _i32p(user_idx), _i32p(np.ascontiguousarray(item_idx, np.int32)),
+        _f32p(np.ascontiguousarray(rating, np.float32)), E, len(counts_u),
+        _i64p(counts_u), _i32p(i_sorted), _f32p(r_sorted),
+    )
+    if native.als_sort_within_entity(_i32p(i_sorted), _f32p(r_sorted),
+                                     len(counts_u), _i64p(counts_u)) != 0:
+        raise ValueError("a user has 2^32 or more ratings: the native "
+                         "within-user sort cannot order them")
+    return i_sorted, r_sorted
 
 
 def _choose_item_wire(i_sorted, counts_u, I_pad, n_edges,
@@ -647,14 +791,16 @@ def _encode_wire(user_idx, item_idx, rating, n_users: int, n_items: int,
             "edge set too large for int32 block addressing; "
             "use a multi-device mesh"
         )
-    i_sorted, r_sorted = _sort_edges_by_user(user_idx, item_idx, rating)
+    counts_u = np.ascontiguousarray(counts_u, np.int64)
+    i_sorted, r_sorted = _sort_edges_by_user(user_idx, item_idx, rating,
+                                             counts_u)
     r_ship, rating_wire = _encode_ratings(r_sorted)
-    item_wire, _, item_bytes = _choose_item_wire(
+    item_wire, n_ovf, item_bytes = _choose_item_wire(
         i_sorted, counts_u, I_pad, n_edges, item_wire
     )
     if item_wire == "delta12":
         i_ship, i_hi, ovf_idx, ovf_val, _ = _encode_items_delta(
-            i_sorted, counts_u
+            i_sorted, counts_u, n_ovf
         )
     else:
         i_ship, i_hi = _planes(i_sorted, I_pad)
@@ -683,10 +829,10 @@ def train_als(
 
     The host sorts the edges by (user, item) and encodes the wire; the
     device decodes it, builds both blocked layouts and runs the
-    iterations. ``stats``, when a dict, is filled with ``{pack_s,
+    iterations. ``stats``, when a dict, is filled with ``{packer, pack_s,
     wire_bytes, encoding, n_stream, h2d_s, device_s}``, the phases
     separated by device synchronizations. The run is always one
-    shipment: ``n_stream`` is 1 (the streamed trainer is not ported).
+    shipment: ``n_stream`` is 1 (the port has no streamed trainer).
     """
     if len(user_idx) == 0:
         raise ValueError("ALS needs at least one rating")
@@ -702,6 +848,7 @@ def train_als(
     host_wire, shapes, rating_wire, item_wire, wire_bytes = _encode_wire(
         user_idx, item_idx, rating, n_users, n_items, config)
     if stats is not None:
+        stats["packer"] = "numpy" if _native_packer() is None else "native"
         stats["pack_s"] = time.monotonic() - t0
         stats["wire_bytes"] = wire_bytes
         stats["encoding"] = f"{rating_wire}+{item_wire}"

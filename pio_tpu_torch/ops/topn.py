@@ -30,14 +30,33 @@ column, which is cut off before the top-k.
 Batches are cut into chunks of ``_MAX_BATCH_BUCKET`` rows, and the top-k
 width rounds up to a power of two (``_bucket``), as in the reference. The
 reference pads each chunk to a power of two to bound its compilations;
-eager PyTorch compiles nothing, so the chunks run at their own size. The
-reference's native host scorer (``topn_host.cpp``) and its mesh-sharded
-placement are not ported: the host path is the numpy one, and
+eager PyTorch compiles nothing, so the chunks run at their own size.
+
+**The host path.** A host batch without exclusions is scored by the
+native fused scan-and-select (``pio_tpu_torch/native/topn_host.cpp``,
+built with ``g++`` on first use, over a transposed mirror of the item
+table made on first use); a batch with exclusions by numpy (a BLAS
+product and a partition of composite keys), which is also the native
+scorer's plain version. The reference takes the native scorer only up
+to 8 rows, keeping BLAS for larger batches; on the host of an NVIDIA
+H100 80GB HBM3 machine (``chip_smoke.py`` phase 16, 59047 columns, rank
+16) the native scorer took about a quarter to a sixth of numpy's time at 64
+and at 512 rows too, so the port takes it at every batch size. Both rank larger score first,
+then lower index, and map NaN to ``-inf`` and ``-0.0`` to ``+0.0``.
+They give the same score bits only where every product and partial sum
+is exact (the tests' quarter-valued factors): the native loop sums each
+dot product in rank order with fused multiply-adds, BLAS in its own
+order, so on real factors a score may differ in its last bits (phase
+16: at most 9.5e-7 from numpy's or the card's) and near-ties may rank
+differently.
+``PIO_TPU_NO_NATIVE`` keeps every host batch on numpy; a failed build
+raises. The reference's mesh-sharded placement is not ported:
 :meth:`DeviceTopNScorer.sharding_info` is always None.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import time
 from typing import Optional, Tuple
@@ -53,6 +72,10 @@ _MAX_BATCH_BUCKET = 512
 
 #: rows a score_pairs dispatch takes at most
 _PAIRS_CHUNK = 1 << 20
+
+_F32P = ctypes.POINTER(ctypes.c_float)
+_I32P = ctypes.POINTER(ctypes.c_int32)
+_I64P = ctypes.POINTER(ctypes.c_int64)
 
 
 def _bucket(n: int, cap: int) -> int:
@@ -167,6 +190,7 @@ class DeviceTopNScorer:
         self.n_cols = cols.shape[0]
         self._rows_np = rows
         self._cols_np = cols
+        self._cols_t = None  # [K, N] mirror of the native host path
         self._rows_dev = self._cols_dev = None
 
         if self.n_rows == 0 or self.n_cols == 0:
@@ -271,6 +295,8 @@ class DeviceTopNScorer:
 
     # ------------------------------------------------------------- host path
     def _top_n_host(self, codes, n, exclude):
+        if exclude is None and not knobs.knob_str("PIO_TPU_NO_NATIVE"):
+            return self._top_n_host_native(codes, n)
         B = codes.shape[0]
         # chunk rows so the [chunk, N] score and key planes stay ~100 MB
         chunk = max(1, (8 << 20) // max(1, self.n_cols))
@@ -316,6 +342,33 @@ class DeviceTopNScorer:
         order = np.argsort(pk, axis=1)
         idx = np.take_along_axis(part, order, axis=1).astype(np.int64)
         return idx, np.take_along_axis(scores, idx, axis=1)
+
+    def _top_n_host_native(self, codes, n):
+        """The fused native scan-and-select (no ``[B, N]`` score array):
+        stride-1 multiply-adds over the transposed ``[K, N]`` mirror in
+        L1-sized blocks, heap selection while each block is cache-hot."""
+        from pio_tpu_torch.native import topn_host_lib
+
+        lib = topn_host_lib()
+        if codes.size and (int(codes.min()) < 0
+                           or int(codes.max()) >= self.n_rows):
+            raise IndexError(f"code out of range [0, {self.n_rows})")
+        if self._cols_t is None:
+            # built on first use, so scorers that never take this path
+            # do not hold a second copy of the table
+            self._cols_t = np.ascontiguousarray(self._cols_np.T)
+        codes = np.ascontiguousarray(codes, np.int32)
+        B = codes.shape[0]
+        out_idx = np.empty((B, n), np.int64)
+        out_val = np.empty((B, n), np.float32)
+        lib.topn_host_f32(
+            self._rows_np.ctypes.data_as(_F32P),
+            self._cols_t.ctypes.data_as(_F32P),
+            self.n_rows, self.n_cols, self.rank,
+            codes.ctypes.data_as(_I32P), B, n,
+            out_idx.ctypes.data_as(_I64P), out_val.ctypes.data_as(_F32P),
+        )
+        return out_idx, out_val
 
     # -------------------------------------------------------------- public
     def top_n_batch(

@@ -16,8 +16,8 @@ A backend may implement both over the same underlying store (the memory
 backend does).
 
 The port's copy of ``pio_tpu/storage/base.py`` (the port imports nothing of
-``pio_tpu``), without the access-key and evaluation-instance stores, which
-come with the event server and evaluation.
+``pio_tpu``), without the access-key store, which comes with the event
+server.
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ from pio_tpu_torch.storage.records import (
     App,
     Channel,
     EngineInstance,
+    EvaluationInstance,
     Model,
 )
 
@@ -307,6 +308,26 @@ class EngineInstances(abc.ABC):
 
     @abc.abstractmethod
     def update(self, instance: EngineInstance) -> bool: ...
+
+    @abc.abstractmethod
+    def delete(self, instance_id: str) -> bool: ...
+
+
+class EvaluationInstances(abc.ABC):
+    @abc.abstractmethod
+    def insert(self, instance: EvaluationInstance) -> str: ...
+
+    @abc.abstractmethod
+    def get(self, instance_id: str) -> Optional[EvaluationInstance]: ...
+
+    @abc.abstractmethod
+    def get_all(self) -> List[EvaluationInstance]: ...
+
+    @abc.abstractmethod
+    def get_completed(self) -> List[EvaluationInstance]: ...
+
+    @abc.abstractmethod
+    def update(self, instance: EvaluationInstance) -> bool: ...
 
     @abc.abstractmethod
     def delete(self, instance_id: str) -> bool: ...

@@ -21,6 +21,7 @@ from pio_tpu_torch.storage.records import (
     App,
     Channel,
     EngineInstance,
+    EvaluationInstance,
     Model,
 )
 
@@ -249,6 +250,42 @@ class MemEngineInstances(base.EngineInstances):
         return done[0] if done else None
 
     def update(self, instance: EngineInstance) -> bool:
+        with self._lock:
+            if instance.id not in self._instances:
+                return False
+            self._instances[instance.id] = instance
+            return True
+
+    def delete(self, instance_id: str) -> bool:
+        with self._lock:
+            return self._instances.pop(instance_id, None) is not None
+
+
+class MemEvaluationInstances(base.EvaluationInstances):
+    def __init__(self):
+        self._lock = threading.RLock()
+        self._instances: Dict[str, EvaluationInstance] = {}
+
+    def insert(self, instance: EvaluationInstance) -> str:
+        with self._lock:
+            iid = instance.id or uuid.uuid4().hex
+            self._instances[iid] = (
+                instance if instance.id else _replace(instance, id=iid)
+            )
+            return iid
+
+    def get(self, instance_id: str) -> Optional[EvaluationInstance]:
+        return self._instances.get(instance_id)
+
+    def get_all(self) -> List[EvaluationInstance]:
+        return list(self._instances.values())
+
+    def get_completed(self) -> List[EvaluationInstance]:
+        out = [i for i in self._instances.values() if i.status == "COMPLETED"]
+        out.sort(key=lambda i: i.start_time, reverse=True)
+        return out
+
+    def update(self, instance: EvaluationInstance) -> bool:
         with self._lock:
             if instance.id not in self._instances:
                 return False

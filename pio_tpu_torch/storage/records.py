@@ -5,8 +5,8 @@ EngineInstances,Models}.scala`` case classes (UNVERIFIED paths; see
 SURVEY.md provenance warning).
 
 The port's copy of ``pio_tpu/storage/records.py`` (the port imports nothing
-of ``pio_tpu``), without the access keys (the event server's) and the
-evaluation records, which come with the slices that use them.
+of ``pio_tpu``), without the access keys (the event server's), which come
+with the slice that uses them.
 """
 
 from __future__ import annotations
@@ -82,6 +82,26 @@ class EngineInstance:
     serving_params: str = "{}"
 
     def with_status(self, status: str) -> "EngineInstance":
+        return replace(self, status=status, end_time=_utcnow())
+
+
+@dataclass(frozen=True)
+class EvaluationInstance:
+    """Record of one evaluation run (reference ``EvaluationInstance``)."""
+
+    id: str
+    status: str
+    start_time: _dt.datetime
+    end_time: _dt.datetime
+    evaluation_class: str = ""
+    engine_params_generator_class: str = ""
+    batch: str = ""
+    env: dict = field(default_factory=dict)
+    evaluator_results: str = ""
+    evaluator_results_html: str = ""
+    evaluator_results_json: str = ""
+
+    def with_status(self, status: str) -> "EvaluationInstance":
         return replace(self, status=status, end_time=_utcnow())
 
 

@@ -33,6 +33,7 @@ from pio_tpu_torch.storage.memory import (
     MemApps,
     MemChannels,
     MemEngineInstances,
+    MemEvaluationInstances,
     MemLEvents,
     MemModels,
     MemPEvents,
@@ -130,6 +131,10 @@ class Storage:
     @classmethod
     def get_meta_data_engine_instances(cls) -> base.EngineInstances:
         return cls._meta("engine_instances", MemEngineInstances)
+
+    @classmethod
+    def get_meta_data_evaluation_instances(cls) -> base.EvaluationInstances:
+        return cls._meta("evaluation_instances", MemEvaluationInstances)
 
     # -- event stores -------------------------------------------------------
     @classmethod

@@ -19,9 +19,11 @@ engine.json:
 Query ``{"user": "u1", "num": 4}`` →
 ``{"itemScores": [{"item": "i5", "score": 3.2}, ...]}``.
 
-Not ported yet: the sharded-persistence opt-in (``ShardableModel``, with
-the multi-device slice) and the evaluation sweep (``SquaredErrorMetric``,
-``recommendation_evaluation``, with the evaluation slice).
+Evaluation (``pio eval``): :func:`recommendation_evaluation` is a k-fold
+sweep over a rank × lambda grid scored by :class:`SquaredErrorMetric`,
+run by ``pio_tpu_torch.workflow.core_workflow.run_evaluation``. Not ported
+yet: the sharded-persistence opt-in (``ShardableModel``, with the
+multi-device slice).
 """
 
 from __future__ import annotations
@@ -40,7 +42,16 @@ from pio_tpu_torch.controller.components import (
     Preparator,
     SanityCheck,
 )
-from pio_tpu_torch.controller.engine import Engine, register_engine
+from pio_tpu_torch.controller.engine import (
+    Engine,
+    EngineParams,
+    register_engine,
+)
+from pio_tpu_torch.controller.evaluation import (
+    EngineParamsGenerator,
+    Evaluation,
+)
+from pio_tpu_torch.controller.metrics import OptionAverageMetric
 from pio_tpu_torch.controller.params import Params
 from pio_tpu_torch.data.bimap import BiMap
 from pio_tpu_torch.models.als import ALSConfig, ALSFactors, train_als
@@ -377,23 +388,37 @@ def _exclude_rows(queries, item_index: BiMap, sentinel: int):
 
 def batched_user_topn(algo, model, queries, user_index, item_index, scorer):
     """batch_predict routing of a user → top-N recommender: known-user
-    top-N queries go through the scorer together; unknown users,
-    single-item queries and ``num <= 0`` take ``algo.predict``.
-    ``scorer`` may be a zero-argument callable (``model.scorer``), then
-    resolved only when a batchable query exists."""
+    top-N queries go through the scorer together, and so do the
+    single-item queries of a known user and item (one ``score_pairs``
+    call, an evaluation fold's whole query set); unknown users, unknown
+    items and ``num <= 0`` take ``algo.predict``. ``scorer`` may be a
+    zero-argument callable (``model.scorer``), then resolved only when a
+    batchable query exists."""
     out = []
     bidx, bcodes, bq = [], [], []
+    pidx, prow, pcol, pq = [], [], [], []
     for i, q in queries:
         code = user_index.get(q.user)
-        if code is None or q.item or q.num <= 0:
+        icode = item_index.get(q.item) if q.item else None
+        if code is not None and icode is not None:
+            pidx.append(i)
+            prow.append(code)
+            pcol.append(icode)
+            pq.append(q)
+        elif code is None or q.item or q.num <= 0:
             out.append((i, algo.predict(model, q)))
         else:
             bidx.append(i)
             bcodes.append(code)
             bq.append(q)
+    if (bcodes or prow) and callable(scorer):
+        scorer = scorer()
+    if prow:
+        scores = scorer.score_pairs(np.asarray(prow, np.int32),
+                                    np.asarray(pcol, np.int32))
+        for i, q, v in zip(pidx, pq, scores):
+            out.append((i, PredictedResult((ItemScore(q.item, float(v)),))))
     if bcodes:
-        if callable(scorer):
-            scorer = scorer()
         kmax = max(q.num for q in bq)
         idx, vals = scorer.top_n_batch(
             np.asarray(bcodes, np.int32), kmax,
@@ -417,4 +442,51 @@ def recommendation_engine() -> Engine:
         RecommendationPreparator,
         {"als": ALSAlgorithm},
         RecommendationServing,
+    )
+
+
+# -------------------------------------------------------------- evaluation
+class SquaredErrorMetric(OptionAverageMetric):
+    """MSE on held-out (user, item) ratings; queries whose user or item
+    the training fold has not seen are skipped (the reference template's
+    Evaluation.scala RMSE analog). Lower is better."""
+
+    higher_is_better = False
+
+    def calculate_one(self, query, prediction, actual):
+        if not prediction.item_scores:
+            return None
+        return (prediction.item_scores[0].score - float(actual)) ** 2
+
+
+def recommendation_evaluation(
+    app_name: str,
+    eval_k: int = 3,
+    rate_event: str = "rate",
+    ranks=(8, 16),
+    lambdas=(0.05, 0.1),
+    num_iterations: int = 10,
+):
+    """Ready-made ``pio eval`` sweep: k-fold MSE over a rank × lambda
+    grid over the app ``app_name``. Run it with ``run_evaluation(ev, ev.engine_params_generator)``."""
+    if eval_k < 2:
+        raise ValueError("k-fold evaluation needs eval_k >= 2")
+    ds = DataSourceParams(
+        app_name=app_name, rate_event=rate_event, eval_k=eval_k,
+    )
+    grid = [
+        EngineParams(
+            data_source_params=ds,
+            algorithm_params_list=(
+                ("als", ALSAlgorithmParams(
+                    rank=r, lambda_=lam, num_iterations=num_iterations
+                )),
+            ),
+        )
+        for r in ranks
+        for lam in lambdas
+    ]
+    return Evaluation(
+        recommendation_engine(), SquaredErrorMetric(),
+        engine_params_generator=EngineParamsGenerator(grid),
     )

@@ -16,6 +16,10 @@ _DEFAULTS = {
     # (by batch size); unset, a scorer on CUDA scores on the card and one
     # on the CPU routes by batch size
     "PIO_TPU_SERVE_DEVICE": "",
+    # any value: the ALS host side and the host top-N scorer take their
+    # numpy routes instead of the native libraries (pio_tpu_torch/native),
+    # which are otherwise built and used; a failed build raises
+    "PIO_TPU_NO_NATIVE": "",
 }
 
 

@@ -1,10 +1,12 @@
-"""CoreWorkflow — the training run, with its bookkeeping.
+"""CoreWorkflow — the training and evaluation runs, with their bookkeeping.
 
-Counterpart of the train half of ``pio_tpu/workflow/core_workflow.py``:
-record an EngineInstance as RUNNING, run ``Engine.train``, persist the
-models as one pickled blob with a checksum manifest, and mark the run
-COMPLETED with its per-phase seconds — or FAILED with the error recorded.
+Counterpart of ``pio_tpu/workflow/core_workflow.py``: record an
+EngineInstance as RUNNING, run ``Engine.train``, persist the models as one
+pickled blob with a checksum manifest, and mark the run COMPLETED with its
+per-phase seconds — or FAILED with the error recorded.
 :func:`load_models_for_instance` verifies and loads the blob for serving.
+:func:`run_evaluation` sweeps an evaluation's engine params (``pio eval``)
+and records an EvaluationInstance with the winner.
 
 A persisted model holds host values only: every tensor in it is pickled
 as a numpy array, so a blob holds no CUDA storage. Loading puts the
@@ -12,7 +14,7 @@ tensors on the device the caller's context names, so a model trained on
 the card loads on the CPU and the reverse. Not ported yet: the reference's
 PersistentModel opt-out, sharded persistence, the last-known-good
 fallback, checkpoints, the profiler trace and the trainwatch/devicewatch
-telemetry (ROADMAP A), and evaluation runs.
+telemetry (ROADMAP A).
 """
 
 from __future__ import annotations
@@ -33,9 +35,20 @@ import torch
 
 from pio_tpu_torch import DeviceLike
 from pio_tpu_torch.controller.engine import Engine, EngineParams
+from pio_tpu_torch.controller.evaluation import (
+    EngineParamsGenerator,
+    Evaluation,
+    MetricEvaluator,
+    MetricEvaluatorResult,
+)
 from pio_tpu_torch.controller.params import params_to_dict, params_to_json
 from pio_tpu_torch.parallel.context import ComputeContext
-from pio_tpu_torch.storage.records import EngineInstance, Model, RunStatus
+from pio_tpu_torch.storage.records import (
+    EngineInstance,
+    EvaluationInstance,
+    Model,
+    RunStatus,
+)
 from pio_tpu_torch.storage.registry import Storage
 from pio_tpu_torch.workflow.engine_json import EngineVariant
 from pio_tpu_torch.workflow.params import WorkflowParams
@@ -229,3 +242,53 @@ def load_models_for_instance(
             f"engine params name algorithms {names}"
         )
     return models
+
+
+def run_evaluation(
+    evaluation: Evaluation,
+    generator: EngineParamsGenerator,
+    workflow_params: WorkflowParams = WorkflowParams(),
+    ctx: Optional[ComputeContext] = None,
+    evaluation_class: str = "",
+    generator_class: str = "",
+) -> MetricEvaluatorResult:
+    """Sweep the generator's engine params, record the winner (reference
+    ``EvaluationWorkflow.runEvaluation``). Returns the result; the
+    EvaluationInstance row carries its JSON. ``ctx`` defaults to a CUDA
+    context seeded with ``workflow_params.seed``."""
+    if ctx is None:
+        ctx = ComputeContext.create(seed=workflow_params.seed)
+    instances = Storage.get_meta_data_evaluation_instances()
+    now = _utcnow()
+    instance = EvaluationInstance(
+        id="",
+        status=RunStatus.RUNNING,
+        start_time=now,
+        end_time=now,
+        evaluation_class=evaluation_class or type(evaluation).__name__,
+        engine_params_generator_class=(
+            generator_class or type(generator).__name__),
+        batch=workflow_params.batch,
+    )
+    instance_id = instances.insert(instance)
+    instance = instances.get(instance_id)
+    log.info("evaluation started: instance %s on %s", instance_id, ctx.device)
+    try:
+        evaluator = MetricEvaluator(evaluation.metric, evaluation.other_metrics)
+        result = evaluator.evaluate(
+            ctx, evaluation.engine, generator.engine_params_list
+        )
+        instances.update(dataclasses.replace(
+            instance.with_status(RunStatus.COMPLETED),
+            evaluator_results=f"{result.metric_header}: {result.best_score}",
+            evaluator_results_json=result.to_json(),
+        ))
+        return result
+    except Exception:
+        err = traceback.format_exc()
+        instances.update(dataclasses.replace(
+            instance.with_status(RunStatus.FAILED),
+            evaluator_results=err[-4000:],
+        ))
+        log.error("evaluation FAILED: instance %s\n%s", instance_id, err)
+        raise

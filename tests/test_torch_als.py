@@ -540,8 +540,8 @@ def test_stats_phases(synthetic):
     st = {}
     T.train_als(_ctx(), s["u"], s["i"], s["r"], s["U"], s["I"],
                 T.ALSConfig(**CFG), stats=st)
-    for k in ("pack_s", "wire_bytes", "h2d_s", "device_s", "n_stream",
-              "encoding"):
+    for k in ("packer", "pack_s", "wire_bytes", "h2d_s", "device_s",
+              "n_stream", "encoding"):
         assert k in st, (k, st)
     assert st["wire_bytes"] > 0 and st["device_s"] > 0
     assert st["n_stream"] == 1  # the port always ships one piece

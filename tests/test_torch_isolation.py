@@ -50,6 +50,24 @@ def test_no_jax_or_reference_imports(path):
     assert bad == []
 
 
+#: every source of the port: Python, C++ and CUDA, and chip_smoke.py
+PORT_SOURCES = sorted(
+    path for path in (REPO / "pio_tpu_torch").rglob("*")
+    if path.suffix in (".py", ".cpp", ".cu", ".cuh")
+) + [REPO / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize(
+    "path", PORT_SOURCES, ids=[str(p.relative_to(REPO)) for p in PORT_SOURCES]
+)
+def test_no_source_names_the_reference_native_sources(path):
+    """The port builds its own copies of the native sources; none of its
+    files points at the reference's (``pio_tpu/native``), by path or as
+    a module."""
+    text = path.read_text()
+    assert "pio_tpu/native" not in text and "pio_tpu.native" not in text
+
+
 def test_importing_the_port_loads_no_jax():
     # a fresh interpreter: this test process has jax loaded already
     code = (

@@ -240,9 +240,9 @@ def test_empty_app_fails_sanity(memory_storage):
 @pytest.mark.parametrize("mode", ["rating", "hitrate"])
 def test_read_eval_folds(memory_storage, mode):
     """The k-fold read_eval, each fold trained and queried through the
-    algorithm (the port has no Engine.eval yet): held-out ratings beat a
-    constant 3, and the hitrate queries black-list the user's training
-    items."""
+    algorithm (Engine.eval itself: test_torch_evaluation.py): held-out
+    ratings beat a constant 3, and the hitrate queries black-list the
+    user's training items."""
     _seed_port()
     variant = variant_from_dict({
         **VARIANT,

@@ -1,12 +1,15 @@
 """The port's DeviceTopNScorer against the JAX package's, on the CPU.
 
-Mirrors the non-mesh, non-native cases of ``tests/test_topn_scorer.py``.
+Mirrors the non-mesh cases of ``tests/test_topn_scorer.py``.
 The port's device path runs its torch programs on ``device="cpu"``; the
 reference's runs its jitted programs on the JAX CPU backend. Both score
 in float32 from the same factors, so indices must match where the scores
 have no ties, and scores within ``rtol = 1e-5`` (a rank-8 dot of O(1)
 values in another summation order). On deliberate ties both must give
-the reference's order: larger score first, then lower index.
+the reference's order: larger score first, then lower index. The native
+host scorer is held bitwise to the numpy host path on inputs whose dot
+products are exact (every summation order gives the same bits), and to
+the reference's native scorer, the same C++ loop, on any input.
 """
 
 import pickle
@@ -350,6 +353,149 @@ def test_prepare_for_serving_attaches_scorer():
 
 
 # ------------------------------------------------------------------- the card
+# ------------------------------------------------ the native host scorer
+def _exact_factors(n_rows, n_cols, k, seed):
+    """Multiples of 1/4 in [-2, 2]: every product and partial sum of a
+    rank-k dot is exact in float32, so any summation order gives the same
+    bits, and equal scores (ties) are frequent."""
+    rng = np.random.default_rng(seed)
+    return (
+        (rng.integers(-8, 9, (n_rows, k)) / 4).astype(np.float32),
+        (rng.integers(-8, 9, (n_cols, k)) / 4).astype(np.float32),
+    )
+
+
+@pytest.mark.parametrize("n_cols,k,n", [(53, 8, 1), (53, 8, 10),
+                                        (53, 8, 53), (9000, 4, 25)])
+def test_native_host_is_numpy_host_bitwise(n_cols, k, n):
+    """The fused native scan-and-select against the numpy host path on
+    exact inputs: the same indices and the same score bits, ties broken
+    by lower index; 9000 columns span three of its 4096-column blocks."""
+    rows, cols = _exact_factors(12, n_cols, k, n_cols + n)
+    rows[3] = 0.0  # every score ties at zero
+    s = _scorer(rows, cols, prefer_device=False)
+    codes = np.arange(12, dtype=np.int32)
+    i_n, v_n = s._top_n_host_native(codes, n)
+    i_p, v_p = s._top_n_host_chunk(codes, n, None)
+    np.testing.assert_array_equal(i_n, i_p)
+    assert np.array_equal(v_n.view(np.uint32), v_p.view(np.uint32))
+    # the all-tied row: zeros, by index
+    np.testing.assert_array_equal(i_n[3], np.arange(n))
+    assert (v_n[3] == 0).all()
+
+
+def test_native_host_nan_and_negative_zero():
+    """NaN scores rank last as -inf on both paths, and a score of -0.0
+    comes back as +0.0 from both: the reference's C++ scorer returns the
+    -0.0 of a sum of negative zeros (shown by building its source here),
+    so the port's copy adds 0.0 to each score."""
+    rows = np.array([[0.0, 0.0], [np.nan, 1.0], [1.0, 2.0]], np.float32)
+    cols = np.array([[-1.0, -1.0], [2.0, 0.0], [-3.0, -2.0], [1.0, 1.0]],
+                    np.float32)
+    s = _scorer(rows, cols, prefer_device=False)
+    codes = np.arange(3, dtype=np.int32)
+    i_n, v_n = s._top_n_host_native(codes, 4)
+    i_p, v_p = s._top_n_host_chunk(codes, 4, None)
+    np.testing.assert_array_equal(i_n, i_p)
+    assert np.array_equal(v_n.view(np.uint32), v_p.view(np.uint32))
+    assert not np.signbit(v_n[0]).any() and np.isneginf(v_n[1]).all()
+
+
+def test_reference_cpp_returns_negative_zero(tmp_path):
+    """The difference the port's copy of topn_host.cpp fixes, on the
+    reference's own source built by the port's builder."""
+    import ctypes
+    import pathlib
+
+    from pio_tpu_torch import native
+
+    ref_src = pathlib.Path(__file__).resolve().parents[1] / "pio_tpu" / \
+        "native"
+    lib = ctypes.CDLL(str(native.build_library(
+        "topn_host", src_dir=ref_src, build_dir=tmp_path)))
+    native._declare_topn_host(lib)
+    rows = np.zeros((1, 2), np.float32)
+    cols_t = np.ascontiguousarray(np.array([[-1.0, 2.0], [-1.0, 0.0]],
+                                           np.float32))
+    idx = np.empty((1, 2), np.int64)
+    val = np.empty((1, 2), np.float32)
+    lib.topn_host_f32(
+        rows.ctypes.data_as(topn._F32P), cols_t.ctypes.data_as(topn._F32P),
+        1, 2, 2, np.zeros(1, np.int32).ctypes.data_as(topn._I32P), 1, 2,
+        idx.ctypes.data_as(topn._I64P), val.ctypes.data_as(topn._F32P))
+    assert idx.tolist() == [[0, 1]] and np.signbit(val[0, 0])
+    s = _scorer(rows, np.ascontiguousarray(cols_t.T), prefer_device=False)
+    _, v = s._top_n_host_native(np.zeros(1, np.int32), 2)
+    assert not np.signbit(v).any()
+
+
+def test_native_host_matches_reference_native(tmp_home):
+    """The same C++ loop as the reference's on random factors (no score
+    is a negative zero): the same indices and bits."""
+    rows, cols = _factors(n_rows=40, n_cols=5000, k=16, seed=4)
+    s = _scorer(rows, cols, prefer_device=False)
+    ref = JaxScorer(rows, cols, prefer_device=False)
+    codes = np.array([0, 7, 39, 7, 12], np.int32)
+    for n in (1, 10, 100):
+        got = s._top_n_host_native(codes, n)
+        want = ref._top_n_host_native(codes, n)
+        assert want is not None, "the reference's native scorer must build"
+        np.testing.assert_array_equal(got[0], want[0])
+        assert np.array_equal(got[1], want[1])
+
+
+def test_host_routing_takes_native_without_exclusions(monkeypatch):
+    """The native scorer for a host batch without exclusions, at any size
+    (the reference stops at 8 rows); numpy for a batch with exclusions,
+    and always under PIO_TPU_NO_NATIVE."""
+    rows, cols = _factors()
+    s = _scorer(rows, cols, prefer_device=False)
+    assert s._cols_t is None  # the transposed mirror comes on first use
+    calls = []
+    real = s._top_n_host_native
+    monkeypatch.setattr(s, "_top_n_host_native",
+                        lambda c, n: calls.append(len(c)) or real(c, n))
+    codes = np.arange(40, dtype=np.int32) % 37
+    s.top_n_batch(codes[:8], 5)
+    assert calls == [8] and s._cols_t.shape == (8, 53)
+    s.top_n_batch(codes, 5)
+    assert calls == [8, 40]
+    s.top_n_batch(codes[:2], 5, exclude=np.array([[1], [2]], np.int32))
+    monkeypatch.setenv("PIO_TPU_NO_NATIVE", "1")
+    s.top_n_batch(codes[:1], 5)
+    assert calls == [8, 40]
+    monkeypatch.delenv("PIO_TPU_NO_NATIVE")
+    with pytest.raises(IndexError):
+        s.top_n_batch(np.array([37], np.int32), 3)
+
+
+def test_batch_scores_single_item_queries_together(monkeypatch):
+    """batch_predict sends the single-item queries of known users and
+    items to the scorer in one score_pairs call (an evaluation fold's
+    queries); the per-query predict gives the same scores."""
+    rows, cols = _factors()
+    m = _model(rows, cols)
+    algo = ALSAlgorithm(None)
+    qs = [(k, Query(user=f"u{k % 37}", item=f"i{(5 * k) % 53}"))
+          for k in range(40)]
+    qs += [(40, Query(user="u1", item="nope")),
+           (41, Query(user="ghost", item="i1")),
+           (42, Query(user="u2", num=3))]
+    calls = []
+    scorer = m.scorer()
+    real = scorer.score_pairs
+    monkeypatch.setattr(scorer, "score_pairs",
+                        lambda r, c: calls.append(len(r)) or real(r, c))
+    got = dict(algo.batch_predict(m, qs))
+    assert calls == [40]
+    for k, q in qs:
+        want = algo.predict(m, q).item_scores
+        assert [x.item for x in got[k].item_scores] == [x.item for x in want]
+        np.testing.assert_allclose([x.score for x in got[k].item_scores],
+                                   [x.score for x in want], rtol=1e-6)
+    assert got[40].item_scores == () and got[41].item_scores == ()
+
+
 @pytest.fixture()
 def cuda_device():
     if not torch.cuda.is_available():
