@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (pio_tpu_torch) on one GPU.
 
-Drives the port's text-classification serving and training paths at the
-template's full width (V = 65537 TF-IDF rows with the pad row, H = 128,
-bag width L = 256, C = 20 labels, batch chunk 1024), on weights and a
+Drives the port's text-classification serving, training and evaluation
+paths at the template's full width (V = 65537 TF-IDF rows with the pad
+row, H = 128, bag width L = 256, C = 20 labels, batch chunk 1024), on
+weights and a
 corpus made from ``--seed``, through the hand-written CUDA embedding-bag
 kernels (the forward, and the backward's bag scatter and bag dot):
 
@@ -68,7 +69,29 @@ kernels (the forward, and the backward's bag scatter and bag dot):
    numpy on factors whose dot products are exact;
 17. ``run_evaluation`` of ``recommendation_evaluation`` at MovieLens-100K's
    shape (phase 13's events; 3 folds, a 2 x 2 rank x lambda grid) on the
-   card and on the CPU: the same best params, MSE within EVAL_MSE_RTOL.
+   card and on the CPU: the same best params, MSE within EVAL_MSE_RTOL;
+18. implicit ``train_als`` at the similar-product configuration
+   (``bench.py``'s ``_bench_similarproduct``: 5 M views, rank 16, alpha
+   40): phases and peak memory, twice for the same bits, one half-step a
+   side split into gram, normal equations and solve with launches and
+   bounds, each solver's time and residual, and card against CPU at
+   MovieLens-100K's shape;
+19. the similar-product template end to end at MovieLens-100K's shape
+   (100,000 views, 1,682 items with 1-3 of its 19 genres, 50 items nobody
+   viewed): ``run_train`` on the card, 8 ``POST /queries.json`` checked
+   against a CPU copy of the blob, ``batch_predict`` of 1024 against the
+   loop;
+20. the e-commerce template on those events plus 5,000 buys and the
+   unavailable-items constraint: 8 requests, ``unseen_only``, the
+   constraint changed between two identical queries, ``batch_predict``
+   of 1024, and a query's time with and without its live reads;
+21. ``run_evaluation`` of ``similarproduct_evaluation`` and
+   ``ecommerce_evaluation`` on those events (3 folds, rank 8 and 16), card
+   and CPU;
+22. ``run_evaluation`` of ``textclassification_evaluation`` on phase 9's
+   corpus (3 folds, hidden 64 and 128) on the card, its kernel launches
+   added to the kernels' line; then card against CPU on a tenth of it at
+   hidden 64.
 
 Usage: ``python3 chip_smoke.py [--seed N]``. Exits non-zero when no CUDA
 device is available or any phase fails. The line before the last holds
@@ -87,6 +110,7 @@ import dataclasses
 import datetime as dt
 import http.client
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -99,7 +123,7 @@ import torch.nn.functional as F
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from pio_tpu_torch.controller.engine import EngineParams, get_engine_factory  # noqa: E402
-from pio_tpu_torch.controller.params import params_from_dict  # noqa: E402
+from pio_tpu_torch.controller.params import params_from_dict, params_to_dict  # noqa: E402
 from pio_tpu_torch.convert import text_mlp_from_reference  # noqa: E402
 from pio_tpu_torch.data.event import Event  # noqa: E402
 from pio_tpu_torch.models import als, mlp  # noqa: E402
@@ -112,15 +136,24 @@ from pio_tpu_torch.parallel.context import ComputeContext  # noqa: E402
 from pio_tpu_torch.server.query_server import create_query_server  # noqa: E402
 from pio_tpu_torch.storage.records import App  # noqa: E402
 from pio_tpu_torch.storage.registry import Storage  # noqa: E402
+from pio_tpu_torch.templates.common import business_rule_mask  # noqa: E402
+from pio_tpu_torch.templates.ecommerce import ECommAlgorithm  # noqa: E402
+from pio_tpu_torch.templates.ecommerce import Query as ECQuery  # noqa: E402
+from pio_tpu_torch.templates.ecommerce import ecommerce_evaluation  # noqa: E402
 from pio_tpu_torch.templates.recommendation import ALSAlgorithm as RecALS  # noqa: E402
 from pio_tpu_torch.templates.recommendation import Query as RecQuery  # noqa: E402
 from pio_tpu_torch.templates.recommendation import recommendation_evaluation  # noqa: E402
+from pio_tpu_torch.templates.similarproduct import Query as SPQuery  # noqa: E402
+from pio_tpu_torch.templates.similarproduct import SimilarProductAlgorithm as SPAlgorithm  # noqa: E402
+from pio_tpu_torch.templates.similarproduct import known_codes, similarproduct_evaluation  # noqa: E402
 from pio_tpu_torch.templates.textclassification import (  # noqa: E402
     MLPAlgorithm,
     MLPParams,
     Query,
+    TextPreparator,
     _query_bag,
     _stack_bags,
+    textclassification_evaluation,
 )
 from pio_tpu_torch.workflow.core_workflow import (  # noqa: E402
     load_models_for_instance,
@@ -1976,6 +2009,668 @@ def phase_evaluation(args, smi) -> dict:
     return dict(card_s=card["s"], cpu_s=cpu["s"], scores=card["scores"])
 
 
+# --------------------------------- the similar-product and e-commerce path
+# bench.py:1606-1633 (BASELINE.md config #3), the similar-product template's
+# implicit ALS: 5,000,000 views of 50,064 users over 20,064 items, r = 1 a
+# view, from default_rng(2); rank 16, 10 iterations, reg 0.1, alpha 40
+SP_EDGES, SP_USERS, SP_ITEMS = 5_000_000, 50_064, 20_064
+SP_ALS = dict(rank=16, iterations=10, reg=0.1, implicit=True, alpha=40.0)
+# the solver of train_als ("auto", Cholesky) on implicit systems: a
+# backward-stable f32 solve of K = 16 leaves a residual of about
+# K·2^-24·|A|·|x| (~1e-6 of it); ten times that as the limit
+SOLVE_RESID_RTOL = 1e-5
+SP_APP = "movielens-100k-views-synthetic"
+# the 19 genres of MovieLens-100K (the GroupLens README's u.genre)
+GENRES = ("unknown", "Action", "Adventure", "Animation", "Children's",
+          "Comedy", "Crime", "Documentary", "Drama", "Fantasy", "Film-Noir",
+          "Horror", "Musical", "Mystery", "Romance", "Sci-Fi", "Thriller",
+          "War", "Western")
+N_UNVIEWED = 50  # $set items nobody viewed: factor rows with no blocks
+N_BUYS = 5000
+N_SP_HTTP = 8
+# batch_predict against the predict loop: the same f32 factors, one
+# [B, K] @ [K, N] product against N K-dots (rank 10, |score| <= 1):
+# ~1e-7 apart; two orders of magnitude over it
+BATCH_TOL = 1e-5
+# HitRate and accuracy of a sweep, card vs CPU: the factors (weights) move
+# by f32 rounding in another order (at most 1e-4 of the largest, phase
+# 18), which can flip a held-out item that sits at the top-10 boundary; a
+# flip moves HitRate by 1/30,000 (the queries of a point) and accuracy by
+# 1/1,131 (a tenth of the corpus). The limits allow 30 and 22 flips.
+HITRATE_TOL = 1e-3
+ACCURACY_TOL = 2e-2
+TEXT_TENTH_APP = "newsgroups-synthetic-tenth"
+
+
+def implicit_views(n_edges: int, n_users: int, n_items: int):
+    """bench.py's _bench_similarproduct data: synth_ratings's users and
+    items from seed 2 (the same draws: uniform users, squared-uniform
+    items), each view r = 1."""
+    u, i, _ = synth_ratings(n_edges, n_users, n_items, 2, "int")
+    return u, i, np.ones(n_edges, np.float32)
+
+
+def factor_diff(a, b) -> tuple:
+    """(max |a - b| over both factor tables, largest |factor| of b)."""
+    d = max(np.abs(a.user_factors - b.user_factors).max(),
+            np.abs(a.item_factors - b.item_factors).max())
+    s = max(np.abs(b.user_factors).max(), np.abs(b.item_factors).max())
+    return float(d), float(s)
+
+
+def phase_implicit_als(args, smi) -> dict:
+    """Phase 18: implicit train_als at the similar-product configuration."""
+    t_phase = time.monotonic()
+    log(f"phase 18: implicit train_als at the similar-product configuration "
+        f"(bench.py:1606-1633: {SP_EDGES} views, {SP_USERS} users, "
+        f"{SP_ITEMS} items, {json.dumps(SP_ALS)}); {smi}")
+    u, i, r = implicit_views(SP_EDGES, SP_USERS, SP_ITEMS)
+    cfg = als.ALSConfig(**SP_ALS, seed=args.seed)
+    K = cfg.rank
+    ctx = ComputeContext.local(args.seed, device=CARD)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    t0 = time.monotonic()
+    f = als.train_als(ctx, u, i, r, SP_USERS, SP_ITEMS, cfg, stats=stats)
+    train_s = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  train_als {train_s:.3f} s (host clock; packer {stats['packer']}, "
+        f"n_stream {stats['n_stream']}): pack {stats['pack_s']:.3f} s, wire "
+        f"{stats['wire_bytes']} B ({stats['encoding']}), h2d "
+        f"{stats['h2d_s']:.4f} s, device {stats['device_s']:.3f} s; peak "
+        f"device memory {peak} B")
+    again = als.train_als(ctx, u, i, r, SP_USERS, SP_ITEMS, cfg)
+    same = bool(np.array_equal(f.user_factors, again.user_factors)
+                and np.array_equal(f.item_factors, again.item_factors))
+    log(f"  two runs give the same bits: {same}")
+    if not same:
+        raise AssertionError("two implicit train_als runs differ")
+    if not (np.isfinite(f.user_factors).all()
+            and np.isfinite(f.item_factors).all()):
+        raise AssertionError("implicit ALS gave non-finite factors")
+    P = torch.from_numpy(f.user_factors).to(CARD)
+    Q = torch.from_numpy(f.item_factors).to(CARD)
+    # implicit quality: a viewed pair scores above a random pair
+    seen = float((P[torch.from_numpy(u[:200_000]).to(CARD).long()]
+                  * Q[torch.from_numpy(i[:200_000]).to(CARD).long()])
+                 .sum(1).mean())
+    g = torch.Generator().manual_seed(args.seed)
+    ru = torch.randint(0, SP_USERS, (200_000,), generator=g).to(CARD)
+    ri = torch.randint(0, SP_ITEMS, (200_000,), generator=g).to(CARD)
+    rand = float((P[ru] * Q[ri]).sum(1).mean())
+    log(f"  mean p_u·q_i: viewed pairs {seen}, random pairs {rand}")
+    if not seen > rand:
+        raise AssertionError("viewed pairs score no higher than random ones")
+
+    lay = sorted_layouts(u, i, r, SP_USERS, SP_ITEMS, cfg)
+    sides = {}
+    for side, other, n_other in (("user", Q, SP_ITEMS), ("item", P, SP_USERS)):
+        sd = lay[side]
+        c = sd["chunk"]
+        plan = als.segment_plan(sd["blocks"][0], c)
+
+        def gram(other=other):
+            return als.gram_of(other, True)
+
+        def normal_eq(sd=sd, other=other, c=c, plan=plan):
+            return als.partial_normal_eq(*sd["blocks"], other, sd["n"], c,
+                                         implicit=True, alpha=cfg.alpha,
+                                         plan=plan)
+
+        def half_step(sd=sd, other=other, c=c, plan=plan):
+            return als.half_local(sd["blocks"], other, sd["n"], c, cfg, plan)
+
+        G = gram()
+        A, b = normal_eq()
+
+        def solve(A=A, b=b, G=G):
+            return als.solve_block(A, b, G, cfg.reg, True, "auto")
+
+        _, launches = count_kernels(half_step)
+        whole = cuda_ms(half_step, iters=3, warmup=1)
+        parts = {}
+        for name, fn, bnd in (
+                ("gram", gram, bound_of(n_other * K * 4 + K * K * 4,
+                                        2 * n_other * K * K)),
+                ("normal equations", normal_eq, normal_eq_bound(
+                    sd["blocks"], SP_EDGES, sd["n"], n_other, K)),
+                ("solve (auto: cholesky)", solve,
+                 solve_bound(sd["n"], K, "cholesky"))):
+            parts[name] = dict(ms=cuda_ms(fn, iters=3, warmup=1),
+                               launches=count_kernels(fn)[1],
+                               bound_ms=bnd["bound_ms"],
+                               bound_by=bnd["bound_by"])
+        log(f"  {side} half-step ({sd['n']} entities, width {sd['w']}, "
+            f"{sd['S']} blocks in chunks of {c}): {whole:.3f} ms, {launches} "
+            f"launches; parts {json.dumps(parts)}; {smi}")
+        # each solver on these systems: (A + reg I + G) x = b
+        eye = torch.eye(K, dtype=torch.float64, device=CARD)
+        A_eff = A.double() + cfg.reg * eye + G.double()[None]
+        a_norm = A_eff.abs().sum(2).amax(1)  # per-entity inf-norm
+        solvers = {}
+        for solver in ("cholesky", "cg", "lu"):
+            ms = cuda_ms(lambda s=solver: als.solve_block(
+                A, b, G, cfg.reg, True, s), iters=3, warmup=1)
+            x = als.solve_block(A, b, G, cfg.reg, True, solver).double()
+            res = ((A_eff @ x[:, :, None])[:, :, 0] - b.double()).abs()
+            resid = float(res.max())
+            rel = float((res.amax(1) / (a_norm * x.abs().amax(1)
+                                        + b.double().abs().amax(1))).max())
+            solvers[solver] = dict(ms=ms, resid=resid, rel_resid=rel)
+            log(f"    solve {solver}: {ms:.3f} ms; largest residual "
+                f"|(A + reg I + G) x - b| {resid} (normwise relative {rel})")
+            if not np.isfinite(resid):
+                raise AssertionError(f"{solver} gave a non-finite solution")
+        auto = solvers[als._solver_for("auto")]
+        if auto["rel_resid"] > SOLVE_RESID_RTOL:
+            raise AssertionError(f"the auto solver's residual "
+                                 f"{auto['rel_resid']} exceeds "
+                                 f"{SOLVE_RESID_RTOL}")
+        sides[side] = dict(ms=whole, launches=launches, parts=parts,
+                           solvers=solvers, n=sd["n"])
+        del A, b, A_eff
+    del lay, P, Q
+
+    # card against CPU at MovieLens-100K's shape, the same generator
+    u, i, r = implicit_views(ML100K_EDGES, ML100K_USERS, ML100K_ITEMS)
+    fits = {d: als.train_als(ComputeContext.local(args.seed, device=d), u, i,
+                             r, ML100K_USERS, ML100K_ITEMS, cfg)
+            for d in (CARD, torch.device("cpu"))}
+    err, scale = factor_diff(fits[CARD], fits[torch.device("cpu")])
+    log(f"  card vs CPU at MovieLens-100K's shape ({ML100K_EDGES} views): "
+        f"factors max |card - CPU| {err} (largest |factor| {scale}; limit "
+        f"{ALS_FACTOR_TOL} of it)")
+    if err > ALS_FACTOR_TOL * scale:
+        raise AssertionError("implicit factors on the card differ from the "
+                             "CPU's")
+    log(f"  phase 18 {time.monotonic() - t_phase:.1f} s")
+    return dict(train_s=train_s, stats=stats, peak=peak, sides=sides,
+                cpu_err=err, cpu_scale=scale)
+
+
+def sp_events(args, app_id) -> dict:
+    """ML-100K's shape as views (phase 18's generator), each item $set
+    with 1-3 of the 19 genres, and N_UNVIEWED more $set items."""
+    u, i, _ = implicit_views(ML100K_EDGES, ML100K_USERS, ML100K_ITEMS)
+    rng = np.random.default_rng(args.seed + 5)
+    t0 = dt.datetime(2026, 3, 1, tzinfo=dt.timezone.utc)
+    names = [f"m{k}" for k in range(ML100K_ITEMS)] \
+        + [f"new{k}" for k in range(N_UNVIEWED)]
+    events = [Event("$set", "item", name, properties={"categories": [
+        str(g) for g in rng.choice(GENRES, int(rng.integers(1, 4)),
+                                   replace=False)]},
+        event_time=t0) for name in names]
+    events += [Event("view", "user", f"u{a}", "item", f"m{b}",
+                     event_time=t0 + dt.timedelta(seconds=k + 1))
+               for k, (a, b) in enumerate(zip(u.tolist(), i.tolist()))]
+    Storage.get_pevents().write(events, app_id)
+    return dict(n=len(events), last=t0 + dt.timedelta(seconds=len(u) + 1))
+
+
+def topn_ok(answer: dict, full: np.ndarray, mask: np.ndarray, num: int,
+            item_index, tol: float) -> bool:
+    """``answer`` is a top-``num`` of ``full`` under ``mask`` up to ties
+    within ``tol``: the right length, allowed distinct items, their scores
+    within ``tol`` of ``full``'s, non-increasing, none below the n-th
+    best allowed score by more than ``tol``."""
+    items = [s["item"] for s in answer["itemScores"]]
+    served = np.array([s["score"] for s in answer["itemScores"]])
+    n = min(num, int(mask.sum()))
+    if n <= 0:
+        return items == []
+    codes = [item_index.get(it) for it in items]
+    if len(items) != n or len(set(items)) != n or None in codes:
+        return False
+    nth = np.sort(full[mask])[::-1][n - 1]
+    return bool(mask[codes].all()
+                and np.all(np.abs(served - full[codes]) <= tol)
+                and np.all(np.diff(served) <= tol)
+                and np.all(full[codes] >= nth - tol))
+
+
+def sp_scores(model, q):
+    """The similar-product scores and keep-mask of ``q`` (None: no known
+    basket item)."""
+    codes = known_codes(model.item_index, q.items)
+    if not codes:
+        return None
+    full = model.norm_factors @ model.norm_factors[codes].mean(axis=0)
+    mask = business_rule_mask(len(full), model.item_index, model.categories,
+                              q.categories, q.white_list, q.black_list)
+    mask[codes] = False
+    return full, mask
+
+
+def serve_and_check(engine, ep, models, bodies, query_cls, algo, cpu_model,
+                    where):
+    """``POST /queries.json`` of each body; each answer must equal
+    ``algo.predict`` on the CPU copy of the blob (the same numpy on the
+    same factors). Returns (answers, launches on the card, ms each)."""
+    answers, launches, ms = serve_bodies(engine, ep, models, bodies)
+    for k, (body, got) in enumerate(zip(bodies, answers)):
+        want = algo.predict(cpu_model, params_from_dict(query_cls,
+                                                        body)).to_dict()
+        if got != want:
+            raise AssertionError(f"{where} query {k}: {got} vs the CPU copy "
+                                 f"{want}")
+    return answers, launches, ms
+
+
+def phase_sp_template(args, smi) -> dict:
+    """Phase 19: the similar-product template end to end."""
+    t_phase = time.monotonic()
+    log(f"phase 19: templates.similarproduct end to end at MovieLens-100K's "
+        f"shape: ingest, run_train (the template's defaults), "
+        f"load_models_for_instance, {N_SP_HTTP} POST /queries.json, "
+        f"batch_predict of {N_REC_BATCH}; {smi}")
+    app_id = Storage.get_meta_data_apps().insert(App(0, SP_APP))
+    t0 = time.monotonic()
+    ingested = sp_events(args, app_id)
+    ingest_s = time.monotonic() - t0
+    variant = variant_from_dict({
+        "id": "sp-chip-smoke", "engineFactory": "templates.similarproduct",
+        "datasource": {"params": {"app_name": SP_APP}},
+        "algorithms": [{"name": "als", "params": {}}],
+    })
+    engine, ep = build_engine(variant)
+    ctx = ComputeContext.create(args.seed, device=CARD)
+    t0 = time.monotonic()
+    iid, train_launches = count_kernels(
+        lambda: run_train(engine, ep, variant, ctx=ctx))
+    train_s = time.monotonic() - t0
+    inst = Storage.get_meta_data_engine_instances().get(iid)
+    phases = {k: v for k, v in inst.env.items() if k.startswith("phase_")}
+    log(f"  ingest {ingested['n']} events {ingest_s:.2f} s; run_train "
+        f"{train_s:.2f} s (host clock, under the profiler), {train_launches} "
+        f"launches; phases {json.dumps(phases)}; device {inst.env['device']}")
+    if inst.env["device"] != str(CARD) or train_launches == 0:
+        raise AssertionError("run_train did not train on the card")
+    gpu = load_models_for_instance(iid, engine, ep, ctx)
+    cpu = load_models_for_instance(
+        iid, engine, ep, ComputeContext.local(args.seed, device="cpu"))
+    model = gpu[0]
+    unviewed = [model.item_index[f"new{k}"] for k in range(N_UNVIEWED)]
+    if sorted(unviewed) != list(range(ML100K_ITEMS, ML100K_ITEMS + N_UNVIEWED)) \
+            or model.norm_factors[unviewed].any():
+        raise AssertionError("unviewed items are not zero rows at the end")
+    # the same template trained on the CPU
+    cpu_iid = run_train(engine, ep, variant,
+                        ctx=ComputeContext.create(args.seed, device="cpu"))
+    cpu_trained = load_models_for_instance(
+        cpu_iid, engine, ep, ComputeContext.local(args.seed, device="cpu"))[0]
+    err = float(np.abs(model.norm_factors - cpu_trained.norm_factors).max())
+    log(f"  {len(model.item_index)} items ({N_UNVIEWED} unviewed: zero rows, "
+        f"last); normalized item factors card vs CPU-trained: max |diff| "
+        f"{err} (limit {ALS_FACTOR_TOL})")
+    if err > ALS_FACTOR_TOL:
+        raise AssertionError("the card's factors differ from the CPU's")
+
+    inv = model.item_index.inverse
+    items = [inv[c] for c in range(60)]  # the most viewed first
+    bodies = [
+        {"items": items[:1], "num": 10},
+        {"items": items[1:3], "num": 10},
+        {"items": items[3:6], "num": 20},
+        {"items": items[6:7], "num": 10, "categories": ["Drama", "Comedy"]},
+        {"items": items[7:9], "num": 5, "whiteList": items[:40],
+         "blackList": items[9:13]},
+        {"items": ["never-viewed-anywhere"], "num": 10},
+        {"items": [items[13], "never-viewed-anywhere"], "num": 10,
+         "blackList": items[:20], "categories": ["Film-Noir"]},
+        {"items": items[14:15], "num": 60, "categories": ["Western"]},
+    ]
+    algo = SPAlgorithm(ep.algorithm_params_list[0][1])
+    answers, http_launches, ms = serve_and_check(
+        engine, ep, gpu, bodies, SPQuery, algo, cpu[0], "similar-product")
+    sizes = [len(a["itemScores"]) for a in answers]
+    log(f"  {N_SP_HTTP} answers equal the CPU copy of the blob (answer "
+        f"sizes {sizes}); {http_launches} launches on the card (scoring is "
+        f"host numpy, as in the reference); host clock ms per request "
+        f"{rounded(ms)}")
+    if sizes[5] != 0 or min(sizes[:5]) == 0:
+        raise AssertionError("unexpected answer sizes")
+
+    rng = np.random.default_rng(args.seed + 7)
+    qs = []
+    for k in range(N_REC_BATCH):
+        basket = tuple(inv[int(c)] for c in rng.choice(
+            ML100K_ITEMS, int(rng.integers(1, 4)), replace=False))
+        cats = tuple(str(g) for g in rng.choice(GENRES, 2, replace=False)) \
+            if k % 3 == 0 else ()
+        qs.append((k, SPQuery(items=basket, num=10, categories=cats)))
+    t0 = time.perf_counter()
+    batch = dict(algo.batch_predict(model, qs))
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    loop = {k: algo.predict(model, q) for k, q in qs}
+    loop_ms = (time.perf_counter() - t0) * 1e3
+    for k, q in qs:
+        full, mask = sp_scores(model, q)
+        for name, got in (("batch", batch[k]), ("loop", loop[k])):
+            if not topn_ok(got.to_dict(), full, mask, q.num, model.item_index,
+                           BATCH_TOL):
+                raise AssertionError(f"similar-product {name} query {k}")
+    log(f"  batch_predict of {N_REC_BATCH}: {batch_ms:.1f} ms; the predict "
+        f"loop {loop_ms:.1f} ms (host clock); both the top-10 of the "
+        f"model's scores within {BATCH_TOL}")
+    log(f"  phase 19 {time.monotonic() - t_phase:.1f} s")
+    return dict(train_s=train_s, train_launches=train_launches,
+                http_ms=ms, batch_ms=batch_ms, loop_ms=loop_ms, items=items,
+                last=ingested["last"], factor_err=err)
+
+
+def phase_ecomm_template(args, smi, sp) -> dict:
+    """Phase 20: the e-commerce template end to end on phase 19's events."""
+    t_phase = time.monotonic()
+    log(f"phase 20: templates.ecommerce end to end on phase 19's events plus "
+        f"{N_BUYS} buys and the unavailable-items constraint; {smi}")
+    app_id = Storage.get_meta_data_apps().get_by_name(SP_APP).id
+    items = sp["items"]
+    rng = np.random.default_rng(args.seed + 6)
+    t1 = sp["last"]
+    bu = rng.integers(0, ML100K_USERS, N_BUYS)
+    bi = (rng.random(N_BUYS) ** 2 * ML100K_ITEMS).astype(int)
+    le = Storage.get_levents()
+    Storage.get_pevents().write([
+        Event("buy", "user", f"u{a}", "item", f"m{b}",
+              event_time=t1 + dt.timedelta(seconds=k + 1))
+        for k, (a, b) in enumerate(zip(bu.tolist(), bi.tolist()))], app_id)
+    t2 = t1 + dt.timedelta(seconds=N_BUYS + 1)
+
+    def set_unavailable(names, at):
+        le.insert(Event("$set", "constraint", "unavailableItems",
+                        properties={"items": list(names)}, event_time=at),
+                  app_id)
+
+    set_unavailable(items[:2], t2)
+    variant = variant_from_dict({
+        "id": "ecomm-chip-smoke", "engineFactory": "templates.ecommerce",
+        "datasource": {"params": {"app_name": SP_APP}},
+        "algorithms": [{"name": "ecomm", "params": {"app_name": SP_APP}}],
+    })
+    engine, ep = build_engine(variant)
+    ctx = ComputeContext.create(args.seed, device=CARD)
+    t0 = time.monotonic()
+    iid, train_launches = count_kernels(
+        lambda: run_train(engine, ep, variant, ctx=ctx))
+    train_s = time.monotonic() - t0
+    inst = Storage.get_meta_data_engine_instances().get(iid)
+    if inst.env["device"] != str(CARD) or train_launches == 0:
+        raise AssertionError("run_train did not train on the card")
+    gpu = load_models_for_instance(iid, engine, ep, ctx)
+    cpu = load_models_for_instance(
+        iid, engine, ep, ComputeContext.local(args.seed, device="cpu"))
+    model = gpu[0]
+    cpu_iid = run_train(engine, ep, variant,
+                        ctx=ComputeContext.create(args.seed, device="cpu"))
+    cpu_trained = load_models_for_instance(
+        cpu_iid, engine, ep, ComputeContext.local(args.seed, device="cpu"))[0]
+    err, scale = factor_diff(model, cpu_trained)
+    log(f"  run_train {train_s:.2f} s (host clock, under the profiler), "
+        f"{train_launches} launches; factors card vs CPU-trained max |diff| "
+        f"{err} (largest |factor| {scale}, limit {ALS_FACTOR_TOL} of it)")
+    if err > ALS_FACTOR_TOL * scale:
+        raise AssertionError("the card's factors differ from the CPU's")
+
+    # a user the model never saw, with views since training
+    for k, it in enumerate(items[20:23]):
+        le.insert(Event("view", "user", "cold-shopper", "item", it,
+                        event_time=t2 + dt.timedelta(seconds=k + 1)), app_id)
+    users = [model.user_index.inverse[c] for c in range(8)]
+    bodies = [
+        {"user": users[0], "num": 10},
+        {"user": users[1], "num": 10, "blackList": items[:5]},
+        {"user": users[2], "num": 10, "categories": ["Drama", "Comedy"]},
+        {"user": users[3], "num": 5, "whiteList": items[:30]},
+        {"user": "cold-shopper", "num": 10},
+        {"user": "nobody-at-all", "num": 10},
+        {"user": users[4], "num": 20, "blackList": items[:50]},
+        {"user": users[5], "num": 10, "categories": ["Horror"]},
+    ]
+    params = ep.algorithm_params_list[0][1]
+    algo = ECommAlgorithm(params)
+    answers, http_launches, ms = serve_and_check(
+        engine, ep, gpu, bodies, ECQuery, algo, cpu[0], "e-commerce")
+    sizes = [len(a["itemScores"]) for a in answers]
+    unavailable = set(items[:2])
+    for a in answers:
+        if unavailable & {s["item"] for s in a["itemScores"]}:
+            raise AssertionError("an unavailable item was served")
+    if sizes[5] != 0 or sizes[4] == 0:
+        raise AssertionError("the cold user was not answered from its views")
+    log(f"  {N_SP_HTTP} answers equal the CPU copy (answer sizes {sizes}; "
+        f"the cold user answered from its recent views, the unavailable "
+        f"items left out); {http_launches} launches; host clock ms per "
+        f"request {rounded(ms)}")
+
+    # unseen_only: the same model served with the option on
+    unseen = dataclasses.replace(params, unseen_only=True)
+    ep_unseen = dataclasses.replace(ep, algorithm_params_list=(
+        ("ecomm", unseen),))
+    seen_bodies = [{"user": users[k], "num": 10} for k in range(3)] \
+        + [{"user": "cold-shopper", "num": 10}]
+    unseen_answers, _, _ = serve_and_check(
+        engine, ep_unseen, gpu, seen_bodies, ECQuery, ECommAlgorithm(unseen),
+        cpu[0], "e-commerce unseen_only")
+    for body, a in zip(seen_bodies, unseen_answers):
+        recent = set(algo._recent_items(model, body["user"], unseen.seen_events,
+                                        unseen.num_recent_events))
+        if recent & {s["item"] for s in a["itemScores"]} or not recent:
+            raise AssertionError(f"unseen_only served a seen item: {body}")
+    log(f"  unseen_only (the same model, the option on): {len(seen_bodies)} "
+        f"answers equal the CPU copy and hold none of the user's recent "
+        f"views or buys")
+
+    # the constraint changed between two identical queries
+    body = {"user": users[6], "num": 10}
+    (first,), _, _ = serve_and_check(engine, ep, gpu, [body], ECQuery, algo,
+                                     cpu[0], "before the constraint")
+    top = first["itemScores"][0]["item"]
+    set_unavailable([top], t2 + dt.timedelta(minutes=5))
+    (second,), _, _ = serve_and_check(engine, ep, gpu, [body], ECQuery, algo,
+                                      cpu[0], "after the constraint")
+    after = [s["item"] for s in second["itemScores"]]
+    if top in after or second == first:
+        raise AssertionError("the constraint change did not take effect")
+    log(f"  constraint set to [{top}] between two identical queries: the "
+        f"first served it at the top, the second leaves it out (no retrain)")
+
+    qs = [(k, ECQuery(user=model.user_index.inverse[k % len(model.user_index)],
+                      num=10, categories=("Drama",) if k % 4 == 0 else ()))
+          for k in range(N_REC_BATCH - 2)]
+    qs += [(N_REC_BATCH - 2, ECQuery(user="cold-shopper", num=10)),
+           (N_REC_BATCH - 1, ECQuery(user="nobody-at-all", num=10))]
+    t0 = time.perf_counter()
+    batch = dict(algo.batch_predict(model, qs))
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    loop = {k: algo.predict(model, q) for k, q in qs}
+    loop_ms = (time.perf_counter() - t0) * 1e3
+    snapshot = algo._unavailable_items(model)
+    for k, q in qs:
+        code = model.user_index.get(q.user)
+        full = model.item_factors @ model.user_factors[code] \
+            if code is not None else algo._cold_scores(model, q)
+        for name, got in (("batch", batch[k]), ("loop", loop[k])):
+            if full is None:
+                ok = got.item_scores == ()
+            else:
+                mask = business_rule_mask(len(full), model.item_index,
+                                          model.categories, q.categories)
+                for it in snapshot:
+                    mask[model.item_index[it]] = False
+                ok = topn_ok(got.to_dict(), full, mask, q.num,
+                             model.item_index, BATCH_TOL)
+            if not ok:
+                raise AssertionError(f"e-commerce {name} query {k}")
+    log(f"  batch_predict of {N_REC_BATCH}: {batch_ms:.1f} ms; the predict "
+        f"loop {loop_ms:.1f} ms (host clock); both the top-10 of the "
+        f"model's scores within {BATCH_TOL}")
+
+    # what a query pays for its live reads (the memory store scans the
+    # app's whole bucket on every find)
+    n_events = len(le.find(app_id))
+    q = ECQuery(user=users[0], num=10)
+    times = {
+        "predict (live constraint read)": median_ms(
+            lambda: algo.predict(model, q), 21),
+        "predict, constraint snapshot given": median_ms(
+            lambda: algo._apply_rules(
+                model, q, model.item_factors
+                @ model.user_factors[model.user_index[q.user]], snapshot), 21),
+        "constraint read alone": median_ms(
+            lambda: algo._unavailable_items(model), 21),
+        "recent views read alone": median_ms(
+            lambda: algo._recent_items(model, q.user, ("view",), 10), 21),
+        "cold-user predict (two live reads)": median_ms(
+            lambda: algo.predict(model, ECQuery(user="cold-shopper")), 21),
+    }
+    log(f"  host clock ms a query, median of 21, {n_events} events in the "
+        f"app's bucket: {json.dumps({k: round(v, 4) for k, v in times.items()})}")
+    log(f"  phase 20 {time.monotonic() - t_phase:.1f} s")
+    return dict(train_s=train_s, train_launches=train_launches, http_ms=ms,
+                batch_ms=batch_ms, loop_ms=loop_ms, live=times,
+                n_events=n_events, factor_err=err)
+
+
+def compare_sweeps(name, out, tol) -> None:
+    """Card against CPU: each point's score within ``tol``, and the same
+    best params unless the two best points are within ``tol`` on a side."""
+    card, cpu = out["card"], out["cpu"]
+    diff = max(abs(a - b) for a, b in zip(card["scores"], cpu["scores"]))
+    same = card["result"].best_index == cpu["result"].best_index
+    near_tie = any(
+        sorted(s["scores"])[-1] - sorted(s["scores"])[-2] <= tol
+        for s in (card, cpu)) if len(card["scores"]) > 1 else False
+    log(f"  {name}: card vs CPU max |score diff| {diff} (limit {tol}); same "
+        f"best params: {same}" + ("" if same else f" (near tie: {near_tie})"))
+    if diff > tol or not (same or near_tie):
+        raise AssertionError(f"{name} on the card differs from the CPU's")
+
+
+def run_sweep(name, ev, args) -> dict:
+    """run_evaluation of ``ev`` on the card and on the CPU: seconds,
+    scores, result."""
+    out = {}
+    for side, dev in (("card", CARD), ("cpu", torch.device("cpu"))):
+        t0 = time.monotonic()
+        res = run_evaluation(ev, ev.engine_params_generator,
+                             ctx=ComputeContext.create(args.seed, device=dev))
+        out[side] = dict(s=time.monotonic() - t0, result=res,
+                         scores=[x.score for x in res.engine_params_scores])
+        best = res.best_engine_params.algorithm_params_list[0][1]
+        log(f"  {name} on the {side}: {out[side]['s']:.2f} s (host clock); "
+            f"{res.metric_header} by params {out[side]['scores']}; best "
+            f"{params_to_dict(best)}")
+    return out
+
+
+def phase_sp_evaluation(args, smi) -> dict:
+    """Phase 21: the similar-product and e-commerce sweeps, card and CPU."""
+    t_phase = time.monotonic()
+    log(f"phase 21: run_evaluation of similarproduct_evaluation and "
+        f"ecommerce_evaluation on phase 19-20's events: 3 folds, rank (8, "
+        f"16), 10 iterations, HitRate@10; {smi}")
+    out = {}
+    for name, ev in (
+            ("similarproduct_evaluation", similarproduct_evaluation(
+                SP_APP, eval_k=3, ranks=(8, 16))),
+            ("ecommerce_evaluation", ecommerce_evaluation(
+                SP_APP, eval_k=3, ranks=(8, 16)))):
+        out[name] = run_sweep(name, ev, args)
+        compare_sweeps(name, out[name], HITRATE_TOL)
+    log(f"  phase 21 {time.monotonic() - t_phase:.1f} s")
+    return out
+
+
+class _CountingTextPreparator(TextPreparator):
+    """The template's preparator, counting its prepares and their time."""
+
+    calls = 0
+    seconds = 0.0
+
+    def prepare(self, ctx, td):
+        t0 = time.monotonic()
+        out = super().prepare(ctx, td)
+        type(self).calls += 1
+        type(self).seconds += time.monotonic() - t0
+        return out
+
+
+class _FastEvalLog(logging.Handler):
+    """Keeps the FastEval cache's (hits, misses) log line."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.counts = None
+
+    def emit(self, record):
+        if record.msg.startswith("FastEval cache"):
+            self.counts = record.args
+
+
+def phase_text_evaluation(args, smi) -> dict:
+    """Phase 22: the text-classification sweep on phase 9's corpus."""
+    t_phase = time.monotonic()
+    log(f"phase 22: run_evaluation of textclassification_evaluation on phase "
+        f"9's corpus ({N_DOCS} documents): 3 folds, hidden (64, 128), on the "
+        f"card; {smi}")
+    ev = textclassification_evaluation(APP, eval_k=3, hiddens=(64, 128))
+    ev.engine.preparator_class = _CountingTextPreparator
+    handler = _FastEvalLog()
+    logger = logging.getLogger("pio_tpu_torch.evaluation")
+    logger.addHandler(handler)
+    old_level = logger.level
+    logger.setLevel(logging.INFO)
+    try:
+        reset_counts()
+        t0 = time.monotonic()
+        res = run_evaluation(ev, ev.engine_params_generator,
+                             ctx=ComputeContext.create(args.seed, device=CARD))
+        torch.cuda.synchronize()
+        sweep_s = time.monotonic() - t0
+        launches = read_counts()
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(old_level)
+    acc = [x.score for x in res.engine_params_scores]
+    hits, misses = handler.counts
+    log(f"  sweep {sweep_s:.2f} s (host clock): {_CountingTextPreparator.calls}"
+        f" prepares in {_CountingTextPreparator.seconds:.2f} s (one a fold), "
+        f"FastEval cache {hits} hits / {misses} misses; accuracy by hidden "
+        f"{acc}, best index {res.best_index}; kernel launches "
+        f"{json.dumps(launches)}")
+    if _CountingTextPreparator.calls != 3:
+        raise AssertionError("the sweep did not prepare once a fold")
+    if not (launches["embedding_bag"] and
+            launches["embedding_bag_backward_table"]):
+        raise AssertionError("the sweep did not run the kernels")
+    if not all(a > 1.5 / len(LABELS) for a in acc):
+        raise AssertionError(f"accuracies {acc} near chance")
+
+    # card against CPU on a tenth of the corpus, at one width: the CPU
+    # side of both widths took 110 s on the H100 machine's host, and both
+    # widths scored alike there
+    src = Storage.get_meta_data_apps().get_by_name(APP).id
+    docs = Storage.get_pevents().aggregate_properties(src, "content")
+    app_id = Storage.get_meta_data_apps().insert(App(0, TEXT_TENTH_APP))
+    Storage.get_levents().write([
+        Event("$set", "content", f"doc{k}",
+              properties={"text": docs[f"doc{k}"].get("text"),
+                          "label": docs[f"doc{k}"].get("label")})
+        for k in range(N_DOCS // 10)], app_id)
+    tenth = textclassification_evaluation(TEXT_TENTH_APP, eval_k=3,
+                                          hiddens=(64,))
+    out = run_sweep(f"textclassification_evaluation, {N_DOCS // 10} "
+                    f"documents", tenth, args)
+    compare_sweeps("the tenth", out, ACCURACY_TOL)
+    log(f"  phase 22 {time.monotonic() - t_phase:.1f} s")
+    return dict(sweep_s=sweep_s, prepares=_CountingTextPreparator.calls,
+                prepare_s=_CountingTextPreparator.seconds, hits=hits,
+                misses=misses, acc=acc, launches=launches, tenth=out)
+
+
 def kernel_entry(name, source, replaces, launches, row) -> dict:
     """One kernel of the JSON line, from its main timed row."""
     return {
@@ -2081,6 +2776,15 @@ def main(argv=None) -> int:
     phase_als_route(args, smi, full)
     phase_host_scorer(full["factors"], smi)
     phase_evaluation(args, smi)
+    phase_implicit_als(args, smi)
+    sp = phase_sp_template(args, smi)
+    phase_ecomm_template(args, smi, sp)
+    phase_sp_evaluation(args, smi)
+    text_eval = phase_text_evaluation(args, smi)["launches"]
+    for entry in summary:
+        entry["launches"] += text_eval[entry["name"]]
+    log(f"text evaluation sweep launches (added to the kernels' line): "
+        f"{json.dumps(text_eval)}")
     log(f"recommendation path launches: run_train {rec['train_launches']}, "
         f"HTTP {rec['http_launches']} (routed by batch size "
         f"{rec['routed_launches']}), batch_predict {rec['batch_launches']}")

@@ -3,7 +3,9 @@
 The reference persists plain numpy arrays and Python values; this module
 takes those values (never a reference object) and builds the port's model
 on a device: the text-classification MLP and the recommendation ALS
-model. The tests build the mapping from a model trained by the JAX
+model; and the similar-product and e-commerce models, which hold host
+numpy arrays (those templates score on the host, as the reference's do).
+The tests build the mapping from a model trained by the JAX
 package; ``chip_smoke.py`` builds it from seeded random weights.
 """
 
@@ -18,7 +20,9 @@ from pio_tpu_torch.data.bimap import BiMap
 from pio_tpu_torch.models.als import ALSFactors
 from pio_tpu_torch.models.mlp import MLPModel
 from pio_tpu_torch.models.tfidf import TfIdfVectorizer
+from pio_tpu_torch.templates.ecommerce import ECommModel
 from pio_tpu_torch.templates.recommendation import ALSModel
+from pio_tpu_torch.templates.similarproduct import SimilarProductModel
 from pio_tpu_torch.templates.textclassification import TextMLPModel
 
 
@@ -76,12 +80,79 @@ def als_model_from_reference(
         raise ValueError(
             f"factor shapes {uf.shape} and {itf.shape} are not [n, rank]"
         )
-    indexes = []
-    for name, n in (("user_index", uf.shape[0]), ("item_index", itf.shape[0])):
-        fwd = {str(k): int(v) for k, v in dict(arrays[name]).items()}
-        if sorted(fwd.values()) != list(range(n)):
-            raise ValueError(f"{name} codes must be 0..{n - 1}, one each")
-        indexes.append(BiMap(fwd))
     return ALSModel.from_factors(
-        ALSFactors(user_factors=uf, item_factors=itf), *indexes, device=device
+        ALSFactors(user_factors=uf, item_factors=itf),
+        _index(arrays, "user_index", uf.shape[0]),
+        _index(arrays, "item_index", itf.shape[0]),
+        device=device,
+    )
+
+
+def _index(arrays: Mapping[str, Any], name: str, n: int) -> BiMap:
+    """The BiMap of ``arrays[name]`` (string id → code), whose codes must be
+    the rows ``0..n-1``, one each."""
+    fwd = {str(k): int(v) for k, v in dict(arrays[name]).items()}
+    if sorted(fwd.values()) != list(range(n)):
+        raise ValueError(f"{name} codes must be 0..{n - 1}, one each")
+    return BiMap(fwd)
+
+
+def _factors(arrays: Mapping[str, Any], name: str) -> np.ndarray:
+    f = np.asarray(arrays[name], np.float32)
+    if f.ndim != 2:
+        raise ValueError(f"{name} has shape {f.shape}, not [n, rank]")
+    return f
+
+
+def _categories(arrays: Mapping[str, Any], n: int):
+    cats = [frozenset(str(c) for c in cs) for cs in arrays["categories"]]
+    if len(cats) != n:
+        raise ValueError(f"{len(cats)} category sets for {n} items")
+    return cats
+
+
+def similarproduct_model_from_reference(
+    arrays: Mapping[str, Any]
+) -> SimilarProductModel:
+    """Build a :class:`SimilarProductModel` (host numpy) from plain values.
+
+    ``arrays`` holds the reference ``SimilarProductModel``'s fields by
+    name: ``norm_factors [I, K]`` (L2-normalized item factors),
+    ``item_index`` (string id → code, ``BiMap.to_dict()``, codes the rows
+    ``0..I-1``) and ``categories`` (one iterable of strings an item, in
+    code order).
+    """
+    nf = _factors(arrays, "norm_factors")
+    return SimilarProductModel(
+        norm_factors=nf,
+        item_index=_index(arrays, "item_index", nf.shape[0]),
+        categories=_categories(arrays, nf.shape[0]),
+    )
+
+
+def ecomm_model_from_reference(arrays: Mapping[str, Any]) -> ECommModel:
+    """Build an :class:`ECommModel` (host numpy) from plain values.
+
+    ``arrays`` holds the reference ``ECommModel``'s fields by name:
+    ``user_factors [U, K]``, ``item_factors [I, K]`` and
+    ``norm_item_factors [I, K]``, ``user_index`` and ``item_index``
+    (string id → code, codes the factor rows), ``categories`` (one
+    iterable of strings an item, in code order) and ``app_id`` (the app
+    whose live events the model reads at query time).
+    """
+    uf = _factors(arrays, "user_factors")
+    itf = _factors(arrays, "item_factors")
+    nf = _factors(arrays, "norm_item_factors")
+    if not (uf.shape[1] == itf.shape[1] == nf.shape[1]
+            and itf.shape == nf.shape):
+        raise ValueError(f"factor shapes {uf.shape}, {itf.shape} and "
+                         f"{nf.shape} do not agree")
+    return ECommModel(
+        user_factors=uf,
+        norm_item_factors=nf,
+        item_factors=itf,
+        user_index=_index(arrays, "user_index", uf.shape[0]),
+        item_index=_index(arrays, "item_index", itf.shape[0]),
+        categories=_categories(arrays, itf.shape[0]),
+        app_id=int(arrays["app_id"]),
     )

@@ -97,7 +97,12 @@ class ALSConfig:
     #: workaround. On an NVIDIA H100 80GB HBM3 (700 W; chip_smoke.py phase
     #: 11, K = 16) Cholesky took 1.77 ms at 162541 entities and 0.67 ms at
     #: 59047, CG 7.89 and 3.69, so the port's "auto" is Cholesky at every
-    #: count
+    #: count. On implicit systems (phase 18, alpha 40, 50064 and 20064
+    #: entities) Cholesky took 0.617 and 0.266 ms, CG 8.363 and 5.920, LU
+    #: 0.382 and 0.169, with normwise relative residuals of 6.6e-8 and
+    #: 1.1e-7 (Cholesky), 6.6e-7 and 2.4e-7 (CG), 6.2e-8 and 1.0e-7 (LU).
+    #: LU's lead is 2-4% of a half-step; "auto" stays Cholesky until the
+    #: port's benchmark can show it end to end (PERF.md §7)
     solver: str = "auto"
     seed: int = 0
 

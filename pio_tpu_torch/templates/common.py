@@ -2,16 +2,19 @@
 
 The port's copy of ``pio_tpu/templates/common.py`` (the port imports
 nothing of ``pio_tpu``): the app lookup (``resolve_app``), the item-score
-result types, the per-model top-N scorer cache (:class:`DeviceScorerModel`)
-and the k-fold helpers of a data source's ``read_eval``. The item-scoring
-rules of the similar-product and e-commerce templates come with them.
+result types, the per-model top-N scorer cache (:class:`DeviceScorerModel`),
+the k-fold helpers of a data source's ``read_eval``, and the item-scoring
+rules of the similar-product and e-commerce templates
+(:func:`l2_normalize_rows`, :func:`business_rule_mask`,
+:func:`top_item_scores`: host numpy, copied unchanged, so that they give
+the reference's bits).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading as _threading
-from typing import Optional, Tuple
+from typing import FrozenSet, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -130,3 +133,64 @@ def resolve_app(params) -> Tuple[int, Optional[int]]:
     if not app_id:
         raise ValueError("datasource params need app_name or app_id")
     return app_id, resolve_channel(app_id, getattr(params, "channel", ""))
+
+
+# ------------------------------------------------ shared item-scoring rules
+def l2_normalize_rows(f: np.ndarray) -> np.ndarray:
+    """Row-normalize factors for cosine scoring; zero rows stay zero."""
+    norms = np.linalg.norm(f, axis=1, keepdims=True)
+    return np.where(norms > 0, f / np.where(norms > 0, norms, 1), 0.0).astype(
+        np.float32
+    )
+
+
+def business_rule_mask(
+    n_items: int,
+    item_index,
+    categories_per_item: Sequence[FrozenSet[str]],
+    categories: Tuple[str, ...] = (),
+    white_list: Tuple[str, ...] = (),
+    black_list: Tuple[str, ...] = (),
+) -> np.ndarray:
+    """Boolean keep-mask from the standard template filters
+    (≙ the reference templates' categories/whiteList/blackList handling)."""
+    mask = np.ones(n_items, bool)
+    if categories:
+        wanted = set(categories)
+        mask &= np.fromiter(
+            (bool(wanted & c) for c in categories_per_item),
+            bool,
+            len(categories_per_item),
+        )
+    if white_list:
+        white = np.zeros(n_items, bool)
+        for i in white_list:
+            c = item_index.get(i)
+            if c is not None:
+                white[c] = True
+        mask &= white
+    for i in black_list:
+        c = item_index.get(i)
+        if c is not None:
+            mask[c] = False
+    return mask
+
+
+def top_item_scores(
+    scores: np.ndarray, mask: np.ndarray, num: int, item_index
+) -> PredictedResult:
+    """Masked top-N → PredictedResult (argpartition, not full sort)."""
+    scores = np.where(mask, scores, -np.inf)
+    n = min(num, int(mask.sum()))
+    if n <= 0:
+        return PredictedResult()
+    idx = np.argpartition(-scores, n - 1)[:n]
+    idx = idx[np.argsort(-scores[idx])]
+    inv = item_index.inverse
+    return PredictedResult(
+        tuple(
+            ItemScore(inv[int(i)], float(scores[i]))
+            for i in idx
+            if np.isfinite(scores[i])
+        )
+    )

@@ -13,8 +13,12 @@ engine.json:
   the bag-scatter kernel (:mod:`pio_tpu_torch.models.naive_bayes`).
 
 A query's text becomes a bag on the host; the MLP scores it on the card,
-NB on the host, and the softmax and argmax run on the host. The
-evaluation sweep comes with a later slice.
+NB on the host, and the softmax and argmax run on the host.
+
+Evaluation (``pio eval``): :func:`textclassification_evaluation`, k-fold
+accuracy (:class:`TextAccuracyMetric`) over the MLP's hidden widths; each
+fold and width trains ``train_mlp`` on the context's device, and the
+FastEval cache prepares each fold once for every width.
 
 Query ``{"text": "..."}`` → ``{"label": "...", "confidence": 0.93}``.
 """
@@ -32,7 +36,17 @@ from pio_tpu_torch.controller.components import (
     Preparator,
     SanityCheck,
 )
-from pio_tpu_torch.controller.engine import Engine, register_engine
+from pio_tpu_torch.controller.cross_validation import split_data
+from pio_tpu_torch.controller.engine import (
+    Engine,
+    EngineParams,
+    register_engine,
+)
+from pio_tpu_torch.controller.evaluation import (
+    EngineParamsGenerator,
+    Evaluation,
+)
+from pio_tpu_torch.controller.metrics import AverageMetric
 from pio_tpu_torch.controller.params import Params
 from pio_tpu_torch.data.bimap import BiMap
 from pio_tpu_torch.models.mlp import MLPConfig, MLPModel, train_mlp
@@ -57,6 +71,7 @@ class DataSourceParams(Params):
     entity_type: str = "content"
     text_attr: str = "text"
     label_attr: str = "label"
+    eval_k: int = 0  # >0 enables k-fold read_eval
 
 
 @dataclasses.dataclass
@@ -94,6 +109,22 @@ class TextDataSource(DataSource):
             texts.append(str(pm.get(p.text_attr)))
             labels.append(str(pm.get(p.label_attr)))
         return TrainingData(texts=texts, labels=labels)
+
+    def read_eval(self, ctx: ComputeContext):
+        """k-fold split by document index (``split_data``): each held-out
+        document is a query, its label the actual."""
+        p: DataSourceParams = self.params
+        if p.eval_k <= 0:
+            return []
+        td = self.read_training(ctx)
+        return split_data(
+            p.eval_k,
+            list(zip(td.texts, td.labels)),
+            to_training_data=lambda rows: TrainingData(
+                texts=[t for t, _ in rows], labels=[lab for _, lab in rows]
+            ),
+            to_query_actual=lambda row: (Query(text=row[0]), row[1]),
+        )
 
 
 # --------------------------------------------------------------- preparator
@@ -372,4 +403,37 @@ def textclassification_engine() -> Engine:
         TextPreparator,
         {"mlp": MLPAlgorithm, "nb": NBAlgorithm},
         TextServing,
+    )
+
+
+# -------------------------------------------------------------- evaluation
+class TextAccuracyMetric(AverageMetric):
+    """Fraction of held-out documents labeled correctly."""
+
+    def calculate_one(self, query, prediction, actual):
+        return 1.0 if prediction.label == actual else 0.0
+
+
+def textclassification_evaluation(
+    app_name: str,
+    eval_k: int = 3,
+    hiddens=(64, 128),
+):
+    """Ready-made ``pio eval`` sweep over the app ``app_name``: k-fold
+    accuracy over the MLP's hidden widths. Run it with
+    ``run_evaluation(ev, ev.engine_params_generator)``."""
+    if eval_k < 2:
+        raise ValueError("k-fold evaluation needs eval_k >= 2")
+    ds = DataSourceParams(app_name=app_name, eval_k=eval_k)
+    grid = [
+        EngineParams(
+            data_source_params=ds,
+            preparator_params=PreparatorParams(),
+            algorithm_params_list=(("mlp", MLPParams(hidden=h)),),
+        )
+        for h in hiddens
+    ]
+    return Evaluation(
+        textclassification_engine(), TextAccuracyMetric(),
+        engine_params_generator=EngineParamsGenerator(grid),
     )
