@@ -91,12 +91,34 @@ kernels (the forward, and the backward's bag scatter and bag dot):
 22. ``run_evaluation`` of ``textclassification_evaluation`` on phase 9's
    corpus (3 folds, hidden 64 and 128) on the card, its kernel launches
    added to the kernels' line; then card against CPU on a tenth of it at
-   hidden 64.
+   hidden 64;
+23. ``train_logreg`` at the classification benchmark's width
+   (``bench.py``'s ``_bench_classification``: 100,000 x 256, 10 classes,
+   100 Adam steps, lr 0.05) in int8, float32 and bfloat16: wall time
+   (median of 3), the stats split, examples/s, train accuracy, peak
+   memory, the same bits twice, card against the CPU, and one step's
+   device time, launches and bound;
+24. the dense ``train_multinomial_nb`` at the same shape (|X| as
+   features): the same bits twice, card against the CPU, the per-class
+   sums' device time against their bound;
+25. the resident scorer on phase 23's int8 model at batches 1, 8, 64 and
+   512 on both wires: device and host ms a call against the host numpy
+   mirror, h2d bytes a request, hit rate, and the codes of every training
+   row against the mirror;
+26. the classification template end to end: 20,000 ``$set`` users,
+   ``run_train`` of ``naivebayes`` and ``logreg`` on the card, the query
+   server with the resident scorer placed, 8 ``POST /queries.json`` on
+   each wire against a CPU copy, ``GET /stats.json``, ``batch_predict``
+   of 1024 against the loop, and ``classification_evaluation`` card
+   against CPU;
+27. ``train_markov_chain`` at 4,096 states and 1,000,000 transitions, card
+   against CPU.
 
 Usage: ``python3 chip_smoke.py [--seed N]``. Exits non-zero when no CUDA
 device is available or any phase fails. The line before the last holds
 ``nvidia-smi``'s name and power limit, the one before it the kernels' JSON
-summary, the one before that the recommendation path's device programs
+summary, the one before that the device programs of the recommendation and
+classification paths
 (``{"programs": [...]}``), and the last line is ``{"ok": true, "device":
 {...}}``.
 """
@@ -126,16 +148,19 @@ from pio_tpu_torch.controller.engine import EngineParams, get_engine_factory  # 
 from pio_tpu_torch.controller.params import params_from_dict, params_to_dict  # noqa: E402
 from pio_tpu_torch.convert import text_mlp_from_reference  # noqa: E402
 from pio_tpu_torch.data.event import Event  # noqa: E402
-from pio_tpu_torch.models import als, mlp  # noqa: E402
+from pio_tpu_torch.models import als, logreg, markov_chain, mlp, naive_bayes  # noqa: E402
 from pio_tpu_torch.models.naive_bayes import train_multinomial_nb_bags  # noqa: E402
 from pio_tpu_torch.models.tfidf import TfIdfVectorizer  # noqa: E402
 from pio_tpu_torch import native  # noqa: E402
 from pio_tpu_torch.ops import _build  # noqa: E402
 from pio_tpu_torch.ops import embedding, topn  # noqa: E402
 from pio_tpu_torch.parallel.context import ComputeContext  # noqa: E402
-from pio_tpu_torch.server.query_server import create_query_server  # noqa: E402
+from pio_tpu_torch.server import residency  # noqa: E402
+from pio_tpu_torch.server.query_server import QueryService, create_query_server  # noqa: E402
 from pio_tpu_torch.storage.records import App  # noqa: E402
 from pio_tpu_torch.storage.registry import Storage  # noqa: E402
+from pio_tpu_torch.templates.classification import Query as CLSQuery  # noqa: E402
+from pio_tpu_torch.templates.classification import classification_evaluation  # noqa: E402
 from pio_tpu_torch.templates.common import business_rule_mask  # noqa: E402
 from pio_tpu_torch.templates.ecommerce import ECommAlgorithm  # noqa: E402
 from pio_tpu_torch.templates.ecommerce import Query as ECQuery  # noqa: E402
@@ -1206,6 +1231,16 @@ def synth_ratings(n_edges: int, n_users: int, n_items: int, seed: int,
     return u, i, r
 
 
+def _kernels(prof) -> list:
+    """The kernel rows of a CUDA-activity profile: neither copies and
+    fills nor user annotations (``Optimizer.step#Adam.step``), whose device
+    time is their kernels' again."""
+    return [e for e in prof.key_averages()
+            if e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith(("Memcpy", "Memset"))]
+
+
 def count_kernels(fn):
     """(fn's result, device kernels it launched), from torch.profiler's
     CUDA activity; copies and fills are not counted."""
@@ -1215,10 +1250,27 @@ def count_kernels(fn):
             acc_events=True) as prof:
         out = fn()
         torch.cuda.synchronize()
-    n = sum(e.count for e in prof.key_averages()
-            if e.self_device_time_total > 0
-            and not e.key.startswith(("Memcpy", "Memset")))
-    return out, n
+    return out, sum(e.count for e in _kernels(prof))
+
+
+def device_busy(fn, iters: int = 1):
+    """(kernel launches, device ms, {kernel: device ms}) a call of ``fn``,
+    the mean of ``iters`` calls after one warmup: the kernels' own times
+    from the profiler, so a call whose host side is slower than its
+    kernels (many small launches) is measured by its device work and not
+    by the host's pace."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA],
+            acc_events=True) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ms = {e.key: e.self_device_time_total / iters / 1e3
+          for e in _kernels(prof)}
+    return (sum(e.count for e in _kernels(prof)) / iters,
+            sum(ms.values()), ms)
 
 
 def card_rmse(f, u, i, r) -> float:
@@ -2671,6 +2723,440 @@ def phase_text_evaluation(args, smi) -> dict:
                 misses=misses, acc=acc, launches=launches, tenth=out)
 
 
+# ------------------------------------------------- the classification path
+# bench.py:1570-1588 (BASELINE.md config #2), the classification template's
+# logistic regression: 100,000 rows x 256 features, 10 classes, X ~ N(0, 1)
+# and labels the argmax of X times a normal map, from default_rng(1); 100
+# full-batch Adam steps at lr 0.05
+LR_N, LR_D, LR_C, LR_ITERS, LR_RATE = 100_000, 256, 10, 100, 0.05
+LR_MODES = ("int8", "float32", "bfloat16")
+# card vs CPU after 100 f32 Adam steps from one init: gradients summed in
+# another order (~1e-6 relative over 100,000 rows), and Adam divides by
+# sqrt(v) + 1e-8, so near-zero gradients amplify it; the CPU tests measured
+# 4e-6 of the largest weight at 256 rows: 1e-4 of it as the limit
+LR_WEIGHT_RTOL = 1e-4
+# bf16 and int8, card vs CPU: the bf16-rounded weight gradient may round one
+# bf16 step apart and the runs part; held by train accuracy instead
+LR_ACC_TOL = 0.005
+# the resident scorer at full width
+SCORER_BATCHES = (1, 8, 64, 512)
+SCORER_CALLS = 200
+# a code the card and the host mirror may disagree on, on the float32 wire:
+# only where the mirror's top two logits lie within this (f32 rounding of a
+# 256-term dot in another order, ~1e-6 of logits of O(10))
+SCORER_TIE = 1e-4
+# the int8 wire may flip a code only where quantization can: a feature's
+# code is off by at most half its scale, so classes c and c' trade places
+# only where their logits lie within sum_d s_d/2 |W[d,c] - W[d,c']| (plus
+# SCORER_TIE); every other row must keep the mirror's code
+# the template end to end: the reference benchmark's users (bench.py:489-
+# 503: three plans, each user's plan attribute raised by 6) at 20,000 users
+N_CLS_USERS = 20_000
+CLS_APP = "classification-synthetic"
+PLANS = ("basic", "premium", "pro")
+N_CLS_HTTP = 8
+# train_markov_chain: 4,096 states and 1,000,000 transitions of counts 1-3
+MC_STATES, MC_TRANSITIONS, MC_TOP_K = 4096, 1_000_000, 10
+
+
+def logreg_data(seed: int = 1):
+    """A copy of bench.py's _bench_classification data."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(LR_N, LR_D)).astype(np.float32)
+    w_true = rng.normal(size=(LR_D, LR_C))
+    return X, np.argmax(X @ w_true, axis=1).astype(np.int32)
+
+
+def logreg_step(X, y, dtype: str) -> dict:
+    """One full-batch Adam step on the card: its kernels' device ms and
+    launches (21 steps less one, so the wire's widening is not counted),
+    and the bound of its two [N, D] x [D, C] products."""
+    wire_scales = logreg.feature_scales(X) if dtype == "int8" else None
+    wire = logreg.encode_wire(X, dtype, wire_scales).to(CARD)
+    y_t = torch.from_numpy(y).to(CARD).long()
+    mask = torch.ones(len(y), device=CARD)
+    s = (torch.from_numpy(wire_scales).to(CARD)
+         if wire_scales is not None else None)
+    p0 = {k: v.to(CARD) for k, v in logreg.init_params(LR_D, LR_C, 0).items()}
+
+    def fit(n):
+        return logreg._fit(p0, wire, y_t, mask, s, logreg.LogRegConfig(
+            iterations=n, learning_rate=LR_RATE))
+
+    one, one_ms, _ = device_busy(lambda: fit(1), iters=3)
+    many, many_ms, kernels = device_busy(lambda: fit(21), iters=3)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:4]
+    n_bytes = wire.numel() * wire.element_size() + len(y) * 8 \
+        + (LR_D * LR_C + LR_C) * 4 * 3
+    return dict(ms=(many_ms - one_ms) / 20, launches=(many - one) / 20,
+                top={k[:48]: round(v / 21, 5) for k, v in top},
+                **bound_of(n_bytes, 4 * LR_N * LR_D * LR_C))
+
+
+def phase_logreg(args, smi) -> dict:
+    """Phase 23: train_logreg at BASELINE config #2's full width."""
+    t_phase = time.monotonic()
+    log(f"phase 23: train_logreg at the classification benchmark's width "
+        f"({LR_N} x {LR_D}, {LR_C} classes, {LR_ITERS} steps, lr {LR_RATE}) "
+        f"in {', '.join(LR_MODES)}; {smi}")
+    X, y = logreg_data()
+    card, cpu_ctx = (ComputeContext.local(args.seed, device=CARD),
+                     ComputeContext.local(args.seed, device="cpu"))
+    out, rows = {}, []
+    for dtype in LR_MODES:
+        cfg = logreg.LogRegConfig(iterations=LR_ITERS,
+                                  learning_rate=LR_RATE, input_dtype=dtype)
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            model = logreg.train_logreg(card, X, y, LR_C, cfg)
+            walls.append(time.perf_counter() - t0)
+        wall = float(np.median(walls))
+        torch.cuda.reset_peak_memory_stats()
+        stats = {}
+        again = logreg.train_logreg(card, X, y, LR_C, cfg, stats=stats)
+        peak = torch.cuda.max_memory_allocated()
+        if not (np.array_equal(model.weights, again.weights)
+                and np.array_equal(model.bias, again.bias)):
+            raise AssertionError(f"train_logreg {dtype}: two runs differ")
+        t0 = time.perf_counter()
+        cpu = logreg.train_logreg(cpu_ctx, X, y, LR_C, cfg)
+        cpu_s = time.perf_counter() - t0
+        acc = float((model.predict(X) == y).mean())
+        cpu_acc = float((cpu.predict(X) == y).mean())
+        err = float(np.abs(model.weights - cpu.weights).max())
+        scale = float(np.abs(cpu.weights).max())
+        step = logreg_step(X, y, dtype)
+        log(f"  {dtype}: wall {wall:.4f} s (median of 3: "
+            f"{rounded(walls)}), {LR_N * LR_ITERS / wall:.4g} examples/s, "
+            f"the card idle {1 - step['ms'] * LR_ITERS / 1e3 / stats['device_s']:.3f} "
+            f"of device_s; "
+            f"stats {json.dumps({k: (round(v, 5) if isinstance(v, float) else v) for k, v in stats.items()})}; "
+            f"peak {peak} B; train accuracy {acc:.4f} (CPU {cpu_acc:.4f}, "
+            f"{cpu_s:.2f} s); weights card vs CPU max |diff| {err} "
+            f"(largest {scale}); the same bits twice; one step "
+            f"{step['ms']:.5f} ms device, {step['launches']:.1f} launches, "
+            f"bound {step['bound_ms']:.5f} ms ({step['bound_by']}); its "
+            f"largest kernels, ms a step: {json.dumps(step['top'])}")
+        if dtype == "float32" and err > LR_WEIGHT_RTOL * max(1.0, scale):
+            raise AssertionError("f32 weights: the card differs from the CPU")
+        if abs(acc - cpu_acc) > LR_ACC_TOL or acc < 0.8:
+            raise AssertionError(f"{dtype} train accuracy {acc} vs CPU "
+                                 f"{cpu_acc}")
+        out[dtype] = dict(model=model, wall=wall, stats=stats, peak=peak,
+                          acc=acc, cpu_acc=cpu_acc, err=err, step=step)
+        rows.append(program_row(
+            f"logreg step ({dtype})", "pio_tpu/models/logreg.py:49-84",
+            [LR_N, LR_D, LR_C], step["launches"], step["ms"], step,
+            err if dtype == "float32" else None))
+    log(f"  phase 23 {time.monotonic() - t_phase:.1f} s")
+    return dict(modes=out, rows=rows, X=X, y=y)
+
+
+def phase_nb_dense(args, smi, lr) -> list:
+    """Phase 24: train_multinomial_nb at the same N x D, |X| as features."""
+    t_phase = time.monotonic()
+    log(f"phase 24: train_multinomial_nb at {LR_N} x {LR_D}, {LR_C} classes "
+        f"(|X| as features); {smi}")
+    X, y = np.abs(lr["X"]), lr["y"]
+
+    def train():
+        return naive_bayes.train_multinomial_nb(X, y, LR_C, device=CARD)
+
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    nb = train()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - before
+    if peak < X.nbytes:
+        raise AssertionError("train_multinomial_nb did not run on the card")
+    again = train()
+    if not (np.array_equal(nb.log_theta.view(np.uint32),
+                           again.log_theta.view(np.uint32))
+            and np.array_equal(nb.log_prior, again.log_prior)):
+        raise AssertionError("train_multinomial_nb: two runs differ")
+    cpu = naive_bayes.train_multinomial_nb(X, y, LR_C, device="cpu")
+    err = float(max(np.abs(nb.log_theta - cpu.log_theta).max(),
+                    np.abs(nb.log_prior - cpu.log_prior).max()))
+    X_t, y_t = torch.from_numpy(X).to(CARD), torch.from_numpy(y).to(CARD)
+    classes = torch.arange(LR_C, dtype=torch.int32, device=CARD)[:, None]
+    sums_launches, sums_ms, _ = device_busy(
+        lambda: (classes == y_t[None, :]).float() @ X_t, iters=20)
+    bnd = bound_of(X.nbytes + y.nbytes + LR_C * LR_D * 4,
+                   2 * LR_C * LR_N * LR_D)
+    log(f"  {wall * 1e3:.2f} ms (host clock), peak {peak} B on the card "
+        f"over what was there; "
+        f"the same bits twice; card vs CPU max |diff| "
+        f"{err} (limit {NB_TOL}); per-class sums (one-hot product) "
+        f"{sums_ms:.5f} ms device, bound {bnd['bound_ms']:.5f} ms "
+        f"({bnd['bound_by']})")
+    if err > NB_TOL:
+        raise AssertionError("NB on the card differs from the CPU's")
+    log(f"  phase 24 {time.monotonic() - t_phase:.1f} s")
+    return [program_row("NB per-class sums", "pio_tpu/models/naive_bayes.py:266-277",
+                        [LR_C, LR_N, LR_D], sums_launches, sums_ms, bnd, err)]
+
+
+def phase_resident_scorer(args, smi, lr) -> list:
+    """Phase 25: the resident scorer at full width on phase 23's int8
+    model, both wires."""
+    t_phase = time.monotonic()
+    log(f"phase 25: ResidentLinearScorer on phase 23's int8 model (D "
+        f"{LR_D}, C {LR_C}) at batches {SCORER_BATCHES}, both wires, "
+        f"{SCORER_CALLS} calls each after warmup; {smi}")
+    model, X = lr["modes"]["int8"]["model"], lr["X"]
+    rows = []
+    for wire in ("int8", "float32"):
+        with knob("PIO_TPU_SERVE_WIRE", wire):
+            sc = residency.ResidentLinearScorer(
+                model.weights, model.bias, scales=model.feature_scales,
+                name="logreg", device=CARD)
+        sc.prealloc(SCORER_BATCHES)
+        for B in SCORER_BATCHES:
+            xb = X[:B]
+            for _ in range(10):
+                sc.score_codes(xb)
+            h2d0, calls0 = sc.h2d_bytes, sc.dispatches
+            host = []
+            for _ in range(SCORER_CALLS):
+                t0 = time.perf_counter()
+                sc.score_codes(xb)
+                host.append((time.perf_counter() - t0) * 1e3)
+            per_req = (sc.h2d_bytes - h2d0) // (sc.dispatches - calls0)
+            mirror = [host_ms(lambda: model.predict(xb))
+                      for _ in range(SCORER_CALLS)]
+            x_dev = torch.from_numpy(sc.encode(xb)).to(CARD)
+            buf = torch.empty((B, LR_C), device=CARD)
+            _, dev_ms, _ = device_busy(lambda: torch.argmax(torch.addmm(
+                sc._b_dev, x_dev.float(), sc._w_dev, out=buf), dim=1),
+                iters=SCORER_CALLS)
+            log(f"  {wire} B={B}: device {dev_ms:.5f} ms, host "
+                f"{np.median(host):.4f} ms a call (median of "
+                f"{SCORER_CALLS}); host numpy mirror "
+                f"{np.median(mirror):.4f} ms; h2d {per_req} B a request")
+            if per_req != B * LR_D * (1 if wire == "int8" else 4):
+                raise AssertionError("h2d bytes off the wire's size")
+        # codes over every training row, in batches of the largest bucket
+        B = SCORER_BATCHES[-1]
+        got = np.concatenate([sc.score_codes(X[k:k + B])
+                              for k in range(0, LR_N, B)])
+        logits = model.logits(X)
+        want = logits.argmax(axis=1)
+        margin = logits[np.arange(LR_N), want][:, None] - logits
+        if wire == "int8":
+            W = model.weights
+            pair = (model.feature_scales[:, None, None] / 2 * np.abs(
+                W[:, :, None] - W[:, None, :])).sum(axis=0)  # [C, C]
+            margin = margin - pair[want]
+        margin[np.arange(LR_N), want] = np.inf
+        clear = margin.min(axis=1) > SCORER_TIE
+        differ = got != want
+        d = sc.to_dict()
+        hit_rate = d["donation"]["hitRate"]
+        log(f"  {wire}: codes of {LR_N} rows against the host mirror: "
+            f"{int(differ.sum())} differ ({differ.mean():.5f}), "
+            f"{int((differ & clear).sum())} of them where the wire cannot "
+            f"flip a code ({int(clear.sum())} such rows); hit "
+            f"rate {hit_rate}; {json.dumps(d)}")
+        if hit_rate < 0.95:
+            raise AssertionError(f"hit rate {hit_rate} below 0.95")
+        if (differ & clear).any():
+            raise AssertionError(f"{wire} wire: codes differ from the mirror")
+        if wire == "int8":
+            x_dev = torch.from_numpy(sc.encode(X[:B])).to(CARD)
+            buf = torch.empty((B, LR_C), device=CARD)
+
+            def dispatch():
+                return torch.argmax(torch.addmm(
+                    sc._b_dev, x_dev.float(), sc._w_dev, out=buf), dim=1)
+
+            _, ms, _ = device_busy(dispatch, iters=SCORER_CALLS)
+            launches, _, _ = device_busy(lambda: sc.score_codes(X[:B]),
+                                         iters=20)
+            dispatch()
+            ref = sc.encode(X[:B]).astype(np.float32) @ (
+                model.feature_scales[:, None] * model.weights) + model.bias
+            err = float(np.abs(buf.cpu().numpy() - ref).max())
+            rows.append(program_row(
+                "resident scorer (int8 wire, B=512)",
+                "pio_tpu/server/residency.py:155-168", [B, LR_D, LR_C],
+                launches, ms, bound_of(B * LR_D + (LR_D + 1) * LR_C * 4
+                                       + B * 4, 2 * B * LR_D * LR_C), err))
+        sc.retire()
+    log(f"  phase 25 {time.monotonic() - t_phase:.1f} s")
+    return rows
+
+
+def cls_events(args, app_id) -> int:
+    """N_CLS_USERS $set users as bench.py:489-503 makes them."""
+    rng = np.random.default_rng(args.seed + 9)
+    t0 = dt.datetime(2026, 3, 1, tzinfo=dt.timezone.utc)
+    events = []
+    for n in range(N_CLS_USERS):
+        hot = n % 3
+        attrs = rng.integers(0, 3, size=3)
+        attrs[hot] += 6
+        props = {f"attr{j}": int(attrs[j]) for j in range(3)}
+        props["plan"] = PLANS[hot]
+        events.append(Event("$set", "user", f"u{n}", properties=props,
+                            event_time=t0 + dt.timedelta(seconds=n)))
+    Storage.get_pevents().write(events, app_id)
+    return len(events)
+
+
+def phase_cls_template(args, smi) -> dict:
+    """Phase 26: the classification template end to end."""
+    t_phase = time.monotonic()
+    log(f"phase 26: templates.classification end to end: {N_CLS_USERS} $set "
+        f"users, run_train of naivebayes and logreg on the card, the query "
+        f"server with the resident scorer placed, {N_CLS_HTTP} POST "
+        f"/queries.json on each wire, batch_predict of 1024, "
+        f"classification_evaluation card vs CPU; {smi}")
+    app_id = Storage.get_meta_data_apps().insert(App(0, CLS_APP))
+    t0 = time.monotonic()
+    n_events = cls_events(args, app_id)
+    log(f"  ingest {n_events} events {time.monotonic() - t0:.2f} s")
+    rng = np.random.default_rng(args.seed + 10)
+    bodies = [{"attr0": int(a), "attr1": int(b), "attr2": int(c)}
+              for a, b, c in rng.integers(0, 9, size=(N_CLS_HTTP - 2, 3))]
+    bodies += [{"attrs": [8.0, 1.0, 0.5]}, {"attrs": [0.0, 0.0, 0.0]}]
+    out = {}
+    for algo_name, params in (("naivebayes", {}),
+                              ("logreg", {"iterations": 100,
+                                          "learning_rate": 0.1})):
+        variant = variant_from_dict({
+            "id": f"cls-{algo_name}", "engineFactory":
+                "templates.classification",
+            "datasource": {"params": {"app_name": CLS_APP}},
+            "algorithms": [{"name": algo_name, "params": params}]})
+        engine, ep = build_engine(variant)
+        ctx = ComputeContext.create(args.seed, device=CARD)
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.monotonic()
+        iid = run_train(engine, ep, variant, ctx=ctx)
+        train_s = time.monotonic() - t0
+        inst = Storage.get_meta_data_engine_instances().get(iid)
+        # the features' bytes went to the card: the training ran there
+        grew = torch.cuda.max_memory_allocated() - before
+        if inst.env["device"] != str(CARD) or grew < N_CLS_USERS * 3 * 4:
+            raise AssertionError("run_train did not train on the card")
+        cpu_ctx = ComputeContext.local(args.seed, device="cpu")
+        for wire in ("int8", "float32"):
+            with knob("PIO_TPU_SERVE_WIRE", wire):
+                gpu = load_models_for_instance(iid, engine, ep, ctx)
+                cpu = load_models_for_instance(iid, engine, ep, cpu_ctx)
+                with knob("PIO_TPU_DEVICE_RESIDENT", "1"):
+                    mirror = QueryService(engine, ep, cpu, device="cpu")
+                server = create_query_server(engine, ep, gpu, port=0,
+                                             device=CARD)
+            scorer = gpu[0]._resident
+            if scorer.wire != wire or scorer.device.type != CARD.type:
+                raise AssertionError("the scorer is not placed on the card")
+            ms = []
+            with server:
+                conn = http.client.HTTPConnection("127.0.0.1", server.port,
+                                                  timeout=60)
+                answers = []
+                for body in bodies:
+                    t = time.perf_counter()
+                    status, got = post(conn, json.dumps(body).encode())
+                    ms.append((time.perf_counter() - t) * 1e3)
+                    if status != 200:
+                        raise AssertionError(f"{body}: HTTP {status}")
+                    answers.append(got)
+                conn.request("GET", "/stats.json")
+                block = json.loads(conn.getresponse().read())["residency"]
+                conn.close()
+                for body, got in zip(bodies, answers):
+                    want = mirror.query(json.dumps(body).encode())
+                    if got != want:
+                        raise AssertionError(f"{algo_name} {wire} {body}: "
+                                             f"{got} vs the CPU copy {want}")
+                algo = engine._algorithms(ep)[0]
+                qs = [(k, CLSQuery(attrs=tuple(float(v) for v in row)))
+                      for k, row in enumerate(rng.integers(0, 9, (1024, 3)))]
+                t0 = time.perf_counter()
+                batch = dict(algo.batch_predict(gpu[0], qs))
+                batch_ms = (time.perf_counter() - t0) * 1e3
+                t0 = time.perf_counter()
+                loop = {k: algo.predict(gpu[0], q) for k, q in qs}
+                loop_ms = (time.perf_counter() - t0) * 1e3
+                cpu_batch = dict(algo.batch_predict(mirror.pairs[0][1], qs))
+                if batch != loop or batch != cpu_batch:
+                    raise AssertionError("batch_predict differs from the "
+                                         "loop or the CPU copy")
+            mirror.close()
+            (entry,) = block["scorers"]
+            log(f"  {algo_name}, {wire} wire: run_train {train_s:.2f} s; "
+                f"{N_CLS_HTTP} answers equal the CPU copy, host clock ms per "
+                f"request {rounded(ms)}; /stats.json residency: enabled "
+                f"{block['enabled']}, paramBytes {block['paramBytes']}, "
+                f"measuredBytes {block['measuredBytes']}, hits "
+                f"{entry['donation']['hits']} misses "
+                f"{entry['donation']['misses']}, h2dBytes "
+                f"{entry['h2dBytes']}; batch_predict of 1024 "
+                f"{batch_ms:.2f} ms, the loop {loop_ms:.1f} ms, both equal "
+                f"the CPU copy")
+            # the scorer on the card counted every request's dispatch; the
+            # profiler's count of a whole call's launches is not used here:
+            # in this long process it has counted none for calls whose work
+            # ran on the card (their memory said so)
+            if not block["enabled"] or entry["dispatches"] != N_CLS_HTTP \
+                    or not block["measuredBytes"]:
+                raise AssertionError("the served path did not dispatch on "
+                                     "the card")
+            if not scorer.retired or "_resident" in vars(gpu[0]):
+                raise AssertionError("close() did not retire the scorer")
+            out[(algo_name, wire)] = dict(ms=ms, batch_ms=batch_ms,
+                                          loop_ms=loop_ms)
+    ev = classification_evaluation(CLS_APP, eval_k=3)
+    out["sweep"] = run_sweep("classification_evaluation", ev, args)
+    compare_sweeps("classification_evaluation", out["sweep"], 1e-6)
+    log(f"  phase 26 {time.monotonic() - t_phase:.1f} s")
+    return out
+
+
+def phase_markov(args, smi) -> list:
+    """Phase 27: train_markov_chain at 4,096 states, 1,000,000 transitions."""
+    t_phase = time.monotonic()
+    log(f"phase 27: train_markov_chain, {MC_STATES} states, "
+        f"{MC_TRANSITIONS} transitions (counts 1-3), top {MC_TOP_K}; {smi}")
+    rng = np.random.default_rng(args.seed + 11)
+    tr = np.stack([rng.integers(0, MC_STATES, MC_TRANSITIONS),
+                   (rng.random(MC_TRANSITIONS) ** 2 * MC_STATES).astype(int),
+                   rng.integers(1, 4, MC_TRANSITIONS)], axis=1).tolist()
+    times = {}
+    for side, dev in (("card", CARD), ("cpu", torch.device("cpu"))):
+        t0 = time.perf_counter()
+        times[side] = markov_chain.train_markov_chain(tr, MC_STATES,
+                                                      MC_TOP_K, device=dev)
+        times[side + "_s"] = time.perf_counter() - t0
+    card, cpu = times["card"], times["cpu"]
+    err = float(np.abs(card.top_probs - cpu.top_probs).max())
+    same = np.array_equal(card.top_indices, cpu.top_indices)
+    counts = torch.zeros((MC_STATES, MC_STATES), device=CARD)
+    counts.view(-1)[torch.from_numpy(rng.integers(0, MC_STATES ** 2,
+                                                  MC_TRANSITIONS)).to(CARD)] = 1.0
+    launches, ms, _ = device_busy(
+        lambda: markov_chain.normalize_topk(counts, MC_TOP_K), iters=10)
+    bnd = bound_of(MC_STATES * MC_STATES * 4 + MC_STATES * MC_TOP_K * 8,
+                   2 * MC_STATES * MC_STATES)
+    log(f"  card {times['card_s']:.3f} s, CPU {times['cpu_s']:.3f} s (host "
+        f"clock, the host's count matrix included); the same indices "
+        f"{same}, probabilities max |diff| {err}; normalize + pinned top-k "
+        f"{ms:.5f} ms device, {launches} launches, bound "
+        f"{bnd['bound_ms']:.5f} ms ({bnd['bound_by']})")
+    if not same or err > 1e-6:
+        raise AssertionError("the Markov chain on the card differs")
+    log(f"  phase 27 {time.monotonic() - t_phase:.1f} s")
+    return [program_row("Markov normalize + top-k",
+                        "pio_tpu/models/markov_chain.py:77-83",
+                        [MC_STATES, MC_STATES, MC_TOP_K], launches, ms, bnd,
+                        err)]
+
+
 def kernel_entry(name, source, replaces, launches, row) -> dict:
     """One kernel of the JSON line, from its main timed row."""
     return {
@@ -2781,6 +3267,14 @@ def main(argv=None) -> int:
     phase_ecomm_template(args, smi, sp)
     phase_sp_evaluation(args, smi)
     text_eval = phase_text_evaluation(args, smi)["launches"]
+    # the classification path: no hand-written kernel either; its device
+    # programs join the programs' line
+    lr = phase_logreg(args, smi)
+    full["rows"] += lr["rows"]
+    full["rows"] += phase_nb_dense(args, smi, lr)
+    full["rows"] += phase_resident_scorer(args, smi, lr)
+    phase_cls_template(args, smi)
+    full["rows"] += phase_markov(args, smi)
     for entry in summary:
         entry["launches"] += text_eval[entry["name"]]
     log(f"text evaluation sweep launches (added to the kernels' line): "

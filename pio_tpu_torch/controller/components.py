@@ -14,6 +14,8 @@ from __future__ import annotations
 import abc
 from typing import Any, Generic, List, Optional, Sequence, Tuple, TypeVar
 
+import torch
+
 from pio_tpu_torch.controller.params import EmptyParams, Params
 from pio_tpu_torch.parallel.context import ComputeContext
 
@@ -89,6 +91,13 @@ class Algorithm(Component, Generic[PD, M, Q, P]):
 
     def warmup_query(self, model: M) -> Optional[Q]:
         """A representative query to warm the serving path with, or None."""
+        return None
+
+    def resident_scorer(self, model: M, device: torch.device):
+        """A :class:`~pio_tpu_torch.server.residency.ResidentLinearScorer`
+        of ``model``'s serving parameters on ``device`` (the query server's
+        serving device), or None: the model serves as it is. The query
+        server places it when it is built, where residency is enabled."""
         return None
 
 

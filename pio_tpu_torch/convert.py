@@ -3,8 +3,9 @@
 The reference persists plain numpy arrays and Python values; this module
 takes those values (never a reference object) and builds the port's model
 on a device: the text-classification MLP and the recommendation ALS
-model; and the similar-product and e-commerce models, which hold host
-numpy arrays (those templates score on the host, as the reference's do).
+model; and the similar-product, e-commerce and classification models,
+which hold host numpy arrays (the classification models' resident scorer
+is placed by the query server).
 The tests build the mapping from a model trained by the JAX
 package; ``chip_smoke.py`` builds it from seeded random weights.
 """
@@ -18,8 +19,14 @@ import numpy as np
 from pio_tpu_torch import DeviceLike
 from pio_tpu_torch.data.bimap import BiMap
 from pio_tpu_torch.models.als import ALSFactors
+from pio_tpu_torch.models.logreg import LogRegModel
 from pio_tpu_torch.models.mlp import MLPModel
+from pio_tpu_torch.models.naive_bayes import MultinomialNBModel
 from pio_tpu_torch.models.tfidf import TfIdfVectorizer
+from pio_tpu_torch.templates.classification import (
+    LogRegClassifierModel,
+    NBClassifierModel,
+)
 from pio_tpu_torch.templates.ecommerce import ECommModel
 from pio_tpu_torch.templates.recommendation import ALSModel
 from pio_tpu_torch.templates.similarproduct import SimilarProductModel
@@ -156,3 +163,61 @@ def ecomm_model_from_reference(arrays: Mapping[str, Any]) -> ECommModel:
         categories=_categories(arrays, itf.shape[0]),
         app_id=int(arrays["app_id"]),
     )
+
+
+def _labels_and_scales(arrays: Mapping[str, Any], n_classes: int, dim: int):
+    """The label BiMap (``labels``: label strings in code order) and the
+    optional ``feature_scales [D]`` of a classifier's arrays, checked."""
+    labels = [str(label) for label in arrays["labels"]]
+    if len(labels) != n_classes or len(set(labels)) != n_classes:
+        raise ValueError(f"{len(labels)} labels for {n_classes} classes, "
+                         f"one each")
+    scales = arrays.get("feature_scales")
+    if scales is not None:
+        scales = np.asarray(scales, np.float32)
+        if scales.shape != (dim,):
+            raise ValueError(f"feature_scales {scales.shape}, not [{dim}]")
+    index = BiMap({label: code for code, label in enumerate(labels)})
+    return index, scales
+
+
+def logreg_model_from_reference(
+    arrays: Mapping[str, Any]
+) -> LogRegClassifierModel:
+    """Build a :class:`LogRegClassifierModel` (host numpy) from plain values.
+
+    ``arrays`` holds the reference ``LogRegClassifierModel``'s fields by
+    name: ``weights [D, C]``, ``bias [C]`` and ``feature_scales [D]`` (or
+    None; its ``lr``), and ``labels`` (label strings in code order, i.e.
+    ``label_index.inverse``).
+    """
+    w = np.asarray(arrays["weights"], np.float32)
+    b = np.asarray(arrays["bias"], np.float32)
+    if w.ndim != 2 or b.shape != (w.shape[1],):
+        raise ValueError(f"weights {w.shape} and bias {b.shape} are not "
+                         f"[D, C] and [C]")
+    index, scales = _labels_and_scales(arrays, w.shape[1], w.shape[0])
+    return LogRegClassifierModel(
+        LogRegModel(weights=w, bias=b, n_classes=w.shape[1],
+                    feature_scales=scales),
+        index, w.shape[0])
+
+
+def nb_classifier_from_reference(
+    arrays: Mapping[str, Any]
+) -> NBClassifierModel:
+    """Build an :class:`NBClassifierModel` (host numpy) from plain values.
+
+    ``arrays`` holds the reference ``NBClassifierModel``'s fields by name:
+    ``log_prior [C]``, ``log_theta [C, D]`` and ``feature_scales [D]`` (or
+    None; its ``nb``), and ``labels`` (label strings in code order).
+    """
+    lp = np.asarray(arrays["log_prior"], np.float32)
+    lt = np.asarray(arrays["log_theta"], np.float32)
+    if lt.ndim != 2 or lp.shape != (lt.shape[0],):
+        raise ValueError(f"log_theta {lt.shape} and log_prior {lp.shape} "
+                         f"are not [C, D] and [C]")
+    index, scales = _labels_and_scales(arrays, lt.shape[0], lt.shape[1])
+    return NBClassifierModel(
+        MultinomialNBModel(log_prior=lp, log_theta=lt, feature_scales=scales),
+        index, lt.shape[1])

@@ -4,9 +4,21 @@ Counterpart of the query path of ``pio_tpu/server/query_server.py``: parse
 the JSON body into the algorithms' query dataclass (400 on bad JSON or
 unknown fields), run each algorithm's ``predict`` against its model, combine
 with the engine's serving, and answer the result as JSON. ``GET /`` reports
-status. Built on the standard library's ``ThreadingHTTPServer``; models are
-handed over in memory. Loading from storage, QoS, micro-batching, tracing
-and the other routes come with later slices.
+status, ``GET /stats.json`` the ``residency`` block of the reference's
+(the other blocks come with the query-server slice).
+
+Where residency is enabled (:func:`~pio_tpu_torch.server.residency.
+enabled`), the service places each algorithm's resident scorer on the
+serving device when it is built (the reference's ``_place_resident``),
+attaches it to its model as ``_resident``, binds its counters and
+preallocates bucket 1; :meth:`QueryService.close` retires the scorers.
+A placement that fails raises: the reference logs it and serves from the
+host mirror, which would hide the device.
+
+Built on the standard library's ``ThreadingHTTPServer``; models are
+handed over in memory. Loading from storage, QoS, micro-batching, the
+bucket ladder, ``/reload``, tracing and the other routes come with later
+slices.
 """
 
 from __future__ import annotations
@@ -19,8 +31,12 @@ import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Optional, Sequence
 
+import torch
+
+from pio_tpu_torch import DeviceLike, resolve_device
 from pio_tpu_torch.controller.engine import Engine, EngineParams
 from pio_tpu_torch.controller.params import ParamsError, params_from_dict
+from pio_tpu_torch.server import residency
 
 log = logging.getLogger("pio_tpu_torch.query_server")
 
@@ -47,10 +63,13 @@ def _to_jsonable(obj: Any) -> Any:
 
 
 class QueryService:
-    """The deployed engine: (algorithm, model) pairs plus serving."""
+    """The deployed engine: (algorithm, model) pairs plus serving.
+
+    ``device`` is the serving device of the resident scorers (CUDA unless
+    told otherwise); it is resolved only where residency is enabled."""
 
     def __init__(self, engine: Engine, engine_params: EngineParams,
-                 models: Sequence[Any]):
+                 models: Sequence[Any], device: DeviceLike = None):
         self.pairs = engine.algorithms_with_models(engine_params, models)
         self.serving = engine.make_serving(engine_params)
         classes = {a.query_class for a, _ in self.pairs} - {None}
@@ -63,6 +82,67 @@ class QueryService:
         self.start_time = dt.datetime.now(dt.timezone.utc)
         self._lock = threading.Lock()
         self.request_count = 0
+        #: totals of every resident dispatch (the scorers' bound counters)
+        self.resident_counts = {"h2dBytes": 0, "hit": 0, "miss": 0}
+        self.device: Optional[torch.device] = None
+        self._resident: list = []
+        if residency.enabled(device):
+            self.device = resolve_device(device)
+            self._resident = self._place_resident(self.device)
+
+    def _count(self, key: str, n: int = 1) -> None:
+        with self._lock:
+            self.resident_counts[key] += n
+
+    def _place_resident(self, device: torch.device) -> list:
+        """Build, place and attach each pair's resident scorer; a failure
+        retires what was placed and raises."""
+        placed = []
+        try:
+            for algo, m in self.pairs:
+                sc = algo.resident_scorer(m, device)
+                if sc is None:
+                    continue
+                sc.bind(on_h2d=lambda n: self._count("h2dBytes", n),
+                        on_dispatch=self._count)
+                sc.prealloc((1,))
+                m._resident = sc
+                placed.append((m, sc))
+                log.info("resident scorer %r placed: %d param bytes, "
+                         "wire=%s", sc.name, sc.placed_bytes, sc.wire)
+        except BaseException:
+            self._retire(placed)
+            raise
+        return placed
+
+    @staticmethod
+    def _retire(placed) -> None:
+        for m, sc in placed:
+            sc.retire()
+            if m.__dict__.get("_resident") is sc:
+                del m._resident
+
+    def close(self) -> None:
+        """Retire the resident scorers and detach them from their models."""
+        placed, self._resident = self._resident, []
+        self._retire(placed)
+
+    def stats(self) -> dict:
+        """``GET /stats.json``: the residency block (the reference's
+        keys, plus the service's dispatch totals). ``measuredBytes`` is
+        ``torch.cuda.memory_allocated`` on the card, null elsewhere."""
+        scorers = [sc for _, sc in self._resident]
+        on_card = self.device is not None and self.device.type == "cuda"
+        with self._lock:
+            totals = dict(self.resident_counts)
+        return {"residency": {
+            "enabled": bool(scorers),
+            "paramBytes": sum(sc.placed_bytes for sc in scorers),
+            "measuredBytes": (torch.cuda.memory_allocated(self.device)
+                              if on_card else None),
+            "scorers": [sc.to_dict() for sc in scorers],
+            "totals": totals,
+        }}
 
     def status(self) -> dict:
         return {
@@ -93,7 +173,14 @@ class QueryService:
             body = json.loads(raw)
         except (UnicodeDecodeError, json.JSONDecodeError) as e:
             raise HTTPError(400, f"invalid JSON: {e}")
-        result = _to_jsonable(self._predict_one(self._parse_query(body)))
+        query = self._parse_query(body)
+        try:
+            prediction = self._predict_one(query)
+        except ValueError as e:
+            # a query the model cannot take, e.g. the wrong number of
+            # attributes: the client's error
+            raise HTTPError(400, str(e))
+        result = _to_jsonable(prediction)
         with self._lock:
             self.request_count += 1
         return result
@@ -125,10 +212,12 @@ def _handler_for(service: QueryService):
                 self._respond(500, {"message": "internal server error"})
 
         def do_GET(self):
-            if self.path.split("?", 1)[0] != "/":
+            route = {"/": service.status, "/stats.json": service.stats}.get(
+                self.path.split("?", 1)[0])
+            if route is None:
                 self._respond(404, {"message": f"no route for GET {self.path}"})
                 return
-            self._guarded(service.status)
+            self._guarded(route)
 
         def do_POST(self):
             try:
@@ -184,6 +273,7 @@ class QueryServer:
             self._thread.join(timeout=10)
             self._thread = None
         self.httpd.server_close()
+        self.service.close()
 
     def __enter__(self) -> "QueryServer":
         return self.start()
@@ -198,7 +288,10 @@ def create_query_server(
     models: Sequence[Any],
     host: str = "127.0.0.1",
     port: int = 8000,
+    device: DeviceLike = None,
 ) -> QueryServer:
     """A query server (not yet started) over in-memory ``models``; port 0
-    picks a free port (read it back from :attr:`QueryServer.port`)."""
-    return QueryServer(QueryService(engine, engine_params, models), host, port)
+    picks a free port (read it back from :attr:`QueryServer.port`).
+    ``device`` is the resident scorers' serving device."""
+    return QueryServer(QueryService(engine, engine_params, models, device),
+                       host, port)

@@ -1,0 +1,279 @@
+"""Device-resident serving scorers for the linear classifiers.
+
+Counterpart of ``pio_tpu/server/residency.py``. A
+:class:`ResidentLinearScorer` places a model's serving parameters on the
+device once, when the query server is built; every dispatch reuses them
+instead of scoring the host mirror:
+
+* **Resident params** — ``W`` (the training scales folded in on the int8
+  wire) and ``b`` cross to the device once. :meth:`~ResidentLinearScorer.
+  retire` drops them, and a retired scorer refuses to serve.
+* **Standing output tensors** — one preallocated ``[B, C]`` float32
+  output tensor per batch size (bucket); a dispatch writes ``x·W + b``
+  into it (``torch.addmm(..., out=...)``). The tensor rides in a
+  one-shot :class:`OutputBuffer` guard, the counterpart of the reference's
+  ``DonatedBuffer``: a dispatch takes it out of the pool under the lock
+  and puts it back only once its codes are on the host, so two concurrent
+  dispatches of one size never share a tensor (the second is a miss and
+  allocates its own). A dispatch that found a standing tensor is a
+  **hit**, one that allocated is a **miss**. CUDA has no donation, so
+  ``backendReclaims`` stays 0.
+* **int8 feature wire** — with ``wire="int8"`` query features are
+  quantized on the host with the TRAINING-side per-column scales
+  (``x_q = clip(rint(x / s), -127, 127)``) and the scales fold into the
+  resident weights (``X @ W = X_q @ (s ⊙ W)``), so a request ships one
+  byte per feature.
+
+Knobs (:mod:`pio_tpu_torch.utils.knobs`): ``PIO_TPU_DEVICE_RESIDENT``
+(``1`` on, ``0`` off, ``auto``: on when the serving device is CUDA) and
+``PIO_TPU_SERVE_WIRE`` (``int8`` / ``float32`` / ``auto``: int8 whenever
+the model carries training scales).
+
+Not ported: the reference's device-memory ledger and budget check, its
+failpoints, the row-sharded placement over a mesh, and the batch lane's
+query and result factories.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from pio_tpu_torch import DeviceLike, resolve_device
+from pio_tpu_torch.utils import knobs
+
+WIRE_INT8 = "int8"
+WIRE_FLOAT32 = "float32"
+
+
+def enabled(device: DeviceLike = None) -> bool:
+    """Is device-resident serving on for a service on ``device``?
+
+    ``PIO_TPU_DEVICE_RESIDENT=1`` forces on, ``=0`` off; ``auto`` is on
+    when the serving device is CUDA — the port's default device
+    (``None``) is CUDA where there is one."""
+    flag = knobs.knob_str("PIO_TPU_DEVICE_RESIDENT").lower()
+    if flag in ("0", "off", "false"):
+        return False
+    if flag in ("1", "on", "true"):
+        return True
+    if device is None:
+        return torch.cuda.is_available()
+    return torch.device(device).type == "cuda"
+
+
+def wire_mode(has_scales: bool) -> str:
+    """Resolve the serving feature wire: the ``PIO_TPU_SERVE_WIRE``
+    override, else int8 whenever training scales exist to fold."""
+    raw = knobs.knob_str("PIO_TPU_SERVE_WIRE").lower()
+    if raw == WIRE_INT8:
+        return WIRE_INT8 if has_scales else WIRE_FLOAT32
+    if raw == WIRE_FLOAT32:
+        return WIRE_FLOAT32
+    return WIRE_INT8 if has_scales else WIRE_FLOAT32
+
+
+class OutputBuffer:
+    """One-shot handle around a bucket's standing output tensor.
+
+    :meth:`take` hands the tensor to one dispatch; a second ``take``
+    raises, so a tensor that a dispatch is writing can never be handed out
+    twice."""
+
+    __slots__ = ("_buf", "_taken")
+
+    def __init__(self, buf: torch.Tensor):
+        self._buf = buf
+        self._taken = False
+
+    def take(self) -> torch.Tensor:
+        """Hand the tensor to the dispatch that writes it. One shot."""
+        if self._taken:
+            raise RuntimeError(
+                "output buffer re-used: this tensor was already handed to "
+                "a dispatch, which may be writing it"
+            )
+        self._taken = True
+        buf, self._buf = self._buf, None
+        return buf
+
+
+class ResidentLinearScorer:
+    """Device-resident ``argmax(X @ W + b)`` scorer for the linear
+    classifier templates (logreg weights, multinomial-NB log thetas).
+
+    Built by ``Algorithm.resident_scorer`` when the query server is
+    built; the server binds its counters, preallocates bucket 1 and
+    retires the scorer when it closes.
+    """
+
+    def __init__(
+        self,
+        weights: np.ndarray,
+        bias: np.ndarray,
+        scales: Optional[np.ndarray] = None,
+        name: str = "",
+        device: DeviceLike = None,
+    ):
+        W = np.asarray(weights, np.float32)  # [D, C]
+        b = np.asarray(bias, np.float32)  # [C]
+        if W.ndim != 2 or b.shape != (W.shape[1],):
+            raise ValueError(
+                f"weights [D,C] / bias [C] expected, got {W.shape} {b.shape}"
+            )
+        self.device = resolve_device(device)
+        self.name = name
+        self.in_dim = int(W.shape[0])
+        self.n_classes = int(W.shape[1])
+        self.scales = (
+            np.asarray(scales, np.float32).reshape(self.in_dim)
+            if scales is not None else None
+        )
+        self.wire = wire_mode(self.scales is not None)
+        # fold the training scales into the resident weights once:
+        # X @ W == (X/s·s) @ W == X_q @ (s ⊙ W) up to quantization
+        w_eff = self.scales[:, None] * W if self.wire == WIRE_INT8 else W
+        # the one-time placement (a copy, on the CPU too): these tensors
+        # ARE the serving params
+        self._w_dev = torch.tensor(w_eff, device=self.device)
+        self._b_dev = torch.tensor(b, device=self.device)
+        self.placed_bytes = int(w_eff.nbytes + b.nbytes)
+        #: per-bucket standing output tensors, keyed by batch size
+        self._out_bufs: Dict[int, OutputBuffer] = {}
+        self._lock = threading.Lock()
+        self.retired = False
+        self.h2d_bytes = 0
+        self.dispatches = 0
+        self.hits = 0
+        self.misses = 0
+        self._on_h2d: Optional[Callable[[int], None]] = None
+        self._on_dispatch: Optional[Callable[[str], None]] = None
+
+    # -- service wiring ----------------------------------------------------
+    def bind(self, on_h2d=None, on_dispatch=None) -> "ResidentLinearScorer":
+        """Attach the query server's counters: ``on_h2d(nbytes)`` and
+        ``on_dispatch("hit" | "miss")``, called by every dispatch."""
+        self._on_h2d = on_h2d
+        self._on_dispatch = on_dispatch
+        return self
+
+    def _new_buffer(self, n: int) -> OutputBuffer:
+        return OutputBuffer(torch.zeros((n, self.n_classes),
+                                        dtype=torch.float32,
+                                        device=self.device))
+
+    def prealloc(self, buckets) -> None:
+        """Allocate the output tensors of ``buckets`` (batch sizes), so
+        that each one's first dispatch is a hit."""
+        with self._lock:
+            for n in buckets:
+                if n not in self._out_bufs:
+                    self._out_bufs[int(n)] = self._new_buffer(int(n))
+
+    def retire(self) -> None:
+        """Drop the device params and the output tensors, and refuse
+        further dispatches."""
+        with self._lock:
+            self.retired = True
+            self._w_dev = None
+            self._b_dev = None
+            self._out_bufs.clear()
+
+    # -- wire encode -------------------------------------------------------
+    def quantize(self, X: np.ndarray) -> np.ndarray:
+        """Host-side int8 wire encode of raw float features with the
+        training scales (exact inverse of the fold in the weights)."""
+        if self.scales is None:
+            raise ValueError(f"scorer {self.name!r} has no feature scales")
+        return np.clip(
+            np.rint(np.asarray(X, np.float32) / self.scales), -127, 127
+        ).astype(np.int8)
+
+    def dequantize(self, codes: np.ndarray) -> np.ndarray:
+        """int8 wire codes back to (approximate) float features;
+        re-quantizing the result yields the identical codes."""
+        if self.scales is None:
+            raise ValueError(f"scorer {self.name!r} has no feature scales")
+        return codes.astype(np.float32) * self.scales
+
+    def encode(self, X: np.ndarray) -> np.ndarray:
+        """Features → wire form (int8 codes or float32 passthrough)."""
+        if self.wire == WIRE_INT8:
+            return self.quantize(X)
+        return np.ascontiguousarray(X, np.float32)
+
+    # -- dispatch ----------------------------------------------------------
+    def score_codes(self, X: np.ndarray) -> np.ndarray:
+        """Argmax class codes (int32) for a [B, D] float feature batch
+        through the resident params: wire encode on the host, one copy to
+        the device, one ``addmm`` and argmax there."""
+        return self.score_wire(self.encode(X))
+
+    def score_wire(self, wire: np.ndarray) -> np.ndarray:
+        """Dispatch an already wire-encoded [B, D] batch."""
+        if self.retired:
+            raise RuntimeError(
+                f"resident scorer {self.name!r} is retired; refusing to "
+                f"serve stale weights"
+            )
+        if wire.ndim != 2 or wire.shape[1] != self.in_dim:
+            raise ValueError(
+                f"wire batch [B,{self.in_dim}] expected, got {wire.shape}"
+            )
+        n = wire.shape[0]
+        x_dev = torch.from_numpy(np.ascontiguousarray(wire)).to(self.device)
+        nbytes = int(wire.nbytes)
+        with self._lock:
+            if self.retired:
+                raise RuntimeError(
+                    f"resident scorer {self.name!r} retired mid-dispatch"
+                )
+            w, b = self._w_dev, self._b_dev
+            guard = self._out_bufs.pop(n, None)
+            self.h2d_bytes += nbytes
+        outcome = "hit" if guard is not None else "miss"
+        if guard is None:
+            guard = self._new_buffer(n)
+        buf = guard.take()
+        torch.addmm(b, x_dev.float(), w, out=buf)
+        codes = torch.argmax(buf, dim=1).to(torch.int32).cpu().numpy()
+        with self._lock:
+            if not self.retired:
+                self._out_bufs[n] = OutputBuffer(buf)
+            self.dispatches += 1
+            if outcome == "hit":
+                self.hits += 1
+            else:
+                self.misses += 1
+        if self._on_h2d is not None:
+            self._on_h2d(nbytes)
+        if self._on_dispatch is not None:
+            self._on_dispatch(outcome)
+        return codes
+
+    # -- introspection -----------------------------------------------------
+    def to_dict(self) -> dict:
+        """The scorer's entry in ``GET /stats.json``'s residency block."""
+        with self._lock:
+            hits, misses = self.hits, self.misses
+            total = hits + misses
+            return {
+                "name": self.name,
+                "wire": self.wire,
+                "inDim": self.in_dim,
+                "nClasses": self.n_classes,
+                "paramBytes": self.placed_bytes,
+                "sharded": False,
+                "retired": self.retired,
+                "dispatches": self.dispatches,
+                "h2dBytes": self.h2d_bytes,
+                "donation": {
+                    "hits": hits,
+                    "misses": misses,
+                    "hitRate": round(hits / total, 4) if total else None,
+                    "backendReclaims": 0,
+                },
+            }

@@ -20,6 +20,12 @@ _DEFAULTS = {
     # numpy routes instead of the native libraries (pio_tpu_torch/native),
     # which are otherwise built and used; a failed build raises
     "PIO_TPU_NO_NATIVE": "",
+    # resident serving parameters (server/residency.py): `1` on, `0` off,
+    # `auto` on when the serving device is CUDA
+    "PIO_TPU_DEVICE_RESIDENT": "auto",
+    # the resident scorer's query wire: `int8`, `float32`, or `auto` (int8
+    # when the model carries training scales)
+    "PIO_TPU_SERVE_WIRE": "auto",
 }
 
 
