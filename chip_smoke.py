@@ -84,7 +84,8 @@ kernels (the forward, and the backward's bag scatter and bag dot):
 20. the e-commerce template on those events plus 5,000 buys and the
    unavailable-items constraint: 8 requests, ``unseen_only``, the
    constraint changed between two identical queries, ``batch_predict``
-   of 1024, and a query's time with and without its live reads;
+   of 1024, and a query's time with and without its live reads, on the
+   memory store and again with EVENTDATA on SQLite;
 21. ``run_evaluation`` of ``similarproduct_evaluation`` and
    ``ecommerce_evaluation`` on those events (3 folds, rank 8 and 16), card
    and CPU;
@@ -112,7 +113,27 @@ kernels (the forward, and the backward's bag scatter and bag dot):
    of 1024 against the loop, and ``classification_evaluation`` card
    against CPU;
 27. ``train_markov_chain`` at 4,096 states and 1,000,000 transitions, card
-   against CPU.
+   against CPU;
+28. the README quickstart through ``python -m pio_tpu_torch``, each verb a
+   process, on SQLite under a fresh ``$PIO_TPU_HOME`` (the storage
+   defaults, durability at its default): ``app new``, ``eventserver``
+   taking MovieLens-100K's shape (100,000 ``rate`` events) over HTTP in
+   batches of 50 with one single event per 1,000 (events/s, p50/p99 a
+   batch), the reference's codes on bad requests, ``export`` and
+   ``import`` into a second app (equal ``find``), ``train`` on the card,
+   ``deploy``, 20 ``POST /queries.json`` and ``batchpredict`` of 1024
+   against the CPU copy of the served blob, the CLI-trained factors
+   against ``run_train`` on the CPU over the events read back through
+   ``PEventStore``, ``status``, ``undeploy``; each verb's wall time;
+29. text classification through ``pio_tpu_torch.tools.cli.main`` in this
+   process: ``import`` of phase 9's corpus, ``train`` and ``deploy`` (on a
+   thread, ended by ``undeploy``), 8 queries over HTTP against the CPU
+   copy of the blob; the forward's and kernel A's launches on this path
+   join the kernels' line.
+
+The CLI phases write their homes under ``build/chip_smoke_homes/``
+(gitignored), made afresh each run; every server process is stopped
+before its phase ends.
 
 Usage: ``python3 chip_smoke.py [--seed N]``. Exits non-zero when no CUDA
 device is available or any phase fails. The line before the last holds
@@ -134,8 +155,12 @@ import http.client
 import json
 import logging
 import os
+import re
+import shutil
+import socket
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -148,6 +173,7 @@ from pio_tpu_torch.controller.engine import EngineParams, get_engine_factory  # 
 from pio_tpu_torch.controller.params import params_from_dict, params_to_dict  # noqa: E402
 from pio_tpu_torch.convert import text_mlp_from_reference  # noqa: E402
 from pio_tpu_torch.data.event import Event  # noqa: E402
+from pio_tpu_torch.data.store import PEventStore  # noqa: E402
 from pio_tpu_torch.models import als, logreg, markov_chain, mlp, naive_bayes  # noqa: E402
 from pio_tpu_torch.models.naive_bayes import train_multinomial_nb_bags  # noqa: E402
 from pio_tpu_torch.models.tfidf import TfIdfVectorizer  # noqa: E402
@@ -171,6 +197,7 @@ from pio_tpu_torch.templates.recommendation import recommendation_evaluation  # 
 from pio_tpu_torch.templates.similarproduct import Query as SPQuery  # noqa: E402
 from pio_tpu_torch.templates.similarproduct import SimilarProductAlgorithm as SPAlgorithm  # noqa: E402
 from pio_tpu_torch.templates.similarproduct import known_codes, similarproduct_evaluation  # noqa: E402
+from pio_tpu_torch.tools.cli import main as cli_main  # noqa: E402
 from pio_tpu_torch.templates.textclassification import (  # noqa: E402
     MLPAlgorithm,
     MLPParams,
@@ -2580,10 +2607,36 @@ def phase_ecomm_template(args, smi, sp) -> dict:
     }
     log(f"  host clock ms a query, median of 21, {n_events} events in the "
         f"app's bucket: {json.dumps({k: round(v, 4) for k, v in times.items()})}")
+
+    # the same live reads with EVENTDATA on SQLite (idx_events_entity)
+    cold = ECQuery(user="cold-shopper")
+    want = (algo.predict(model, q), algo.predict(model, cold))
+    events = le.find(app_id)
+    with sqlite_store(os.path.join(fresh_home("ecommerce"), "pio.db"),
+                      repos=("EVENTDATA",)):
+        t0 = time.monotonic()
+        Storage.get_pevents().write(events, app_id)
+        copy_s = time.monotonic() - t0
+        if (algo.predict(model, q), algo.predict(model, cold)) != want:
+            raise AssertionError("the live reads on SQLite answer otherwise")
+        sqlite_times = {
+            "predict (live constraint read)": median_ms(
+                lambda: algo.predict(model, q), 21),
+            "constraint read alone": median_ms(
+                lambda: algo._unavailable_items(model), 21),
+            "recent views read alone": median_ms(
+                lambda: algo._recent_items(model, q.user, ("view",), 10), 21),
+            "cold-user predict (two live reads)": median_ms(
+                lambda: algo.predict(model, cold), 21),
+        }
+    log(f"  EVENTDATA on SQLite ({len(events)} events copied in "
+        f"{copy_s:.2f} s), the same answers; host clock ms a query, median "
+        f"of 21: {json.dumps({k: round(v, 4) for k, v in sqlite_times.items()})}"
+        f" against the memory store's above")
     log(f"  phase 20 {time.monotonic() - t_phase:.1f} s")
     return dict(train_s=train_s, train_launches=train_launches, http_ms=ms,
                 batch_ms=batch_ms, loop_ms=loop_ms, live=times,
-                n_events=n_events, factor_err=err)
+                live_sqlite=sqlite_times, n_events=n_events, factor_err=err)
 
 
 def compare_sweeps(name, out, tol) -> None:
@@ -3157,6 +3210,456 @@ def phase_markov(args, smi) -> list:
                         err)]
 
 
+# ------------------------------------------------ the port's CLI (phases 28-29)
+ROOT = os.path.dirname(os.path.abspath(__file__))
+#: each CLI phase's $PIO_TPU_HOME, made afresh under the gitignored build/
+CLI_HOMES = os.path.join(ROOT, "build", "chip_smoke_homes")
+#: time limit of one CLI subprocess, and of a server coming up
+CLI_TIMEOUT_S = 300
+N_QS_HTTP = 20
+N_QS_BATCH = 1024
+QS_BATCH = 50  # the event server's MAX_BATCH
+QS_SINGLE_EVERY = 1000  # one POST /events.json per this many events
+QS_APP, QS_COPY = "quickstart", "quickstart-copy"
+
+
+def fresh_home(name: str) -> str:
+    home = os.path.join(CLI_HOMES, name)
+    shutil.rmtree(home, ignore_errors=True)
+    os.makedirs(home)
+    return home
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def cli_env(home: str) -> dict:
+    """The environment of a CLI subprocess: the quickstart defaults (no
+    PIO_STORAGE_*: SQLite at ``home``/pio.db, models under ``home``/models)
+    and the default durability."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("PIO_STORAGE_") and k != "PIO_TPU_DURABILITY"}
+    env.update(PIO_TPU_HOME=home, PYTHONPATH=ROOT)
+    return env
+
+
+def cli(env: dict, *args) -> tuple:
+    """``python -m pio_tpu_torch <args>`` to its end: (stdout, wall s).
+    A non-zero exit fails the phase."""
+    t0 = time.monotonic()
+    out = subprocess.run(
+        [sys.executable, "-m", "pio_tpu_torch", *args], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
+    wall = time.monotonic() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"pio {' '.join(args)} exited {out.returncode}:"
+                             f"\n{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+    return out.stdout, wall
+
+
+@contextlib.contextmanager
+def cli_server(env: dict, home: str, *args):
+    """A server verb as a subprocess, its output in ``home``/<verb>.log;
+    killed on the way out if it is still running."""
+    log_path = os.path.join(home, f"{args[0]}.log")
+    with open(log_path, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "pio_tpu_torch", *args], cwd=ROOT, env=env,
+            stdout=f, stderr=subprocess.STDOUT)
+    try:
+        yield proc
+    except BaseException:
+        with open(log_path) as f:
+            log(f"  {args[0]} log, last lines:\n{f.read()[-3000:]}")
+        raise
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait(timeout=60)
+
+
+def wait_alive(port: int, proc=None) -> dict:
+    """``GET /`` until the server answers (or its process exits)."""
+    deadline = time.monotonic() + CLI_TIMEOUT_S
+    while time.monotonic() < deadline:
+        if proc is not None and proc.poll() is not None:
+            raise AssertionError(f"the server exited with {proc.returncode}")
+        try:
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
+            conn.request("GET", "/")
+            got = json.loads(conn.getresponse().read())
+            conn.close()
+            return got
+        except OSError:
+            time.sleep(0.2)
+    raise AssertionError(f"no server on port {port} after {CLI_TIMEOUT_S} s")
+
+
+def request(conn, method: str, path: str, body=None):
+    """(status, decoded JSON) of one request on ``conn``."""
+    data = body if body is None or isinstance(body, bytes) \
+        else json.dumps(body).encode()
+    conn.request(method, path, data, {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    return resp.status, json.loads(resp.read())
+
+
+def rate_bodies(seed: int) -> list:
+    """MovieLens-100K's shape as wire events (phase 13's generator)."""
+    u, i, r = synth_ratings(ML100K_EDGES, ML100K_USERS, ML100K_ITEMS, seed,
+                            "int")
+    t0 = dt.datetime(2026, 3, 1, tzinfo=dt.timezone.utc)
+    return [
+        {"event": "rate", "entityType": "user", "entityId": f"u{a}",
+         "targetEntityType": "item", "targetEntityId": f"i{b}",
+         "properties": {"rating": float(c)},
+         "eventTime": (t0 + dt.timedelta(seconds=k)).isoformat()}
+        for k, (a, b, c) in enumerate(zip(u.tolist(), i.tolist(), r.tolist()))
+    ]
+
+
+def ingest(port: int, key: str, bodies: list) -> dict:
+    """Every body through the event server on one keep-alive connection:
+    one ``POST /events.json`` per QS_SINGLE_EVERY events, the rest in
+    ``/batch/events.json`` requests of QS_BATCH. Host clock ms a request."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    batch_ms, single_ms = [], []
+    t0 = time.perf_counter()
+    for start in range(0, len(bodies), QS_SINGLE_EVERY):
+        chunk = bodies[start:start + QS_SINGLE_EVERY]
+        t = time.perf_counter()
+        status, got = request(conn, "POST", f"/events.json?accessKey={key}",
+                              chunk[0])
+        single_ms.append((time.perf_counter() - t) * 1e3)
+        if status != 201:
+            raise AssertionError(f"single event: HTTP {status} {got}")
+        for b in range(1, len(chunk), QS_BATCH):
+            t = time.perf_counter()
+            status, got = request(conn, "POST",
+                                  f"/batch/events.json?accessKey={key}",
+                                  chunk[b:b + QS_BATCH])
+            batch_ms.append((time.perf_counter() - t) * 1e3)
+            if status != 200 or any(r["status"] != 201 for r in got):
+                raise AssertionError(f"batch: HTTP {status} {got[:3]}")
+    wall = time.perf_counter() - t0
+    conn.close()
+    return {"events": len(bodies), "wall_s": wall,
+            "events_per_s": len(bodies) / wall,
+            "batch_requests": len(batch_ms), "single_requests": len(single_ms),
+            "batch_ms_p50": float(np.percentile(batch_ms, 50)),
+            "batch_ms_p99": float(np.percentile(batch_ms, 99)),
+            "single_ms_p50": float(np.percentile(single_ms, 50))}
+
+
+def check_error_codes(port: int, key: str, body: dict) -> list:
+    """The reference's status codes on bad requests."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    ev = f"/events.json?accessKey={key}"
+    cases = [
+        ("POST", f"/batch/events.json?accessKey={key}", [body] * 51, 400),
+        ("POST", "/events.json", body, 401),
+        ("POST", "/events.json?accessKey=nope", body, 401),
+        ("POST", ev, b"{not json", 400),
+        ("POST", ev, {**body, "eventTime": "yesterday"}, 400),
+        ("POST", ev + "&channel=nope", body, 400),
+        ("GET", f"/events/nope.json?accessKey={key}", None, 404),
+        ("GET", ev + "&limit=3", None, 200),
+    ]
+    got = []
+    for method, path, b, want in cases:
+        status, answer = request(conn, method, path, b)
+        if status != want:
+            raise AssertionError(f"{method} {path}: HTTP {status} {answer}, "
+                                 f"want {want}")
+        got.append(status)
+    conn.close()
+    return got
+
+
+@contextlib.contextmanager
+def sqlite_store(path: str, repos=("METADATA", "EVENTDATA")):
+    """The script's own storage pointed at the SQLite file ``path`` for
+    ``repos`` inside the block (the other repositories stay as they were)."""
+    with contextlib.ExitStack() as stack:
+        for repo in repos:
+            stack.enter_context(
+                knob(f"PIO_STORAGE_REPOSITORIES_{repo}_SOURCE", "CHIPSQ"))
+        stack.enter_context(knob("PIO_STORAGE_SOURCES_CHIPSQ_TYPE", "sqlite"))
+        stack.enter_context(knob("PIO_STORAGE_SOURCES_CHIPSQ_PATH", path))
+        yield
+
+
+@contextlib.contextmanager
+def cli_store(home: str):
+    """The script's own storage on the CLI's quickstart defaults under
+    ``home`` inside the block: SQLite at pio.db, models under models/."""
+    with sqlite_store(os.path.join(home, "pio.db")), \
+            knob("PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE", "CHIPFS"), \
+            knob("PIO_STORAGE_SOURCES_CHIPFS_TYPE", "localfs"), \
+            knob("PIO_STORAGE_SOURCES_CHIPFS_PATH", os.path.join(home, "models")):
+        yield
+
+
+def phase_cli_quickstart(args, smi) -> dict:
+    """Phase 28: the README quickstart through ``python -m pio_tpu_torch``,
+    each verb a subprocess, on SQLite under a fresh $PIO_TPU_HOME."""
+    t_phase = time.monotonic()
+    log(f"phase 28: the recommendation quickstart through the CLI (each verb "
+        f"a process; SQLite, durability at its default): app new, "
+        f"eventserver, {ML100K_EDGES} rate events, export/import, train, "
+        f"deploy, {N_QS_HTTP} queries, batchpredict of {N_QS_BATCH}, status, "
+        f"undeploy; {smi}")
+    home = fresh_home("quickstart")
+    env = cli_env(home)
+    db = os.path.join(home, "pio.db")
+    walls = {}
+    out, walls["app new"] = cli(env, "app", "new", QS_APP)
+    key = re.search(r"Access key: (\S+)", out).group(1)
+    bodies = rate_bodies(args.seed + 28)
+    es_port = free_port()
+    with cli_server(env, home, "eventserver", "--ip", "127.0.0.1",
+                    "--port", str(es_port)) as es:
+        t0 = time.monotonic()
+        wait_alive(es_port, es)
+        walls["eventserver up"] = time.monotonic() - t0
+        stats = ingest(es_port, key, bodies)
+        codes = check_error_codes(es_port, key, bodies[0])
+    walls["ingest"] = stats["wall_s"]
+    log(f"  ingest over HTTP: {json.dumps(stats)}; bad requests answered "
+        f"{codes}")
+
+    exported = os.path.join(home, "export.jsonl")
+    out, walls["export"] = cli(env, "export", "--app", QS_APP,
+                               "--output", exported)
+    if f"Exported {ML100K_EDGES} events" not in out:
+        raise AssertionError(f"export: {out}")
+    _, walls["app new (copy)"] = cli(env, "app", "new", QS_COPY)
+    out, walls["import"] = cli(env, "import", "--app", QS_COPY,
+                               "--input", exported)
+    if f"Imported {ML100K_EDGES} events (0 failed)" not in out:
+        raise AssertionError(f"import: {out}")
+    with sqlite_store(db):
+        apps = Storage.get_meta_data_apps()
+        le = Storage.get_levents()
+        a, b = (apps.get_by_name(n).id for n in (QS_APP, QS_COPY))
+        orig, copy = ([e.to_api_dict() for e in le.find(app)] for app in (a, b))
+    if orig != copy or len(orig) != ML100K_EDGES:
+        raise AssertionError("the imported copy differs from the app")
+    log(f"  export -> import into a second app: {len(copy)} events, find "
+        f"equal event for event")
+
+    ej = os.path.join(home, "engine.json")
+    variant_dict = {
+        "id": "quickstart", "engineFactory": "templates.recommendation",
+        "datasource": {"params": {"app_name": QS_APP}},
+        "algorithms": [{"name": "als",
+                        "params": {**ALS_PARAMS, "seed": args.seed}}],
+    }
+    with open(ej, "w") as f:
+        json.dump(variant_dict, f)
+    out, walls["train"] = cli(env, "train", "--engine-json", ej)
+    iid = re.search(r"engine instance (\w+)", out).group(1)
+    with sqlite_store(db):
+        inst = Storage.get_meta_data_engine_instances().get(iid)
+    phases = {k: v for k, v in inst.env.items() if k.startswith("phase_")}
+    log(f"  train: instance {iid} on {inst.env['device']}; train_seconds "
+        f"{inst.env['train_seconds']}; phases {json.dumps(phases)}")
+    if not inst.env["device"].startswith("cuda"):
+        raise AssertionError("pio train did not train on the card")
+
+    queries = [{"user": f"u{k}", "num": 10} for k in range(12)] + [
+        {"user": "u20", "num": 10, "blackList": [f"i{k}" for k in range(5)]},
+        {"user": "u21", "item": "i7"}, {"user": "stranger", "num": 10},
+        {"user": "u22", "num": 0}, {"user": "u23", "num": 40},
+        {"user": "u24", "num": 5, "blackList": [f"i{k}" for k in range(50)]},
+        {"user": "u25"}, {"user": "u26", "num": 1}]
+    qs_port = free_port()
+    with cli_server(env, home, "deploy", "--engine-json", ej, "--ip",
+                    "127.0.0.1", "--port", str(qs_port)) as qs:
+        t0 = time.monotonic()
+        status = wait_alive(qs_port, qs)
+        walls["deploy up"] = time.monotonic() - t0
+        if status["engineInstanceId"] != iid:
+            raise AssertionError(f"deploy serves {status}")
+        conn = http.client.HTTPConnection("127.0.0.1", qs_port, timeout=60)
+        answers, ms = [], []
+        for body in queries:
+            t = time.perf_counter()
+            code, got = request(conn, "POST", "/queries.json", body)
+            ms.append((time.perf_counter() - t) * 1e3)
+            if code != 200:
+                raise AssertionError(f"query {body}: HTTP {code} {got}")
+            answers.append(got)
+        conn.close()
+        qpath = os.path.join(home, "queries.jsonl")
+        with open(qpath, "w") as f:
+            for k in range(N_QS_BATCH):
+                f.write(json.dumps({"user": f"u{k % ML100K_USERS}",
+                                    "num": 10}) + "\n")
+        ppath = os.path.join(home, "predictions.jsonl")
+        out, walls["batchpredict"] = cli(env, "batchpredict", "--engine-json",
+                                         ej, "--input", qpath, "--output",
+                                         ppath)
+        out, walls["status"] = cli(env, "status")
+        card = f"cuda:0 {torch.cuda.get_device_name(0)}"
+        if card not in out or "(sanity check passed)" not in out \
+                or out.count("  OK  ") != 8:
+            raise AssertionError(f"status: {out}")
+        out, walls["undeploy"] = cli(env, "undeploy", "--port", str(qs_port))
+        t0 = time.monotonic()
+        code = qs.wait(timeout=60)
+        walls["deploy exit after undeploy"] = time.monotonic() - t0
+        if "undeployed" not in out or code != 0:
+            raise AssertionError(f"undeploy: {out}; deploy exited {code}")
+    log(f"  {N_QS_HTTP} POST /queries.json through the CLI-deployed server: "
+        f"host clock ms per request {rounded(ms)} (median "
+        f"{np.median(ms):.3f}); status lists {card} and all-OK storage")
+
+    # the answers against CPU copies, in this process, from the same files
+    with cli_store(home):
+        n_read = len(PEventStore.find(QS_APP))
+        engine, ep = build_engine(variant_from_dict(variant_dict))
+        cpu_ctx = ComputeContext.local(args.seed, device="cpu")
+        (blob,) = load_models_for_instance(iid, engine, ep, cpu_ctx)
+        with knob("PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE", "MEM"):
+            cpu_iid = run_train(engine, ep, variant_from_dict(variant_dict),
+                                ctx=ComputeContext.create(args.seed,
+                                                          device="cpu"))
+            (trained,) = load_models_for_instance(cpu_iid, engine, ep, cpu_ctx)
+    if n_read != ML100K_EDGES:
+        raise AssertionError(f"PEventStore read {n_read} events")
+    err, scale = factor_diff(*(
+        als.ALSFactors(m.factors.user_factors.numpy(),
+                       m.factors.item_factors.numpy()) for m in (blob, trained)))
+    log(f"  factors of pio train on the card vs run_train on the CPU over "
+        f"the {n_read} events read back through PEventStore: max |diff| "
+        f"{err} (largest |factor| {scale}, limit {ALS_FACTOR_TOL} of it)")
+    if err > ALS_FACTOR_TOL * scale:
+        raise AssertionError("the CLI-trained factors differ from the CPU's")
+    for k, (body, got) in enumerate(zip(queries, answers)):
+        check_served(got, params_from_dict(RecQuery, body), blob,
+                     f"CLI query {k}")
+    with open(ppath) as f:
+        lines = [json.loads(line) for line in f]
+    if len(lines) != N_QS_BATCH:
+        raise AssertionError(f"batchpredict wrote {len(lines)} lines")
+    for k, line in enumerate(lines):
+        check_served(line["prediction"], params_from_dict(RecQuery,
+                                                          line["query"]),
+                     blob, f"batchpredict line {k}")
+    log(f"  the {N_QS_HTTP} answers and the {N_QS_BATCH} batchpredict lines "
+        f"match the CPU copy of the served blob (check_served)")
+    log(f"  wall s a verb (host clock, process start to exit): "
+        f"{json.dumps({k: round(v, 3) for k, v in walls.items()})}")
+    log(f"  phase 28 {time.monotonic() - t_phase:.1f} s; {smi}")
+    return dict(walls=walls, ingest=stats, query_ms=ms)
+
+
+def phase_cli_text(args, smi) -> dict:
+    """Phase 29: text classification through ``pio_tpu_torch.tools.cli.main``
+    in this process (so the kernels' counters see the launches): import
+    the corpus, train, deploy on a thread, 8 queries over HTTP, undeploy."""
+    t_phase = time.monotonic()
+    log(f"phase 29: text classification through the CLI in this process: "
+        f"import {N_DOCS} documents, train, deploy, {N_HTTP} queries, "
+        f"undeploy; {smi}")
+    home = fresh_home("text")
+    walls = {}
+    rng = np.random.default_rng(args.seed + 1)  # phase 9's corpus
+    docs, labels = synth_corpus(rng, N_DOCS, N_WORDS, coverage=True)
+    corpus = os.path.join(home, "corpus.jsonl")
+    t0 = dt.datetime(2026, 3, 1, tzinfo=dt.timezone.utc)
+    with open(corpus, "w") as f:
+        for k, (text, label) in enumerate(zip(docs, labels)):
+            f.write(json.dumps({
+                "event": "$set", "entityType": "content", "entityId": f"doc{k}",
+                "properties": {"text": text, "label": label},
+                "eventTime": (t0 + dt.timedelta(seconds=k)).isoformat()}) + "\n")
+    variant_dict = {
+        "id": "chip-smoke-cli", "engineFactory": "templates.textclassification",
+        "datasource": {"params": {"app_name": APP}},
+        "algorithms": [{"name": "mlp", "params": {}}, {"name": "nb", "params": {}}],
+    }
+    ej = os.path.join(home, "engine.json")
+    with open(ej, "w") as f:
+        json.dump(variant_dict, f)
+
+    def run_cli(*argv):
+        t = time.monotonic()
+        code = cli_main(list(argv))
+        walls[argv[0] if argv[0] != "app" else "app new"] = \
+            time.monotonic() - t
+        if code != 0:
+            raise AssertionError(f"pio {' '.join(argv)} returned {code}")
+
+    port = free_port()
+    deployed = []
+    variant = variant_from_dict(variant_dict, path=ej)
+    with cli_store(home):
+        run_cli("app", "new", APP)
+        run_cli("import", "--app", APP, "--input", corpus)
+        reset_counts()
+        run_cli("train", "--engine-json", ej)
+        train_launches = read_counts()
+        thread = threading.Thread(target=lambda: deployed.append(cli_main([
+            "deploy", "--engine-json", ej, "--ip", "127.0.0.1",
+            "--port", str(port)])), daemon=True)
+        t = time.monotonic()
+        thread.start()
+        wait_alive(port)
+        walls["deploy up"] = time.monotonic() - t
+        texts, held_out = synth_corpus(np.random.default_rng(args.seed + 2),
+                                       N_HTTP, N_WORDS, coverage=False)
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        answers, ms = [], []
+        for text in texts:
+            t = time.perf_counter()
+            code, got = request(conn, "POST", "/queries.json", {"text": text})
+            ms.append((time.perf_counter() - t) * 1e3)
+            if code != 200:
+                raise AssertionError(f"text query: HTTP {code} {got}")
+            answers.append(got)
+        conn.close()
+        run_cli("undeploy", "--port", str(port))
+        thread.join(timeout=60)
+        if thread.is_alive() or deployed != [0]:
+            raise AssertionError(f"pio deploy did not end cleanly: {deployed}")
+        launches = read_counts()
+        engine, ep = build_engine(variant)
+        iid = Storage.get_meta_data_engine_instances().get_latest_completed(
+            variant.engine_id, variant.engine_version, variant.path).id
+        inst = Storage.get_meta_data_engine_instances().get(iid)
+        cpu = load_models_for_instance(
+            iid, engine, ep, ComputeContext.local(args.seed, device="cpu"))
+    if not inst.env["device"].startswith("cuda"):
+        raise AssertionError("pio train did not train on the card")
+    serving = engine.make_serving(ep)
+    pairs = engine.algorithms_with_models(ep, cpu)
+    for k, (text, got) in enumerate(zip(texts, answers)):
+        q = Query(text=text)
+        same_answer(got, serving.serve(q, [a.predict(m, q) for a, m in pairs]),
+                    f"CLI text query {k}")
+    serve_launches = {k: launches[k] - train_launches[k] for k in launches}
+    iterations = ep.algorithm_params_list[0][1].iterations
+    log(f"  pio train on {inst.env['device']}: launches {json.dumps(train_launches)}"
+        f"; phases {json.dumps({k: v for k, v in inst.env.items() if k.startswith('phase_')})}")
+    log(f"  {N_HTTP} answers through the CLI-deployed server match the CPU "
+        f"copy of the blob ({sum(a['label'] == lab for a, lab in zip(answers, held_out))}"
+        f" held-out labels right); serving launches {json.dumps(serve_launches)}; "
+        f"host clock ms per request {rounded(ms)}")
+    log(f"  wall s a verb (host clock, in this process): "
+        f"{json.dumps({k: round(v, 3) for k, v in walls.items()})}")
+    if train_launches["embedding_bag"] < iterations \
+            or train_launches["embedding_bag_backward_table"] < iterations + 1 \
+            or serve_launches["embedding_bag"] < N_HTTP:
+        raise AssertionError(f"the CLI path launched {launches}")
+    log(f"  phase 29 {time.monotonic() - t_phase:.1f} s; {smi}")
+    return dict(launches=launches, walls=walls, query_ms=ms)
+
+
 def kernel_entry(name, source, replaces, launches, row) -> dict:
     """One kernel of the JSON line, from its main timed row."""
     return {
@@ -3275,10 +3778,16 @@ def main(argv=None) -> int:
     full["rows"] += phase_resident_scorer(args, smi, lr)
     phase_cls_template(args, smi)
     full["rows"] += phase_markov(args, smi)
+    # the port's CLI: the quickstart as processes, then text classification
+    # in this process, its kernels' launches joining the kernels' line
+    phase_cli_quickstart(args, smi)
+    cli_text = phase_cli_text(args, smi)["launches"]
     for entry in summary:
-        entry["launches"] += text_eval[entry["name"]]
+        entry["launches"] += text_eval[entry["name"]] + cli_text[entry["name"]]
     log(f"text evaluation sweep launches (added to the kernels' line): "
         f"{json.dumps(text_eval)}")
+    log(f"CLI train + deploy launches (added to the kernels' line): "
+        f"{json.dumps(cli_text)}")
     log(f"recommendation path launches: run_train {rec['train_launches']}, "
         f"HTTP {rec['http_launches']} (routed by batch size "
         f"{rec['routed_launches']}), batch_predict {rec['batch_launches']}")

@@ -15,6 +15,8 @@ from typing import Optional, Union
 
 import torch
 
+__version__ = "0.1.0"
+
 DeviceLike = Union[str, torch.device, None]
 
 
@@ -36,4 +38,4 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "__version__"]

@@ -1,0 +1,345 @@
+"""Minimal threaded HTTP JSON server shared by the Event and Query servers.
+
+The port's copy of ``pio_tpu/server/http.py`` (the port imports nothing of
+``pio_tpu``): a standard-library ``ThreadingHTTPServer`` with a route
+table. Handlers receive a :class:`Request` and return ``(status,
+json_body)``; each connection is parsed by a hand-rolled HTTP/1.1 reader
+(``http.server``'s header parsing through ``email.parser`` costs about
+200 µs a request) and each response leaves in one write with
+``TCP_NODELAY`` on (with Nagle on, a keep-alive answer waits 40 ms or
+more for the client's delayed ACK).
+
+Cut to what the ported routes use: no TLS, no event-loop front, no
+file or octet-stream (blob) bodies, no packed query wire and no
+pre-body hook; they come with later slices.
+"""
+
+from __future__ import annotations
+
+import hmac
+import json
+import logging
+import re
+import socketserver
+import threading
+from dataclasses import dataclass, field
+from http.server import ThreadingHTTPServer
+from typing import Any, Callable, Dict, List, Optional, Tuple
+from urllib.parse import parse_qs
+
+log = logging.getLogger("pio_tpu_torch.server")
+
+#: JSON bodies are parsed in RAM; the reference caps them at 64 MiB
+#: (``PIO_TPU_MAX_JSON_BODY_MB``'s default)
+MAX_JSON_BODY_BYTES = 64 * 2 ** 20
+
+#: idle/slowloris guard: a connection that produces no bytes for this
+#: long is closed (the reference's ``PIO_TPU_HTTP_IDLE_TIMEOUT_S`` default)
+IDLE_TIMEOUT_S = 60.0
+
+#: listen backlog (socketserver's default of 5 overflows under a
+#: 16-client connect burst; the reference's ``PIO_TPU_HTTP_BACKLOG``)
+BACKLOG = 128
+
+
+def keys_equal(provided: str, expected: str) -> bool:
+    """Constant-time access-key comparison (no prefix-length timing leak)."""
+    return hmac.compare_digest(
+        provided.encode("utf-8", "replace"), expected.encode("utf-8", "replace")
+    )
+
+
+@dataclass
+class Request:
+    method: str
+    path: str
+    params: Dict[str, str]
+    body: Optional[Any]  # parsed JSON (or raw str for non-JSON bodies)
+    raw_body: bytes = b""
+    #: header names lowercased (HTTP/2-origin clients send lowercase)
+    headers: Dict[str, str] = field(default_factory=dict)
+    path_args: Tuple[str, ...] = ()
+    client_addr: str = ""
+    #: handler-settable hook invoked AFTER the response is written to the
+    #: socket — for actions that must not race the reply (e.g. /undeploy
+    #: stopping the server)
+    after_response: Optional[Callable[[], None]] = None
+
+    def header(self, name: str, default: Optional[str] = None):
+        return self.headers.get(name.lower(), default)
+
+    def bearer_key(self) -> str:
+        """Access key from ?accessKey= or the Authorization header."""
+        key = self.params.get("accessKey") or self.header("Authorization", "")
+        if key.startswith("Bearer "):
+            key = key[len("Bearer "):]
+        return key
+
+
+Handler = Callable[[Request], Tuple[int, Any]]
+
+
+class HTTPError(Exception):
+    """Handler-raised error, answered as ``{"message": ...}``."""
+
+    def __init__(self, status: int, message: str):
+        super().__init__(message)
+        self.status = status
+        self.message = message
+
+
+class Router:
+    """Method+regex route table."""
+
+    def __init__(self):
+        self._routes: List[Tuple[str, re.Pattern, Handler]] = []
+
+    def add(self, method: str, pattern: str, handler: Handler) -> None:
+        self._routes.append((method, re.compile(f"^{pattern}$"), handler))
+
+    def dispatch(self, req: Request) -> Tuple[int, Any]:
+        for method, pattern, handler in self._routes:
+            if method != req.method:
+                continue
+            m = pattern.match(req.path)
+            if m:
+                req.path_args = m.groups()
+                return handler(req)
+        return 404, {"message": f"no route for {req.method} {req.path}"}
+
+
+_REASONS = {
+    200: "OK", 201: "Created", 400: "Bad Request", 401: "Unauthorized",
+    403: "Forbidden", 404: "Not Found", 405: "Method Not Allowed",
+    411: "Length Required", 413: "Content Too Large",
+    431: "Request Header Fields Too Large", 500: "Internal Server Error",
+}
+
+_ALLOWED_METHODS = frozenset(
+    {"GET", "POST", "PUT", "DELETE", "HEAD", "OPTIONS", "PATCH"}
+)
+
+
+def _make_handler_class(router: Router, server_name: str):
+    """Per-connection handler with a hand-rolled HTTP/1.1 parser."""
+
+    class JsonHandler(socketserver.StreamRequestHandler):
+        rbufsize = 64 * 1024
+        wbufsize = 64 * 1024
+        disable_nagle_algorithm = True
+        timeout = IDLE_TIMEOUT_S
+
+        command = ""  # current request method (HEAD gates body writes)
+        http10 = False  # current request is HTTP/1.0 (keep-alive echo)
+
+        def handle(self):
+            self.close_connection = False
+            try:
+                while not self.close_connection:
+                    if not self._handle_one():
+                        break
+            except OSError:  # covers ConnectionError and TimeoutError
+                pass
+
+        # -- response writing ------------------------------------------
+        def _respond(self, status: int, body: Any):
+            try:
+                payload = json.dumps(body).encode() if body is not None else b""
+            except (TypeError, ValueError):
+                # un-serializable handler output must still produce an
+                # HTTP response, not a dropped connection
+                log.exception("response not JSON-serializable")
+                status = 500
+                payload = b'{"message": "response not JSON-serializable"}'
+            head = (
+                f"HTTP/1.1 {status} {_REASONS.get(status, '')}\r\n"
+                f"Server: {server_name}\r\n"
+                "Content-Type: application/json; charset=UTF-8\r\n"
+                f"Content-Length: {len(payload)}\r\n"
+            )
+            if self.close_connection:
+                head += "Connection: close\r\n"
+            elif self.http10:
+                # an HTTP/1.0 client assumes close unless keep-alive is
+                # echoed back
+                head += "Connection: keep-alive\r\n"
+            out = (head + "\r\n").encode("latin-1")
+            # HEAD carries Content-Length but no body bytes (RFC 9110)
+            if self.command != "HEAD":
+                out += payload
+            self.wfile.write(out)
+            self.wfile.flush()
+
+        def _reject(self, status: int, message: str) -> bool:
+            """Terminal error response: close the connection after it."""
+            self.close_connection = True
+            self._respond(status, {"message": message})
+            return False
+
+        # -- request parsing -------------------------------------------
+        def _handle_one(self) -> bool:
+            self.command = ""
+            line = self.rfile.readline(65537)
+            if not line:
+                return False  # client closed the keep-alive connection
+            if len(line) > 65536:
+                return self._reject(400, "request line too long")
+            line = line.strip()
+            if not line:
+                return True  # stray CRLF between requests — tolerated
+            parts = line.split()
+            if len(parts) != 3:
+                return self._reject(400, "malformed request line")
+            try:
+                method = parts[0].decode("ascii")
+                target = parts[1].decode("latin-1")
+            except UnicodeDecodeError:
+                return self._reject(400, "malformed request line")
+            version = parts[2]
+            if not version.startswith(b"HTTP/1."):
+                return self._reject(400, "unsupported HTTP version")
+            if method not in _ALLOWED_METHODS:
+                return self._reject(405, f"method {method!r} not allowed")
+
+            headers: Dict[str, str] = {}
+            last = None
+            for _ in range(200):
+                hline = self.rfile.readline(65537)
+                if not hline:
+                    return False  # peer vanished mid-headers
+                if len(hline) > 65536:
+                    return self._reject(431, "header line too long")
+                if hline in (b"\r\n", b"\n"):
+                    break
+                if hline[:1] in (b" ", b"\t"):
+                    # RFC 9112 obs-fold continuation line
+                    if last is not None:
+                        headers[last] += " " + hline.strip().decode("latin-1")
+                    continue
+                name, sep, value = hline.partition(b":")
+                if not sep:
+                    return self._reject(400, "malformed header")
+                last = name.strip().decode("latin-1").lower()
+                val = value.strip().decode("latin-1")
+                if last in ("content-length", "transfer-encoding") \
+                        and headers.get(last, val) != val:
+                    # differing duplicate framing headers are a request-
+                    # smuggling primitive behind a proxy (RFC 9112 §6.3)
+                    return self._reject(400, f"duplicate {last}")
+                headers[last] = val
+            else:
+                return self._reject(431, "too many headers")
+
+            self.command = method
+            conn_tok = headers.get("connection", "").lower()
+            self.http10 = version == b"HTTP/1.0"
+            if self.http10:
+                self.close_connection = "keep-alive" not in conn_tok
+            else:
+                self.close_connection = "close" in conn_tok
+            self._dispatch(method, target, headers)
+            return not self.close_connection
+
+        def _dispatch(self, method: str, target: str, headers: Dict[str, str]):
+            path, _, query = target.partition("?")
+            params = (
+                {k: v[0] for k, v in parse_qs(query).items()} if query else {}
+            )
+            if headers.get("transfer-encoding"):
+                # chunked bodies aren't framed by Content-Length; reading
+                # them naively corrupts keep-alive framing
+                self._reject(411, "Content-Length required")
+                return
+            try:
+                length = int(headers.get("content-length") or 0)
+            except ValueError:
+                self._reject(400, "bad Content-Length")
+                return
+            if length < 0:
+                # read(-1) would mean read-to-EOF
+                self._reject(400, "bad Content-Length")
+                return
+            if length > MAX_JSON_BODY_BYTES:
+                # bodies are parsed in RAM: refuse and close instead of
+                # draining
+                self._reject(
+                    413, f"body exceeds {MAX_JSON_BODY_BYTES >> 20} MiB limit"
+                )
+                return
+            raw = self.rfile.read(length) if length else b""
+            if len(raw) < length:
+                self._reject(400, "incomplete body")
+                return
+            body = None
+            if raw:
+                # try JSON regardless of Content-Type — real clients (curl
+                # -d without -H) post JSON bodies under the form type;
+                # non-JSON bodies stay raw strings, which handlers that
+                # need JSON objects reject with a 400
+                try:
+                    body = json.loads(raw.decode("utf-8"))
+                except (UnicodeDecodeError, json.JSONDecodeError):
+                    body = raw.decode("utf-8", errors="replace")
+            req = Request(
+                method=method, path=path, params=params, body=body,
+                raw_body=raw, headers=headers,
+                client_addr=self.client_address[0],
+            )
+            try:
+                status, out = router.dispatch(req)
+            except HTTPError as e:
+                status, out = e.status, {"message": e.message}
+            except Exception:  # boundary: the server keeps answering
+                log.exception("unhandled error on %s %s", method, path)
+                status, out = 500, {"message": "internal server error"}
+            self._respond(status, out)
+            if req.after_response is not None:
+                req.after_response()
+
+    return JsonHandler
+
+
+class _Server(ThreadingHTTPServer):
+    daemon_threads = True
+    request_queue_size = BACKLOG
+
+
+class JsonHTTPServer:
+    """Threaded server with programmatic start/stop (tests + CLI)."""
+
+    def __init__(self, router: Router, host: str = "0.0.0.0", port: int = 0,
+                 name: str = "pio-tpu-torch"):
+        self._httpd = _Server((host, port), _make_handler_class(router, name))
+        self._thread: Optional[threading.Thread] = None
+        self._serving = False
+        self._stopped = False
+
+    @property
+    def port(self) -> int:
+        return self._httpd.server_address[1]
+
+    def start(self) -> "JsonHTTPServer":
+        """Serve in a background thread."""
+        self._serving = True
+        self._thread = threading.Thread(
+            target=self._httpd.serve_forever, daemon=True
+        )
+        self._thread.start()
+        return self
+
+    def serve_forever(self):
+        """Serve in this thread until :meth:`stop` (from another)."""
+        self._serving = True
+        self._httpd.serve_forever()
+
+    def stop(self):
+        """Stop serving and close the socket; idempotent (``/undeploy``
+        and the owner's ``close`` may race)."""
+        if self._stopped:
+            return
+        self._stopped = True
+        if self._serving:  # shutdown() waits for a loop that never ran
+            self._httpd.shutdown()
+        self._httpd.server_close()
+        if self._thread:
+            self._thread.join(timeout=5)

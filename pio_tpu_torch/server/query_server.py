@@ -5,7 +5,9 @@ the JSON body into the algorithms' query dataclass (400 on bad JSON or
 unknown fields), run each algorithm's ``predict`` against its model, combine
 with the engine's serving, and answer the result as JSON. ``GET /`` reports
 status, ``GET /stats.json`` the ``residency`` block of the reference's
-(the other blocks come with the query-server slice).
+(the other blocks come with the query-server slice), and ``POST
+/undeploy`` stops the server once its answer is written (loopback-only
+unless the service holds an admin key, as in the reference).
 
 Where residency is enabled (:func:`~pio_tpu_torch.server.residency.
 enabled`), the service places each algorithm's resident scorer on the
@@ -15,20 +17,18 @@ preallocates bucket 1; :meth:`QueryService.close` retires the scorers.
 A placement that fails raises: the reference logs it and serves from the
 host mirror, which would hide the device.
 
-Built on the standard library's ``ThreadingHTTPServer``; models are
-handed over in memory. Loading from storage, QoS, micro-batching, the
-bucket ladder, ``/reload``, tracing and the other routes come with later
-slices.
+Two factories: :func:`create_query_server` over models handed over in
+memory, and :func:`deploy_query_server`, which loads a stored engine
+instance the way ``pio deploy`` does. QoS, micro-batching, the bucket
+ladder, ``/reload``, tracing and the other routes come with later slices.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import datetime as dt
 import json
 import logging
 import threading
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Optional, Sequence
 
 import torch
@@ -36,49 +36,45 @@ import torch
 from pio_tpu_torch import DeviceLike, resolve_device
 from pio_tpu_torch.controller.engine import Engine, EngineParams
 from pio_tpu_torch.controller.params import ParamsError, params_from_dict
+from pio_tpu_torch.parallel.context import ComputeContext
 from pio_tpu_torch.server import residency
+from pio_tpu_torch.server.http import (
+    HTTPError,
+    JsonHTTPServer,
+    Request,
+    Router,
+    keys_equal,
+)
+from pio_tpu_torch.workflow.core_workflow import load_models_for_instance
+from pio_tpu_torch.workflow.deploy_common import (
+    resolve_instance_id,
+    resolve_query_class,
+    to_jsonable,
+)
+from pio_tpu_torch.workflow.engine_json import EngineVariant, build_engine
 
 log = logging.getLogger("pio_tpu_torch.query_server")
-
-#: query bodies are parsed in RAM; the JAX server caps JSON bodies at 64 MiB
-MAX_JSON_BODY_BYTES = 64 * 2 ** 20
-
-
-class HTTPError(Exception):
-    """Handler-raised error, answered as ``{"message": ...}``."""
-
-    def __init__(self, status: int, message: str):
-        super().__init__(message)
-        self.status = status
-        self.message = message
-
-
-def _to_jsonable(obj: Any) -> Any:
-    """Prediction object → JSON-able structure (to_dict > dataclass > raw)."""
-    if hasattr(obj, "to_dict"):
-        return obj.to_dict()
-    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
-        return dataclasses.asdict(obj)
-    return obj
 
 
 class QueryService:
     """The deployed engine: (algorithm, model) pairs plus serving.
 
     ``device`` is the serving device of the resident scorers (CUDA unless
-    told otherwise); it is resolved only where residency is enabled."""
+    told otherwise); it is resolved only where residency is enabled.
+    ``instance_id`` names the stored engine instance the models came from
+    (None for models handed over in memory); ``admin_key``, when set, is
+    the key ``POST /undeploy`` needs, which is otherwise loopback-only."""
 
     def __init__(self, engine: Engine, engine_params: EngineParams,
-                 models: Sequence[Any], device: DeviceLike = None):
+                 models: Sequence[Any], device: DeviceLike = None,
+                 instance_id: Optional[str] = None,
+                 admin_key: Optional[str] = None):
         self.pairs = engine.algorithms_with_models(engine_params, models)
         self.serving = engine.make_serving(engine_params)
-        classes = {a.query_class for a, _ in self.pairs} - {None}
-        if len(classes) > 1:
-            raise ValueError(
-                "algorithms declare conflicting query classes: "
-                + ", ".join(sorted(c.__name__ for c in classes))
-            )
-        self.query_class = next(iter(classes), None)
+        self.query_class = resolve_query_class(self.pairs)
+        self.instance_id = instance_id
+        self.admin_key = admin_key
+        self.server: Optional[JsonHTTPServer] = None
         self.start_time = dt.datetime.now(dt.timezone.utc)
         self._lock = threading.Lock()
         self.request_count = 0
@@ -148,6 +144,7 @@ class QueryService:
         return {
             "status": "deployed",
             "algorithms": [type(a).__name__ for a, _ in self.pairs],
+            "engineInstanceId": self.instance_id,
             "startTime": self.start_time.isoformat(),
             "requestCount": self.request_count,
         }
@@ -180,99 +177,54 @@ class QueryService:
             # a query the model cannot take, e.g. the wrong number of
             # attributes: the client's error
             raise HTTPError(400, str(e))
-        result = _to_jsonable(prediction)
+        result = to_jsonable(prediction)
         with self._lock:
             self.request_count += 1
         return result
 
 
-def _handler_for(service: QueryService):
-    class Handler(BaseHTTPRequestHandler):
-        protocol_version = "HTTP/1.1"
-        # headers and body go out in two writes: with Nagle on, the body
-        # waits for the client's delayed ACK (~40 ms) on a keep-alive
-        # connection, every request after the first
-        disable_nagle_algorithm = True
+    # -- routes ---------------------------------------------------------------
+    def router(self) -> Router:
+        r = Router()
+        r.add("GET", "/", lambda req: (200, self.status()))
+        r.add("GET", "/stats\\.json", lambda req: (200, self.stats()))
+        r.add("POST", "/queries\\.json",
+              lambda req: (200, self.query(req.raw_body)))
+        r.add("POST", "/undeploy", self.undeploy)
+        return r
 
-        def _respond(self, status: int, payload: Any) -> None:
-            data = json.dumps(payload).encode()
-            self.send_response(status)
-            self.send_header("Content-Type", "application/json; charset=UTF-8")
-            self.send_header("Content-Length", str(len(data)))
-            self.end_headers()
-            self.wfile.write(data)
-
-        def _guarded(self, fn) -> None:
-            try:
-                self._respond(200, fn())
-            except HTTPError as e:
-                self._respond(e.status, {"message": e.message})
-            except Exception:  # boundary: the server keeps answering
-                log.exception("query failed")
-                self._respond(500, {"message": "internal server error"})
-
-        def do_GET(self):
-            route = {"/": service.status, "/stats.json": service.stats}.get(
-                self.path.split("?", 1)[0])
-            if route is None:
-                self._respond(404, {"message": f"no route for GET {self.path}"})
-                return
-            self._guarded(route)
-
-        def do_POST(self):
-            try:
-                length = int(self.headers.get("Content-Length") or 0)
-            except ValueError:
-                length = -1
-            if length < 0 or length > MAX_JSON_BODY_BYTES:
-                # the body cannot be framed (or is not read into RAM): answer
-                # and close rather than leave unread bytes on the connection
-                self.close_connection = True
-                if length < 0:
-                    self._respond(400, {"message": "bad Content-Length"})
-                else:
-                    self._respond(413, {"message": "body too large"})
-                return
-            raw = self.rfile.read(length)
-            if self.path.split("?", 1)[0] != "/queries.json":
-                self._respond(404, {"message": f"no route for POST {self.path}"})
-                return
-            self._guarded(lambda: service.query(raw))
-
-        def log_message(self, fmt, *args):
-            log.debug("%s - " + fmt, self.address_string(), *args)
-
-    return Handler
+    def undeploy(self, req: Request):
+        """Stop the attached server once this answer is written (reference
+        parity: ``pio undeploy`` ends the serving process)."""
+        if self.admin_key is not None:
+            if not keys_equal(req.bearer_key(), self.admin_key):
+                raise HTTPError(401, "invalid admin accessKey")
+        elif req.client_addr not in ("127.0.0.1", "::1"):
+            raise HTTPError(
+                403, "admin routes are loopback-only without an admin key"
+            )
+        server = self.server
+        if server is not None:
+            # stop() blocks until the accept loop exits, which this
+            # handler's thread must not wait for
+            req.after_response = lambda: threading.Thread(
+                target=server.stop, daemon=True).start()
+        return 200, {"message": "undeployed"}
 
 
-class QueryServer:
-    """A running query server: :attr:`port`, :meth:`start`, :meth:`close`."""
+class QueryServer(JsonHTTPServer):
+    """A running query server: :attr:`port`, :meth:`start`,
+    :meth:`serve_forever`, :meth:`close` (which also retires the
+    service's resident scorers)."""
 
     def __init__(self, service: QueryService, host: str, port: int):
+        super().__init__(service.router(), host, port,
+                         name="pio-tpu-torch-queryserver")
         self.service = service
-        self.httpd = ThreadingHTTPServer((host, port), _handler_for(service))
-        self.httpd.daemon_threads = True
-        self._thread: Optional[threading.Thread] = None
-
-    @property
-    def port(self) -> int:
-        return self.httpd.server_address[1]
-
-    def start(self) -> "QueryServer":
-        """Serve in a background thread."""
-        self._thread = threading.Thread(
-            target=self.httpd.serve_forever, name="pio-query-server",
-            daemon=True,
-        )
-        self._thread.start()
-        return self
+        service.server = self
 
     def close(self) -> None:
-        if self._thread is not None:
-            self.httpd.shutdown()
-            self._thread.join(timeout=10)
-            self._thread = None
-        self.httpd.server_close()
+        self.stop()
         self.service.close()
 
     def __enter__(self) -> "QueryServer":
@@ -295,3 +247,32 @@ def create_query_server(
     ``device`` is the resident scorers' serving device."""
     return QueryServer(QueryService(engine, engine_params, models, device),
                        host, port)
+
+
+def deploy_query_server(
+    variant: EngineVariant,
+    host: str = "0.0.0.0",
+    port: int = 8000,
+    instance_id: Optional[str] = None,
+    device: DeviceLike = None,
+    admin_key: Optional[str] = None,
+) -> QueryServer:
+    """A query server (not yet started) over a stored engine instance, the
+    way ``pio deploy`` builds it (the reference's ``create_query_server(
+    variant, ...)``): ``build_engine``, then ``resolve_instance_id`` (the
+    named instance, or the variant's latest COMPLETED one), then
+    ``load_models_for_instance`` onto ``device`` (CUDA unless told
+    otherwise), which falls back to the last known good instance of the
+    variant when the blob fails verification."""
+    engine, engine_params = build_engine(variant)
+    instance_id = resolve_instance_id(variant, instance_id)
+    ctx = ComputeContext.create(device=device)
+    models = load_models_for_instance(
+        instance_id, engine, engine_params, ctx, variant=variant
+    )
+    service = QueryService(
+        engine, engine_params, models, device=ctx.device,
+        instance_id=instance_id,
+        admin_key=admin_key,
+    )
+    return QueryServer(service, host, port)

@@ -1,8 +1,8 @@
 """Storage SPI — abstract interfaces every backend implements.
 
 Rebuild of the reference's storage traits (``data/.../data/storage/
-{LEvents,PEvents,Apps,Channels,EngineInstances,Models}.scala`` —
-UNVERIFIED paths; see SURVEY.md).
+{LEvents,PEvents,Apps,AccessKeys,Channels,EngineInstances,
+EvaluationInstances,Models}.scala`` — UNVERIFIED paths; see SURVEY.md).
 
 Two event access styles, as in the reference:
 
@@ -12,12 +12,11 @@ Two event access styles, as in the reference:
   ``RDD[Event]``), as Python lists or a columnar
   :class:`~pio_tpu_torch.storage.frame.EventFrame` (:meth:`PEvents.find_frame`).
 
-A backend may implement both over the same underlying store (the memory
-backend does).
+A backend may implement both over the same underlying store (the SQLite
+and memory backends do).
 
 The port's copy of ``pio_tpu/storage/base.py`` (the port imports nothing of
-``pio_tpu``), without the access-key store, which comes with the event
-server.
+``pio_tpu``).
 """
 
 from __future__ import annotations
@@ -29,6 +28,7 @@ from typing import Iterable, List, Optional, Sequence
 from pio_tpu_torch.data.datamap import PropertyMap
 from pio_tpu_torch.data.event import Event
 from pio_tpu_torch.storage.records import (
+    AccessKey,
     App,
     Channel,
     EngineInstance,
@@ -268,6 +268,27 @@ class Apps(abc.ABC):
 
     @abc.abstractmethod
     def delete(self, app_id: int) -> bool: ...
+
+
+class AccessKeys(abc.ABC):
+    @abc.abstractmethod
+    def insert(self, access_key: AccessKey) -> Optional[str]:
+        """Insert; empty key means generate. Returns the key string."""
+
+    @abc.abstractmethod
+    def get(self, key: str) -> Optional[AccessKey]: ...
+
+    @abc.abstractmethod
+    def get_all(self) -> List[AccessKey]: ...
+
+    @abc.abstractmethod
+    def get_by_app_id(self, app_id: int) -> List[AccessKey]: ...
+
+    @abc.abstractmethod
+    def update(self, access_key: AccessKey) -> bool: ...
+
+    @abc.abstractmethod
+    def delete(self, key: str) -> bool: ...
 
 
 class Channels(abc.ABC):

@@ -18,6 +18,7 @@ from typing import Dict, Iterable, List, Optional, Tuple
 from pio_tpu_torch.data.event import Event
 from pio_tpu_torch.storage import base
 from pio_tpu_torch.storage.records import (
+    AccessKey,
     App,
     Channel,
     EngineInstance,
@@ -184,6 +185,42 @@ class MemApps(base.Apps):
     def delete(self, app_id: int) -> bool:
         with self._lock:
             return self._apps.pop(app_id, None) is not None
+
+
+class MemAccessKeys(base.AccessKeys):
+    def __init__(self):
+        self._lock = threading.RLock()
+        self._keys: Dict[str, AccessKey] = {}
+
+    def insert(self, access_key: AccessKey) -> Optional[str]:
+        with self._lock:
+            ak = access_key
+            if not ak.key:
+                ak = AccessKey.generate(ak.app_id, ak.events)
+            if ak.key in self._keys:
+                return None
+            self._keys[ak.key] = ak
+            return ak.key
+
+    def get(self, key: str) -> Optional[AccessKey]:
+        return self._keys.get(key)
+
+    def get_all(self) -> List[AccessKey]:
+        return list(self._keys.values())
+
+    def get_by_app_id(self, app_id: int) -> List[AccessKey]:
+        return [k for k in self._keys.values() if k.app_id == app_id]
+
+    def update(self, access_key: AccessKey) -> bool:
+        with self._lock:
+            if access_key.key not in self._keys:
+                return False
+            self._keys[access_key.key] = access_key
+            return True
+
+    def delete(self, key: str) -> bool:
+        with self._lock:
+            return self._keys.pop(key, None) is not None
 
 
 class MemChannels(base.Channels):

@@ -5,15 +5,15 @@ EngineInstances,Models}.scala`` case classes (UNVERIFIED paths; see
 SURVEY.md provenance warning).
 
 The port's copy of ``pio_tpu/storage/records.py`` (the port imports nothing
-of ``pio_tpu``), without the access keys (the event server's), which come
-with the slice that uses them.
+of ``pio_tpu``).
 """
 
 from __future__ import annotations
 
 import datetime as _dt
+import secrets
 from dataclasses import dataclass, field, replace
-from typing import Optional
+from typing import Optional, Tuple
 
 
 def _utcnow() -> _dt.datetime:
@@ -27,6 +27,23 @@ class App:
     id: int
     name: str
     description: Optional[str] = None
+
+
+@dataclass(frozen=True)
+class AccessKey:
+    """API key granting event ingest/query for one app.
+
+    ``events`` is the whitelist of event names the key may write; empty means
+    all (reference ``AccessKey``).
+    """
+
+    key: str
+    app_id: int
+    events: Tuple[str, ...] = ()
+
+    @staticmethod
+    def generate(app_id: int, events: Tuple[str, ...] = ()) -> "AccessKey":
+        return AccessKey(key=secrets.token_urlsafe(32), app_id=app_id, events=events)
 
 
 @dataclass(frozen=True)

@@ -5,31 +5,34 @@ nothing of ``pio_tpu``), cut to the backends ported so far. Three
 repositories (METADATA, EVENTDATA, MODELDATA) each bound to a named source;
 sources declare a backend type, in the same ``PIO_STORAGE_*`` scheme:
 
-    PIO_STORAGE_REPOSITORIES_METADATA_SOURCE=MEM
-    PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE=MEM
+    PIO_STORAGE_REPOSITORIES_METADATA_SOURCE=DB
+    PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE=DB
     PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE=FS
-    PIO_STORAGE_SOURCES_MEM_TYPE=memory
+    PIO_STORAGE_SOURCES_DB_TYPE=sqlite
+    PIO_STORAGE_SOURCES_DB_PATH=/path/to/pio.db
     PIO_STORAGE_SOURCES_FS_TYPE=localfs
     PIO_STORAGE_SOURCES_FS_PATH=/path/to/models
 
-Backend types: ``memory`` (every repository) and ``localfs`` (models
-only). Every other type — ``sqlite``, ``parquet``, ``eventlog``,
-``partlog``, ``searchable`` and ``blob`` — raises
-:class:`StorageConfigError` as not yet ported, and so does an unset
-METADATA or EVENTDATA repository, whose quickstart default is ``sqlite``:
-there is no quiet fallback to memory. An unset MODELDATA repository is
-``localfs`` under ``$PIO_TPU_HOME/models`` (default ``~/.pio_tpu``).
+Unset → the quickstart defaults under ``$PIO_TPU_HOME`` (default
+``~/.pio_tpu``): SQLite at ``pio.db`` for metadata and events, localfs
+under ``models`` for models. Backend types: ``sqlite`` (every repository),
+``memory`` (every repository) and ``localfs`` (models only). The other
+types of the reference — ``parquet``, ``eventlog``, ``partlog``,
+``searchable`` and ``blob`` — raise :class:`StorageConfigError` as not yet
+ported: there is no quiet fallback.
 """
 
 from __future__ import annotations
 
 import os
 import threading
+import weakref
 from typing import Dict, Optional
 
 from pio_tpu_torch.storage import base
 from pio_tpu_torch.storage.localfs import LocalFSModels
 from pio_tpu_torch.storage.memory import (
+    MemAccessKeys,
     MemApps,
     MemChannels,
     MemEngineInstances,
@@ -38,22 +41,38 @@ from pio_tpu_torch.storage.memory import (
     MemModels,
     MemPEvents,
 )
+from pio_tpu_torch.storage.sqlite import (
+    SQLiteAccessKeys,
+    SQLiteApps,
+    SQLiteChannels,
+    SQLiteClient,
+    SQLiteEngineInstances,
+    SQLiteEvaluationInstances,
+    SQLiteEvents,
+    SQLiteModels,
+    SQLitePEvents,
+)
 
 REPOSITORIES = ("METADATA", "EVENTDATA", "MODELDATA")
 
 #: backend types of the reference that the port does not have yet
-NOT_PORTED = ("sqlite", "parquet", "eventlog", "partlog", "searchable", "blob")
+NOT_PORTED = ("parquet", "eventlog", "partlog", "searchable", "blob")
 
 
 class StorageConfigError(base.StorageError):
     pass
 
 
+_homes_made: set = set()
+
+
 def pio_home() -> str:
     home = os.environ.get("PIO_TPU_HOME") or os.path.join(
         os.path.expanduser("~"), ".pio_tpu"
     )
-    os.makedirs(home, exist_ok=True)
+    if home not in _homes_made:  # once per path — this sits on the
+        os.makedirs(home, exist_ok=True)  # per-request ingest hot path
+        _homes_made.add(home)
     return home
 
 
@@ -87,7 +106,7 @@ def _source_config(repo: str) -> _SourceConfig:
     if cfg.type in NOT_PORTED:
         raise StorageConfigError(
             f"{repo}: backend {cfg.type!r} (source {cfg.name}) is not yet "
-            f"ported to pio_tpu_torch; use 'memory'"
+            f"ported to pio_tpu_torch; use 'sqlite' or 'memory'"
             + (" or 'localfs'" if repo == "MODELDATA" else "")
         )
     return cfg
@@ -97,7 +116,41 @@ class Storage:
     """Process-wide registry with per-config caching (thread-safe)."""
 
     _lock = threading.RLock()
+    _clients: Dict[str, SQLiteClient] = {}
     _mem: Dict[str, object] = {}
+    _facades: Dict[str, object] = {}  # hot-path store facades (reset-scoped)
+    _reset_hooks: list = []  # weakref-wrapped callables
+
+    @classmethod
+    def add_reset_hook(cls, hook) -> None:
+        """Register a callable invoked by :meth:`reset` — for caches
+        OUTSIDE the registry that hold records read through it (e.g. the
+        event server's positive access-key cache, which must not keep
+        authenticating keys from a store that was just reset). Bound
+        methods are held weakly so registering never pins a server.
+
+        Registration drops the hooks whose referent is gone and does not
+        add a hook already registered, so the list stays as long as the
+        live hooks, however many servers are built between resets."""
+        try:
+            ref = weakref.WeakMethod(hook)
+        except TypeError:  # plain function/lambda: hold directly
+            ref = (lambda h=hook: h)
+        with cls._lock:
+            live = [r for r in cls._reset_hooks if r() is not None]
+            if not any(r() == hook for r in live):
+                live.append(ref)
+            cls._reset_hooks = live
+
+    # -- internal -----------------------------------------------------------
+    @classmethod
+    def _sqlite_client(cls, cfg: _SourceConfig) -> SQLiteClient:
+        path = cfg.path or os.path.join(pio_home(), "pio.db")
+        key = f"sqlite:{path}"
+        with cls._lock:
+            if key not in cls._clients:
+                cls._clients[key] = SQLiteClient(path)
+            return cls._clients[key]
 
     @classmethod
     def _memory(cls, kind: str, factory):
@@ -108,52 +161,145 @@ class Storage:
 
     @classmethod
     def reset(cls) -> None:
-        """Drop the memory stores (tests use this between isolated runs)."""
+        """Drop cached clients and memory stores (tests use this between
+        isolated homes), then run the reset hooks."""
         with cls._lock:
+            cls._clients.clear()
             cls._mem.clear()
+            cls._facades.clear()
+            hooks = list(cls._reset_hooks)
+        _homes_made.clear()  # re-create homes on next touch
+        for ref in hooks:  # outside the lock: hooks take their own locks
+            hook = ref()
+            if hook is not None:
+                hook()
+        with cls._lock:
+            cls._reset_hooks = [r for r in cls._reset_hooks if r() is not None]
 
     # -- metadata stores ----------------------------------------------------
     @classmethod
-    def _meta(cls, kind: str, factory):
+    def _meta(cls, sqlite_cls, mem_kind: str, mem_factory):
         cfg = _source_config("METADATA")
+        if cfg.type == "sqlite":
+            return sqlite_cls(cls._sqlite_client(cfg))
         if cfg.type == "memory":
-            return cls._memory(kind, factory)
+            return cls._memory(mem_kind, mem_factory)
         raise StorageConfigError(f"backend {cfg.type!r} cannot serve METADATA")
 
     @classmethod
     def get_meta_data_apps(cls) -> base.Apps:
-        return cls._meta("apps", MemApps)
+        return cls._meta(SQLiteApps, "apps", MemApps)
+
+    @classmethod
+    def get_meta_data_access_keys(cls) -> base.AccessKeys:
+        return cls._meta(SQLiteAccessKeys, "access_keys", MemAccessKeys)
 
     @classmethod
     def get_meta_data_channels(cls) -> base.Channels:
-        return cls._meta("channels", MemChannels)
+        return cls._meta(SQLiteChannels, "channels", MemChannels)
 
     @classmethod
     def get_meta_data_engine_instances(cls) -> base.EngineInstances:
-        return cls._meta("engine_instances", MemEngineInstances)
+        return cls._meta(
+            SQLiteEngineInstances, "engine_instances", MemEngineInstances
+        )
 
     @classmethod
     def get_meta_data_evaluation_instances(cls) -> base.EvaluationInstances:
-        return cls._meta("evaluation_instances", MemEvaluationInstances)
+        return cls._meta(
+            SQLiteEvaluationInstances, "evaluation_instances",
+            MemEvaluationInstances,
+        )
+
+    @classmethod
+    def sqlite_clients(cls) -> Dict[str, SQLiteClient]:
+        """repository label → SQLiteClient for every repository configured
+        on the sqlite backend (opening a client applies pending schema
+        migrations); raises StorageConfigError on misconfiguration."""
+        out: Dict[str, SQLiteClient] = {}
+        for repo in REPOSITORIES:
+            cfg = _source_config(repo)
+            if cfg.type == "sqlite":
+                out[repo] = cls._sqlite_client(cfg)
+        return out
 
     # -- event stores -------------------------------------------------------
     @classmethod
     def get_levents(cls) -> base.LEvents:
+        # the one facade on the per-request ingest hot path, memoized
+        # KEYED ON the config env fingerprint — a caller that swaps
+        # PIO_STORAGE_*/PIO_TPU_HOME without Storage.reset() still gets
+        # the right backend (tests re-home per case this way)
+        env = os.environ
+        src = env.get("PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE")
+        fp = (env.get("PIO_TPU_HOME"), src)
+        if src:
+            fp += (env.get(f"PIO_STORAGE_SOURCES_{src}_TYPE"),
+                   env.get(f"PIO_STORAGE_SOURCES_{src}_PATH"))
+        hit = cls._facades.get("levents")
+        if hit is not None and hit[0] == fp:
+            return hit[1]
+        with cls._lock:
+            # build INSIDE the lock: reset() clears _facades under the
+            # same lock, so a facade built from pre-reset env config can
+            # never be stored into the post-reset cache
+            hit = cls._facades.get("levents")
+            if hit is not None and hit[0] == fp:
+                return hit[1]
+            built = cls._build_levents()
+            cls._facades["levents"] = (fp, built)
+            return built
+
+    @classmethod
+    def _build_levents(cls) -> base.LEvents:
         cfg = _source_config("EVENTDATA")
+        if cfg.type == "sqlite":
+            return SQLiteEvents(cls._sqlite_client(cfg))
         if cfg.type == "memory":
             return cls._memory("levents", MemLEvents)
         raise StorageConfigError(f"backend {cfg.type!r} cannot serve EVENTDATA")
 
     @classmethod
     def get_pevents(cls) -> base.PEvents:
-        return MemPEvents(cls.get_levents())
+        cfg = _source_config("EVENTDATA")
+        if cfg.type == "sqlite":
+            return SQLitePEvents(SQLiteEvents(cls._sqlite_client(cfg)))
+        if cfg.type == "memory":
+            return MemPEvents(cls._memory("levents", MemLEvents))
+        raise StorageConfigError(f"backend {cfg.type!r} cannot serve EVENTDATA")
 
     # -- model store --------------------------------------------------------
     @classmethod
     def get_model_data_models(cls) -> base.Models:
         cfg = _source_config("MODELDATA")
+        if cfg.type == "sqlite":
+            return SQLiteModels(cls._sqlite_client(cfg))
         if cfg.type == "memory":
             return cls._memory("models", MemModels)
         if cfg.type == "localfs":
             return LocalFSModels(cfg.path or os.path.join(pio_home(), "models"))
         raise StorageConfigError(f"backend {cfg.type!r} cannot serve MODELDATA")
+
+    # -- health -------------------------------------------------------------
+    @classmethod
+    def verify_all_data_objects(cls) -> Dict[str, bool]:
+        """Connectivity self-check used by ``pio status``
+        (reference ``Storage.verifyAllDataObjects``)."""
+        checks = {
+            "METADATA/apps": cls.get_meta_data_apps,
+            "METADATA/access_keys": cls.get_meta_data_access_keys,
+            "METADATA/channels": cls.get_meta_data_channels,
+            "METADATA/engine_instances": cls.get_meta_data_engine_instances,
+            "METADATA/evaluation_instances": cls.get_meta_data_evaluation_instances,
+            "EVENTDATA/pevents": cls.get_pevents,
+            "MODELDATA/models": cls.get_model_data_models,
+            "EVENTDATA/levents": cls.get_levents,
+        }
+        out = {}
+        for name, fn in checks.items():
+            try:
+                fn()
+                out[name] = True
+            except Exception:  # a broken config is reported, not raised
+                out[name] = False
+        return out

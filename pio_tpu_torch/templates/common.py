@@ -21,6 +21,7 @@ import torch
 
 from pio_tpu_torch.data.store import resolve_channel
 from pio_tpu_torch.storage.registry import Storage
+from pio_tpu_torch.utils import knobs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,6 +117,13 @@ def seen_exclusion_holdout(train_users, train_items, test_users,
         for u, i in zip(test_users, test_items)
         if str(u) in seen and str(i) in known_items
     ]
+
+
+def eval_app_name(app_name: str) -> str:
+    """App for a bundled `pio eval` sweep: the explicit argument, or the
+    ``$PIO_TPU_EVAL_APP`` environment fallback for zero-arg CLI use —
+    one contract shared by every template's evaluation factory."""
+    return app_name or knobs.knob_str("PIO_TPU_EVAL_APP")
 
 
 def resolve_app(params) -> Tuple[int, Optional[int]]:

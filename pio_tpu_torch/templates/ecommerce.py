@@ -49,6 +49,7 @@ from pio_tpu_torch.templates.common import (
     PredictedResult,
     business_rule_mask,
     dedup_pair_indices,
+    eval_app_name,
     fold_assignments,
     l2_normalize_rows,
     seen_exclusion_holdout,
@@ -313,13 +314,14 @@ def ecommerce_engine() -> Engine:
 
 # -------------------------------------------------------------- evaluation
 def ecommerce_evaluation(
-    app_name: str,
+    app_name: str = "",
     eval_k: int = 3,
     eval_num: int = 10,
     ranks=(8, 16),
     num_iterations: int = 10,
 ):
-    """Ready-made ``pio eval`` sweep over the app ``app_name``: k-fold
+    """Ready-made ``pio eval`` sweep over the app ``app_name``
+    (``$PIO_TPU_EVAL_APP`` when empty): k-fold
     HitRate@``eval_num`` on held-out views, personalized queries, over the
     rank grid. Each query black-lists the user's training-fold items; the
     other business rules run as in serving, the unavailable-items
@@ -327,6 +329,7 @@ def ecommerce_evaluation(
     ``run_evaluation(ev, ev.engine_params_generator)``."""
     if eval_k < 2:
         raise ValueError("k-fold evaluation needs eval_k >= 2")
+    app_name = eval_app_name(app_name)
     ds = DataSourceParams(
         app_name=app_name, eval_k=eval_k, eval_num=eval_num
     )

@@ -63,6 +63,7 @@ from pio_tpu_torch.templates.common import (
     ItemScore,
     PredictedResult,
     dedup_pair_indices,
+    eval_app_name,
     fold_assignments,
     resolve_app,
     seen_exclusion_holdout,
@@ -460,7 +461,7 @@ class SquaredErrorMetric(OptionAverageMetric):
 
 
 def recommendation_evaluation(
-    app_name: str,
+    app_name: str = "",
     eval_k: int = 3,
     rate_event: str = "rate",
     ranks=(8, 16),
@@ -468,11 +469,18 @@ def recommendation_evaluation(
     num_iterations: int = 10,
 ):
     """Ready-made ``pio eval`` sweep: k-fold MSE over a rank × lambda
-    grid over the app ``app_name``. Run it with ``run_evaluation(ev, ev.engine_params_generator)``."""
+    grid over the app ``app_name`` (``$PIO_TPU_EVAL_APP`` when empty, for
+    zero-arg CLI use). Run it with ``run_evaluation(ev,
+    ev.engine_params_generator)``, or from the CLI:
+
+        PIO_TPU_EVAL_APP=myapp python -m pio_tpu_torch eval \\
+            pio_tpu_torch.templates.recommendation:recommendation_evaluation
+    """
     if eval_k < 2:
         raise ValueError("k-fold evaluation needs eval_k >= 2")
     ds = DataSourceParams(
-        app_name=app_name, rate_event=rate_event, eval_k=eval_k,
+        app_name=eval_app_name(app_name), rate_event=rate_event,
+        eval_k=eval_k,
     )
     grid = [
         EngineParams(

@@ -60,6 +60,7 @@ from pio_tpu_torch.templates.common import (
     PredictedResult,
     business_rule_mask,
     dedup_pair_indices,
+    eval_app_name,
     fold_assignments,
     l2_normalize_rows,
     resolve_app,
@@ -355,18 +356,20 @@ class HitRateMetric(AverageMetric):
 
 
 def similarproduct_evaluation(
-    app_name: str,
+    app_name: str = "",
     eval_k: int = 3,
     ranks=(8, 16),
     num_iterations: int = 10,
     eval_num: int = 10,
 ):
-    """Ready-made ``pio eval`` sweep over the app ``app_name``: k-fold
+    """Ready-made ``pio eval`` sweep over the app ``app_name``
+    (``$PIO_TPU_EVAL_APP`` when empty): k-fold
     HitRate@``eval_num`` over the rank grid. Keep ``eval_num`` well below
     the catalog size or the metric saturates. Run it with
     ``run_evaluation(ev, ev.engine_params_generator)``."""
     if eval_k < 2:
         raise ValueError("k-fold evaluation needs eval_k >= 2")
+    app_name = eval_app_name(app_name)
     ds = DataSourceParams(app_name=app_name, eval_k=eval_k, eval_num=eval_num)
     grid = [
         EngineParams(

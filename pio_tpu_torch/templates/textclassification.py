@@ -58,7 +58,7 @@ from pio_tpu_torch.models.tfidf import TfIdfVectorizer
 from pio_tpu_torch.ops.embedding import pack_bags
 from pio_tpu_torch.parallel.context import ComputeContext
 from pio_tpu_torch.storage.registry import Storage
-from pio_tpu_torch.templates.common import resolve_app
+from pio_tpu_torch.templates.common import eval_app_name, resolve_app
 
 
 # --------------------------------------------------------------- data source
@@ -415,15 +415,17 @@ class TextAccuracyMetric(AverageMetric):
 
 
 def textclassification_evaluation(
-    app_name: str,
+    app_name: str = "",
     eval_k: int = 3,
     hiddens=(64, 128),
 ):
-    """Ready-made ``pio eval`` sweep over the app ``app_name``: k-fold
+    """Ready-made ``pio eval`` sweep over the app ``app_name``
+    (``$PIO_TPU_EVAL_APP`` when empty): k-fold
     accuracy over the MLP's hidden widths. Run it with
     ``run_evaluation(ev, ev.engine_params_generator)``."""
     if eval_k < 2:
         raise ValueError("k-fold evaluation needs eval_k >= 2")
+    app_name = eval_app_name(app_name)
     ds = DataSourceParams(app_name=app_name, eval_k=eval_k)
     grid = [
         EngineParams(

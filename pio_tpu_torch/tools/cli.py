@@ -1,0 +1,527 @@
+"""`pio`-equivalent CLI of the port (reference ``tools/.../console/
+Console.scala``, UNVERIFIED path; see SURVEY.md).
+
+The port's copy of ``pio_tpu/tools/cli.py`` (the port imports nothing of
+``pio_tpu``), with the quickstart's verbs: app, accesskey, train, eval,
+eventserver, deploy, undeploy, batchpredict, import, export, status,
+version. Arguments, output lines and exit codes are the reference's.
+``train``, ``deploy``, ``batchpredict`` and ``eval`` take ``--device
+{cuda,cpu}`` (default ``cuda``): without a card the default exits non-zero
+with :func:`~pio_tpu_torch.resolve_device`'s message, never carrying on
+on the CPU. ``deploy`` serves from one process.
+
+Not ported yet (ROADMAP A): the verbs runs, blobserver, dashboard, fleet,
+route, rollout, adminserver, top, upgrade, run, shell, lint, template list
+and app compact; the flags --workers, --slo, --qos, --faults,
+--profile-dir, --feedback-app, --status-port and the checkpoint flags.
+
+Usage: ``python -m pio_tpu_torch <verb> ...``
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib
+import logging
+import sys
+import urllib.error
+import urllib.request
+from typing import Optional
+
+import torch
+
+import pio_tpu_torch
+from pio_tpu_torch.parallel.context import ComputeContext
+from pio_tpu_torch.storage.registry import Storage
+
+
+def _out(s: str = ""):
+    # flushed: a parent that reads a server's "listening on" line through
+    # a pipe must not wait for a block buffer to fill
+    print(s, flush=True)
+
+
+def _err(s: str) -> int:
+    print(f"[ERROR] {s}", file=sys.stderr, flush=True)
+    return 1
+
+
+def _resolve_app(name: str):
+    app = Storage.get_meta_data_apps().get_by_name(name)
+    if app is None:
+        raise SystemExit(_err(f"app {name!r} not found"))
+    return app
+
+
+def _channel_id(app_id: int, channel: Optional[str]):
+    from pio_tpu_torch.data.store import resolve_channel
+
+    try:
+        return resolve_channel(app_id, channel)
+    except ValueError as e:
+        raise SystemExit(_err(str(e)))
+
+
+def _context(args, seed: int = 0) -> ComputeContext:
+    """The run's context on ``--device``; no card for ``cuda`` exits 1
+    with resolve_device's message."""
+    try:
+        return ComputeContext.create(seed=seed, device=args.device)
+    except RuntimeError as e:
+        raise SystemExit(_err(str(e)))
+
+
+# ----------------------------------------------------------------- app verbs
+def cmd_app_new(args) -> int:
+    from pio_tpu_torch.storage.records import AccessKey, App
+
+    apps = Storage.get_meta_data_apps()
+    app_id = apps.insert(App(0, args.name, args.description))
+    if app_id is None:
+        return _err(f"app {args.name!r} already exists")
+    key = Storage.get_meta_data_access_keys().insert(AccessKey("", app_id))
+    _out(f"App created: id={app_id} name={args.name}")
+    _out(f"Access key: {key}")
+    return 0
+
+
+def cmd_app_list(args) -> int:
+    keys = Storage.get_meta_data_access_keys()
+    for app in Storage.get_meta_data_apps().get_all():
+        ks = [k.key for k in keys.get_by_app_id(app.id)]
+        _out(f"id={app.id} name={app.name} accessKeys={','.join(ks) or '-'}")
+    return 0
+
+
+def cmd_app_delete(args) -> int:
+    app = _resolve_app(args.name)
+    for k in Storage.get_meta_data_access_keys().get_by_app_id(app.id):
+        Storage.get_meta_data_access_keys().delete(k.key)
+    for c in Storage.get_meta_data_channels().get_by_app_id(app.id):
+        Storage.get_meta_data_channels().delete(c.id)
+        Storage.get_levents().remove(app.id, c.id)
+    Storage.get_levents().remove(app.id, None)
+    Storage.get_meta_data_apps().delete(app.id)
+    _out(f"App {args.name!r} deleted")
+    return 0
+
+
+def cmd_app_data_delete(args) -> int:
+    app = _resolve_app(args.name)
+    Storage.get_levents().remove(app.id, _channel_id(app.id, args.channel))
+    _out(f"Event data deleted for app {args.name!r}"
+         + (f" channel {args.channel!r}" if args.channel else ""))
+    return 0
+
+
+def cmd_channel_new(args) -> int:
+    from pio_tpu_torch.storage.records import Channel
+
+    app = _resolve_app(args.app)
+    chans = Storage.get_meta_data_channels().get_by_app_id(app.id)
+    if any(c.name == args.channel for c in chans):
+        return _err(
+            f"channel {args.channel!r} already exists for app {args.app!r}"
+        )
+    cid = Storage.get_meta_data_channels().insert(
+        Channel(0, args.channel, app.id)
+    )
+    if cid is None:
+        return _err(
+            f"cannot create channel {args.channel!r} ({Channel.NAME_CONSTRAINT})"
+        )
+    _out(f"Channel created: id={cid} name={args.channel} app={args.app}")
+    return 0
+
+
+def cmd_channel_delete(args) -> int:
+    app = _resolve_app(args.app)
+    cid = _channel_id(app.id, args.channel)
+    Storage.get_levents().remove(app.id, cid)
+    Storage.get_meta_data_channels().delete(cid)
+    _out(f"Channel {args.channel!r} deleted")
+    return 0
+
+
+# ----------------------------------------------------------- accesskey verbs
+def cmd_accesskey_new(args) -> int:
+    from pio_tpu_torch.storage.records import AccessKey
+
+    app = _resolve_app(args.app)
+    events = tuple(e for e in (args.events or "").split(",") if e)
+    key = Storage.get_meta_data_access_keys().insert(
+        AccessKey("", app.id, events)
+    )
+    _out(f"Access key: {key}")
+    return 0
+
+
+def cmd_accesskey_list(args) -> int:
+    keys = Storage.get_meta_data_access_keys()
+    items = (
+        keys.get_by_app_id(_resolve_app(args.app).id) if args.app else keys.get_all()
+    )
+    for k in items:
+        _out(f"key={k.key} appId={k.app_id} events={','.join(k.events) or '(all)'}")
+    return 0
+
+
+def cmd_accesskey_delete(args) -> int:
+    if not Storage.get_meta_data_access_keys().delete(args.key):
+        return _err("key not found")
+    _out("Access key deleted")
+    return 0
+
+
+# -------------------------------------------------------------- train / eval
+def cmd_train(args) -> int:
+    from pio_tpu_torch.workflow.core_workflow import run_train
+    from pio_tpu_torch.workflow.engine_json import build_engine, load_variant
+    from pio_tpu_torch.workflow.params import WorkflowParams
+
+    ctx = _context(args, args.seed)
+    variant = load_variant(args.engine_json)
+    engine, ep = build_engine(variant)
+    wp = WorkflowParams(
+        batch=args.batch,
+        skip_sanity_check=args.skip_sanity_check,
+        stop_after_read=args.stop_after_read,
+        stop_after_prepare=args.stop_after_prepare,
+        seed=args.seed,
+    )
+    instance_id = run_train(engine, ep, variant, wp, ctx=ctx)
+    _out(f"Training completed: engine instance {instance_id}")
+    return 0
+
+
+def _import_attr(spec: str):
+    """Resolve ``module:attr``; zero-arg callables are invoked to produce
+    the object (the eval-verb convention)."""
+    mod_name, _, attr = spec.partition(":")
+    mod = importlib.import_module(mod_name)
+    if not attr:
+        return mod
+    obj = getattr(mod, attr)
+    return obj() if callable(obj) else obj
+
+
+def cmd_eval(args) -> int:
+    from pio_tpu_torch.workflow.core_workflow import run_evaluation
+
+    ctx = _context(args)
+    evaluation = _import_attr(args.evaluation)
+    generator = (
+        _import_attr(args.engine_params_generator)
+        if args.engine_params_generator
+        else None
+    )
+    if generator is None:
+        generator = getattr(evaluation, "engine_params_generator", None)
+    if generator is None:
+        return _err(
+            "no EngineParamsGenerator: pass --engine-params-generator or set "
+            ".engine_params_generator on the Evaluation"
+        )
+    result = run_evaluation(
+        evaluation,
+        generator,
+        ctx=ctx,
+        evaluation_class=args.evaluation,
+        generator_class=args.engine_params_generator or "",
+    )
+    _out(f"Best params (score {result.best_score}):")
+    _out(result.to_json())
+    return 0
+
+
+# ------------------------------------------------------------------- servers
+def cmd_eventserver(args) -> int:
+    from pio_tpu_torch.server.event_server import create_event_server
+
+    server = create_event_server(host=args.ip, port=args.port)
+    _out(f"Event Server listening on {args.ip}:{server.port}")
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        _out("shutting down")
+    finally:
+        server.stop()
+    return 0
+
+
+def cmd_deploy(args) -> int:
+    from pio_tpu_torch.server.query_server import deploy_query_server
+    from pio_tpu_torch.workflow.engine_json import load_variant
+
+    device = _context(args).device
+    variant = load_variant(args.engine_json)
+    server = deploy_query_server(
+        variant,
+        host=args.ip,
+        port=args.port,
+        instance_id=args.engine_instance_id,
+        device=device,
+        admin_key=args.admin_key,
+    )
+    _out(
+        f"Query Server for instance {server.service.instance_id} "
+        f"listening on {args.ip}:{server.port}"
+    )
+    try:
+        server.serve_forever()  # until POST /undeploy stops it
+    except KeyboardInterrupt:
+        _out("shutting down")
+    finally:
+        server.close()
+    return 0
+
+
+def cmd_undeploy(args) -> int:
+    url = f"http://{args.ip}:{args.port}/undeploy"
+    if args.admin_key:
+        url += f"?accessKey={args.admin_key}"
+    try:
+        req = urllib.request.Request(url, data=b"{}", method="POST")
+        with urllib.request.urlopen(req, timeout=10) as resp:
+            _out(resp.read().decode())
+        return 0
+    except urllib.error.HTTPError as e:
+        return _err(f"query server refused undeploy: {e.code} "
+                    f"{e.read().decode(errors='replace')}")
+    except OSError as e:
+        return _err(f"cannot reach query server at {url}: {e}")
+
+
+def cmd_batchpredict(args) -> int:
+    from pio_tpu_torch.workflow.batch_predict import run_batch_predict
+    from pio_tpu_torch.workflow.engine_json import load_variant
+
+    ctx = _context(args)
+    variant = load_variant(args.engine_json)
+    n = run_batch_predict(
+        variant,
+        args.input,
+        args.output,
+        instance_id=args.engine_instance_id,
+        ctx=ctx,
+    )
+    _out(f"Batch predict done: {n} queries -> {args.output}")
+    return 0
+
+
+# ------------------------------------------------------------- import/export
+def cmd_import(args) -> int:
+    from pio_tpu_torch.tools.data_io import import_events
+
+    app = _resolve_app(args.app)
+    imported, failed = import_events(
+        args.input, app.id, _channel_id(app.id, args.channel)
+    )
+    _out(f"Imported {imported} events ({failed} failed)")
+    return 0 if failed == 0 else 1
+
+
+def cmd_export(args) -> int:
+    from pio_tpu_torch.tools.data_io import export_events
+
+    app = _resolve_app(args.app)
+    n = export_events(args.output, app.id, _channel_id(app.id, args.channel))
+    _out(f"Exported {n} events -> {args.output}")
+    return 0
+
+
+# -------------------------------------------------------------------- status
+def cmd_status(args) -> int:
+    from pio_tpu_torch.storage.registry import pio_home
+
+    _out(f"pio-tpu-torch {pio_tpu_torch.__version__}")
+    _out(f"home: {pio_home()}")
+    if torch.cuda.is_available():
+        names = [f"cuda:{k} {torch.cuda.get_device_name(k)}"
+                 for k in range(torch.cuda.device_count())]
+        _out(f"devices: {names}")
+    else:
+        _out("devices: unavailable (no CUDA device)")
+    checks = Storage.verify_all_data_objects()
+    ok = all(checks.values())
+    for name, healthy in sorted(checks.items()):
+        _out(f"  {'OK ' if healthy else 'FAIL'} {name}")
+    _out("(sanity check " + ("passed)" if ok else "FAILED)"))
+    try:
+        insts = Storage.get_meta_data_engine_instances().get_all()
+    except Exception:
+        # status must degrade gracefully on the exact broken-backend
+        # condition it reports (the FAIL lines above already said so)
+        insts = []
+    if insts:
+        _out("recent engine instances:")
+        for inst in sorted(
+            insts, key=lambda i: i.start_time, reverse=True
+        )[:5]:
+            secs = inst.env.get("train_seconds", "")
+            _out(
+                f"  {inst.id[:12]}  {inst.status:<9} "
+                f"{inst.engine_factory}"
+                + (f"  ({secs}s)" if secs else "")
+            )
+    return 0 if ok else 1
+
+
+def cmd_version(args) -> int:
+    _out(pio_tpu_torch.__version__)
+    return 0
+
+
+# -------------------------------------------------------------------- parser
+def _device_flag(a) -> None:
+    a.add_argument(
+        "--device", choices=("cuda", "cpu"), default="cuda",
+        help="where the run's tensors live (default cuda; without a card "
+             "the run exits with an error)",
+    )
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="pio-tpu-torch",
+        description="ML server CLI (PyTorch/CUDA port)",
+        epilog="global flags (-v/-q) go BEFORE the verb: "
+               "pio-tpu-torch -v train …",
+    )
+    vq = p.add_mutually_exclusive_group()
+    vq.add_argument("-v", "--verbose", action="count", default=0,
+                    help="debug logging")
+    vq.add_argument("-q", "--quiet", action="store_true", help="warnings only")
+    sub = p.add_subparsers(dest="verb", required=True)
+
+    app = sub.add_parser("app", help="manage apps").add_subparsers(
+        dest="app_verb", required=True
+    )
+    a = app.add_parser("new")
+    a.add_argument("name")
+    a.add_argument("--description", default=None)
+    a.set_defaults(fn=cmd_app_new)
+    app.add_parser("list").set_defaults(fn=cmd_app_list)
+    a = app.add_parser("delete")
+    a.add_argument("name")
+    a.set_defaults(fn=cmd_app_delete)
+    a = app.add_parser("data-delete")
+    a.add_argument("name")
+    a.add_argument("--channel", default=None)
+    a.set_defaults(fn=cmd_app_data_delete)
+    a = app.add_parser("channel-new")
+    a.add_argument("app")
+    a.add_argument("channel")
+    a.set_defaults(fn=cmd_channel_new)
+    a = app.add_parser("channel-delete")
+    a.add_argument("app")
+    a.add_argument("channel")
+    a.set_defaults(fn=cmd_channel_delete)
+
+    ak = sub.add_parser("accesskey", help="manage access keys").add_subparsers(
+        dest="ak_verb", required=True
+    )
+    a = ak.add_parser("new")
+    a.add_argument("app")
+    a.add_argument("--events", default="")
+    a.set_defaults(fn=cmd_accesskey_new)
+    a = ak.add_parser("list")
+    a.add_argument("app", nargs="?")
+    a.set_defaults(fn=cmd_accesskey_list)
+    a = ak.add_parser("delete")
+    a.add_argument("key")
+    a.set_defaults(fn=cmd_accesskey_delete)
+
+    a = sub.add_parser("train", help="run a training workflow")
+    a.add_argument("--engine-json", default="engine.json")
+    a.add_argument("--batch", default="")
+    a.add_argument("--skip-sanity-check", action="store_true")
+    a.add_argument("--stop-after-read", action="store_true")
+    a.add_argument("--stop-after-prepare", action="store_true")
+    a.add_argument("--seed", type=int, default=0)
+    _device_flag(a)
+    a.set_defaults(fn=cmd_train)
+
+    a = sub.add_parser("eval", help="run an evaluation sweep")
+    a.add_argument("evaluation", help="module:attr returning an Evaluation")
+    a.add_argument(
+        "engine_params_generator", nargs="?", default=None,
+        help="module:attr returning an EngineParamsGenerator",
+    )
+    _device_flag(a)
+    a.set_defaults(fn=cmd_eval)
+
+    a = sub.add_parser("deploy", help="serve the trained engine over HTTP")
+    a.add_argument("--engine-json", default="engine.json")
+    a.add_argument("--ip", default="0.0.0.0")
+    a.add_argument("--port", type=int, default=8000)
+    a.add_argument("--engine-instance-id", default=None)
+    a.add_argument(
+        "--admin-key", default=None,
+        help="access key required by /undeploy; without one it is "
+             "loopback-only",
+    )
+    _device_flag(a)
+    a.set_defaults(fn=cmd_deploy)
+
+    a = sub.add_parser("undeploy", help="stop a running query server")
+    a.add_argument("--ip", default="127.0.0.1")
+    a.add_argument("--port", type=int, default=8000)
+    a.add_argument(
+        "--admin-key", default=None,
+        help="admin access key if the server was deployed with one",
+    )
+    a.set_defaults(fn=cmd_undeploy)
+
+    a = sub.add_parser("batchpredict", help="bulk offline scoring")
+    a.add_argument("--engine-json", default="engine.json")
+    a.add_argument("--input", required=True)
+    a.add_argument("--output", required=True)
+    a.add_argument("--engine-instance-id", default=None)
+    _device_flag(a)
+    a.set_defaults(fn=cmd_batchpredict)
+
+    a = sub.add_parser("eventserver", help="run the event ingestion server")
+    a.add_argument("--ip", default="0.0.0.0")
+    a.add_argument("--port", type=int, default=7070)
+    a.set_defaults(fn=cmd_eventserver)
+
+    a = sub.add_parser("import", help="import JSON-lines events")
+    a.add_argument("--app", required=True)
+    a.add_argument("--input", required=True)
+    a.add_argument("--channel", default=None)
+    a.set_defaults(fn=cmd_import)
+
+    a = sub.add_parser("export", help="export events as JSON-lines")
+    a.add_argument("--app", required=True)
+    a.add_argument("--output", required=True)
+    a.add_argument("--channel", default=None)
+    a.set_defaults(fn=cmd_export)
+
+    sub.add_parser("status", help="storage/device health check").set_defaults(
+        fn=cmd_status
+    )
+    sub.add_parser("version").set_defaults(fn=cmd_version)
+    return p
+
+
+def _configure_logging(verbosity: int) -> None:
+    """Console logging for CLI runs: pio_tpu_torch at INFO by default;
+    -q → WARNING, -v → DEBUG."""
+    level = (
+        logging.WARNING if verbosity < 0
+        else logging.DEBUG if verbosity > 0
+        else logging.INFO
+    )
+    logging.basicConfig(format="[%(levelname)s] [%(name)s] %(message)s")
+    logging.getLogger("pio_tpu_torch").setLevel(level)
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    _configure_logging(-1 if args.quiet else args.verbose)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

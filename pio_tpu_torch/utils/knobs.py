@@ -26,6 +26,12 @@ _DEFAULTS = {
     # the resident scorer's query wire: `int8`, `float32`, or `auto` (int8
     # when the model carries training scales)
     "PIO_TPU_SERVE_WIRE": "auto",
+    # what an acknowledged write means on durable media
+    # (storage/durability.py): `commit`, `batch` or `os`
+    "PIO_TPU_DURABILITY": "batch",
+    # the app of a bundled `pio eval` sweep called with no app name
+    # (templates/common.py:eval_app_name)
+    "PIO_TPU_EVAL_APP": "",
 }
 
 

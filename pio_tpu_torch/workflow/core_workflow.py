@@ -11,10 +11,11 @@ and records an EvaluationInstance with the winner.
 A persisted model holds host values only: every tensor in it is pickled
 as a numpy array, so a blob holds no CUDA storage. Loading puts the
 tensors on the device the caller's context names, so a model trained on
-the card loads on the CPU and the reverse. Not ported yet: the reference's
-PersistentModel opt-out, sharded persistence, the last-known-good
-fallback, checkpoints, the profiler trace and the trainwatch/devicewatch
-telemetry (ROADMAP A).
+the card loads on the CPU and the reverse. A blob that fails verification
+falls back, given the variant, to the newest older COMPLETED instance whose
+blob verifies (last known good), as in the reference. Not ported yet: the
+reference's PersistentModel opt-out, sharded persistence, checkpoints, the
+profiler trace and the trainwatch/devicewatch telemetry (ROADMAP A).
 """
 
 from __future__ import annotations
@@ -206,34 +207,92 @@ def run_train(
         raise
 
 
-def load_models_for_instance(
-    instance_id: str,
-    engine: Engine,
-    engine_params: EngineParams,
-    ctx: ComputeContext,
+def _verified_blob_models(
+    models_store, instance_id: str, device: torch.device
 ) -> List[Any]:
-    """The persisted models of ``instance_id``, their tensors on
-    ``ctx.device``, one per algorithm of ``engine_params``.
+    """Fetch + checksum-verify + deserialize one instance's model blob.
 
-    Raises RuntimeError on a missing record, a blob that fails its
-    manifest's checksum (a missing manifest loads unverified, as in the
-    reference), or a model count that does not match ``engine``'s
-    algorithms.
+    Raises RuntimeError on a missing record, a checksum mismatch against
+    the instance's manifest, or a blob that fails to unpickle. A missing
+    manifest (pre-manifest instance, or crash between blob and manifest
+    writes) loads unverified, as in the reference.
     """
-    models_store = Storage.get_model_data_models()
     record = models_store.get(instance_id)
     if record is None:
         raise RuntimeError(f"no models stored for instance {instance_id!r}")
     manifest = models_store.get(instance_id + MANIFEST_SUFFIX)
     if manifest is not None:
-        want = _json.loads(manifest.models.decode("utf-8"))["sha256"]
+        try:
+            want = _json.loads(manifest.models.decode("utf-8"))["sha256"]
+        except Exception as e:
+            raise RuntimeError(
+                f"unreadable model manifest for instance {instance_id!r}: {e}"
+            ) from e
         got = hashlib.sha256(record.models).hexdigest()
         if got != want:
             raise RuntimeError(
                 f"model blob for instance {instance_id!r} failed checksum "
                 f"verification (manifest {want}, blob {got})"
             )
-    models = deserialize_models(record.models, ctx.device)
+    try:
+        return deserialize_models(record.models, device)
+    except Exception as e:
+        raise RuntimeError(
+            f"model blob for instance {instance_id!r} failed to "
+            f"deserialize: {e}"
+        ) from e
+
+
+def load_models_for_instance(
+    instance_id: str,
+    engine: Engine,
+    engine_params: EngineParams,
+    ctx: ComputeContext,
+    variant: Optional[EngineVariant] = None,
+) -> List[Any]:
+    """The persisted models of ``instance_id``, their tensors on
+    ``ctx.device``, one per algorithm of ``engine_params`` (reference
+    ``Engine.prepareDeploy``).
+
+    Raises RuntimeError on a missing record, a blob that fails its
+    manifest's checksum or does not unpickle, or a model count that does
+    not match ``engine``'s algorithms. With ``variant`` given, a blob that
+    fails verification does not fail the load: the loader falls back to
+    the newest older COMPLETED instance of the same variant whose blob
+    verifies — last known good — and returns that instead.
+    """
+    models_store = Storage.get_model_data_models()
+    try:
+        models = _verified_blob_models(models_store, instance_id, ctx.device)
+    except RuntimeError as primary_err:
+        if variant is None:
+            raise
+        log.error(
+            "model load for instance %s failed (%s); searching for last "
+            "known good", instance_id, primary_err,
+        )
+        models = None
+        candidates = Storage.get_meta_data_engine_instances().get_completed(
+            variant.engine_id,
+            variant.engine_version,
+            variant.path or variant.engine_id,
+        )
+        for cand in candidates:
+            if cand.id == instance_id:
+                continue
+            try:
+                models = _verified_blob_models(models_store, cand.id, ctx.device)
+            except RuntimeError as e:
+                log.warning("fallback candidate %s also bad: %s", cand.id, e)
+                continue
+            log.warning(
+                "serving last known good instance %s in place of %s",
+                cand.id, instance_id,
+            )
+            instance_id = cand.id
+            break
+        if models is None:
+            raise primary_err
     names = [n for n, _ in engine_params.algorithm_params_list]
     unknown = [n for n in names if n not in engine.algorithm_class_map]
     if len(models) != len(names) or unknown:

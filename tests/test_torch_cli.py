@@ -1,0 +1,452 @@
+"""``python -m pio_tpu_torch`` against ``python -m pio_tpu``, on the CPU.
+
+- The app, channel and access-key verbs, run in-process through each
+  package's ``main([...])`` on its own SQLite home, print the same lines
+  and exit with the same codes (generated keys aside).
+- ``import`` then ``export`` of the same JSON lines writes the reference
+  export's bytes.
+- ``status`` reports a healthy and a broken configuration.
+- ``train``, ``batchpredict`` and ``eval`` with ``--device cpu`` give the
+  reference's answers on the same events: the port's ALS starts from the
+  reference's ``jax.random`` init (the two packages draw different
+  streams), and its factors are held to 1e-4 of the largest factor (the
+  recommendation trainer's tolerance in chip_smoke.py, ``ALS_FACTOR_TOL``:
+  the same f32 solves in another summation order), its scores (rank-8
+  dots of those factors) to ``1e-3`` and its sweep's scores to ``rtol =
+  1e-3`` (that of tests/test_torch_evaluation.py).
+- Deploy falls back to the last known good instance when the newest blob
+  fails its checksum.
+- Without a card, the device verbs exit 1 with resolve_device's message.
+- The quickstart through real processes: app new → eventserver → batch
+  ingest → train → deploy → query → undeploy, each with a time limit.
+"""
+
+import json
+import os
+import re
+import socket
+import subprocess
+import sys
+import time
+import urllib.error
+import urllib.request
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import pio_tpu.templates  # noqa: F401  (registers the JAX engine factories)
+from pio_tpu.obs import monotonic_s
+from pio_tpu.parallel.context import ComputeContext as JaxContext
+from pio_tpu.storage import Storage as JaxStorage
+from pio_tpu.tools.cli import main as jax_main
+from pio_tpu.workflow import build_engine as jax_build_engine
+from pio_tpu.workflow import load_models_for_instance as jax_load_models
+from pio_tpu.workflow import load_variant as jax_load_variant
+from pio_tpu_torch.models import als as port_als
+from pio_tpu_torch.parallel.context import ComputeContext
+from pio_tpu_torch.server.query_server import deploy_query_server
+from pio_tpu_torch.storage.registry import Storage
+from pio_tpu_torch.tools.cli import main
+from pio_tpu_torch.workflow.core_workflow import load_models_for_instance
+from pio_tpu_torch.workflow.engine_json import build_engine, load_variant
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+KEY_RE = re.compile(r"[A-Za-z0-9_-]{43}")
+FACTOR_TOL = 1e-4  # of max |factor|
+SCORE_ATOL = 1e-3
+EVAL_RTOL = 1e-3
+
+
+@pytest.fixture()
+def homes(tmp_path, monkeypatch):
+    """Unset storage config (the SQLite default), no native builds, and a
+    helper that points both packages at one home."""
+    for repo in ("METADATA", "EVENTDATA", "MODELDATA"):
+        monkeypatch.delenv(f"PIO_STORAGE_REPOSITORIES_{repo}_SOURCE",
+                           raising=False)
+    monkeypatch.setenv("PIO_TPU_NO_NATIVE", "1")
+    monkeypatch.setenv("PIO_TPU_TRAIN_STATUS_PORT", "-1")
+    Storage.reset()
+    JaxStorage.reset()
+
+    def use(name):
+        monkeypatch.setenv("PIO_TPU_HOME", str(tmp_path / name))
+        return tmp_path / name
+
+    yield use
+    Storage.reset()
+    JaxStorage.reset()
+
+
+def run(fn, argv, capsys):
+    """(exit code, stdout, stderr) of one CLI call, generated keys
+    replaced by a placeholder."""
+    try:
+        code = fn(argv)
+    except SystemExit as e:
+        code = e.code
+    out, err = capsys.readouterr()
+    return code, KEY_RE.sub("<key>", out), KEY_RE.sub("<key>", err)
+
+
+def crud_script(key_of):
+    return [
+        ["app", "new", "shop"],
+        ["app", "new", "shop"],
+        ["app", "new", "blog", "--description", "a blog"],
+        ["app", "list"],
+        ["accesskey", "new", "shop", "--events", "rate,buy"],
+        ["accesskey", "list"],
+        ["accesskey", "list", "shop"],
+        ["accesskey", "list", "nope"],
+        ["app", "channel-new", "shop", "web"],
+        ["app", "channel-new", "shop", "web"],
+        ["app", "channel-new", "shop", "bad name!"],
+        ["app", "channel-delete", "shop", "web"],
+        ["app", "channel-delete", "shop", "nope"],
+        ["accesskey", "delete", key_of("blog")],
+        ["accesskey", "delete", "nope"],
+        ["app", "data-delete", "shop"],
+        ["app", "data-delete", "shop", "--channel", "nope"],
+        ["app", "delete", "blog"],
+        ["app", "delete", "nope"],
+        ["app", "list"],
+        ["version"],
+    ]
+
+
+def run_crud(fn, storage, capsys):
+    def key_of(app_name):
+        app = storage.get_meta_data_apps().get_by_name(app_name)
+        return storage.get_meta_data_access_keys().get_by_app_id(app.id)[0].key
+
+    out = []
+    for k, argv in enumerate(crud_script(lambda name: "@" + name)):
+        argv = [key_of(a[1:]) if a.startswith("@") else a for a in argv]
+        out.append(run(fn, argv, capsys))
+    return out
+
+
+def test_app_and_key_verbs_match_reference(homes, capsys):
+    homes("ref")
+    want = run_crud(jax_main, JaxStorage, capsys)
+    homes("port")
+    got = run_crud(main, Storage, capsys)
+    for argv, g, w in zip(crud_script(lambda n: "@" + n), got, want):
+        assert g == w, argv
+    assert [c for c, _, _ in got].count(0) >= 12
+
+
+def api_lines(n=50):
+    """The quickstart's events (tests/test_quickstart_scenario.py), with
+    ids and creation times fixed so that exports can be compared."""
+    return [
+        {"event": "rate", "entityType": "user", "entityId": f"u{(i * 13) % 40}",
+         "targetEntityType": "item", "targetEntityId": f"i{i % 25}",
+         "properties": {"rating": float(1 + (i * 7) % 5)},
+         "eventTime": f"2026-01-01T00:{i % 60:02d}:00.000Z",
+         "creationTime": "2026-01-02T00:00:00.000Z", "eventId": f"ev{i:03d}"}
+        for i in range(n)
+    ]
+
+
+def write_lines(path, lines, extra=()):
+    with open(path, "w") as f:
+        for d in lines:
+            f.write(json.dumps(d) + "\n")
+        for raw in extra:
+            f.write(raw + "\n")
+    return str(path)
+
+
+def test_import_export_bytes_match_reference(homes, tmp_path, capsys):
+    src = write_lines(tmp_path / "in.jsonl", api_lines(),
+                      extra=["not json", '{"event": "rate"}'])
+    outs = {}
+    for name, fn in (("ref", jax_main), ("port", main)):
+        homes(name)
+        assert run(fn, ["app", "new", "qs"], capsys)[0] == 0
+        code, out, _ = run(fn, ["import", "--app", "qs", "--input", src], capsys)
+        assert (code, out) == (1, "Imported 50 events (2 failed)\n")
+        dst = str(tmp_path / f"{name}.jsonl")
+        code, out, _ = run(fn, ["export", "--app", "qs", "--output", dst],
+                           capsys)
+        assert (code, out) == (0, f"Exported 50 events -> {dst}\n")
+        assert run(fn, ["app", "new", "copy"], capsys)[0] == 0
+        assert run(fn, ["import", "--app", "copy", "--input", dst],
+                   capsys)[:2] == (0, "Imported 50 events (0 failed)\n")
+        with open(dst, "rb") as f:
+            outs[name] = f.read()
+    assert outs["port"] == outs["ref"] and outs["port"].count(b"\n") == 50
+
+
+def test_status_healthy_and_broken(homes, capsys, monkeypatch):
+    homes("port")
+    code, out, _ = run(main, ["status"], capsys)
+    assert code == 0 and "(sanity check passed)" in out
+    assert out.count("  OK  ") == 8 and "devices:" in out
+    monkeypatch.setenv("PIO_STORAGE_REPOSITORIES_METADATA_SOURCE", "BROKEN")
+    code, out, _ = run(main, ["status"], capsys)
+    assert code == 1 and "(sanity check FAILED)" in out
+    assert "FAIL METADATA/apps" in out and "OK  EVENTDATA/levents" in out
+
+
+# ------------------------------------------------- train / batchpredict / eval
+def reference_init(monkeypatch):
+    """The port's ALS init swapped for the reference's: each train_als
+    draws users then items, from ``split(PRNGKey(seed))``."""
+    calls = []
+
+    def init(n_rows, rank, generator):
+        ku, ki = jax.random.split(jax.random.PRNGKey(generator.initial_seed()))
+        key = (ku, ki)[len(calls) % 2]
+        calls.append(n_rows)
+        x = jnp.abs(jax.random.normal(key, (n_rows, rank), jnp.float32))
+        return torch.from_numpy(np.array(x * jnp.float32(rank) ** -0.5))
+
+    monkeypatch.setattr(port_als, "_init_factors", init)
+    return calls
+
+
+def engine_json(path):
+    """The quickstart's engine.json (rank 8, 5 iterations, lambda 0.1)."""
+    variant = {
+        "id": "qs1", "engineFactory": "templates.recommendation",
+        "datasource": {"params": {"app_name": "qs", "rate_event": "rate"}},
+        "algorithms": [{"name": "als", "params": {
+            "rank": 8, "num_iterations": 5, "lambda_": 0.1, "seed": 3}}],
+    }
+    path.write_text(json.dumps(variant))
+    return str(path)
+
+
+def seeded_app(fn, capsys, src):
+    assert run(fn, ["app", "new", "qs"], capsys)[0] == 0
+    assert run(fn, ["import", "--app", "qs", "--input", src], capsys)[0] == 0
+
+
+def iid_of(out):
+    return re.search(r"engine instance (\w+)", out).group(1)
+
+
+def same_ranking(got, want):
+    """The same items in order wherever the reference's scores are more
+    than SCORE_ATOL apart, and each score within SCORE_ATOL."""
+    g, w = got["itemScores"], want["itemScores"]
+    assert len(g) == len(w)
+    for a, b in zip(g, w):
+        assert abs(a["score"] - b["score"]) <= SCORE_ATOL
+        if a["item"] != b["item"]:
+            tied = [s["score"] for s in w if s["item"] == a["item"]]
+            assert tied and abs(tied[0] - b["score"]) <= SCORE_ATOL
+
+
+def test_train_batchpredict_eval_match_reference(homes, tmp_path, capsys,
+                                                 monkeypatch):
+    src = write_lines(tmp_path / "in.jsonl", api_lines())
+    ej = engine_json(tmp_path / "engine.json")
+    queries = [{"user": f"u{(k * 13) % 40}", "num": 4} for k in range(12)]
+    queries += [{"user": "stranger"}, {"user": "u0", "num": 3,
+                                       "blackList": ["i0"]}]
+    qpath = write_lines(tmp_path / "q.jsonl", queries, extra=["not json"])
+    calls = reference_init(monkeypatch)
+    monkeypatch.setenv("PIO_TPU_EVAL_APP", "qs")
+    out = {}
+    for name, fn, extra in (("ref", jax_main, []),
+                            ("port", main, ["--device", "cpu"])):
+        homes(name)
+        seeded_app(fn, capsys, src)
+        code, text, err = run(fn, ["train", "--engine-json", ej] + extra, capsys)
+        assert code == 0 and "Training completed" in text, err
+        pred = str(tmp_path / f"{name}.pred.jsonl")
+        code, text, _ = run(fn, ["batchpredict", "--engine-json", ej,
+                                 "--input", qpath, "--output", pred] + extra,
+                            capsys)
+        assert (code, text) == (0, f"Batch predict done: 14 queries -> {pred}\n")
+        with open(pred) as f:
+            lines = [json.loads(line) for line in f]
+        code, text, _ = run(fn, ["eval", f"pio_tpu{'_torch' * (name == 'port')}"
+                                 ".templates.recommendation:"
+                                 "recommendation_evaluation"] + extra, capsys)
+        assert code == 0 and text.startswith("Best params (score ")
+        out[name] = (iid_of_store(name), lines, json.loads(text.split("\n", 1)[1]))
+    assert len(calls) == 2 * (1 + 3 * 4)  # train + 3 folds x 4 params
+
+    # factors of the stored instances, row for row by id
+    homes("ref")
+    v = jax_load_variant(ej)
+    engine, ep = jax_build_engine(v)
+    (ref_m,) = jax_load_models(out["ref"][0], engine, ep, JaxContext.local())
+    homes("port")
+    v = load_variant(ej)
+    engine, ep = build_engine(v)
+    (port_m,) = load_models_for_instance(out["port"][0], engine, ep,
+                                         ComputeContext.local(device="cpu"))
+    for attr, index in (("user_factors", "user_index"),
+                        ("item_factors", "item_index")):
+        ids = sorted(getattr(ref_m, index).to_dict())
+        assert ids == sorted(getattr(port_m, index).to_dict())
+        rows_r = [getattr(ref_m, index).to_dict()[k] for k in ids]
+        rows_p = [getattr(port_m, index).to_dict()[k] for k in ids]
+        want = np.asarray(getattr(ref_m.factors, attr))[rows_r]
+        got = getattr(port_m.factors, attr).numpy()[rows_p]
+        np.testing.assert_allclose(
+            got, want, rtol=0, atol=FACTOR_TOL * np.abs(want).max())
+
+    for g, w in zip(out["port"][1], out["ref"][1]):
+        assert g["query"] == w["query"]
+        assert ("error" in g) == ("error" in w)
+        if "prediction" in w:
+            same_ranking(g["prediction"], w["prediction"])
+    ev_p, ev_r = out["port"][2], out["ref"][2]
+    assert ev_p["bestEngineParams"] == ev_r["bestEngineParams"]
+    np.testing.assert_allclose(
+        [s["score"] for s in ev_p["engineParamsScores"]],
+        [s["score"] for s in ev_r["engineParamsScores"]], rtol=EVAL_RTOL)
+
+
+def iid_of_store(name):
+    storage = JaxStorage if name == "ref" else Storage
+    (inst,) = storage.get_meta_data_engine_instances().get_all()
+    return inst.id
+
+
+def test_deploy_falls_back_to_last_known_good(homes, tmp_path, capsys):
+    home = homes("port")
+    src = write_lines(tmp_path / "in.jsonl", api_lines())
+    seeded_app(main, capsys, src)
+    ej = engine_json(tmp_path / "engine.json")
+    ids = []
+    for _ in range(2):
+        code, out, _ = run(main, ["train", "--engine-json", ej,
+                                  "--device", "cpu"], capsys)
+        ids.append(iid_of(out))
+    good, newest = ids
+    blob = home / "models" / f"{newest}.bin"
+    blob.write_bytes(b"\x00" + blob.read_bytes()[1:])
+    variant = load_variant(ej)
+    engine, ep = build_engine(variant)
+    ctx = ComputeContext.local(device="cpu")
+    with pytest.raises(RuntimeError, match="checksum"):
+        load_models_for_instance(newest, engine, ep, ctx)
+    (fallback,) = load_models_for_instance(newest, engine, ep, ctx,
+                                           variant=variant)
+    (want,) = load_models_for_instance(good, engine, ep, ctx)
+    np.testing.assert_array_equal(fallback.factors.user_factors.numpy(),
+                                  want.factors.user_factors.numpy())
+    server = deploy_query_server(variant, host="127.0.0.1", port=0,
+                                 device="cpu")
+    with server:
+        assert server.service.instance_id == newest
+        got = post(f"http://127.0.0.1:{server.port}/queries.json",
+                   {"user": "u0", "num": 3})
+    algo = engine._algorithms(ep)[0]
+    assert got == algo.predict(want, algo.query_class(user="u0", num=3)).to_dict()
+    (home / "models" / f"{good}.bin").write_bytes(b"torn")
+    with pytest.raises(RuntimeError, match="checksum"):
+        load_models_for_instance(newest, engine, ep, ctx, variant=variant)
+
+
+@pytest.mark.parametrize("verb", [
+    ["train"], ["deploy"], ["batchpredict", "--input", "q", "--output", "p"],
+    ["eval", "pio_tpu_torch.templates.recommendation:recommendation_evaluation"],
+])
+def test_device_verbs_refuse_without_a_card(homes, capsys, monkeypatch, verb):
+    homes("port")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    code, out, err = run(main, verb, capsys)
+    assert code == 1 and out == ""
+    assert "no CUDA device is available" in err
+
+
+# --------------------------------------------- the quickstart, real processes
+def post(url, body, timeout=30):
+    req = urllib.request.Request(
+        url, data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"}, method="POST",
+    )
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def free_port() -> int:
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def wait_http(url, proc, timeout=60):
+    deadline = monotonic_s() + timeout
+    while monotonic_s() < deadline:
+        if proc.poll() is not None:
+            raise AssertionError(f"server exited with {proc.returncode}")
+        try:
+            with urllib.request.urlopen(url, timeout=5) as r:
+                return json.loads(r.read())
+        except (urllib.error.URLError, OSError):
+            time.sleep(0.2)
+    raise TimeoutError(f"server at {url} never came up")
+
+
+def test_quickstart_through_processes(tmp_path):
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("PIO_STORAGE_")}
+    env.update(PIO_TPU_HOME=str(tmp_path / "home"), PYTHONPATH=REPO,
+               PIO_TPU_NO_NATIVE="1")
+
+    def cli(*args, timeout=120):
+        return subprocess.run(
+            [sys.executable, "-m", "pio_tpu_torch", *args], env=env, cwd=REPO,
+            capture_output=True, text=True, timeout=timeout)
+
+    def serve(*args):
+        log = open(tmp_path / f"{args[0]}.log", "w")
+        try:
+            return subprocess.Popen(
+                [sys.executable, "-m", "pio_tpu_torch", *args], env=env,
+                cwd=REPO, stdout=log, stderr=subprocess.STDOUT)
+        finally:
+            log.close()  # the child holds its own descriptor
+
+    procs = []
+    try:
+        out = cli("app", "new", "qs")
+        assert out.returncode == 0, out.stderr[-2000:]
+        key = re.search(r"Access key: (\S+)", out.stdout).group(1)
+
+        es_port = free_port()
+        es = serve("eventserver", "--ip", "127.0.0.1", "--port", str(es_port))
+        procs.append(es)
+        base = f"http://127.0.0.1:{es_port}"
+        assert wait_http(base + "/", es)["status"] == "alive"
+        got = post(f"{base}/batch/events.json?accessKey={key}", api_lines())
+        assert [r["status"] for r in got] == [201] * 50
+
+        ej = engine_json(tmp_path / "engine.json")
+        out = cli("train", "--engine-json", ej, "--device", "cpu")
+        assert out.returncode == 0, out.stderr[-2000:]
+        assert "Training completed" in out.stdout
+
+        qs_port = free_port()
+        qs = serve("deploy", "--engine-json", ej, "--ip", "127.0.0.1",
+                   "--port", str(qs_port), "--device", "cpu")
+        procs.append(qs)
+        status = wait_http(f"http://127.0.0.1:{qs_port}/", qs)
+        assert status["engineInstanceId"] == iid_of(out.stdout)
+        got = post(f"http://127.0.0.1:{qs_port}/queries.json",
+                   {"user": "u0", "num": 4})
+        assert len(got["itemScores"]) == 4
+
+        out = cli("undeploy", "--port", str(qs_port), timeout=60)
+        assert out.returncode == 0 and "undeployed" in out.stdout
+        assert qs.wait(timeout=30) == 0
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait(timeout=30)

@@ -194,7 +194,7 @@ def test_text_sweep_prepares_once_a_fold(memory_storage, monkeypatch):
     (TE.ecommerce_evaluation, "ranks", "rank"),
     (TT.textclassification_evaluation, "hiddens", "hidden"),
 ])
-def test_evaluation_grids(factory, param, field):
+def test_evaluation_grids(factory, param, field, monkeypatch):
     ev = factory("some-app", eval_k=4, **{param: (3, 5)})
     assert isinstance(ev.engine_params_generator, EngineParamsGenerator)
     grid = ev.engine_params_generator.engine_params_list
@@ -206,8 +206,13 @@ def test_evaluation_grids(factory, param, field):
         assert grid[0].algorithm_params_list[0][1].app_name == "some-app"
     with pytest.raises(ValueError, match="eval_k >= 2"):
         factory("some-app", eval_k=1)
-    with pytest.raises(TypeError):
-        factory()  # the app is a required argument in the port
+    # zero-arg CLI use reads the app from PIO_TPU_EVAL_APP, as in the
+    # reference (pio_tpu/templates/common.py:eval_app_name)
+    monkeypatch.setenv("PIO_TPU_EVAL_APP", "env-app")
+    grid = factory().engine_params_generator.engine_params_list
+    assert grid[0].data_source_params.app_name == "env-app"
+    if factory is TE.ecommerce_evaluation:
+        assert grid[0].algorithm_params_list[0][1].app_name == "env-app"
 
 
 @pytest.mark.cuda

@@ -38,7 +38,9 @@ from pio_tpu_torch.models import mlp as tmlp
 from pio_tpu_torch.models.naive_bayes import train_multinomial_nb_bags
 from pio_tpu_torch.parallel.context import ComputeContext
 from pio_tpu_torch.storage.records import App, RunStatus
+from pio_tpu_torch.storage.localfs import LocalFSModels
 from pio_tpu_torch.storage.registry import Storage, StorageConfigError
+from pio_tpu_torch.storage.sqlite import SQLiteApps, SQLiteEvents
 from pio_tpu_torch.templates.textclassification import Query
 from pio_tpu_torch.workflow import core_workflow
 from pio_tpu_torch.workflow.core_workflow import (
@@ -405,7 +407,7 @@ def test_host_pickler_copies_every_tensor_to_the_host(monkeypatch):
 
 
 # ----------------------------------------------------------------- storage
-@pytest.mark.parametrize("type_", ["sqlite", "parquet", "eventlog"])
+@pytest.mark.parametrize("type_", ["searchable", "parquet", "eventlog"])
 def test_registry_refuses_backends_not_ported(monkeypatch, type_):
     monkeypatch.setenv("PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE", "DB")
     monkeypatch.setenv("PIO_STORAGE_SOURCES_DB_TYPE", type_)
@@ -413,10 +415,22 @@ def test_registry_refuses_backends_not_ported(monkeypatch, type_):
         Storage.get_levents()
 
 
-def test_registry_unset_metadata_is_sqlite_and_refused(monkeypatch):
-    monkeypatch.delenv("PIO_STORAGE_REPOSITORIES_METADATA_SOURCE", raising=False)
-    with pytest.raises(StorageConfigError, match="'sqlite'"):
-        Storage.get_meta_data_apps()
+def test_registry_unset_defaults_are_sqlite_and_localfs(tmp_home, monkeypatch):
+    for repo in ("METADATA", "EVENTDATA", "MODELDATA"):
+        monkeypatch.delenv(f"PIO_STORAGE_REPOSITORIES_{repo}_SOURCE",
+                           raising=False)
+    Storage.reset()
+    try:
+        clients = Storage.sqlite_clients()
+        assert sorted(clients) == ["EVENTDATA", "METADATA"]
+        assert {c.path for c in clients.values()} == {str(tmp_home / "pio.db")}
+        assert isinstance(Storage.get_meta_data_apps(), SQLiteApps)
+        assert isinstance(Storage.get_levents(), SQLiteEvents)
+        models = Storage.get_model_data_models()
+        assert isinstance(models, LocalFSModels)
+        assert models.root == str(tmp_home / "models")
+    finally:
+        Storage.reset()
 
 
 def test_compute_context_create_is_one_device():
