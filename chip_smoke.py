@@ -92,7 +92,7 @@ kernels (the forward, and the backward's bag scatter and bag dot):
 22. ``run_evaluation`` of ``textclassification_evaluation`` on phase 9's
    corpus (3 folds, hidden 64 and 128) on the card, its kernel launches
    added to the kernels' line; then card against CPU on a tenth of it at
-   hidden 64;
+   hidden 64 and 2 folds;
 23. ``train_logreg`` at the classification benchmark's width
    (``bench.py``'s ``_bench_classification``: 100,000 x 256, 10 classes,
    100 Adam steps, lr 0.05) in int8, float32 and bfloat16: wall time
@@ -129,7 +129,34 @@ kernels (the forward, and the backward's bag scatter and bag dot):
    process: ``import`` of phase 9's corpus, ``train`` and ``deploy`` (on a
    thread, ended by ``undeploy``), 8 queries over HTTP against the CPU
    copy of the blob; the forward's and kernel A's launches on this path
-   join the kernels' line.
+   join the kernels' line;
+30. ``train_two_tower(None, ...)`` at ``bench.py``'s two-tower shape
+   (500,000 pairs, 100,064 users, 50,064 items, embed 64, hidden 128, out
+   64, batch 4,096, 200 steps): wall time (median of 3, the same bits
+   each time), examples/s, the stats split, peak memory, the bf16 table
+   wire, one step's kernels against ``steps_s / 200`` (the card's idle
+   share) and its bound, and the step card against CPU;
+31. two-tower training card against CPU at a small shape from one init:
+   20 steps' losses and the vector tables;
+32. the two-tower template end to end on phase 13's events: ``run_train``,
+   8 ``POST /queries.json`` against a CPU copy of the blob,
+   ``batch_predict`` of 1024 against the loop, ``twotower_evaluation``
+   card against CPU at 100 steps a point;
+33. ``train_seqrec(None, ...)`` at ``bench.py``'s sequence shape (256
+   histories, T 128, d 256, 8 heads, 4 layers, ffn 1,024, vocab 20,000, 30
+   full-batch steps): tokens/s, the stats, peak memory, a step split into
+   attention, FFN and the cross-entropy logits (kernel times), its flops
+   against the f32 peak, one layer's attention against
+   ``F.scaled_dot_product_attention`` as a yardstick, and card against CPU
+   over 16 rows;
+34. the sequence template end to end on phase 13's events in time order:
+   ``run_train``, 8 ``POST /queries.json`` by user and by history against
+   a CPU copy, ``batch_predict`` of 1024 against the loop, and
+   ``sequence_evaluation`` card against CPU at a reduced depth;
+35. checkpoints on the card: both trainers of phases 30 and 33 stopped
+   after their first snapshot and resumed, the same bits as the
+   uninterrupted runs; ``python -m pio_tpu_torch train
+   --checkpoint-every`` as a process on phase 28's SQLite home.
 
 The CLI phases write their homes under ``build/chip_smoke_homes/``
 (gitignored), made afresh each run; every server process is stopped
@@ -138,8 +165,8 @@ before its phase ends.
 Usage: ``python3 chip_smoke.py [--seed N]``. Exits non-zero when no CUDA
 device is available or any phase fails. The line before the last holds
 ``nvidia-smi``'s name and power limit, the one before it the kernels' JSON
-summary, the one before that the device programs of the recommendation and
-classification paths
+summary, the one before that the device programs of the recommendation,
+classification and neural paths
 (``{"programs": [...]}``), and the last line is ``{"ok": true, "device":
 {...}}``.
 """
@@ -175,6 +202,7 @@ from pio_tpu_torch.convert import text_mlp_from_reference  # noqa: E402
 from pio_tpu_torch.data.event import Event  # noqa: E402
 from pio_tpu_torch.data.store import PEventStore  # noqa: E402
 from pio_tpu_torch.models import als, logreg, markov_chain, mlp, naive_bayes  # noqa: E402
+from pio_tpu_torch.models import adam, seqrec, two_tower  # noqa: E402
 from pio_tpu_torch.models.naive_bayes import train_multinomial_nb_bags  # noqa: E402
 from pio_tpu_torch.models.tfidf import TfIdfVectorizer  # noqa: E402
 from pio_tpu_torch import native  # noqa: E402
@@ -194,6 +222,10 @@ from pio_tpu_torch.templates.ecommerce import ecommerce_evaluation  # noqa: E402
 from pio_tpu_torch.templates.recommendation import ALSAlgorithm as RecALS  # noqa: E402
 from pio_tpu_torch.templates.recommendation import Query as RecQuery  # noqa: E402
 from pio_tpu_torch.templates.recommendation import recommendation_evaluation  # noqa: E402
+from pio_tpu_torch.templates.sequence import Query as SeqQuery  # noqa: E402
+from pio_tpu_torch.templates.sequence import sequence_evaluation  # noqa: E402
+from pio_tpu_torch.templates.twotower import Query as TTQuery  # noqa: E402
+from pio_tpu_torch.templates.twotower import twotower_evaluation  # noqa: E402
 from pio_tpu_torch.templates.similarproduct import Query as SPQuery  # noqa: E402
 from pio_tpu_torch.templates.similarproduct import SimilarProductAlgorithm as SPAlgorithm  # noqa: E402
 from pio_tpu_torch.templates.similarproduct import known_codes, similarproduct_evaluation  # noqa: E402
@@ -207,6 +239,7 @@ from pio_tpu_torch.templates.textclassification import (  # noqa: E402
     _stack_bags,
     textclassification_evaluation,
 )
+from pio_tpu_torch.workflow.checkpoint import CheckpointManager  # noqa: E402
 from pio_tpu_torch.workflow.core_workflow import (  # noqa: E402
     load_models_for_instance,
     run_evaluation,
@@ -2754,9 +2787,10 @@ def phase_text_evaluation(args, smi) -> dict:
     if not all(a > 1.5 / len(LABELS) for a in acc):
         raise AssertionError(f"accuracies {acc} near chance")
 
-    # card against CPU on a tenth of the corpus, at one width: the CPU
-    # side of both widths took 110 s on the H100 machine's host, and both
-    # widths scored alike there
+    # card against CPU on a tenth of the corpus, at one width and two
+    # folds: the CPU side of both widths took 110 s on the H100 machine's
+    # host, and both widths scored alike there; three folds took 27-41 s,
+    # two keep the script's time as the neural phases join it
     src = Storage.get_meta_data_apps().get_by_name(APP).id
     docs = Storage.get_pevents().aggregate_properties(src, "content")
     app_id = Storage.get_meta_data_apps().insert(App(0, TEXT_TENTH_APP))
@@ -2765,7 +2799,7 @@ def phase_text_evaluation(args, smi) -> dict:
               properties={"text": docs[f"doc{k}"].get("text"),
                           "label": docs[f"doc{k}"].get("label")})
         for k in range(N_DOCS // 10)], app_id)
-    tenth = textclassification_evaluation(TEXT_TENTH_APP, eval_k=3,
+    tenth = textclassification_evaluation(TEXT_TENTH_APP, eval_k=2,
                                           hiddens=(64,))
     out = run_sweep(f"textclassification_evaluation, {N_DOCS // 10} "
                     f"documents", tenth, args)
@@ -3660,6 +3694,673 @@ def phase_cli_text(args, smi) -> dict:
     return dict(launches=launches, walls=walls, query_ms=ms)
 
 
+# ------------------------------------ the neural templates (phases 30-35)
+# bench.py:1771-1806 (_bench_twotower, BASELINE.md config #5) at scale 1:
+# 500,000 pairs of 100,064 users and 50,064 items, uniform, from
+# default_rng(4); embed 64, hidden 128, out 64, batch 4,096, 200 steps
+TT_PAIRS, TT_USERS, TT_ITEMS = 500_000, 100_064, 50_064
+TT_EMBED, TT_HIDDEN, TT_OUT, TT_BATCH, TT_STEPS = 64, 128, 64, 4096, 200
+# bench.py:1966-1975 (_bench_seqrec) at scale 1: 256 histories of length
+# 64-127 in T = 128 over a 20,000-item vocabulary, from default_rng(6);
+# d 256, 8 heads, 4 layers, ffn 1,024, 30 full-batch steps
+SEQ_N, SEQ_T, SEQ_VOCAB, SEQ_STEPS = 256, 128, 20_000, 30
+SEQ_D, SEQ_HEADS, SEQ_LAYERS, SEQ_FFN = 256, 8, 4, 1024
+# card vs CPU after Adam steps from one init: the CPU tests' tolerance of
+# the port against the reference (f32 sums in another order; 1.5e-7 seen
+# after 15-20 steps at the tests' widths)
+NEURAL_TOL = 1e-4
+# a served next-item score (an O(10) logit of a d-64 dot) or a unit-vector
+# dot, card vs the CPU copy of the blob: f32 in another order, ~1e-6
+NEURAL_SCORE_TOL = 1e-4
+# the sweeps card vs CPU: a flip of a held-out item at the top-10 boundary
+# moves two-tower HitRate by 1/100,000 (three folds of ~33,000 pairs) and
+# the sequence one by 1/943 (a user); the limits allow ~100 and ~9 flips
+TT_HITRATE_TOL = 1e-3
+SEQ_HITRATE_TOL = 0.01
+# the sweeps card vs CPU at a reduced depth, for the script's time: the
+# two-tower sweep at 100 steps a point (its default 300), the sequence one
+# at 2 folds, 10 steps, d 16 and max_len 8 (a CPU step at the template's
+# shape takes ~0.5 s; 200 a point would not fit)
+TT_EVAL_STEPS = 100
+SEQ_EVAL_CPU = dict(eval_k=2, layer_grid=(1, 2), steps=10, d_model=16,
+                    max_len=8)
+NEURAL_APP = "movielens-100k-neural"
+N_NEURAL_BATCH = 1024
+
+
+def tt_config(**kw):
+    return two_tower.TwoTowerConfig(
+        embed_dim=TT_EMBED, hidden=TT_HIDDEN, out_dim=TT_OUT,
+        steps=TT_STEPS, batch_size=TT_BATCH, **kw)
+
+
+def tt_pairs():
+    """A copy of bench.py's _bench_twotower pairs at scale 1."""
+    rng = np.random.default_rng(4)
+    u = rng.integers(0, TT_USERS, TT_PAIRS).astype(np.int32)
+    i = rng.integers(0, TT_ITEMS, TT_PAIRS).astype(np.int32)
+    return u, i
+
+
+def tt_train(u, i, cfg, **kw):
+    """train_two_tower on the card, drained: (model, host-clock s)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = two_tower.train_two_tower(None, u, i, TT_USERS, TT_ITEMS, cfg,
+                                      device=CARD, **kw)
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0
+
+
+def init_on(dev, tree):
+    """A CPU-drawn parameter tree on ``dev`` (as the trainers place it)."""
+    return adam.rebuild(tree, [t.to(dev) for t in adam.leaves(tree)])
+
+
+def tree_err(a, b) -> float:
+    """Largest |a - b| over two lists of tensors (any devices)."""
+    return max(float((x.cpu() - y.cpu()).abs().max()) for x, y in zip(a, b))
+
+
+def grad_err(loss_fn, tree, dev, *inputs) -> tuple:
+    """The loss and its gradients from ``tree`` on the card against the
+    CPU: (|loss diff|, max over the leaves of max |gradient diff| over the
+    leaf's largest |gradient|). Gradients, not the stepped weights: Adam's
+    first step moves a weight by lr·g/(|g| + 1e-8), so where |g| is near
+    1e-8 the rounding of g in another summation order moves the weight by
+    up to 2·lr whatever the gradients' agreement."""
+    out = []
+    for d in (dev, torch.device("cpu")):
+        p = [t.to(d).detach().requires_grad_(True) for t in adam.leaves(tree)]
+        loss = loss_fn(adam.rebuild(tree, p), *(x.to(d) for x in inputs))
+        out.append((float(loss.detach()), torch.autograd.grad(loss, p)))
+    (l_card, g_card), (l_cpu, g_cpu) = out
+    rel = max(float((a.cpu() - b).abs().max())
+              / max(float(b.abs().max()), 1e-30)
+              for a, b in zip(g_card, g_cpu))
+    return abs(l_card - l_cpu), rel
+
+
+def tt_step_bound(n_params: int, B: int) -> dict:
+    """One two-tower step: params, Adam's two moments and the batch's ids
+    read once, params and moments written once; the towers' two products
+    a side, the [B, B] logits, each forward product and its two backward
+    ones, and Adam's ~10 flops a parameter."""
+    mads = 2 * B * (TT_EMBED * TT_HIDDEN + TT_HIDDEN * TT_OUT) \
+        + B * B * TT_OUT
+    return bound_of(6 * 4 * n_params + 2 * 4 * B,
+                    3 * 2 * mads + 10 * n_params)
+
+
+def phase_twotower_full(args, smi) -> dict:
+    """Phase 30: train_two_tower at bench.py's two-tower shape."""
+    t_phase = time.monotonic()
+    log(f"phase 30: train_two_tower(None, ...) at bench.py's shape "
+        f"({TT_PAIRS} pairs, {TT_USERS} users, {TT_ITEMS} items, embed "
+        f"{TT_EMBED}, hidden {TT_HIDDEN}, out {TT_OUT}, batch {TT_BATCH}, "
+        f"{TT_STEPS} steps); {smi}")
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmul is on; the port computes in f32")
+    u, i = tt_pairs()
+    cfg = tt_config()
+    runs = [tt_train(u, i, cfg) for _ in range(3)]
+    walls = [w for _, w in runs]
+    wall = float(np.median(walls))
+    model = runs[0][0]
+    for other, _ in runs[1:]:
+        if not (torch.equal(other.user_vectors, model.user_vectors)
+                and torch.equal(other.item_vectors, model.item_vectors)):
+            raise AssertionError("train_two_tower: two runs differ")
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    tt_train(u, i, cfg, stats=stats)
+    peak = torch.cuda.max_memory_allocated()
+    bf_stats = {}
+    bf, bf_wall = tt_train(u, i, tt_config(table_wire="bfloat16"),
+                           stats=bf_stats)
+    if not torch.equal(bf.item_vectors,
+                       model.item_vectors.to(torch.bfloat16).float()):
+        raise AssertionError("the bf16 table wire is not the f32 tables "
+                             "rounded")
+    norms = torch.linalg.vector_norm(model.item_vectors, dim=1)
+    if not (torch.isfinite(model.item_vectors).all()
+            and float((norms - 1).abs().max()) < 1e-5):
+        raise AssertionError("the item vectors are not finite unit rows")
+
+    # one step on the card from the trainer's init, kernels by the
+    # profiler, and the loss and gradients against the CPU's
+    tree = two_tower.init_params(TT_USERS, TT_ITEMS, cfg,
+                                 torch.Generator().manual_seed(cfg.seed))
+    n_params = sum(t.numel() for t in adam.leaves(tree))
+    ub, ib = (torch.from_numpy(a[:TT_BATCH]).to(CARD) for a in (u, i))
+    card = init_on(CARD, tree)
+    vals, opt = adam.leaves(card), adam.adam_init(card)
+    launches, ms, kernels = device_busy(
+        lambda: two_tower._train_step(card, vals, opt, ub, ib, cfg), iters=5)
+    loss_err, err = grad_err(
+        lambda t, a, b: two_tower._contrastive_loss(t["user"], t["item"],
+                                                    a, b, cfg),
+        tree, CARD, ub, ib)
+    bnd = tt_step_bound(n_params, TT_BATCH)
+    idle = 1 - ms * TT_STEPS / 1e3 / stats["steps_s"]
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    log(f"  wall {wall:.4f} s (median of 3: {rounded(walls)}), "
+        f"{TT_STEPS * TT_BATCH / wall:.6g} examples/s; stats "
+        f"{json.dumps({k: (round(v, 5) if isinstance(v, float) else v) for k, v in stats.items()})}; "
+        f"peak {peak} B; the same bits three times")
+    log(f"  table_wire bfloat16: wall {bf_wall:.4f} s, stats "
+        f"{json.dumps({k: (round(v, 5) if isinstance(v, float) else v) for k, v in bf_stats.items()})}; "
+        f"the f32 tables rounded, bit for bit")
+    log(f"  one step: {ms:.5f} ms of kernels in {launches:.1f} launches "
+        f"against steps_s / {TT_STEPS} = "
+        f"{stats['steps_s'] / TT_STEPS * 1e3:.4f} ms: the card idle "
+        f"{idle:.3f} of steps_s; bound {bnd['bound_ms']:.5f} ms "
+        f"({bnd['bound_by']}; {n_params} parameters); card vs CPU at the "
+        f"init: loss {loss_err}, gradients {err} of each one's largest; "
+        f"largest kernels, ms a step: "
+        f"{json.dumps({k[:96]: round(v, 5) for k, v in top})}")
+    if err > NEURAL_TOL or loss_err > NEURAL_TOL:
+        raise AssertionError("a two-tower step on the card differs from the "
+                             "CPU's")
+    log(f"  phase 30 {time.monotonic() - t_phase:.1f} s; {smi}")
+    row = program_row("two-tower step",
+                      "pio_tpu/models/two_tower.py:138-167, 261-266",
+                      [TT_BATCH, TT_EMBED, TT_HIDDEN, TT_OUT, TT_USERS,
+                       TT_ITEMS], launches, ms, bnd, loss_err)
+    return dict(model=model, rows=[{**row, "grad_rel_err_cpu": err,
+                                    "library_ms": None}])
+
+
+def tt_small_steps(dev, tree, u, i, cfg, n_steps, B):
+    """``n_steps`` two-tower steps on ``dev`` over consecutive batches:
+    (losses, the vector tables)."""
+    params = init_on(dev, tree)
+    vals, opt = adam.leaves(params), adam.adam_init(params)
+    losses = []
+    for k in range(n_steps):
+        sl = slice(k * B, (k + 1) * B)
+        vals, opt, loss = two_tower._train_step(
+            params, vals, opt, torch.from_numpy(u[sl]).to(dev),
+            torch.from_numpy(i[sl]).to(dev), cfg)
+        losses.append(float(loss))
+    fitted = adam.rebuild(params, vals)
+    with torch.no_grad():
+        return losses, [two_tower._tower_forward(
+            fitted[t], torch.arange(fitted[t]["emb"].shape[0], device=dev))
+            for t in ("user", "item")]
+
+
+def phase_twotower_card_vs_cpu(args, smi) -> None:
+    """Phase 31: two-tower training card against CPU at a small shape."""
+    t_phase = time.monotonic()
+    n_users, n_items, B, steps = 600, 400, 256, 20
+    log(f"phase 31: two-tower card vs CPU, {steps} steps of batch {B} over "
+        f"{n_users} users and {n_items} items, from one init; {smi}")
+    rng = np.random.default_rng(args.seed + 31)
+    u = rng.integers(0, n_users, B * steps).astype(np.int32)
+    i = rng.integers(0, n_items, B * steps).astype(np.int32)
+    cfg = two_tower.TwoTowerConfig(embed_dim=32, hidden=64, out_dim=32,
+                                   steps=steps, batch_size=B)
+    tree = two_tower.init_params(n_users, n_items, cfg,
+                                 torch.Generator().manual_seed(args.seed))
+    card = tt_small_steps(CARD, tree, u, i, cfg, steps, B)
+    cpu = tt_small_steps(torch.device("cpu"), tree, u, i, cfg, steps, B)
+    loss_err = max(abs(a - b) for a, b in zip(card[0], cpu[0]))
+    vec_err = tree_err(card[1], cpu[1])
+    # and the trainer itself, card against CPU
+    got = two_tower.train_two_tower(None, u, i, n_users, n_items, cfg,
+                                    device=CARD)
+    want = two_tower.train_two_tower(None, u, i, n_users, n_items, cfg,
+                                     device="cpu")
+    train_err = tree_err([got.user_vectors, got.item_vectors],
+                         [want.user_vectors, want.item_vectors])
+    log(f"  losses {rounded(card[0][:3])} ... {card[0][-1]:.5f}, card vs CPU "
+        f"max |diff| {loss_err}; vector tables {vec_err}; train_two_tower "
+        f"card vs CPU {train_err} (limit {NEURAL_TOL})")
+    if max(loss_err, vec_err, train_err) > NEURAL_TOL:
+        raise AssertionError("two-tower training on the card differs from "
+                             "the CPU's")
+    log(f"  phase 31 {time.monotonic() - t_phase:.1f} s")
+
+
+def same_topn(got: dict, want: dict, tol: float, where: str) -> None:
+    """A served top-N against the CPU copy's answer: the same length, each
+    score within ``tol``, and the same items wherever the CPU's scores lie
+    more than ``tol`` apart."""
+    g, w = got["itemScores"], want["itemScores"]
+    ok = len(g) == len(w)
+    for a, b in zip(g, w):
+        ok = ok and abs(a["score"] - b["score"]) <= tol
+        if ok and a["item"] != b["item"]:
+            tied = [s["score"] for s in w if s["item"] == a["item"]]
+            ok = bool(tied) and abs(tied[0] - b["score"]) <= tol
+    if not ok:
+        raise AssertionError(f"{where}: {got} is not the CPU copy's {want}")
+
+
+def gpu_tensors(model) -> list:
+    """The tensors of a two-tower or sequence engine model."""
+    if hasattr(model.model, "params"):
+        return adam.leaves(model.model.params)
+    return [model.model.user_vectors, model.model.item_vectors]
+
+
+def neural_template(args, smi, variant_dict, query_cls, bodies_fn,
+                    batch_fn):
+    """run_train of ``variant_dict`` on the card, the blob loaded on the card
+    and on the CPU, 8 POST /queries.json against the CPU copy, and
+    batch_predict of 1024 against the predict loop. Returns the launches."""
+    variant = variant_from_dict(variant_dict)
+    engine, ep = build_engine(variant)
+    ctx = ComputeContext.create(args.seed, device=CARD)
+    t0 = time.monotonic()
+    iid = run_train(engine, ep, variant, ctx=ctx)
+    train_s = time.monotonic() - t0
+    inst = Storage.get_meta_data_engine_instances().get(iid)
+    phases = {k: v for k, v in inst.env.items() if k.startswith("phase_")}
+    if inst.env["device"] != str(CARD):
+        raise AssertionError("run_train did not run on the card")
+    gpu = load_models_for_instance(iid, engine, ep, ctx)
+    cpu = load_models_for_instance(
+        iid, engine, ep, ComputeContext.local(args.seed, device="cpu"))
+    if any(t.device.type != CARD.type for t in gpu_tensors(gpu[0])):
+        raise AssertionError("the loaded model is not on the card")
+    log(f"  run_train {train_s:.2f} s (host clock); phases "
+        f"{json.dumps(phases)}")
+    algo = engine._algorithms(ep)[0]
+    bodies = bodies_fn(gpu[0])
+    answers, http_launches, ms = serve_bodies(engine, ep, gpu, bodies)
+    for k, (body, got) in enumerate(zip(bodies, answers)):
+        want = algo.predict(cpu[0], params_from_dict(query_cls, body))
+        same_topn(got, want.to_dict(), NEURAL_SCORE_TOL, f"query {k} {body}")
+    log(f"  {len(bodies)} POST /queries.json on the card match the CPU copy "
+        f"of the blob; {http_launches} launches; host clock ms per request "
+        f"{rounded(ms)}")
+    if http_launches == 0:
+        raise AssertionError("the served path launched nothing on the card")
+    qs = batch_fn(gpu[0])
+    t0 = time.perf_counter()
+    batch, batch_launches = count_kernels(
+        lambda: dict(algo.batch_predict(gpu[0], qs)))
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    loop = {k: algo.predict(gpu[0], q) for k, q in qs}
+    loop_ms = (time.perf_counter() - t0) * 1e3
+    for k, _ in qs:
+        same_topn(batch[k].to_dict(), loop[k].to_dict(), NEURAL_SCORE_TOL,
+                  f"batch query {k}")
+    log(f"  batch_predict of {len(qs)}: {batch_ms:.1f} ms, {batch_launches} "
+        f"launches; the predict loop {loop_ms:.1f} ms (host clock, the batch "
+        f"under the profiler); equal within {NEURAL_SCORE_TOL}")
+    if batch_launches == 0:
+        raise AssertionError("batch_predict launched nothing on the card")
+
+
+def phase_twotower_template(args, smi) -> None:
+    """Phase 32: the two-tower template end to end at MovieLens-100K's
+    shape (phase 13's events), and its sweep card vs CPU."""
+    t_phase = time.monotonic()
+    log(f"phase 32: templates.twotower end to end on phase 13's events "
+        f"(MovieLens-100K's shape), the template's defaults (500 steps of "
+        f"batch 256): run_train, {N_REC_HTTP} POST /queries.json against "
+        f"the CPU copy, batch_predict of {N_NEURAL_BATCH}, "
+        f"twotower_evaluation card vs CPU at {TT_EVAL_STEPS} steps; {smi}")
+    app_id = Storage.get_meta_data_apps().insert(App(0, NEURAL_APP))
+    t0 = time.monotonic()
+    n_events = rec_events(np.random.default_rng(args.seed + 3), app_id)
+    log(f"  ingest {n_events} events {time.monotonic() - t0:.2f} s")
+
+    def bodies(model):
+        users = sorted(model.user_index.keys())
+        items = list(model.item_index.keys())
+        return [
+            {"user": users[0], "num": 10},
+            {"user": users[1], "num": 10, "blackList": items[:5]},
+            {"user": users[2], "item": items[7]},
+            {"user": "stranger", "num": 10},
+            {"user": users[3], "num": 0},
+            {"user": users[4], "num": 20},
+            {"user": users[5], "num": 5, "blackList": items[:50]},
+            {"user": users[6]},
+        ]
+
+    def batch(model):
+        users = sorted(model.user_index.keys())
+        return [(k, TTQuery(user=users[k % len(users)], num=10))
+                for k in range(N_NEURAL_BATCH)]
+
+    neural_template(args, smi, {
+        "id": "twotower-chip-smoke", "engineFactory": "templates.twotower",
+        "datasource": {"params": {"app_name": NEURAL_APP}},
+        "algorithms": [{"name": "twotower", "params": {"seed": args.seed}}],
+    }, TTQuery, bodies, batch)
+    out = run_sweep("twotower_evaluation",
+                    twotower_evaluation(NEURAL_APP, steps=TT_EVAL_STEPS), args)
+    compare_sweeps("twotower_evaluation", out, TT_HITRATE_TOL)
+    log(f"  phase 32 {time.monotonic() - t_phase:.1f} s")
+
+
+def seq_histories():
+    """A copy of bench.py's _bench_seqrec histories at scale 1."""
+    rng = np.random.default_rng(6)
+    lens = rng.integers(SEQ_T // 2, SEQ_T, SEQ_N)
+    seqs = np.zeros((SEQ_N, SEQ_T), np.int32)
+    for r in range(SEQ_N):
+        seqs[r, : lens[r]] = rng.integers(1, SEQ_VOCAB + 1, lens[r])
+    return seqs
+
+
+def seq_config(**kw):
+    return seqrec.SeqRecConfig(
+        d_model=SEQ_D, n_heads=SEQ_HEADS, n_layers=SEQ_LAYERS, ffn=SEQ_FFN,
+        max_len=SEQ_T, steps=SEQ_STEPS, **kw)
+
+
+def seq_train(seqs, cfg, **kw):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = seqrec.train_seqrec(None, seqs, SEQ_VOCAB, cfg, device=CARD, **kw)
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0
+
+
+def seq_batch(seqs, dev):
+    targets = np.zeros_like(seqs)
+    targets[:, :-1] = seqs[:, 1:]
+    mask = ((targets > 0) & (seqs > 0)).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(dev) for a in (seqs, targets, mask))
+
+
+def seq_flops(rows: int) -> int:
+    """bench.py:1985-1988: the step's matmul flops over ``rows`` rows
+    (projections, scores and values, FFN, the logits; x3 for the
+    backward; gathers not counted)."""
+    fwd_per_token = SEQ_LAYERS * (8 * SEQ_D * SEQ_D + 4 * SEQ_T * SEQ_D
+                                  + 4 * SEQ_D * SEQ_FFN) \
+        + 2 * SEQ_D * (SEQ_VOCAB + 1)
+    return 3 * fwd_per_token * rows * SEQ_T
+
+
+def fwd_bwd(fn, inputs):
+    """``fn(*inputs)`` and its backward with a ones gradient."""
+    def run():
+        out = fn(*inputs)
+        grads = torch.autograd.grad(out, [x for x in inputs
+                                          if x.requires_grad],
+                                    torch.ones_like(out))
+        return out, grads
+    return run
+
+
+def phase_seqrec_full(args, smi) -> dict:
+    """Phase 33: train_seqrec at bench.py's sequence shape."""
+    t_phase = time.monotonic()
+    log(f"phase 33: train_seqrec(None, ...) at bench.py's shape ({SEQ_N} "
+        f"histories, T {SEQ_T}, d {SEQ_D}, {SEQ_HEADS} heads, {SEQ_LAYERS} "
+        f"layers, ffn {SEQ_FFN}, vocab {SEQ_VOCAB}, {SEQ_STEPS} full-batch "
+        f"steps); {smi}")
+    seqs = seq_histories()
+    cfg = seq_config()
+    runs = [seq_train(seqs, cfg) for _ in range(3)]
+    walls = [w for _, w in runs]
+    wall = float(np.median(walls))
+    model = runs[0][0]
+    for other, _ in runs[1:]:
+        for a, b in zip(adam.leaves(model.params), adam.leaves(other.params)):
+            if not torch.equal(a, b):
+                raise AssertionError("train_seqrec: two runs differ")
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    seq_train(seqs, cfg, stats=stats)
+    peak = torch.cuda.max_memory_allocated()
+    h = seqs[:8, :SEQ_T]
+    scores = model.next_item_scores(h)
+    if scores.shape != (8, SEQ_VOCAB + 1) or not np.isfinite(scores).all():
+        raise AssertionError(f"next_item_scores gave {scores.shape}")
+
+    # the step, and its parts, from the trainer's init
+    tree = seqrec.init_params(SEQ_VOCAB + 1, cfg,
+                              torch.Generator().manual_seed(cfg.seed))
+    params = init_on(CARD, tree)
+    vals, opt = adam.leaves(params), adam.adam_init(params)
+    batch = seq_batch(seqs, CARD)
+    launches, step_ms, kernels = device_busy(
+        lambda: seqrec._train_step(params, vals, opt, batch, cfg), iters=3)
+    B, T, D, H = SEQ_N, SEQ_T, SEQ_D, SEQ_HEADS
+    gen = torch.Generator(device=CARD).manual_seed(args.seed)
+
+    def rnd(*shape, grad=True):
+        x = torch.randn(shape, generator=gen, device=CARD) * 0.3
+        return x.requires_grad_(grad)
+
+    blk = {k: v[0].detach().requires_grad_(True)
+           for k, v in params["blocks"].items()}
+    q, k_, v_ = (rnd(B, T, H, D // H) for _ in range(3))
+    _, attn_ms, _ = device_busy(fwd_bwd(
+        lambda a, b, c: seqrec.ring_attention(a, b, c), (q, k_, v_)), iters=3)
+    x = rnd(B, T, D)
+
+    def ffn(x, g, b, w1, b1, w2, b2):
+        y = seqrec._ln(x, g, b)
+        return x + torch.relu(y @ w1 + b1) @ w2 + b2
+
+    _, ffn_ms, _ = device_busy(fwd_bwd(ffn, (
+        x, blk["ln2_g"], blk["ln2_b"], blk["w1"], blk["b1"], blk["w2"],
+        blk["b2"])), iters=3)
+    hid = rnd(B, T, D)
+    emb = params["emb"].detach().requires_grad_(True)
+
+    def ce(h_, e_):
+        s, n = seqrec._vocab_parallel_ce(h_, e_, batch[1], batch[2])
+        return s / torch.clamp_min(n, 1.0)
+
+    ce_launches, ce_ms, _ = device_busy(fwd_bwd(ce, (hid, emb)), iters=3)
+    parts = {"attention": SEQ_LAYERS * attn_ms, "ffn": SEQ_LAYERS * ffn_ms,
+             "ce_logits": ce_ms}
+    parts["other"] = step_ms - sum(parts.values())
+    flops = seq_flops(SEQ_N)
+    step_bnd = bound_of(6 * 4 * sum(t.numel() for t in vals)
+                        + 12 * B * T, flops)
+    ce_bnd = bound_of(2 * 4 * (B * T * D + (SEQ_VOCAB + 1) * D)
+                      + 8 * B * T, 3 * 2 * B * T * D * (SEQ_VOCAB + 1))
+    tokens = SEQ_N * SEQ_T * SEQ_STEPS
+    log(f"  wall {wall:.4f} s (median of 3: {rounded(walls)}), "
+        f"{tokens / wall:.6g} tokens/s; stats "
+        f"{json.dumps({k: (round(v, 5) if isinstance(v, float) else v) for k, v in stats.items()})}; "
+        f"peak {peak} B (the [{B}, {T}, {SEQ_VOCAB + 1}] logits are "
+        f"{B * T * (SEQ_VOCAB + 1) * 4} B); the same bits three times")
+    log(f"  one step {step_ms:.4f} ms of kernels in {launches:.1f} launches "
+        f"(steps_s / {SEQ_STEPS} = {stats['steps_s'] / SEQ_STEPS * 1e3:.4f} ms: "
+        f"the card idle {1 - step_ms * SEQ_STEPS / 1e3 / stats['steps_s']:.3f}); "
+        f"split, ms: {json.dumps({k: round(v, 4) for k, v in parts.items()})}; "
+        f"{flops} flops a step (bench.py's count): "
+        f"{flops / step_ms / 1e9:.4g} TFLOP/s of kernels, "
+        f"{flops * SEQ_STEPS / stats['steps_s'] / 1e12:.4g} over steps_s, "
+        f"against 67 TFLOP/s f32 (bound {step_bnd['bound_ms']:.4f} ms, "
+        f"{step_bnd['bound_by']})")
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    log(f"  largest kernels of a step, ms: "
+        f"{json.dumps({k[:96]: round(v, 4) for k, v in top})}")
+
+    # the yardstick: one layer's attention against SDPA (never in the port)
+    qd, kd, vd = (t.detach() for t in (q, k_, v_))
+    ours = seqrec.ring_attention(qd, kd, vd)
+    lib = F.scaled_dot_product_attention(
+        qd.transpose(1, 2), kd.transpose(1, 2), vd.transpose(1, 2),
+        is_causal=True).transpose(1, 2)
+    sdpa_err = float((ours - lib).abs().max())
+    t_attn = timed_in_turns({
+        "plain": lambda: seqrec.ring_attention(qd, kd, vd),
+        "sdpa": lambda: F.scaled_dot_product_attention(
+            qd.transpose(1, 2), kd.transpose(1, 2), vd.transpose(1, 2),
+            is_causal=True)})
+    attn_bnd = bound_of(4 * 4 * B * T * D, 2 * 2 * B * H * T * T * (D // H))
+    log(f"  attention of one layer [{B}, {H}, {T}, {D // H}], forward: "
+        f"plain torch {t_attn['plain']:.4f} ms, "
+        f"F.scaled_dot_product_attention(is_causal=True) {t_attn['sdpa']:.4f} "
+        f"ms (a yardstick only), bound {attn_bnd['bound_ms']:.4f} ms "
+        f"({attn_bnd['bound_by']}); max |diff| {sdpa_err}")
+    if sdpa_err > NEURAL_TOL:
+        raise AssertionError("the attention differs from SDPA's")
+
+    # card vs CPU: the loss and its gradients over 16 of the rows (the
+    # whole width; the full batch takes minutes on the CPU)
+    few = seq_batch(seqs[:16], torch.device("cpu"))
+    loss_err, err = grad_err(
+        lambda t, *b: seqrec._loss(t, *b, cfg), tree, CARD, *few)
+    def ce_of(t, tg, m):
+        s_, n_ = seqrec._vocab_parallel_ce(t["h"], t["emb"], tg, m)
+        return s_ / torch.clamp_min(n_, 1.0)
+
+    ce_loss_err, ce_err = grad_err(
+        ce_of, {"h": hid[:16].detach().cpu(), "emb": emb.detach().cpu()},
+        CARD, few[1], few[2])
+    attn_err = float((seqrec.ring_attention(qd[:16], kd[:16], vd[:16]).cpu()
+                      - seqrec.ring_attention(qd[:16].cpu(), kd[:16].cpu(),
+                                              vd[:16].cpu())).abs().max())
+    log(f"  card vs CPU over 16 rows at the init: loss {loss_err}, "
+        f"gradients {err} of each one's largest; the cross-entropy alone "
+        f"{ce_loss_err}, its gradients {ce_err}; attention {attn_err} "
+        f"(limit {NEURAL_TOL})")
+    if max(err, loss_err, ce_loss_err, ce_err, attn_err) > NEURAL_TOL:
+        raise AssertionError("a seqrec step on the card differs from the "
+                             "CPU's")
+    log(f"  phase 33 {time.monotonic() - t_phase:.1f} s; {smi}")
+    shape = [B, T, D, H, SEQ_LAYERS, SEQ_FFN, SEQ_VOCAB + 1]
+    return dict(model=model, rows=[
+        {**program_row("transformer step (full batch)",
+                       "pio_tpu/models/seqrec.py:184-326, 576-582", shape,
+                       launches, step_ms, step_bnd, loss_err),
+         "grad_rel_err_cpu": err, "library_ms": None},
+        {**program_row("cross-entropy logits, forward and backward",
+                       "pio_tpu/models/seqrec.py:293-326",
+                       [B, T, D, SEQ_VOCAB + 1], ce_launches, ce_ms, ce_bnd,
+                       ce_loss_err), "grad_rel_err_cpu": ce_err,
+         "library_ms": None},
+        {**program_row("causal attention of one layer, forward",
+                       "pio_tpu/parallel/ring.py:67-118",
+                       [B, H, T, D // H], None, t_attn["plain"], attn_bnd,
+                       attn_err), "library_ms": t_attn["sdpa"]},
+    ])
+
+
+def phase_sequence_template(args, smi) -> None:
+    """Phase 34: the sequence template end to end on phase 13's events in
+    time order, and its sweep card vs CPU."""
+    t_phase = time.monotonic()
+    log(f"phase 34: templates.sequence end to end on phase 13's events (943 "
+        f"histories in time order), the template's defaults (d 64, 2 layers, "
+        f"max_len 64, 300 full-batch steps): run_train, {N_REC_HTTP} POST "
+        f"/queries.json by user and by history against the CPU copy, "
+        f"batch_predict of {N_NEURAL_BATCH}, sequence_evaluation card vs "
+        f"CPU at {json.dumps(SEQ_EVAL_CPU)}; {smi}")
+
+    def bodies(model):
+        users = sorted(model.user_histories)
+        items = list(model.item_index.keys())
+        return [
+            {"user": users[0], "num": 10},
+            {"user": users[1], "num": 5},
+            {"user": users[2], "num": 20},
+            {"history": items[:5], "num": 10},
+            {"history": ["unknown", items[9], items[3]], "num": 10},
+            {"history": ["unknown"]},
+            {"user": "stranger", "num": 10},
+            {"history": items[: 3 * 64], "num": 10},  # past max_len
+        ]
+
+    def batch(model):
+        users = sorted(model.user_histories)
+        items = list(model.item_index.keys())
+        return [(k, SeqQuery(user=users[k % len(users)], num=10)
+                 if k % 4 else SeqQuery(history=tuple(items[k % 97:][:12]),
+                                        num=10))
+                for k in range(N_NEURAL_BATCH)]
+
+    neural_template(args, smi, {
+        "id": "sequence-chip-smoke", "engineFactory": "templates.sequence",
+        "datasource": {"params": {"app_name": NEURAL_APP}},
+        "algorithms": [{"name": "seqrec", "params": {"seed": args.seed}}],
+    }, SeqQuery, bodies, batch)
+    out = run_sweep("sequence_evaluation (reduced)",
+                    sequence_evaluation(NEURAL_APP, **SEQ_EVAL_CPU), args)
+    compare_sweeps("sequence_evaluation (reduced)", out, SEQ_HITRATE_TOL)
+    log(f"  phase 34 {time.monotonic() - t_phase:.1f} s")
+
+
+def resumed(name, train, uninterrupted, every, total, directory):
+    """Stop ``train`` after its first snapshot, resume it to ``total``
+    steps, and hold the result against ``uninterrupted``'s tensors:
+    (seconds of the two runs)."""
+    shutil.rmtree(directory, ignore_errors=True)
+    mgr = CheckpointManager(directory)
+    t0 = time.monotonic()
+    train(every, checkpoint=mgr, checkpoint_every=every)
+    first = time.monotonic() - t0
+    if mgr.latest_step() != every:
+        raise AssertionError(f"{name}: no snapshot at step {every}")
+    t0 = time.monotonic()
+    got = train(total, checkpoint=mgr, checkpoint_every=every)
+    second = time.monotonic() - t0
+    if mgr.latest_step() != total:
+        raise AssertionError(f"{name}: the resumed run saved no step {total}")
+    diff = tree_err(got, uninterrupted)
+    log(f"  {name}: stopped after the snapshot at {every} ({first:.2f} s), "
+        f"resumed to {total} ({second:.2f} s); snapshots "
+        f"{sorted(os.listdir(directory))}; against the uninterrupted run "
+        f"max |diff| {diff}: "
+        + ("the same bits" if diff == 0 else "NOT the same bits"))
+    if diff != 0:
+        raise AssertionError(f"{name}: the resumed run differs")
+
+
+def phase_checkpoints(args, smi, tt, seq) -> None:
+    """Phase 35: both trainers stopped after their first snapshot and
+    resumed on the card, against phases 30 and 33's uninterrupted runs;
+    then ``pio train --checkpoint-every`` as a process."""
+    t_phase = time.monotonic()
+    tt_every, seq_every = TT_STEPS // 3, SEQ_STEPS // 3
+    log(f"phase 35: checkpoints on the card: train_two_tower at phase 30's "
+        f"shape every {tt_every} of {TT_STEPS} steps, train_seqrec at phase "
+        f"33's every {seq_every} of {SEQ_STEPS}, each stopped after its first "
+        f"snapshot and resumed; then python -m pio_tpu_torch train "
+        f"--checkpoint-every; {smi}")
+    home = fresh_home("checkpoints")
+    u, i = tt_pairs()
+    resumed(
+        "train_two_tower",
+        lambda n, **kw: (lambda m: [m.user_vectors, m.item_vectors])(
+            tt_train(u, i, dataclasses.replace(tt_config(), steps=n),
+                     **kw)[0]),
+        [tt["model"].user_vectors, tt["model"].item_vectors], tt_every,
+        TT_STEPS, os.path.join(home, "two_tower"))
+    seqs = seq_histories()
+    resumed(
+        "train_seqrec",
+        lambda n, **kw: adam.leaves(seq_train(
+            seqs, dataclasses.replace(seq_config(), steps=n), **kw)[0].params),
+        adam.leaves(seq["model"].params), seq_every, SEQ_STEPS,
+        os.path.join(home, "seqrec"))
+
+    # the CLI: the quickstart's SQLite home of phase 28, a two-tower engine
+    qs_home = os.path.join(CLI_HOMES, "quickstart")
+    ej = os.path.join(home, "twotower.json")
+    with open(ej, "w") as f:
+        json.dump({"id": "twotower-cli", "engineFactory": "templates.twotower",
+                   "datasource": {"params": {"app_name": QS_APP}},
+                   "algorithms": [{"name": "twotower",
+                                   "params": {"steps": 300}}]}, f)
+    ck = os.path.join(home, "cli")
+    out, wall = cli(cli_env(qs_home), "train", "--engine-json", ej,
+                    "--checkpoint-every", "100", "--checkpoint-dir", ck)
+    snaps = sorted(os.listdir(os.path.join(ck, "algo0_twotower")))
+    log(f"  pio train --checkpoint-every 100 (300 steps): {wall:.2f} s; "
+        f"{out.strip().splitlines()[-1]}; snapshots {snaps}")
+    if snaps != ["100", "200", "300", "fingerprint.json"]:
+        raise AssertionError(f"pio train left snapshots {snaps}")
+    log(f"  phase 35 {time.monotonic() - t_phase:.1f} s")
+
+
 def kernel_entry(name, source, replaces, launches, row) -> dict:
     """One kernel of the JSON line, from its main timed row."""
     return {
@@ -3784,6 +4485,16 @@ def main(argv=None) -> int:
     cli_text = phase_cli_text(args, smi)["launches"]
     for entry in summary:
         entry["launches"] += text_eval[entry["name"]] + cli_text[entry["name"]]
+    # the neural templates: no hand-written kernel either; their device
+    # programs join the programs' line
+    tt = phase_twotower_full(args, smi)
+    full["rows"] += tt["rows"]
+    phase_twotower_card_vs_cpu(args, smi)
+    phase_twotower_template(args, smi)
+    seq = phase_seqrec_full(args, smi)
+    full["rows"] += seq["rows"]
+    phase_sequence_template(args, smi)
+    phase_checkpoints(args, smi, tt, seq)
     log(f"text evaluation sweep launches (added to the kernels' line): "
         f"{json.dumps(text_eval)}")
     log(f"CLI train + deploy launches (added to the kernels' line): "

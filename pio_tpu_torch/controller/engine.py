@@ -6,9 +6,11 @@ variant to :class:`EngineParams`, trains (``Engine.train``: read →
 prepare → each algorithm, with per-phase seconds), evaluates
 (``Engine.eval``: per fold of ``read_eval``, prepare, train and serve the
 fold's queries) and turns trained models into ``(algorithm, model)`` pairs
-for the query server. The trace, trainwatch and checkpoint hooks of the
-reference's ``train`` come with later slices. Engine factories register by
-name (``@register_engine``) or resolve as ``"module.path:attribute"``.
+for the query server. With a context that names a checkpoint directory,
+``train`` gives each algorithm its own ``CheckpointManager``. The trace
+and trainwatch hooks of the reference's ``train`` come with later slices.
+Engine factories register by name (``@register_engine``) or resolve as
+``"module.path:attribute"``.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from __future__ import annotations
 import dataclasses
 import importlib
 import logging
+import os
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Type
 
@@ -146,6 +149,9 @@ class Engine:
 
         ``timings``, when given, is filled with per-phase wall seconds
         (``read``, ``prepare``, ``train:<i>_<algo>``), as the reference's.
+        With ``ctx.checkpoint_base`` and ``ctx.checkpoint_every`` set, each
+        algorithm trains with a ``CheckpointManager`` of its own under
+        ``<checkpoint_base>/algo<i>_<name>``, closed when it returns.
         """
 
         def _phase(name, fn):
@@ -173,11 +179,26 @@ class Engine:
             log.info("stopping after prepare (stop_after_prepare)")
             return []
         names = [n for n, _ in engine_params.algorithm_params_list]
-        # index-prefixed: two algorithms of one name keep their own phase
-        return [
-            _phase(f"train:{i}_{names[i]}", lambda a=algo: a.train(ctx, pd))
-            for i, algo in enumerate(self._algorithms(engine_params))
-        ]
+        models = []
+        for i, algo in enumerate(self._algorithms(engine_params)):
+            algo_ctx, manager = ctx, None
+            if ctx.checkpoint_base and ctx.checkpoint_every > 0:
+                from pio_tpu_torch.workflow.checkpoint import CheckpointManager
+
+                # per-algorithm subdir: two algorithms in one engine must
+                # never restore each other's snapshots
+                manager = CheckpointManager(os.path.join(
+                    ctx.checkpoint_base, f"algo{i}_{names[i]}"))
+                algo_ctx = dataclasses.replace(ctx, checkpoint=manager)
+            try:
+                # index-prefixed: two algorithms of one name keep their
+                # own phase
+                models.append(_phase(f"train:{i}_{names[i]}",
+                                     lambda: algo.train(algo_ctx, pd)))
+            finally:
+                if manager is not None:
+                    manager.close()
+        return models
 
     def eval(
         self, ctx: ComputeContext, engine_params: EngineParams

@@ -2,10 +2,12 @@
 
 The reference persists plain numpy arrays and Python values; this module
 takes those values (never a reference object) and builds the port's model
-on a device: the text-classification MLP and the recommendation ALS
-model; and the similar-product, e-commerce and classification models,
-which hold host numpy arrays (the classification models' resident scorer
-is placed by the query server).
+on a device: the text-classification MLP, the recommendation ALS model
+and the two-tower and sequence models (their trained engine models, and
+the reference's initial parameter trees, so that both packages train
+from one init); and the similar-product, e-commerce and classification
+models, which hold host numpy arrays (the classification models'
+resident scorer is placed by the query server).
 The tests build the mapping from a model trained by the JAX
 package; ``chip_smoke.py`` builds it from seeded random weights.
 """
@@ -15,22 +17,27 @@ from __future__ import annotations
 from typing import Any, Mapping
 
 import numpy as np
+import torch
 
-from pio_tpu_torch import DeviceLike
+from pio_tpu_torch import DeviceLike, resolve_device
 from pio_tpu_torch.data.bimap import BiMap
 from pio_tpu_torch.models.als import ALSFactors
 from pio_tpu_torch.models.logreg import LogRegModel
 from pio_tpu_torch.models.mlp import MLPModel
 from pio_tpu_torch.models.naive_bayes import MultinomialNBModel
+from pio_tpu_torch.models.seqrec import SeqRecConfig, SeqRecModel
 from pio_tpu_torch.models.tfidf import TfIdfVectorizer
+from pio_tpu_torch.models.two_tower import TwoTowerConfig, TwoTowerModel
 from pio_tpu_torch.templates.classification import (
     LogRegClassifierModel,
     NBClassifierModel,
 )
 from pio_tpu_torch.templates.ecommerce import ECommModel
 from pio_tpu_torch.templates.recommendation import ALSModel
+from pio_tpu_torch.templates.sequence import SeqRecEngineModel
 from pio_tpu_torch.templates.similarproduct import SimilarProductModel
 from pio_tpu_torch.templates.textclassification import TextMLPModel
+from pio_tpu_torch.templates.twotower import TwoTowerEngineModel
 
 
 def text_mlp_from_reference(
@@ -221,3 +228,107 @@ def nb_classifier_from_reference(
     return NBClassifierModel(
         MultinomialNBModel(log_prior=lp, log_theta=lt, feature_scales=scales),
         index, lt.shape[1])
+
+
+_TOWER_KEYS = ("emb", "w1", "b1", "w2", "b2")
+_SEQREC_BLOCK_KEYS = ("ln1_g", "ln1_b", "wq", "wk", "wv", "wo",
+                      "ln2_g", "ln2_b", "w1", "b1", "w2", "b2")
+
+
+def _tensor_tree(tree: Mapping[str, Any], keys, device: torch.device,
+                 where: str) -> dict:
+    """``tree``'s arrays, by ``keys`` (a key maps to a nested tuple of
+    keys for a sub-tree), as float32 tensors on ``device``."""
+    if set(tree) != {k if isinstance(k, str) else k[0] for k in keys}:
+        raise ValueError(f"{where}: keys {sorted(tree)} are not the model's")
+    out = {}
+    for k in keys:
+        if isinstance(k, str):
+            out[k] = torch.from_numpy(
+                np.array(tree[k], np.float32)).to(device)
+        else:
+            out[k[0]] = _tensor_tree(tree[k[0]], k[1], device,
+                                     f"{where}/{k[0]}")
+    return out
+
+
+def twotower_params_from_reference(
+    tree: Mapping[str, Any], device: DeviceLike = None
+) -> dict:
+    """The reference's two-tower parameter tree (``{"user": tower, "item":
+    tower}``, each tower ``emb [V, E]``, ``w1 [E, H]``, ``b1 [H]``,
+    ``w2 [H, O]``, ``b2 [O]``, as host arrays) as the port's, on
+    ``device``: what ``two_tower.init_params`` returns."""
+    dev = resolve_device(device)
+    return _tensor_tree(
+        tree, (("user", _TOWER_KEYS), ("item", _TOWER_KEYS)), dev,
+        "two-tower params")
+
+
+def seqrec_params_from_reference(
+    tree: Mapping[str, Any], device: DeviceLike = None
+) -> dict:
+    """The reference's layer-stacked sequence-model tree (``emb``,
+    ``pos``, ``blocks`` with a leading layer dim, ``lnf_g``, ``lnf_b``)
+    as the port's, on ``device``: what ``seqrec.init_params`` returns."""
+    dev = resolve_device(device)
+    return _tensor_tree(
+        tree, ("emb", "pos", ("blocks", _SEQREC_BLOCK_KEYS), "lnf_g",
+               "lnf_b"), dev, "seqrec params")
+
+
+def twotower_model_from_reference(
+    arrays: Mapping[str, Any], device: DeviceLike = None
+) -> TwoTowerEngineModel:
+    """Build a :class:`TwoTowerEngineModel` on ``device`` from plain values.
+
+    ``arrays`` holds the reference ``TwoTowerEngineModel``'s fields by
+    name: ``user_vectors [U, D]`` and ``item_vectors [I, D]`` (its
+    ``TwoTowerModel``), ``config`` (the ``TwoTowerConfig``'s fields as a
+    mapping), and ``user_index`` and ``item_index`` (string id → code,
+    codes the rows).
+    """
+    dev = resolve_device(device)
+    uv = _factors(arrays, "user_vectors")
+    iv = _factors(arrays, "item_vectors")
+    if uv.shape[1] != iv.shape[1]:
+        raise ValueError(f"vector widths differ: {uv.shape} and {iv.shape}")
+    model = TwoTowerModel(
+        user_vectors=torch.from_numpy(uv.copy()).to(dev),
+        item_vectors=torch.from_numpy(iv.copy()).to(dev),
+        config=TwoTowerConfig(**dict(arrays.get("config", {}))),
+    )
+    return TwoTowerEngineModel(
+        model, _index(arrays, "user_index", uv.shape[0]),
+        _index(arrays, "item_index", iv.shape[0]),
+    )
+
+
+def seqrec_model_from_reference(
+    arrays: Mapping[str, Any], device: DeviceLike = None
+) -> SeqRecEngineModel:
+    """Build a :class:`SeqRecEngineModel` on ``device`` from plain values.
+
+    ``arrays`` holds the reference ``SeqRecEngineModel``'s fields by name:
+    ``params`` (the trained tree, ``emb`` of ``n_items + 1`` rows, row 0
+    the pad), ``n_items`` and ``config`` (the ``SeqRecConfig``'s fields as
+    a mapping) of its ``SeqRecModel``; ``item_index`` (string id → code,
+    codes ``0..n_items-1``; the model's rows are the codes plus one) and
+    ``user_histories`` (user id → list of item codes plus one).
+    """
+    params = seqrec_params_from_reference(arrays["params"], device)
+    n_items = int(arrays["n_items"])
+    if params["emb"].shape[0] != n_items + 1:
+        raise ValueError(
+            f"emb has {params['emb'].shape[0]} rows for {n_items} items "
+            f"and the pad row"
+        )
+    histories = {str(u): [int(c) for c in h]
+                 for u, h in dict(arrays["user_histories"]).items()}
+    if any(c < 1 or c > n_items for h in histories.values() for c in h):
+        raise ValueError(f"history codes must lie in [1, {n_items}]")
+    return SeqRecEngineModel(
+        SeqRecModel(params=params, n_items=n_items,
+                    config=SeqRecConfig(**dict(arrays["config"]))),
+        _index(arrays, "item_index", n_items), histories,
+    )

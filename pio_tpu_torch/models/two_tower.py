@@ -1,0 +1,305 @@
+"""Two-tower retrieval model on one device, in-batch softmax.
+
+Counterpart of ``pio_tpu/models/two_tower.py`` for ``mesh=None`` (the
+reference's single-device path, which ``bench.py:1882`` measures): a user
+tower and an item tower, each ``embed → relu MLP → L2-normalized
+vector``; the score is their dot product; training is the in-batch
+sampled-softmax contrastive loss (each row's positive item, the other
+rows' items as negatives) under Adam.
+
+The reference computes this as one XLA program (gathers, two dots, a
+logsumexp, optax's Adam inside ``lax.scan``); no Pallas kernel is on the
+path, so the port runs it as PyTorch ops: ``F.embedding`` for the gather
+(its CUDA backward sums in a fixed order, so a resumed run gives the same
+bits), ``torch.matmul`` for the dots in full f32 (TF32 stays off, as
+PyTorch's default has it), and :mod:`pio_tpu_torch.models.adam`. The
+dp / tp / ep mesh paths and the streamed epoch feed come with the
+multi-device slice (ROADMAP A7).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from pio_tpu_torch import DeviceLike, resolve_device
+from pio_tpu_torch.models.adam import adam_init, adam_update, leaves, rebuild
+from pio_tpu_torch.parallel.partition import (
+    DeviceBudgetExceeded,
+    assert_device_budget,
+    device_budget_bytes,
+)
+from pio_tpu_torch.parallel.vocab import vocab_parallel_lookup
+from pio_tpu_torch.utils.numutil import round_up as _round_up
+from pio_tpu_torch.workflow.checkpoint import (
+    run_chunked_steps,
+    state_fingerprint,
+)
+
+@dataclasses.dataclass(frozen=True)
+class TwoTowerConfig:
+    embed_dim: int = 64
+    hidden: int = 128
+    out_dim: int = 64
+    temperature: float = 20.0  # logit scale on the unit sphere
+    learning_rate: float = 1e-3
+    steps: int = 200
+    batch_size: int = 256
+    seed: int = 0
+    #: "bfloat16" rounds the vector tables through bf16 (the reference's
+    #: readback wire); the tables stay float32 tensors
+    table_wire: str = "float32"
+    #: epoch feed: "off" and "auto" stage the id arrays on the device;
+    #: "auto" raises DeviceBudgetExceeded where the reference would
+    #: stream, and "on" (the streamed feed) raises (ROADMAP A7)
+    stream: str = "auto"
+
+
+@dataclasses.dataclass
+class TwoTowerModel:
+    """Trained towers: unit vector tables, tensors on the model's device.
+
+    Serving top-N is one ``[B, D] @ [D, V_i]`` product, as for ALS.
+    """
+
+    user_vectors: torch.Tensor  # [n_users, D] unit rows
+    item_vectors: torch.Tensor  # [n_items, D] unit rows
+    config: TwoTowerConfig
+
+    def scores(self, user_rows) -> np.ndarray:
+        """``user_rows @ item_vectors.T`` on the model's device, to host."""
+        rows = torch.as_tensor(user_rows, dtype=torch.float32,
+                               device=self.item_vectors.device)
+        return (rows @ self.item_vectors.T).cpu().numpy()
+
+
+def init_tower(vocab: int, cfg: TwoTowerConfig,
+               generator: torch.Generator) -> dict:
+    """One tower's parameters on the generator's device, with the
+    reference's scales (l.87-100): N(0, 1) draws times ``1/√embed_dim``
+    for the table and ``w1``, ``1/√hidden`` for ``w2``; zero biases. The
+    draws are torch's, not jax.random's."""
+    dev = generator.device
+
+    def nrm(shape, scale):
+        return torch.randn(shape, generator=generator, device=dev) * scale
+
+    return {
+        "emb": nrm((vocab, cfg.embed_dim), cfg.embed_dim ** -0.5),
+        "w1": nrm((cfg.embed_dim, cfg.hidden), cfg.embed_dim ** -0.5),
+        "b1": torch.zeros(cfg.hidden, device=dev),
+        "w2": nrm((cfg.hidden, cfg.out_dim), cfg.hidden ** -0.5),
+        "b2": torch.zeros(cfg.out_dim, device=dev),
+    }
+
+
+def init_params(vu: int, vi: int, cfg: TwoTowerConfig,
+                generator: torch.Generator) -> dict:
+    """Both towers, user then item, drawn from ``generator``."""
+    return {"user": init_tower(vu, cfg, generator),
+            "item": init_tower(vi, cfg, generator)}
+
+
+def _tower_forward(params: dict, ids: torch.Tensor,
+                   axis: Optional[str] = None) -> torch.Tensor:
+    """Embed → relu MLP → unit vectors (reference l.114-135)."""
+    x = vocab_parallel_lookup(params["emb"], ids, axis)
+    h = torch.relu(x @ params["w1"] + params["b1"])
+    out = h @ params["w2"] + params["b2"]
+    norm = torch.linalg.vector_norm(out, dim=-1, keepdim=True)
+    return out / torch.clamp_min(norm, 1e-6)
+
+
+def _contrastive_loss(user_p: dict, item_p: dict, uids: torch.Tensor,
+                      iids: torch.Tensor, cfg: TwoTowerConfig,
+                      d_axis: Optional[str] = None,
+                      m_axis: Optional[str] = None) -> torch.Tensor:
+    """In-batch softmax cross-entropy at ``cfg.temperature`` (reference
+    l.138-167): row b's label is column b. The diagonal is read with
+    ``diagonal``, whose backward writes one value a row."""
+    if d_axis is not None:
+        raise NotImplementedError(
+            f"data axis {d_axis!r}: the port runs one device; the "
+            f"all-gathered negatives are ROADMAP A7"
+        )
+    u = _tower_forward(user_p, uids, m_axis)
+    v = _tower_forward(item_p, iids, m_axis)
+    logits = cfg.temperature * (u @ v.T)
+    logz = torch.logsumexp(logits, dim=-1)
+    ce = logz - torch.diagonal(logits)
+    return ce.sum() / u.shape[0]
+
+
+def _train_step(params: dict, values, opt: dict, ub: torch.Tensor,
+                ib: torch.Tensor, cfg: TwoTowerConfig):
+    """One Adam step on the batch ``(ub, ib)``: ``values`` are the leaves
+    of the tree ``params`` (whose structure alone is read). Returns the
+    new leaves, the new optimizer state and the batch's loss."""
+    p = [t.detach().requires_grad_(True) for t in values]
+    tree = rebuild(params, p)
+    loss = _contrastive_loss(tree["user"], tree["item"], ub, ib, cfg)
+    grads = torch.autograd.grad(loss, p)
+    values, opt = adam_update(values, grads, opt, cfg.learning_rate)
+    return values, opt, loss.detach()
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def train_two_tower(
+    mesh,
+    user_ids: np.ndarray,
+    item_ids: np.ndarray,
+    n_users: int,
+    n_items: int,
+    config: TwoTowerConfig = TwoTowerConfig(),
+    checkpoint=None,
+    checkpoint_every: int = 0,
+    stats=None,
+    device: DeviceLike = None,
+) -> TwoTowerModel:
+    """Train on positive (user, item) pairs; returns unit vector tables on
+    ``device`` (CUDA unless the caller asks for the CPU).
+
+    Args:
+        mesh: must be None (one device); a mesh is ROADMAP A7.
+        user_ids/item_ids: [n_pairs] int positive interaction pairs.
+        checkpoint/checkpoint_every: optional
+            :class:`~pio_tpu_torch.workflow.checkpoint.CheckpointManager`
+            and snapshot interval in steps; resumes from the newest
+            snapshot on restart.
+        stats: optional dict receiving the phase split, measured by
+            synchronizing between phases: ``place_s`` (init and the ids to
+            the device), ``steps_s``, ``tables_d2h_s`` (the vector tables
+            computed and rounded to ``table_wire``: they stay on the
+            device, so no copy to the host is in it) and ``n_stream`` (0).
+
+    Raises:
+        DeviceBudgetExceeded: the params do not fit
+            ``PIO_TPU_DEVICE_BUDGET_BYTES``, or with ``stream="auto"`` the
+            staged ids do not fit beside them (the reference streams
+            there; the port has no streamed feed).
+    """
+    cfg = config
+    if mesh is not None:
+        raise NotImplementedError(
+            "train_two_tower over a mesh: the port runs one device; the "
+            "dp / tp / ep paths are ROADMAP A7"
+        )
+    if cfg.table_wire not in ("float32", "bfloat16"):
+        raise ValueError(
+            f"table_wire must be float32/bfloat16, got {cfg.table_wire!r}"
+        )
+    if cfg.stream not in ("auto", "on", "off"):
+        raise ValueError(
+            f"stream must be auto/on/off, got {cfg.stream!r}"
+        )
+    if cfg.stream == "on":
+        raise ValueError(
+            "stream='on': the port has no streamed epoch feed (ROADMAP A7); "
+            "use 'auto' or 'off'"
+        )
+    dev = resolve_device(device)
+
+    vu = max(n_users, 1)
+    vi = max(n_items, 1)
+    batch = min(cfg.batch_size, len(user_ids))
+
+    rng = np.random.default_rng(cfg.seed)
+    perm = rng.permutation(len(user_ids))
+    uids = np.asarray(user_ids, np.int32)[perm]
+    iids = np.asarray(item_ids, np.int32)[perm]
+    # wraparound so every step slices a full batch
+    n_pairs = len(uids)
+    reps = _round_up(max(n_pairs, batch), batch)
+    uids = np.resize(uids, reps)
+    iids = np.resize(iids, reps)
+    n_batches = reps // batch
+
+    # placement accounting before anything lands on the device
+    def tower_nbytes(vocab):
+        E, H, O = cfg.embed_dim, cfg.hidden, cfg.out_dim
+        return 4 * (vocab * E + E * H + H + H * O + O)
+
+    params_nbytes = tower_nbytes(vu) + tower_nbytes(vi)
+    staged_nbytes = 2 * reps * 4  # uids + iids
+    assert_device_budget(
+        params_nbytes, 1, "two_tower params (single-device placement)"
+    )
+    budget = device_budget_bytes()
+    if (cfg.stream == "auto" and budget > 0
+            and params_nbytes + staged_nbytes > budget):
+        raise DeviceBudgetExceeded(
+            f"two_tower staged ids ({staged_nbytes} B) do not fit beside "
+            f"the params ({params_nbytes} B) under "
+            f"PIO_TPU_DEVICE_BUDGET_BYTES={budget}; the reference streams "
+            f"them here, and the port's streamed feed is ROADMAP A7 "
+            f"(stream='off' stages them all the same)"
+        )
+
+    t0 = time.monotonic()
+    # drawn on a seeded CPU generator whatever the device, so that the
+    # card and the CPU train from the same init
+    g = torch.Generator(device="cpu")
+    g.manual_seed(cfg.seed)
+    params = {tower: {k: v.to(dev) for k, v in tp.items()}
+              for tower, tp in init_params(vu, vi, cfg, g).items()}
+    uids_d = torch.from_numpy(uids).to(dev)
+    iids_d = torch.from_numpy(iids).to(dev)
+    if stats is not None:
+        _sync(dev)
+        stats["place_s"] = time.monotonic() - t0
+        stats["n_stream"] = 0
+        t0 = time.monotonic()
+
+    def chunk_fn(state, n):
+        step0, params, opt = state
+        values = leaves(params)
+        for i in range(n):
+            start = ((step0 + i) % n_batches) * batch
+            values, opt, _ = _train_step(
+                params, values, opt, uids_d[start:start + batch],
+                iids_d[start:start + batch], cfg)
+        return step0 + n, rebuild(params, values), opt
+
+    # steps + table_wire + stream excluded: none shapes the trained state,
+    # so resuming with another total or wire still matches the identity
+    fingerprint = state_fingerprint(
+        "two_tower",
+        dataclasses.replace(cfg, steps=0, table_wire="float32",
+                            stream="auto"),
+        n_users, n_items,
+        reps, int(uids.sum()), int(iids.sum()),
+    )
+    state = (0, params, adam_init(params))
+    state = run_chunked_steps(
+        state, cfg.steps, chunk_fn,
+        checkpoint=checkpoint, checkpoint_every=checkpoint_every,
+        fingerprint=fingerprint,
+    )
+    fitted = state[1]
+    if stats is not None:
+        _sync(dev)
+        stats["steps_s"] = time.monotonic() - t0
+        t0 = time.monotonic()
+
+    with torch.no_grad():
+        uv = _tower_forward(fitted["user"], torch.arange(vu, device=dev))
+        iv = _tower_forward(fitted["item"], torch.arange(vi, device=dev))
+        if cfg.table_wire == "bfloat16":
+            uv = uv.to(torch.bfloat16).float()
+            iv = iv.to(torch.bfloat16).float()
+    if stats is not None:
+        _sync(dev)
+        stats["tables_d2h_s"] = time.monotonic() - t0
+        stats["table_wire"] = cfg.table_wire
+    return TwoTowerModel(
+        user_vectors=uv[:n_users].contiguous(),
+        item_vectors=iv[:n_items].contiguous(), config=cfg,
+    )

@@ -9,7 +9,7 @@ and ``local`` give the same single-device context. Multi-device work (a
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
@@ -23,10 +23,19 @@ class ComputeContext:
     Attributes:
         device: where tensors live (``cuda`` unless ``cpu`` was asked for).
         seed: base RNG seed for this run.
+        checkpoint: the algorithm's ``CheckpointManager``, set by
+            ``Engine.train`` for each algorithm when ``checkpoint_base``
+            and ``checkpoint_every`` are set (by ``run_train`` from
+            ``WorkflowParams.checkpoint_every``).
+        checkpoint_base: the directory of the run's snapshots.
+        checkpoint_every: snapshot interval in steps; 0 = none.
     """
 
     device: torch.device
     seed: int = 0
+    checkpoint: Optional[Any] = None
+    checkpoint_base: Optional[str] = None
+    checkpoint_every: int = 0
 
     @staticmethod
     def create(seed: int = 0, device: DeviceLike = None) -> "ComputeContext":

@@ -13,7 +13,7 @@ on the CPU. ``deploy`` serves from one process.
 Not ported yet (ROADMAP A): the verbs runs, blobserver, dashboard, fleet,
 route, rollout, adminserver, top, upgrade, run, shell, lint, template list
 and app compact; the flags --workers, --slo, --qos, --faults,
---profile-dir, --feedback-app, --status-port and the checkpoint flags.
+--profile-dir, --feedback-app and --status-port.
 
 Usage: ``python -m pio_tpu_torch <verb> ...``
 """
@@ -179,6 +179,11 @@ def cmd_train(args) -> int:
     from pio_tpu_torch.workflow.engine_json import build_engine, load_variant
     from pio_tpu_torch.workflow.params import WorkflowParams
 
+    if args.checkpoint_dir and not args.checkpoint_every:
+        raise SystemExit(_err(
+            "--checkpoint-dir has no effect without --checkpoint-every N "
+            "(nothing would be snapshotted)"
+        ))
     ctx = _context(args, args.seed)
     variant = load_variant(args.engine_json)
     engine, ep = build_engine(variant)
@@ -188,6 +193,8 @@ def cmd_train(args) -> int:
         stop_after_read=args.stop_after_read,
         stop_after_prepare=args.stop_after_prepare,
         seed=args.seed,
+        checkpoint_every=args.checkpoint_every,
+        checkpoint_dir=args.checkpoint_dir,
     )
     instance_id = run_train(engine, ep, variant, wp, ctx=ctx)
     _out(f"Training completed: engine instance {instance_id}")
@@ -439,6 +446,16 @@ def build_parser() -> argparse.ArgumentParser:
     a.add_argument("--stop-after-read", action="store_true")
     a.add_argument("--stop-after-prepare", action="store_true")
     a.add_argument("--seed", type=int, default=0)
+    a.add_argument(
+        "--checkpoint-every", type=int, default=0,
+        help="snapshot training state every N steps; a preempted run "
+             "restarted with the same engine.json resumes automatically",
+    )
+    a.add_argument(
+        "--checkpoint-dir", default="",
+        help="explicit snapshot dir (default: per-engine-config under "
+             "$PIO_TPU_HOME)",
+    )
     _device_flag(a)
     a.set_defaults(fn=cmd_train)
 

@@ -8,7 +8,10 @@ of reading as unset.
 
 from __future__ import annotations
 
+import logging
 import os
+
+log = logging.getLogger("pio_tpu_torch.utils.knobs")
 
 #: name → the value an unset (or empty) variable means
 _DEFAULTS = {
@@ -32,6 +35,9 @@ _DEFAULTS = {
     # the app of a bundled `pio eval` sweep called with no app name
     # (templates/common.py:eval_app_name)
     "PIO_TPU_EVAL_APP": "",
+    # per-device parameter budget in bytes (parallel/partition.py); 0 means
+    # no limit
+    "PIO_TPU_DEVICE_BUDGET_BYTES": "0",
 }
 
 
@@ -39,3 +45,15 @@ def knob_str(name: str) -> str:
     """The knob's value, stripped, or its declared default when unset."""
     default = _DEFAULTS[name]
     return os.environ.get(name, "").strip() or default
+
+
+def knob_int(name: str) -> int:
+    """The knob as an integer. A value that is not one logs a warning and
+    reads as the declared default, as the reference's ``env_int`` does."""
+    raw = knob_str(name)
+    try:
+        return int(raw)
+    except ValueError:
+        log.warning("%s=%r is not an integer; using %s", name, raw,
+                    _DEFAULTS[name])
+        return int(_DEFAULTS[name])

@@ -13,8 +13,11 @@ as a numpy array, so a blob holds no CUDA storage. Loading puts the
 tensors on the device the caller's context names, so a model trained on
 the card loads on the CPU and the reverse. A blob that fails verification
 falls back, given the variant, to the newest older COMPLETED instance whose
-blob verifies (last known good), as in the reference. Not ported yet: the
-reference's PersistentModel opt-out, sharded persistence, checkpoints, the
+blob verifies (last known good), as in the reference. With
+``WorkflowParams.checkpoint_every`` the run names a snapshot directory,
+keyed on the variant and its params unless ``checkpoint_dir`` is given,
+and ``Engine.train`` snapshots each algorithm there. Not ported yet: the
+reference's PersistentModel opt-out, sharded persistence, the
 profiler trace and the trainwatch/devicewatch telemetry (ROADMAP A).
 """
 
@@ -153,6 +156,32 @@ def run_train(
     instance_id = instances.insert(instance)
     instance = instances.get(instance_id)
     log.info("training started: instance %s on %s", instance_id, ctx.device)
+
+    if workflow_params.checkpoint_every > 0:
+        from pio_tpu_torch.workflow.checkpoint import (
+            default_checkpoint_dir,
+            state_fingerprint,
+        )
+
+        # the default dir keys on the engine variant + params (not the
+        # per-run instance id): a preempted run restarted with the same
+        # config finds its snapshots; the data fingerprint recorded
+        # inside guards against resuming across a data change
+        stable_key = state_fingerprint(
+            variant.engine_id,
+            variant.engine_factory,
+            instance.data_source_params,
+            instance.preparator_params,
+            instance.algorithms_params,
+        )
+        ckpt_dir = workflow_params.checkpoint_dir or default_checkpoint_dir(
+            stable_key
+        )
+        ctx = dataclasses.replace(
+            ctx,
+            checkpoint_base=ckpt_dir,
+            checkpoint_every=workflow_params.checkpoint_every,
+        )
 
     t0 = time.monotonic()
     timings: dict = {}

@@ -1,8 +1,7 @@
 """WorkflowParams — the controls of a training run.
 
 Counterpart of ``pio_tpu/workflow/params.py``, with the fields the port's
-``run_train`` honours. Checkpointing and the profiler trace come with the
-ops-plane slice.
+``run_train`` honours. The profiler trace comes with the ops-plane slice.
 """
 
 from __future__ import annotations
@@ -20,3 +19,10 @@ class WorkflowParams:
     stop_after_read: bool = False
     stop_after_prepare: bool = False
     seed: int = 0
+    #: >0 → snapshot train state every N steps. Algorithms that support
+    #: it read the manager off the ComputeContext.
+    checkpoint_every: int = 0
+    #: explicit snapshot dir; the default keys on the engine variant and
+    #: its params (set this to resume a preempted run under a NEW
+    #: instance id)
+    checkpoint_dir: str = ""

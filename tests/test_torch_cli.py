@@ -308,6 +308,48 @@ def test_train_batchpredict_eval_match_reference(homes, tmp_path, capsys,
         [s["score"] for s in ev_r["engineParamsScores"]], rtol=EVAL_RTOL)
 
 
+def test_train_checkpoint_flags(homes, tmp_path, capsys):
+    """``--checkpoint-dir`` alone is refused as the reference refuses it;
+    ``--checkpoint-every N --checkpoint-dir D`` snapshots the two-tower
+    algorithm under ``D/algo0_twotower`` and a second run resumes there
+    (no step retrained: the same vectors)."""
+    ej = tmp_path / "tt.json"
+    ej.write_text(json.dumps({
+        "id": "tt1", "engineFactory": "templates.twotower",
+        "datasource": {"params": {"app_name": "qs"}},
+        "algorithms": [{"name": "twotower", "params": {
+            "embed_dim": 8, "hidden": 8, "out_dim": 8, "steps": 6,
+            "batch_size": 16}}],
+    }))
+    ck = tmp_path / "ck"
+    refusals = []
+    for name, fn, extra in (("ref", jax_main, []),
+                            ("port", main, ["--device", "cpu"])):
+        homes(name)
+        refusals.append(run(fn, ["train", "--engine-json", str(ej),
+                                 "--checkpoint-dir", str(ck)] + extra, capsys))
+    assert refusals[0] == refusals[1]
+    assert refusals[0][0] == 1 and "--checkpoint-every" in refusals[0][2]
+    assert not ck.exists()
+
+    homes("port")
+    seeded_app(main, capsys, write_lines(tmp_path / "in.jsonl", api_lines()))
+    argv = ["train", "--engine-json", str(ej), "--device", "cpu",
+            "--checkpoint-every", "4", "--checkpoint-dir", str(ck)]
+    ids = []
+    for _ in range(2):
+        code, out, err = run(main, argv, capsys)
+        assert code == 0, err
+        ids.append(iid_of(out))
+    assert sorted(os.listdir(ck / "algo0_twotower")) == \
+        ["4", "6", "fingerprint.json"]
+    v = load_variant(str(ej))
+    engine, ep = build_engine(v)
+    ctx = ComputeContext.local(device="cpu")
+    (a,), (b,) = (load_models_for_instance(i, engine, ep, ctx) for i in ids)
+    assert torch.equal(a.model.item_vectors, b.model.item_vectors)
+
+
 def iid_of_store(name):
     storage = JaxStorage if name == "ref" else Storage
     (inst,) = storage.get_meta_data_engine_instances().get_all()
