@@ -156,7 +156,27 @@ kernels (the forward, and the backward's bag scatter and bag dot):
 35. checkpoints on the card: both trainers of phases 30 and 33 stopped
    after their first snapshot and resumed, the same bits as the
    uninterrupted runs; ``python -m pio_tpu_torch train
-   --checkpoint-every`` as a process on phase 28's SQLite home.
+   --checkpoint-every`` as a process on phase 28's SQLite home;
+36. phase 4's text model served under concurrency: 1 and 32 keep-alive
+   clients x 64 queries with the micro-batcher off and on (adaptive off,
+   the window printed), every answer against the solo path and the CPU
+   copy through the plain version, p50/p99, batches, ``maxBatch``,
+   dispatches a bucket and ``retraces`` after warmup (0); the adaptive
+   probe's verdict; the forward kernel at each bucket of the ladder on
+   the served bags against its plain version and bound (its launches in
+   this phase join the kernels' line);
+37. the recommendation template on phase 11's factors (MovieLens-25M's
+   width, num 10) through the same runs, answers against a CPU copy;
+38. ``POST /reload`` 3 times under 32 clients: two seeds' logreg
+   instances of phase 26's users on the int8 wire with the resident
+   scorer on the card, stored in SQLite; every answer 200 and a
+   generation's CPU copy's, the outgoing scorers retired, device memory
+   back to one generation's parameters and the ladder's buffers;
+39. ``python -m pio_tpu_torch deploy --workers 4 --device-worker`` as a
+   process over phase 38's store: JSON and packed int8 queries from 32
+   clients against the CPU copy, p50/p99, worker 0's lane drained with
+   no fallback, only worker 0 on the card (``nvidia-smi``), ``/reload``
+   rolling all four workers and ``/undeploy`` ending the pool.
 
 The CLI phases write their homes under ``build/chip_smoke_homes/``
 (gitignored), made afresh each run; every server process is stopped
@@ -178,6 +198,7 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import datetime as dt
+import gc
 import http.client
 import json
 import logging
@@ -199,6 +220,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from pio_tpu_torch.controller.engine import EngineParams, get_engine_factory  # noqa: E402
 from pio_tpu_torch.controller.params import params_from_dict, params_to_dict  # noqa: E402
 from pio_tpu_torch.convert import text_mlp_from_reference  # noqa: E402
+from pio_tpu_torch.data.bimap import BiMap  # noqa: E402
 from pio_tpu_torch.data.event import Event  # noqa: E402
 from pio_tpu_torch.data.store import PEventStore  # noqa: E402
 from pio_tpu_torch.models import als, logreg, markov_chain, mlp, naive_bayes  # noqa: E402
@@ -210,7 +232,9 @@ from pio_tpu_torch.ops import _build  # noqa: E402
 from pio_tpu_torch.ops import embedding, topn  # noqa: E402
 from pio_tpu_torch.parallel.context import ComputeContext  # noqa: E402
 from pio_tpu_torch.server import residency  # noqa: E402
+from pio_tpu_torch.server.http import PACKED_QUERY_CONTENT_TYPE  # noqa: E402
 from pio_tpu_torch.server.query_server import QueryService, create_query_server  # noqa: E402
+from pio_tpu_torch.server.query_server import deploy_query_server  # noqa: E402
 from pio_tpu_torch.storage.records import App  # noqa: E402
 from pio_tpu_torch.storage.registry import Storage  # noqa: E402
 from pio_tpu_torch.templates.classification import Query as CLSQuery  # noqa: E402
@@ -220,6 +244,7 @@ from pio_tpu_torch.templates.ecommerce import ECommAlgorithm  # noqa: E402
 from pio_tpu_torch.templates.ecommerce import Query as ECQuery  # noqa: E402
 from pio_tpu_torch.templates.ecommerce import ecommerce_evaluation  # noqa: E402
 from pio_tpu_torch.templates.recommendation import ALSAlgorithm as RecALS  # noqa: E402
+from pio_tpu_torch.templates.recommendation import ALSModel as RecModel  # noqa: E402
 from pio_tpu_torch.templates.recommendation import Query as RecQuery  # noqa: E402
 from pio_tpu_torch.templates.recommendation import recommendation_evaluation  # noqa: E402
 from pio_tpu_torch.templates.sequence import Query as SeqQuery  # noqa: E402
@@ -3979,10 +4004,19 @@ def neural_template(args, smi, variant_dict, query_cls, bodies_fn,
     if http_launches == 0:
         raise AssertionError("the served path launched nothing on the card")
     qs = batch_fn(gpu[0])
-    t0 = time.perf_counter()
-    batch, batch_launches = count_kernels(
-        lambda: dict(algo.batch_predict(gpu[0], qs)))
-    batch_ms = (time.perf_counter() - t0) * 1e3
+    # late in a long process the profiler can lose a whole call's kernel
+    # records (0 counted for a batch that ran on the card): batch_predict
+    # is pure, so it is profiled again, at most twice, until its
+    # launches show; every attempt's count is printed
+    attempts = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        batch, batch_launches = count_kernels(
+            lambda: dict(algo.batch_predict(gpu[0], qs)))
+        batch_ms = (time.perf_counter() - t0) * 1e3
+        attempts.append(batch_launches)
+        if batch_launches:
+            break
     t0 = time.perf_counter()
     loop = {k: algo.predict(gpu[0], q) for k, q in qs}
     loop_ms = (time.perf_counter() - t0) * 1e3
@@ -3990,8 +4024,9 @@ def neural_template(args, smi, variant_dict, query_cls, bodies_fn,
         same_topn(batch[k].to_dict(), loop[k].to_dict(), NEURAL_SCORE_TOL,
                   f"batch query {k}")
     log(f"  batch_predict of {len(qs)}: {batch_ms:.1f} ms, {batch_launches} "
-        f"launches; the predict loop {loop_ms:.1f} ms (host clock, the batch "
-        f"under the profiler); equal within {NEURAL_SCORE_TOL}")
+        f"launches (profiled calls' counts {attempts}); the predict loop "
+        f"{loop_ms:.1f} ms (host clock, the batch under the profiler); equal "
+        f"within {NEURAL_SCORE_TOL}")
     if batch_launches == 0:
         raise AssertionError("batch_predict launched nothing on the card")
 
@@ -4361,6 +4396,575 @@ def phase_checkpoints(args, smi, tt, seq) -> None:
     log(f"  phase 35 {time.monotonic() - t_phase:.1f} s")
 
 
+# ---------------------------- serving under concurrency (phases 36-39)
+#: a load: concurrent keep-alive clients, and the queries each one sends
+N_CLIENTS = 32
+PER_CLIENT = 64
+#: the micro-batcher's collection window in the measured runs, µs: about
+#: one batched text dispatch at B = 32, so clients whose answers went out
+#: together are back in the queue before the next batch leaves
+MB_WINDOW_US = 2000
+MB_KNOBS = ("PIO_TPU_SERVE_MICROBATCH_US", "PIO_TPU_SERVE_MICROBATCH_ADAPTIVE")
+#: phase 38's stored classification variant, served again by phase 39
+POOL_APP = "classification-pool"
+POOL_VARIANT = {
+    "id": "cls-pool", "engineFactory": "templates.classification",
+    "datasource": {"params": {"app_name": POOL_APP}},
+    "algorithms": [{"name": "logreg", "params": {
+        "iterations": 100, "learning_rate": 0.1, "input_dtype": "int8"}}],
+}
+N_RELOADS = 3
+POOL_WORKERS = 4
+#: phase 39's pool, from its start to its readiness, and to its end
+POOL_TIMEOUT_S = 180
+
+
+def drive_load(port: int, bodies: list, n_clients: int, per_client: int,
+               frames=None) -> tuple:
+    """``n_clients`` keep-alive clients at once, each sending
+    ``per_client`` queries (client k's n-th is body ``(k + n) mod
+    len(bodies)``, so clients in step send distinct queries and each
+    batch mixes them; with ``frames``, every other one as its packed
+    int8 frame): ``([(body index, status, answer, host ms)], wall s)``."""
+    records, errors = [], []
+    lock = threading.Lock()
+
+    def client(k):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        try:
+            for n in range(per_client):
+                i = (k + n) % len(bodies)
+                if frames is not None and n % 2:
+                    data, ctype = frames[i], PACKED_QUERY_CONTENT_TYPE
+                else:
+                    data, ctype = json.dumps(bodies[i]).encode(), \
+                        "application/json"
+                t = time.perf_counter()
+                conn.request("POST", "/queries.json", data,
+                             {"Content-Type": ctype})
+                resp = conn.getresponse()
+                answer = json.loads(resp.read())
+                ms = (time.perf_counter() - t) * 1e3
+                with lock:
+                    records.append((i, resp.status, answer, ms))
+        except Exception as e:  # noqa: BLE001 (reported below)
+            errors.append(f"client {k}: {e!r}")
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(k,), daemon=True)
+               for k in range(n_clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=CLI_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"load clients failed: {errors[:3]}")
+    bad = [(i, s, a) for i, s, a, _ in records if s != 200]
+    if bad:
+        raise AssertionError(f"{len(bad)} answers not 200: {bad[:3]}")
+    return records, wall
+
+
+def latency(records, wall: float) -> dict:
+    ms = np.array([r[3] for r in records])
+    return {"n": len(ms), "p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99)),
+            "qps": len(ms) / wall}
+
+
+def distinct_answers(records) -> dict:
+    """{(body index, answer as JSON)} → the answer: each distinct answer
+    of a body is checked once."""
+    return {(i, json.dumps(a, sort_keys=True)): a for i, _, a, _ in records}
+
+
+def time_bucket(name: str, table, ids_np, w_np) -> dict:
+    """The forward kernel at a served bucket: against its plain version
+    (TOL), then kernel, plain and library times in turns, and the bound."""
+    ids = torch.from_numpy(ids_np).to(table.device)
+    w = torch.from_numpy(w_np).to(table.device)
+    out = run_twice(name, table, ids, w)
+    err = max_err(name, out, embedding.embedding_bag_plain(table, ids, w),
+                  TOL[table.dtype])
+    times = timed_in_turns({
+        "kernel_ms": lambda: embedding.embedding_bag(table, ids, w),
+        "plain_ms": lambda: embedding.embedding_bag_plain(table, ids, w),
+        "library_ms": lambda: F.embedding_bag(
+            ids, table, per_sample_weights=w, mode="sum"),
+    })
+    row = {**case_row(name, table, ids_np, TOL[table.dtype], err), **times,
+           **bound(ids_np, w_np, table.shape[1], table.element_size())}
+    log(f"  {json.dumps(row)}")
+    return row
+
+
+def served_runs(name, make_server, bodies, check, smi) -> dict:
+    """The concurrency measurement of phases 36 and 37: the batcher off,
+    then on (adaptive off), each with 1 client and then N_CLIENTS, every
+    distinct answer checked (``check(body index, answer)``: against the
+    solo path's and the CPU copy's), each run's forward launches, the
+    stats after warmup and after the load; then once more with the
+    adaptive probe on, its verdict printed."""
+    out = {}
+    for mode, window, adaptive in (("off", "0", "0"),
+                                   ("on", str(MB_WINDOW_US), "0"),
+                                   ("adaptive", str(MB_WINDOW_US), "1")):
+        with knob(MB_KNOBS[0], window), knob(MB_KNOBS[1], adaptive):
+            server = make_server()
+        with server:
+            warm = server.service.stats()["buckets"]
+            for n_clients in ((1, N_CLIENTS) if mode != "adaptive"
+                              else (N_CLIENTS,)):
+                launches0 = read_counts()["embedding_bag"]
+                records, wall = drive_load(server.port, bodies, n_clients,
+                                           PER_CLIENT)
+                launches = read_counts()["embedding_bag"] - launches0
+                for (i, _), answer in distinct_answers(records).items():
+                    check(i, answer)
+                lat = latency(records, wall)
+                out[(mode, n_clients)] = {**lat, "launches": launches}
+                log(f"  {name}, batcher {mode}, {n_clients} client(s) x "
+                    f"{PER_CLIENT}: p50 {lat['p50_ms']:.3f} ms, p99 "
+                    f"{lat['p99_ms']:.3f} ms, {lat['qps']:.0f} queries/s "
+                    f"(host clock), forward launches {launches}; {smi}")
+            stats = server.service.stats()
+        buckets = stats["buckets"]
+        if mode == "off":
+            continue
+        mb = stats["microbatch"]
+        log(f"  {name}, batcher {mode} (window {mb['windowUs']} us): "
+            f"warmed {warm['warmed']} with retraces {warm['retraces']} "
+            f"after warmup; batches {mb['batches']}, batchedQueries "
+            f"{mb['batchedQueries']}, maxBatch {mb['maxBatch']}, dispatches "
+            f"a bucket {json.dumps(buckets['dispatches'])}, retraces "
+            f"{buckets['retraces']}, mode {mb['mode']}, probe "
+            f"{json.dumps(mb['probe'])}, modeByBucket "
+            f"{json.dumps(mb['modeByBucket'])}")
+        if buckets["retraces"] != 0 or warm["warmed"] != list(
+                server.service._buckets.buckets):
+            raise AssertionError(f"{name}: the ladder retraced after warmup")
+        if mode == "on" and mb["maxBatch"] < 2:
+            raise AssertionError(f"{name}: {N_CLIENTS} clients never shared "
+                                 f"a batch")
+        out[mode] = {"microbatch": mb, "buckets": buckets}
+    return out
+
+
+def phase_text_microbatch(args, smi, gpu, cpu, queries) -> dict:
+    """Phase 36: phase 4's model served micro-batched under concurrency."""
+    t_phase = time.monotonic()
+    log(f"phase 36: text classification at full width (phase 4's model), "
+        f"POST /queries.json from 1 and {N_CLIENTS} keep-alive clients x "
+        f"{PER_CLIENT}, the micro-batcher off, on (window {MB_WINDOW_US} "
+        f"us, adaptive off) and adaptive; {smi}")
+    engine = get_engine_factory("templates.textclassification")()
+    ep = EngineParams(algorithm_params_list=(("mlp", MLPParams()),))
+    algo = MLPAlgorithm()
+    texts = queries[:PER_CLIENT]
+    bodies = [{"text": t} for t in texts]
+    want = [algo.predict(cpu, Query(text=t)) for t in texts]
+    # the solo path: one bag a dispatch on the card, in this process
+    solo_path = [algo.predict(gpu, Query(text=t)) for t in texts]
+
+    def check(i, answer):
+        same_answer(answer, want[i], f"text body {i} vs the CPU copy")
+        same_answer(answer, solo_path[i], f"text body {i} vs the solo path")
+
+    reset_counts()
+    runs = served_runs("text", lambda: create_query_server(
+        engine, ep, [gpu], host="127.0.0.1", port=0, device=CARD),
+        bodies, check, smi)
+    launches = read_counts()
+    if runs[("on", N_CLIENTS)]["launches"] < 1:
+        raise AssertionError("the batched run launched no forward kernel")
+    log(f"  the forward kernel at the ladder's buckets on the served bags "
+        f"(B = the first B bodies), against its plain version and bound:")
+    rows = []
+    for b in (1, 2, 4, 8, 16, 32):
+        ids, w = _stack_bags(gpu, [(k, Query(text=t))
+                                   for k, t in enumerate(texts[:b])])
+        rows.append(time_bucket(f"served bucket B={b}", gpu.mlp.w_in, ids, w))
+    log(f"  phase 36 launches (added to the kernels' line): "
+        f"{json.dumps(launches)}; phase 36 {time.monotonic() - t_phase:.1f} s")
+    return {"runs": runs, "launches": launches, "rows": rows}
+
+
+def phase_rec_microbatch(args, smi, factors) -> dict:
+    """Phase 37: the recommendation template at MovieLens-25M's width,
+    micro-batched."""
+    t_phase = time.monotonic()
+    n_users, rank = factors.user_factors.shape
+    n_items = factors.item_factors.shape[0]
+    log(f"phase 37: the recommendation template on phase 11's factors "
+        f"({n_users} users x {n_items} items, rank {rank}) through "
+        f"ALSModel.from_factors, num 10, the same concurrency runs; {smi}")
+    users = BiMap({f"u{n}": n for n in range(n_users)})
+    items = BiMap({f"i{n}": n for n in range(n_items)})
+    gpu = RecModel.from_factors(factors, users, items, device=CARD)
+    cpu = RecModel.from_factors(factors, users, items, device="cpu")
+    engine = get_engine_factory("templates.recommendation")()
+    ep = EngineParams(algorithm_params_list=(
+        ("als", params_from_dict(RecALS.params_class, {"rank": rank})),))
+    rng = np.random.default_rng(args.seed + 36)
+    bodies = []
+    for k in range(PER_CLIENT):
+        body = {"user": f"u{int(rng.integers(n_users))}", "num": 10}
+        if k % 3 == 1:  # black lists that differ within one batch
+            body["blackList"] = [f"i{int(x)}" for x in
+                                 rng.integers(0, n_items // 50, 3)]
+        bodies.append(body)
+
+    def check(i, answer):
+        # the CPU copy's top-N up to ties within SCORE_TOL: the solo run's
+        # answers pass the same check, so batched ones equal them up to
+        # those ties
+        check_served(answer, params_from_dict(RecQuery, bodies[i]), cpu,
+                     f"recommendation body {i}")
+
+    runs = served_runs("recommendation", lambda: create_query_server(
+        engine, ep, [gpu], host="127.0.0.1", port=0, device=CARD),
+        bodies, check, smi)
+    log(f"  phase 37 {time.monotonic() - t_phase:.1f} s")
+    return {"runs": runs}
+
+
+def pool_models(variant, seeds, ctx):
+    """Train one stored instance of ``variant`` a seed (in the current
+    store); returns the instance ids in training order."""
+    ids = []
+    for seed in seeds:
+        v = variant_from_dict({**POOL_VARIANT, "algorithms": [{
+            "name": "logreg", "params": {**POOL_VARIANT["algorithms"][0][
+                "params"], "seed": seed}}]}, path=variant.path)
+        engine, ep = build_engine(v)
+        ids.append(run_train(engine, ep, v, ctx=ctx))
+    return ids
+
+
+def cpu_mirror(variant, iid):
+    """The CPU copy of stored instance ``iid`` behind a service with the
+    resident scorer on the CPU, on the int8 wire."""
+    engine, ep = build_engine(variant)
+    models = load_models_for_instance(
+        iid, engine, ep, ComputeContext.local(0, device="cpu"))
+    with knob("PIO_TPU_DEVICE_RESIDENT", "1"), \
+            knob("PIO_TPU_SERVE_WIRE", "int8"):
+        return QueryService(engine, ep, models, device="cpu")
+
+
+def pool_bodies(seed: int) -> list:
+    rng = np.random.default_rng(seed)
+    return [{"attrs": [float(v) for v in row]}
+            for row in rng.integers(0, 9, (PER_CLIENT, 3))]
+
+
+def phase_reload_under_load(args, smi) -> dict:
+    """Phase 38: ``/reload`` under load, the classification template."""
+    t_phase = time.monotonic()
+    log(f"phase 38: /reload x {N_RELOADS} under {N_CLIENTS} clients: "
+        f"phase 26's {N_CLS_USERS} $set users, logreg on the int8 wire with "
+        f"its resident scorer on the card, instances from two seeds in "
+        f"SQLite; {smi}")
+    home = fresh_home("pool")
+    ej = os.path.join(home, "engine.json")
+    with open(ej, "w") as f:
+        json.dump(POOL_VARIANT, f)
+    variant = variant_from_dict(POOL_VARIANT, path=ej)
+    ctx = ComputeContext.create(args.seed, device=CARD)
+    bodies = pool_bodies(args.seed + 38)
+    with cli_store(home):
+        app_id = Storage.get_meta_data_apps().insert(App(0, POOL_APP))
+        cls_events(args, app_id)
+        iids = pool_models(variant, (1, 2), ctx)
+        base = allocated()
+        # every request thread dispatches on its own (the batcher off):
+        # the most readers a swap can land under
+        with knob(MB_KNOBS[0], "0"):
+            server = deploy_query_server(variant, host="127.0.0.1", port=0,
+                                         device=CARD)
+        service = server.service
+        one_gen = allocated() - base
+        (scorer,) = service._gen.scorers()
+        expected = sum(-(-n // 512) * 512 for n in (
+            [scorer.in_dim * scorer.n_classes * 4, scorer.n_classes * 4]
+            + [b * scorer.n_classes * 4 for b in service._buckets.buckets]))
+        outgoing, reloads, answers = [], [], []
+        with server:
+            done = threading.Event()
+
+            def reloader():
+                for k in range(N_RELOADS):
+                    done.wait(0.3)
+                    seed = 1 + (k + 1) % 2
+                    iids.extend(pool_models(variant, (seed,), ctx))
+                    outgoing.extend(service._gen.scorers())
+                    conn = http.client.HTTPConnection("127.0.0.1",
+                                                      server.port, timeout=60)
+                    t = time.perf_counter()
+                    reloads.append((request(conn, "POST", "/reload", {}),
+                                    (time.perf_counter() - t) * 1e3))
+                    conn.close()
+
+            thread = threading.Thread(target=reloader, daemon=True)
+            thread.start()
+            records, wall = drive_load(server.port, bodies, N_CLIENTS,
+                                       PER_CLIENT * 2)
+            thread.join(timeout=CLI_TIMEOUT_S)
+            answers = distinct_answers(records)
+            current = service._gen.scorers()
+            live = allocated() - base
+        after = allocated() - base
+        mirrors = {iid: cpu_mirror(variant, iid) for iid in set(iids)}
+        want = {iid: [m.query(json.dumps(b).encode()) for b in bodies]
+                for iid, m in mirrors.items()}
+        for m in mirrors.values():
+            m.close()
+    if thread.is_alive() or len(reloads) != N_RELOADS:
+        raise AssertionError(f"the reloads did not finish: {reloads}")
+    for k, ((status, got), ms) in enumerate(reloads):
+        if status != 200 or got["engineInstanceId"] != iids[2 + k]:
+            raise AssertionError(f"reload {k}: {status} {got}")
+    for (i, _), answer in answers.items():
+        if not any(answer == w[i] for w in want.values()):
+            raise AssertionError(f"body {i}: {answer} is no generation's "
+                                 f"CPU copy's")
+    lat = latency(records, wall)
+    log(f"  {lat['n']} answers, all 200 and each a generation's CPU copy's "
+        f"answer, across {N_RELOADS} reloads of {[round(ms, 1) for _, ms in reloads]} "
+        f"ms (host clock); p50 {lat['p50_ms']:.3f} ms, p99 "
+        f"{lat['p99_ms']:.3f} ms; outgoing scorers retired "
+        f"{[sc.retired for sc in outgoing]}, the live one retired at close "
+        f"{[sc.retired for sc in current]}")
+    log(f"  torch.cuda.memory_allocated above the start (cuBLAS workspaces "
+        f"cleared before each reading): one generation {one_gen} B at deploy "
+        f"(its params and the ladder's {len(service._buckets.buckets)} "
+        f"buffers in 512-byte blocks: {expected} B), {live} B after the "
+        f"reloads, {after} B after close; {smi}")
+    if len(outgoing) != N_RELOADS or not all(sc.retired for sc in outgoing):
+        raise AssertionError("an outgoing scorer was not retired")
+    if one_gen != expected or live != one_gen or after != 0:
+        raise AssertionError(f"device memory did not come back to one "
+                             f"generation: {one_gen} / {after} B, expected "
+                             f"{expected}")
+    placement = resident_vs_mirror(variant, home, iids[-1], bodies, smi)
+    log(f"  phase 38 {time.monotonic() - t_phase:.1f} s")
+    return {"home": home, "engine_json": ej, "iids": iids, "latency": lat,
+            "placement": placement}
+
+
+def resident_vs_mirror(variant, home, iid, bodies, smi) -> dict:
+    """The newest instance under N_CLIENTS clients with its resident
+    scorer on the card and with the host mirror, each with the batcher
+    off and on: does residency pay under concurrency? Answers against
+    the CPU copy of the same placement (int8 wire, or the host numpy)."""
+    out = {}
+    with cli_store(home):
+        on = cpu_mirror(variant, iid)
+        engine, ep = build_engine(variant)
+        with knob("PIO_TPU_DEVICE_RESIDENT", "0"):
+            off = QueryService(engine, ep, load_models_for_instance(
+                iid, engine, ep, ComputeContext.local(0, device="cpu")),
+                device="cpu")
+        want = {"1": [on.query(json.dumps(b).encode()) for b in bodies],
+                "0": [off.query(json.dumps(b).encode()) for b in bodies]}
+        on.close()
+        for resident in ("1", "0"):
+            for window in ("0", str(MB_WINDOW_US)):
+                with knob("PIO_TPU_DEVICE_RESIDENT", resident), \
+                        knob(MB_KNOBS[0], window), knob(MB_KNOBS[1], "0"):
+                    server = deploy_query_server(variant, host="127.0.0.1",
+                                                 port=0, device=CARD)
+                with server:
+                    records, wall = drive_load(server.port, bodies,
+                                               N_CLIENTS, PER_CLIENT)
+                for (i, _), answer in distinct_answers(records).items():
+                    if answer != want[resident][i]:
+                        raise AssertionError(
+                            f"resident={resident} body {i}: {answer} vs "
+                            f"the CPU copy {want[resident][i]}")
+                lat = latency(records, wall)
+                where = "the card" if resident == "1" else "the host mirror"
+                log(f"  scoring on {where}, batcher "
+                    f"{'on' if window != '0' else 'off'}, {N_CLIENTS} "
+                    f"clients x {PER_CLIENT}: p50 {lat['p50_ms']:.3f} ms, "
+                    f"p99 {lat['p99_ms']:.3f} ms, {lat['qps']:.0f} "
+                    f"queries/s; answers equal the CPU copy; {smi}")
+                out[(resident, window)] = lat
+    return out
+
+
+def allocated() -> int:
+    """``torch.cuda.memory_allocated`` after a collection, without the
+    cuBLAS workspaces of the threads that ran products (PyTorch keeps one
+    a thread's handle, from the same allocator)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    return torch.cuda.memory_allocated()
+
+
+def compute_apps() -> str:
+    """``nvidia-smi``'s compute apps, a line each. In a container its
+    pids need not be this namespace's (an H100 host's container lists
+    every context under pid 1), so only their count is used; which
+    processes hold the card is read from /proc (:func:`holds_card`)."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+
+
+def holds_card(pid: int) -> bool:
+    """Has process ``pid`` a GPU's device file (/dev/nvidia<N>) open, as
+    a process with a CUDA context on that GPU has?"""
+    fd_dir = f"/proc/{pid}/fd"
+    for fd in os.listdir(fd_dir):
+        try:
+            target = os.readlink(os.path.join(fd_dir, fd))
+        except OSError:
+            continue
+        if re.fullmatch(r"/dev/nvidia\d+", target):
+            return True
+    return False
+
+
+def child_pids(pid: int) -> set:
+    """The processes whose parent is ``pid`` (from /proc)."""
+    kids = set()
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if int(fields[1]) == pid:
+            kids.add(int(entry))
+    return kids
+
+
+def wait_listening(home: str, proc) -> None:
+    """Until ``deploy``'s log says "listening" (the pool, worker 0
+    included, is ready), or fail once the process exited or
+    POOL_TIMEOUT_S passed."""
+    deadline = time.monotonic() + POOL_TIMEOUT_S
+    while time.monotonic() < deadline:
+        if proc.poll() is not None:
+            raise AssertionError(f"the pool exited {proc.returncode}")
+        with open(os.path.join(home, "deploy.log")) as f:
+            if "listening" in f.read():
+                return
+        time.sleep(0.2)
+    raise AssertionError(f"the pool was not ready in {POOL_TIMEOUT_S} s")
+
+
+def every_worker(port: int, path: str, key, want=None) -> dict:
+    """``GET path`` on fresh connections until each of the pool's workers
+    has answered (and, with ``want``, answered it): {worker: answer}."""
+    seen = {}
+    deadline = time.monotonic() + 60
+    while time.monotonic() < deadline:
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+        status, got = request(conn, "GET", path)
+        conn.close()
+        if status == 200 and (want is None or want(got)):
+            seen[got[key]] = got
+        if len(seen) == POOL_WORKERS:
+            return seen
+    raise AssertionError(f"{path}: workers seen {sorted(seen)}")
+
+
+def phase_pool(args, smi, reloaded) -> dict:
+    """Phase 39: ``deploy --workers 4 --device-worker`` as a process."""
+    t_phase = time.monotonic()
+    home, ej = reloaded["home"], reloaded["engine_json"]
+    log(f"phase 39: python -m pio_tpu_torch deploy --workers {POOL_WORKERS} "
+        f"--device-worker over phase 38's instance: JSON and packed int8 "
+        f"queries from {N_CLIENTS} clients, the lane, /reload, /undeploy; "
+        f"{smi}")
+    env = cli_env(home)
+    port = free_port()
+    variant = variant_from_dict(POOL_VARIANT, path=ej)
+    bodies = pool_bodies(args.seed + 39)
+    with cli_store(home):
+        newest = reloaded["iids"][-1]
+        mirror = cpu_mirror(variant, newest)
+    want = [mirror.query(json.dumps(b).encode()) for b in bodies]
+    frames = [mirror.pack_query_body(b) for b in bodies]
+    mirror.close()
+    t0 = time.monotonic()
+    with cli_server(env, home, "deploy", "--engine-json", ej, "--ip",
+                    "127.0.0.1", "--port", str(port), "--workers",
+                    str(POOL_WORKERS), "--device-worker", "--device",
+                    CARD.type) as proc:
+        wait_listening(home, proc)
+        up_s = time.monotonic() - t0
+        workers = child_pids(proc.pid)
+        status = every_worker(port, "/", "worker")
+        device_pid = status[0]["pid"]
+        records, wall = drive_load(port, bodies, N_CLIENTS, PER_CLIENT,
+                                   frames=frames)
+        for (i, _), answer in distinct_answers(records).items():
+            if answer != want[i]:
+                raise AssertionError(f"pool body {i}: {answer} vs the CPU "
+                                     f"copy {want[i]}")
+        stats = every_worker(port, "/stats.json", "worker")
+        apps = compute_apps()
+        holders = {p for p in workers | {proc.pid} if holds_card(p)}
+        lane = {w: s.get("batchLane", {}) for w, s in stats.items()}
+        drained = lane[0].get("drained", 0)
+        fallbacks = {w: sum(lane[w].get("fallbacks", {}).values())
+                     for w in range(1, POOL_WORKERS)}
+        lat = latency(records, wall)
+        log(f"  the pool up in {up_s:.1f} s (host clock), workers {sorted(status)} "
+            f"serving instance {sorted({s['engineInstanceId'] for s in status.values()})}; "
+            f"{lat['n']} answers (JSON and packed int8) equal the CPU copy; "
+            f"p50 {lat['p50_ms']:.3f} ms, p99 {lat['p99_ms']:.3f} ms, "
+            f"{lat['qps']:.0f} queries/s; {smi}")
+        log(f"  worker 0 batchLane {json.dumps(lane[0])}, buckets "
+            f"{json.dumps(stats[0]['buckets'])}; siblings' lane "
+            f"{json.dumps({w: lane[w] for w in fallbacks})}")
+        log(f"  nvidia-smi compute apps {apps.splitlines()}; this process "
+            f"{os.getpid()}, the supervisor {proc.pid}, its children "
+            f"{sorted(workers)} (worker 0: {device_pid}); the pool's "
+            f"processes with the card's device file open {sorted(holders)}"
+            f" (this process: {holds_card(os.getpid())})")
+        # on the card: this process and worker 0, nothing else
+        if not holds_card(os.getpid()) or holders != {device_pid} \
+                or len(apps.splitlines()) != 2:
+            raise AssertionError(f"the pool's processes on the card are "
+                                 f"{sorted(holders)}, not worker 0 alone")
+        if drained <= 0 or any(fallbacks.values()):
+            raise AssertionError(f"lane drained {drained}, fallbacks "
+                                 f"{fallbacks}")
+        with cli_store(home):
+            (new,) = pool_models(variant, (3,), ComputeContext.create(
+                args.seed, device=CARD))
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        code, got = request(conn, "POST", "/reload", {})
+        conn.close()
+        if code != 200 or got["engineInstanceId"] != new:
+            raise AssertionError(f"pool /reload: {code} {got}")
+        rolled = every_worker(port, "/", "worker",
+                              lambda s: s["engineInstanceId"] == new)
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        code, got = request(conn, "POST", "/undeploy", {})
+        conn.close()
+        rc = proc.wait(timeout=60)
+        log(f"  /reload rolled workers {sorted(rolled)} to {new}; /undeploy "
+            f"{code}, the pool exited {rc} after "
+            f"{time.monotonic() - t0:.1f} s")
+        if code != 200 or rc != 0:
+            raise AssertionError(f"/undeploy {code}, the pool exited {rc}")
+    log(f"  phase 39 {time.monotonic() - t_phase:.1f} s")
+    return {"latency": lat, "drained": drained, "fallbacks": fallbacks,
+            "holders": sorted(holders)}
+
+
 def kernel_entry(name, source, replaces, launches, row) -> dict:
     """One kernel of the JSON line, from its main timed row."""
     return {
@@ -4495,6 +5099,15 @@ def main(argv=None) -> int:
     full["rows"] += seq["rows"]
     phase_sequence_template(args, smi)
     phase_checkpoints(args, smi, tt, seq)
+    # serving under concurrency: phase 4's model micro-batched (its
+    # launches join the kernels' line, its buckets' times the forward's
+    # shapes), then the recommendation path, /reload and the pool
+    mb_text = phase_text_microbatch(args, smi, gpu, cpu, queries)
+    for entry in summary:
+        entry["launches"] += mb_text["launches"][entry["name"]]
+    summary[0]["shapes"] += mb_text["rows"]
+    phase_rec_microbatch(args, smi, full["factors"])
+    phase_pool(args, smi, phase_reload_under_load(args, smi))
     log(f"text evaluation sweep launches (added to the kernels' line): "
         f"{json.dumps(text_eval)}")
     log(f"CLI train + deploy launches (added to the kernels' line): "

@@ -9,9 +9,13 @@ json_body)``; each connection is parsed by a hand-rolled HTTP/1.1 reader
 ``TCP_NODELAY`` on (with Nagle on, a keep-alive answer waits 40 ms or
 more for the client's delayed ACK).
 
+A body sent as :data:`PACKED_QUERY_CONTENT_TYPE` reaches the handler
+untouched as :attr:`Request.packed`; a handler may answer ready JSON
+bytes instead of an object. ``reuse_port`` sets ``SO_REUSEPORT`` before
+bind, so the processes of a serving pool share one port.
+
 Cut to what the ported routes use: no TLS, no event-loop front, no
-file or octet-stream (blob) bodies, no packed query wire and no
-pre-body hook; they come with later slices.
+file or octet-stream (blob) bodies and no pre-body hook.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import hmac
 import json
 import logging
 import re
+import socket
 import socketserver
 import threading
 from dataclasses import dataclass, field
@@ -40,6 +45,13 @@ IDLE_TIMEOUT_S = 60.0
 #: listen backlog (socketserver's default of 5 overflows under a
 #: 16-client connect burst; the reference's ``PIO_TPU_HTTP_BACKLOG``)
 BACKLOG = 128
+
+
+#: Content type of the packed int8 query wire: the request body IS a
+#: batch-lane frame (``batchlane.pack_query_i8``'s layout: NUL-led magic,
+#: dim, codes), handed to the handler as :attr:`Request.packed` with no
+#: JSON attempt and no decode
+PACKED_QUERY_CONTENT_TYPE = "application/x-pio-query-i8"
 
 
 def keys_equal(provided: str, expected: str) -> bool:
@@ -64,6 +76,9 @@ class Request:
     #: socket — for actions that must not race the reply (e.g. /undeploy
     #: stopping the server)
     after_response: Optional[Callable[[], None]] = None
+    #: body bytes of a :data:`PACKED_QUERY_CONTENT_TYPE` request;
+    #: ``body`` and ``raw_body`` stay empty for these requests
+    packed: Optional[bytes] = None
 
     def header(self, name: str, default: Optional[str] = None):
         return self.headers.get(name.lower(), default)
@@ -113,6 +128,7 @@ _REASONS = {
     403: "Forbidden", 404: "Not Found", 405: "Method Not Allowed",
     411: "Length Required", 413: "Content Too Large",
     431: "Request Header Fields Too Large", 500: "Internal Server Error",
+    503: "Service Unavailable",
 }
 
 _ALLOWED_METHODS = frozenset(
@@ -144,7 +160,11 @@ def _make_handler_class(router: Router, server_name: str):
         # -- response writing ------------------------------------------
         def _respond(self, status: int, body: Any):
             try:
-                payload = json.dumps(body).encode() if body is not None else b""
+                if isinstance(body, bytes):
+                    payload = body  # ready JSON (the packed query wire)
+                else:
+                    payload = (json.dumps(body).encode()
+                               if body is not None else b"")
             except (TypeError, ValueError):
                 # un-serializable handler output must still produce an
                 # HTTP response, not a dropped connection
@@ -271,7 +291,12 @@ def _make_handler_class(router: Router, server_name: str):
                 self._reject(400, "incomplete body")
                 return
             body = None
-            if raw:
+            packed = None
+            ctype = headers.get("content-type", "")
+            if raw and ctype.startswith(PACKED_QUERY_CONTENT_TYPE):
+                # packed binary query wire: the body is a lane frame
+                packed, raw = raw, b""
+            elif raw:
                 # try JSON regardless of Content-Type — real clients (curl
                 # -d without -H) post JSON bodies under the form type;
                 # non-JSON bodies stay raw strings, which handlers that
@@ -283,7 +308,7 @@ def _make_handler_class(router: Router, server_name: str):
             req = Request(
                 method=method, path=path, params=params, body=body,
                 raw_body=raw, headers=headers,
-                client_addr=self.client_address[0],
+                client_addr=self.client_address[0], packed=packed,
             )
             try:
                 status, out = router.dispatch(req)
@@ -302,14 +327,30 @@ def _make_handler_class(router: Router, server_name: str):
 class _Server(ThreadingHTTPServer):
     daemon_threads = True
     request_queue_size = BACKLOG
+    #: SO_REUSEPORT before bind: N worker processes share one port, the
+    #: kernel balancing connections across them (the serving pool)
+    reuse_port = False
+
+    def server_bind(self):
+        if self.reuse_port:
+            self.socket.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
+        super().server_bind()
 
 
 class JsonHTTPServer:
     """Threaded server with programmatic start/stop (tests + CLI)."""
 
     def __init__(self, router: Router, host: str = "0.0.0.0", port: int = 0,
-                 name: str = "pio-tpu-torch"):
-        self._httpd = _Server((host, port), _make_handler_class(router, name))
+                 name: str = "pio-tpu-torch", reuse_port: bool = False):
+        self._httpd = _Server((host, port), _make_handler_class(router, name),
+                              bind_and_activate=False)
+        self._httpd.reuse_port = reuse_port
+        try:
+            self._httpd.server_bind()
+            self._httpd.server_activate()
+        except BaseException:
+            self._httpd.server_close()
+            raise
         self._thread: Optional[threading.Thread] = None
         self._serving = False
         self._stopped = False

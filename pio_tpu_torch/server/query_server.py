@@ -1,43 +1,91 @@
 """Query server — ``POST /queries.json`` over the deployed models.
 
-Counterpart of the query path of ``pio_tpu/server/query_server.py``: parse
-the JSON body into the algorithms' query dataclass (400 on bad JSON or
-unknown fields), run each algorithm's ``predict`` against its model, combine
-with the engine's serving, and answer the result as JSON. ``GET /`` reports
-status, ``GET /stats.json`` the ``residency`` block of the reference's
-(the other blocks come with the query-server slice), and ``POST
-/undeploy`` stops the server once its answer is written (loopback-only
-unless the service holds an admin key, as in the reference).
+Counterpart of ``pio_tpu/server/query_server.py``. Routes:
+
+    GET  /               status (engine instance, start time, requests)
+    POST /queries.json   typed query (JSON, or a packed int8 frame sent
+                         as ``application/x-pio-query-i8``) → serving
+    GET  /stats.json     residency, micro-batch, bucket, lane and pool blocks
+    GET  /healthz        liveness (accept loop, batcher, lane, heartbeat)
+    GET  /readyz         readiness (engine loaded, instance in storage)
+    POST /reload         hot swap to the newest COMPLETED instance
+    POST /undeploy       stop serving (the whole pool in pool mode)
+
+The body parses into the algorithms' query dataclass (400 on bad JSON or
+unknown fields); each algorithm's ``predict`` runs against its model and
+the engine's serving combines the answers.
+
+**Generations.** A deployed generation is the (algorithm, model) pairs,
+the serving, the query class and the resident scorers, built together by
+``_install`` and swapped in at once under ``_swap_lock``. Every dispatch
+reads its generation through :meth:`QueryService._reading`, which counts
+it as a reader; a ``/reload`` retires the outgoing generation's scorers
+only once its last reader has finished. So a query in flight across a
+swap finishes on live parameters, a retired scorer is never reached, and
+one that were would raise rather than answer from the host mirror.
+
+**Micro-batching** (``PIO_TPU_SERVE_MICROBATCH_US``, the window in
+microseconds): concurrent request threads enqueue their parsed queries
+and one worker thread serves them as one ``batch_predict`` a bucket of
+the ladder (``server/bucketcache.py``), which it warms at every load.
+``PIO_TPU_SERVE_MICROBATCH_ADAPTIVE`` (default on) probes whether
+batching wins under the live load and bypasses it where it does not.
+
+**Pool mode** (``server/worker_pool.py``): :meth:`QueryService.
+enable_pool` wires the shared reload generation and shutdown event, and
+:meth:`QueryService.enable_batch_lane` the cross-worker batch lane,
+whose drainer runs on the worker that owns the device.
 
 Where residency is enabled (:func:`~pio_tpu_torch.server.residency.
-enabled`), the service places each algorithm's resident scorer on the
-serving device when it is built (the reference's ``_place_resident``),
-attaches it to its model as ``_resident``, binds its counters and
-preallocates bucket 1; :meth:`QueryService.close` retires the scorers.
-A placement that fails raises: the reference logs it and serves from the
-host mirror, which would hide the device.
+enabled`), each generation places its algorithms' resident scorers on
+the serving device, attached to their models as ``_resident`` with the
+ladder's output tensors preallocated; a placement that fails raises (the
+reference logs it and serves from the host mirror, which would hide the
+device). Two factories: :func:`create_query_server` over models handed
+over in memory (``/reload`` answers 400 there: there is no stored
+instance to reload), and :func:`deploy_query_server`, which loads a
+stored engine instance the way ``pio deploy`` does.
 
-Two factories: :func:`create_query_server` over models handed over in
-memory, and :func:`deploy_query_server`, which loads a stored engine
-instance the way ``pio deploy`` does. QoS, micro-batching, the bucket
-ladder, ``/reload``, tracing and the other routes come with later slices.
+Not ported: QoS (admission, deadlines, the batcher's deadline shedding),
+the tracer and ``/metrics`` with the pool's shared metrics segment, the
+evloop front, mesh serving, feedback, plugins, failpoints and
+``/deploy.json``.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import datetime as dt
 import json
 import logging
+import os
 import threading
-from typing import Any, Optional, Sequence
+import time
+from typing import Any, List, Optional, Sequence
 
 import torch
 
 from pio_tpu_torch import DeviceLike, resolve_device
 from pio_tpu_torch.controller.engine import Engine, EngineParams
 from pio_tpu_torch.controller.params import ParamsError, params_from_dict
+from pio_tpu_torch.obs.health import Heartbeat, HealthMonitor
 from pio_tpu_torch.parallel.context import ComputeContext
 from pio_tpu_torch.server import residency
+from pio_tpu_torch.server.batchlane import (
+    BatchLaneSegment,
+    LaneClient,
+    LaneDrainer,
+    LaneFallback,
+    PackedQuery,
+    pack_query_i8,
+    packed_frame_ok,
+    unpack_query_i8,
+)
+from pio_tpu_torch.server.bucketcache import (
+    BucketExecutionCache,
+    dispatch_bucketed,
+)
 from pio_tpu_torch.server.http import (
     HTTPError,
     JsonHTTPServer,
@@ -45,6 +93,8 @@ from pio_tpu_torch.server.http import (
     Router,
     keys_equal,
 )
+from pio_tpu_torch.storage.registry import Storage
+from pio_tpu_torch.utils import knobs
 from pio_tpu_torch.workflow.core_workflow import load_models_for_instance
 from pio_tpu_torch.workflow.deploy_common import (
     resolve_instance_id,
@@ -55,24 +105,325 @@ from pio_tpu_torch.workflow.engine_json import EngineVariant, build_engine
 
 log = logging.getLogger("pio_tpu_torch.query_server")
 
+#: sentinel: the micro-batch dispatch failed; the waiting request thread
+#: runs the per-query fallback itself (see _MicroBatcher.submit)
+_BATCH_FAILED = object()
+
+#: why a lane submission was served by the local predict instead
+LANE_FALLBACK_REASONS = ("full", "timeout", "oversize", "remote_error",
+                         "unserializable", "undecodable_response")
+
+
+class _MicroBatcher:
+    """Coalesces concurrent ``/queries.json`` requests into one
+    ``batch_predict`` dispatch, when that wins.
+
+    Request threads enqueue their parsed query and block; the worker
+    thread drains the queue after a short collection window and serves
+    the whole batch through the bucket ladder (one launch of each
+    algorithm's device program per bucket), then answers each query. It
+    is the only thread that launches on the card in batched mode; solo
+    and fallback predicts run in the request threads.
+
+    **Adaptive bypass.** The first ``PROBE_QUERIES`` requests run
+    coalesced, the next ``PROBE_QUERIES`` per request in the caller's
+    thread, and whichever regime had the lower median latency under the
+    same live load wins (the second half of each window is compared, so
+    one-off first dispatches do not decide). An "off" verdict is a lease
+    of ``PIO_TPU_MB_REPROBE_S`` seconds, after which the probe runs
+    again. ``PIO_TPU_SERVE_MICROBATCH_ADAPTIVE=0`` pins batching on.
+
+    If a batch dispatch fails, every member falls back to the per-query
+    path in its own thread, so one poisoned query cannot fail its
+    batch-mates. The reference's QoS deadlines are not ported: a member
+    waits out the window whatever its budget.
+    """
+
+    MAX_BATCH = 512
+    #: probe sample size per regime before the mode decision
+    PROBE_QUERIES = 96
+
+    def __init__(self, service: "QueryService", window_s: float,
+                 adaptive: bool = True):
+        self._service = service
+        self._window_s = window_s
+        self._cv = threading.Condition()
+        self._queue: List[list] = []
+        self._stopped = False
+        self.batches = 0
+        self.batched_queries = 0
+        self.max_batch = 0
+        #: probe_batch → probe_solo → on | off
+        self._mode = "probe_batch" if adaptive else "on"
+        #: set when the probe decides "off": query() then skips the
+        #: batcher and serves inline
+        self.bypassed = False
+        self._reprobe_s = knobs.knob_float("PIO_TPU_MB_REPROBE_S")
+        self._decided_at = 0.0
+        self.reprobes = 0
+        self._probe_lock = threading.Lock()
+        self._probe: dict = {"batch": [], "solo": []}
+        #: per-bucket batched per-member latency samples (bounded ring,
+        #: fresh-bucket dispatches excluded), behind ``modeByBucket``
+        self._bucket_samples: dict = {}
+        self._thread = threading.Thread(
+            target=self._run, name="pio-tpu-torch-microbatch", daemon=True
+        )
+        self._thread.start()
+
+    @property
+    def thread(self) -> threading.Thread:
+        return self._thread
+
+    def active(self) -> bool:
+        """Should queries flow through the batcher? Also the re-probe
+        trigger: an "off" verdict older than the re-probe interval
+        resets the probe windows."""
+        if not self.bypassed:
+            return True
+        if self._reprobe_s <= 0 \
+                or time.monotonic() - self._decided_at < self._reprobe_s:
+            return False
+        with self._probe_lock:
+            if not self.bypassed:  # another thread re-armed first
+                return True
+            self._probe = {"batch": [], "solo": []}
+            self._mode = "probe_batch"
+            self.bypassed = False
+            self.reprobes += 1
+        log.info("micro-batch re-probe after %.0fs in bypass",
+                 self._reprobe_s)
+        return True
+
+    def submit(self, query, gen=None):
+        """Serve one query through the current regime on ``gen``, the
+        generation the caller parsed it with and holds as a reader;
+        blocks until done. If the batch dispatch failed, the per-query
+        predict runs here, in the request's own thread."""
+        mode = self._mode
+        if mode == "off" or mode == "probe_solo":
+            t0 = time.monotonic()
+            out = self._service._predict_one(query, gen)
+            if mode == "probe_solo":
+                self._note_probe("solo", time.monotonic() - t0)
+            return out
+        t0 = time.monotonic()
+        # query, result, error, done, enqueue time, worker-filled notes,
+        # generation
+        pend = [query, None, None, threading.Event(), t0, {}, gen]
+        with self._cv:
+            if self._stopped:
+                raise HTTPError(503, "undeployed")
+            self._queue.append(pend)
+            self._cv.notify()
+        pend[3].wait()
+        if mode == "probe_batch" and not pend[5].get("fresh_bucket"):
+            # a dispatch into a cold bucket is a one-off transient, not
+            # the steady state the probe compares
+            self._note_probe("batch", time.monotonic() - t0)
+        if pend[2] is _BATCH_FAILED:
+            return self._service._predict_one(pend[0], gen)
+        if pend[2] is not None:
+            raise pend[2]
+        return pend[1]
+
+    def _note_probe(self, kind: str, dt_s: float) -> None:
+        with self._probe_lock:
+            samples = self._probe[kind]
+            samples.append(dt_s)
+            if len(samples) < self.PROBE_QUERIES:
+                return
+            if kind == "batch" and self._mode == "probe_batch":
+                self._mode = "probe_solo"
+            elif kind == "solo" and self._mode == "probe_solo":
+                # steady state: drop each window's first half
+                med = lambda xs: sorted(xs[len(xs) // 2:])[len(xs) // 4]
+                batch_med = med(self._probe["batch"])
+                solo_med = med(self._probe["solo"])
+                self._mode = "on" if batch_med <= solo_med else "off"
+                log.info(
+                    "micro-batch probe: batched p50 %.3f ms vs per-query "
+                    "p50 %.3f ms under live load -> %s",
+                    batch_med * 1e3, solo_med * 1e3, self._mode,
+                )
+                if self._mode == "off":
+                    self.bypassed = True
+                    self._decided_at = time.monotonic()
+
+    @property
+    def mode(self) -> str:
+        return self._mode
+
+    def stop(self) -> None:
+        with self._cv:
+            self._stopped = True
+            self._cv.notify()
+
+    def to_dict(self) -> dict:
+        with self._probe_lock:
+            med = lambda xs: (
+                round(sorted(xs)[len(xs) // 2] * 1e3, 3) if xs else None
+            )
+            probe = {
+                "batchedP50Ms": med(self._probe["batch"]),
+                "perQueryP50Ms": med(self._probe["solo"]),
+            }
+            solo = sorted(self._probe["solo"])
+            solo_med = solo[len(solo) // 2] if solo else None
+        # each bucket's batched per-member p50 against the probe's
+        # per-query p50: which batch sizes coalescing wins at
+        mode_by_bucket = {}
+        for b in sorted(self._bucket_samples):
+            xs = sorted(self._bucket_samples[b])
+            if not xs:
+                continue
+            p50 = xs[len(xs) // 2]
+            mode_by_bucket[str(b)] = {
+                "mode": (
+                    "on" if solo_med is None or p50 <= solo_med else "off"
+                ),
+                "p50Ms": round(p50 * 1e3, 3),
+                "samples": len(xs),
+            }
+        return {
+            "mode": self._mode,
+            "modeByBucket": mode_by_bucket,
+            "probe": probe,
+            "batches": self.batches,
+            "batchedQueries": self.batched_queries,
+            "maxBatch": self.max_batch,
+            "windowUs": round(self._window_s * 1e6),
+            "reprobeSeconds": self._reprobe_s,
+            "reprobes": self.reprobes,
+            "bypassed": self.bypassed,
+        }
+
+    def _run(self) -> None:
+        while True:
+            with self._cv:
+                while not self._queue and not self._stopped:
+                    self._cv.wait()
+                if self._stopped and not self._queue:
+                    return
+            # collection window: let concurrent request threads pile on,
+            # but don't idle when a full batch is already waiting
+            if self._window_s > 0:
+                window_end = time.monotonic() + self._window_s
+                with self._cv:
+                    while not self._stopped \
+                            and len(self._queue) < self.MAX_BATCH:
+                        wait_s = window_end - time.monotonic()
+                        if wait_s <= 0:
+                            break
+                        self._cv.wait(wait_s)
+            with self._cv:
+                batch = self._queue[: self.MAX_BATCH]
+                del self._queue[: len(batch)]
+            if not batch:
+                continue
+            t_drain = time.monotonic()
+            self.batches += 1
+            self.batched_queries += len(batch)
+            self.max_batch = max(self.max_batch, len(batch))
+            try:
+                queries = [p[0] for p in batch]
+                # freshness from the warmed-set snapshot: _predict_batch
+                # is the seam tests wrap, so the batcher goes through it
+                cache = self._service._buckets
+                pre_warmed = cache.warmed
+                fresh = any(
+                    cache.bucket_for(n) not in pre_warmed
+                    for n in cache.chunks(len(queries))
+                )
+                # one dispatch per generation among the members (one,
+                # except across a swap): a query is predicted by the
+                # generation that parsed it
+                by_gen: dict = {}
+                for i, p in enumerate(batch):
+                    by_gen.setdefault(id(p[6]), (p[6], []))[1].append(i)
+                results = [None] * len(batch)
+                for gen, idx in by_gen.values():
+                    got = self._service._predict_batch(
+                        [queries[i] for i in idx], gen)
+                    for i, r in zip(idx, got):
+                        results[i] = r
+                exec_s = time.monotonic() - t_drain
+                bucket = cache.bucket_for(len(batch))
+                samples = self._bucket_samples.get(bucket)
+                if samples is None:
+                    samples = self._bucket_samples[bucket] = (
+                        collections.deque(maxlen=64)
+                    )
+                for p, r in zip(batch, results):
+                    p[1] = r
+                    if fresh:
+                        p[5]["fresh_bucket"] = True
+                    else:
+                        samples.append(t_drain - p[4] + exec_s)
+            except Exception:
+                log.exception(
+                    "micro-batch dispatch failed; per-query fallback "
+                    "(runs in each request's own thread)"
+                )
+                for p in batch:
+                    p[2] = _BATCH_FAILED
+            for p in batch:
+                p[3].set()
+
+
+class _Generation:
+    """One deployed generation and its reader count (under the service's
+    ``_swap_lock``). ``resident`` is its (model, scorer) placements."""
+
+    __slots__ = ("instance_id", "pairs", "serving", "query_class",
+                 "resident", "readers", "swapped")
+
+    def __init__(self, instance_id, pairs, serving, query_class, resident):
+        self.instance_id = instance_id
+        self.pairs = pairs
+        self.serving = serving
+        self.query_class = query_class
+        self.resident = resident
+        self.readers = 0
+        self.swapped = False
+
+    def scorers(self) -> list:
+        return [sc for _, sc in self.resident]
+
+    def packed_scorer(self):
+        """The scorer that serves packed int8 frames: exactly one
+        resident scorer on the int8 wire, with both of its template's
+        factories (the drainer mints queries, a local frame maps its
+        class code straight to the result)."""
+        if len(self.resident) != 1:
+            return None
+        sc = self.resident[0][1]
+        if (sc.wire != residency.WIRE_INT8 or sc.query_factory is None
+                or sc.result_factory is None):
+            return None
+        return sc
+
 
 class QueryService:
-    """The deployed engine: (algorithm, model) pairs plus serving.
+    """The deployed engine: its current generation, the micro-batcher and
+    bucket ladder, and the pool wiring.
 
     ``device`` is the serving device of the resident scorers (CUDA unless
     told otherwise); it is resolved only where residency is enabled.
     ``instance_id`` names the stored engine instance the models came from
-    (None for models handed over in memory); ``admin_key``, when set, is
-    the key ``POST /undeploy`` needs, which is otherwise loopback-only."""
+    (None for models handed over in memory); ``variant`` and ``ctx``,
+    given for a stored instance, let ``/reload`` load the newest one.
+    ``admin_key``, when set, is the key ``/reload`` and ``/undeploy``
+    need; they are otherwise loopback-only."""
 
     def __init__(self, engine: Engine, engine_params: EngineParams,
                  models: Sequence[Any], device: DeviceLike = None,
                  instance_id: Optional[str] = None,
-                 admin_key: Optional[str] = None):
-        self.pairs = engine.algorithms_with_models(engine_params, models)
-        self.serving = engine.make_serving(engine_params)
-        self.query_class = resolve_query_class(self.pairs)
-        self.instance_id = instance_id
+                 admin_key: Optional[str] = None,
+                 variant: Optional[EngineVariant] = None,
+                 ctx: Optional[ComputeContext] = None):
+        self.variant = variant
+        self.ctx = ctx
         self.admin_key = admin_key
         self.server: Optional[JsonHTTPServer] = None
         self.start_time = dt.datetime.now(dt.timezone.utc)
@@ -81,27 +432,73 @@ class QueryService:
         #: totals of every resident dispatch (the scorers' bound counters)
         self.resident_counts = {"h2dBytes": 0, "hit": 0, "miss": 0}
         self.device: Optional[torch.device] = None
-        self._resident: list = []
         if residency.enabled(device):
             self.device = resolve_device(device)
-            self._resident = self._place_resident(self.device)
+        self._buckets = BucketExecutionCache()
+        #: batched dispatches by bucket (padded batch size)
+        self.bucket_dispatches = {b: 0 for b in self._buckets.buckets}
+        self._swap_lock = threading.Lock()
+        #: serializes loads (a /reload, a pool sync); re-entrant: a pool
+        #: sync holds it across the load it runs
+        self._load_lock = threading.RLock()
+        self._gen: Optional[_Generation] = None
+        self._deployed = True
+        self._batcher: Optional[_MicroBatcher] = None
+        # pool mode (server/worker_pool.py), wired by enable_pool()
+        self._pool_idx: Optional[int] = None
+        self._pool_size: Optional[int] = None
+        self._pool_gen = None
+        self._pool_shutdown = None
+        self._seen_gen = 0
+        # the cross-worker batch lane, wired by enable_batch_lane()
+        self._lane_seg: Optional[BatchLaneSegment] = None
+        self._lane_client: Optional[LaneClient] = None
+        self._lane_drainer: Optional[LaneDrainer] = None
+        #: this worker's lane submissions, as a client
+        self.lane_counts = {"enqueued": 0, "fallbacks": dict.fromkeys(
+            LANE_FALLBACK_REASONS, 0)}
+        self.heartbeat = Heartbeat(
+            max_age_s=knobs.knob_float("PIO_TPU_HEARTBEAT_MAX_AGE_S"))
+        self.health = HealthMonitor()
+        self.health.add_liveness("http_loop", self._http_loop_alive)
+        self.health.add_critical_thread(
+            "microbatch_worker",
+            lambda: self._batcher.thread if self._batcher else None)
+        self.health.add_readiness("engine", self._check_engine_ready)
+        self.health.add_readiness("storage", self._check_storage_ready)
+        self._install(engine, engine_params, models, instance_id)
+        window_us = knobs.knob_float("PIO_TPU_SERVE_MICROBATCH_US")
+        adaptive = knobs.knob_str("PIO_TPU_SERVE_MICROBATCH_ADAPTIVE") != "0"
+        if window_us > 0:
+            self._batcher = _MicroBatcher(self, window_us / 1e6,
+                                          adaptive=adaptive)
+
+    # -- generations ---------------------------------------------------------
+    @property
+    def instance_id(self) -> Optional[str]:
+        return self._gen.instance_id
+
+    @property
+    def pairs(self) -> list:
+        return self._gen.pairs
 
     def _count(self, key: str, n: int = 1) -> None:
         with self._lock:
             self.resident_counts[key] += n
 
-    def _place_resident(self, device: torch.device) -> list:
-        """Build, place and attach each pair's resident scorer; a failure
-        retires what was placed and raises."""
+    def _place_resident(self, pairs) -> list:
+        """Build, place and attach each pair's resident scorer on the
+        serving device, the ladder's output tensors preallocated; a
+        failure retires what was placed and raises."""
         placed = []
         try:
-            for algo, m in self.pairs:
-                sc = algo.resident_scorer(m, device)
+            for algo, m in pairs:
+                sc = algo.resident_scorer(m, self.device)
                 if sc is None:
                     continue
                 sc.bind(on_h2d=lambda n: self._count("h2dBytes", n),
                         on_dispatch=self._count)
-                sc.prealloc((1,))
+                sc.prealloc(self._buckets.buckets)
                 m._resident = sc
                 placed.append((m, sc))
                 log.info("resident scorer %r placed: %d param bytes, "
@@ -113,89 +510,521 @@ class QueryService:
 
     @staticmethod
     def _retire(placed) -> None:
+        """Retire scorers and take them off their models."""
         for m, sc in placed:
             sc.retire()
             if m.__dict__.get("_resident") is sc:
                 del m._resident
 
+    def _install(self, engine: Engine, engine_params: EngineParams,
+                 models: Sequence[Any], instance_id: Optional[str]) -> None:
+        """Build a generation on ``models`` (pairs, serving, query class,
+        resident scorers, the warmed ladder) while the current one keeps
+        serving, swap it in under ``_swap_lock``, and retire the outgoing
+        generation once its readers have finished."""
+        pairs = engine.algorithms_with_models(engine_params, models)
+        serving = engine.make_serving(engine_params)
+        # a conflicting query-class config fails the load, not a query
+        query_class = resolve_query_class(pairs)
+        incoming = (self._place_resident(pairs)
+                    if self.device is not None else [])
+        warmed = self._warm_buckets(pairs, serving)
+        gen = _Generation(instance_id, pairs, serving, query_class, incoming)
+        with self._swap_lock:
+            outgoing, self._gen = self._gen, gen
+            self._buckets.install(warmed)
+            if outgoing is not None:
+                outgoing.swapped = True
+            retire_now = outgoing is not None and outgoing.readers == 0
+        if retire_now:
+            self._retire_generation(outgoing)
+        log.info("serving engine instance %s (generation %d, %d resident)",
+                 instance_id, self._buckets.generation, len(incoming))
+
+    @staticmethod
+    def _retire_generation(gen: _Generation) -> None:
+        """Retire a swapped-out generation's scorers. They stay attached
+        to their models: no reader is left, and a late one would raise
+        on the retired scorer rather than answer from the host mirror."""
+        for _, sc in gen.resident:
+            sc.retire()
+
+    @contextlib.contextmanager
+    def _reading(self):
+        """The current generation, held as a reader for the duration of
+        a dispatch: a swap does not retire it until the last reader is
+        done."""
+        with self._swap_lock:
+            gen = self._gen
+            gen.readers += 1
+        try:
+            yield gen
+        finally:
+            with self._swap_lock:
+                gen.readers -= 1
+                last = gen.swapped and gen.readers == 0
+            if last:
+                self._retire_generation(gen)
+
+    def _load(self, instance_id: Optional[str]) -> None:
+        """Load a stored instance (``None``: the variant's newest
+        COMPLETED one) and swap it in."""
+        if self.variant is None:
+            raise HTTPError(
+                400, "no stored engine instance to reload: this server "
+                     "serves models handed over in memory")
+        with self._load_lock:
+            engine, engine_params = build_engine(self.variant)
+            instance_id = resolve_instance_id(self.variant, instance_id)
+            models = load_models_for_instance(
+                instance_id, engine, engine_params, self.ctx,
+                variant=self.variant,
+            )
+            self._install(engine, engine_params, models, instance_id)
+
     def close(self) -> None:
-        """Retire the resident scorers and detach them from their models."""
-        placed, self._resident = self._resident, []
+        """Stop the batcher and the lane drainer, and retire the current
+        generation's scorers, taking them off their models."""
+        if self._batcher is not None:
+            self._batcher.stop()
+        if self._lane_drainer is not None:
+            self._lane_drainer.stop()
+            self._lane_drainer = None
+        if self._lane_seg is not None:
+            self._lane_seg.close()
+            self._lane_seg = None
+        with self._swap_lock:
+            gen = self._gen
+            placed, gen.resident = gen.resident, []
         self._retire(placed)
 
-    def stats(self) -> dict:
-        """``GET /stats.json``: the residency block (the reference's
-        keys, plus the service's dispatch totals). ``measuredBytes`` is
-        ``torch.cuda.memory_allocated`` on the card, null elsewhere."""
-        scorers = [sc for _, sc in self._resident]
-        on_card = self.device is not None and self.device.type == "cuda"
-        with self._lock:
-            totals = dict(self.resident_counts)
-        return {"residency": {
-            "enabled": bool(scorers),
-            "paramBytes": sum(sc.placed_bytes for sc in scorers),
-            "measuredBytes": (torch.cuda.memory_allocated(self.device)
-                              if on_card else None),
-            "scorers": [sc.to_dict() for sc in scorers],
-            "totals": totals,
-        }}
+    # -- bucket ladder -------------------------------------------------------
+    def _bucket_warm_enabled(self) -> bool:
+        """Warm the ladder only where batched dispatches happen: a
+        micro-batching server or a batch-lane device worker.
+        ``PIO_TPU_BUCKET_WARMUP=0`` forbids, ``=1`` forces."""
+        flag = knobs.knob_str("PIO_TPU_BUCKET_WARMUP")
+        if flag == "0":
+            return False
+        if flag == "1":
+            return True
+        if knobs.knob_float("PIO_TPU_SERVE_MICROBATCH_US") > 0:
+            return True
+        return self._lane_drainer is not None
 
-    def status(self) -> dict:
-        return {
-            "status": "deployed",
-            "algorithms": [type(a).__name__ for a, _ in self.pairs],
-            "engineInstanceId": self.instance_id,
-            "startTime": self.start_time.isoformat(),
-            "requestCount": self.request_count,
-        }
+    def _warm_buckets(self, pairs, serving) -> list:
+        """Dispatch each bucket once with a representative query
+        (``algo.warmup_query``), paying its one-off costs before the
+        generation serves. Returns the warmed buckets: empty when warmup
+        is off or no algorithm mints a warmup query (the ladder then
+        warms on first live dispatch, counted as retraces)."""
+        if not self._bucket_warm_enabled() or not pairs:
+            return []
+        wq = None
+        for algo, m in pairs:
+            try:
+                wq = algo.warmup_query(m)
+            except Exception:
+                log.exception("warmup_query failed for %s",
+                              type(algo).__name__)
+            if wq is not None:
+                break
+        if wq is None:
+            log.info("no algorithm provided a warmup query; buckets warm "
+                     "on first dispatch")
+            return []
+        t0 = time.monotonic()
+        warmed = []
+        for b in self._buckets.buckets:
+            try:
+                self._run_batch(pairs, serving, [wq] * b)
+                warmed.append(b)
+            except Exception:
+                log.exception("bucket %d warmup dispatch failed", b)
+                break
+        log.info("bucket warmup: buckets %s in %.0f ms", warmed,
+                 (time.monotonic() - t0) * 1e3)
+        return warmed
 
-    def _parse_query(self, body: Any):
+    # -- dispatch ------------------------------------------------------------
+    @staticmethod
+    def _predict_with(gen: _Generation, query):
+        predictions = [algo.predict(m, query) for algo, m in gen.pairs]
+        return gen.serving.serve(query, predictions)
+
+    def _predict_one(self, query, gen: Optional[_Generation] = None):
+        """Per-query predict and serve on ``gen`` (None: the current
+        generation, held for the call)."""
+        if gen is None:
+            with self._reading() as held:
+                return self._predict_with(held, query)
+        return self._predict_with(gen, query)
+
+    @staticmethod
+    def _run_batch(pairs, serving, queries: list) -> list:
+        """One ``batch_predict`` per algorithm over the whole (bucket-
+        shaped) batch, then the per-query serving combine."""
+        per_algo = []
+        for algo, m in pairs:
+            got = dict(algo.batch_predict(m, list(enumerate(queries))))
+            per_algo.append([got[i] for i in range(len(queries))])
+        return [
+            serving.serve(q, [pa[i] for pa in per_algo])
+            for i, q in enumerate(queries)
+        ]
+
+    def _predict_batch(self, queries: list,
+                       gen: Optional[_Generation] = None) -> list:
+        """Micro-batch dispatch (bucketed) on ``gen``; results only."""
+        return self._predict_batch_bucketed(queries, gen)[0]
+
+    def _predict_batch_bucketed(self, queries: list,
+                                gen: Optional[_Generation] = None):
+        """Serve a batch through the bucket ladder on one generation:
+        chunk to the max bucket, pad each chunk to its bucket by
+        replicating the last query, dispatch, slice the padding off.
+        Returns ``(results, fresh)``, ``fresh`` when a chunk hit a cold
+        bucket."""
+        if gen is None:
+            with self._reading() as held:
+                return self._predict_batch_bucketed(queries, held)
+
+        def on_dispatch(n: int, bucket: int, fresh: bool) -> None:
+            with self._lock:
+                self.bucket_dispatches[bucket] = (
+                    self.bucket_dispatches.get(bucket, 0) + 1)
+
+        return dispatch_bucketed(
+            self._buckets, queries,
+            lambda qs: self._run_batch(gen.pairs, gen.serving, qs),
+            on_dispatch=on_dispatch,
+        )
+
+    # -- the query path ------------------------------------------------------
+    @staticmethod
+    def _parse_query(body: Any, qc):
+        if body is None:
+            raise HTTPError(400, "query body required")
         if not isinstance(body, dict):
             raise HTTPError(400, "query body must be a JSON object")
-        if self.query_class is None:
+        if qc is None:
             return body  # raw dict queries
         try:
-            return params_from_dict(self.query_class, body)
+            return params_from_dict(qc, body)
         except ParamsError as e:
             raise HTTPError(400, str(e))
 
-    def _predict_one(self, query):
-        predictions = [algo.predict(m, query) for algo, m in self.pairs]
-        return self.serving.serve(query, predictions)
-
     def query(self, raw: bytes) -> Any:
+        """Answer one JSON query body: through the batch lane in a pool
+        sibling, through the micro-batcher where it is on, else inline."""
+        if not self._deployed:
+            raise HTTPError(503, "undeployed")
+        self._pool_sync()
         if not raw:
             raise HTTPError(400, "query body required")
         try:
             body = json.loads(raw)
         except (UnicodeDecodeError, json.JSONDecodeError) as e:
             raise HTTPError(400, f"invalid JSON: {e}")
-        query = self._parse_query(body)
-        try:
-            prediction = self._predict_one(query)
-        except ValueError as e:
-            # a query the model cannot take, e.g. the wrong number of
-            # attributes: the client's error
-            raise HTTPError(400, str(e))
-        result = to_jsonable(prediction)
+        # one generation parses, supplements and predicts the query
+        with self._reading() as gen:
+            query = gen.serving.supplement(
+                self._parse_query(body, gen.query_class))
+            try:
+                if self._lane_client is not None:
+                    result = self._lane_submit(body, query, gen)
+                elif self._batcher is not None and self._batcher.active():
+                    result = self._batcher.submit(query, gen)
+                else:
+                    result = self._predict_one(query, gen)
+            except ValueError as e:
+                # a query the model cannot take, e.g. the wrong number of
+                # attributes: the client's error
+                raise HTTPError(400, str(e))
+        out = to_jsonable(result)
         with self._lock:
             self.request_count += 1
+        return out
+
+    def _lane_submit(self, body, query, gen: _Generation):
+        """Ship a query to the device worker over the lane; any lane
+        trouble serves it locally on ``gen``, counted by reason."""
+        try:
+            result = self._lane_client.submit(
+                body, packed=self._lane_pack(query, gen))
+        except LaneFallback as lf:
+            self._note_lane_fallback(lf.reason)
+            return self._predict_one(query, gen)
+        with self._lock:
+            self.lane_counts["enqueued"] += 1
         return result
 
+    def _note_lane_fallback(self, reason: str) -> None:
+        with self._lock:
+            fb = self.lane_counts["fallbacks"]
+            fb[reason] = fb.get(reason, 0) + 1
+
+    def _lane_pack(self, query, gen: _Generation) -> Optional[bytes]:
+        """``query`` as a packed int8 lane frame, or None to ship JSON:
+        only where one resident scorer serves the int8 wire (the drainer
+        dequantizes with the same training scales) and the query carries
+        a dense feature vector."""
+        vec = getattr(query, "vector", None)
+        sc = gen.packed_scorer()
+        if vec is None or sc is None:
+            return None
+        try:
+            return pack_query_i8(sc.quantize(vec(sc.in_dim))[0])
+        except ValueError:
+            return None  # e.g. the wrong arity: the JSON path says so
+
+    def _query_packed(self, frame: bytes) -> bytes:
+        """The packed int8 wire: the body is a lane frame, validated
+        structurally and shipped to the device worker as it is, or served
+        locally. Answers the JSON bytes of the result."""
+        if not self._deployed:
+            raise HTTPError(503, "undeployed")
+        self._pool_sync()
+        if not packed_frame_ok(frame):
+            raise HTTPError(400, "malformed packed query frame")
+        resp = None
+        if self._lane_client is not None:
+            try:
+                resp = self._lane_client.submit_packed(frame)
+                with self._lock:
+                    self.lane_counts["enqueued"] += 1
+            except LaneFallback as lf:
+                self._note_lane_fallback(lf.reason)
+        if resp is None:
+            resp = self._query_packed_local(frame)
+        with self._lock:
+            self.request_count += 1
+        return resp
+
+    def _query_packed_local(self, frame: bytes) -> bytes:
+        """Serve a packed frame here: its codes ARE the int8 scorer's
+        wire, so they dispatch straight to it and the class code maps to
+        the result through the template's ``result_factory`` (whose
+        serving passes results through unchanged)."""
+        pq = unpack_query_i8(frame)
+        with self._reading() as gen:
+            sc = gen.packed_scorer()
+            if sc is None:
+                raise HTTPError(
+                    400, "packed queries need exactly one int8 resident "
+                         "scorer with its template's factories")
+            try:
+                code = sc.score_wire(pq.codes.reshape(1, -1))[0]
+                result = sc.result_factory(int(code))
+            except ValueError as e:
+                raise HTTPError(400, str(e))
+        return json.dumps(to_jsonable(result)).encode("utf-8")
+
+    def pack_query_body(self, body) -> Optional[bytes]:
+        """A JSON query body as the packed int8 frame, or None where the
+        deployment serves no packed queries. A test and benchmark helper:
+        a real producer packs features with the published scales."""
+        with self._reading() as gen:
+            return self._lane_pack(gen.serving.supplement(
+                self._parse_query(body, gen.query_class)), gen)
+
+    # -- pool mode and the batch lane ---------------------------------------
+    def enable_pool(self, idx: int, size: int, gen, shutdown_evt) -> None:
+        """Wire this worker into a serving pool: ``gen`` is the shared
+        generation counter (a ``/reload`` on any worker bumps it; the
+        others reload before their next request), ``shutdown_evt`` the
+        shared event ``/undeploy`` sets to bring the pool down."""
+        self._pool_idx = idx
+        self._pool_size = size
+        self._pool_gen = gen
+        self._pool_shutdown = shutdown_evt
+        self._seen_gen = gen.value
+        self.health.add_liveness("event_loop", self.heartbeat.check)
+
+    def enable_batch_lane(self, path: str, doorbell, resp_events,
+                          device: bool) -> None:
+        """Wire this pool worker into the cross-worker batch lane: the
+        device worker runs the drainer (every stripe into one bucketed
+        dispatch), every other worker ships its queries over. A segment
+        that cannot be opened raises: serving locally would hide the
+        device worker."""
+        seg = BatchLaneSegment.open(path)
+        self._lane_seg = seg
+        if not device:
+            self._lane_client = LaneClient(
+                seg, self._pool_idx, doorbell, resp_events[self._pool_idx])
+            log.info("batch lane client up (worker %s)", self._pool_idx)
+            return
+        self._lane_drainer = LaneDrainer(
+            seg, self._lane_dispatch, doorbell, resp_events).start()
+        self.health.add_critical_thread(
+            "batch_lane",
+            lambda: self._lane_drainer.thread if self._lane_drainer
+            else None)
+        # the device worker now has batched dispatches to absorb: warm
+        # the ladder if the deploy came before the lane
+        if not self._buckets.warmed:
+            with self._reading() as gen:
+                warmed = self._warm_buckets(gen.pairs, gen.serving)
+            if warmed:
+                self._buckets.install(warmed)
+        log.info("batch lane drainer up (device worker)")
+
+    def _lane_dispatch(self, bodies: list) -> list:
+        """Drainer side: parse each shipped body with this worker's
+        generation and serve the drain cycle as one bucketed batch. A
+        packed body dequantizes with the resident scorer's training
+        scales, the submitter's too, so its codes re-quantize exactly."""
+        self._pool_sync()
+        with self._reading() as gen:
+            sc = gen.packed_scorer()
+
+            def to_query(b):
+                if isinstance(b, PackedQuery):
+                    if sc is None:
+                        raise ValueError(
+                            "packed lane query but no resident int8 "
+                            "scorer on the device worker")
+                    return sc.query_factory(sc.dequantize(b.codes))
+                return self._parse_query(b, gen.query_class)
+
+            queries = [gen.serving.supplement(to_query(b)) for b in bodies]
+            results, _ = self._predict_batch_bucketed(queries, gen)
+        return [to_jsonable(r) for r in results]
+
+    def _pool_sync(self) -> None:
+        """In a pool, reload once the shared generation moved; the
+        generation counts as seen only after the load succeeded."""
+        gen = self._pool_gen
+        if gen is None or gen.value == self._seen_gen:
+            return
+        with self._load_lock:
+            target = gen.value
+            if target == self._seen_gen:
+                return
+            self._load(None)
+            self._seen_gen = target
+
+    # -- health --------------------------------------------------------------
+    def _http_loop_alive(self):
+        t = getattr(self.server, "_thread", None)
+        if t is None:
+            return True, "accept loop not thread-managed"
+        return t.is_alive(), "accept loop thread " + (
+            "alive" if t.is_alive() else "dead")
+
+    def _check_engine_ready(self):
+        with self._swap_lock:
+            ok = self._deployed and bool(self._gen.pairs)
+            iid = self._gen.instance_id
+        if not self._deployed:
+            return False, "undeployed"
+        return ok, f"instance {iid}" if ok else "no algorithms loaded"
+
+    def _check_storage_ready(self):
+        """The deployed instance must still be in the metadata store (a
+        vanished record means ``/reload`` can never succeed); models
+        handed over in memory have none to check."""
+        iid = self.instance_id
+        if self.variant is None or iid is None:
+            return True, "models handed over in memory"
+        rec = Storage.get_meta_data_engine_instances().get(iid)
+        if rec is None:
+            return False, f"instance {iid} not in metadata store"
+        return True, "metadata store reachable"
+
+    # -- read-only routes ----------------------------------------------------
+    def stats(self) -> dict:
+        """``GET /stats.json``: the residency block (the reference's
+        keys, plus the service's dispatch totals; ``measuredBytes`` is
+        ``torch.cuda.memory_allocated`` on the card, null elsewhere), the
+        ``buckets`` block with its dispatches per bucket, and where they
+        apply ``microbatch``, ``batchLane``, ``worker`` and
+        ``poolSize``."""
+        with self._swap_lock:
+            scorers = self._gen.scorers()
+        on_card = self.device is not None and self.device.type == "cuda"
+        with self._lock:
+            totals = dict(self.resident_counts)
+            dispatches = {str(b): n
+                          for b, n in sorted(self.bucket_dispatches.items())}
+            lane = {**self.lane_counts,
+                    "fallbacks": dict(self.lane_counts["fallbacks"])}
+            count = self.request_count
+        out = {
+            "requestCount": count,
+            "residency": {
+                "enabled": bool(scorers),
+                "paramBytes": sum(sc.placed_bytes for sc in scorers),
+                "measuredBytes": (torch.cuda.memory_allocated(self.device)
+                                  if on_card else None),
+                "scorers": [sc.to_dict() for sc in scorers],
+                "totals": totals,
+            },
+            "buckets": {**self._buckets.to_dict(), "dispatches": dispatches},
+        }
+        if self._batcher is not None:
+            out["microbatch"] = self._batcher.to_dict()
+        if self._lane_drainer is not None:
+            out["batchLane"] = {
+                "role": "drainer",
+                "cycles": self._lane_drainer.cycles,
+                "drained": self._lane_drainer.drained,
+                "pendingDepth": self._lane_seg.pending_depth(),
+            }
+        elif self._lane_client is not None:
+            out["batchLane"] = {
+                "role": "client",
+                "worker": self._pool_idx,
+                "timeoutS": self._lane_client.timeout_s,
+                "enqueued": lane["enqueued"],
+                "fallbacks": lane["fallbacks"],
+            }
+        if self._pool_idx is not None:
+            out["worker"] = self._pool_idx
+            out["poolSize"] = self._pool_size
+        return out
+
+    def status(self) -> dict:
+        self._pool_sync()
+        out = {
+            "status": "deployed" if self._deployed else "undeployed",
+            "algorithms": [type(a).__name__ for a, _ in self.pairs],
+            "engineInstanceId": self.instance_id,
+            "startTime": self.start_time.isoformat(),
+            "requestCount": self.request_count,
+        }
+        if self._pool_idx is not None:
+            out["worker"] = self._pool_idx
+            out["pid"] = os.getpid()
+        return out
 
     # -- routes ---------------------------------------------------------------
     def router(self) -> Router:
         r = Router()
         r.add("GET", "/", lambda req: (200, self.status()))
         r.add("GET", "/stats\\.json", lambda req: (200, self.stats()))
-        r.add("POST", "/queries\\.json",
-              lambda req: (200, self.query(req.raw_body)))
+        r.add("POST", "/queries\\.json", self._route_query)
+        r.add("GET", "/healthz", self.healthz)
+        r.add("GET", "/readyz", self.readyz)
+        r.add("POST", "/reload", self.reload)
         r.add("POST", "/undeploy", self.undeploy)
         return r
 
-    def undeploy(self, req: Request):
-        """Stop the attached server once this answer is written (reference
-        parity: ``pio undeploy`` ends the serving process)."""
+    def _route_query(self, req: Request):
+        if req.packed is not None:
+            return 200, self._query_packed(req.packed)
+        return 200, self.query(req.raw_body)
+
+    def healthz(self, req: Request):
+        ok, report = self.health.liveness()
+        return (200 if ok else 503), report
+
+    def readyz(self, req: Request):
+        ok, report = self.health.readiness()
+        return (200 if ok else 503), report
+
+    def _check_admin(self, req: Request) -> None:
         if self.admin_key is not None:
             if not keys_equal(req.bearer_key(), self.admin_key):
                 raise HTTPError(401, "invalid admin accessKey")
@@ -203,23 +1032,56 @@ class QueryService:
             raise HTTPError(
                 403, "admin routes are loopback-only without an admin key"
             )
-        server = self.server
-        if server is not None:
-            # stop() blocks until the accept loop exits, which this
-            # handler's thread must not wait for
-            req.after_response = lambda: threading.Thread(
-                target=server.stop, daemon=True).start()
+
+    def reload(self, req: Request):
+        """Hot swap to the newest COMPLETED instance (reference
+        ``/reload``); in a pool, bump the shared generation so every
+        sibling reloads before its next request."""
+        self._check_admin(req)
+        self._load(None)
+        if self._pool_gen is not None:
+            with self._pool_gen.get_lock():
+                self._pool_gen.value += 1
+                self._seen_gen = self._pool_gen.value
+        return 200, {"engineInstanceId": self.instance_id}
+
+    def undeploy(self, req: Request):
+        """Stop serving once this answer is written (reference parity:
+        ``pio undeploy`` ends the serving process; in a pool, the shared
+        event brings every worker down)."""
+        self._check_admin(req)
+        self._deployed = False
+        if self._batcher is not None:
+            self._batcher.stop()
+        if self._lane_drainer is not None:
+            # answer in-flight lane slots before the workers go
+            self._lane_drainer.stop()
+            self._lane_drainer = None
+        server, shutdown_evt = self.server, self._pool_shutdown
+
+        def after():
+            if shutdown_evt is not None:
+                shutdown_evt.set()
+            if server is not None:
+                # stop() blocks until the accept loop exits, which this
+                # handler's thread must not wait for
+                threading.Thread(target=server.stop, daemon=True).start()
+
+        if server is not None or shutdown_evt is not None:
+            req.after_response = after
         return 200, {"message": "undeployed"}
 
 
 class QueryServer(JsonHTTPServer):
     """A running query server: :attr:`port`, :meth:`start`,
-    :meth:`serve_forever`, :meth:`close` (which also retires the
-    service's resident scorers)."""
+    :meth:`serve_forever`, :meth:`close` (which also stops the batcher
+    and retires the service's resident scorers)."""
 
-    def __init__(self, service: QueryService, host: str, port: int):
+    def __init__(self, service: QueryService, host: str, port: int,
+                 reuse_port: bool = False):
         super().__init__(service.router(), host, port,
-                         name="pio-tpu-torch-queryserver")
+                         name="pio-tpu-torch-queryserver",
+                         reuse_port=reuse_port)
         self.service = service
         service.server = self
 
@@ -244,7 +1106,8 @@ def create_query_server(
 ) -> QueryServer:
     """A query server (not yet started) over in-memory ``models``; port 0
     picks a free port (read it back from :attr:`QueryServer.port`).
-    ``device`` is the resident scorers' serving device."""
+    ``device`` is the resident scorers' serving device. ``/reload``
+    answers 400: there is no stored instance to reload."""
     return QueryServer(QueryService(engine, engine_params, models, device),
                        host, port)
 
@@ -256,6 +1119,7 @@ def deploy_query_server(
     instance_id: Optional[str] = None,
     device: DeviceLike = None,
     admin_key: Optional[str] = None,
+    reuse_port: bool = False,
 ) -> QueryServer:
     """A query server (not yet started) over a stored engine instance, the
     way ``pio deploy`` builds it (the reference's ``create_query_server(
@@ -263,7 +1127,9 @@ def deploy_query_server(
     named instance, or the variant's latest COMPLETED one), then
     ``load_models_for_instance`` onto ``device`` (CUDA unless told
     otherwise), which falls back to the last known good instance of the
-    variant when the blob fails verification."""
+    variant when the blob fails verification. ``/reload`` loads the
+    variant's newest instance the same way; ``reuse_port`` lets the
+    processes of a serving pool share ``port``."""
     engine, engine_params = build_engine(variant)
     instance_id = resolve_instance_id(variant, instance_id)
     ctx = ComputeContext.create(device=device)
@@ -272,7 +1138,7 @@ def deploy_query_server(
     )
     service = QueryService(
         engine, engine_params, models, device=ctx.device,
-        instance_id=instance_id,
-        admin_key=admin_key,
+        instance_id=instance_id, admin_key=admin_key, variant=variant,
+        ctx=ctx,
     )
-    return QueryServer(service, host, port)
+    return QueryServer(service, host, port, reuse_port=reuse_port)

@@ -29,9 +29,17 @@ Knobs (:mod:`pio_tpu_torch.utils.knobs`): ``PIO_TPU_DEVICE_RESIDENT``
 ``PIO_TPU_SERVE_WIRE`` (``int8`` / ``float32`` / ``auto``: int8 whenever
 the model carries training scales).
 
+A scorer may carry the template's ``query_factory`` (a Query from a
+dequantized feature row, so the batch lane's drainer can serve a packed
+int8 frame) and ``result_factory`` (a class code straight to the
+template's result, so a packed query skips the dequantize, Query and
+re-quantize round trip). A packed query answered so skips the template's
+``serving.serve`` as well: attach a ``result_factory`` only where that
+serving passes results through unchanged (``FirstServing``). The query
+server serves packed frames only from a scorer that has both.
+
 Not ported: the reference's device-memory ledger and budget check, its
-failpoints, the row-sharded placement over a mesh, and the batch lane's
-query and result factories.
+failpoints and the row-sharded placement over a mesh.
 """
 
 from __future__ import annotations
@@ -105,9 +113,10 @@ class ResidentLinearScorer:
     """Device-resident ``argmax(X @ W + b)`` scorer for the linear
     classifier templates (logreg weights, multinomial-NB log thetas).
 
-    Built by ``Algorithm.resident_scorer`` when the query server is
-    built; the server binds its counters, preallocates bucket 1 and
-    retires the scorer when it closes.
+    Built by ``Algorithm.resident_scorer`` when the query server loads
+    a generation; the server binds its counters, preallocates the
+    bucket ladder and retires the scorer once the generation is swapped
+    out and its last dispatch has finished, or when it closes.
     """
 
     def __init__(
@@ -117,6 +126,8 @@ class ResidentLinearScorer:
         scales: Optional[np.ndarray] = None,
         name: str = "",
         device: DeviceLike = None,
+        query_factory: Optional[Callable[[np.ndarray], object]] = None,
+        result_factory: Optional[Callable[[int], object]] = None,
     ):
         W = np.asarray(weights, np.float32)  # [D, C]
         b = np.asarray(bias, np.float32)  # [C]
@@ -133,6 +144,14 @@ class ResidentLinearScorer:
             if scales is not None else None
         )
         self.wire = wire_mode(self.scales is not None)
+        #: mints the template's Query from a dequantized feature row: the
+        #: lane drainer turns a packed int8 payload back into a query
+        self.query_factory = query_factory
+        #: maps one argmax class code to the template's result object;
+        #: attaching it declares that a wire-codes dispatch answers as
+        #: the template's supplement, predict and serve path would, so
+        #: the template's serving must pass results through unchanged
+        self.result_factory = result_factory
         # fold the training scales into the resident weights once:
         # X @ W == (X/s·s) @ W == X_q @ (s ⊙ W) up to quantization
         w_eff = self.scales[:, None] * W if self.wire == WIRE_INT8 else W

@@ -254,9 +254,9 @@ class NaiveBayesAlgorithm(Algorithm):
         return Query(attrs=(0.0,) * model.dim)
 
     def resident_scorer(self, model: NBClassifierModel, device):
-        return ResidentLinearScorer(
-            model.nb.log_theta.T, model.nb.log_prior,
-            scales=model.nb.feature_scales, name="naivebayes", device=device,
+        return _linear_resident(
+            "naivebayes", model, model.nb.log_theta.T, model.nb.log_prior,
+            model.nb.feature_scales, device,
         )
 
 
@@ -317,10 +317,26 @@ class LogisticRegressionAlgorithm(Algorithm):
         return Query(attrs=(0.0,) * model.dim)
 
     def resident_scorer(self, model: LogRegClassifierModel, device):
-        return ResidentLinearScorer(
-            model.lr.weights, model.lr.bias,
-            scales=model.lr.feature_scales, name="logreg", device=device,
+        return _linear_resident(
+            "logreg", model, model.lr.weights, model.lr.bias,
+            model.lr.feature_scales, device,
         )
+
+
+def _linear_resident(name, model, weights, bias, scales, device):
+    """The resident scorer of either linear classifier, with the
+    template's factories: a Query from a dequantized feature row, and a
+    class code straight to its label (both classifiers serve through
+    FirstServing, whose supplement is the identity, so a wire-codes
+    dispatch answers as the full path would)."""
+    inv = model.label_index.inverse
+    return ResidentLinearScorer(
+        weights, bias, scales=scales, name=name, device=device,
+        query_factory=lambda x: Query(
+            attrs=tuple(float(v) for v in np.asarray(x).reshape(-1))
+        ),
+        result_factory=lambda c: PredictedResult(label=inv[int(c)]),
+    )
 
 
 def _batch_label_results(model, queries, host_predict):

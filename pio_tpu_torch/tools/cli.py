@@ -8,11 +8,15 @@ version. Arguments, output lines and exit codes are the reference's.
 ``train``, ``deploy``, ``batchpredict`` and ``eval`` take ``--device
 {cuda,cpu}`` (default ``cuda``): without a card the default exits non-zero
 with :func:`~pio_tpu_torch.resolve_device`'s message, never carrying on
-on the CPU. ``deploy`` serves from one process.
+on the CPU. ``deploy`` serves from one process, or with ``--workers N``
+from a pool of N processes on one port (``server/worker_pool.py``), of
+which ``--device-worker`` lets worker 0 serve on ``--device`` while the
+others serve on the CPU and send their queries to it over the batch
+lane.
 
 Not ported yet (ROADMAP A): the verbs runs, blobserver, dashboard, fleet,
 route, rollout, adminserver, top, upgrade, run, shell, lint, template list
-and app compact; the flags --workers, --slo, --qos, --faults,
+and app compact; the flags --mesh-worker, --slo, --qos, --faults,
 --profile-dir, --feedback-app and --status-port.
 
 Usage: ``python -m pio_tpu_torch <verb> ...``
@@ -260,6 +264,10 @@ def cmd_deploy(args) -> int:
     from pio_tpu_torch.server.query_server import deploy_query_server
     from pio_tpu_torch.workflow.engine_json import load_variant
 
+    if args.workers > 1:
+        return _deploy_pool(args, load_variant(args.engine_json))
+    if args.device_worker:
+        return _err("--device-worker needs --workers > 1")
     device = _context(args).device
     variant = load_variant(args.engine_json)
     server = deploy_query_server(
@@ -280,6 +288,43 @@ def cmd_deploy(args) -> int:
         _out("shutting down")
     finally:
         server.close()
+    return 0
+
+
+#: seconds a serving pool may take to load its models and become ready
+POOL_READY_S = 120.0
+
+
+def _deploy_pool(args, variant) -> int:
+    """``deploy --workers N``: a supervised SO_REUSEPORT pool. The device
+    is resolved in the device worker, never here (one process holds the
+    card); without a card its startup fails and this exits 1."""
+    from pio_tpu_torch.server.worker_pool import ServingPool
+
+    try:
+        pool = ServingPool(
+            variant, host=args.ip, port=args.port, n_workers=args.workers,
+            instance_id=args.engine_instance_id, admin_key=args.admin_key,
+            device_worker=args.device_worker, device=args.device,
+        )
+    except ValueError as e:
+        return _err(str(e))
+    pool.start()
+    try:
+        # readiness-gated: "listening" only once a worker (and with
+        # --device-worker, worker 0) passes every readiness check
+        pool.wait_ready(timeout=POOL_READY_S)
+    except (RuntimeError, TimeoutError) as e:
+        pool.stop()
+        return _err(f"serving pool failed to start: {e}")
+    _out(f"Query Server pool ({args.workers} workers"
+         f"{', device worker 0' if args.device_worker else ''}) "
+         f"listening on {args.ip}:{pool.port}")
+    try:
+        pool.wait()  # until POST /undeploy on any worker
+    except KeyboardInterrupt:
+        _out("shutting down pool")
+        pool.stop()
     return 0
 
 
@@ -475,8 +520,19 @@ def build_parser() -> argparse.ArgumentParser:
     a.add_argument("--engine-instance-id", default=None)
     a.add_argument(
         "--admin-key", default=None,
-        help="access key required by /undeploy; without one it is "
-             "loopback-only",
+        help="access key required by /reload and /undeploy; without one "
+             "they are loopback-only",
+    )
+    a.add_argument(
+        "--workers", type=int, default=1,
+        help="serving processes sharing the port via SO_REUSEPORT; "
+             "without --device-worker every worker serves on the CPU",
+    )
+    a.add_argument(
+        "--device-worker", action="store_true",
+        help="with --workers > 1: worker 0 serves on --device and the "
+             "others send it their queries over the shared-memory batch "
+             "lane; only worker 0 holds the card",
     )
     _device_flag(a)
     a.set_defaults(fn=cmd_deploy)

@@ -38,7 +38,33 @@ _DEFAULTS = {
     # per-device parameter budget in bytes (parallel/partition.py); 0 means
     # no limit
     "PIO_TPU_DEVICE_BUDGET_BYTES": "0",
+    # -- serving under concurrency (server/query_server.py, bucketcache.py,
+    # batchlane.py, worker_pool.py), the reference's names and defaults --
+    # micro-batching window, microseconds; 0 disables
+    "PIO_TPU_SERVE_MICROBATCH_US": "0",
+    # `0` pins the micro-batcher on instead of probing whether it wins
+    "PIO_TPU_SERVE_MICROBATCH_ADAPTIVE": "1",
+    # seconds before an "off" probe verdict is measured again (0: never)
+    "PIO_TPU_MB_REPROBE_S": "30",
+    # comma-separated batch-size bucket ladder override
+    "PIO_TPU_BATCH_BUCKETS": "",
+    # `1`/`0` force or forbid the bucket warmup sweep
+    "PIO_TPU_BUCKET_WARMUP": "",
+    # `0` disables the shared-memory batch lane of a device-worker pool
+    "PIO_TPU_BATCH_LANE": "1",
+    # batch-lane slots per worker, payload bytes per slot, reply wait
+    "PIO_TPU_LANE_SLOTS": "64",
+    "PIO_TPU_LANE_SLOT_BYTES": "16384",
+    "PIO_TPU_LANE_TIMEOUT_S": "0.25",
+    # a pool worker's heartbeat age past which /healthz fails
+    "PIO_TPU_HEARTBEAT_MAX_AGE_S": "30",
 }
+
+#: knobs whose value must be positive; another value reads as the default
+_POSITIVE = frozenset({
+    "PIO_TPU_LANE_SLOTS", "PIO_TPU_LANE_SLOT_BYTES",
+    "PIO_TPU_LANE_TIMEOUT_S", "PIO_TPU_HEARTBEAT_MAX_AGE_S",
+})
 
 
 def knob_str(name: str) -> str:
@@ -50,10 +76,23 @@ def knob_str(name: str) -> str:
 def knob_int(name: str) -> int:
     """The knob as an integer. A value that is not one logs a warning and
     reads as the declared default, as the reference's ``env_int`` does."""
+    return _number(name, int)
+
+
+def knob_float(name: str) -> float:
+    """The knob as a float, with :func:`knob_int`'s fallback (NaN reads
+    as the default too)."""
+    return _number(name, float)
+
+
+def _number(name: str, kind):
     raw = knob_str(name)
     try:
-        return int(raw)
+        v = kind(raw)
     except ValueError:
-        log.warning("%s=%r is not an integer; using %s", name, raw,
-                    _DEFAULTS[name])
-        return int(_DEFAULTS[name])
+        v = None
+    if v is None or v != v or (name in _POSITIVE and v <= 0):
+        log.warning("%s=%r is not a valid %s; using %s", name, raw,
+                    kind.__name__, _DEFAULTS[name])
+        return kind(_DEFAULTS[name])
+    return v
