@@ -176,7 +176,28 @@ kernels (the forward, and the backward's bag scatter and bag dot):
    process over phase 38's store: JSON and packed int8 queries from 32
    clients against the CPU copy, p50/p99, worker 0's lane drained with
    no fallback, only worker 0 on the card (``nvidia-smi``), ``/reload``
-   rolling all four workers and ``/undeploy`` ending the pool.
+   rolling all four workers and ``/undeploy`` ending the pool;
+40. the device ops plane: ``run_train`` of phase 29's engine with
+   ``profile_dir`` (the trace's forward and bag-scatter launches against
+   the run's launch counters, its sentinels, the run ledger's new row,
+   the wall against phase 29's untraced ``pio train``); two-tower at
+   ``bench.py``'s shape with a recorder and the status sidecar
+   (``/train.json`` advancing, the recorded losses the steps' own bits,
+   the same kernels and synchronizing calls as without the recorder, the
+   step time both ways); ``/device.json`` of phase 29's engine deployed
+   with the micro-batcher after 32 clients x 64 (``bytesInUse`` against
+   ``torch.cuda.memory_allocated``, ``limitBytes`` against the card's
+   total, ``bucket_warmup`` the ladder, ``bucket_dispatch`` 0) and ``pio
+   top --once`` on it; a ``deploy --workers 2 --device-worker`` pool (the
+   CPU worker's watch on the ledger, no CUDA context in it);
+   ``PIO_TPU_PROFILE`` with 8 executions on a deploy with the
+   micro-batcher, and a restart into ``capture-0001`` (the captures'
+   forward launches against the dispatches': the ladder's warmup sweeps,
+   then live queries through the batcher); the sampler's cost (p50 and queries/s from 1 and 32
+   clients with ``PIO_TPU_DEVICEWATCH`` off and on). Every profiled
+   window of the script (``count_kernels``, ``device_busy``, the traces)
+   idles and launches sentinel kernels at both ends and fails when a
+   window lost an end (``pio_tpu_torch/obs/profile.py``).
 
 The CLI phases write their homes under ``build/chip_smoke_homes/``
 (gitignored), made afresh each run; every server process is stopped
@@ -194,12 +215,14 @@ classification and neural paths
 from __future__ import annotations
 
 import argparse
+import collections
 import concurrent.futures
 import contextlib
 import dataclasses
 import datetime as dt
 import gc
 import http.client
+import io
 import json
 import logging
 import os
@@ -210,6 +233,7 @@ import subprocess
 import sys
 import threading
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -227,6 +251,8 @@ from pio_tpu_torch.models import als, logreg, markov_chain, mlp, naive_bayes  # 
 from pio_tpu_torch.models import adam, seqrec, two_tower  # noqa: E402
 from pio_tpu_torch.models.naive_bayes import train_multinomial_nb_bags  # noqa: E402
 from pio_tpu_torch.models.tfidf import TfIdfVectorizer  # noqa: E402
+from pio_tpu_torch.obs import devicewatch, trainwatch  # noqa: E402
+from pio_tpu_torch.obs import profile as window  # noqa: E402
 from pio_tpu_torch import native  # noqa: E402
 from pio_tpu_torch.ops import _build  # noqa: E402
 from pio_tpu_torch.ops import embedding, topn  # noqa: E402
@@ -235,6 +261,7 @@ from pio_tpu_torch.server import residency  # noqa: E402
 from pio_tpu_torch.server.http import PACKED_QUERY_CONTENT_TYPE  # noqa: E402
 from pio_tpu_torch.server.query_server import QueryService, create_query_server  # noqa: E402
 from pio_tpu_torch.server.query_server import deploy_query_server  # noqa: E402
+from pio_tpu_torch.server.train_status import create_train_status_server  # noqa: E402
 from pio_tpu_torch.storage.records import App  # noqa: E402
 from pio_tpu_torch.storage.registry import Storage  # noqa: E402
 from pio_tpu_torch.templates.classification import Query as CLSQuery  # noqa: E402
@@ -270,7 +297,9 @@ from pio_tpu_torch.workflow.core_workflow import (  # noqa: E402
     run_evaluation,
     run_train,
 )
+from pio_tpu_torch.utils import knobs  # noqa: E402
 from pio_tpu_torch.workflow.engine_json import build_engine, variant_from_dict  # noqa: E402
+from pio_tpu_torch.workflow.params import WorkflowParams  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, f32 outside the
 # tensor cores (the kernel's FMAs are f32 whatever the table type)
@@ -1159,16 +1188,15 @@ def step_parts(params0, ids, w, y, steps: int = 10, warmup: int = 3) -> dict:
         host_ms(lambda: embedding.bag_plan(ids, w, V)) for _ in range(3)]))
     # the card's own kernel time in the same steps: the span less this is
     # time the card waited for the host
-    profiled = 3
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA],
-            acc_events=True) as prof:
-        for _ in range(profiled):
+    n_profiled = 3
+    with profiled() as prof:
+        for _ in range(n_profiled):
             one_step([torch.cuda.Event(enable_timing=True) for _ in range(5)])
-        torch.cuda.synchronize()
+    # every row with device time but the sentinels: copies and user
+    # annotations count in a step's device-busy time
     kernels = sorted(
-        ((e.key, e.self_device_time_total / profiled / 1e3)
-         for e in prof.key_averages() if e.self_device_time_total > 0),
+        ((e.key, e.self_device_time_total / n_profiled / 1e3)
+         for e in _window_rows(prof)),
         key=lambda kv: -kv[1])
     parts["device_busy_ms"] = sum(ms for _, ms in kernels)
     log("  device ms a step by kernel (torch.profiler): " + json.dumps(
@@ -1316,25 +1344,58 @@ def synth_ratings(n_edges: int, n_users: int, n_items: int, seed: int,
     return u, i, r
 
 
+#: the sentinels each guarded window of this run recorded (of
+#: 2 * window.SENTINELS), printed at the end
+WINDOW_SENTINELS: list = []
+
+
+def _window_rows(prof) -> list:
+    """The rows of a guarded CUDA-activity window (``profiled``) with
+    device time, but for the window's sentinels. Raises if the sentinels
+    say that the profiler dropped records inside the window."""
+    rows = prof.key_averages()
+    seen = sum(e.count for e in rows if window.is_sentinel(e.key))
+    WINDOW_SENTINELS.append(seen)
+    if not window.window_complete(seen):
+        raise AssertionError(
+            f"the profiler lost the ends of a window: {seen} of "
+            f"{2 * window.SENTINELS} sentinel kernels recorded")
+    return [e for e in rows
+            if e.self_device_time_total > 0 and not window.is_sentinel(e.key)]
+
+
 def _kernels(prof) -> list:
-    """The kernel rows of a CUDA-activity profile: neither copies and
-    fills nor user annotations (``Optimizer.step#Adam.step``), whose device
-    time is their kernels' again."""
-    return [e for e in prof.key_averages()
-            if e.self_device_time_total > 0
-            and not getattr(e, "is_user_annotation", False)
+    """The kernel rows of a guarded window (``_window_rows``): neither
+    copies and fills, nor user annotations (``Optimizer.step#Adam.step``),
+    whose device time is their kernels' again."""
+    return [e for e in _window_rows(prof)
+            if not getattr(e, "is_user_annotation", False)
             and not e.key.startswith(("Memcpy", "Memset"))]
 
 
-def count_kernels(fn):
-    """(fn's result, device kernels it launched), from torch.profiler's
-    CUDA activity; copies and fills are not counted."""
+@contextlib.contextmanager
+def profiled():
+    """A torch.profiler CUDA-activity session held as the port holds its
+    traces (``pio_tpu_torch/obs/profile.py``): idle and sentinel kernels
+    at both ends, the device drained before the stop. Without them the
+    profiler drops the first kernels of a session late in a process, and
+    kernels whose converted device time falls outside it
+    (``scripts/torch_profiler_window.py``)."""
     torch.cuda.synchronize()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA],
             acc_events=True) as prof:
+        window.open_window()
+        yield prof
+        window.close_window()
+
+
+def count_kernels(fn):
+    """(fn's result, device kernels it launched), from torch.profiler's
+    CUDA activity in a guarded window; copies, fills and the window's
+    sentinels are not counted."""
+    with profiled() as prof:
         out = fn()
-        torch.cuda.synchronize()
     return out, sum(e.count for e in _kernels(prof))
 
 
@@ -1345,17 +1406,12 @@ def device_busy(fn, iters: int = 1):
     kernels (many small launches) is measured by its device work and not
     by the host's pace."""
     fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA],
-            acc_events=True) as prof:
+    with profiled() as prof:
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
-    ms = {e.key: e.self_device_time_total / iters / 1e3
-          for e in _kernels(prof)}
-    return (sum(e.count for e in _kernels(prof)) / iters,
-            sum(ms.values()), ms)
+    rows = _kernels(prof)
+    ms = {e.key: e.self_device_time_total / iters / 1e3 for e in rows}
+    return sum(e.count for e in rows) / iters, sum(ms.values()), ms
 
 
 def card_rmse(f, u, i, r) -> float:
@@ -3211,10 +3267,7 @@ def phase_cls_template(args, smi) -> dict:
                 f"{entry['h2dBytes']}; batch_predict of 1024 "
                 f"{batch_ms:.2f} ms, the loop {loop_ms:.1f} ms, both equal "
                 f"the CPU copy")
-            # the scorer on the card counted every request's dispatch; the
-            # profiler's count of a whole call's launches is not used here:
-            # in this long process it has counted none for calls whose work
-            # ran on the card (their memory said so)
+            # the scorer on the card counted every request's dispatch
             if not block["enabled"] or entry["dispatches"] != N_CLS_HTTP \
                     or not block["measuredBytes"]:
                 raise AssertionError("the served path did not dispatch on "
@@ -3716,7 +3769,8 @@ def phase_cli_text(args, smi) -> dict:
             or serve_launches["embedding_bag"] < N_HTTP:
         raise AssertionError(f"the CLI path launched {launches}")
     log(f"  phase 29 {time.monotonic() - t_phase:.1f} s; {smi}")
-    return dict(launches=launches, walls=walls, query_ms=ms)
+    return dict(launches=launches, walls=walls, query_ms=ms, home=home,
+                engine_json=ej, variant=variant_dict)
 
 
 # ------------------------------------ the neural templates (phases 30-35)
@@ -4004,19 +4058,10 @@ def neural_template(args, smi, variant_dict, query_cls, bodies_fn,
     if http_launches == 0:
         raise AssertionError("the served path launched nothing on the card")
     qs = batch_fn(gpu[0])
-    # late in a long process the profiler can lose a whole call's kernel
-    # records (0 counted for a batch that ran on the card): batch_predict
-    # is pure, so it is profiled again, at most twice, until its
-    # launches show; every attempt's count is printed
-    attempts = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        batch, batch_launches = count_kernels(
-            lambda: dict(algo.batch_predict(gpu[0], qs)))
-        batch_ms = (time.perf_counter() - t0) * 1e3
-        attempts.append(batch_launches)
-        if batch_launches:
-            break
+    t0 = time.perf_counter()
+    batch, batch_launches = count_kernels(
+        lambda: dict(algo.batch_predict(gpu[0], qs)))
+    batch_ms = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
     loop = {k: algo.predict(gpu[0], q) for k, q in qs}
     loop_ms = (time.perf_counter() - t0) * 1e3
@@ -4024,9 +4069,8 @@ def neural_template(args, smi, variant_dict, query_cls, bodies_fn,
         same_topn(batch[k].to_dict(), loop[k].to_dict(), NEURAL_SCORE_TOL,
                   f"batch query {k}")
     log(f"  batch_predict of {len(qs)}: {batch_ms:.1f} ms, {batch_launches} "
-        f"launches (profiled calls' counts {attempts}); the predict loop "
-        f"{loop_ms:.1f} ms (host clock, the batch under the profiler); equal "
-        f"within {NEURAL_SCORE_TOL}")
+        f"launches; the predict loop {loop_ms:.1f} ms (host clock, the "
+        f"batch under the profiler); equal within {NEURAL_SCORE_TOL}")
     if batch_launches == 0:
         raise AssertionError("batch_predict launched nothing on the card")
 
@@ -4965,6 +5009,463 @@ def phase_pool(args, smi, reloaded) -> dict:
             "holders": sorted(holders)}
 
 
+# ------------------------------------------- the device ops plane (phase 40)
+#: PIO_TPU_PROFILE_EXECUTIONS of phase 40's serving capture
+OPS_EXECUTIONS = 8
+#: rounds of two-tower runs with and without the recorder (each round
+#: plain, recorded, recorded, plain)
+OPS_TT_RUNS = 1
+#: steps of the two-tower runs whose kernels are counted with and without
+#: the recorder
+OPS_TT_COUNTED_STEPS = 20
+#: the pool of phase 40: the device worker and one CPU worker
+OPS_POOL_WORKERS = 2
+#: steps of the lagged drain timed alone, on a loss already on the card
+OPS_DRAIN_STEPS = 2000
+
+
+def trace_kernels(path: str) -> collections.Counter:
+    """{kernel name: launches} of a Chrome trace's kernel events."""
+    with open(path) as f:
+        trace = json.load(f)
+    return collections.Counter(e["name"] for e in trace["traceEvents"]
+                               if e.get("cat") == "kernel")
+
+
+def launches_of(counts, name: str) -> int:
+    """The launches of the kernel function ``name`` in ``counts``."""
+    rx = re.compile(rf"\b{name}\b")
+    return sum(n for k, n in counts.items() if rx.search(k))
+
+
+def trace_complete(counts, where: str) -> int:
+    """The sentinels a trace recorded; fail unless both of its window's
+    ends were recorded (``obs/profile.py``)."""
+    seen = sum(n for k, n in counts.items() if window.is_sentinel(k))
+    WINDOW_SENTINELS.append(seen)
+    if not window.window_complete(seen):
+        raise AssertionError(f"{where}: {seen} of {2 * window.SENTINELS} "
+                             f"sentinels recorded, the trace lost its ends")
+    return seen
+
+
+def counts_since(c0: dict) -> dict:
+    c = read_counts()
+    return {k: c[k] - c0[k] for k in c}
+
+
+def get_text(port: int, path: str) -> tuple:
+    """(status, body text) of one GET."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, resp.read().decode()
+    finally:
+        conn.close()
+
+
+def kernel_counts(fn) -> dict:
+    """{kernel: launches} of a call, in a guarded profiler window."""
+    with profiled() as prof:
+        fn()
+    return {e.key: e.count for e in _kernels(prof)}
+
+
+def ops_train_trace(args, smi, text) -> None:
+    """40.1: run_train of phase 29's text engine with ``profile_dir``: the
+    trace's forward and bag-scatter launches against the same run's
+    launch counters, the run ledger's new row, the wall against phase
+    29's ``pio train`` of the same engine without a trace."""
+    variant = variant_from_dict(text["variant"], path=text["engine_json"])
+    trace_dir = os.path.join(CLI_HOMES, "ops_trace")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    with cli_store(text["home"]):
+        engine, ep = build_engine(variant)
+        rows0 = len(trainwatch.read_runs(variant.engine_id))
+        c0 = read_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        iid = run_train(engine, ep, variant,
+                        WorkflowParams(profile_dir=trace_dir),
+                        ctx=ComputeContext.create(args.seed, device=CARD))
+        wall = time.perf_counter() - t0
+        counts = counts_since(c0)
+        env = Storage.get_meta_data_engine_instances().get(iid).env
+    rows = trainwatch.read_runs(variant.engine_id)[rows0:]
+    traced = trace_kernels(os.path.join(trace_dir, window.TRACE_FILE))
+    sentinels = trace_complete(traced, "run_train's trace")
+    in_trace = {"embedding_bag": launches_of(traced, "embedding_bag_kernel"),
+                "slot_records": launches_of(traced, "slot_records_kernel"),
+                "bag_scatter": launches_of(traced, "bag_scatter_kernel")}
+    steps = ep.algorithm_params_list[0][1].iterations
+    log(f"  40.1 run_train of phase 29's engine with the trace: wall "
+        f"{wall:.3f} s (train_seconds {env['train_seconds']}); phase 29's "
+        f"pio train of it without a trace {text['walls']['train']:.3f} s "
+        f"(host clock, in this process); the trace's launches "
+        f"{json.dumps(in_trace)} ({sentinels} sentinels), the run's launch "
+        f"counters {json.dumps(counts)}; {smi}")
+    if in_trace["embedding_bag"] != counts["embedding_bag"] \
+            or in_trace["slot_records"] != \
+            counts["embedding_bag_backward_table"] \
+            or in_trace["bag_scatter"] < in_trace["slot_records"] \
+            or in_trace["embedding_bag"] < steps \
+            or in_trace["slot_records"] < steps:
+        raise AssertionError(f"the trace's launches {in_trace} are not the "
+                             f"run's {counts}")
+    want = [("COMPLETED", iid, {"phase_" + k[len("phase_"):].replace(
+        ":", ".") for k in env if k.startswith("phase_")})]
+    got = [(r["status"], r["run_id"],
+            {k for k in r if k.startswith("phase_")}) for r in rows]
+    log(f"  the run ledger gained {len(rows)} row: "
+        f"{json.dumps([[st, i, sorted(k)] for st, i, k in got])}")
+    if got != want:
+        raise AssertionError(f"run ledger rows {got}, want {want}")
+
+
+def ops_step_stream(args, smi) -> None:
+    """40.2: two-tower at bench.py's shape, recorded, with the status
+    sidecar: /train.json advancing, the recorded losses the steps' own
+    bitwise, the same kernels and synchronizations a step without the
+    recorder, the step time both ways."""
+    u, i = tt_pairs()
+    cfg = tt_config()
+    server = create_train_status_server(port=0).start()
+    port = server.port
+    seen, device_rows, stop = [], [], threading.Event()
+
+    def poll():
+        while not stop.is_set():
+            status, body = get_text(port, "/train.json")
+            if status == 200:
+                seen.append(json.loads(body)["step"])
+                if not device_rows:
+                    status, body = get_text(port, "/device.json")
+                    if status == 200:
+                        device_rows.extend(json.loads(body)["devices"])
+            time.sleep(0.002)
+
+    step_losses = []
+    real_step = two_tower._train_step
+
+    def noting_step(*a, **kw):
+        out = real_step(*a, **kw)
+        step_losses.append(out[2])
+        return out
+
+    try:
+        before = get_text(port, "/train.json")[0]
+        rec = trainwatch.StepRecorder("ops-two-tower", "two_tower",
+                                      loss_window=TT_STEPS)
+        poller = threading.Thread(target=poll, daemon=True)
+        poller.start()
+        two_tower._train_step = noting_step
+        try:
+            with trainwatch.recording(rec), devicewatch.watching(
+                    devicewatch.DeviceWatch(device=CARD)):
+                _, wall = tt_train(u, i, cfg)
+        finally:
+            two_tower._train_step = real_step
+            stop.set()
+            poller.join(timeout=30)
+        after = get_text(port, "/train.json")[0]
+    finally:
+        server.stop()
+    returned = torch.stack(step_losses).cpu().numpy()
+    recorded = np.asarray(list(rec.losses), np.float32)
+    advancing = sorted(set(seen))
+    log(f"  40.2 two-tower at bench.py's shape, recorded: {wall:.3f} s; "
+        f"/train.json {before} before the run, steps seen {advancing[:6]}...{advancing[-3:]} over "
+        f"{len(seen)} polls, then {after}; /device.json during the run "
+        f"{json.dumps(device_rows)}; {len(recorded)} recorded losses, "
+        f"last {recorded[-1]:.6f}")
+    if len([s for s in advancing if 0 < s < TT_STEPS]) < 2 \
+            or seen != sorted(seen) or rec.steps_done != TT_STEPS:
+        raise AssertionError(f"/train.json did not advance: {advancing}")
+    if before != 503 or after != 503 or not device_rows \
+            or device_rows[0]["source"] != "memory_stats":
+        raise AssertionError(f"sidecar after the run {after}, device rows "
+                             f"{device_rows}")
+    if recorded.shape != returned.shape \
+            or recorded.tobytes() != returned.tobytes():
+        raise AssertionError("the recorded losses are not the steps' own")
+    small = tt_config()
+    small = dataclasses.replace(small, steps=OPS_TT_COUNTED_STEPS)
+    plain_k = kernel_counts(lambda: tt_train(u, i, small))
+    with trainwatch.recording(trainwatch.StepRecorder("ops-k", "two_tower")):
+        rec_k = kernel_counts(lambda: tt_train(u, i, small))
+    # the synchronizing calls of a run (torch.cuda's sync debug mode warns
+    # at each), by the line that made them, in turns
+    syncs = {"plain": collections.Counter(),
+             "recorded": collections.Counter()}
+    for mode in ("plain", "recorded", "recorded", "plain"):
+        with warnings.catch_warnings(record=True) as caught, \
+                contextlib.ExitStack() as stack:
+            warnings.simplefilter("always")
+            if mode == "recorded":
+                stack.enter_context(trainwatch.recording(
+                    trainwatch.StepRecorder("ops-s", "two_tower")))
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                tt_train(u, i, small)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs[mode].update(f"{os.path.basename(w.filename)}:{w.lineno}"
+                           for w in caught
+                           if "synchronizing" in str(w.message))
+    steps_s = {"plain": [], "recorded": []}
+    for _ in range(OPS_TT_RUNS):
+        for mode in ("plain", "recorded", "recorded", "plain"):
+            stats = {}
+            with contextlib.ExitStack() as stack:
+                if mode == "recorded":
+                    stack.enter_context(trainwatch.recording(
+                        trainwatch.StepRecorder("ops-t", "two_tower")))
+                tt_train(u, i, cfg, stats=stats)
+            steps_s[mode].append(stats["steps_s"] / TT_STEPS * 1e3)
+    med = {m: float(np.median(v)) for m, v in steps_s.items()}
+    # the drain's own host work a step, alone: LaggedLosses.step on a
+    # loss already on the card, sealed and drained as in a run
+    loss = torch.zeros((), device=CARD)
+    drain = trainwatch.LaggedLosses(
+        trainwatch.StepRecorder("ops-d", "two_tower"), CARD, TT_BATCH,
+        OPS_DRAIN_STEPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(OPS_DRAIN_STEPS):
+        drain.step(loss)
+    drain_us = (time.perf_counter() - t0) / OPS_DRAIN_STEPS * 1e6
+    drain.close()
+    log(f"  a step's kernels over {OPS_TT_COUNTED_STEPS} steps, plain "
+        f"{sum(plain_k.values())} and recorded {sum(rec_k.values())} "
+        f"launches ({len(plain_k)} kernels); synchronizing calls of two "
+        f"runs each (torch.cuda sync debug mode), by line: "
+        f"{json.dumps(syncs)}; ms a step "
+        f"(stats steps_s / {TT_STEPS}, median of {2 * OPS_TT_RUNS}, host "
+        f"clock) plain {med['plain']:.4f}, recorded {med['recorded']:.4f} "
+        f"(runs {json.dumps(steps_s)}); the drain alone "
+        f"{drain_us:.2f} us a step (host clock, {OPS_DRAIN_STEPS} steps); "
+        f"{smi}")
+    if plain_k != rec_k:
+        raise AssertionError(f"the recorder changed a step's kernels: "
+                             f"{plain_k} vs {rec_k}")
+    added = syncs["recorded"] - syncs["plain"]
+    if added:
+        raise AssertionError(f"the recorder added synchronizations: {added}")
+
+
+def ops_device_json(args, smi, text, reloaded) -> None:
+    """40.3: /device.json of phase 29's text engine deployed with the
+    micro-batcher after a 32-client load, ``pio top --once`` on it; and
+    in a ``deploy --workers 2 --device-worker`` pool, the CPU worker's
+    ledger and its lack of a CUDA context."""
+    variant = variant_from_dict(text["variant"], path=text["engine_json"])
+    texts, _ = synth_corpus(np.random.default_rng(args.seed + 40),
+                            PER_CLIENT, N_WORDS, coverage=False)
+    bodies = [{"text": t} for t in texts]
+    with cli_store(text["home"]), knob(MB_KNOBS[0], str(MB_WINDOW_US)), \
+            knob(MB_KNOBS[1], "0"):
+        server = deploy_query_server(variant, host="127.0.0.1", port=0,
+                                     device=CARD)
+    with server:
+        ladder = list(server.service._buckets.buckets)
+        drive_load(server.port, bodies, N_CLIENTS, PER_CLIENT)
+        status, body = get_text(server.port, "/device.json")
+        allocated_now = torch.cuda.memory_allocated()
+        payload = json.loads(body)
+        top = io.StringIO()
+        with contextlib.redirect_stdout(top):
+            top_rc = cli_main(["top", "--once", "--url",
+                               f"http://127.0.0.1:{server.port}"])
+        m_status, metrics = get_text(server.port, "/metrics")
+    (row,) = payload["devices"]
+    sites = payload["compiles"]["sites"]
+    total = torch.cuda.get_device_properties(CARD).total_memory
+    log(f"  40.3 /device.json of the deployed text engine after {N_CLIENTS} "
+        f"clients x {PER_CLIENT}: {json.dumps(row)}; memory_allocated "
+        f"{allocated_now}; compiles {json.dumps(sites)}; the ladder "
+        f"{ladder}; {smi}")
+    log("  pio top --once:\n    " + top.getvalue().rstrip().replace(
+        "\n", "\n    "))
+    if status != 200 or row["source"] != "memory_stats" \
+            or row["bytesInUse"] != allocated_now \
+            or row["limitBytes"] != total:
+        raise AssertionError(f"/device.json {status} {row} against "
+                             f"memory_allocated {allocated_now}, total "
+                             f"{total}")
+    if sites.get("bucket_warmup", {}).get("count") != len(ladder) \
+            or sites.get("bucket_dispatch", {}).get("count", 0) != 0:
+        raise AssertionError(f"compiles {sites} against the ladder {ladder}")
+    if top_rc != 0 or "memory_stats" not in top.getvalue() \
+            or "bucket_warmup" not in top.getvalue():
+        raise AssertionError(f"pio top --once: {top_rc}")
+    if m_status != 200 or 'pio_tpu_xla_compile_total{site="bucket_warmup"} ' \
+            f"{len(ladder)}" not in metrics:
+        raise AssertionError(f"/metrics {m_status}")
+
+    home, ej = reloaded["home"], reloaded["engine_json"]
+    port = free_port()
+    t0 = time.monotonic()
+    with cli_server(cli_env(home), home, "deploy", "--engine-json", ej,
+                    "--ip", "127.0.0.1", "--port", str(port), "--workers",
+                    str(OPS_POOL_WORKERS), "--device-worker", "--device",
+                    CARD.type) as proc:
+        wait_listening(home, proc)
+        by_worker, rows = {}, {}
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline and (
+                len(by_worker) < OPS_POOL_WORKERS
+                or len(rows) < OPS_POOL_WORKERS):
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+            code, got = request(conn, "GET", "/")
+            conn.close()
+            if code == 200:
+                by_worker[got["worker"]] = got["pid"]
+            code, body = get_text(port, "/device.json")
+            if code == 200:
+                (r,) = json.loads(body)["devices"]
+                rows[r["device"]] = r
+        holders = {w: holds_card(pid) for w, pid in by_worker.items()}
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        code, _ = request(conn, "POST", "/undeploy", {})
+        conn.close()
+        rc = proc.wait(timeout=60)
+    log(f"  the pool of {OPS_POOL_WORKERS} ({time.monotonic() - t0:.1f} s): "
+        f"/device.json rows {json.dumps(rows)}; workers' pids "
+        f"{json.dumps(by_worker)}, holding the card {json.dumps(holders)}; "
+        f"/undeploy {code}, exit {rc}")
+    if set(rows) != {"cuda:0", "cpu:0"} \
+            or rows["cuda:0"]["source"] != "memory_stats" \
+            or rows["cpu:0"]["source"] != "ledger" \
+            or holders != {0: True, 1: False} or code != 200 or rc != 0:
+        raise AssertionError("the pool's device watches or card holders "
+                             "are not the device worker's alone")
+
+
+def ops_profile_hook(args, smi, text) -> None:
+    """40.4: PIO_TPU_PROFILE with PIO_TPU_PROFILE_EXECUTIONS=8 on phase
+    29's text engine deployed with the micro-batcher: the capture holds
+    the forward launches of the first 8 dispatches, the bucket ladder's
+    warmup sweeps and then live queries through the batcher (the warmup
+    sweeps are executions of the hook, as the reference's); ``POST
+    /debug/profile.json?restart=1`` captures the next 8 live queries into
+    capture-0001."""
+    variant = variant_from_dict(text["variant"], path=text["engine_json"])
+    prof_dir = os.path.join(CLI_HOMES, "ops_profile")
+    shutil.rmtree(prof_dir, ignore_errors=True)
+    with cli_store(text["home"]), knob("PIO_TPU_PROFILE", prof_dir), \
+            knob("PIO_TPU_PROFILE_EXECUTIONS", str(OPS_EXECUTIONS)), \
+            knob(MB_KNOBS[0], str(MB_WINDOW_US)), knob(MB_KNOBS[1], "0"):
+        c0 = read_counts()
+        server = deploy_query_server(variant, host="127.0.0.1", port=0,
+                                     device=CARD)
+        warm = counts_since(c0)["embedding_bag"]
+    got = {}
+    with server:
+        ladder = list(server.service._buckets.buckets)
+        live = OPS_EXECUTIONS - len(ladder)
+        if live < 1:
+            raise AssertionError(f"the ladder {ladder} fills the window of "
+                                 f"{OPS_EXECUTIONS} executions alone")
+        texts, _ = synth_corpus(np.random.default_rng(args.seed + 41),
+                                live + 2 * OPS_EXECUTIONS, N_WORDS,
+                                coverage=False)
+        conn = http.client.HTTPConnection("127.0.0.1", server.port,
+                                          timeout=60)
+
+        def queries(ts):
+            c0 = read_counts()
+            for t in ts:
+                code, _ = request(conn, "POST", "/queries.json", {"text": t})
+                if code != 200:
+                    raise AssertionError(f"query: {code}")
+            return counts_since(c0)["embedding_bag"]
+
+        first = queries(texts[:live])
+        rest = queries(texts[live:live + OPS_EXECUTIONS])
+        code, restarted = request(conn, "POST",
+                                  "/debug/profile.json?restart=1", b"")
+        again = queries(texts[live + OPS_EXECUTIONS:])
+        code2, status = request(conn, "GET", "/debug/profile.json")
+        conn.close()
+        batched = server.service.stats()["microbatch"]
+    for name, sub in (("first", ""), ("restart", "capture-0001")):
+        counts = trace_kernels(os.path.join(prof_dir, sub, window.TRACE_FILE))
+        got[name] = (launches_of(counts, "embedding_bag_kernel"),
+                     trace_complete(counts, f"the {name} capture"))
+    log(f"  40.4 PIO_TPU_PROFILE, {OPS_EXECUTIONS} executions, the "
+        f"micro-batcher on: forward launches of the ladder's warmup "
+        f"{ladder} {warm} and of the first {live} queries {first} (the "
+        f"next {OPS_EXECUTIONS}: {rest}), in the capture {got['first'][0]} "
+        f"({got['first'][1]} sentinels); restart {code} -> "
+        f"{restarted.get('directory')}: {again} launches, in capture-0001 "
+        f"{got['restart'][0]} ({got['restart'][1]} sentinels); status "
+        f"{json.dumps(status)}; the batcher's batches "
+        f"{batched['batches']} of {batched['batchedQueries']} queries")
+    if got["first"][0] != warm + first or got["restart"][0] != again \
+            or warm < len(ladder) or first < live \
+            or again < OPS_EXECUTIONS or code != 200 or code2 != 200 \
+            or status["captures"] != 1 or status["armed"] \
+            or batched["batchedQueries"] != live + 2 * OPS_EXECUTIONS:
+        raise AssertionError(f"the captures {got} hold other launches than "
+                             f"the dispatches' {warm} + {first}, {again}")
+
+
+def ops_sampler_cost(args, smi, text) -> None:
+    """40.5: the sampler's cost: p50 and queries/s of phase 29's text
+    models served from 1 and 32 clients (x 16 queries), with
+    PIO_TPU_DEVICEWATCH=0 and on, in turns (off, on, on, off)."""
+    variant = variant_from_dict(text["variant"], path=text["engine_json"])
+    texts, _ = synth_corpus(np.random.default_rng(args.seed + 42),
+                            PER_CLIENT, N_WORDS, coverage=False)
+    bodies = [{"text": t} for t in texts]
+    with cli_store(text["home"]):
+        engine, ep = build_engine(variant)
+        iid = Storage.get_meta_data_engine_instances().get_latest_completed(
+            variant.engine_id, variant.engine_version, variant.path).id
+        models = load_models_for_instance(
+            iid, engine, ep, ComputeContext.create(args.seed, device=CARD))
+    out = {}
+    for flag in ("0", "1", "1", "0"):
+        with knob("PIO_TPU_DEVICEWATCH", flag):
+            server = create_query_server(engine, ep, models, host="127.0.0.1",
+                                         port=0, device=CARD)
+        with server:
+            sampling = server.service.devwatch._thread is not None
+            for n_clients in (1, N_CLIENTS):
+                records, wall = drive_load(server.port, bodies, n_clients,
+                                           PER_CLIENT // 4)
+                out.setdefault((flag, n_clients), []).append(
+                    latency(records, wall))
+        if sampling != (flag == "1"):
+            raise AssertionError(f"PIO_TPU_DEVICEWATCH={flag}: sampler "
+                                 f"{sampling}")
+    log(f"  40.5 the sampler (interval {knobs.knob_float(devicewatch.INTERVAL_ENV)}"
+        f" s), host clock, two runs each in turns: " + "; ".join(
+            f"PIO_TPU_DEVICEWATCH={f} {n} client(s): p50 "
+            f"{[round(x['p50_ms'], 3) for x in runs]} ms, "
+            f"{[round(x['qps']) for x in runs]} q/s"
+            for (f, n), runs in sorted(out.items())) + f"; {smi}")
+
+
+def phase_ops_plane(args, smi, text, reloaded) -> dict:
+    """Phase 40: the device ops plane on the card."""
+    t_phase = time.monotonic()
+    log(f"phase 40: the device ops plane: run_train's trace, the two-tower "
+        f"step stream with its sidecar, /device.json and pio top, the "
+        f"serving profile hook, the sampler's cost; {smi}")
+    c0 = read_counts()
+    ops_train_trace(args, smi, text)
+    ops_step_stream(args, smi)
+    ops_device_json(args, smi, text, reloaded)
+    ops_profile_hook(args, smi, text)
+    ops_sampler_cost(args, smi, text)
+    launches = counts_since(c0)
+    log(f"  phase 40 launches (added to the kernels' line): "
+        f"{json.dumps(launches)}; phase 40 {time.monotonic() - t_phase:.1f} s")
+    return {"launches": launches}
+
+
 def kernel_entry(name, source, replaces, launches, row) -> dict:
     """One kernel of the JSON line, from its main timed row."""
     return {
@@ -5011,6 +5512,9 @@ def main(argv=None) -> int:
         f"{host_s:.1f} s")
 
     use_memory_storage()
+    # the runs' ledgers (and any default $PIO_TPU_HOME path) stay under
+    # the script's own home
+    os.environ["PIO_TPU_HOME"] = fresh_home("script")
     rng = np.random.default_rng(args.seed)
     shapes = phase_kernels(rng, dev)
     gpu, cpu, queries = phase_model(args)
@@ -5086,7 +5590,8 @@ def main(argv=None) -> int:
     # the port's CLI: the quickstart as processes, then text classification
     # in this process, its kernels' launches joining the kernels' line
     phase_cli_quickstart(args, smi)
-    cli_text = phase_cli_text(args, smi)["launches"]
+    text = phase_cli_text(args, smi)
+    cli_text = text["launches"]
     for entry in summary:
         entry["launches"] += text_eval[entry["name"]] + cli_text[entry["name"]]
     # the neural templates: no hand-written kernel either; their device
@@ -5107,7 +5612,13 @@ def main(argv=None) -> int:
         entry["launches"] += mb_text["launches"][entry["name"]]
     summary[0]["shapes"] += mb_text["rows"]
     phase_rec_microbatch(args, smi, full["factors"])
-    phase_pool(args, smi, phase_reload_under_load(args, smi))
+    reloaded = phase_reload_under_load(args, smi)
+    phase_pool(args, smi, reloaded)
+    # the device ops plane on phase 29's engine and phase 38's store; its
+    # launches join the kernels' line
+    ops = phase_ops_plane(args, smi, text, reloaded)
+    for entry in summary:
+        entry["launches"] += ops["launches"][entry["name"]]
     log(f"text evaluation sweep launches (added to the kernels' line): "
         f"{json.dumps(text_eval)}")
     log(f"CLI train + deploy launches (added to the kernels' line): "
@@ -5115,6 +5626,10 @@ def main(argv=None) -> int:
     log(f"recommendation path launches: run_train {rec['train_launches']}, "
         f"HTTP {rec['http_launches']} (routed by batch size "
         f"{rec['routed_launches']}), batch_predict {rec['batch_launches']}")
+    log(f"guarded profiler windows: {len(WINDOW_SENTINELS)}, sentinels "
+        f"recorded {min(WINDOW_SENTINELS)}-{max(WINDOW_SENTINELS)} of "
+        f"{2 * window.SENTINELS} each (a window lost records at an end "
+        f"where fewer than {2 * window.SENTINELS})")
     print(json.dumps({"programs": full["rows"], "device": smi}))
     print(json.dumps({"kernels": summary}))
     print(smi)

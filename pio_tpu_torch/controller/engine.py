@@ -19,7 +19,6 @@ import dataclasses
 import importlib
 import logging
 import os
-import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Type
 
 import torch
@@ -37,6 +36,8 @@ from pio_tpu_torch.controller.params import (
     ParamsError,
     params_from_dict,
 )
+from pio_tpu_torch.obs import trainwatch
+from pio_tpu_torch.obs.metrics import monotonic_s
 from pio_tpu_torch.parallel.context import ComputeContext
 
 log = logging.getLogger("pio_tpu_torch.engine")
@@ -148,20 +149,30 @@ class Engine:
         """Run DataSource -> Preparator -> each Algorithm; return models.
 
         ``timings``, when given, is filled with per-phase wall seconds
-        (``read``, ``prepare``, ``train:<i>_<algo>``), as the reference's.
+        (``read``, ``prepare``, ``train:<i>_<algo>``), as the reference's;
+        an active trainwatch recorder follows each phase by name
+        (``train.<i>_<algo>``) and its seconds (``/train.json``).
         With ``ctx.checkpoint_base`` and ``ctx.checkpoint_every`` set, each
         algorithm trains with a ``CheckpointManager`` of its own under
         ``<checkpoint_base>/algo<i>_<name>``, closed when it returns.
         """
 
         def _phase(name, fn):
-            t0 = time.monotonic()
+            # the recorder's phase (/train.json) takes the dot form; the
+            # timings keys keep the reference's colon form
+            span_name = name.replace(":", ".")
+            trainwatch.set_phase(span_name)
+            t0 = monotonic_s()
             out = fn()
             if ctx.device.type == "cuda":
                 # the card runs behind the host: a phase ends with its work
                 torch.cuda.synchronize(ctx.device)
+            dur = round(monotonic_s() - t0, 3)
             if timings is not None:
-                timings[name] = round(time.monotonic() - t0, 3)
+                timings[name] = dur
+            rec = trainwatch.active_recorder()
+            if rec is not None:
+                rec.set_phase_seconds(span_name, dur)
             return out
 
         data_source = self.data_source_class(engine_params.data_source_params)

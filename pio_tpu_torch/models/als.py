@@ -68,6 +68,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from pio_tpu_torch.obs import trainwatch
 from pio_tpu_torch.parallel.context import ComputeContext
 from pio_tpu_torch.utils import knobs
 from pio_tpu_torch.utils.numutil import round_up as _round_up
@@ -848,6 +849,12 @@ def train_als(
     rating = np.asarray(rating, np.float32)
     _solver_for(str(config.solver))  # an unknown solver fails first
     _resolve_matmul_dtype(str(config.matmul_dtype))
+    # telemetry window: ALS "steps" are the alternating solve iterations
+    # (no per-step loss: normal equations); the edges count as examples
+    trainwatch.begin_algo(
+        "als", total_steps=int(config.iterations),
+        per_device_bytes=(max(n_users, 1) + max(n_items, 1)) * K * 4,
+    )
 
     t0 = time.monotonic()
     host_wire, shapes, rating_wire, item_wire, wire_bytes = _encode_wire(
@@ -873,10 +880,12 @@ def train_als(
     if stats is not None:
         _sync(dev)
         stats["device_s"] = time.monotonic() - t0
-    return ALSFactors(
+    factors = ALSFactors(
         user_factors=P.cpu().numpy()[:n_users],
         item_factors=Q.cpu().numpy()[:n_items],
     )
+    trainwatch.record_steps(int(config.iterations), examples=len(user_idx))
+    return factors
 
 
 def predict_scores(

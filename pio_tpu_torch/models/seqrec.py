@@ -14,6 +14,11 @@ the scan, and :mod:`pio_tpu_torch.models.adam`. Attention is
 the reference's arithmetic in plain ops. The dp / sp / tp / ep / pp mesh
 paths and the streamed epoch feed come with the multi-device slice
 (ROADMAP A7).
+
+Under a recording run (``obs/trainwatch.py``) each step's loss joins the
+step stream through the lagged drain (no added kernel or synchronization
+in a step), and the first dispatch of each chunk length counts as a
+``train_step`` compile (``obs/devicewatch.py``).
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import torch
 
 from pio_tpu_torch import DeviceLike, resolve_device
 from pio_tpu_torch.models.adam import adam_init, adam_update, leaves, rebuild
+from pio_tpu_torch.obs import devicewatch, trainwatch
 from pio_tpu_torch.parallel.partition import (
     DeviceBudgetExceeded,
     assert_device_budget,
@@ -384,17 +390,31 @@ def train_seqrec(
         stats["place_s"] = time.monotonic() - t0
         t0 = time.monotonic()
 
+    trainwatch.begin_algo(
+        "seqrec", total_steps=cfg.steps, n_batches=n_batches,
+        per_device_bytes=params_nbytes,
+    )
+    # the lagged loss drain: None (no work) unless a run is recording
+    losses = trainwatch.lagged_losses(dev, B, cfg.steps)
+
     def chunk_fn(state, n_steps):
         step0, params, opt = state
         values = leaves(params)
-        for i in range(n_steps):
-            if cfg.batch_size > 0:
-                start = ((step0 + i) % n_batches) * B
-                batch = tuple(a[start:start + B]
-                              for a in (seqs_d, targets_d, mask_d))
-            else:
-                batch = (seqs_d, targets_d, mask_d)
-            values, opt, _ = _train_step(params, values, opt, batch, cfg)
+        # compile attribution: the first dispatch of each chunk length
+        key = (("seqrec", "staged", B, int(n_steps)) if cfg.batch_size > 0
+               else ("seqrec", "full", int(n_steps)))
+        with devicewatch.compile_span("train_step", key=key):
+            for i in range(n_steps):
+                if cfg.batch_size > 0:
+                    start = ((step0 + i) % n_batches) * B
+                    batch = tuple(a[start:start + B]
+                                  for a in (seqs_d, targets_d, mask_d))
+                else:
+                    batch = (seqs_d, targets_d, mask_d)
+                values, opt, loss = _train_step(params, values, opt, batch,
+                                                cfg)
+                if losses is not None:
+                    losses.step(loss)
         return step0 + n_steps, rebuild(params, values), opt
 
     # steps excluded: resume with a different total must still match;
@@ -414,4 +434,6 @@ def train_seqrec(
         _sync(dev)
         stats["steps_s"] = time.monotonic() - t0
     fitted["emb"] = fitted["emb"][: n_items + 1]
+    if losses is not None:
+        losses.close()
     return SeqRecModel(params=fitted, n_items=n_items, config=cfg)

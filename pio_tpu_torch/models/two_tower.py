@@ -15,6 +15,11 @@ bits), ``torch.matmul`` for the dots in full f32 (TF32 stays off, as
 PyTorch's default has it), and :mod:`pio_tpu_torch.models.adam`. The
 dp / tp / ep mesh paths and the streamed epoch feed come with the
 multi-device slice (ROADMAP A7).
+
+Under a recording run (``obs/trainwatch.py``) each step's loss joins the
+step stream through the lagged drain (no added kernel or synchronization
+in a step), and the first dispatch of each chunk length counts as a
+``train_step`` compile (``obs/devicewatch.py``).
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import torch
 
 from pio_tpu_torch import DeviceLike, resolve_device
 from pio_tpu_torch.models.adam import adam_init, adam_update, leaves, rebuild
+from pio_tpu_torch.obs import devicewatch, trainwatch
 from pio_tpu_torch.parallel.partition import (
     DeviceBudgetExceeded,
     assert_device_budget,
@@ -258,14 +264,27 @@ def train_two_tower(
         stats["n_stream"] = 0
         t0 = time.monotonic()
 
+    trainwatch.begin_algo(
+        "two_tower", total_steps=cfg.steps, n_batches=n_batches,
+        per_device_bytes=params_nbytes,
+    )
+    # the lagged loss drain: None (no work) unless a run is recording
+    losses = trainwatch.lagged_losses(dev, batch, cfg.steps)
+
     def chunk_fn(state, n):
         step0, params, opt = state
         values = leaves(params)
-        for i in range(n):
-            start = ((step0 + i) % n_batches) * batch
-            values, opt, _ = _train_step(
-                params, values, opt, uids_d[start:start + batch],
-                iids_d[start:start + batch], cfg)
+        # compile attribution: the first dispatch of each chunk length
+        with devicewatch.compile_span(
+            "train_step", key=("two_tower", "chunk", batch, int(n))
+        ):
+            for i in range(n):
+                start = ((step0 + i) % n_batches) * batch
+                values, opt, loss = _train_step(
+                    params, values, opt, uids_d[start:start + batch],
+                    iids_d[start:start + batch], cfg)
+                if losses is not None:
+                    losses.step(loss)
         return step0 + n, rebuild(params, values), opt
 
     # steps + table_wire + stream excluded: none shapes the trained state,
@@ -299,6 +318,9 @@ def train_two_tower(
         _sync(dev)
         stats["tables_d2h_s"] = time.monotonic() - t0
         stats["table_wire"] = cfg.table_wire
+    if losses is not None:
+        # the last chunks' losses, read once the tables are in flight
+        losses.close()
     return TwoTowerModel(
         user_vectors=uv[:n_users].contiguous(),
         item_vectors=iv[:n_items].contiguous(), config=cfg,

@@ -1,0 +1,307 @@
+"""Metrics registry — Counter / Gauge / Histogram with Prometheus text
+exposition.
+
+The port's copy of ``pio_tpu/obs/metrics.py``, cut to one process: the
+pool's shared-memory mirror (``obs/shm``) and the request window are not
+ported. The text it renders is the reference's:
+
+- one ``# HELP``/``# TYPE`` pair per metric family, HELP text escaped
+  (``\\`` and newline — label values additionally escape ``"``);
+- histograms are CUMULATIVE fixed-bucket (``_bucket{le=...}`` rows
+  monotone non-decreasing, closed by ``le="+Inf"``) with ``_sum`` and
+  ``_count`` companions, and each bucket may carry the most recent
+  exemplar (``# {trace_id="..."} value``);
+- cells (one per label-value combination) are created lazily via
+  ``metric.labels(...)`` and registration is idempotent — asking the
+  registry for an existing family returns it.
+"""
+
+from __future__ import annotations
+
+import bisect
+import threading
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+#: THE monotonic duration clock of the port (``perf_counter``: monotonic
+#: per the stdlib contract, and the finest clock CPython offers)
+monotonic_s = time.perf_counter
+
+#: serving-latency histogram edges in SECONDS: 100 µs through 10 s
+DEFAULT_LATENCY_BUCKETS: Tuple[float, ...] = (
+    0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025,
+    0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
+)
+
+
+def escape_help(text: str) -> str:
+    """Escape HELP text per the Prometheus text format (backslash and
+    newline only — quotes are legal in HELP)."""
+    return str(text).replace("\\", "\\\\").replace("\n", "\\n")
+
+
+def escape_label_value(value: str) -> str:
+    """Escape a label value per the Prometheus text format."""
+    return (
+        str(value)
+        .replace("\\", "\\\\")
+        .replace('"', '\\"')
+        .replace("\n", "\\n")
+    )
+
+
+def _fmt(v: float) -> str:
+    """Sample-value formatting: integers without the trailing ``.0``."""
+    if v == float("inf"):
+        return "+Inf"
+    f = float(v)
+    return str(int(f)) if f.is_integer() and abs(f) < 2 ** 53 else repr(f)
+
+
+def _label_str(names: Sequence[str], values: Sequence[str]) -> str:
+    if not names:
+        return ""
+    inner = ",".join(
+        f'{n}="{escape_label_value(v)}"' for n, v in zip(names, values)
+    )
+    return "{" + inner + "}"
+
+
+class _Cell:
+    """One (metric, label-values) combination: a locked value."""
+
+    __slots__ = ("_lock", "_v")
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._v = 0.0
+
+    def inc(self, v: float = 1.0) -> None:
+        """Bound-cell fast path: hot code resolves ``labels()`` once and
+        bumps the cell directly. Counter callers keep v >= 0 (the
+        family-level ``Counter.inc`` enforces it; gauge cells may go
+        down)."""
+        with self._lock:
+            self._v += v
+
+    def _set(self, v: float) -> None:
+        with self._lock:
+            self._v = v
+
+    @property
+    def value(self) -> float:
+        return self._v
+
+
+class _Metric:
+    """Family base: name, help, label names, lazily created cells."""
+
+    typ = "untyped"
+
+    def __init__(self, name: str, help: str, labelnames: Sequence[str] = ()):
+        self.name = name
+        self.help = help
+        self.labelnames = tuple(labelnames)
+        self._lock = threading.Lock()
+        #: label-values tuple -> cell, in creation order
+        self._cells: Dict[Tuple[str, ...], object] = {}
+
+    def _make_cell(self):
+        return _Cell()
+
+    def labels(self, *values, **kv):
+        if kv:
+            if values:
+                raise ValueError("pass label values positionally OR by name")
+            values = tuple(kv[n] for n in self.labelnames)
+        values = tuple(str(v) for v in values)
+        if len(values) != len(self.labelnames):
+            raise ValueError(
+                f"{self.name}: expected labels {self.labelnames}, "
+                f"got {values}"
+            )
+        cell = self._cells.get(values)
+        if cell is None:
+            with self._lock:
+                cell = self._cells.setdefault(values, self._make_cell())
+        return cell
+
+    def _default_cell(self):
+        """The zero-label cell (for label-less families)."""
+        return self.labels()
+
+    def samples(self) -> List[str]:
+        raise NotImplementedError
+
+    def render(self) -> List[str]:
+        lines = [
+            f"# HELP {self.name} {escape_help(self.help)}",
+            f"# TYPE {self.name} {self.typ}",
+        ]
+        lines.extend(self.samples())
+        return lines
+
+
+class _ScalarMetric(_Metric):
+    def samples(self) -> List[str]:
+        return [
+            f"{self.name}{_label_str(self.labelnames, values)} "
+            f"{_fmt(cell.value)}"
+            for values, cell in list(self._cells.items())
+        ]
+
+
+class Counter(_ScalarMetric):
+    typ = "counter"
+
+    def inc(self, v: float = 1.0, **labels) -> None:
+        if v < 0:
+            raise ValueError("counters only go up")
+        (self.labels(**labels) if labels else self._default_cell()).inc(v)
+
+    def value(self, *values) -> float:
+        return self.labels(*values).value
+
+
+class Gauge(_ScalarMetric):
+    typ = "gauge"
+
+    def set(self, v: float, **labels) -> None:
+        (self.labels(**labels) if labels else self._default_cell())._set(v)
+
+    def inc(self, v: float = 1.0, **labels) -> None:
+        (self.labels(**labels) if labels else self._default_cell()).inc(v)
+
+    def value(self, *values) -> float:
+        return self.labels(*values).value
+
+
+class _HistogramCell:
+    """Fixed cumulative buckets + sum + count. Each bucket remembers its
+    most recent exemplar (an id and the observed value)."""
+
+    __slots__ = ("_lock", "_edges", "_buckets", "_sum", "_count",
+                 "_exemplars")
+
+    def __init__(self, edges: Tuple[float, ...]):
+        self._lock = threading.Lock()
+        self._edges = edges  # finite upper bounds, sorted
+        self._buckets = [0] * (len(edges) + 1)  # +1 for +Inf
+        self._sum = 0.0
+        self._count = 0
+        self._exemplars: Dict[int, Tuple[str, float]] = {}  # idx -> (id, v)
+
+    def observe(self, v: float, exemplar: Optional[str] = None) -> None:
+        idx = bisect.bisect_left(self._edges, v)
+        with self._lock:
+            self._buckets[idx] += 1
+            self._sum += v
+            self._count += 1
+            if exemplar is not None:
+                self._exemplars[idx] = (str(exemplar), v)
+
+    def _snapshot(self):
+        with self._lock:
+            return (list(self._buckets), self._sum, self._count,
+                    dict(self._exemplars))
+
+    @property
+    def count(self) -> int:
+        return self._count
+
+    @property
+    def sum(self) -> float:
+        return self._sum
+
+
+class Histogram(_Metric):
+    typ = "histogram"
+
+    def __init__(self, name, help, labelnames=(),
+                 buckets: Sequence[float] = DEFAULT_LATENCY_BUCKETS):
+        super().__init__(name, help, labelnames)
+        edges = tuple(sorted(float(b) for b in buckets
+                             if b != float("inf")))
+        if not edges:
+            raise ValueError("histogram needs at least one finite bucket")
+        self.buckets = edges
+
+    def _make_cell(self):
+        return _HistogramCell(self.buckets)
+
+    def observe(self, v: float, exemplar: Optional[str] = None,
+                **labels) -> None:
+        (self.labels(**labels) if labels
+         else self._default_cell()).observe(v, exemplar=exemplar)
+
+    def samples(self) -> List[str]:
+        out = []
+        edges = [_fmt(e) for e in self.buckets] + ["+Inf"]
+        for values, cell in list(self._cells.items()):
+            buckets, sum_, count, exemplars = cell._snapshot()
+            cum = 0
+            for k, (edge, c) in enumerate(zip(edges, buckets)):
+                cum += c
+                ls = _label_str(
+                    self.labelnames + ("le",), values + (edge,)
+                )
+                line = f"{self.name}_bucket{ls} {cum}"
+                ex = exemplars.get(k)
+                if ex is not None:
+                    eid, ev = ex
+                    line += (
+                        f' # {{trace_id="{escape_label_value(eid)}"}}'
+                        f" {_fmt(ev)}"
+                    )
+                out.append(line)
+            base = _label_str(self.labelnames, values)
+            out.append(f"{self.name}_sum{base} {_fmt(sum_)}")
+            out.append(f"{self.name}_count{base} {count}")
+        return out
+
+
+class MetricsRegistry:
+    """Ordered family registry."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._metrics: Dict[str, _Metric] = {}
+
+    def _register(self, cls, name, help, labelnames, **kw) -> _Metric:
+        with self._lock:
+            m = self._metrics.get(name)
+            if m is not None:
+                if not isinstance(m, cls) or m.labelnames != tuple(labelnames):
+                    raise ValueError(
+                        f"metric {name!r} re-registered with a different "
+                        f"type or label set"
+                    )
+                return m
+            m = cls(name, help, labelnames, **kw)
+            self._metrics[name] = m
+            return m
+
+    def counter(self, name, help, labelnames=()) -> Counter:
+        return self._register(Counter, name, help, labelnames)
+
+    def gauge(self, name, help, labelnames=()) -> Gauge:
+        return self._register(Gauge, name, help, labelnames)
+
+    def histogram(self, name, help, labelnames=(),
+                  buckets=DEFAULT_LATENCY_BUCKETS) -> Histogram:
+        return self._register(
+            Histogram, name, help, labelnames, buckets=buckets
+        )
+
+    def render(self) -> List[str]:
+        """Exposition lines for every family, in registration order."""
+        with self._lock:
+            metrics = list(self._metrics.values())
+        return [line for m in metrics for line in m.render()]
+
+
+#: process-wide default registry — the layers with no natural owner (the
+#: training workflow and its status sidecar). HTTP services create their
+#: own registry per instance so that servers in one process do not bleed
+#: counters into each other.
+REGISTRY = MetricsRegistry()

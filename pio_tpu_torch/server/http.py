@@ -11,7 +11,8 @@ more for the client's delayed ACK).
 
 A body sent as :data:`PACKED_QUERY_CONTENT_TYPE` reaches the handler
 untouched as :attr:`Request.packed`; a handler may answer ready JSON
-bytes instead of an object. ``reuse_port`` sets ``SO_REUSEPORT`` before
+bytes instead of an object, or a :class:`RawResponse` of another type
+(the Prometheus text of ``GET /metrics``). ``reuse_port`` sets ``SO_REUSEPORT`` before
 bind, so the processes of a serving pool share one port.
 
 Cut to what the ported routes use: no TLS, no event-loop front, no
@@ -94,6 +95,41 @@ class Request:
 Handler = Callable[[Request], Tuple[int, Any]]
 
 
+@dataclass
+class RawResponse:
+    """Non-JSON handler output: a text or bytes body of its own type."""
+
+    body: Any  # str or bytes
+    content_type: str = "text/plain; charset=utf-8"
+
+
+#: Prometheus scrape content type (text format 0.0.4).
+METRICS_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
+
+
+def metrics_response(lines: List[str]) -> RawResponse:
+    """Exposition lines in the Prometheus scrape content type — the body
+    of every ``GET /metrics`` handler."""
+    return RawResponse("\n".join(lines) + "\n",
+                       content_type=METRICS_CONTENT_TYPE)
+
+
+def int_param(params: Dict[str, str], name: str, default: int,
+              lo: Optional[int] = None) -> int:
+    """A validated integer query param: not an integer, or below ``lo``,
+    answers 400 (a typo'd ``?n=`` must not fall back to the default)."""
+    raw = params.get(name)
+    if raw is None:
+        return default
+    try:
+        v = int(raw)
+    except (TypeError, ValueError):
+        raise HTTPError(400, f"query param {name}={raw!r} is not an integer")
+    if lo is not None and v < lo:
+        raise HTTPError(400, f"query param {name}={v} is below {lo}")
+    return v
+
+
 class HTTPError(Exception):
     """Handler-raised error, answered as ``{"message": ...}``."""
 
@@ -159,8 +195,13 @@ def _make_handler_class(router: Router, server_name: str):
 
         # -- response writing ------------------------------------------
         def _respond(self, status: int, body: Any):
+            ctype = "application/json; charset=UTF-8"
             try:
-                if isinstance(body, bytes):
+                if isinstance(body, RawResponse):
+                    ctype = body.content_type
+                    payload = (body.body if isinstance(body.body, bytes)
+                               else body.body.encode("utf-8"))
+                elif isinstance(body, bytes):
                     payload = body  # ready JSON (the packed query wire)
                 else:
                     payload = (json.dumps(body).encode()
@@ -174,7 +215,7 @@ def _make_handler_class(router: Router, server_name: str):
             head = (
                 f"HTTP/1.1 {status} {_REASONS.get(status, '')}\r\n"
                 f"Server: {server_name}\r\n"
-                "Content-Type: application/json; charset=UTF-8\r\n"
+                f"Content-Type: {ctype}\r\n"
                 f"Content-Length: {len(payload)}\r\n"
             )
             if self.close_connection:

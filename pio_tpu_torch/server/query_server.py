@@ -6,6 +6,11 @@ Counterpart of ``pio_tpu/server/query_server.py``. Routes:
     POST /queries.json   typed query (JSON, or a packed int8 frame sent
                          as ``application/x-pio-query-i8``) → serving
     GET  /stats.json     residency, micro-batch, bucket, lane and pool blocks
+    GET  /device.json    device memory, ledger and compile attribution
+    GET  /metrics        Prometheus text of the device plane's families
+    GET  /debug/profile.json   the profile hook's status
+    POST /debug/profile.json   ``?restart=1&n=N``: capture the next N
+                         device executions into ``capture-NNNN``
     GET  /healthz        liveness (accept loop, batcher, lane, heartbeat)
     GET  /readyz         readiness (engine loaded, instance in storage)
     POST /reload         hot swap to the newest COMPLETED instance
@@ -46,10 +51,21 @@ over in memory (``/reload`` answers 400 there: there is no stored
 instance to reload), and :func:`deploy_query_server`, which loads a
 stored engine instance the way ``pio deploy`` does.
 
+**The device ops plane.** Each service holds a
+:class:`~pio_tpu_torch.obs.devicewatch.DeviceWatch` on its own metrics
+registry, active in the process so that the resident scorers book their
+placements into it, its sampler started unless ``PIO_TPU_DEVICEWATCH=0``;
+it counts the ladder's warmup dispatches (``bucket_warmup``) and a live
+dispatch into a cold bucket (``bucket_dispatch``), and stamps each
+generation. A :class:`~pio_tpu_torch.obs.profile.DeviceProfileHook`
+(``PIO_TPU_PROFILE``) wraps every device execution: a per-query predict,
+and each bucketed batch dispatch (the micro-batcher's, the lane
+drainer's, the warmup's).
+
 Not ported: QoS (admission, deadlines, the batcher's deadline shedding),
-the tracer and ``/metrics`` with the pool's shared metrics segment, the
-evloop front, mesh serving, feedback, plugins, failpoints and
-``/deploy.json``.
+the tracer, the request and stage families of ``/metrics`` and the
+pool's shared metrics segment, the evloop front, mesh serving, feedback,
+plugins, failpoints and ``/deploy.json``.
 """
 
 from __future__ import annotations
@@ -69,7 +85,10 @@ import torch
 from pio_tpu_torch import DeviceLike, resolve_device
 from pio_tpu_torch.controller.engine import Engine, EngineParams
 from pio_tpu_torch.controller.params import ParamsError, params_from_dict
+from pio_tpu_torch.obs import devicewatch
 from pio_tpu_torch.obs.health import Heartbeat, HealthMonitor
+from pio_tpu_torch.obs.metrics import MetricsRegistry
+from pio_tpu_torch.obs.profile import DeviceProfileHook
 from pio_tpu_torch.parallel.context import ComputeContext
 from pio_tpu_torch.server import residency
 from pio_tpu_torch.server.batchlane import (
@@ -91,7 +110,9 @@ from pio_tpu_torch.server.http import (
     JsonHTTPServer,
     Request,
     Router,
+    int_param,
     keys_equal,
+    metrics_response,
 )
 from pio_tpu_torch.storage.registry import Storage
 from pio_tpu_torch.utils import knobs
@@ -466,6 +487,20 @@ class QueryService:
             lambda: self._batcher.thread if self._batcher else None)
         self.health.add_readiness("engine", self._check_engine_ready)
         self.health.add_readiness("storage", self._check_storage_ready)
+        # the device ops plane: a per-service watch on this service's
+        # registry, active before the first generation so that its
+        # resident scorers book into it; the sampler reads the
+        # allocator's counters off the dispatch path
+        self.obs = MetricsRegistry()
+        watch_device = self.device if self.device is not None else (
+            ctx.device if ctx is not None else None)
+        self.devwatch = devicewatch.DeviceWatch(registry=self.obs,
+                                                device=watch_device)
+        devicewatch.activate(self.devwatch)
+        if knobs.knob_str(devicewatch.SAMPLER_ENV) != "0":
+            self.devwatch.start()
+        self.profile_hook = DeviceProfileHook.from_env(
+            cuda=watch_device is not None and watch_device.type == "cuda")
         self._install(engine, engine_params, models, instance_id)
         window_us = knobs.knob_float("PIO_TPU_SERVE_MICROBATCH_US")
         adaptive = knobs.knob_str("PIO_TPU_SERVE_MICROBATCH_ADAPTIVE") != "0"
@@ -536,6 +571,8 @@ class QueryService:
             if outgoing is not None:
                 outgoing.swapped = True
             retire_now = outgoing is not None and outgoing.readers == 0
+        # the generation the new placements went live under
+        self.devwatch.set_generation(self._buckets.generation)
         if retire_now:
             self._retire_generation(outgoing)
         log.info("serving engine instance %s (generation %d, %d resident)",
@@ -597,6 +634,8 @@ class QueryService:
             gen = self._gen
             placed, gen.resident = gen.resident, []
         self._retire(placed)
+        self.devwatch.stop()
+        devicewatch.deactivate(self.devwatch)
 
     # -- bucket ladder -------------------------------------------------------
     def _bucket_warm_enabled(self) -> bool:
@@ -637,7 +676,13 @@ class QueryService:
         warmed = []
         for b in self._buckets.buckets:
             try:
-                self._run_batch(pairs, serving, [wq] * b)
+                # compile attribution: each bucket's first sweep on this
+                # service's watch; each sweep is an execution of the
+                # profile hook, as the reference's _run_batch captures its
+                # warmup sweeps
+                with self.devwatch.span("bucket_warmup", key=("bucket", b)), \
+                        self.profile_hook.capture():
+                    self._run_batch(pairs, serving, [wq] * b)
                 warmed.append(b)
             except Exception:
                 log.exception("bucket %d warmup dispatch failed", b)
@@ -657,8 +702,9 @@ class QueryService:
         generation, held for the call)."""
         if gen is None:
             with self._reading() as held:
-                return self._predict_with(held, query)
-        return self._predict_with(gen, query)
+                return self._predict_one(query, held)
+        with self.profile_hook.capture():
+            return self._predict_with(gen, query)
 
     @staticmethod
     def _run_batch(pairs, serving, queries: list) -> list:
@@ -693,12 +739,17 @@ class QueryService:
             with self._lock:
                 self.bucket_dispatches[bucket] = (
                     self.bucket_dispatches.get(bucket, 0) + 1)
+            if fresh:
+                # a live dispatch into a cold bucket: the first dispatch
+                # of a shape the warmup should have paid (count only)
+                self.devwatch.record_compile("bucket_dispatch")
 
-        return dispatch_bucketed(
-            self._buckets, queries,
-            lambda qs: self._run_batch(gen.pairs, gen.serving, qs),
-            on_dispatch=on_dispatch,
-        )
+        def run(qs):
+            with self.profile_hook.capture():
+                return self._run_batch(gen.pairs, gen.serving, qs)
+
+        return dispatch_bucketed(self._buckets, queries, run,
+                                 on_dispatch=on_dispatch)
 
     # -- the query path ------------------------------------------------------
     @staticmethod
@@ -936,14 +987,15 @@ class QueryService:
     # -- read-only routes ----------------------------------------------------
     def stats(self) -> dict:
         """``GET /stats.json``: the residency block (the reference's
-        keys, plus the service's dispatch totals; ``measuredBytes`` is
-        ``torch.cuda.memory_allocated`` on the card, null elsewhere), the
+        keys, plus the service's dispatch totals; ``measuredBytes`` is the
+        device watch's measured bytes in use, sampled here: the
+        allocator's on the card, null where only the ledger is kept), the
         ``buckets`` block with its dispatches per bucket, and where they
         apply ``microbatch``, ``batchLane``, ``worker`` and
         ``poolSize``."""
         with self._swap_lock:
             scorers = self._gen.scorers()
-        on_card = self.device is not None and self.device.type == "cuda"
+        self.devwatch.sample()
         with self._lock:
             totals = dict(self.resident_counts)
             dispatches = {str(b): n
@@ -956,8 +1008,7 @@ class QueryService:
             "residency": {
                 "enabled": bool(scorers),
                 "paramBytes": sum(sc.placed_bytes for sc in scorers),
-                "measuredBytes": (torch.cuda.memory_allocated(self.device)
-                                  if on_card else None),
+                "measuredBytes": self.devwatch.measured_bytes(),
                 "scorers": [sc.to_dict() for sc in scorers],
                 "totals": totals,
             },
@@ -1004,6 +1055,13 @@ class QueryService:
         r = Router()
         r.add("GET", "/", lambda req: (200, self.status()))
         r.add("GET", "/stats\\.json", lambda req: (200, self.stats()))
+        r.add("GET", "/device\\.json",
+              lambda req: (200, self.devwatch.payload()))
+        r.add("GET", "/metrics",
+              lambda req: (200, metrics_response(self.obs.render())))
+        r.add("GET", "/debug/profile\\.json",
+              lambda req: (200, self.profile_hook.to_dict()))
+        r.add("POST", "/debug/profile\\.json", self.post_profile)
         r.add("POST", "/queries\\.json", self._route_query)
         r.add("GET", "/healthz", self.healthz)
         r.add("GET", "/readyz", self.readyz)
@@ -1023,6 +1081,17 @@ class QueryService:
     def readyz(self, req: Request):
         ok, report = self.health.readiness()
         return (200 if ok else 503), report
+
+    def post_profile(self, req: Request):
+        """``?restart=1`` re-arms the profile hook for the next ``n``
+        (default: the configured N) device executions, into the next
+        ``capture-NNNN`` (admin-gated: profiling taxes the hot path and
+        writes server-side files)."""
+        self._check_admin(req)
+        if req.params.get("restart") in ("1", "true"):
+            n = int_param(req.params, "n", 0, lo=0)
+            return 200, self.profile_hook.restart(n)
+        return 200, self.profile_hook.to_dict()
 
     def _check_admin(self, req: Request) -> None:
         if self.admin_key is not None:

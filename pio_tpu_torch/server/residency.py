@@ -38,7 +38,11 @@ re-quantize round trip). A packed query answered so skips the template's
 serving passes results through unchanged (``FirstServing``). The query
 server serves packed frames only from a scorer that has both.
 
-Not ported: the reference's device-memory ledger and budget check, its
+Each scorer books its parameters (``resident``) and its standing output
+tensors (``donated``, the reference's category name) in the active device
+watch's ledger and releases them when retired, and the first dispatch at
+each batch size counts as a ``resident_scorer`` compile
+(``obs/devicewatch.py``). Not ported: the reference's budget check, its
 failpoints and the row-sharded placement over a mesh.
 """
 
@@ -51,6 +55,7 @@ import numpy as np
 import torch
 
 from pio_tpu_torch import DeviceLike, resolve_device
+from pio_tpu_torch.obs import devicewatch
 from pio_tpu_torch.utils import knobs
 
 WIRE_INT8 = "int8"
@@ -170,6 +175,12 @@ class ResidentLinearScorer:
         self.misses = 0
         self._on_h2d: Optional[Callable[[int], None]] = None
         self._on_dispatch: Optional[Callable[[str], None]] = None
+        # the device ledger: book the placement with the active watch;
+        # retire() releases it
+        self._dw_key = f"{name}#{id(self):x}"
+        devicewatch.ledger_place(
+            "resident", self._dw_key, self.placed_bytes, name=name
+        )
 
     # -- service wiring ----------------------------------------------------
     def bind(self, on_h2d=None, on_dispatch=None) -> "ResidentLinearScorer":
@@ -191,6 +202,13 @@ class ResidentLinearScorer:
             for n in buckets:
                 if n not in self._out_bufs:
                     self._out_bufs[int(n)] = self._new_buffer(int(n))
+            donated = sum(
+                int(b) * self.n_classes * 4 for b in self._out_bufs
+            )
+        devicewatch.ledger_place(
+            "donated", self._dw_key, donated,
+            name=f"{self.name} logits buffers",
+        )
 
     def retire(self) -> None:
         """Drop the device params and the output tensors, and refuse
@@ -200,6 +218,8 @@ class ResidentLinearScorer:
             self._w_dev = None
             self._b_dev = None
             self._out_bufs.clear()
+        devicewatch.ledger_release("resident", self._dw_key)
+        devicewatch.ledger_release("donated", self._dw_key)
 
     # -- wire encode -------------------------------------------------------
     def quantize(self, X: np.ndarray) -> np.ndarray:
@@ -257,8 +277,15 @@ class ResidentLinearScorer:
         if guard is None:
             guard = self._new_buffer(n)
         buf = guard.take()
-        torch.addmm(b, x_dev.float(), w, out=buf)
-        codes = torch.argmax(buf, dim=1).to(torch.int32).cpu().numpy()
+        # compile attribution: the first dispatch at this program shape
+        # (batch n × this model's dims), keyed on the watch, not the
+        # scorer: a hot-swapped scorer of the same shape is not recounted
+        with devicewatch.compile_span(
+            "resident_scorer", key=(n, self.in_dim, self.n_classes)
+        ):
+            torch.addmm(b, x_dev.float(), w, out=buf)
+            codes_dev = torch.argmax(buf, dim=1)
+        codes = codes_dev.to(torch.int32).cpu().numpy()
         with self._lock:
             if not self.retired:
                 self._out_bufs[n] = OutputBuffer(buf)

@@ -4,7 +4,8 @@ Console.scala``, UNVERIFIED path; see SURVEY.md).
 The port's copy of ``pio_tpu/tools/cli.py`` (the port imports nothing of
 ``pio_tpu``), with the quickstart's verbs: app, accesskey, train, eval,
 eventserver, deploy, undeploy, batchpredict, import, export, status,
-version. Arguments, output lines and exit codes are the reference's.
+version; and the ops plane's: runs, top, shell. Arguments, output lines
+and exit codes are the reference's.
 ``train``, ``deploy``, ``batchpredict`` and ``eval`` take ``--device
 {cuda,cpu}`` (default ``cuda``): without a card the default exits non-zero
 with :func:`~pio_tpu_torch.resolve_device`'s message, never carrying on
@@ -12,12 +13,17 @@ on the CPU. ``deploy`` serves from one process, or with ``--workers N``
 from a pool of N processes on one port (``server/worker_pool.py``), of
 which ``--device-worker`` lets worker 0 serve on ``--device`` while the
 others serve on the CPU and send their queries to it over the batch
-lane.
+lane. ``train --profile-dir D`` writes a ``torch.profiler`` trace of the
+run into D, and ``train`` serves the run's ``/train.json``,
+``/device.json`` and ``/metrics`` on a loopback sidecar (``--status-port``,
+else ``PIO_TPU_TRAIN_STATUS_PORT``: 0 an ephemeral port, printed at
+start; negative none). ``status --device cpu`` names the CUDA devices
+without opening one.
 
-Not ported yet (ROADMAP A): the verbs runs, blobserver, dashboard, fleet,
-route, rollout, adminserver, top, upgrade, run, shell, lint, template list
-and app compact; the flags --mesh-worker, --slo, --qos, --faults,
---profile-dir, --feedback-app and --status-port.
+Not ported yet (ROADMAP A): the verbs blobserver, dashboard, fleet,
+route, rollout, adminserver, upgrade, run, lint, template list and app
+compact; the flags --mesh-worker, --slo, --qos, --faults and
+--feedback-app.
 
 Usage: ``python -m pio_tpu_torch <verb> ...``
 """
@@ -26,8 +32,10 @@ from __future__ import annotations
 
 import argparse
 import importlib
+import json
 import logging
 import sys
+import time
 import urllib.error
 import urllib.request
 from typing import Optional
@@ -37,6 +45,7 @@ import torch
 import pio_tpu_torch
 from pio_tpu_torch.parallel.context import ComputeContext
 from pio_tpu_torch.storage.registry import Storage
+from pio_tpu_torch.utils import knobs
 
 
 def _out(s: str = ""):
@@ -197,11 +206,84 @@ def cmd_train(args) -> int:
         stop_after_read=args.stop_after_read,
         stop_after_prepare=args.stop_after_prepare,
         seed=args.seed,
+        profile_dir=args.profile_dir,
         checkpoint_every=args.checkpoint_every,
         checkpoint_dir=args.checkpoint_dir,
     )
-    instance_id = run_train(engine, ep, variant, wp, ctx=ctx)
+    status_port = args.status_port
+    if status_port is None:
+        status_port = knobs.knob_int("PIO_TPU_TRAIN_STATUS_PORT")
+    status_server = None
+    if status_port >= 0:
+        from pio_tpu_torch.server.train_status import (
+            create_train_status_server,
+        )
+
+        status_server = create_train_status_server(port=status_port)
+        status_server.start()
+        _out(f"Training status sidecar on 127.0.0.1:{status_server.port} "
+             "(/train.json /device.json /metrics)")
+    try:
+        instance_id = run_train(engine, ep, variant, wp, ctx=ctx)
+    finally:
+        if status_server is not None:
+            status_server.stop()
     _out(f"Training completed: engine instance {instance_id}")
+    return 0
+
+
+def cmd_runs(args) -> int:
+    """The run registry: ``$PIO_TPU_HOME/runs/<engine-id>.jsonl``, one
+    row per ``run_train``. Lists it by default; ``--diff`` compares the
+    last two COMPLETED runs with the direction-aware regression logic
+    (exit 1 on a regression)."""
+    from pio_tpu_torch.obs import trainwatch
+    from pio_tpu_torch.workflow.engine_json import load_variant
+
+    engine_id = args.engine_id
+    if not engine_id:
+        engine_id = load_variant(args.engine_json).engine_id
+    rows = trainwatch.read_runs(engine_id)
+    if not rows:
+        return _err(
+            f"no recorded runs for engine {engine_id!r} "
+            f"(ledger: {trainwatch.runs_path(engine_id)})"
+        )
+    if args.n and not args.diff:
+        rows = rows[-args.n:]
+    if args.json:
+        _out(json.dumps(rows, indent=2, sort_keys=True))
+        return 0
+    if args.diff:
+        done = [r for r in rows if r.get("status") == "COMPLETED"]
+        if len(done) < 2:
+            return _err(
+                f"--diff needs two COMPLETED runs for {engine_id!r} "
+                f"(have {len(done)})"
+            )
+        threshold = (
+            args.threshold if args.threshold is not None
+            else trainwatch.DEFAULT_RUN_THRESHOLD
+        )
+        lines, regressed = trainwatch.run_delta_table(
+            done[-2], done[-1], threshold=threshold,
+        )
+        for line in lines:
+            _out(line)
+        if regressed:
+            _err("run regression in: " + ", ".join(regressed))
+            return 1
+        return 0
+    _out(f"{'run_id':<36} {'timestamp':<26} {'status':<10} "
+         f"{'train_s':>9} {'algo':<12} {'loss':>10}")
+    for r in rows:
+        loss = r.get("final_loss")
+        _out(f"{str(r.get('run_id') or '?'):<36} "
+             f"{str(r.get('timestamp') or '?'):<26} "
+             f"{str(r.get('status') or '?'):<10} "
+             f"{r.get('train_seconds', 0):>9} "
+             f"{str((r.get('step_summary') or {}).get('algo') or '-'):<12} "
+             f"{loss if loss is not None else '-':>10}")
     return 0
 
 
@@ -388,7 +470,12 @@ def cmd_status(args) -> int:
 
     _out(f"pio-tpu-torch {pio_tpu_torch.__version__}")
     _out(f"home: {pio_home()}")
-    if torch.cuda.is_available():
+    if args.device == "cpu":
+        # device_count reads the CUDA device count without opening a device
+        # (no CUDA context is made)
+        _out(f"devices: ['cpu'] ({torch.cuda.device_count()} CUDA "
+             f"device(s) not opened)")
+    elif torch.cuda.is_available():
         names = [f"cuda:{k} {torch.cuda.get_device_name(k)}"
                  for k in range(torch.cuda.device_count())]
         _out(f"devices: {names}")
@@ -417,6 +504,105 @@ def cmd_status(args) -> int:
                 + (f"  ({secs}s)" if secs else "")
             )
     return 0 if ok else 1
+
+
+def cmd_top(args) -> int:
+    """Live device telemetry table: poll a ``/device.json`` surface — the
+    query server or a trainer status sidecar — and render the device's
+    memory and the compile-site attribution, ``top``-style. ``--once``
+    prints a single snapshot and exits."""
+    url = args.url.rstrip("/")
+    mb = lambda v: (
+        f"{v / 1048576.0:,.1f}" if isinstance(v, (int, float)) else "n/a"
+    )
+
+    def snapshot() -> str:
+        with urllib.request.urlopen(url + "/device.json", timeout=3.0) as r:
+            data = json.loads(r.read().decode("utf-8"))
+        budget = data.get("budgetBytes") or 0
+        headroom = data.get("headroomBytes")
+        lines = [
+            f"pio-tpu devices  {url}/device.json",
+            f"mode {data.get('mode', '?')}  gen {data.get('generation', 0)}"
+            f"  samples {data.get('samples', 0)}"
+            + (f"  budget {mb(budget)} MiB" if budget else "")
+            + (f"  headroom {mb(headroom)} MiB"
+               if headroom is not None else ""),
+            "",
+            f"{'dev':<5}{'in-use MiB':>12}{'peak MiB':>12}"
+            f"{'limit MiB':>12}{'ledger MiB':>12}{'drift MiB':>12}  source",
+        ]
+        for d in data.get("devices") or []:
+            lines.append(
+                f"{d.get('device', '?'):<5}{mb(d.get('bytesInUse')):>12}"
+                f"{mb(d.get('peakBytes')):>12}{mb(d.get('limitBytes')):>12}"
+                f"{mb(d.get('ledgerBytes')):>12}{mb(d.get('driftBytes')):>12}"
+                f"  {d.get('source', '-')}"
+            )
+        compiles = data.get("compiles") or {}
+        lines += ["", f"compiles total {compiles.get('total', 0)}"]
+        sites = compiles.get("sites") or {}
+        if sites:
+            lines.append(f"{'site':<18}{'count':>8}{'seconds':>10}")
+            for site, row in sorted(sites.items()):
+                lines.append(
+                    f"{site:<18}{row.get('count', 0):>8}"
+                    f"{row.get('seconds', 0.0):>10.3f}"
+                )
+        ledger = data.get("ledger") or {}
+        placements = data.get("placements") or []
+        lines += [
+            "",
+            f"placements {len(placements)}"
+            f"  ledger {mb(ledger.get('totalBytes'))} MiB",
+        ]
+        return "\n".join(lines)
+
+    remaining = 1 if args.once else args.iterations
+    clear = not args.once and sys.stdout.isatty()
+    try:
+        while True:
+            try:
+                text = snapshot()
+            except Exception as e:
+                if args.once:
+                    return _err(f"{url}/device.json unreachable: {e}")
+                text = (f"pio-tpu devices  {url}/device.json\n"
+                        f"scrape failed: {e}")
+            _out(("\x1b[2J\x1b[H" if clear else "") + text)
+            if remaining:
+                remaining -= 1
+                if remaining == 0:
+                    return 0
+            time.sleep(args.interval)
+    except KeyboardInterrupt:
+        return 0
+
+
+def cmd_shell(args) -> int:
+    """Interactive Python shell with the port preloaded: the store
+    facades, the storage registry and ``torch`` (the reference's
+    ``bin/pio-shell`` rebuild binds jax and jnp)."""
+    import code
+
+    from pio_tpu_torch.data.event import Event
+    from pio_tpu_torch.data.store import LEventStore, PEventStore
+
+    ns = {
+        "pio_tpu_torch": pio_tpu_torch,
+        "Storage": Storage,
+        "PEventStore": PEventStore,
+        "LEventStore": LEventStore,
+        "Event": Event,
+        "torch": torch,
+    }
+    banner = (
+        f"pio-tpu-torch {pio_tpu_torch.__version__} shell\n"
+        "preloaded: Storage, PEventStore, LEventStore, Event, torch\n"
+        'e.g.  PEventStore.find("myapp", event_names=["rate"])'
+    )
+    code.interact(banner=banner, local=ns, exitmsg="")
+    return 0
 
 
 def cmd_version(args) -> int:
@@ -492,6 +678,10 @@ def build_parser() -> argparse.ArgumentParser:
     a.add_argument("--stop-after-prepare", action="store_true")
     a.add_argument("--seed", type=int, default=0)
     a.add_argument(
+        "--profile-dir", default="",
+        help="write a torch.profiler trace of the train into this dir",
+    )
+    a.add_argument(
         "--checkpoint-every", type=int, default=0,
         help="snapshot training state every N steps; a preempted run "
              "restarted with the same engine.json resumes automatically",
@@ -501,8 +691,39 @@ def build_parser() -> argparse.ArgumentParser:
         help="explicit snapshot dir (default: per-engine-config under "
              "$PIO_TPU_HOME)",
     )
+    a.add_argument(
+        "--status-port", type=int, default=None, metavar="PORT",
+        help="loopback port for the live /train.json progress sidecar "
+             "(default: PIO_TPU_TRAIN_STATUS_PORT or 0 = ephemeral, "
+             "printed at start; negative disables)",
+    )
     _device_flag(a)
     a.set_defaults(fn=cmd_train)
+
+    a = sub.add_parser(
+        "runs", help="list / diff the training run registry"
+    )
+    a.add_argument("--engine-json", default="engine.json")
+    a.add_argument(
+        "--engine-id", default=None,
+        help="ledger to read (default: the engine id of --engine-json)",
+    )
+    a.add_argument(
+        "-n", type=int, default=0, metavar="N",
+        help="show only the last N runs (0 = all)",
+    )
+    a.add_argument(
+        "--diff", action="store_true",
+        help="delta table for the last two COMPLETED runs; exits 1 when "
+             "a field regresses past --threshold",
+    )
+    a.add_argument(
+        "--threshold", type=float, default=None,
+        help="fractional regression threshold for --diff (default 0.05)",
+    )
+    a.add_argument("--json", action="store_true",
+                   help="raw ledger rows as JSON")
+    a.set_defaults(fn=cmd_runs)
 
     a = sub.add_parser("eval", help="run an evaluation sweep")
     a.add_argument("evaluation", help="module:attr returning an Evaluation")
@@ -571,10 +792,33 @@ def build_parser() -> argparse.ArgumentParser:
     a.add_argument("--channel", default=None)
     a.set_defaults(fn=cmd_export)
 
-    sub.add_parser("status", help="storage/device health check").set_defaults(
-        fn=cmd_status
+    a = sub.add_parser("status", help="storage/device health check")
+    _device_flag(a)
+    a.set_defaults(fn=cmd_status)
+    a = sub.add_parser(
+        "top", help="live device memory + compile table from /device.json"
     )
+    a.add_argument(
+        "--url", default="http://127.0.0.1:8000", metavar="URL",
+        help="query server or trainer status sidecar base URL",
+    )
+    a.add_argument(
+        "--interval", type=float, default=2.0, metavar="S",
+        help="poll interval in seconds (default 2.0)",
+    )
+    a.add_argument(
+        "--once", action="store_true",
+        help="print one snapshot and exit (no screen clearing)",
+    )
+    a.add_argument(
+        "-n", "--iterations", type=int, default=0, metavar="N",
+        help="stop after N refreshes (0 = run until interrupted)",
+    )
+    a.set_defaults(fn=cmd_top)
     sub.add_parser("version").set_defaults(fn=cmd_version)
+    sub.add_parser(
+        "shell", help="interactive Python shell with stores preloaded"
+    ).set_defaults(fn=cmd_shell)
     return p
 
 

@@ -58,12 +58,26 @@ _DEFAULTS = {
     "PIO_TPU_LANE_TIMEOUT_S": "0.25",
     # a pool worker's heartbeat age past which /healthz fails
     "PIO_TPU_HEARTBEAT_MAX_AGE_S": "30",
+    # -- the device ops plane (obs/profile.py, devicewatch.py,
+    # server/train_status.py), the reference's names and defaults --
+    # directory for the serving profile hook's traces; unset disables
+    "PIO_TPU_PROFILE": "",
+    # device executions captured per profile window
+    "PIO_TPU_PROFILE_EXECUTIONS": "8",
+    # `0` keeps the device watch's sampler thread off
+    "PIO_TPU_DEVICEWATCH": "1",
+    # device sampler period, seconds
+    "PIO_TPU_DEVICEWATCH_INTERVAL_S": "2.0",
+    # `pio train`'s status sidecar port: 0 an ephemeral one, negative
+    # none
+    "PIO_TPU_TRAIN_STATUS_PORT": "0",
 }
 
 #: knobs whose value must be positive; another value reads as the default
 _POSITIVE = frozenset({
     "PIO_TPU_LANE_SLOTS", "PIO_TPU_LANE_SLOT_BYTES",
     "PIO_TPU_LANE_TIMEOUT_S", "PIO_TPU_HEARTBEAT_MAX_AGE_S",
+    "PIO_TPU_PROFILE_EXECUTIONS",
 })
 
 

@@ -16,13 +16,22 @@ falls back, given the variant, to the newest older COMPLETED instance whose
 blob verifies (last known good), as in the reference. With
 ``WorkflowParams.checkpoint_every`` the run names a snapshot directory,
 keyed on the variant and its params unless ``checkpoint_dir`` is given,
-and ``Engine.train`` snapshots each algorithm there. Not ported yet: the
-reference's PersistentModel opt-out, sharded persistence, the
-profiler trace and the trainwatch/devicewatch telemetry (ROADMAP A).
+and ``Engine.train`` snapshots each algorithm there.
+
+Each run records its step stream into a trainwatch ``StepRecorder`` (the
+``/train.json`` of ``pio train --status-port``) under a device watch
+(``/device.json``), and appends one row to the run ledger,
+``$PIO_TPU_HOME/runs/<engine-id>.jsonl``, COMPLETED or FAILED
+(best-effort: a ledger that cannot be written never fails the run).
+``WorkflowParams.profile_dir`` takes a ``torch.profiler`` trace of the
+whole train there (``obs/profile.py``). Not ported yet: the reference's
+PersistentModel opt-out, sharded persistence and the train tracer
+(ROADMAP A).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime as _dt
 import hashlib
@@ -30,7 +39,6 @@ import io
 import json as _json
 import logging
 import pickle
-import time
 import traceback
 from typing import Any, List, Optional, Sequence
 
@@ -46,6 +54,9 @@ from pio_tpu_torch.controller.evaluation import (
     MetricEvaluatorResult,
 )
 from pio_tpu_torch.controller.params import params_to_dict, params_to_json
+from pio_tpu_torch.obs import devicewatch, trainwatch
+from pio_tpu_torch.obs.metrics import monotonic_s
+from pio_tpu_torch.obs.profile import trace
 from pio_tpu_torch.parallel.context import ComputeContext
 from pio_tpu_torch.storage.records import (
     EngineInstance,
@@ -183,55 +194,116 @@ def run_train(
             checkpoint_every=workflow_params.checkpoint_every,
         )
 
-    t0 = time.monotonic()
+    # the telemetry plane: the recorder collects the step stream of the
+    # training loops, renders /train.json for the status sidecar, and
+    # lands in the run ledger on exit
+    recorder = trainwatch.StepRecorder(instance_id, variant.engine_id)
+    params_hash = hashlib.sha256(
+        "\n".join([
+            instance.data_source_params or "",
+            instance.preparator_params or "",
+            instance.algorithms_params or "",
+            instance.serving_params or "",
+        ]).encode()
+    ).hexdigest()[:16]
+
+    def _append_run_record(status: str, train_s: float, timings: dict,
+                           error: Optional[str] = None) -> None:
+        # best-effort by design: a full disk or a torn runs dir must
+        # never fail (or un-fail) the run itself
+        try:
+            rec = trainwatch.run_record(
+                run_id=instance_id,
+                engine_id=variant.engine_id,
+                status=status,
+                train_seconds=train_s,
+                phases={
+                    k.replace(":", "."): float(v)
+                    for k, v in recorder.phases.items()
+                } or {
+                    k.replace(":", "."): float(v)
+                    for k, v in timings.items()
+                },
+                params_hash=params_hash,
+                step_summary=recorder.summary(),
+                num_devices=ctx.num_devices,
+                error=error,
+            )
+            path = trainwatch.append_run(rec)
+            log.info("run record appended to %s", path)
+        except Exception as exc:
+            log.warning("run-ledger append failed: %s", exc)
+
+    t0 = monotonic_s()
     timings: dict = {}
     try:
-        models = engine.train(
-            ctx,
-            engine_params,
-            skip_sanity_check=workflow_params.skip_sanity_check,
-            stop_after_read=workflow_params.stop_after_read,
-            stop_after_prepare=workflow_params.stop_after_prepare,
-            timings=timings,
-        )
-        train_s = time.monotonic() - t0
-        if workflow_params.stop_after_read or workflow_params.stop_after_prepare:
-            instances.update(instance.with_status(RunStatus.ABORTED))
-            log.info("run %s aborted early by stop-after flag", instance_id)
+        # the device watch samples memory and attributes the trainers'
+        # first dispatches for the run's duration; the status sidecar
+        # serves its payload as /device.json while steps stream
+        with trainwatch.recording(recorder), devicewatch.watching(
+            devicewatch.DeviceWatch(device=ctx.device)
+        ):
+            with contextlib.ExitStack() as stack:
+                if workflow_params.profile_dir:
+                    # a torch.profiler trace of the whole train
+                    stack.enter_context(trace(
+                        workflow_params.profile_dir,
+                        cuda=ctx.device.type == "cuda"))
+                models = engine.train(
+                    ctx,
+                    engine_params,
+                    skip_sanity_check=workflow_params.skip_sanity_check,
+                    stop_after_read=workflow_params.stop_after_read,
+                    stop_after_prepare=workflow_params.stop_after_prepare,
+                    timings=timings,
+                )
+            train_s = monotonic_s() - t0
+            if (workflow_params.stop_after_read
+                    or workflow_params.stop_after_prepare):
+                instances.update(instance.with_status(RunStatus.ABORTED))
+                log.info("run %s aborted early by stop-after flag",
+                         instance_id)
+                return instance_id
+
+            recorder.set_phase("persist")
+            t_persist = monotonic_s()
+            blob = serialize_models(models)
+            models_store = Storage.get_model_data_models()
+            models_store.insert(Model(id=instance_id, models=blob))
+            manifest = _json.dumps(
+                {"sha256": hashlib.sha256(blob).hexdigest(),
+                 "size": len(blob)},
+                sort_keys=True,
+            ).encode()
+            models_store.insert(
+                Model(id=instance_id + MANIFEST_SUFFIX, models=manifest)
+            )
+            timings["persist"] = round(monotonic_s() - t_persist, 3)
+            recorder.set_phase_seconds("persist", timings["persist"])
+            recorder.set_phase("done")
+
+            instances.update(dataclasses.replace(
+                instance.with_status(RunStatus.COMPLETED),
+                env={
+                    "train_seconds": f"{train_s:.3f}",
+                    "num_devices": str(ctx.num_devices),
+                    "device": str(ctx.device),
+                    # per-phase wall seconds (read / prepare /
+                    # train:<i>_<algo> / persist)
+                    **{f"phase_{k}": str(v) for k, v in timings.items()},
+                },
+            ))
+            _append_run_record("COMPLETED", train_s, timings)
+            log.info("training finished: instance %s (%.2fs, %d model(s))",
+                     instance_id, train_s, len(models))
             return instance_id
-
-        t_persist = time.monotonic()
-        blob = serialize_models(models)
-        models_store = Storage.get_model_data_models()
-        models_store.insert(Model(id=instance_id, models=blob))
-        manifest = _json.dumps(
-            {"sha256": hashlib.sha256(blob).hexdigest(), "size": len(blob)},
-            sort_keys=True,
-        ).encode()
-        models_store.insert(
-            Model(id=instance_id + MANIFEST_SUFFIX, models=manifest)
-        )
-        timings["persist"] = round(time.monotonic() - t_persist, 3)
-
-        instances.update(dataclasses.replace(
-            instance.with_status(RunStatus.COMPLETED),
-            env={
-                "train_seconds": f"{train_s:.3f}",
-                "num_devices": str(ctx.num_devices),
-                "device": str(ctx.device),
-                # per-phase wall seconds (read / prepare / train:<i>_<algo>
-                # / persist)
-                **{f"phase_{k}": str(v) for k, v in timings.items()},
-            },
-        ))
-        log.info("training finished: instance %s (%.2fs, %d model(s))",
-                 instance_id, train_s, len(models))
-        return instance_id
     except Exception:
         err = traceback.format_exc()
         instances.update(dataclasses.replace(
             instance.with_status(RunStatus.FAILED), env={"error": err[-4000:]}
         ))
+        # failed runs land in the ledger too: a crash is trend data
+        _append_run_record("FAILED", monotonic_s() - t0, timings, error=err)
         log.error("training FAILED: instance %s\n%s", instance_id, err)
         raise
 

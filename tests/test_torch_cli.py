@@ -17,6 +17,13 @@
 - Deploy falls back to the last known good instance when the newest blob
   fails its checksum.
 - Without a card, the device verbs exit 1 with resolve_device's message.
+- The ops plane's verbs: ``runs`` (list, ``--json``, ``-n``, ``--diff``
+  with its exit codes and ``--threshold``) and ``top --once`` print the
+  reference's lines on the same ledger rows and the same ``/device.json``
+  payload; ``status --device cpu`` opens no CUDA device; ``train
+  --profile-dir --status-port 0 --device cpu`` prints its sidecar's port,
+  writes a parseable trace and a COMPLETED ledger row; ``shell`` preloads
+  ``torch`` where the reference preloads jax.
 - The quickstart through real processes: app new → eventserver → batch
   ingest → train → deploy → query → undeploy, each with a time limit.
 """
@@ -402,6 +409,172 @@ def test_device_verbs_refuse_without_a_card(homes, capsys, monkeypatch, verb):
     code, out, err = run(main, verb, capsys)
     assert code == 1 and out == ""
     assert "no CUDA device is available" in err
+
+
+# ------------------------------------------------------ the ops plane's verbs
+def ledger_rows(tw, second_seconds):
+    rows = [
+        tw.run_record(run_id=f"r{k}", engine_id="eng", status=status,
+                      train_seconds=secs,
+                      phases={"read": 0.5, "train.0_als": secs - 1.0},
+                      params_hash="h", num_devices=1,
+                      timestamp=f"2026-10-0{k + 1}T00:00:00+00:00",
+                      step_summary={"algo": "als", "steps": 5,
+                                    "examples": 50, "final_loss": loss})
+        for k, (status, secs, loss) in enumerate((
+            ("COMPLETED", 10.0, 0.5), ("FAILED", 2.0, None),
+            ("COMPLETED", second_seconds, 0.25)))
+    ]
+    for r in rows:
+        tw.append_run(r)
+
+
+@pytest.mark.parametrize("argv", [
+    ["runs", "--engine-id", "eng"],
+    ["runs", "--engine-id", "eng", "-n", "1"],
+    ["runs", "--engine-id", "eng", "--json"],
+    ["runs", "--engine-id", "eng", "--diff"],
+    ["runs", "--engine-id", "eng", "--diff", "--threshold", "0.5"],
+    ["runs", "--engine-id", "nope"],
+], ids=["list", "last", "json", "diff", "threshold", "missing"])
+@pytest.mark.parametrize("second_seconds", [10.2, 12.0],
+                         ids=["steady", "slower"])
+def test_runs_matches_reference(homes, capsys, argv, second_seconds):
+    from pio_tpu.obs import trainwatch as rtw
+    from pio_tpu_torch.obs import trainwatch as ptw
+
+    out = []
+    for name, fn, tw in (("ref", jax_main, rtw), ("port", main, ptw)):
+        home = str(homes(name))
+        ledger_rows(tw, second_seconds)
+        code, text, err = run(fn, argv, capsys)
+        out.append((code, text.replace(home, "<home>"),
+                    err.replace(home, "<home>")))
+    assert out[0] == out[1]
+    if argv[-1] == "--diff":
+        assert out[1][0] == (1 if second_seconds == 12.0 else 0)
+
+
+class _Payload:
+    """A loopback server answering GET /device.json with ``payload``."""
+
+    def __init__(self, payload):
+        import http.server
+        import threading
+
+        body = json.dumps(payload).encode()
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_GET(self):
+                self.send_response(200)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *a):
+                pass
+
+        self.httpd = http.server.HTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+        self.thread = threading.Thread(target=self.httpd.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    def close(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join(timeout=5)
+
+
+DEVICE_PAYLOADS = {
+    "ledger": {"mode": "ledger", "generation": 2, "samples": 3,
+               "budgetBytes": None, "headroomBytes": None,
+               "devices": [{"device": "cpu:0", "bytesInUse": 2097152,
+                            "peakBytes": 3145728, "limitBytes": None,
+                            "ledgerBytes": 2097152, "driftBytes": None,
+                            "source": "ledger"}],
+               "ledger": {"totalBytes": 2097152,
+                          "byCategory": {"resident": 2097152}},
+               "placements": [{"category": "resident"}],
+               "compiles": {"total": 7, "sites": {
+                   "bucket_warmup": {"count": 6, "seconds": 0.0123},
+                   "resident_scorer": {"count": 1, "seconds": 0.5}}}},
+    "live": {"mode": "live", "generation": 1, "samples": 40,
+             "budgetBytes": 8 * 2 ** 30, "headroomBytes": 5 * 2 ** 30,
+             "devices": [{"device": "cuda:0", "bytesInUse": 3 * 2 ** 30,
+                          "peakBytes": 4 * 2 ** 30,
+                          "limitBytes": 85520809984, "ledgerBytes": 0,
+                          "driftBytes": 123456, "source": "memory_stats"}],
+             "ledger": {"totalBytes": 0, "byCategory": {}},
+             "placements": [], "compiles": {"total": 0, "sites": {}}},
+}
+
+
+@pytest.mark.parametrize("payload", list(DEVICE_PAYLOADS),
+                         ids=list(DEVICE_PAYLOADS))
+def test_top_once_renders_like_the_reference(capsys, payload):
+    server = _Payload(DEVICE_PAYLOADS[payload])
+    try:
+        argv = ["top", "--once", "--url", server.url]
+        want = run(jax_main, argv, capsys)
+        got = run(main, argv, capsys)
+    finally:
+        server.close()
+    assert got == want
+    assert got[0] == 0 and "\x1b[" not in got[1]
+    assert f"mode {DEVICE_PAYLOADS[payload]['mode']}" in got[1]
+
+
+def test_top_once_unreachable_exits_1(capsys):
+    argv = ["top", "--once", "--url", "http://127.0.0.1:1"]
+    assert run(main, argv, capsys)[0] == run(jax_main, argv, capsys)[0] == 1
+
+
+def test_status_on_the_cpu_opens_no_device(homes, capsys):
+    homes("port")
+    code, out, _ = run(main, ["status", "--device", "cpu"], capsys)
+    assert code == 0
+    assert f"devices: ['cpu'] ({torch.cuda.device_count()} CUDA device(s) " \
+        "not opened)" in out
+    assert not torch.cuda.is_initialized()
+
+
+def test_train_profile_dir_and_status_port(homes, tmp_path, capsys):
+    from pio_tpu_torch.obs import trainwatch
+
+    homes("port")
+    seeded_app(main, capsys, write_lines(tmp_path / "in.jsonl", api_lines()))
+    ej = engine_json(tmp_path / "engine.json")
+    prof = tmp_path / "prof"
+    code, out, err = run(main, ["train", "--engine-json", ej, "--device",
+                                "cpu", "--profile-dir", str(prof),
+                                "--status-port", "0"], capsys)
+    assert code == 0, err
+    assert re.search(r"Training status sidecar on 127\.0\.0\.1:\d+ "
+                     r"\(/train\.json /device\.json /metrics\)", out)
+    with open(prof / "trace.json") as f:
+        assert "traceEvents" in json.load(f)
+    code, out, _ = run(main, ["runs", "--engine-json", ej, "--json"], capsys)
+    (row,) = json.loads(out)
+    assert code == 0 and row["status"] == "COMPLETED"
+    assert row["run_id"] == iid_of_store("port")
+    assert row["step_summary"]["steps"] == 5
+    assert trainwatch.active_recorder() is None
+
+
+def test_shell_preloads_torch(homes, capsys, monkeypatch):
+    import code as code_module
+
+    homes("port")
+    seen = {}
+    monkeypatch.setattr(code_module, "interact",
+                        lambda banner, local, exitmsg: seen.update(
+                            banner=banner, ns=local))
+    assert run(main, ["shell"], capsys)[0] == 0
+    assert seen["ns"]["torch"] is torch and "jax" not in seen["ns"]
+    assert {"Storage", "PEventStore", "LEventStore", "Event"} <= \
+        set(seen["ns"])
+    assert "torch" in seen["banner"]
 
 
 # --------------------------------------------- the quickstart, real processes
