@@ -197,7 +197,24 @@ kernels (the forward, and the backward's bag scatter and bag dot):
    clients with ``PIO_TPU_DEVICEWATCH`` off and on). Every profiled
    window of the script (``count_kernels``, ``device_busy``, the traces)
    idles and launches sentinel kernels at both ends and fails when a
-   window lost an end (``pio_tpu_torch/obs/profile.py``).
+   window lost an end (``pio_tpu_torch/obs/profile.py``);
+41. the multi-device paths on the one card: a 1-rank NCCL group formed
+   through the env contract runs ``train_als`` at MovieLens-25M's shape
+   on both mesh wires (phase 11's factors bit for bit; one user half-step
+   split into partial_normal_eq, reduce_scatter, solve and all_gather)
+   and the data-parallel ``train_mlp`` at the text defaults (phase 9's
+   parameters bit for bit; the forward's and kernel A's launches, 200
+   each, joining the kernels' line; the gradients' all_reduce a step);
+   two ranks on cuda:0 (NCCL's refusal recorded; over gloo, where it
+   carries CUDA tensors for all_reduce, reduce_scatter_tensor and
+   all_gather_into_tensor, ALS at MovieLens-100K's shape and 5 steps of
+   train_mlp against one rank); the recommendation template at
+   MovieLens-25M's width with ``PIO_TPU_MESH_SERVE=1`` over (cuda:0,) x 4
+   (1,024 users' top-10 against the unsharded scorer, ``/stats.json``'s
+   ``sharding``, the ``shard`` ledger, device memory, two ``/reload``);
+   ``pio train`` with ``PIO_TPU_SHARDED_PERSIST=1`` on SQLite and
+   ``deploy --workers 2 --mesh-worker`` (worker 0 alone on the card,
+   sharded; worker 1 on the CPU).
 
 The CLI phases write their homes under ``build/chip_smoke_homes/``
 (gitignored), made afresh each run; every server process is stopped
@@ -1536,9 +1553,11 @@ def phase_als_full(args, smi) -> dict:
         gen.manual_seed(cfg.seed)
         P0 = als._init_factors(ML25M_USERS, run_cfg.rank, gen).to(CARD)
         Q0 = als._init_factors(ML25M_ITEMS, run_cfg.rank, gen).to(CARD)
-        return als._run_packed(
-            (lay["cu"], lay["ci"], *wire), P0, Q0, run_cfg, shapes,
+        by_user, by_item = als._decode_pack(
+            (lay["cu"], lay["ci"], *wire), shapes, ML25M_USERS, ML25M_ITEMS,
             rating_wire, "delta12")
+        return als._run_iterations(by_user, by_item, P0, Q0, run_cfg,
+                                   shapes[0], shapes[3])
 
     # float32 against explicit bfloat16, in turns (host clock around the
     # device part, the card drained before and after)
@@ -1592,7 +1611,8 @@ def phase_als_full(args, smi) -> dict:
                 als._add_runs(acc, e0, offsets, part)
 
         def half_step():
-            return als.half_local(sd["blocks"], other, sd["n"], c, cfg, plan)
+            return als.half_step(sd["blocks"], other, sd["n"], c, cfg,
+                                 plan=plan)
 
         def normal_eq():
             return als.partial_normal_eq(*sd["blocks"], other, sd["n"], c,
@@ -2312,7 +2332,8 @@ def phase_implicit_als(args, smi) -> dict:
                                          plan=plan)
 
         def half_step(sd=sd, other=other, c=c, plan=plan):
-            return als.half_local(sd["blocks"], other, sd["n"], c, cfg, plan)
+            return als.half_step(sd["blocks"], other, sd["n"], c, cfg,
+                                 plan=plan)
 
         G = gram()
         A, b = normal_eq()
@@ -4906,9 +4927,11 @@ def wait_listening(home: str, proc) -> None:
     raise AssertionError(f"the pool was not ready in {POOL_TIMEOUT_S} s")
 
 
-def every_worker(port: int, path: str, key, want=None) -> dict:
-    """``GET path`` on fresh connections until each of the pool's workers
-    has answered (and, with ``want``, answered it): {worker: answer}."""
+def every_worker(port: int, path: str, key, want=None,
+                 n_workers: int = POOL_WORKERS) -> dict:
+    """``GET path`` on fresh connections until each of the pool's
+    ``n_workers`` workers has answered (and, with ``want``, answered it):
+    {worker: answer}."""
     seen = {}
     deadline = time.monotonic() + 60
     while time.monotonic() < deadline:
@@ -4917,7 +4940,7 @@ def every_worker(port: int, path: str, key, want=None) -> dict:
         conn.close()
         if status == 200 and (want is None or want(got)):
             seen[got[key]] = got
-        if len(seen) == POOL_WORKERS:
+        if len(seen) == n_workers:
             return seen
     raise AssertionError(f"{path}: workers seen {sorted(seen)}")
 
@@ -5466,6 +5489,629 @@ def phase_ops_plane(args, smi, text, reloaded) -> dict:
     return {"launches": launches}
 
 
+# ----------------------------- the multi-device paths on one card (phase 41)
+#: a 1-rank group's rendezvous and a 2-rank group's, on this host
+MESH_ENV = ("PIO_TPU_COORDINATOR", "PIO_TPU_NUM_PROCESSES",
+            "PIO_TPU_PROCESS_ID")
+#: the serving mesh of 41.4 and 41.5: four shards on the one card
+MESH_SHARDS = 4
+#: users answered in 41.4
+MESH_USERS = 1024
+#: 41.4's score limit against the unsharded scorer: a rank-16 f32 dot in
+#: another product (~1e-6 of scores of O(5)); near-ties are counted
+MESH_SCORE_TOL = 1e-5
+#: 41.4's device memory a generation may hold beyond its padded tables
+MESH_EXTRA_LIMIT = 2 << 20
+#: 41.3's two ranks: the steps of train_mlp held to the 1-rank run at the
+#: CPU tests' limit (5 steps, 1e-5), and the gloo collectives probed
+MESH_MLP_STEPS = 5
+MESH_MLP_TOL = 1e-5
+MESH_ALS_TOL = 1e-4  # of the factors, the CPU tests' trainer limit
+MESH_PROBES = ("all_reduce", "reduce_scatter_tensor",
+               "all_gather_into_tensor")
+#: what NCCL 2.28 says, on each rank, when two ranks share one device
+NCCL_REFUSAL = "Duplicate GPU detected"
+#: a rank process's time limit (its start, the card's context, its work),
+#: by task
+MESH_RANK_TIMEOUT_S = {"nccl-two": 60, "gloo": 150}
+
+
+@contextlib.contextmanager
+def mesh_env(world: int, rank: int, port: int):
+    """The env contract of rank ``rank`` of ``world`` inside the block."""
+    with knob("PIO_TPU_COORDINATOR", f"127.0.0.1:{port}"), \
+            knob("PIO_TPU_NUM_PROCESSES", str(world)), \
+            knob("PIO_TPU_PROCESS_ID", str(rank)):
+        yield
+
+
+def half_split(ctx, blocks, factors, n, chunk, cfg, iters: int = 5) -> dict:
+    """Device ms of one group half-step's parts (CUDA events, the mean of
+    ``iters`` after a warmup): partial_normal_eq, the reduce_scatter, the
+    solve and the all_gather."""
+    from pio_tpu_torch.parallel import distributed
+
+    plan = als.segment_plan(blocks[0], chunk)
+    K = factors.shape[1]
+
+    def pne():
+        return als.partial_normal_acc(*blocks, factors, n, chunk, plan=plan)
+
+    acc = pne()
+    mine = distributed.reduce_scatter_rows(acc, ctx.group)
+    gram = als.gram_of(factors)
+
+    def solve():
+        return als.solve_block(mine[:, :K], mine[:, K], gram, cfg.reg)
+
+    local = solve()
+    parts = {
+        "partial_normal_eq": pne,
+        "reduce_scatter": lambda: distributed.reduce_scatter_rows(
+            acc, ctx.group),
+        "solve": solve,
+        "all_gather": lambda: distributed.all_gather_rows(local, ctx.group),
+    }
+    return {k: cuda_ms(fn, iters=iters, warmup=1) for k, fn in parts.items()}
+
+
+def mesh_als(args, smi, ctx, single) -> None:
+    """41.1: train_als at MovieLens-25M's shape in the 1-rank NCCL group,
+    both wires, against phase 11's single-device factors."""
+    u, i, r = synth_ratings(ML25M_EDGES, ML25M_USERS, ML25M_ITEMS, args.seed,
+                            "half")
+    cfg = als.ALSConfig(rank=16, iterations=10, reg=0.1, seed=args.seed)
+    for wire in ("compact", "blocked"):
+        stats = {}
+        with knob("PIO_TPU_ALS_MESH_WIRE", wire):
+            t0 = time.monotonic()
+            got = als.train_als(ctx, u, i, r, ML25M_USERS, ML25M_ITEMS, cfg,
+                                stats=stats)
+            wall = time.monotonic() - t0
+        same = (np.array_equal(got.user_factors, single.user_factors)
+                and np.array_equal(got.item_factors, single.item_factors))
+        log(f"  41.1 {wire} wire ({stats['encoding']}, {stats['wire_bytes']} "
+            f"B): {wall:.2f} s (host clock), pack {stats['pack_s']:.3f} s, "
+            f"h2d {stats['h2d_s']:.3f} s, device {stats['device_s']:.3f} s; "
+            f"factors equal phase 11's bit for bit: {same}; {smi}")
+        if not same:
+            raise AssertionError(f"41.1: the group's {wire} wire did not "
+                                 f"give phase 11's factors")
+    # one user half-step of the last run, split into its parts
+    U_pad, I_pad, counts_u, _, shapes = als._layouts(
+        u, i, ML25M_USERS, ML25M_ITEMS, cfg, ctx.world_size)
+    host_u, _ = als._blocked_host(u, i, r, U_pad, I_pad, counts_u, shapes)
+    blocks = als.blocks_of(tuple(torch.from_numpy(a).to(CARD)
+                                 for a in host_u), ctx.rank, ctx.world_size)
+    Q = torch.from_numpy(single.item_factors).to(CARD)
+    split = half_split(ctx, blocks, Q, U_pad, shapes[0], cfg)
+    log(f"  41.1 one user half-step at world size {ctx.world_size} "
+        f"({U_pad} users, {blocks[0].shape[0]} blocks), device ms: "
+        f"{json.dumps({k: round(v, 5) for k, v in split.items()})}; {smi}")
+
+
+def mesh_mlp(args, smi, ctx, text) -> dict:
+    """41.2: data-parallel train_mlp at the text template's defaults in the
+    1-rank group, against phase 9's single-device parameters; its kernel
+    launches (counters and a guarded profiler window) and the all_reduce's
+    time a step."""
+    from pio_tpu_torch.parallel import distributed
+
+    engine, ep, pd, want = text["engine"], text["ep"], text["pd"], \
+        text["params"]
+    name, params = ep.algorithm_params_list[0]
+    algo = engine.algorithm_class_map[name](params)
+    reset_counts()
+    t0 = time.monotonic()
+    with profiled() as prof:
+        model = algo.train(ctx, pd)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = read_counts()
+    rows = {e.key: e.count for e in _kernels(prof)}
+    in_window = {"embedding_bag": launches_of(rows, "embedding_bag_kernel"),
+                 "bag_scatter": launches_of(rows, "bag_scatter_kernel")}
+    got = {k: getattr(model.mlp, k).cpu().numpy()
+           for k in ("w_in", "b_in", "w_out", "b_out")}
+    same = all(np.array_equal(got[k], want[k]) for k in want)
+    steps = params.iterations
+    log(f"  41.2 train_mlp in the group: {wall:.2f} s (host clock) for "
+        f"{steps} steps; parameters equal phase 9's bit for bit: {same}; "
+        f"launch counters {json.dumps(launches)}, in the profiler window "
+        f"{json.dumps(in_window)}; {smi}")
+    log(f"  41.2 the profiler window: {sum(rows.values())} kernel launches "
+        f"of {len(rows)} kernels, the forward's and kernel A's "
+        f"{json.dumps(in_window)}")
+    if not same:
+        raise AssertionError("41.2: data-parallel train_mlp at world size 1 "
+                             "did not give phase 9's parameters")
+    if launches["embedding_bag"] != steps or \
+            launches["embedding_bag_backward_table"] != steps or \
+            set(in_window.values()) != {steps}:
+        raise AssertionError(f"41.2: {launches} launches ({in_window} in "
+                             f"the window) for {steps} steps")
+    grads = [torch.zeros_like(getattr(model.mlp, k))
+             for k in ("w_in", "b_in", "w_out", "b_out")]
+
+    def all_reduce():
+        for g in grads:
+            distributed.all_reduce_sum(g, ctx.group)
+
+    ms = cuda_ms(all_reduce, iters=20, warmup=2)
+    nbytes = sum(g.numel() * 4 for g in grads)
+    log(f"  41.2 the gradients' all_reduce (4 tensors, {nbytes} B, world "
+        f"size {ctx.world_size}): {ms:.5f} ms a step; {smi}")
+    return {"launches": launches, "in_window": in_window,
+            "all_reduce_ms": ms}
+
+
+def rank_main(task: str, out: str) -> int:
+    """A rank process of 41.3 (``chip_smoke.py --mesh-rank TASK --mesh-out
+    FILE``): joins the group of the env contract and runs ``task``,
+    writing what it found to ``out`` (npz)."""
+    from pio_tpu_torch.parallel import distributed
+
+    result = {}
+    try:
+        if task == "nccl-two":
+            ctx = ComputeContext.create(device=CARD)
+            x = torch.ones(4, device=ctx.device)
+            distributed.all_reduce_sum(x, ctx.group)
+            torch.cuda.synchronize()
+            result["nccl"] = f"ok: all_reduce gave {x[0].item()}"
+        else:
+            ctx = ComputeContext.create(device=CARD, backend="gloo")
+            probes = mesh_probe(ctx)
+            result["probes"] = json.dumps(probes)
+            result.update(mesh_ranks_work(ctx, out))
+        distributed.barrier()
+    except Exception as e:  # what the card said, for the parent's record
+        result["error"] = f"{type(e).__name__}: {str(e)[:400]}"
+    np.savez(out, **result)
+    distributed.shutdown()
+    return 0
+
+
+def mesh_probe(ctx) -> dict:
+    """Which collectives gloo carries on CUDA tensors: {name: "ok" or the
+    error}."""
+    import torch.distributed as dist
+
+    got = {}
+    world, r = ctx.world_size, ctx.rank
+    cases = {
+        "all_reduce": lambda: dist.all_reduce(
+            torch.full((4,), float(r + 1), device=ctx.device),
+            group=ctx.group),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            torch.empty(2, device=ctx.device),
+            torch.ones(2 * world, device=ctx.device), group=ctx.group),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            torch.empty(2 * world, device=ctx.device),
+            torch.ones(2, device=ctx.device), group=ctx.group),
+    }
+    for name in MESH_PROBES:
+        try:
+            cases[name]()
+            torch.cuda.synchronize()
+            got[name] = "ok"
+        except Exception as e:
+            got[name] = f"{type(e).__name__}: {str(e)[:200]}"
+    return got
+
+
+def mesh_ranks_work(ctx, out: str) -> dict:
+    """A 2-rank gloo group's train_als at MovieLens-100K's shape and
+    train_mlp at the text defaults (MESH_MLP_STEPS steps) on the card;
+    the bags from the parent's file beside ``out``."""
+    seed = int(os.environ["CHIP_SMOKE_SEED"])
+    u, i, r = synth_ratings(ML100K_EDGES, ML100K_USERS, ML100K_ITEMS, seed,
+                            "int")
+    f = als.train_als(ctx, u, i, r, ML100K_USERS, ML100K_ITEMS,
+                      als.ALSConfig(rank=16, iterations=10, reg=0.1,
+                                    seed=seed))
+    bags = np.load(out + ".bags.npz")
+    m = mlp.train_mlp(ctx, bags["ids"], bags["w"], bags["y"],
+                      int(bags["V"]), int(bags["C"]),
+                      mlp.MLPConfig(iterations=MESH_MLP_STEPS, seed=seed))
+    return {"user_factors": f.user_factors, "item_factors": f.item_factors,
+            **{k: getattr(m, k).cpu().numpy()
+               for k in ("w_in", "b_in", "w_out", "b_out")}}
+
+
+def spawn_ranks(task: str, world: int, home: str, seed: int) -> list:
+    """``world`` rank processes of this script running ``task`` on the
+    card, each stopped by its time limit; their npz results by rank."""
+    port = free_port()
+    procs, outs = [], []
+    for rank in range(world):
+        out = os.path.join(home, f"{task}-{rank}.npz")
+        outs.append(out)
+        env = dict(os.environ, PIO_TPU_COORDINATOR=f"127.0.0.1:{port}",
+                   PIO_TPU_NUM_PROCESSES=str(world),
+                   PIO_TPU_PROCESS_ID=str(rank), CHIP_SMOKE_SEED=str(seed),
+                   PYTHONPATH=ROOT)
+        log_f = open(os.path.join(home, f"{task}-{rank}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mesh-rank", task,
+             "--mesh-out", out], cwd=ROOT, env=env, stdout=log_f,
+            stderr=subprocess.STDOUT), log_f))
+    deadline = time.monotonic() + MESH_RANK_TIMEOUT_S[task]
+    try:
+        for p, _ in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    results = []
+    for rank, ((p, log_f), out) in enumerate(zip(procs, outs)):
+        hung = p.poll() is None
+        if hung:
+            p.kill()
+            p.wait(timeout=60)
+        log_f.close()
+        got = dict(np.load(out)) if os.path.exists(out) else {}
+        if hung:
+            got["error"] = (f"no answer in {MESH_RANK_TIMEOUT_S[task]} s; killed "
+                            f"({got.get('error', '')})")
+        elif not got:
+            with open(os.path.join(home, f"{task}-{rank}.log")) as f:
+                got["error"] = f"exited {p.returncode}: {f.read()[-600:]}"
+        results.append(got)
+    return results
+
+
+def mesh_two_ranks(args, smi, text) -> dict:
+    """41.3: two ranks on cuda:0. NCCL refuses two ranks on one device
+    (each rank's error names the duplicate GPU) and gloo carries CUDA
+    tensors for the three collectives the paths use, as found on an NVIDIA
+    H100 (PERF.md); either changing fails the phase. Then ALS at
+    MovieLens-100K's shape and train_mlp at the text defaults in a 2-rank
+    gloo group on the card, held to the 1-rank results at the CPU tests'
+    limits."""
+    home = fresh_home("mesh-ranks")
+    pd = text["pd"]
+    np.savez(os.path.join(home, "gloo-0.npz.bags.npz"), ids=pd.ids,
+             w=pd.weights, y=pd.label_codes.astype(np.int64),
+             V=pd.vectorizer.n_features, C=len(pd.label_index))
+    shutil.copy(os.path.join(home, "gloo-0.npz.bags.npz"),
+                os.path.join(home, "gloo-1.npz.bags.npz"))
+    t0 = time.monotonic()
+    nccl = spawn_ranks("nccl-two", 2, home, args.seed)
+    nccl_s = time.monotonic() - t0
+    nccl_str = [str(g.get("nccl", g.get("error", ""))) for g in nccl]
+    log(f"  41.3 NCCL, two ranks on cuda:0 ({nccl_s:.1f} s): rank 0 "
+        f"{nccl_str[0]!r}; rank 1 {nccl_str[1]!r}")
+    t0 = time.monotonic()
+    gloo = spawn_ranks("gloo", 2, home, args.seed)
+    gloo_s = time.monotonic() - t0
+    probes = [json.loads(str(g["probes"])) if "probes" in g else
+              {"error": str(g.get("error"))} for g in gloo]
+    log(f"  41.3 gloo on CUDA tensors, two ranks on cuda:0 ({gloo_s:.1f} s): "
+        f"{json.dumps(probes)}")
+    if not all(NCCL_REFUSAL in said for said in nccl_str):
+        raise AssertionError(f"41.3: NCCL did not refuse two ranks on one "
+                             f"device as recorded: {nccl_str}")
+    if not all(p.get(n) == "ok" for p in probes for n in MESH_PROBES):
+        raise AssertionError(f"41.3: gloo did not carry every collective "
+                             f"on CUDA tensors: {probes}")
+    errors = [str(g["error"]) for g in gloo if "error" in g]
+    if errors:
+        raise AssertionError(f"41.3: a gloo rank failed: {errors}")
+    # the 1-rank results: the local paths (world size 1 is bitwise them).
+    # ALS at the two ranks' padded entity counts, so that both draw the
+    # same initial factors (the padding row has no ratings)
+    u, i, r = synth_ratings(ML100K_EDGES, ML100K_USERS, ML100K_ITEMS,
+                            args.seed, "int")
+    one = als.train_als(ComputeContext.local(args.seed, device=CARD), u, i, r,
+                        -(-ML100K_USERS // 2) * 2, -(-ML100K_ITEMS // 2) * 2,
+                        als.ALSConfig(rank=16, iterations=10, reg=0.1,
+                                      seed=args.seed))
+    m1 = mlp.train_mlp(ComputeContext.local(args.seed, device=CARD), pd.ids,
+                       pd.weights, pd.label_codes, pd.vectorizer.n_features,
+                       len(pd.label_index),
+                       mlp.MLPConfig(iterations=MESH_MLP_STEPS,
+                                     seed=args.seed))
+    errs = {}
+    for k, want in (("user_factors", one.user_factors[:ML100K_USERS]),
+                    ("item_factors", one.item_factors[:ML100K_ITEMS])):
+        errs[k] = float(np.abs(gloo[0][k] - want).max())
+    for k in ("w_in", "b_in", "w_out", "b_out"):
+        errs[k] = float(np.abs(gloo[0][k] - getattr(m1, k).cpu().numpy()).max())
+    ranks_same = all(np.array_equal(gloo[0][k], gloo[1][k]) for k in errs)
+    log(f"  41.3 two gloo ranks against one, max |diff|: "
+        f"{json.dumps(errs)}; the ranks hold the same bits: {ranks_same}; "
+        f"limits ALS {MESH_ALS_TOL}, train_mlp {MESH_MLP_TOL}; {smi}")
+    bad = {k: v for k, v in errs.items()
+           if v > (MESH_ALS_TOL if k.endswith("factors") else MESH_MLP_TOL)}
+    if bad or not ranks_same:
+        raise AssertionError(f"41.3: two ranks off the one-rank run: {bad}")
+    return {"nccl_two_ranks_one_device": nccl_str,
+            "gloo_cuda_collectives": probes, "errs": errs}
+
+
+def store_instance(variant, models, sharded_over: int = 0) -> str:
+    """A COMPLETED engine instance of ``variant`` holding ``models`` in
+    the current store, persisted as ``run_train`` persists (with
+    ``sharded_over``, as row shards over that many devices)."""
+    from pio_tpu_torch.storage.records import EngineInstance, Model, RunStatus
+    from pio_tpu_torch.workflow import core_workflow, shard_store
+
+    now = dt.datetime.now(dt.timezone.utc)
+    iid = Storage.get_meta_data_engine_instances().insert(EngineInstance(
+        id="", status=RunStatus.COMPLETED, start_time=now, end_time=now,
+        engine_id=variant.engine_id, engine_version=variant.engine_version,
+        engine_variant=variant.path or variant.engine_id,
+        engine_factory=variant.engine_factory))
+    store = Storage.get_model_data_models()
+    if sharded_over:
+        models = shard_store.save_sharded(store, iid, models, sharded_over,
+                                          [sharded_over])
+    blob = core_workflow.serialize_models(models)
+    store.insert(Model(id=iid, models=blob))
+    store.insert(Model(id=iid + core_workflow.MANIFEST_SUFFIX,
+                       models=json.dumps({
+                           "sha256": __import__("hashlib").sha256(
+                               blob).hexdigest(), "size": len(blob)},
+                           sort_keys=True).encode()))
+    return iid
+
+
+def near_tie_check(got: list, want_idx, want_val, items, where) -> int:
+    """A served top-N (``itemScores``) against the unsharded scorer's
+    indices and scores: the same items except where two candidates'
+    scores lie within MESH_SCORE_TOL (returns 1 for such an answer),
+    every score within MESH_SCORE_TOL."""
+    served = [items[s["item"]] for s in got]
+    scores = np.array([s["score"] for s in got])
+    if len(served) != len(want_idx) or \
+            np.abs(scores - want_val).max() > MESH_SCORE_TOL:
+        raise AssertionError(f"{where}: {got} vs {want_idx} {want_val}")
+    if served == [int(x) for x in want_idx]:
+        return 0
+    for k, (a, b) in enumerate(zip(served, want_idx)):
+        if a != int(b) and abs(scores[k] - want_val[k]) > MESH_SCORE_TOL:
+            raise AssertionError(f"{where}: item {a} at {k}, not {b}")
+    return 1
+
+
+def mesh_serving(args, smi, factors) -> dict:
+    """41.4: the recommendation template at MovieLens-25M's width with
+    PIO_TPU_MESH_SERVE=1, the scorer sharded over (cuda:0,) * 4; 1,024
+    users' top-10 against the unsharded scorer; /stats.json, /device.json
+    and device memory; one /reload."""
+    n_users, rank = factors.user_factors.shape
+    n_items = factors.item_factors.shape[0]
+    users = BiMap({f"u{n}": n for n in range(n_users)})
+    items = BiMap({f"i{n}": n for n in range(n_items)})
+    model = RecModel.from_factors(factors, users, items, device="cpu")
+    variant = variant_from_dict({
+        "id": "mesh-serving", "engineFactory": "templates.recommendation",
+        "datasource": {"params": {"app_name": "unused"}},
+        "algorithms": [{"name": "als", "params": {"rank": int(rank)}}]})
+    iid = store_instance(variant, [model], sharded_over=MESH_SHARDS)
+    codes = np.random.default_rng(args.seed + 41).choice(
+        n_users, MESH_USERS, replace=False).astype(np.int32)
+    plain = topn.DeviceTopNScorer(factors.user_factors, factors.item_factors,
+                                  device=CARD)
+    want_idx, want_val = plain.top_n_batch(codes, 10)
+    del plain
+    before = allocated()
+    mesh = (CARD,) * MESH_SHARDS
+    with knob("PIO_TPU_MESH_SERVE", "1"):
+        t0 = time.monotonic()
+        server = deploy_query_server(variant, host="127.0.0.1", port=0,
+                                     instance_id=iid, device=CARD,
+                                     mesh_devices=mesh)
+        deploy_s = time.monotonic() - t0
+        with server:
+            placed = allocated()
+            conn = http.client.HTTPConnection("127.0.0.1", server.port,
+                                              timeout=60)
+            near = 0
+            t0 = time.monotonic()
+            for k, c in enumerate(codes):
+                code, got = request(conn, "POST", "/queries.json",
+                                    {"user": f"u{int(c)}", "num": 10})
+                if code != 200:
+                    raise AssertionError(f"41.4 query {k}: {code} {got}")
+                near += near_tie_check(got["itemScores"], want_idx[k],
+                                       want_val[k], items, f"41.4 user {c}")
+            q_s = time.monotonic() - t0
+            _, stats = request(conn, "GET", "/stats.json")
+            _, device = request(conn, "GET", "/device.json")
+            code, reload_got = request(conn, "POST", "/reload", {})
+            after_reload = allocated()
+            codes_after = []
+            for c in codes[:64]:
+                codes_after.append(request(conn, "POST", "/queries.json", {
+                    "user": f"u{int(c)}", "num": 10})[0])
+            code2, _ = request(conn, "POST", "/reload", {})
+            after_reload2 = allocated()
+            conn.close()
+    sh = stats["sharding"]
+    (m,) = sh["models"]
+    rows_pad = -(-n_users // MESH_SHARDS) * MESH_SHARDS
+    cols_pad = -(-n_items // MESH_SHARDS) * MESH_SHARDS
+    per_device = (rows_pad + cols_pad) * rank * 4 // MESH_SHARDS
+    shard_ledger = device["ledger"]["byCategory"].get("shard")
+    log(f"  41.4 deploy {deploy_s:.2f} s (host clock; the blob restored "
+        f"from {MESH_SHARDS} shard records and placed in {MESH_SHARDS} "
+        f"shards); {MESH_USERS} users' top-10 in {q_s:.2f} s over HTTP; "
+        f"answers as the unsharded scorer's, {near} with a near-tie "
+        f"reordered (|score gap| <= {MESH_SCORE_TOL}); {smi}")
+    log(f"  41.4 /stats.json sharding {json.dumps(sh)}")
+    log(f"  41.4 /device.json shard ledger {shard_ledger} B; "
+        f"memory_allocated {before} before, {placed} deployed (+"
+        f"{placed - before}), {after_reload} after /reload ({code}, "
+        f"{reload_got}; +{after_reload - before}), {after_reload2} after a "
+        f"second ({code2}); the tables padded: "
+        f"{MESH_SHARDS * per_device} B")
+    if not (sh["enabled"] and sh["meshDevices"] == MESH_SHARDS
+            and m["nDevices"] == MESH_SHARDS
+            and m["bytesPerDevice"] == per_device):
+        raise AssertionError(f"41.4 sharding block {sh}")
+    # a generation holds the tables once: at each deploy and /reload the
+    # growth over the memory before the first deploy is the padded tables
+    # plus other buffers, which this script measured on an NVIDIA H100
+    # 80GB HBM3 at 700 W at 2,560-149,504 B after a /reload and at most
+    # 1,003,520 B after the first deploy of a fresh process. The limit,
+    # MESH_EXTRA_LIMIT (2 MiB), lies between those and the smallest fault,
+    # a second copy of the item table (n_items padded x rank x 4 B:
+    # 3,779,072 B at MovieLens-25M's width), which it fails
+    extra = [g - before - MESH_SHARDS * per_device
+             for g in (placed, after_reload, after_reload2)]
+    if cols_pad * rank * 4 <= MESH_EXTRA_LIMIT:
+        raise AssertionError(f"41.4: a second item table ({cols_pad} x "
+                             f"{rank} x 4 B) fits under the limit")
+    if shard_ledger != MESH_SHARDS * per_device or \
+            not all(0 <= e < MESH_EXTRA_LIMIT for e in extra):
+        raise AssertionError(f"41.4: the shard ledger or device memory "
+                             f"({extra} B over the tables) is not the "
+                             f"padded tables once a generation")
+    if code != 200 or code2 != 200 or set(codes_after) != {200}:
+        raise AssertionError(f"41.4 /reload {code}, then {set(codes_after)}")
+    return {"near_ties": near, "per_device": per_device, "deploy_s": deploy_s}
+
+
+def mesh_pool(args, smi) -> dict:
+    """41.5: ``python -m pio_tpu_torch train`` with PIO_TPU_SHARDED_PERSIST=1
+    on SQLite at MovieLens-100K's shape, the shard manifest verified, then
+    ``deploy --workers 2 --mesh-worker`` over (cuda:0,) * 4: worker 0
+    alone on the card, sharded; worker 1 on the CPU; answers checked
+    against the CPU copy of the blob as 41.4's are."""
+    from pio_tpu_torch.workflow import shard_store
+
+    home = fresh_home("mesh-pool")
+    app = "mesh-ml100k"
+    u, i, r = synth_ratings(ML100K_EDGES, ML100K_USERS, ML100K_ITEMS,
+                            args.seed + 5, "int")
+    t_evt = dt.datetime(2026, 3, 1, tzinfo=dt.timezone.utc)
+    with cli_store(home):
+        app_id = Storage.get_meta_data_apps().insert(App(0, app))
+        Storage.get_levents().write((
+            Event("rate", "user", f"u{a}", "item", f"i{b}",
+                  properties={"rating": float(c)},
+                  event_time=t_evt + dt.timedelta(seconds=k))
+            for k, (a, b, c) in enumerate(zip(u.tolist(), i.tolist(),
+                                              r.tolist()))), app_id)
+    ej = os.path.join(home, "engine.json")
+    with open(ej, "w") as f:
+        json.dump({"id": "mesh-cli", "engineFactory":
+                   "templates.recommendation",
+                   "datasource": {"params": {"app_name": app}},
+                   "algorithms": [{"name": "als", "params": ALS_PARAMS}]}, f)
+    env = dict(cli_env(home), PIO_TPU_SHARDED_PERSIST="1")
+    out, train_s = cli(env, "train", "--engine-json", ej, "--device",
+                       CARD.type)
+    iid = re.search(r"engine instance (\S+)", out).group(1)
+    variant = variant_from_dict(json.load(open(ej)), path=ej)
+    engine, ep = build_engine(variant)
+    with cli_store(home):
+        verified = shard_store.verify_manifest(
+            Storage.get_model_data_models(), iid)
+        cpu_model, = load_models_for_instance(
+            iid, engine, ep, ComputeContext.local(0, device="cpu"))
+    log(f"  41.5 pio train (PIO_TPU_SHARDED_PERSIST=1): {train_s:.2f} s; "
+        f"instance {iid}; the shard manifest's sha256s verify over "
+        f"{verified} shard records")
+    port = free_port()
+    rng = np.random.default_rng(args.seed + 42)
+    bodies = [{"user": f"u{int(c)}", "num": 10}
+              for c in rng.integers(0, ML100K_USERS, N_QS_HTTP)]
+    t0 = time.monotonic()
+    with cli_server(env, home, "deploy", "--engine-json", ej, "--ip",
+                    "127.0.0.1", "--port", str(port), "--workers", "2",
+                    "--mesh-worker", "--mesh-devices",
+                    ",".join([CARD.type] * MESH_SHARDS), "--device",
+                    CARD.type) as proc:
+        wait_listening(home, proc)
+        up_s = time.monotonic() - t0
+        status = every_worker(port, "/", "worker", n_workers=2)
+        stats = every_worker(port, "/stats.json", "worker", n_workers=2)
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        for k, body in enumerate(bodies * 2):
+            code, got = request(conn, "POST", "/queries.json", body)
+            if code != 200:
+                raise AssertionError(f"41.5 query {k}: {code} {got}")
+            check_served(got, params_from_dict(RecQuery, body), cpu_model,
+                         f"41.5 body {k}")
+        conn.close()
+        workers = child_pids(proc.pid)
+        holders = {p for p in workers | {proc.pid} if holds_card(p)}
+        owner = status[0]["pid"]
+        sibling = status[1]["pid"]
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        code, _ = request(conn, "POST", "/undeploy", {})
+        conn.close()
+        rc = proc.wait(timeout=60)
+    log(f"  41.5 the pool up in {up_s:.1f} s; worker 0 sharding "
+        f"{json.dumps(stats[0]['sharding'])}; worker 1 sharding "
+        f"{json.dumps(stats[1]['sharding'])}; {2 * len(bodies)} answers "
+        f"checked against the CPU copy; the card's device file held by "
+        f"{sorted(holders)} (worker 0 {owner}, worker 1 {sibling}); "
+        f"/undeploy {code}, exit {rc}; {smi}")
+    if holders != {owner} or sibling in holders:
+        raise AssertionError(f"41.5: {sorted(holders)} on the card, not "
+                             f"worker 0 alone")
+    if not stats[0]["sharding"].get("enabled") or \
+            stats[0]["sharding"]["meshDevices"] != MESH_SHARDS or \
+            stats[1]["sharding"] != {"enabled": False}:
+        raise AssertionError("41.5: worker 0 not sharded, or worker 1 is")
+    if code != 200 or rc != 0:
+        raise AssertionError(f"41.5 /undeploy {code}, the pool exited {rc}")
+    return {"verified": verified, "holders": sorted(holders)}
+
+
+def text_inputs(args, engine, ep, iid, ctx) -> dict:
+    """The prepared bags of a text instance's data and its mlp's stored
+    parameters (host numpy): phase 9's, the baseline of 41.2 and 41.3."""
+    td = engine.data_source_class(ep.data_source_params).read_training(ctx)
+    pd = engine.preparator_class(ep.preparator_params).prepare(ctx, td)
+    model = load_models_for_instance(iid, engine, ep, ctx)[0]
+    return {"engine": engine, "ep": ep, "pd": pd, "params": {
+        k: getattr(model.mlp, k).cpu().numpy()
+        for k in ("w_in", "b_in", "w_out", "b_out")}}
+
+
+def phase_mesh(args, smi, single_als, text) -> dict:
+    """Phase 41: the multi-device paths on one card."""
+    from pio_tpu_torch.parallel import distributed
+
+    t_phase = time.monotonic()
+    log(f"phase 41: the multi-device paths on one card: train_als and "
+        f"data-parallel train_mlp in a 1-rank NCCL group, two ranks on "
+        f"cuda:0, mesh serving over (cuda:0,) x {MESH_SHARDS}, sharded "
+        f"persistence and deploy --mesh-worker; {smi}")
+    with mesh_env(1, 0, free_port()):
+        ctx = ComputeContext.create(args.seed, device=CARD)
+    log(f"  the group: rank {ctx.rank} of {ctx.world_size}, backend "
+        f"{torch.distributed.get_backend()}, device {ctx.device}, mesh "
+        f"{list(ctx.mesh.shape)} over {ctx.mesh.mesh_dim_names}")
+    try:
+        t0 = time.monotonic()
+        mesh_als(args, smi, ctx, single_als)
+        als_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        dp = mesh_mlp(args, smi, ctx, text)
+        mlp_s = time.monotonic() - t0
+    finally:
+        distributed.shutdown()
+    t0 = time.monotonic()
+    two = mesh_two_ranks(args, smi, text)
+    two_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    serving = mesh_serving(args, smi, single_als)
+    serve_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    pool = mesh_pool(args, smi)
+    pool_s = time.monotonic() - t0
+    log(f"  phase 41 {time.monotonic() - t_phase:.1f} s: 41.1 {als_s:.1f}, "
+        f"41.2 {mlp_s:.1f}, 41.3 {two_s:.1f}, 41.4 {serve_s:.1f}, 41.5 "
+        f"{pool_s:.1f}")
+    return {"launches": dp["launches"], "two_ranks": two,
+            "serving": serving, "pool": pool}
+
+
 def kernel_entry(name, source, replaces, launches, row) -> dict:
     """One kernel of the JSON line, from its main timed row."""
     return {
@@ -5480,10 +6126,14 @@ def kernel_entry(name, source, replaces, launches, row) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mesh-rank", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-out", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    if args.mesh_rank:
+        return rank_main(args.mesh_rank, args.mesh_out)
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -5515,6 +6165,8 @@ def main(argv=None) -> int:
     # the runs' ledgers (and any default $PIO_TPU_HOME path) stay under
     # the script's own home
     os.environ["PIO_TPU_HOME"] = fresh_home("script")
+    for name in MESH_ENV:  # this process is no rank until phase 41
+        os.environ.pop(name, None)
     rng = np.random.default_rng(args.seed)
     shapes = phase_kernels(rng, dev)
     gpu, cpu, queries = phase_model(args)
@@ -5619,6 +6271,13 @@ def main(argv=None) -> int:
     ops = phase_ops_plane(args, smi, text, reloaded)
     for entry in summary:
         entry["launches"] += ops["launches"][entry["name"]]
+    # the multi-device paths on the one card: phase 11's factors and
+    # phase 9's text instance are their single-device baselines; the
+    # data-parallel train_mlp's launches join the kernels' line
+    mesh = phase_mesh(args, smi, full["factors"], text_inputs(
+        args, engine, ep, iid, ComputeContext.local(args.seed, device=CARD)))
+    for entry in summary:
+        entry["launches"] += mesh["launches"][entry["name"]]
     log(f"text evaluation sweep launches (added to the kernels' line): "
         f"{json.dumps(text_eval)}")
     log(f"CLI train + deploy launches (added to the kernels' line): "

@@ -68,6 +68,10 @@ class Algorithm(Component, Generic[PD, M, Q, P]):
 
     #: the dataclass a query JSON object binds to (None: raw dict queries)
     query_class: Optional[type] = None
+    #: True where ``train`` splits its work over ``ctx.group``; under a
+    #: process group any other algorithm trains a whole copy on every
+    #: rank, of which only rank 0's is kept (``run_train`` logs which)
+    splits_over_group: bool = False
 
     @abc.abstractmethod
     def train(self, ctx: ComputeContext, prepared_data: PD) -> M: ...

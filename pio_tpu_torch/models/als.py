@@ -1,4 +1,4 @@
-"""ALS matrix factorization on one device — the port of ``pio_tpu/models/als.py``.
+"""ALS matrix factorization — the port of ``pio_tpu/models/als.py``.
 
 The rating list is packed per orientation (by user, by item) into
 fixed-width blocks: edges sorted by entity, each entity's adjacency split
@@ -37,7 +37,7 @@ What the port keeps of the reference, and how:
 - The initial factors, ``|N(0,1)|/√rank``, come from a ``torch.Generator``
   seeded with ``config.seed``, drawn on the CPU and moved to the device,
   so the card and the CPU start from the same factors. ``jax.random``
-  streams cannot be reproduced; :func:`_run_local` takes the initial
+  streams cannot be reproduced; :func:`_run_iterations` takes the initial
   factors for the tests that hold the port against the reference.
 - :func:`train_als` ships the wire in one piece (``stats["n_stream"] ==
   1``). The reference streams it in chunks above an ~8 MiB wire
@@ -45,8 +45,14 @@ What the port keeps of the reference, and how:
   host link behind iteration 1's user side. On an NVIDIA H100 the whole
   wire crosses in tens of milliseconds, and streaming it was measured to
   hide nothing and to cost time and memory (PERF.md §6), so the port has
-  no streamed route. The reference's mesh paths and its ``trainwatch``
-  telemetry are left out too. Phases are timed with ``time.monotonic``.
+  no streamed route. Phases are timed with ``time.monotonic``.
+- One path for every context: in a process group (``ComputeContext.create``
+  under the env contract) entity counts are padded to world multiples and
+  each rank runs its ``1/world`` of the blocks through :func:`half_step`
+  (partial normal equations, ``reduce_scatter`` over entity rows, the
+  local solve, ``all_gather``), on either wire of
+  ``PIO_TPU_ALS_MESH_WIRE``; one process is world size 1, where the
+  collectives are identities.
 - ``matmul_dtype="auto"`` is float32 (the reference picks bfloat16 on any
   accelerator; here that waits for a measurement that it pays on the
   card). ``"bfloat16"`` gathers from a bf16 table and multiplies bf16
@@ -69,6 +75,7 @@ import numpy as np
 import torch
 
 from pio_tpu_torch.obs import trainwatch
+from pio_tpu_torch.parallel import distributed
 from pio_tpu_torch.parallel.context import ComputeContext
 from pio_tpu_torch.utils import knobs
 from pio_tpu_torch.utils.numutil import round_up as _round_up
@@ -240,12 +247,17 @@ def _entity_counts(ent: np.ndarray, n_entities: int, native) -> np.ndarray:
 
 
 def _counts_layout(ent: np.ndarray, width: int, n_entities: int,
-                   blocks_per_chunk: int):
-    """counts + (chunk, padded block count S) for one side."""
+                   blocks_per_chunk: int, n_shards: int = 1):
+    """counts + (chunk, padded block count S) for one side. Over
+    ``n_shards`` ranks (the reference's mesh layout, l.1242-1261) each
+    rank's ``S / n_shards`` blocks are whole chunks; at one shard this is
+    the single-device layout."""
     counts = _entity_counts(ent, n_entities, _native_packer())
     n_blocks = int((-(-counts // width)).sum())
-    chunk = min(blocks_per_chunk, _round_up(max(1, n_blocks), 8))
-    S = max(chunk, _round_up(max(n_blocks, 1), chunk))
+    per_shard = max(1, -(-n_blocks // n_shards))
+    chunk = min(blocks_per_chunk, _round_up(per_shard, 8))
+    pad_to = n_shards * chunk
+    S = max(pad_to, _round_up(max(n_blocks, 1), pad_to))
     return counts, chunk, S
 
 
@@ -529,17 +541,16 @@ def _add_runs(acc, e0: int, offsets, part) -> None:
         flat, "sum", offsets=offsets, axis=0, unsafe=True))
 
 
-def partial_normal_eq(block_ent, block_other, block_r, factors,
-                      n_entities: int, chunk: int, implicit: bool = False,
-                      alpha: float = 40.0,
-                      matmul_dtype: torch.dtype = torch.float32, plan=None):
+def partial_normal_acc(block_ent, block_other, block_r, factors,
+                       n_entities: int, chunk: int, implicit: bool = False,
+                       alpha: float = 40.0,
+                       matmul_dtype: torch.dtype = torch.float32, plan=None):
     """Σ w·q qᵀ and Σ rhs·q per entity over the blocked layout, chunk by
     chunk: the chunk's block partials (:func:`_chunk_partials`), summed
-    onto its entities and carried in one ``[n_entities, K+1, K]``
-    accumulator (:func:`_add_runs`). ``plan`` is :func:`segment_plan`'s
-    for this layout and chunk (made here when None). Returns ``A
-    [n_entities, K, K]``, ``b [n_entities, K]`` in float32, views of the
-    accumulator.
+    onto its entities and carried in one ``[n_entities, K+1, K]`` float32
+    accumulator (:func:`_add_runs`), which is returned (rows ``:K`` are
+    ``A``, row ``K`` is ``b``). ``plan`` is :func:`segment_plan`'s for this
+    layout and chunk (made here when None).
     """
     if plan is None:
         plan = segment_plan(block_ent, chunk)
@@ -553,6 +564,19 @@ def partial_normal_eq(block_ent, block_other, block_r, factors,
                                block_r[lo:lo + chunk], factors_ext,
                                implicit, alpha)
         _add_runs(acc, e0, offsets, part)
+    return acc
+
+
+def partial_normal_eq(block_ent, block_other, block_r, factors,
+                      n_entities: int, chunk: int, implicit: bool = False,
+                      alpha: float = 40.0,
+                      matmul_dtype: torch.dtype = torch.float32, plan=None):
+    """:func:`partial_normal_acc` as ``A [n_entities, K, K]``, ``b
+    [n_entities, K]``, views of the accumulator."""
+    acc = partial_normal_acc(block_ent, block_other, block_r, factors,
+                             n_entities, chunk, implicit, alpha,
+                             matmul_dtype, plan)
+    K = factors.shape[1]
     return acc[:, :K], acc[:, K]
 
 
@@ -622,19 +646,27 @@ def gram_of(factors, implicit: bool = False):
     return torch.zeros((K, K), dtype=torch.float32, device=factors.device)
 
 
-def half_local(blocks, factors, n_entities: int, chunk: int,
-               config: ALSConfig, plan=None):
-    """One single-device half-step from a blocked layout (``plan`` as in
-    :func:`partial_normal_eq`)."""
+def half_step(blocks, factors, n_entities: int, chunk: int,
+              config: ALSConfig, group=None, plan=None):
+    """One half-step (the reference's ``shard_map`` body, l.432-460): this
+    rank's blocks give the partial normal equations of every entity;
+    ``reduce_scatter`` sums them over the ranks and leaves each rank its
+    ``1/world`` entity rows; the rank solves those; ``all_gather`` puts the
+    new factors back together on every rank. Without a group (one
+    process, every block) both collectives are identities. ``plan`` as in
+    :func:`partial_normal_acc`."""
     mm = _resolve_matmul_dtype(str(config.matmul_dtype))
-    A, b = partial_normal_eq(
+    K = factors.shape[1]
+    acc = partial_normal_acc(
         *blocks, factors, n_entities, chunk, implicit=bool(config.implicit),
         alpha=float(config.alpha), matmul_dtype=mm, plan=plan,
     )
-    return solve_block(
-        A, b, gram_of(factors, bool(config.implicit)), float(config.reg),
-        bool(config.implicit), str(config.solver),
+    mine = distributed.reduce_scatter_rows(acc, group)
+    new_local = solve_block(
+        mine[:, :K], mine[:, K], gram_of(factors, bool(config.implicit)),
+        float(config.reg), bool(config.implicit), str(config.solver),
     )
+    return distributed.all_gather_rows(new_local, group)
 
 
 def decode_items(i_lo, i_hi, ovf_idx=None, ovf_val=None, counts=None,
@@ -734,29 +766,32 @@ def _init_factors(n_rows: int, rank: int, generator: torch.Generator):
     ).abs_() * (float(rank) ** -0.5)
 
 
-def _run_local(by_user, by_item, P0, Q0, config: ALSConfig,
-               chunk_user: int, chunk_item: int):
-    """``config.iterations`` alternating half-steps from ``(P0, Q0)`` on
-    their device. The tests feed the reference's initial factors here."""
+def _run_iterations(by_user, by_item, P0, Q0, config: ALSConfig,
+                    chunk_user: int, chunk_item: int, group=None):
+    """``config.iterations`` alternating half-steps (:func:`half_step`)
+    from the replicated ``(P0, Q0)`` on their device. ``by_user`` and
+    ``by_item`` are this rank's blocks (every block without a group). The
+    tests feed the reference's initial factors here."""
     U_pad, I_pad = P0.shape[0], Q0.shape[0]
     plan_user = segment_plan(by_user[0], chunk_user)
     plan_item = segment_plan(by_item[0], chunk_item)
     P, Q = P0, Q0
     for _ in range(config.iterations):
-        P = half_local(by_user, Q, U_pad, chunk_user, config, plan_user)
-        Q = half_local(by_item, P, I_pad, chunk_item, config, plan_item)
+        P = half_step(by_user, Q, U_pad, chunk_user, config, group,
+                      plan_user)
+        Q = half_step(by_item, P, I_pad, chunk_item, config, group,
+                      plan_item)
     return P, Q
 
 
-def _run_packed(wire, P0, Q0, config: ALSConfig, packed_shapes,
-                rating_wire: str, item_wire: str):
-    """Decode the (user, item)-sorted wire, build both blocked layouts on
-    the device and train. ``wire`` is ``(counts_u, counts_i, i_lo, i_hi,
-    ovf_idx, ovf_val, r)``; ``packed_shapes`` is ``(chunk_user, S_u, w_u,
-    chunk_item, S_i, w_i)``."""
+def _decode_pack(wire, packed_shapes, U_pad: int, I_pad: int,
+                 rating_wire: str, item_wire: str):
+    """Decode the (user, item)-sorted wire and build both blocked layouts
+    on the device. ``wire`` is ``(counts_u, counts_i, i_lo, i_hi, ovf_idx,
+    ovf_val, r)``; ``packed_shapes`` is ``(chunk_user, S_u, w_u,
+    chunk_item, S_i, w_i)``. Returns ``(by_user, by_item)``."""
     counts_u, counts_i, i_lo, i_hi, ovf_idx, ovf_val, r = wire
-    chunk_user, su, wu, chunk_item, si, wi = packed_shapes
-    U_pad, I_pad = P0.shape[0], Q0.shape[0]
+    _, su, wu, _, si, wi = packed_shapes
     E = i_lo.shape[0]
     i32 = decode_items(i_lo, i_hi, ovf_idx, ovf_val, counts_u, item_wire)
     r32 = decode_ratings(r, E, rating_wire)
@@ -767,8 +802,14 @@ def _run_packed(wire, P0, Q0, config: ALSConfig, packed_shapes,
     by_user = device_pack(u32, i32, r32, U_pad, wu, su,
                           assume_sorted=True, counts=counts_u)
     by_item = device_pack(i32, u32, r32, I_pad, wi, si, counts=counts_i)
-    return _run_local(by_user, by_item, P0, Q0, config, chunk_user,
-                      chunk_item)
+    return by_user, by_item
+
+
+def blocks_of(blocks, rank: int, world: int):
+    """A rank's contiguous ``1/world`` of a blocked layout's blocks (the
+    reference's ``P(axis)`` block sharding)."""
+    per = blocks[0].shape[0] // world
+    return tuple(t[rank * per:(rank + 1) * per] for t in blocks)
 
 
 def _sync(device: torch.device) -> None:
@@ -776,28 +817,44 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _encode_wire(user_idx, item_idx, rating, n_users: int, n_items: int,
-                 config: ALSConfig, item_wire: str = "auto"):
-    """:func:`train_als`'s host side: the layouts' sizes, the (user,
-    item) edge sort and the wire encoders. ``item_wire`` as in
-    :func:`_choose_item_wire`. Returns ``(host_wire, packed_shapes,
-    rating_wire, item_wire, wire_bytes)`` in :func:`_run_packed`'s terms.
-    """
+def _layouts(user_idx, item_idx, n_users: int, n_items: int,
+             config: ALSConfig, n_shards: int = 1):
+    """Both sides' layouts over ``n_shards`` ranks: entity counts padded
+    to shard multiples (the reference's l.1200-1220), the block widths,
+    degrees, chunks and padded block counts. Returns ``(U_pad, I_pad,
+    counts_u, counts_i, packed_shapes)``, ``packed_shapes`` in
+    :func:`_decode_pack`'s terms."""
     n_edges = len(user_idx)
-    U_pad = max(n_users, 1)
-    I_pad = max(n_items, 1)
+    U_pad = _round_up(max(n_users, 1), n_shards)
+    I_pad = _round_up(max(n_items, 1), n_shards)
     w_user = config.block_width or _auto_width(n_edges, n_users)
     w_item = config.block_width or _auto_width(n_edges, n_items)
     counts_u, chunk_user, S_u = _counts_layout(
-        user_idx, w_user, U_pad, config.blocks_per_chunk)
+        user_idx, w_user, U_pad, config.blocks_per_chunk, n_shards)
     counts_i, chunk_item, S_i = _counts_layout(
-        item_idx, w_item, I_pad, config.blocks_per_chunk)
+        item_idx, w_item, I_pad, config.blocks_per_chunk, n_shards)
     if S_u * w_user >= 2 ** 31 or S_i * w_item >= 2 ** 31:
         raise ValueError(
             "edge set too large for int32 block addressing; "
             "use a multi-device mesh"
         )
-    counts_u = np.ascontiguousarray(counts_u, np.int64)
+    shapes = (chunk_user, S_u, w_user, chunk_item, S_i, w_item)
+    return (U_pad, I_pad, np.ascontiguousarray(counts_u, np.int64),
+            counts_i, shapes)
+
+
+def _encode_wire(user_idx, item_idx, rating, n_users: int, n_items: int,
+                 config: ALSConfig, item_wire: str = "auto",
+                 n_shards: int = 1):
+    """:func:`train_als`'s host side: the layouts' sizes (over
+    ``n_shards`` ranks), the (user, item) edge sort and the wire encoders.
+    ``item_wire`` as in :func:`_choose_item_wire`. Returns ``(host_wire,
+    packed_shapes, rating_wire, item_wire, wire_bytes)`` in
+    :func:`_decode_pack`'s terms.
+    """
+    n_edges = len(user_idx)
+    U_pad, I_pad, counts_u, counts_i, shapes = _layouts(
+        user_idx, item_idx, n_users, n_items, config, n_shards)
     i_sorted, r_sorted = _sort_edges_by_user(user_idx, item_idx, rating,
                                              counts_u)
     r_ship, rating_wire = _encode_ratings(r_sorted)
@@ -816,7 +873,6 @@ def _encode_wire(user_idx, item_idx, rating, n_users: int, n_items: int,
         counts_u.astype(np.int32), counts_i.astype(np.int32),
         i_ship, i_hi, ovf_idx, ovf_val, r_ship,
     )
-    shapes = (chunk_user, S_u, w_user, chunk_item, S_i, w_item)
     wire_bytes = item_bytes + r_ship.nbytes + 4 * (U_pad + I_pad)
     return host_wire, shapes, rating_wire, item_wire, wire_bytes
 
@@ -835,48 +891,97 @@ def train_als(
 
     The host sorts the edges by (user, item) and encodes the wire; the
     device decodes it, builds both blocked layouts and runs the
-    iterations. ``stats``, when a dict, is filled with ``{packer, pack_s,
-    wire_bytes, encoding, n_stream, h2d_s, device_s}``, the phases
-    separated by device synchronizations. The run is always one
-    shipment: ``n_stream`` is 1 (the port has no streamed trainer).
+    iterations. In a process group every rank runs this on the same
+    edges: entity counts padded to world multiples, the replicated
+    initial factors drawn as on one device at the padded counts, each
+    rank's ``1/world`` of the blocks through :func:`half_step`. Without a
+    group the world is 1 and the collectives are identities.
+
+    ``PIO_TPU_ALS_MESH_WIRE`` picks a group's shipment: ``auto``/``compact``
+    ships the wire, each rank ``1/world`` of its encoded edge arrays,
+    re-replicated by ``all_gather`` before the device pack; ``blocked``
+    packs both layouts on the host (float32 blocks) and ships each rank
+    only its blocks. The two give the same bits. ``stats``, when a dict,
+    is filled with ``{packer, pack_s, wire_bytes, encoding, n_stream,
+    world, h2d_s, device_s}``, the phases separated by device
+    synchronizations. The run is always one shipment: ``n_stream`` is 1
+    (the port has no streamed trainer).
     """
     if len(user_idx) == 0:
         raise ValueError("ALS needs at least one rating")
-    dev = ctx.device
+    dev, group, rank, world = ctx.device, ctx.group, ctx.rank, ctx.world_size
     K = config.rank
     user_idx = np.asarray(user_idx, np.int32)
     item_idx = np.asarray(item_idx, np.int32)
     rating = np.asarray(rating, np.float32)
     _solver_for(str(config.solver))  # an unknown solver fails first
     _resolve_matmul_dtype(str(config.matmul_dtype))
+    blocked = False
+    if group is not None:
+        mesh_wire = knobs.knob_str("PIO_TPU_ALS_MESH_WIRE")
+        if mesh_wire not in ("auto", "compact", "blocked"):
+            raise ValueError(f"PIO_TPU_ALS_MESH_WIRE={mesh_wire!r}: use "
+                             "auto, compact or blocked")
+        blocked = mesh_wire == "blocked"
+    U_pad = _round_up(max(n_users, 1), world)
+    I_pad = _round_up(max(n_items, 1), world)
     # telemetry window: ALS "steps" are the alternating solve iterations
     # (no per-step loss: normal equations); the edges count as examples
     trainwatch.begin_algo(
         "als", total_steps=int(config.iterations),
-        per_device_bytes=(max(n_users, 1) + max(n_items, 1)) * K * 4,
+        per_device_bytes=(U_pad + I_pad) * K * 4 // world,
     )
 
     t0 = time.monotonic()
-    host_wire, shapes, rating_wire, item_wire, wire_bytes = _encode_wire(
-        user_idx, item_idx, rating, n_users, n_items, config)
+    if blocked:
+        _, _, counts_u, _, shapes = _layouts(
+            user_idx, item_idx, n_users, n_items, config, world)
+        host_u, host_i = _blocked_host(user_idx, item_idx, rating, U_pad,
+                                       I_pad, counts_u, shapes)
+        encoding = "blocked-f32"
+        wire_bytes = sum(a.nbytes for t in (host_u, host_i) for a in t)
+    else:
+        host_wire, shapes, rating_wire, item_wire, wire_bytes = \
+            _encode_wire(user_idx, item_idx, rating, n_users, n_items,
+                         config, n_shards=world)
+        encoding = f"{rating_wire}+{item_wire}"
     if stats is not None:
         stats["packer"] = "numpy" if _native_packer() is None else "native"
         stats["pack_s"] = time.monotonic() - t0
         stats["wire_bytes"] = wire_bytes
-        stats["encoding"] = f"{rating_wire}+{item_wire}"
+        stats["encoding"] = encoding
         stats["n_stream"] = 1
+        stats["world"] = world
 
     t0 = time.monotonic()
     gen = torch.Generator(device="cpu")
     gen.manual_seed(int(config.seed))
-    P0 = _init_factors(max(n_users, 1), K, gen).to(dev)
-    Q0 = _init_factors(max(n_items, 1), K, gen).to(dev)
-    wire = tuple(_wire_tensor(a, dev) for a in host_wire)
+    P0 = _init_factors(U_pad, K, gen).to(dev)
+    Q0 = _init_factors(I_pad, K, gen).to(dev)
+    if blocked:
+        def mine(host):
+            t = tuple(torch.from_numpy(a) for a in host)
+            return tuple(x.to(dev) for x in blocks_of(t, rank, world))
+
+        by_user, by_item = mine(host_u), mine(host_i)
+    else:
+        counts_u, counts_i, i_lo, i_hi, ovf_idx, ovf_val, r = host_wire
+        wire = (
+            _wire_tensor(counts_u, dev), _wire_tensor(counts_i, dev),
+            _ship_sharded(i_lo, ctx), _ship_sharded(i_hi, ctx),
+            _wire_tensor(ovf_idx, dev), _wire_tensor(ovf_val, dev),
+            _ship_sharded(r, ctx),
+        )
     if stats is not None:
         _sync(dev)
         stats["h2d_s"] = time.monotonic() - t0
     t0 = time.monotonic()
-    P, Q = _run_packed(wire, P0, Q0, config, shapes, rating_wire, item_wire)
+    if not blocked:
+        by_user, by_item = (
+            blocks_of(t, rank, world) for t in _decode_pack(
+                wire, shapes, U_pad, I_pad, rating_wire, item_wire))
+    P, Q = _run_iterations(by_user, by_item, P0, Q0, config, shapes[0],
+                           shapes[3], group)
     if stats is not None:
         _sync(dev)
         stats["device_s"] = time.monotonic() - t0
@@ -886,6 +991,36 @@ def train_als(
     )
     trainwatch.record_steps(int(config.iterations), examples=len(user_idx))
     return factors
+
+
+def _ship_sharded(a: np.ndarray, ctx) -> torch.Tensor:
+    """The compact wire's shipment of one encoded array: in a group each
+    rank sends its ``1/world`` span (zero-padded to a world multiple) to
+    its device, and an ``all_gather`` re-replicates the whole array there,
+    the padding dropped (reference ``_run_mesh_compact``, l.1066-1187);
+    without one, the whole array."""
+    if ctx.group is None or len(a) == 0:  # len: the same on every rank
+        return _wire_tensor(a, ctx.device)
+    lo, hi, n_pad = distributed.rows_of(len(a), ctx.rank, ctx.world_size)
+    padded = np.zeros(n_pad, a.dtype)
+    padded[:len(a)] = a
+    mine = _wire_tensor(padded[lo:hi], ctx.device)
+    return distributed.all_gather_rows(mine, ctx.group)[:len(a)]
+
+
+def _blocked_host(user_idx, item_idx, rating, U_pad, I_pad, counts_u,
+                  shapes):
+    """The blocked mesh wire's host pack (reference l.1324-1366): the
+    edges in canonical (user, item) order, both layouts packed on the host
+    at the group's padded block counts. Returns ``(by_user, by_item)`` as
+    numpy triples."""
+    chunk_user, S_u, w_user, chunk_item, S_i, w_item = shapes
+    i_srt, r_srt = _sort_edges_by_user(user_idx, item_idx, rating, counts_u)
+    u_srt = np.repeat(np.arange(U_pad, dtype=np.int32), counts_u)
+    by_user = _pack_blocks(u_srt, i_srt, r_srt, U_pad, w_user, S_u,
+                           counts=counts_u)
+    by_item = _pack_blocks(i_srt, u_srt, r_srt, I_pad, w_item, S_i)
+    return by_user, by_item
 
 
 def predict_scores(

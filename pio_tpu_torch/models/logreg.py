@@ -21,9 +21,11 @@ effective weights round through bf16 in the graph, so autograd rounds their
 gradient the same way. The codes widen to f32 once, on the device, after
 the wire has crossed.
 
-Deliberate deviations: the wire always ships in one piece (the reference
-streams it above ``PIO_TPU_LOGREG_STREAM_MB``), and the mesh path waits for
-the multi-device slice.
+In a process group (``ComputeContext.create`` under the env contract) the
+fit is data-parallel: each rank ships and trains on its rows of the batch
+padded to a world multiple, and the gradients are summed over the ranks
+before every step. Deliberate deviation: the wire always ships in one
+piece (the reference streams it above ``PIO_TPU_LOGREG_STREAM_MB``).
 """
 
 from __future__ import annotations
@@ -35,6 +37,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from pio_tpu_torch.parallel import distributed
 
 #: name → parameter, in the reference's pytree order
 Params = Dict[str, torch.Tensor]
@@ -115,10 +119,11 @@ def init_params(d: int, n_classes: int, seed: int) -> Params:
 
 def _loss(params: Params, X: torch.Tensor, y: torch.Tensor,
           mask: torch.Tensor, scales: Optional[torch.Tensor],
-          low_precision: bool, reg: float) -> torch.Tensor:
+          low_precision: bool, reg: float, mask_sum=None) -> torch.Tensor:
     """Masked mean softmax cross-entropy plus ``reg·Σw²`` (reference
     l.49-66). ``X`` is f32; with ``low_precision`` the effective weights
-    round through bf16, as the reference's ``w.astype(bf16)``."""
+    round through bf16, as the reference's ``w.astype(bf16)``.
+    ``mask_sum`` is the mean's denominator (``Σ mask`` when None)."""
     w = params["w"]
     if scales is not None:
         w = w * scales[:, None]
@@ -126,13 +131,15 @@ def _loss(params: Params, X: torch.Tensor, y: torch.Tensor,
         w = w.to(torch.bfloat16).float()
     ce = F.cross_entropy(torch.matmul(X, w) + params["b"], y,
                          reduction="none")
-    data_loss = torch.sum(ce * mask) / torch.sum(mask)
+    if mask_sum is None:
+        mask_sum = torch.sum(mask)
+    data_loss = torch.sum(ce * mask) / mask_sum
     return data_loss + reg * torch.sum(params["w"] ** 2)
 
 
 def _fit(params0: Params, X: torch.Tensor, y: torch.Tensor,
          mask: torch.Tensor, scales: Optional[torch.Tensor],
-         config: LogRegConfig) -> Params:
+         config: LogRegConfig, group=None) -> Params:
     """``config.iterations`` full-batch Adam steps from ``params0`` (the
     reference's ``fit``), on the tensors' device; ``params0`` is not
     changed.
@@ -140,6 +147,10 @@ def _fit(params0: Params, X: torch.Tensor, y: torch.Tensor,
     ``X`` is the shipped wire: f32, bf16 or int8 codes (then ``scales``
     [D] are their column scales). Adam with optax's defaults (β 0.9 /
     0.999, ε 1e-8 added to ``√v̂``), as in :mod:`~pio_tpu_torch.models.mlp`.
+    With ``group``, ``X`` is this rank's rows and the step is
+    data-parallel as in :func:`~pio_tpu_torch.models.mlp._fit`: the global
+    ``Σ mask`` divides, rank 0's loss carries the L2 term, and the
+    gradients are summed over the ranks before every step.
     """
     low_precision = X.dtype in (torch.bfloat16, torch.int8)
     Xf = X.float()  # exact for bf16 values and int8 codes
@@ -147,10 +158,18 @@ def _fit(params0: Params, X: torch.Tensor, y: torch.Tensor,
               for k, v in params0.items()}
     opt = torch.optim.Adam(params.values(), lr=config.learning_rate,
                            betas=(0.9, 0.999), eps=1e-8)
+    reg, mask_sum = config.reg, None
+    if group is not None:
+        mask_sum = distributed.all_reduce_sum(torch.sum(mask), group)
+        if torch.distributed.get_rank(group) != 0:
+            reg = 0.0
     for _ in range(config.iterations):
         opt.zero_grad()
-        _loss(params, Xf, y, mask, scales, low_precision,
-              config.reg).backward()
+        _loss(params, Xf, y, mask, scales, low_precision, reg,
+              mask_sum).backward()
+        if group is not None:
+            for p in params.values():
+                distributed.all_reduce_sum(p.grad, group)
         opt.step()
     return {k: v.detach() for k, v in params.items()}
 
@@ -197,9 +216,17 @@ def train_logreg(
     if stats is not None:
         stats["pack_s"] = time.monotonic() - t0
     t0 = time.monotonic()
-    X_dev = wire.to(dev)
-    y_dev = torch.from_numpy(y).to(dev).long()
-    mask = torch.ones(n, device=dev)
+    # one piece a rank: this rank's rows of the batch padded to a world
+    # multiple, mask 0 on the padding (every row without a group; the
+    # reference streams only off the mesh, l.231)
+    lo, hi, n_pad = distributed.rows_of(n, ctx.rank, ctx.world_size)
+    if n_pad > n:
+        wire = torch.cat([wire, wire.new_zeros((n_pad - n, d))])
+    y_pad = np.zeros(n_pad, np.int32)
+    y_pad[:n] = y
+    X_dev = wire[lo:hi].to(dev)
+    y_dev = torch.from_numpy(y_pad[lo:hi]).to(dev).long()
+    mask = (torch.arange(lo, hi, device=dev) < n).float()
     s_dev = (torch.from_numpy(wire_scales).to(dev)
              if wire_scales is not None else None)
     params0 = {k: v.to(dev) for k, v in
@@ -213,7 +240,8 @@ def train_logreg(
                                   + y.nbytes)
         stats["n_stream"] = 1
         t0 = time.monotonic()
-    fitted = _fit(params0, X_dev, y_dev, mask, s_dev, config)
+    fitted = _fit(params0, X_dev, y_dev, mask, s_dev, config,
+                  group=ctx.group)
     if stats is not None:
         _sync(dev)
         stats["device_s"] = time.monotonic() - t0

@@ -5,12 +5,15 @@ Counterpart of ``pio_tpu/models/mlp.py``: hidden activations are
 embedding-bag kernel on the card — followed by a dense f32 head
 (``torch.matmul``; TF32 is left off, as PyTorch's default is).
 
-:func:`train_mlp` is full-batch Adam on one device, as the reference's
-single-device path: a Python loop of steps where the reference has one
-compiled ``lax.scan``. Each step's backward through the embedding bag is
-the bag-scatter kernel, launched from one :class:`~pio_tpu_torch.ops.
-embedding.BagPlan` built before the first step. The reference's data-
-parallel mesh path comes with the multi-device slice.
+:func:`train_mlp` is full-batch Adam: a Python loop of steps where the
+reference has one compiled ``lax.scan``. Each step's backward through the
+embedding bag is the bag-scatter kernel, launched from one
+:class:`~pio_tpu_torch.ops.embedding.BagPlan` built before the first
+step. In a process group (``ComputeContext.create`` under the env
+contract) it is data-parallel, as the reference's mesh path: each rank
+runs its rows of the batch through the forward and the bag scatter with
+its own plan, and the gradients are summed over the ranks before each
+step.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from torch import nn
 from pio_tpu_torch import DeviceLike, resolve_device
 from pio_tpu_torch.ops import embedding as _embedding
 from pio_tpu_torch.ops.embedding import embedding_bag
+from pio_tpu_torch.parallel import distributed
 
 #: name → parameter, in the reference's pytree order
 Params = Dict[str, torch.Tensor]
@@ -125,11 +129,17 @@ def _logits(params: Params, ids, weights, plan=None,
 
 
 def _loss(params: Params, ids, weights, y, mask, reg: float, plan=None,
-          bag=embedding_bag) -> torch.Tensor:
-    """Masked mean cross-entropy plus ``reg · Σ w_out²`` (reference l.157-167)."""
+          bag=embedding_bag, mask_sum=None) -> torch.Tensor:
+    """Masked mean cross-entropy plus ``reg · Σ w_out²`` (reference
+    l.157-167). ``mask_sum`` is the mean's denominator (``Σ mask`` when
+    None); a data-parallel rank passes the global one, and its
+    ``reg`` 0 unless it is rank 0, so the ranks' losses sum to the
+    reference's."""
     ce = F.cross_entropy(_logits(params, ids, weights, plan, bag), y,
                          reduction="none")
-    data_loss = torch.sum(ce * mask) / torch.sum(mask)
+    if mask_sum is None:
+        mask_sum = torch.sum(mask)
+    data_loss = torch.sum(ce * mask) / mask_sum
     return data_loss + reg * torch.sum(params["w_out"] ** 2)
 
 
@@ -156,10 +166,20 @@ def _fit(
     mask: torch.Tensor,
     config: MLPConfig,
     bag=embedding_bag,
+    group=None,
 ) -> Tuple[Params, torch.Tensor]:
     """``config.iterations`` full-batch Adam steps from ``params0`` (the
     reference's ``fit``), on the tensors' device; ``params0`` is not
     changed.
+
+    With ``group`` (a process group), the bags are this rank's rows of
+    the padded batch: its loss is ``Σ ce·mask`` over them divided by the
+    global ``Σ mask`` (one ``all_reduce`` before the first step), the L2
+    term rides rank 0's loss, and the gradients are ``all_reduce``d (sum)
+    before the one Adam step every rank takes — the reference's
+    data-parallel ``jit`` over a sharded batch (l.100-196). The returned
+    losses are this rank's shares. At world size 1 every collective is an
+    identity and the steps are the single-device ones.
 
     Adam with optax's defaults (β 0.9 / 0.999, ε 1e-8 added to ``√v̂``):
     torch's and optax's update formulas agree. The bag plan of the
@@ -173,10 +193,19 @@ def _fit(
     opt = torch.optim.Adam(params.values(), lr=config.learning_rate,
                            betas=(0.9, 0.999), eps=1e-8)
     losses = torch.empty(config.iterations, device=ids.device)
+    reg, mask_sum = config.reg, None
+    if group is not None:
+        mask_sum = distributed.all_reduce_sum(torch.sum(mask), group)
+        if torch.distributed.get_rank(group) != 0:
+            reg = 0.0
     for step in range(config.iterations):
         opt.zero_grad()
-        loss = _loss(params, ids, weights, y, mask, config.reg, plan, bag)
+        loss = _loss(params, ids, weights, y, mask, reg, plan, bag,
+                     mask_sum)
         loss.backward()
+        if group is not None:
+            for p in params.values():
+                distributed.all_reduce_sum(p.grad, group)
         opt.step()
         losses[step] = loss.detach()
     return {k: v.detach() for k, v in params.items()}, losses
@@ -202,12 +231,17 @@ def train_mlp(
         n_classes: C.
     """
     dev = ctx.device
-    ids_t = torch.from_numpy(np.ascontiguousarray(ids, np.int32)).to(dev)
-    w_t = torch.from_numpy(np.ascontiguousarray(weights, np.float32)).to(dev)
-    y_t = torch.from_numpy(np.asarray(y, np.int64)).to(dev)
-    mask = torch.ones(len(y_t), device=dev)
+    # data-parallel: this rank's rows of the batch padded to a world
+    # multiple, mask 0 on the padding (every row without a group)
+    shard = ctx.shard_batch({
+        "ids": np.ascontiguousarray(ids, np.int32),
+        "w": np.ascontiguousarray(weights, np.float32),
+        "y": np.asarray(y, np.int64),
+    })
+    ids_t, w_t, y_t, mask = (shard[k] for k in ("ids", "w", "y", "mask"))
     params0 = init_params(n_features, config.hidden, n_classes,
                           ctx.generator(config.seed))
-    fitted, _ = _fit(params0, ids_t, w_t, y_t, mask, config)
+    fitted, _ = _fit(params0, ids_t, w_t, y_t, mask, config,
+                     group=ctx.group)
     return MLPModel(fitted["w_in"], fitted["b_in"], fitted["w_out"],
                     fitted["b_out"], device=dev)

@@ -50,8 +50,20 @@ order, so on real factors a score may differ in its last bits (phase
 16: at most 9.5e-7 from numpy's or the card's) and near-ties may rank
 differently.
 ``PIO_TPU_NO_NATIVE`` keeps every host batch on numpy; a failed build
-raises. The reference's mesh-sharded placement is not ported:
-:meth:`DeviceTopNScorer.sharding_info` is always None.
+raises.
+
+**The sharded scorer** (``mesh=``, the reference's ``_place_sharded``,
+l.160-300): the serving mesh is a tuple of the devices one process owns
+(the reference's mesh worker owns its host's whole mesh), so it needs no
+process group. Both tables are split into row shards, one a device,
+zero-padded to a shard multiple. A query gathers its user rows from
+their shards onto the first device; each shard scores its columns on its
+own device, masks its pad columns (and the query's exclusions) to
+``-inf`` and takes its pinned top-k; the first device merges the shards'
+candidates by the same key (larger score first, then lower index, NaN as
+``-inf``), so the answer is the unsharded one, pad columns never among
+it. A mesh of one device is the plain path. The tests pass four CPU
+devices; on one card the same code runs over ``(cuda:0,) * 4``.
 """
 
 from __future__ import annotations
@@ -63,6 +75,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from pio_tpu_torch import DeviceLike, resolve_device
 from pio_tpu_torch.utils import knobs
@@ -93,16 +106,21 @@ def _ranked(scores: torch.Tensor) -> torch.Tensor:
     return scores.add_(0.0)
 
 
-def _topk_pinned(scores: torch.Tensor, k: int):
-    """Top-k of each row of float32 ``scores [B, N]``: larger score first,
-    then lower column index. Returns (values, indices int64)."""
+def _pinned_keys(scores: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """int64 keys ranking float32 ``scores`` at column indices ``idx``
+    (broadcast against them): larger score first, then lower index."""
     bits = scores.view(torch.int32).to(torch.int64)
     # order-preserving map of the float bits onto signed integers
     ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
-    n_cols = scores.shape[1]
-    low = 0xFFFFFFFF - torch.arange(n_cols, device=scores.device)
+    return ordered * (1 << 32) + (0xFFFFFFFF - idx)
+
+
+def _topk_pinned(scores: torch.Tensor, k: int):
+    """Top-k of each row of float32 ``scores [B, N]``: larger score first,
+    then lower column index. Returns (values, indices int64)."""
+    cols = torch.arange(scores.shape[1], device=scores.device)
     # the keys are distinct, so the top-k and its order are unique
-    _, idx = torch.topk(ordered * (1 << 32) + low[None, :], k, dim=1)
+    _, idx = torch.topk(_pinned_keys(scores, cols[None, :]), k, dim=1)
     return scores.gather(1, idx), idx
 
 
@@ -115,6 +133,33 @@ def _topn_fn(rows, cols_ext, codes, k: int, excl=None):
         scores.scatter_(1, excl, float("-inf"))
     n_cols = cols_ext.shape[0] - 1
     return _topk_pinned(_ranked(scores[:, :n_cols].contiguous()), k)
+
+
+def _merge_pinned(vals: torch.Tensor, idx: torch.Tensor, k: int):
+    """Top-k of candidate ``vals [B, M]`` at global column ``idx [B, M]``
+    by :func:`_topk_pinned`'s order (larger score, then lower index)."""
+    _, pick = torch.topk(_pinned_keys(vals, idx), k, dim=1)
+    return vals.gather(1, pick), idx.gather(1, pick)
+
+
+def _shard_topk(q, cols, lo: int, n_cols: int, k: int, excl=None):
+    """One column shard's pinned top-k on its device: ``q [B, K] @
+    cols [n_s, K]ᵀ``, the columns at or past ``n_cols`` (padding) and the
+    excluded global codes ``excl [B, E]`` masked to ``-inf``. Returns
+    (values, global indices)."""
+    n_s = cols.shape[0]
+    scores = q @ cols.T
+    if excl is not None:
+        local = excl - lo
+        local = torch.where((local >= 0) & (local < n_s), local, n_s)
+        scores = F.pad(scores, (0, 1))
+        scores.scatter_(1, local, float("-inf"))
+        scores = scores[:, :n_s]
+    n_real = min(max(n_cols - lo, 0), n_s)
+    if n_real < n_s:
+        scores[:, n_real:] = float("-inf")
+    vals, idx = _topk_pinned(_ranked(scores.contiguous()), min(k, n_s))
+    return vals, idx + lo
 
 
 def _scores_fn(rows, cols_ext, codes):
@@ -168,6 +213,10 @@ class DeviceTopNScorer:
     the module docstring). ``link_rtt_s`` overrides the
     probed round trip (tests inject link speeds). A failed device call
     raises; it never falls back to the host.
+
+    ``mesh``: a tuple of devices to shard both tables over (see the
+    module docstring); ``device`` is then its first. The per-device
+    footprint is held to ``PIO_TPU_DEVICE_BUDGET_BYTES`` when set.
     """
 
     def __init__(
@@ -178,7 +227,14 @@ class DeviceTopNScorer:
         warmup: bool = False,
         link_rtt_s: Optional[float] = None,
         device: DeviceLike = None,
+        mesh=None,
     ):
+        if mesh is not None:
+            mesh = tuple(resolve_device(d) for d in mesh)
+            device = mesh[0] if mesh else device
+            if len(mesh) <= 1:
+                mesh = None  # a one-device mesh is the plain device path
+        self._mesh = mesh
         self.device = resolve_device(device)
         rows = _host_f32(row_factors)
         cols = _host_f32(col_factors)
@@ -210,13 +266,22 @@ class DeviceTopNScorer:
             self.min_device_batch = float("inf")
             self.min_pair_batch = float("inf")
         else:
-            # the single upload of the deploy lifetime, with the spare
-            # sentinel row of the exclusion scatter
-            self._rows_dev = _on_device(row_factors, rows, self.device)
-            cols_dev = _on_device(col_factors, cols, self.device)
-            self._cols_dev = torch.cat(
-                [cols_dev, cols_dev.new_zeros((1, self.rank))]
-            )
+            from pio_tpu_torch.parallel.partition import assert_device_budget
+
+            n_dev = len(self._mesh) if self._mesh else 1
+            assert_device_budget(rows.nbytes + cols.nbytes, n_dev,
+                                 "topn mesh placement" if self._mesh
+                                 else "topn device placement")
+            if self._mesh is not None:
+                self._place_sharded(rows, cols)
+            else:
+                # the single upload of the deploy lifetime, with the spare
+                # sentinel row of the exclusion scatter
+                self._rows_dev = _on_device(row_factors, rows, self.device)
+                cols_dev = _on_device(col_factors, cols, self.device)
+                self._cols_dev = torch.cat(
+                    [cols_dev, cols_dev.new_zeros((1, self.rank))]
+                )
             if mode == "device":
                 self.min_device_batch = 1
                 self.min_pair_batch = 1
@@ -237,10 +302,53 @@ class DeviceTopNScorer:
             if self.min_pair_batch <= 1:
                 self.score_pairs(np.zeros(1, np.int32), np.zeros(1, np.int32))
 
+    def _place_sharded(self, rows: np.ndarray, cols: np.ndarray) -> None:
+        """Row-shard both tables over the mesh, zero-padded to a shard
+        multiple (the reference's ``_place_sharded``, l.267)."""
+        from pio_tpu_torch.parallel.partition import shard_rows
+
+        n = len(self._mesh)
+        self._row_shards = [p.to(d) for p, d in
+                            zip(shard_rows(rows, n), self._mesh)]
+        self._col_shards = [p.to(d) for p, d in
+                            zip(shard_rows(cols, n), self._mesh)]
+        self._rows_per = self._row_shards[0].shape[0]
+        self._cols_per = self._col_shards[0].shape[0]
+        self._ncols_pad = self._cols_per * n
+        self._rows_dev = self._row_shards  # on_device reads it
+
+    @property
+    def mesh_sharded(self) -> bool:
+        """True when the factor tables are sharded over a serving mesh."""
+        return self._mesh is not None and self.on_device
+
+    def host_tables(self) -> Tuple[np.ndarray, np.ndarray]:
+        """The float32 host mirrors ``(rows, cols)``."""
+        return self._rows_np, self._cols_np
+
+    def shard_bytes(self) -> list:
+        """``(device, bytes)`` of each shard pair a sharded scorer placed."""
+        return [(d, (r.numel() + c.numel()) * 4) for d, r, c in
+                zip(self._mesh, self._row_shards, self._col_shards)]
+
     def sharding_info(self) -> Optional[dict]:
-        """Placement summary of a sharded scorer: None, the port has one
-        device."""
-        return None
+        """Placement summary for /stats.json; None when unsharded. The
+        reference's keys; ``bytesPerDevice`` is what each device holds,
+        its padded row shard of both tables."""
+        if not self.mesh_sharded:
+            return None
+        n_dev = len(self._mesh)
+        total = self._rows_np.nbytes + self._cols_np.nbytes
+        return {
+            "meshShape": {"data": n_dev},
+            "nDevices": n_dev,
+            "rows": [int(self.n_rows), int(self.rank)],
+            "cols": [int(self.n_cols), int(self.rank)],
+            "colsPadded": int(self._ncols_pad),
+            "bytesPerDevice": (self._rows_per + self._cols_per)
+            * self.rank * 4,
+            "totalBytes": int(total),
+        }
 
     @property
     def on_device(self) -> bool:
@@ -268,8 +376,57 @@ class DeviceTopNScorer:
             np.ascontiguousarray(codes, np.int64)
         ).to(self.device)
 
+    # ---------------------------------------------------------- sharded path
+    def _gather_sharded(self, shards, per: int, codes: np.ndarray,
+                        bound: int) -> torch.Tensor:
+        """Rows ``codes`` of a row-sharded table, gathered from their
+        shards onto the first device (codes checked on the host first)."""
+        if codes.size and (int(codes.min()) < 0 or int(codes.max()) >= bound):
+            raise IndexError(f"code out of range [0, {bound})")
+        dev0 = self._mesh[0]
+        out = torch.empty((len(codes), self.rank), dtype=torch.float32,
+                          device=dev0)
+        shard = codes // per
+        for s in np.unique(shard):
+            sel = np.nonzero(shard == s)[0]
+            local = torch.from_numpy((codes[sel] - s * per).astype(np.int64))
+            out[torch.from_numpy(sel).to(dev0)] = \
+                shards[s][local.to(self._mesh[s])].to(dev0)
+        return out
+
+    def _top_n_sharded(self, codes, n, exclude):
+        B = codes.shape[0]
+        k = _bucket(n, self.n_cols) if n < self.n_cols else self.n_cols
+        dev0 = self._mesh[0]
+        idx_out = np.empty((B, k), np.int64)
+        val_out = np.empty((B, k), np.float32)
+        for lo in range(0, B, _MAX_BATCH_BUCKET):
+            chunk = codes[lo:lo + _MAX_BATCH_BUCKET]
+            q = self._gather_sharded(self._row_shards, self._rows_per, chunk,
+                                     self.n_rows)
+            ex = None
+            if exclude is not None:
+                ex = np.minimum(exclude[lo:lo + _MAX_BATCH_BUCKET],
+                                self.n_cols)  # any code ≥ n_cols: sentinel
+                ex = torch.from_numpy(np.ascontiguousarray(ex, np.int64))
+            vals, idxs = [], []
+            for s, (cols, d) in enumerate(zip(self._col_shards, self._mesh)):
+                v, i = _shard_topk(q.to(d), cols, s * self._cols_per,
+                                   self.n_cols, k,
+                                   None if ex is None else ex.to(d))
+                vals.append(v.to(dev0))
+                idxs.append(i.to(dev0))
+            v, i = _merge_pinned(torch.cat(vals, 1), torch.cat(idxs, 1), k)
+            m = chunk.shape[0]
+            idx_out[lo:lo + m] = i.cpu().numpy()
+            val_out[lo:lo + m] = v.cpu().numpy()
+        idx_out = np.where(np.isfinite(val_out), idx_out, 0)
+        return idx_out[:, :n], val_out[:, :n]
+
     # ----------------------------------------------------------- device path
     def _top_n_device(self, codes, n, exclude):
+        if self._mesh is not None:
+            return self._top_n_sharded(codes, n, exclude)
         B = codes.shape[0]
         k = _bucket(n, self.n_cols) if n < self.n_cols else self.n_cols
         idx_out = np.empty((B, k), np.int64)
@@ -412,8 +569,15 @@ class DeviceTopNScorer:
         out = np.empty((B, self.n_cols), np.float32)
         for lo in range(0, B, _MAX_BATCH_BUCKET):
             chunk = codes[lo:lo + _MAX_BATCH_BUCKET]
-            s = _scores_fn(self._rows_dev, self._cols_dev,
-                           self._codes(chunk, self.n_rows))
+            if self._mesh is not None:
+                q = self._gather_sharded(self._row_shards, self._rows_per,
+                                         chunk, self.n_rows)
+                s = torch.cat([(q.to(d) @ c.T).to(self._mesh[0])
+                               for c, d in zip(self._col_shards, self._mesh)],
+                              dim=1)[:, :self.n_cols]
+            else:
+                s = _scores_fn(self._rows_dev, self._cols_dev,
+                               self._codes(chunk, self.n_rows))
             out[lo:lo + chunk.shape[0]] = s.cpu().numpy()
         return out
 
@@ -429,6 +593,14 @@ class DeviceTopNScorer:
                 "bk,bk->b", self._rows_np[rc], self._cols_np[cc]
             )
         out = np.empty(B, np.float32)
+        if self._mesh is not None:
+            for lo in range(0, B, _PAIRS_CHUNK):
+                q = self._gather_sharded(self._row_shards, self._rows_per,
+                                         rc[lo:lo + _PAIRS_CHUNK], self.n_rows)
+                c = self._gather_sharded(self._col_shards, self._cols_per,
+                                         cc[lo:lo + _PAIRS_CHUNK], self.n_cols)
+                out[lo:lo + q.shape[0]] = (q * c).sum(-1).cpu().numpy()
+            return out
         for lo in range(0, B, _PAIRS_CHUNK):
             got = _pairs_fn(
                 self._rows_dev, self._cols_dev,

@@ -62,10 +62,18 @@ generation. A :class:`~pio_tpu_torch.obs.profile.DeviceProfileHook`
 and each bucketed batch dispatch (the micro-batcher's, the lane
 drainer's, the warmup's).
 
+**Mesh serving** (``PIO_TPU_MESH_SERVE=1``): each generation's shardable
+models (the recommendation ``ALSModel``) serve from a scorer sharded over
+the devices the process owns (``ops/topn.py``); ``/stats.json`` carries
+the ``sharding`` block (``{"enabled": false}`` when the gate is off),
+``/metrics`` ``pio_tpu_shard_bytes_placed_total`` and
+``pio_tpu_shard_gather_fallback_total``, and ``/device.json``'s ledger
+the shards under ``shard``. A placement that fails raises at deploy.
+
 Not ported: QoS (admission, deadlines, the batcher's deadline shedding),
 the tracer, the request and stage families of ``/metrics`` and the
-pool's shared metrics segment, the evloop front, mesh serving, feedback,
-plugins, failpoints and ``/deploy.json``.
+pool's shared metrics segment, the evloop front, feedback, plugins,
+failpoints and ``/deploy.json``.
 """
 
 from __future__ import annotations
@@ -117,6 +125,7 @@ from pio_tpu_torch.server.http import (
 from pio_tpu_torch.storage.registry import Storage
 from pio_tpu_torch.utils import knobs
 from pio_tpu_torch.workflow.core_workflow import load_models_for_instance
+from pio_tpu_torch.workflow.shard_store import ShardableModel
 from pio_tpu_torch.workflow.deploy_common import (
     resolve_instance_id,
     resolve_query_class,
@@ -442,8 +451,13 @@ class QueryService:
                  instance_id: Optional[str] = None,
                  admin_key: Optional[str] = None,
                  variant: Optional[EngineVariant] = None,
-                 ctx: Optional[ComputeContext] = None):
+                 ctx: Optional[ComputeContext] = None,
+                 mesh_devices: Optional[Sequence[DeviceLike]] = None):
         self.variant = variant
+        self._mesh_devices = (None if mesh_devices is None
+                              else tuple(mesh_devices))
+        #: the current generation's sharding block (None: not sharded)
+        self._sharding_info: Optional[dict] = None
         self.ctx = ctx
         self.admin_key = admin_key
         self.server: Optional[JsonHTTPServer] = None
@@ -501,6 +515,25 @@ class QueryService:
             self.devwatch.start()
         self.profile_hook = DeviceProfileHook.from_env(
             cuda=watch_device is not None and watch_device.type == "cuda")
+        # mesh-sharded serving (PIO_TPU_MESH_SERVE): the families exist
+        # before the first placement
+        eng = variant.engine_id if variant is not None else ""
+        self._engine_label = eng
+        self._shard_bytes_placed_total = self.obs.counter(
+            "pio_tpu_shard_bytes_placed_total",
+            "Model parameter bytes placed sharded across the serving "
+            "mesh (summed over devices, once per deploy generation)",
+            ("engine_id",),
+        )
+        self._shard_gather_fallback_total = self.obs.counter(
+            "pio_tpu_shard_gather_fallback_total",
+            "Mesh placements whose scorer chose an unsharded path (a "
+            "one-device mesh or host-forced scoring); a failed placement "
+            "raises instead",
+            ("engine_id",),
+        )
+        self._shard_bytes_placed_total.labels(eng)
+        self._shard_gather_fallback_total.labels(eng)
         self._install(engine, engine_params, models, instance_id)
         window_us = knobs.knob_float("PIO_TPU_SERVE_MICROBATCH_US")
         adaptive = knobs.knob_str("PIO_TPU_SERVE_MICROBATCH_ADAPTIVE") != "0"
@@ -557,15 +590,24 @@ class QueryService:
         resident scorers, the warmed ladder) while the current one keeps
         serving, swap it in under ``_swap_lock``, and retire the outgoing
         generation once its readers have finished."""
+        # the mesh attaches before prepare_for_serving (inside
+        # algorithms_with_models), where the templates build their scorer
+        mesh = self._serving_mesh()
+        if mesh is not None:
+            for m in models:
+                if isinstance(m, ShardableModel):
+                    m.__dict__["_serve_mesh"] = mesh
         pairs = engine.algorithms_with_models(engine_params, models)
         serving = engine.make_serving(engine_params)
         # a conflicting query-class config fails the load, not a query
         query_class = resolve_query_class(pairs)
+        sharding = self._place_mesh(pairs, mesh)
         incoming = (self._place_resident(pairs)
                     if self.device is not None else [])
         warmed = self._warm_buckets(pairs, serving)
         gen = _Generation(instance_id, pairs, serving, query_class, incoming)
         with self._swap_lock:
+            self._sharding_info = sharding
             outgoing, self._gen = self._gen, gen
             self._buckets.install(warmed)
             if outgoing is not None:
@@ -577,6 +619,67 @@ class QueryService:
             self._retire_generation(outgoing)
         log.info("serving engine instance %s (generation %d, %d resident)",
                  instance_id, self._buckets.generation, len(incoming))
+
+    def _serving_mesh(self) -> Optional[tuple]:
+        """The devices to shard serving tables over, or None (reference
+        l.889-902). Gate: ``PIO_TPU_MESH_SERVE=1``; unset or ``0`` keeps
+        the single-device placement. The mesh is the devices this process
+        owns: the ``mesh_devices`` the service was given, else every local
+        CUDA device (the CPU alone on a CPU context). A mesh of one device
+        is no mesh."""
+        flag = knobs.knob_str("PIO_TPU_MESH_SERVE").strip().lower()
+        if flag not in ("1", "on", "true"):
+            return None
+        devices = self._mesh_devices
+        if devices is None:
+            dev = self.ctx.device if self.ctx is not None else self.device
+            if dev is not None and dev.type == "cuda":
+                devices = tuple(torch.device("cuda", i)
+                                for i in range(torch.cuda.device_count()))
+            else:
+                devices = (torch.device("cpu"),)
+        if len(devices) <= 1:
+            return None
+        return tuple(devices)
+
+    def _place_mesh(self, pairs, mesh) -> Optional[dict]:
+        """Shard each shardable model's serving tables over the serving
+        mesh (the scorer places them; ``ops/topn.py``), on the incoming
+        pairs before the swap, so placement cost lands at deploy (reference
+        l.904-975). A placement that fails raises, as the resident
+        scorer's does: the reference serves single-device instead, which
+        would hide the mesh. A scorer that chose an unsharded path is
+        counted by ``pio_tpu_shard_gather_fallback_total``. Each shard is
+        booked on the device ledger's ``shard`` category, on its own
+        device."""
+        # the incoming generation's sharded footprint replaces the old one
+        self.devwatch.ledger_clear("shard")
+        if mesh is None:
+            return None
+        eng = self._engine_label
+        placed = []
+        for _, m in pairs:
+            if "_serve_mesh" not in m.__dict__:
+                continue
+            # prepare_for_serving built it over the mesh attached above
+            sc = m.scorer(warmup=True)
+            info = sc.sharding_info()
+            if info is None:
+                self._shard_gather_fallback_total.inc(engine_id=eng)
+                continue
+            info = dict(info, model=type(m).__name__)
+            placed.append(info)
+            for s, (dev, nbytes) in enumerate(sc.shard_bytes()):
+                self.devwatch.ledger_place(
+                    "shard", f"{type(m).__name__}/{s}", nbytes,
+                    device=dev.index or 0,
+                    name=f"sharded {type(m).__name__} shard {s}")
+            self._shard_bytes_placed_total.inc(
+                sum(b for _, b in sc.shard_bytes()), engine_id=eng)
+            log.info("sharded placement: %s over %d device(s), %d B/device",
+                     type(m).__name__, info["nDevices"],
+                     info["bytesPerDevice"])
+        return {"enabled": True, "meshDevices": len(mesh), "models": placed}
 
     @staticmethod
     def _retire_generation(gen: _Generation) -> None:
@@ -1014,6 +1117,12 @@ class QueryService:
             },
             "buckets": {**self._buckets.to_dict(), "dispatches": dispatches},
         }
+        with self._swap_lock:
+            sharding = self._sharding_info
+        out["sharding"] = dict(sharding) if sharding else {"enabled": False}
+        if sharding:
+            out["sharding"]["measuredBytes"] = \
+                out["residency"]["measuredBytes"]
         if self._batcher is not None:
             out["microbatch"] = self._batcher.to_dict()
         if self._lane_drainer is not None:
@@ -1172,12 +1281,16 @@ def create_query_server(
     host: str = "127.0.0.1",
     port: int = 8000,
     device: DeviceLike = None,
+    mesh_devices: Optional[Sequence[DeviceLike]] = None,
 ) -> QueryServer:
     """A query server (not yet started) over in-memory ``models``; port 0
     picks a free port (read it back from :attr:`QueryServer.port`).
-    ``device`` is the resident scorers' serving device. ``/reload``
-    answers 400: there is no stored instance to reload."""
-    return QueryServer(QueryService(engine, engine_params, models, device),
+    ``device`` is the resident scorers' serving device; ``mesh_devices``
+    the serving mesh of ``PIO_TPU_MESH_SERVE=1`` (default: every local
+    CUDA device). ``/reload`` answers 400: there is no stored instance to
+    reload."""
+    return QueryServer(QueryService(engine, engine_params, models, device,
+                                    mesh_devices=mesh_devices),
                        host, port)
 
 
@@ -1189,6 +1302,7 @@ def deploy_query_server(
     device: DeviceLike = None,
     admin_key: Optional[str] = None,
     reuse_port: bool = False,
+    mesh_devices: Optional[Sequence[DeviceLike]] = None,
 ) -> QueryServer:
     """A query server (not yet started) over a stored engine instance, the
     way ``pio deploy`` builds it (the reference's ``create_query_server(
@@ -1198,16 +1312,18 @@ def deploy_query_server(
     otherwise), which falls back to the last known good instance of the
     variant when the blob fails verification. ``/reload`` loads the
     variant's newest instance the same way; ``reuse_port`` lets the
-    processes of a serving pool share ``port``."""
+    processes of a serving pool share ``port``. ``mesh_devices`` is the
+    serving mesh of ``PIO_TPU_MESH_SERVE=1`` (default: every local CUDA
+    device). A server is one process: it joins no process group."""
     engine, engine_params = build_engine(variant)
     instance_id = resolve_instance_id(variant, instance_id)
-    ctx = ComputeContext.create(device=device)
+    ctx = ComputeContext.local(device=device)
     models = load_models_for_instance(
         instance_id, engine, engine_params, ctx, variant=variant
     )
     service = QueryService(
         engine, engine_params, models, device=ctx.device,
         instance_id=instance_id, admin_key=admin_key, variant=variant,
-        ctx=ctx,
+        ctx=ctx, mesh_devices=mesh_devices,
     )
     return QueryServer(service, host, port, reuse_port=reuse_port)

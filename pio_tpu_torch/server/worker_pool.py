@@ -45,8 +45,14 @@ Start one with ``python -m pio_tpu_torch deploy --workers N
     pool.wait_ready()
     pool.wait()          # supervise until /undeploy or pool.stop()
 
-Not ported: ``mesh_worker``, the shared metrics segment behind
-``/metrics``, the evloop front, QoS, SLOs, feedback and failpoints.
+``mesh_worker=True`` is the multi-device variant of the same ownership
+(reference l.93-98): worker 0 serves with ``PIO_TPU_MESH_SERVE=1``, its
+recommendation tables sharded over every local CUDA device (or the
+``mesh_devices`` given), and the other workers stay off the card as with
+``device_worker``. ``deploy --workers N --mesh-worker`` starts one.
+
+Not ported: the shared metrics segment behind ``/metrics``, the evloop
+front, QoS, SLOs, feedback and failpoints.
 """
 
 from __future__ import annotations
@@ -89,9 +95,12 @@ def _worker_main(spec: dict, idx: int, gen, shutdown_evt,
                  health_ports=None, lane_doorbell=None,
                  lane_resp_events=None) -> None:
     """Entry point of one pool worker (spawned process)."""
-    owns_device = spec["device_worker"] and idx == 0
+    owns_device = (spec["device_worker"] or spec["mesh_worker"]) and idx == 0
     if owns_device:
         device = spec["device"]
+        if spec["mesh_worker"]:
+            # the mesh owner serves sharded over every device it owns
+            os.environ["PIO_TPU_MESH_SERVE"] = "1"
     else:
         # a sibling never holds the card: hide it before anything can
         # initialise CUDA, and serve on the CPU
@@ -109,6 +118,7 @@ def _worker_main(spec: dict, idx: int, gen, shutdown_evt,
         variant, host=spec["host"], port=spec["port"],
         instance_id=instance_id, device=device,
         admin_key=spec.get("admin_key"), reuse_port=True,
+        mesh_devices=spec.get("mesh_devices") if owns_device else None,
     )
     service = server.service
     service.enable_pool(idx, spec["n_workers"], gen, shutdown_evt)
@@ -144,8 +154,10 @@ class ServingPool:
 
     ``device`` is the device worker's serving device (CUDA unless told
     otherwise); it is resolved in worker 0, never in the supervisor. A
-    pool without a device worker serves on the CPU, so it needs
-    ``device="cpu"`` and raises ``ValueError`` otherwise."""
+    pool without a device (or mesh) worker serves on the CPU, so it needs
+    ``device="cpu"`` and raises ``ValueError`` otherwise. ``mesh_worker``
+    makes worker 0 the device worker serving sharded over ``mesh_devices``
+    (default: every local CUDA device)."""
 
     def __init__(
         self,
@@ -157,9 +169,12 @@ class ServingPool:
         admin_key: Optional[str] = None,
         device_worker: bool = False,
         device: Optional[str] = None,
+        mesh_worker: bool = False,
+        mesh_devices=None,
     ):
         if n_workers < 1:
             raise ValueError("n_workers must be >= 1")
+        device_worker = device_worker or mesh_worker
         if not device_worker and str(device) != "cpu":
             # every worker of a pool without a device worker serves on
             # the CPU: refuse rather than leave the card idle quietly
@@ -196,6 +211,9 @@ class ServingPool:
             "instance_id": instance_id,
             "admin_key": admin_key,
             "device_worker": device_worker,
+            "mesh_worker": mesh_worker,
+            "mesh_devices": (None if mesh_devices is None
+                             else [str(d) for d in mesh_devices]),
             "device": None if device is None else str(device),
         }
         self.n_workers = n_workers

@@ -283,6 +283,7 @@ class LogisticRegressionAlgorithm(Algorithm):
     """Softmax regression (≙ the LogisticRegressionWithLBFGS variant)."""
 
     params_class = LogRegParams
+    splits_over_group = True
     query_class = Query
 
     def train(

@@ -48,10 +48,22 @@ class DeviceScorerModel:
     col_factors) tensors from :meth:`_scorer_factors`; the scorer lives on
     their device — the device the model was built or loaded on
     (``load_models_for_instance`` puts a persisted model's tensors on its
-    context's device), never a default."""
+    context's device), never a default.
+
+    The serving mesh channel (reference l.63, 73): a query server with
+    ``PIO_TPU_MESH_SERVE=1`` sets ``_serve_mesh`` (a tuple of devices) on
+    the model before building its scorer, which then shards both tables
+    over those devices; the model hands its device tables over to the
+    scorer's shards (:meth:`_release_device_tables`), so the card holds
+    them once."""
 
     def _scorer_factors(self) -> Tuple[torch.Tensor, torch.Tensor]:
         raise NotImplementedError
+
+    def _release_device_tables(self, rows: np.ndarray,
+                               cols: np.ndarray) -> None:
+        """Swap the model's device tables for the sharded scorer's host
+        mirrors (a model without this hook keeps its tables)."""
 
     def scorer(self, warmup: bool = False):
         """The scorer, built once per deploy lifetime. Lock-guarded:
@@ -65,17 +77,23 @@ class DeviceScorerModel:
                     from pio_tpu_torch.ops.topn import DeviceTopNScorer
 
                     rows, cols = self._scorer_factors()
+                    mesh = self.__dict__.get("_serve_mesh")
                     s = DeviceTopNScorer(
-                        rows, cols, warmup=warmup, device=rows.device
+                        rows, cols, warmup=warmup,
+                        device=mesh[0] if mesh else rows.device, mesh=mesh,
                     )
+                    if s.mesh_sharded:
+                        self._release_device_tables(*s.host_tables())
                     self.__dict__["_scorer"] = s
         return s
 
     def __getstate__(self):
-        # the scorer holds device tensors and a lock: never persisted
+        # the scorer holds device tensors and a lock, the mesh devices:
+        # never persisted
         d = dict(self.__dict__)
         d.pop("_scorer", None)
         d.pop("_scorer_lock", None)
+        d.pop("_serve_mesh", None)
         return d
 
 

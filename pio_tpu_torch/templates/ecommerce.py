@@ -159,6 +159,7 @@ class ECommAlgorithm(Algorithm):
     (≙ reference ECommAlgorithm)."""
 
     params_class = ECommAlgorithmParams
+    splits_over_group = True
     query_class = Query
 
     def train(self, ctx: ComputeContext, pd: PreparedData) -> ECommModel:

@@ -58,6 +58,7 @@ from pio_tpu_torch.models.als import ALSConfig, ALSFactors, train_als
 from pio_tpu_torch.parallel.context import ComputeContext
 from pio_tpu_torch.storage.frame import EventFrame
 from pio_tpu_torch.storage.registry import Storage
+from pio_tpu_torch.workflow.shard_store import ShardableModel
 from pio_tpu_torch.templates.common import (
     DeviceScorerModel,
     ItemScore,
@@ -242,16 +243,39 @@ class ALSAlgorithmParams(Params):
 
 
 @dataclasses.dataclass
-class ALSModel(DeviceScorerModel):
+class ALSModel(DeviceScorerModel, ShardableModel):
     """Factors as float32 tensors on the serving device, with the id maps.
 
     Persisted as host arrays; ``load_models_for_instance`` puts the
     tensors back on its context's device, and the scorer follows them.
+    With ``PIO_TPU_SHARDED_PERSIST=1`` both factor tables persist as
+    row shards (``workflow/shard_store.py``, the ``als`` partition rules;
+    reference l.249-270). Served over a serving mesh (``_serve_mesh``),
+    the sharded scorer holds the device copy and the model keeps the
+    host tables.
     """
 
     factors: ALSFactors  # user_factors, item_factors: tensors, one device
     user_index: BiMap
     item_index: BiMap
+
+    shard_template = "als"
+
+    def shard_arrays(self):
+        return {
+            "user_factors": self.factors.user_factors,
+            "item_factors": self.factors.item_factors,
+        }
+
+    def replace_shard_arrays(self, arrays):
+        return dataclasses.replace(self, factors=ALSFactors(
+            user_factors=arrays["user_factors"],
+            item_factors=arrays["item_factors"],
+        ))
+
+    def _release_device_tables(self, rows, cols) -> None:
+        self.factors = ALSFactors(user_factors=torch.from_numpy(rows),
+                                  item_factors=torch.from_numpy(cols))
 
     @staticmethod
     def from_factors(factors: ALSFactors, user_index: BiMap,
@@ -280,6 +304,7 @@ class ALSAlgorithm(Algorithm):
     MLlib ALS.train)."""
 
     params_class = ALSAlgorithmParams
+    splits_over_group = True
     query_class = Query
 
     def train(self, ctx: ComputeContext, pd: PreparedData) -> ALSModel:

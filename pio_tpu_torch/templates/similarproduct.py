@@ -262,6 +262,7 @@ class SimilarProductAlgorithm(Algorithm):
     (≙ reference ALSAlgorithm.train → MLlib ALS.trainImplicit)."""
 
     params_class = ALSAlgorithmParams
+    splits_over_group = True
     query_class = Query
 
     def train(

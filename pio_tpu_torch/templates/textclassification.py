@@ -243,6 +243,7 @@ class MLPAlgorithm(Algorithm):
     """Sparse-input MLP over TF-IDF bags (CUDA embedding-bag hot path)."""
 
     params_class = MLPParams
+    splits_over_group = True
     query_class = Query
 
     def train(self, ctx: ComputeContext, pd: PreparedData) -> TextMLPModel:

@@ -13,17 +13,25 @@ on the CPU. ``deploy`` serves from one process, or with ``--workers N``
 from a pool of N processes on one port (``server/worker_pool.py``), of
 which ``--device-worker`` lets worker 0 serve on ``--device`` while the
 others serve on the CPU and send their queries to it over the batch
-lane. ``train --profile-dir D`` writes a ``torch.profiler`` trace of the
-run into D, and ``train`` serves the run's ``/train.json``,
+lane, and ``--mesh-worker`` lets worker 0 serve the recommendation
+tables sharded over every local CUDA device (``PIO_TPU_MESH_SERVE``).
+``train`` joins a process group when the env contract names one
+(``PIO_TPU_COORDINATOR``, ``PIO_TPU_NUM_PROCESSES``, ``PIO_TPU_PROCESS_ID``;
+one process a device, ``parallel/distributed.py``), rank 0 writing the
+run: ALS (recommendation, similar-product, e-commerce), the text MLP and
+logreg split their work over the ranks; the other algorithms (naive
+Bayes, two-tower, sequence, ...) train a whole copy on every rank until
+their multi-device paths are ported (ROADMAP A7). ``train --profile-dir
+D`` writes a ``torch.profiler`` trace of the run into D, and ``train`` serves the run's ``/train.json``,
 ``/device.json`` and ``/metrics`` on a loopback sidecar (``--status-port``,
 else ``PIO_TPU_TRAIN_STATUS_PORT``: 0 an ephemeral port, printed at
 start; negative none). ``status --device cpu`` names the CUDA devices
-without opening one.
+without opening one; under the env contract ``status`` joins the group
+and prints the rank and the world.
 
 Not ported yet (ROADMAP A): the verbs blobserver, dashboard, fleet,
 route, rollout, adminserver, upgrade, run, lint, template list and app
-compact; the flags --mesh-worker, --slo, --qos, --faults and
---feedback-app.
+compact; the flags --slo, --qos, --faults and --feedback-app.
 
 Usage: ``python -m pio_tpu_torch <verb> ...``
 """
@@ -43,6 +51,7 @@ from typing import Optional
 import torch
 
 import pio_tpu_torch
+from pio_tpu_torch.parallel import distributed
 from pio_tpu_torch.parallel.context import ComputeContext
 from pio_tpu_torch.storage.registry import Storage
 from pio_tpu_torch.utils import knobs
@@ -75,11 +84,14 @@ def _channel_id(app_id: int, channel: Optional[str]):
         raise SystemExit(_err(str(e)))
 
 
-def _context(args, seed: int = 0) -> ComputeContext:
-    """The run's context on ``--device``; no card for ``cuda`` exits 1
-    with resolve_device's message."""
+def _context(args, seed: int = 0, group: bool = True) -> ComputeContext:
+    """The run's context on ``--device`` (with ``group``, the process
+    group's when the env contract names one); no card for ``cuda`` exits
+    1 with resolve_device's message."""
     try:
-        return ComputeContext.create(seed=seed, device=args.device)
+        if group:
+            return ComputeContext.create(seed=seed, device=args.device)
+        return ComputeContext.local(seed=seed, device=args.device)
     except RuntimeError as e:
         raise SystemExit(_err(str(e)))
 
@@ -223,11 +235,15 @@ def cmd_train(args) -> int:
         status_server.start()
         _out(f"Training status sidecar on 127.0.0.1:{status_server.port} "
              "(/train.json /device.json /metrics)")
+    if ctx.group is not None:
+        _out(f"Process group: rank {ctx.rank} of {ctx.world_size} on "
+             f"{ctx.device}")
     try:
         instance_id = run_train(engine, ep, variant, wp, ctx=ctx)
     finally:
         if status_server is not None:
             status_server.stop()
+        distributed.shutdown()
     _out(f"Training completed: engine instance {instance_id}")
     return 0
 
@@ -301,7 +317,7 @@ def _import_attr(spec: str):
 def cmd_eval(args) -> int:
     from pio_tpu_torch.workflow.core_workflow import run_evaluation
 
-    ctx = _context(args)
+    ctx = _context(args, group=False)
     evaluation = _import_attr(args.evaluation)
     generator = (
         _import_attr(args.engine_params_generator)
@@ -348,9 +364,10 @@ def cmd_deploy(args) -> int:
 
     if args.workers > 1:
         return _deploy_pool(args, load_variant(args.engine_json))
-    if args.device_worker:
-        return _err("--device-worker needs --workers > 1")
-    device = _context(args).device
+    for flag in ("device_worker", "mesh_worker"):
+        if getattr(args, flag):
+            return _err(f"--{flag.replace('_', '-')} needs --workers > 1")
+    device = _context(args, group=False).device
     variant = load_variant(args.engine_json)
     server = deploy_query_server(
         variant,
@@ -388,6 +405,9 @@ def _deploy_pool(args, variant) -> int:
             variant, host=args.ip, port=args.port, n_workers=args.workers,
             instance_id=args.engine_instance_id, admin_key=args.admin_key,
             device_worker=args.device_worker, device=args.device,
+            mesh_worker=args.mesh_worker,
+            mesh_devices=(args.mesh_devices.split(",")
+                          if args.mesh_devices else None),
         )
     except ValueError as e:
         return _err(str(e))
@@ -399,8 +419,9 @@ def _deploy_pool(args, variant) -> int:
     except (RuntimeError, TimeoutError) as e:
         pool.stop()
         return _err(f"serving pool failed to start: {e}")
-    _out(f"Query Server pool ({args.workers} workers"
-         f"{', device worker 0' if args.device_worker else ''}) "
+    owner = (", mesh worker 0" if args.mesh_worker
+             else ", device worker 0" if args.device_worker else "")
+    _out(f"Query Server pool ({args.workers} workers{owner}) "
          f"listening on {args.ip}:{pool.port}")
     try:
         pool.wait()  # until POST /undeploy on any worker
@@ -430,7 +451,7 @@ def cmd_batchpredict(args) -> int:
     from pio_tpu_torch.workflow.batch_predict import run_batch_predict
     from pio_tpu_torch.workflow.engine_json import load_variant
 
-    ctx = _context(args)
+    ctx = _context(args, group=False)
     variant = load_variant(args.engine_json)
     n = run_batch_predict(
         variant,
@@ -481,6 +502,11 @@ def cmd_status(args) -> int:
         _out(f"devices: {names}")
     else:
         _out("devices: unavailable (no CUDA device)")
+    if distributed.env_configured():
+        ctx = _context(args)
+        _out(f"process group: rank {ctx.rank} of {ctx.world_size} "
+             f"({torch.distributed.get_backend()}, {ctx.device})")
+        distributed.shutdown()
     checks = Storage.verify_all_data_objects()
     ok = all(checks.values())
     for name, healthy in sorted(checks.items()):
@@ -754,6 +780,18 @@ def build_parser() -> argparse.ArgumentParser:
         help="with --workers > 1: worker 0 serves on --device and the "
              "others send it their queries over the shared-memory batch "
              "lane; only worker 0 holds the card",
+    )
+    a.add_argument(
+        "--mesh-worker", action="store_true",
+        help="with --workers > 1: worker 0 owns every local CUDA device "
+             "and serves the recommendation tables sharded over them "
+             "(PIO_TPU_MESH_SERVE); the others serve on the CPU",
+    )
+    a.add_argument(
+        "--mesh-devices", default=None,
+        help="with --mesh-worker: the comma-separated devices worker 0 "
+             "shards over (default: every local CUDA device); a device may "
+             "repeat, e.g. cuda:0,cuda:0 on a one-card host",
     )
     _device_flag(a)
     a.set_defaults(fn=cmd_deploy)

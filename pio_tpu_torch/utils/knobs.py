@@ -71,6 +71,24 @@ _DEFAULTS = {
     # `pio train`'s status sidecar port: 0 an ephemeral one, negative
     # none
     "PIO_TPU_TRAIN_STATUS_PORT": "0",
+    # -- the multi-device paths (parallel/distributed.py, models/als.py,
+    # server/query_server.py, workflow/shard_store.py), the reference's
+    # names and defaults --
+    # `host:port` of rank 0's rendezvous; unset = one process
+    "PIO_TPU_COORDINATOR": "",
+    # world size of the process group
+    "PIO_TPU_NUM_PROCESSES": "",
+    # this process's rank
+    "PIO_TPU_PROCESS_ID": "",
+    # the ALS group wire: `auto`/`compact` ship the encoded edge wire,
+    # 1/n a rank, `blocked` the host-packed float32 blocks
+    "PIO_TPU_ALS_MESH_WIRE": "auto",
+    # `1` serves the recommendation factor tables sharded over the
+    # serving devices of the process
+    "PIO_TPU_MESH_SERVE": "0",
+    # `1` persists shardable models as per-shard records + a shard
+    # manifest
+    "PIO_TPU_SHARDED_PERSIST": "0",
 }
 
 #: knobs whose value must be positive; another value reads as the default
@@ -79,6 +97,15 @@ _POSITIVE = frozenset({
     "PIO_TPU_LANE_TIMEOUT_S", "PIO_TPU_HEARTBEAT_MAX_AGE_S",
     "PIO_TPU_PROFILE_EXECUTIONS",
 })
+
+
+def knob_raw(name: str):
+    """The knob's stripped value, or None when it is unset or empty (the
+    reference's ``knob_raw``: the distributed contract tells "unset" from
+    any value)."""
+    _DEFAULTS[name]  # a knob not declared here raises KeyError
+    v = os.environ.get(name, "").strip()
+    return v or None
 
 
 def knob_str(name: str) -> str:

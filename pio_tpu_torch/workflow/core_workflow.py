@@ -24,9 +24,20 @@ Each run records its step stream into a trainwatch ``StepRecorder`` (the
 ``$PIO_TPU_HOME/runs/<engine-id>.jsonl``, COMPLETED or FAILED
 (best-effort: a ledger that cannot be written never fails the run).
 ``WorkflowParams.profile_dir`` takes a ``torch.profiler`` trace of the
-whole train there (``obs/profile.py``). Not ported yet: the reference's
-PersistentModel opt-out, sharded persistence and the train tracer
-(ROADMAP A).
+whole train there (``obs/profile.py``).
+
+With ``PIO_TPU_SHARDED_PERSIST=1`` the shardable models' big arrays go
+out as per-shard records and a shard manifest before the blob
+(``workflow/shard_store.py``; shards → shard manifest → blob → blob
+manifest), one shard a device of the run, and a load reassembles them on
+any device count. Under a process group every rank trains: an algorithm
+whose class sets ``splits_over_group`` (the ALS ones, the text MLP,
+logreg) splits its work over the ranks, and any other trains a whole copy
+on each rank (a warning names them). Only the coordinator (rank 0)
+writes: the engine instance, the models, the run ledger row and the
+profile trace; the other ranks wait at a barrier and return the
+coordinator's instance id. Not ported yet: the reference's
+PersistentModel opt-out and the train tracer (ROADMAP A).
 """
 
 from __future__ import annotations
@@ -57,6 +68,7 @@ from pio_tpu_torch.controller.params import params_to_dict, params_to_json
 from pio_tpu_torch.obs import devicewatch, trainwatch
 from pio_tpu_torch.obs.metrics import monotonic_s
 from pio_tpu_torch.obs.profile import trace
+from pio_tpu_torch.parallel import distributed
 from pio_tpu_torch.parallel.context import ComputeContext
 from pio_tpu_torch.storage.records import (
     EngineInstance,
@@ -66,6 +78,7 @@ from pio_tpu_torch.storage.records import (
 )
 from pio_tpu_torch.storage.registry import Storage
 from pio_tpu_torch.workflow.engine_json import EngineVariant
+from pio_tpu_torch.workflow import shard_store
 from pio_tpu_torch.workflow.params import WorkflowParams
 
 log = logging.getLogger("pio_tpu_torch.workflow")
@@ -139,6 +152,16 @@ def run_train(
     with ``workflow_params.seed``."""
     if ctx is None:
         ctx = ComputeContext.create(seed=workflow_params.seed)
+    if ctx.group is not None:
+        whole = [n for n, _ in engine_params.algorithm_params_list
+                 if not engine.algorithm_class_map[n].splits_over_group]
+        if whole:
+            log.warning(
+                "process group of %d ranks: %s train a whole copy on every "
+                "rank and only rank 0's is kept (their multi-device paths "
+                "are not ported; ROADMAP A7)", ctx.world_size, whole)
+    if ctx.group is not None and not ctx.is_coordinator:
+        return _run_train_rank(engine, engine_params, workflow_params, ctx)
     instances = Storage.get_meta_data_engine_instances()
     now = _utcnow()
     instance = EngineInstance(
@@ -166,6 +189,9 @@ def run_train(
     )
     instance_id = instances.insert(instance)
     instance = instances.get(instance_id)
+    if ctx.group is not None:
+        # the other ranks return this id
+        torch.distributed.broadcast_object_list([instance_id], src=0)
     log.info("training started: instance %s on %s", instance_id, ctx.device)
 
     if workflow_params.checkpoint_every > 0:
@@ -267,8 +293,17 @@ def run_train(
 
             recorder.set_phase("persist")
             t_persist = monotonic_s()
-            blob = serialize_models(models)
             models_store = Storage.get_model_data_models()
+            blob_models = list(models)
+            if shard_store.sharded_persist_enabled():
+                # shard records + shard manifest before the blob, which
+                # keeps placeholders: a torn persist leaves shards without
+                # a blob, never a blob naming missing shards
+                blob_models = shard_store.save_sharded(
+                    models_store, instance_id, blob_models,
+                    n_shards=ctx.num_devices, mesh_shape=[ctx.num_devices],
+                )
+            blob = serialize_models(blob_models)
             models_store.insert(Model(id=instance_id, models=blob))
             manifest = _json.dumps(
                 {"sha256": hashlib.sha256(blob).hexdigest(),
@@ -296,6 +331,8 @@ def run_train(
             _append_run_record("COMPLETED", train_s, timings)
             log.info("training finished: instance %s (%.2fs, %d model(s))",
                      instance_id, train_s, len(models))
+            if ctx.group is not None:
+                distributed.barrier()  # the run is written: ranks go on
             return instance_id
     except Exception:
         err = traceback.format_exc()
@@ -308,8 +345,36 @@ def run_train(
         raise
 
 
+def _run_train_rank(engine: Engine, engine_params: EngineParams,
+                    workflow_params: WorkflowParams,
+                    ctx: ComputeContext) -> str:
+    """A rank other than the coordinator in :func:`run_train`: take the
+    coordinator's instance id, train (the collectives pair with the
+    coordinator's), write nothing, and wait at the barrier until the
+    coordinator has persisted the run."""
+    got = [None]
+    torch.distributed.broadcast_object_list(got, src=0)
+    instance_id = got[0]
+    log.info("training started: rank %d of instance %s on %s", ctx.rank,
+             instance_id, ctx.device)
+    recorder = trainwatch.StepRecorder(instance_id, "")
+    with trainwatch.recording(recorder):
+        engine.train(
+            ctx, engine_params,
+            skip_sanity_check=workflow_params.skip_sanity_check,
+            stop_after_read=workflow_params.stop_after_read,
+            stop_after_prepare=workflow_params.stop_after_prepare,
+            timings={},
+        )
+    if not (workflow_params.stop_after_read
+            or workflow_params.stop_after_prepare):
+        distributed.barrier()
+    return instance_id
+
+
 def _verified_blob_models(
-    models_store, instance_id: str, device: torch.device
+    models_store, instance_id: str, device: torch.device,
+    n_devices: Optional[int] = None,
 ) -> List[Any]:
     """Fetch + checksum-verify + deserialize one instance's model blob.
 
@@ -336,12 +401,17 @@ def _verified_blob_models(
                 f"verification (manifest {want}, blob {got})"
             )
     try:
-        return deserialize_models(record.models, device)
+        models = deserialize_models(record.models, device)
     except Exception as e:
         raise RuntimeError(
             f"model blob for instance {instance_id!r} failed to "
             f"deserialize: {e}"
         ) from e
+    # a shard-stripped blob reassembles from its verified shards
+    return shard_store.restore_sharded(
+        models_store, instance_id, models, n_devices=n_devices,
+        device=device,
+    )
 
 
 def load_models_for_instance(
@@ -364,7 +434,8 @@ def load_models_for_instance(
     """
     models_store = Storage.get_model_data_models()
     try:
-        models = _verified_blob_models(models_store, instance_id, ctx.device)
+        models = _verified_blob_models(models_store, instance_id, ctx.device,
+                                       ctx.num_devices)
     except RuntimeError as primary_err:
         if variant is None:
             raise
@@ -382,7 +453,8 @@ def load_models_for_instance(
             if cand.id == instance_id:
                 continue
             try:
-                models = _verified_blob_models(models_store, cand.id, ctx.device)
+                models = _verified_blob_models(models_store, cand.id,
+                                               ctx.device, ctx.num_devices)
             except RuntimeError as e:
                 log.warning("fallback candidate %s also bad: %s", cand.id, e)
                 continue

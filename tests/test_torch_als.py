@@ -13,7 +13,7 @@ Tolerances, stated per check:
 - the solves of well-conditioned systems (``reg = 0.1``) by the same
   method: ``rtol = atol = 1e-4``; CG runs K+8 iterations in both;
 - the trainer from one initial state (the reference's ``jax.random``
-  init, fed to the port's ``_run_local``): 3 iterations of rounding
+  init, fed to the port's ``_run_iterations``): 3 iterations of rounding
   differences through ``reg = 0.1`` solves, ``atol = 1e-4`` on factors of
   O(1).
 """
@@ -401,9 +401,9 @@ def test_local_trainer_from_reference_init(synthetic, implicit):
     by_user = T._pack_blocks(u, i, r, s["U"], W, chunk)
     by_item = T._pack_blocks(i, u, r, s["I"], W, chunk)
     P0, Q0 = _reference_init(1, s["U"], s["I"], rank)
-    P, Q = T._run_local(tuple(_t(x) for x in by_user),
-                        tuple(_t(x) for x in by_item), _t(P0), _t(Q0), cfg,
-                        chunk, chunk)
+    P, Q = T._run_iterations(tuple(_t(x) for x in by_user),
+                             tuple(_t(x) for x in by_item), _t(P0), _t(Q0),
+                             cfg, chunk, chunk)
     m = _ref_math(implicit=implicit, alpha=2.0, reg=0.1, solver="cholesky")
     jb_u = tuple(jnp.asarray(x) for x in by_user)
     jb_i = tuple(jnp.asarray(x) for x in by_item)
@@ -528,9 +528,11 @@ def test_item_wire_formats_agree_bitwise(synthetic):
         gen = torch.Generator().manual_seed(0)
         P0 = T._init_factors(s["U"], cfg.rank, gen)
         Q0 = T._init_factors(s["I"], cfg.rank, gen)
-        outs[wire] = T._run_packed(
-            tuple(T._wire_tensor(a, CPU) for a in host_wire), P0, Q0, cfg,
-            shapes, rating_wire, wire)
+        by_user, by_item = T._decode_pack(
+            tuple(T._wire_tensor(a, CPU) for a in host_wire), shapes,
+            s["U"], s["I"], rating_wire, wire)
+        outs[wire] = T._run_iterations(by_user, by_item, P0, Q0, cfg,
+                                       shapes[0], shapes[3])
     assert torch.equal(outs["planes"][0], outs["delta12"][0])
     assert torch.equal(outs["planes"][1], outs["delta12"][1])
 

@@ -1,0 +1,226 @@
+"""Run checks of the port in a gloo process group of CPU ranks.
+
+Not a test module: the ``tests/test_torch_*`` files that hold the port's
+multi-device paths against the JAX package's meshes call :func:`run_ranks`
+once per file. It spawns ``world`` processes, each of which joins the
+group through the port's env contract (``PIO_TPU_COORDINATOR``,
+``PIO_TPU_NUM_PROCESSES``, ``PIO_TPU_PROCESS_ID``) with ``ComputeContext.
+create(device="cpu")``, runs every task in order and sends back its
+results. The children import only ``torch`` and ``pio_tpu_torch``.
+"""
+
+from __future__ import annotations
+
+import importlib
+import multiprocessing as mp
+import os
+import socket
+import traceback
+
+
+def free_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _child(rank: int, world: int, port: int, tasks, env, out,
+           device: str = "cpu") -> None:
+    try:
+        for k, v in env.items():  # None unsets
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        os.environ["PIO_TPU_COORDINATOR"] = f"127.0.0.1:{port}"
+        os.environ["PIO_TPU_NUM_PROCESSES"] = str(world)
+        os.environ["PIO_TPU_PROCESS_ID"] = str(rank)
+        import torch
+
+        torch.set_num_threads(1)
+        from pio_tpu_torch.parallel import distributed
+        from pio_tpu_torch.parallel.context import ComputeContext
+
+        ctx = ComputeContext.create(device=device)
+        results = []
+        for target, payload in tasks:
+            module, name = target.rsplit(":", 1)
+            fn = getattr(importlib.import_module(module), name)
+            results.append(fn(ctx, payload))
+        distributed.barrier()
+        distributed.shutdown()
+        out.put((rank, "ok", results))
+    except BaseException:
+        out.put((rank, "error", traceback.format_exc()))
+
+
+def _start(world: int, tasks, env, device: str):
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=_child,
+                         args=(r, world, port, tasks, dict(env or {}), out,
+                               device),
+                         daemon=True)
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    return procs, out
+
+
+def _collect(world: int, procs, out, timeout: float) -> list:
+    got = {}
+    try:
+        for _ in range(world):
+            rank, status, value = out.get(timeout=timeout)
+            if status != "ok":
+                raise RuntimeError(f"rank {rank} failed:\n{value}")
+            got[rank] = value
+    finally:
+        for p in procs:
+            p.join(timeout=10)
+            if p.is_alive():
+                p.kill()
+    return [got[r] for r in range(world)]
+
+
+def run_ranks(world: int, tasks, env=None, timeout: float = 120.0,
+              device: str = "cpu") -> list:
+    """Run ``tasks`` — ``[("module:function", payload)]``, each called as
+    ``function(ctx, payload)`` — on ``world`` ranks (gloo on the CPU, NCCL
+    with ``device="cuda"``). Returns each rank's list of results, by rank;
+    raises with a rank's traceback when one fails."""
+    return _collect(world, *_start(world, tasks, env, device), timeout)
+
+
+def run_groups(tasks_by_world: dict, env=None, timeout: float = 180.0) -> dict:
+    """:func:`run_ranks` for several gloo groups at once, one a world size
+    (``{world: tasks}``): every group's ranks start together. Returns
+    ``{world: results by rank}``."""
+    started = {w: _start(w, t, env, "cpu") for w, t in tasks_by_world.items()}
+    return {w: _collect(w, *s, timeout) for w, s in started.items()}
+
+
+# -- tasks: each runs in a rank as ``task(ctx, payload)`` ---------------------
+def _numpy_tree(tree):
+    return {k: v.detach().cpu().numpy() for k, v in tree.items()}
+
+
+def als_task(ctx, payload):
+    """``train_als`` on the rank's group from the given initial factors,
+    on the wire ``payload["wire"]``; returns (user, item) factors and the
+    stats."""
+    import numpy as np
+
+    from pio_tpu_torch.models import als
+
+    os.environ["PIO_TPU_ALS_MESH_WIRE"] = payload["wire"]
+    if payload.get("init") is not None:
+        init = iter(payload["init"])
+        orig = als._init_factors
+        als._init_factors = lambda n, rank, gen: __import__("torch") \
+            .from_numpy(np.array(next(init), np.float32))
+    try:
+        stats = {}
+        f = als.train_als(ctx, payload["u"], payload["i"], payload["r"],
+                          payload["U"], payload["I"],
+                          als.ALSConfig(**payload["cfg"]), stats=stats)
+    finally:
+        if payload.get("init") is not None:
+            als._init_factors = orig
+    return f.user_factors, f.item_factors, stats
+
+
+def mlp_task(ctx, payload):
+    """``train_mlp`` on the rank's group from the given initial params;
+    returns the fitted params (host numpy)."""
+    import torch
+
+    from pio_tpu_torch.models import mlp
+
+    p0 = {k: torch.from_numpy(v) for k, v in payload["init"].items()}
+    orig = mlp.init_params
+    mlp.init_params = lambda V, H, C, generator: {
+        k: v.to(generator.device) for k, v in p0.items()}
+    try:
+        m = mlp.train_mlp(ctx, payload["ids"], payload["w"], payload["y"],
+                          payload["V"], payload["C"],
+                          mlp.MLPConfig(**payload["cfg"]))
+    finally:
+        mlp.init_params = orig
+    return _numpy_tree({k: getattr(m, k)
+                        for k in ("w_in", "b_in", "w_out", "b_out")})
+
+
+def logreg_task(ctx, payload):
+    """``train_logreg`` on the rank's group from the given initial
+    params; returns (weights, bias)."""
+    import torch
+
+    from pio_tpu_torch.models import logreg
+
+    p0 = {k: torch.from_numpy(v) for k, v in payload["init"].items()}
+    orig = logreg.init_params
+    logreg.init_params = lambda d, c, seed: dict(p0)
+    try:
+        m = logreg.train_logreg(ctx, payload["X"], payload["y"],
+                                payload["C"],
+                                logreg.LogRegConfig(**payload["cfg"]))
+    finally:
+        logreg.init_params = orig
+    return m.weights, m.bias
+
+
+def group_task(ctx, payload):
+    """The group's facts and one run of each collective and placement."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from pio_tpu_torch.parallel import distributed, partition
+    from pio_tpu_torch.parallel.mesh import mesh_axis_size
+
+    r = ctx.rank
+    x = torch.full((3, 4), float(r + 1))
+    total = distributed.all_reduce_sum(x.sum().reshape(1), ctx.group)
+    full = torch.arange(8, dtype=torch.float32).reshape(4, 2) + r
+    u16 = np.array([[r, 65535 - r]], np.uint16)
+    gathered = distributed.all_gather_rows(torch.from_numpy(u16), ctx.group)
+    n_rows = 3 if r == 0 else 5
+    xs = np.full((n_rows, 2), float(r))
+    ys = np.arange(n_rows) + 100 * r
+    batch = ctx.shard_batch({"ids": np.arange(5)}, pad_value=-1)
+    table = np.arange(7 * 2, dtype=np.float32).reshape(7, 2)
+    placed, specs = ctx.shard_params(
+        {"user_factors": table, "bias": np.ones(3, np.float32)},
+        template="als")
+    return {
+        "rank": r, "world": ctx.world_size, "num_devices": ctx.num_devices,
+        "coordinator": ctx.is_coordinator, "backend": dist.get_backend(),
+        "device": str(ctx.device), "mesh_shape": list(ctx.mesh.shape),
+        "data_axis": mesh_axis_size(ctx.mesh, "data"),
+        "model_axis": mesh_axis_size(ctx.mesh, "model"),
+        "all_reduce": float(total),
+        "reduce_scatter": distributed.reduce_scatter_rows(
+            full, ctx.group).numpy(),
+        "all_gather": gathered.numpy(),
+        "global": distributed.host_local_to_global(ctx, [xs, ys]),
+        "shard_batch": (batch["ids"].numpy(), batch["mask"].numpy()),
+        "shard_params": (placed["user_factors"].numpy(),
+                         tuple(specs["user_factors"]),
+                         placed["bias"].numpy()),
+    }
+
+
+def run_train_task(ctx, payload):
+    """``run_train`` of a variant on the rank's group (SQLite storage
+    under the shared home); returns the instance id."""
+    from pio_tpu_torch.workflow.core_workflow import run_train
+    from pio_tpu_torch.workflow.engine_json import (
+        build_engine,
+        variant_from_dict,
+    )
+
+    variant = variant_from_dict(payload)
+    engine, ep = build_engine(variant)
+    return run_train(engine, ep, variant, ctx=ctx)
