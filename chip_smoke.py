@@ -211,10 +211,24 @@ kernels (the forward, and the backward's bag scatter and bag dot):
    train_mlp against one rank); the recommendation template at
    MovieLens-25M's width with ``PIO_TPU_MESH_SERVE=1`` over (cuda:0,) x 4
    (1,024 users' top-10 against the unsharded scorer, ``/stats.json``'s
-   ``sharding``, the ``shard`` ledger, device memory, two ``/reload``);
-   ``pio train`` with ``PIO_TPU_SHARDED_PERSIST=1`` on SQLite and
-   ``deploy --workers 2 --mesh-worker`` (worker 0 alone on the card,
-   sharded; worker 1 on the CPU).
+   ``sharding``, the ``shard`` ledger, device memory over eight
+   ``/reload``, each generation's live blocks by the code that allocated
+   them: the shards' requested bytes and the allocator's slack, and
+   nothing else); ``pio train`` with ``PIO_TPU_SHARDED_PERSIST=1`` on
+   SQLite and ``deploy --workers 2 --mesh-worker`` (worker 0 alone on the
+   card, sharded; worker 1 on the CPU);
+42. the neural templates over a mesh on the one card: in a 1-rank NCCL
+   group, ``train_two_tower`` and ``train_seqrec`` (ring and ulysses)
+   over the group's mesh at ``bench.py``'s shapes, phase 30's tables and
+   phase 33's parameters bit for bit, each collective's device time
+   (CUDA events); two gloo ranks on cuda:0 (whether gloo carries
+   ``all_to_all_single`` and a send on CUDA tensors recorded; two-tower
+   over data 2 and model 2, the sequence model over model 2, seq 2 and
+   pipe 2 where gloo carries their collectives, 3 steps each, against
+   one rank: the parameters and the first step's gradients); and the
+   two-tower template on phase 30's tables persisted as 4 shard records
+   and served with ``PIO_TPU_MESH_SERVE=1`` over (cuda:0,) x 4 (256
+   users' top-10 against the unsharded scorer).
 
 The CLI phases write their homes under ``build/chip_smoke_homes/``
 (gitignored), made afresh each run; every server process is stopped
@@ -5502,6 +5516,8 @@ MESH_USERS = 1024
 MESH_SCORE_TOL = 1e-5
 #: 41.4's device memory a generation may hold beyond its padded tables
 MESH_EXTRA_LIMIT = 2 << 20
+#: 41.4's /reload count, over which the extra must not grow
+MESH_RELOADS = 8
 #: 41.3's two ranks: the steps of train_mlp held to the 1-rank run at the
 #: CPU tests' limit (5 steps, 1e-5), and the gloo collectives probed
 MESH_MLP_STEPS = 5
@@ -5513,7 +5529,7 @@ MESH_PROBES = ("all_reduce", "reduce_scatter_tensor",
 NCCL_REFUSAL = "Duplicate GPU detected"
 #: a rank process's time limit (its start, the card's context, its work),
 #: by task
-MESH_RANK_TIMEOUT_S = {"nccl-two": 60, "gloo": 150}
+MESH_RANK_TIMEOUT_S = {"nccl-two": 60, "gloo": 150, "neural-gloo": 150}
 
 
 @contextlib.contextmanager
@@ -5646,9 +5662,9 @@ def mesh_mlp(args, smi, ctx, text) -> dict:
 
 
 def rank_main(task: str, out: str) -> int:
-    """A rank process of 41.3 (``chip_smoke.py --mesh-rank TASK --mesh-out
-    FILE``): joins the group of the env contract and runs ``task``,
-    writing what it found to ``out`` (npz)."""
+    """A rank process of 41.3 or 42.2 (``chip_smoke.py --mesh-rank TASK
+    --mesh-out FILE``): joins the group of the env contract and runs
+    ``task``, writing what it found to ``out`` (npz)."""
     from pio_tpu_torch.parallel import distributed
 
     result = {}
@@ -5659,6 +5675,16 @@ def rank_main(task: str, out: str) -> int:
             distributed.all_reduce_sum(x, ctx.group)
             torch.cuda.synchronize()
             result["nccl"] = f"ok: all_reduce gave {x[0].item()}"
+        elif task == "neural-gloo":
+            ctx = ComputeContext.create(device=CARD, backend="gloo")
+            result.update(neural_ranks_work(ctx, out))
+            if result["p2p"] != "ok":
+                # a refused send may have broken the ranks' gloo pair, and
+                # a barrier or teardown over it could wait for minutes:
+                # the process ends here, its results saved
+                np.savez(out, **result)
+                sys.stdout.flush()
+                os._exit(0)
         else:
             ctx = ComputeContext.create(device=CARD, backend="gloo")
             probes = mesh_probe(ctx)
@@ -5874,11 +5900,34 @@ def near_tie_check(got: list, want_idx, want_val, items, where) -> int:
     return 1
 
 
+def live_blocks() -> list:
+    """The CUDA allocator's live blocks that were allocated while memory
+    history was recording: ``(where, size, requested size)`` each, where
+    is the innermost frame in this repository (``file:line function``).
+    Taken after :func:`allocated`, so no freed block or cuBLAS workspace
+    is among them."""
+    out = []
+    for seg in torch.cuda.memory._snapshot()["segments"]:
+        for blk in seg["blocks"]:
+            frames = blk.get("frames") or []
+            if blk["state"] != "active_allocated" or not frames:
+                continue
+            ours = [f for f in frames if "pio_tpu_torch" in f["filename"]
+                    or f["filename"].endswith("chip_smoke.py")]
+            top = ours[0] if ours else frames[0]
+            out.append((f"{os.path.relpath(top['filename'], ROOT)}:"
+                        f"{top['line']} {top['name']}", blk["size"],
+                        blk["requested_size"]))
+    return out
+
+
 def mesh_serving(args, smi, factors) -> dict:
     """41.4: the recommendation template at MovieLens-25M's width with
     PIO_TPU_MESH_SERVE=1, the scorer sharded over (cuda:0,) * 4; 1,024
     users' top-10 against the unsharded scorer; /stats.json, /device.json
-    and device memory; one /reload."""
+    and device memory over a deploy and MESH_RELOADS /reload, each
+    generation's live blocks grouped by the code that allocated them
+    (the allocator's memory history)."""
     n_users, rank = factors.user_factors.shape
     n_items = factors.item_factors.shape[0]
     users = BiMap({f"u{n}": n for n in range(n_users)})
@@ -5897,37 +5946,46 @@ def mesh_serving(args, smi, factors) -> dict:
     del plain
     before = allocated()
     mesh = (CARD,) * MESH_SHARDS
-    with knob("PIO_TPU_MESH_SERVE", "1"):
-        t0 = time.monotonic()
-        server = deploy_query_server(variant, host="127.0.0.1", port=0,
-                                     instance_id=iid, device=CARD,
-                                     mesh_devices=mesh)
-        deploy_s = time.monotonic() - t0
-        with server:
-            placed = allocated()
-            conn = http.client.HTTPConnection("127.0.0.1", server.port,
-                                              timeout=60)
-            near = 0
+    torch.cuda.memory._record_memory_history(max_entries=200_000,
+                                             stacks="python")
+    try:
+        with knob("PIO_TPU_MESH_SERVE", "1"):
             t0 = time.monotonic()
-            for k, c in enumerate(codes):
-                code, got = request(conn, "POST", "/queries.json",
-                                    {"user": f"u{int(c)}", "num": 10})
-                if code != 200:
-                    raise AssertionError(f"41.4 query {k}: {code} {got}")
-                near += near_tie_check(got["itemScores"], want_idx[k],
-                                       want_val[k], items, f"41.4 user {c}")
-            q_s = time.monotonic() - t0
-            _, stats = request(conn, "GET", "/stats.json")
-            _, device = request(conn, "GET", "/device.json")
-            code, reload_got = request(conn, "POST", "/reload", {})
-            after_reload = allocated()
-            codes_after = []
-            for c in codes[:64]:
-                codes_after.append(request(conn, "POST", "/queries.json", {
-                    "user": f"u{int(c)}", "num": 10})[0])
-            code2, _ = request(conn, "POST", "/reload", {})
-            after_reload2 = allocated()
-            conn.close()
+            server = deploy_query_server(variant, host="127.0.0.1", port=0,
+                                         instance_id=iid, device=CARD,
+                                         mesh_devices=mesh)
+            deploy_s = time.monotonic() - t0
+            with server:
+                conn = http.client.HTTPConnection("127.0.0.1", server.port,
+                                                  timeout=60)
+                near = 0
+                t0 = time.monotonic()
+                for k, c in enumerate(codes):
+                    code, got = request(conn, "POST", "/queries.json",
+                                        {"user": f"u{int(c)}", "num": 10})
+                    if code != 200:
+                        raise AssertionError(f"41.4 query {k}: {code} {got}")
+                    near += near_tie_check(got["itemScores"], want_idx[k],
+                                           want_val[k], items,
+                                           f"41.4 user {c}")
+                q_s = time.monotonic() - t0
+                _, stats = request(conn, "GET", "/stats.json")
+                _, device = request(conn, "GET", "/device.json")
+                # a generation: the deploy (its 1,024 queries), then each
+                # /reload with 64 queries after it
+                gens = [("deploy", allocated(), live_blocks())]
+                reload_codes = set()
+                for r in range(MESH_RELOADS):
+                    code, _ = request(conn, "POST", "/reload", {})
+                    reload_codes.add(code)
+                    for c in codes[:64]:
+                        reload_codes.add(request(conn, "POST", "/queries.json", {
+                            "user": f"u{int(c)}", "num": 10})[0])
+                    gens.append((f"reload {r + 1}", allocated(),
+                                 live_blocks()))
+                conn.close()
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
     sh = stats["sharding"]
     (m,) = sh["models"]
     rows_pad = -(-n_users // MESH_SHARDS) * MESH_SHARDS
@@ -5940,37 +5998,69 @@ def mesh_serving(args, smi, factors) -> dict:
         f"answers as the unsharded scorer's, {near} with a near-tie "
         f"reordered (|score gap| <= {MESH_SCORE_TOL}); {smi}")
     log(f"  41.4 /stats.json sharding {json.dumps(sh)}")
+    tables = MESH_SHARDS * per_device
+    extra = [g - before - tables for _, g, _ in gens]
     log(f"  41.4 /device.json shard ledger {shard_ledger} B; "
-        f"memory_allocated {before} before, {placed} deployed (+"
-        f"{placed - before}), {after_reload} after /reload ({code}, "
-        f"{reload_got}; +{after_reload - before}), {after_reload2} after a "
-        f"second ({code2}); the tables padded: "
-        f"{MESH_SHARDS * per_device} B")
+        f"memory_allocated {before} before the deploy; the tables padded: "
+        f"{tables} B; beyond them after the deploy and each of "
+        f"{MESH_RELOADS} /reload: {extra} B")
+    # each generation's live blocks in two parts: the scorer's shards (the
+    # requested bytes, and the allocator's slack: a block reused from its
+    # cache keeps a remainder it does not split, under 1 MiB a block) and
+    # every other block allocated since the deploy began
+    parts = []
+    for (name, _, blocks), e in zip(gens, extra):
+        shards = [b for b in blocks if "_place_sharded" in b[0]]
+        rest = [b for b in blocks if "_place_sharded" not in b[0]]
+        part = {"shard_blocks": len(shards),
+                "shard_requested": sum(b[2] for b in shards),
+                "shard_slack": sum(b[1] - b[2] for b in shards),
+                "largest_slack": max((b[1] - b[2] for b in shards),
+                                     default=0),
+                "other_bytes": sum(b[1] for b in rest),
+                "other": sorted({b[0] for b in rest})}
+        parts.append(part)
+        log(f"  41.4 {name}: {e} B beyond the tables; live blocks since the "
+            f"deploy began: {json.dumps(part)}")
     if not (sh["enabled"] and sh["meshDevices"] == MESH_SHARDS
             and m["nDevices"] == MESH_SHARDS
             and m["bytesPerDevice"] == per_device):
         raise AssertionError(f"41.4 sharding block {sh}")
-    # a generation holds the tables once: at each deploy and /reload the
-    # growth over the memory before the first deploy is the padded tables
-    # plus other buffers, which this script measured on an NVIDIA H100
-    # 80GB HBM3 at 700 W at 2,560-149,504 B after a /reload and at most
-    # 1,003,520 B after the first deploy of a fresh process. The limit,
-    # MESH_EXTRA_LIMIT (2 MiB), lies between those and the smallest fault,
-    # a second copy of the item table (n_items padded x rank x 4 B:
-    # 3,779,072 B at MovieLens-25M's width), which it fails
-    extra = [g - before - MESH_SHARDS * per_device
-             for g in (placed, after_reload, after_reload2)]
+    # a generation holds the tables once: at the deploy and at each
+    # /reload the growth over the memory before the deploy is the padded
+    # tables plus the allocator's slack on them, held under
+    # MESH_EXTRA_LIMIT (2 MiB): it lies above what this script has measured
+    # on an NVIDIA H100 80GB HBM3 at 700 W (2,560-224,768 B after a
+    # /reload, 1,003,520 B after a fresh process's first deploy) and below
+    # the smallest fault, a second copy of the item table (n_items padded
+    # x rank x 4 B: 3,779,072 B at MovieLens-25M's width)
     if cols_pad * rank * 4 <= MESH_EXTRA_LIMIT:
         raise AssertionError(f"41.4: a second item table ({cols_pad} x "
                              f"{rank} x 4 B) fits under the limit")
-    if shard_ledger != MESH_SHARDS * per_device or \
+    if shard_ledger != tables or \
             not all(0 <= e < MESH_EXTRA_LIMIT for e in extra):
         raise AssertionError(f"41.4: the shard ledger or device memory "
                              f"({extra} B over the tables) is not the "
                              f"padded tables once a generation")
-    if code != 200 or code2 != 200 or set(codes_after) != {200}:
-        raise AssertionError(f"41.4 /reload {code}, then {set(codes_after)}")
-    return {"near_ties": near, "per_device": per_device, "deploy_s": deploy_s}
+    # each part on its own, the same after every /reload (nothing grows):
+    # the shards ask for the padded tables exactly, in one block a table a
+    # device; their slack covers the extra (blocks alive before the deploy
+    # can only have been freed), under 1 MiB and a rounding a block; no
+    # other block lives on
+    for (name, _, _), e, part in zip(gens, extra, parts):
+        if part["shard_requested"] != tables or \
+                part["shard_blocks"] != 2 * MESH_SHARDS or \
+                e > part["shard_slack"] or \
+                part["largest_slack"] > (1 << 20) + 511 or \
+                part["other_bytes"]:
+            raise AssertionError(f"41.4 {name}: the live blocks are not the "
+                                 f"shards and their slack: {part}, {e} B "
+                                 f"beyond the tables")
+    if reload_codes != {200}:
+        raise AssertionError(f"41.4 /reload or a query after it: "
+                             f"{sorted(reload_codes)}")
+    return {"near_ties": near, "per_device": per_device, "deploy_s": deploy_s,
+            "extra": extra, "parts": parts}
 
 
 def mesh_pool(args, smi) -> dict:
@@ -6112,6 +6202,485 @@ def phase_mesh(args, smi, single_als, text) -> dict:
             "serving": serving, "pool": pool}
 
 
+# ------------------- the neural templates over a mesh on one card (phase 42)
+#: 42.2's steps of each two-rank run, held to one rank's at NEURAL_TOL
+NEURAL_MESH_STEPS = 3
+#: 42.2's runs on two gloo ranks: name, trainer, mesh spec, config; the
+#: second list needs point-to-point sends (ring attention, the pipeline)
+NEURAL_MESH_RUNS = [
+    ("tt_data2", "tt", dict(data=2), {}),
+    ("tt_model2", "tt", dict(data=1, model=2), {}),
+    ("seq_model2", "seq", dict(data=1, model=2), {}),
+    ("seq_seq2_ulysses", "seq", dict(data=1, seq=2),
+     dict(attention="ulysses")),
+]
+NEURAL_P2P_RUNS = [
+    ("seq_seq2_ring", "seq", dict(data=1, seq=2), {}),
+    ("seq_pipe2", "seq", dict(data=1, pipe=2), {}),
+]
+#: 42.2's first-step gradients in float64 against one rank's, of each
+#: leaf's largest (f64 sums of ~1e5 terms in another order: ~1e-13), and
+#: the sequence model's histories they take
+NEURAL_GRAD_TOL = 1e-9
+#: the same over a seq axis with ring attention, which computes its
+#: blocks' online softmax in f32 whatever the input (the reference's
+#: arithmetic), in another order than the one block of one rank
+NEURAL_RING_GRAD_TOL = NEURAL_TOL
+NEURAL_GRAD_ROWS = 64
+#: 42.2's loss of the trained parameters on the whole batch against one
+#: rank's, relative: f32 steps in another order (a few elements off by
+#: Adam's ±lr where a ReLU flipped at its kink move it by ~1e-7)
+NEURAL_LOSS_RTOL = 1e-5
+#: a gloo point-to-point receive's wait in 42.2's probe
+P2P_PROBE_TIMEOUT = dt.timedelta(seconds=10)
+#: 42.3's users answered
+NEURAL_MESH_USERS = 256
+
+
+def seq_params(model) -> dict:
+    """A sequence model's parameters flat (``blocks.wq``...), host numpy."""
+    out = {}
+    for k, v in model.params.items():
+        if isinstance(v, dict):
+            out.update({f"{k}.{k2}": t.cpu().numpy() for k2, t in v.items()})
+        else:
+            out[k] = v.cpu().numpy()
+    return out
+
+
+def same_bits(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
+
+
+def neural_one_rank(args, smi, tt_model, seq_model) -> dict:
+    """42.1: train_two_tower and train_seqrec (ring and ulysses) over the
+    mesh of a 1-rank NCCL group at bench.py's shapes: phase 30's tables
+    and phase 33's parameters bit for bit, and the collectives' device
+    time (CUDA events around each)."""
+    from pio_tpu_torch.parallel import collectives, distributed
+
+    with mesh_env(1, 0, free_port()):
+        ctx = ComputeContext.create(args.seed, device=CARD)
+    out = {}
+    try:
+        u, i = tt_pairs()
+        # a host-bound loop: its wall without the events, then with them
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bare = two_tower.train_two_tower(ctx.mesh, u, i, TT_USERS, TT_ITEMS,
+                                         tt_config(), device=ctx.device)
+        torch.cuda.synchronize()
+        bare_s = time.perf_counter() - t0
+        timer = collectives.CollectiveTimer()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with collectives.recording(timer):
+            m = two_tower.train_two_tower(ctx.mesh, u, i, TT_USERS, TT_ITEMS,
+                                          tt_config(), device=ctx.device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        same = all(torch.equal(a.user_vectors, tt_model.user_vectors)
+                   and torch.equal(a.item_vectors, tt_model.item_vectors)
+                   for a in (bare, m))
+        ms, n = timer.ms(), timer.counts()
+        log(f"  42.1 train_two_tower over the 1-rank mesh "
+            f"{list(ctx.mesh.shape)}: {bare_s:.3f} s, {wall:.3f} s with the "
+            f"events (host clock); phase 30's tables bit for bit, both "
+            f"runs: {same}; collectives "
+            f"{json.dumps(n)} calls, device ms {json.dumps({k: round(v, 4) for k, v in ms.items()})}: "
+            f"{sum(ms.values()) / TT_STEPS:.5f} ms a step over {TT_STEPS} "
+            f"steps (the tables' gathers included); {smi}")
+        out["tt"] = {"same": same, "wall_s": bare_s, "ms": ms, "calls": n}
+        if not same:
+            raise AssertionError("42.1: the 1-rank mesh's two-tower tables "
+                                 "are not phase 30's")
+        seqs = seq_histories()
+        for attention in ("ring", "ulysses"):
+            cfg = seq_config(attention=attention)
+            want = seq_params(seq_model) if attention == "ring" else \
+                seq_params(seq_train(seqs, cfg)[0])
+            timer = collectives.CollectiveTimer()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with collectives.recording(timer):
+                got = seqrec.train_seqrec(ctx.mesh, seqs, SEQ_VOCAB, cfg,
+                                          device=ctx.device)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            same = same_bits(seq_params(got), want)
+            ms, n = timer.ms(), timer.counts()
+            log(f"  42.1 train_seqrec ({attention}) over the 1-rank mesh: "
+                f"{wall:.3f} s (host clock, with the events); the "
+                f"single-device parameters bit for bit "
+                f"({'phase 33' if attention == 'ring' else 'a run here'}): "
+                f"{same}; collectives {json.dumps(n)} calls, device ms "
+                f"{json.dumps({k: round(v, 4) for k, v in ms.items()})}: "
+                f"{sum(ms.values()) / SEQ_STEPS:.5f} ms a step over "
+                f"{SEQ_STEPS} steps")
+            out[f"seq_{attention}"] = {"same": same, "wall_s": wall,
+                                       "ms": ms, "calls": n}
+            if not same:
+                raise AssertionError(f"42.1: the 1-rank mesh's {attention} "
+                                     f"parameters are not the single "
+                                     f"device's")
+    finally:
+        distributed.shutdown()
+    return out
+
+
+def neural_probe(ctx) -> dict:
+    """Whether gloo carries all_to_all_single on CUDA tensors: {name: "ok"
+    or the error}."""
+    import torch.distributed as dist
+
+    world, r = ctx.world_size, ctx.rank
+    try:
+        send = torch.full((world, 2), float(r), device=ctx.device)
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, group=ctx.group)
+        torch.cuda.synchronize()
+        want = torch.arange(world, device=ctx.device).float()[:, None]
+        return {"all_to_all_single": "ok" if torch.equal(
+            recv, want.expand(world, 2)) else f"wrong values {recv.tolist()}"}
+    except Exception as e:
+        return {"all_to_all_single": f"{type(e).__name__}: {str(e)[:200]}"}
+
+
+def p2p_probe(ctx) -> str:
+    """Whether gloo carries a send and a receive of a CUDA tensor between
+    the two ranks (the receive waits P2P_PROBE_TIMEOUT), agreed by both:
+    "ok" or what failed."""
+    import torch.distributed as dist
+
+    said = "ok"
+    try:
+        x = torch.full((4,), 7.0, device=ctx.device)
+        if ctx.rank == 0:
+            dist.isend(x, 1).wait(timeout=P2P_PROBE_TIMEOUT)
+        else:
+            y = torch.zeros(4, device=ctx.device)
+            dist.irecv(y, 0).wait(timeout=P2P_PROBE_TIMEOUT)
+            torch.cuda.synchronize()
+            if not torch.equal(y, x):
+                said = f"wrong values {y.tolist()}"
+    except Exception as e:
+        said = f"{type(e).__name__}: {str(e)[:200]}"
+    flags = torch.tensor([1.0 if said == "ok" else 0.0])
+    dist.all_reduce(flags, op=dist.ReduceOp.MIN, group=ctx.group)  # CPU
+    if said == "ok" and flags.item() < 1:
+        said = "the other rank failed"
+    return said
+
+
+def step_grad_err(ctx, mesh, kind, extra, u, i, seqs) -> float:
+    """The first step's gradients over ``mesh`` in float64 (the trainer's
+    init and batch, the sequence model's first NEURAL_GRAD_ROWS histories;
+    this rank's slices, summed over the work axes and gathered whole)
+    against the single-device path's on this rank's device: the largest
+    |diff| of a leaf over its largest |gradient|. In f32 the row-parallel
+    sums round otherwise than the single device's, which flips the few
+    ReLUs whose input lies within that rounding of 0 at bench.py's
+    widths; in f64 none does. Every rank computes it (the collectives
+    need them all)."""
+    from pio_tpu_torch.parallel import collectives as C
+    from pio_tpu_torch.parallel.partition import gather_shards, local_shards
+
+    dev, f64 = ctx.device, torch.float64
+    if kind == "tt":
+        cfg = tt_config()
+        axes = (mesh.get_group("data"), mesh.get_group("model"))
+        nm = C.axis_size(axes[1])
+        init = two_tower.init_params(
+            -(-TT_USERS // nm) * nm, -(-TT_ITEMS // nm) * nm, cfg,
+            torch.Generator().manual_seed(cfg.seed))
+        specs = two_tower.param_specs(init)
+        perm = np.random.default_rng(cfg.seed).permutation(len(u))
+        full = [torch.from_numpy(a[perm][:TT_BATCH]).to(dev) for a in (u, i)]
+        b_loc = TT_BATCH // C.axis_size(axes[0])
+        lo = C.axis_index(axes[0]) * b_loc
+        mine = [a[lo:lo + b_loc] for a in full]
+        work, single = [axes[0]], (None, None)
+
+        def loss(tree, batch, ax):
+            return two_tower._contrastive_loss(tree["user"], tree["item"],
+                                               *batch, cfg, *ax)
+    else:
+        cfg = seq_config(**extra)
+        axes = seqrec.MeshAxes.of(mesh)
+        nm = C.axis_size(axes.model)
+        init = seqrec.init_params(-(-(SEQ_VOCAB + 1) // nm) * nm, cfg,
+                                  torch.Generator().manual_seed(cfg.seed))
+        specs = seqrec.param_specs(init)
+        full = [a[:NEURAL_GRAD_ROWS].to(f64) if a.is_floating_point()
+                else a[:NEURAL_GRAD_ROWS] for a in seq_batch(seqs, dev)]
+        b_loc = NEURAL_GRAD_ROWS // C.axis_size(axes.data)
+        t_loc = SEQ_T // C.axis_size(axes.seq)
+        r0 = C.axis_index(axes.data) * b_loc
+        c0 = C.axis_index(axes.seq) * t_loc
+        mine = [a[r0:r0 + b_loc, c0:c0 + t_loc].contiguous() for a in full]
+        work, single = [axes.data, axes.seq], seqrec.MeshAxes()
+
+        def loss(tree, batch, ax):
+            return seqrec._loss(tree, *batch, cfg, ax)
+    local = local_shards(mesh, init, specs)
+    p = [t.to(dev, f64).requires_grad_(True) for t in adam.leaves(local)]
+    grads = C.all_reduce_flat(torch.autograd.grad(
+        loss(adam.rebuild(local, p), mine, axes), p), work)
+    got = adam.leaves(gather_shards(
+        mesh, adam.rebuild(local, grads), specs,
+        adam.rebuild(init, [t.shape for t in adam.leaves(init)])))
+    q = [t.to(dev, f64).requires_grad_(True) for t in adam.leaves(init)]
+    want = torch.autograd.grad(loss(adam.rebuild(init, q), full, single), q)
+    return max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-300)
+               for a, b in zip(got, want))
+
+
+def neural_ranks_work(ctx, out: str) -> dict:
+    """42.2 in a rank: the probes, then NEURAL_MESH_RUNS (and, where gloo
+    carries sends, NEURAL_P2P_RUNS) at bench.py's shapes for
+    NEURAL_MESH_STEPS steps. Rank 0 keeps the results, rank 1 their
+    digests; saved to ``out`` after each step of the work, so that a
+    probe that ends the process leaves what came before it."""
+    import hashlib
+
+    from pio_tpu_torch.parallel.mesh import MeshSpec
+
+    result = {"probes": json.dumps(neural_probe(ctx))}
+    u, i = tt_pairs()
+    seqs = seq_histories()
+
+    def run(name, kind, spec, extra):
+        mesh = ctx.mesh_for(MeshSpec(**spec))
+        t0 = time.monotonic()
+        if kind == "tt":
+            m = two_tower.train_two_tower(
+                mesh, u, i, TT_USERS, TT_ITEMS,
+                dataclasses.replace(tt_config(), steps=NEURAL_MESH_STEPS),
+                device=ctx.device)
+            arrays = {"user": m.user_vectors.cpu().numpy(),
+                      "item": m.item_vectors.cpu().numpy()}
+        else:
+            m = seqrec.train_seqrec(
+                mesh, seqs, SEQ_VOCAB,
+                dataclasses.replace(seq_config(**extra),
+                                    steps=NEURAL_MESH_STEPS),
+                device=ctx.device)
+            arrays = seq_params(m)
+        result[f"{name}.wall_s"] = time.monotonic() - t0
+        result[f"{name}.grad_err"] = step_grad_err(ctx, mesh, kind, extra, u,
+                                                   i, seqs)
+        for k, a in arrays.items():
+            if ctx.rank == 0:
+                result[f"{name}.{k}"] = a
+            result[f"{name}.{k}.sha"] = hashlib.sha256(a.tobytes()).hexdigest()
+
+    a2a = json.loads(result["probes"])["all_to_all_single"] == "ok"
+    for name, kind, spec, extra in NEURAL_MESH_RUNS:
+        if extra.get("attention") == "ulysses" and not a2a:
+            continue
+        run(name, kind, spec, extra)
+        np.savez(out, **result)
+    try:
+        result["p2p"] = p2p_probe(ctx)
+    except Exception as e:  # the agreement's all_reduce over a broken pair
+        result["p2p"] = f"{type(e).__name__}: {str(e)[:200]}"
+    np.savez(out, **result)
+    if result["p2p"] == "ok":
+        for name, kind, spec, extra in NEURAL_P2P_RUNS:
+            run(name, kind, spec, extra)
+            np.savez(out, **result)
+    return result
+
+
+def seq_loss(flat: dict, seqs) -> float:
+    """``train_seqrec``'s full-batch loss of flat parameters (``blocks.wq``
+    ...) on the card, the vocabulary cut to the first SEQ_VOCAB + 1 rows."""
+    params = {"blocks": {}}
+    for k, a in flat.items():
+        t = torch.from_numpy(np.ascontiguousarray(a)).to(CARD)
+        if k.startswith("blocks."):
+            params["blocks"][k[len("blocks."):]] = t
+        else:
+            params[k] = t
+    params["emb"] = params["emb"][:SEQ_VOCAB + 1]
+    with torch.no_grad():
+        return float(seqrec._loss(params, *seq_batch(seqs, CARD),
+                                  seq_config()))
+
+
+def neural_two_ranks(args, smi) -> dict:
+    """42.2: two gloo ranks on cuda:0 (NCCL refuses two ranks on one
+    device, 41.3): the probes of all_to_all_single and point-to-point on
+    CUDA tensors, then two-tower over data 2 and model 2 and the sequence
+    model over model 2, seq 2 (ulysses, and ring where gloo sends) and
+    pipe 2 (where it sends), NEURAL_MESH_STEPS steps each at bench.py's
+    shapes, held to the 1-rank runs (the single-device path, which a
+    1-rank group gives bit for bit) at NEURAL_TOL. A collective gloo
+    refuses on CUDA tensors is recorded, and the runs that need it rest
+    on the CPU tests."""
+    home = fresh_home("neural-ranks")
+    t0 = time.monotonic()
+    ranks = spawn_ranks("neural-gloo", 2, home, args.seed)
+    spawn_s = time.monotonic() - t0
+    errors = [str(g["error"]) for g in ranks if "error" in g]
+    probes = [json.loads(str(g["probes"])) if "probes" in g else {}
+              for g in ranks]
+    p2p = [str(g.get("p2p", "not reached")) for g in ranks]
+    log(f"  42.2 two gloo ranks on cuda:0 ({spawn_s:.1f} s): "
+        f"all_to_all_single {json.dumps(probes)}; send/recv {p2p}")
+    if errors:
+        raise AssertionError(f"42.2: a gloo rank failed: {errors}")
+    # the 1-rank baselines: the single-device path at the same steps (the
+    # model-2 sequence run pads its vocabulary to 20,002 rows, a
+    # single-device run over 20,001 items)
+    u, i = tt_pairs()
+    seqs = seq_histories()
+    tt1 = two_tower.train_two_tower(
+        None, u, i, TT_USERS, TT_ITEMS,
+        dataclasses.replace(tt_config(), steps=NEURAL_MESH_STEPS),
+        device=CARD)
+    base = {"tt": {"user": tt1.user_vectors.cpu().numpy(),
+                   "item": tt1.item_vectors.cpu().numpy()}}
+
+    def seq_base(n_items, **kw):
+        return seq_params(seqrec.train_seqrec(
+            None, seqs, n_items,
+            dataclasses.replace(seq_config(**kw), steps=NEURAL_MESH_STEPS),
+            device=CARD))
+
+    errs, refused = {}, {}
+    for name, kind, spec, extra in NEURAL_MESH_RUNS + NEURAL_P2P_RUNS:
+        keys = [k[len(name) + 1:-4] for k in ranks[1] if
+                k.startswith(name + ".") and k.endswith(".sha")]
+        if not keys:
+            refused[name] = ("all_to_all_single: " + json.dumps(probes[0])
+                             if extra.get("attention") == "ulysses"
+                             else "send/recv: " + p2p[0])
+            continue
+        if kind == "tt":
+            want = base["tt"]
+        elif name == "seq_model2":
+            want = seq_base(SEQ_VOCAB + 1)
+            want["emb"] = want["emb"][:SEQ_VOCAB + 1]
+        else:
+            want = seq_base(SEQ_VOCAB, **extra)
+        diffs = {k: np.abs(ranks[0][f"{name}.{k}"] - want[k]) for k in keys}
+        errs[name] = max(float(d.max()) for d in diffs.values())
+        over = {k: [int((d > NEURAL_TOL).sum()), float(d.max())]
+                for k, d in diffs.items() if d.max() > NEURAL_TOL}
+        grad = float(ranks[0][name + ".grad_err"])
+        same = all(str(ranks[0][f"{name}.{k}.sha"])
+                   == str(ranks[1][f"{name}.{k}.sha"]) for k in keys)
+        loss_rel = 0.0
+        if kind == "seq":
+            got_l, want_l = (seq_loss({k: a[k] for k in keys}, seqs)
+                             for a in ({k: ranks[0][f"{name}.{k}"]
+                                        for k in keys}, want))
+            loss_rel = abs(got_l - want_l) / abs(want_l)
+        log(f"  42.2 {name} {json.dumps(spec)}: "
+            f"{float(ranks[0][name + '.wall_s']):.2f} s on rank 0 (host "
+            f"clock); the parameters' max |diff| against one rank "
+            f"{errs[name]:.3g} (limit {NEURAL_TOL}; over it, by parameter, "
+            f"[elements, largest]: {json.dumps(over)}); the trained "
+            f"parameters' loss on the batch against one rank's "
+            f"{loss_rel:.3g} relative (limit {NEURAL_LOSS_RTOL}); the first "
+            f"step's f64 gradients {grad:.3g} of each one's largest; the "
+            f"ranks hold the same bits: {same}")
+        # the parameters within NEURAL_TOL, or, where some flipped at a
+        # ReLU's kink (the f32 sums' rounding), the trained loss
+        grad_tol = NEURAL_RING_GRAD_TOL if spec.get("seq", 1) > 1 and \
+            extra.get("attention", "ring") == "ring" else NEURAL_GRAD_TOL
+        if grad > grad_tol or not same or (
+                errs[name] > NEURAL_TOL and loss_rel > NEURAL_LOSS_RTOL):
+            raise AssertionError(f"42.2: {name} off the one-rank run")
+    if refused:
+        log(f"  42.2 refused by gloo on CUDA tensors (their parity rests on "
+            f"the CPU tests): {json.dumps(refused)}; {smi}")
+    return {"probes": probes, "p2p": p2p, "errs": errs, "refused": refused}
+
+
+def neural_mesh_serving(args, smi, tt_model) -> dict:
+    """42.3: the two-tower template on phase 30's tables persisted as
+    MESH_SHARDS shard records and served with PIO_TPU_MESH_SERVE=1 over
+    (cuda:0,) x MESH_SHARDS: NEURAL_MESH_USERS users' top-10 against the
+    unsharded scorer, near-ties counted, and /stats.json's sharding."""
+    from pio_tpu_torch.templates.twotower import TwoTowerEngineModel
+    from pio_tpu_torch.workflow import shard_store
+
+    n_users, n_items = tt_model.user_vectors.shape[0], \
+        tt_model.item_vectors.shape[0]
+    users = BiMap({f"u{n}": n for n in range(n_users)})
+    items = BiMap({f"i{n}": n for n in range(n_items)})
+    host = two_tower.TwoTowerModel(tt_model.user_vectors.cpu(),
+                                   tt_model.item_vectors.cpu(),
+                                   tt_model.config)
+    variant = variant_from_dict({
+        "id": "neural-mesh-serving", "engineFactory": "templates.twotower",
+        "datasource": {"params": {"app_name": "unused"}},
+        "algorithms": [{"name": "twotower", "params": {}}]})
+    iid = store_instance(variant, [TwoTowerEngineModel(host, users, items)],
+                         sharded_over=MESH_SHARDS)
+    verified = shard_store.verify_manifest(Storage.get_model_data_models(),
+                                           iid)
+    codes = np.random.default_rng(args.seed + 42).choice(
+        n_users, NEURAL_MESH_USERS, replace=False).astype(np.int32)
+    plain = topn.DeviceTopNScorer(tt_model.user_vectors,
+                                  tt_model.item_vectors, device=CARD)
+    want_idx, want_val = plain.top_n_batch(codes, 10)
+    del plain
+    with knob("PIO_TPU_MESH_SERVE", "1"):
+        t0 = time.monotonic()
+        server = deploy_query_server(variant, host="127.0.0.1", port=0,
+                                     instance_id=iid, device=CARD,
+                                     mesh_devices=(CARD,) * MESH_SHARDS)
+        deploy_s = time.monotonic() - t0
+        with server:
+            conn = http.client.HTTPConnection("127.0.0.1", server.port,
+                                              timeout=60)
+            near = 0
+            for k, c in enumerate(codes):
+                code, got = request(conn, "POST", "/queries.json",
+                                    {"user": f"u{int(c)}", "num": 10})
+                if code != 200:
+                    raise AssertionError(f"42.3 query {k}: {code} {got}")
+                near += near_tie_check(got["itemScores"], want_idx[k],
+                                       want_val[k], items, f"42.3 user {c}")
+            _, stats = request(conn, "GET", "/stats.json")
+            conn.close()
+    sh = stats["sharding"]
+    log(f"  42.3 two-tower tables ({n_users} + {n_items} x "
+        f"{tt_model.item_vectors.shape[1]}) persisted as {verified} "
+        f"verified shard records, deployed in {deploy_s:.2f} s (host clock) "
+        f"over (cuda:0,) x {MESH_SHARDS}; {NEURAL_MESH_USERS} users' top-10 "
+        f"as the unsharded scorer's, {near} with a near-tie reordered; "
+        f"sharding {json.dumps(sh)}; {smi}")
+    if not (sh["enabled"] and sh["meshDevices"] == MESH_SHARDS
+            and sh["models"][0]["nDevices"] == MESH_SHARDS):
+        raise AssertionError(f"42.3 sharding block {sh}")
+    return {"near_ties": near, "verified": verified, "deploy_s": deploy_s}
+
+
+def phase_neural_mesh(args, smi, tt_model, seq_model) -> dict:
+    """Phase 42: the neural templates over a mesh on one card."""
+    t_phase = time.monotonic()
+    log(f"phase 42: the neural templates over a mesh on one card: "
+        f"two-tower and the sequence model in a 1-rank NCCL group, two "
+        f"gloo ranks on cuda:0, two-tower served sharded over (cuda:0,) x "
+        f"{MESH_SHARDS}; {smi}")
+    t0 = time.monotonic()
+    one = neural_one_rank(args, smi, tt_model, seq_model)
+    one_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    two = neural_two_ranks(args, smi)
+    two_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    serving = neural_mesh_serving(args, smi, tt_model)
+    serve_s = time.monotonic() - t0
+    log(f"  phase 42 {time.monotonic() - t_phase:.1f} s: 42.1 {one_s:.1f}, "
+        f"42.2 {two_s:.1f}, 42.3 {serve_s:.1f}")
+    return {"one_rank": one, "two_ranks": two, "serving": serving}
+
+
 def kernel_entry(name, source, replaces, launches, row) -> dict:
     """One kernel of the JSON line, from its main timed row."""
     return {
@@ -6121,6 +6690,14 @@ def kernel_entry(name, source, replaces, launches, row) -> dict:
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
     }
+
+
+def nvidia_smi() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
 
 
 def main(argv=None) -> int:
@@ -6135,10 +6712,7 @@ def main(argv=None) -> int:
     if args.mesh_rank:
         return rank_main(args.mesh_rank, args.mesh_out)
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
     log(f"phase 1: {kind}; nvidia-smi: {smi}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
@@ -6278,6 +6852,9 @@ def main(argv=None) -> int:
         args, engine, ep, iid, ComputeContext.local(args.seed, device=CARD)))
     for entry in summary:
         entry["launches"] += mesh["launches"][entry["name"]]
+    # the neural templates over a mesh: phase 30's tables and phase 33's
+    # parameters are their single-device baselines
+    phase_neural_mesh(args, smi, tt["model"], seq["model"])
     log(f"text evaluation sweep launches (added to the kernels' line): "
         f"{json.dumps(text_eval)}")
     log(f"CLI train + deploy launches (added to the kernels' line): "

@@ -1,19 +1,36 @@
-"""Sequence recommender on one device: a causal transformer over user
-event histories (SASRec-style next-item prediction).
+"""Sequence recommender: a causal transformer over user event histories
+(SASRec-style next-item prediction), over the data, seq, model and pipe
+axes.
 
-Counterpart of ``pio_tpu/models/seqrec.py`` for ``mesh=None`` (the
-reference's single-device path: no ``model``, ``seq`` or ``pipe`` axis,
-l.369-371). The reference computes it as one XLA program (gathers, dots,
-layer norm, softmax attention, the vocab logits' cross-entropy and
-optax's Adam inside ``lax.scan``); no Pallas kernel is on the path, so
-the port runs it as PyTorch ops in full f32 (TF32 stays off, as
-PyTorch's default has it), a loop over the stacked layers in place of
-the scan, and :mod:`pio_tpu_torch.models.adam`. Attention is
-:func:`~pio_tpu_torch.parallel.ring.ring_attention` or
-:func:`~pio_tpu_torch.parallel.ulysses.ulysses_attention` with no axis,
-the reference's arithmetic in plain ops. The dp / sp / tp / ep / pp mesh
-paths and the streamed epoch feed come with the multi-device slice
-(ROADMAP A7).
+Counterpart of ``pio_tpu/models/seqrec.py``. The reference computes it
+as one XLA program (gathers, dots, layer norm, softmax attention, the
+vocab logits' cross-entropy and optax's Adam inside ``lax.scan``, under
+``shard_map`` with a mesh); no Pallas kernel is on the path, so the port
+runs it as PyTorch ops in full f32 (TF32 stays off, as PyTorch's default
+has it), a loop over the stacked layers in place of the scan, and
+:mod:`pio_tpu_torch.models.adam`.
+
+Over a mesh (a ``DeviceMesh`` of the process group, one rank a device)
+every rank runs the same code with the collectives of
+``parallel/collectives.py``:
+
+- **data**: the rows split into contiguous rank-major chunks;
+- **seq**: the positions split likewise; attention is
+  :func:`~pio_tpu_torch.parallel.ring.ring_attention` or
+  :func:`~pio_tpu_torch.parallel.ulysses.ulysses_attention` over the
+  axis, and the position table is read at the rank's offset;
+- **model**: heads and the FFN hidden shard (Megatron: ``copy_to`` into
+  the column-parallel ``wq``/``wk``/``wv``/``w1``, ``psum`` out of the
+  row-parallel ``wo``/``w2``), the item table by rows (vocab-parallel
+  lookup and cross-entropy);
+- **pipe**: the layer stack splits into stages run by
+  :func:`~pio_tpu_torch.parallel.pipeline.pipeline_apply`.
+
+The loss's cross-entropy and mask are summed over data and seq, and
+the gradients over the same axes after the backward. Every rank draws
+the whole init on a seeded CPU generator and keeps its shards, so a
+group of one gives the single-device bits. The trained parameters are
+gathered whole to every rank. The streamed epoch feed is ROADMAP §A.3.
 
 Under a recording run (``obs/trainwatch.py``) each step's loss joins the
 step stream through the lagged drain (no added kernel or synchronization
@@ -34,11 +51,27 @@ import torch
 from pio_tpu_torch import DeviceLike, resolve_device
 from pio_tpu_torch.models.adam import adam_init, adam_update, leaves, rebuild
 from pio_tpu_torch.obs import devicewatch, trainwatch
+from pio_tpu_torch.parallel.collectives import (
+    Axis,
+    all_gather,
+    all_reduce_flat,
+    axis_index,
+    axis_size,
+    copy_to,
+    psum,
+)
+from pio_tpu_torch.parallel.mesh import mesh_axis_group
 from pio_tpu_torch.parallel.partition import (
     DeviceBudgetExceeded,
     assert_device_budget,
     device_budget_bytes,
+    gather_shards,
+    local_shards,
+    match_partition_rules,
+    per_device_nbytes,
+    rules_for,
 )
+from pio_tpu_torch.parallel.pipeline import pipeline_apply
 from pio_tpu_torch.parallel.ring import ring_attention
 from pio_tpu_torch.parallel.ulysses import ulysses_attention
 from pio_tpu_torch.parallel.vocab import (
@@ -47,6 +80,7 @@ from pio_tpu_torch.parallel.vocab import (
 )
 from pio_tpu_torch.utils.numutil import round_up as _round_up
 from pio_tpu_torch.workflow.checkpoint import (
+    rank_checkpoint,
     run_chunked_steps,
     state_fingerprint,
 )
@@ -64,7 +98,9 @@ class SeqRecConfig:
     dropout: float = 0.0  # reserved; deterministic v1
     learning_rate: float = 1e-3
     steps: int = 200
-    #: "ring" or "ulysses": on one device both are exact causal attention
+    #: sequence-parallel attention: "ring" (K/V blocks rotate, O(T/n)
+    #: memory) or "ulysses" (two all-to-alls, whole-T scores for H/n
+    #: heads; the per-device head count must divide by the seq axis)
     attention: str = "ring"
     seed: int = 0
     #: rows per optimizer step. 0 = full-batch (every step consumes the
@@ -73,7 +109,7 @@ class SeqRecConfig:
     batch_size: int = 0
     #: epoch feed: "off" and "auto" stage the epoch on the device; "auto"
     #: raises DeviceBudgetExceeded where the reference would stream, and
-    #: "on" (the streamed feed) raises (ROADMAP A7)
+    #: "on" (the streamed feed) raises (ROADMAP §A.3)
     stream: str = "auto"
 
 
@@ -176,82 +212,162 @@ def _ln(x, g, b):
     return (x - mu) * torch.rsqrt(var + 1e-6) * g + b
 
 
-def _block(blk: dict, h: torch.Tensor, cfg: SeqRecConfig) -> torch.Tensor:
-    """One pre-LN transformer block on ``[B, T, D]`` (reference
-    l.184-238). ``blk`` leaves have no layer dim. The FFN's ``b2`` is
-    added after the residual, as the reference does."""
-    mb, t, _ = h.shape
+def _block(blk: dict, h: torch.Tensor, cfg: SeqRecConfig,
+           m_axis: Axis = None, s_axis: Axis = None) -> torch.Tensor:
+    """One pre-LN transformer block on this rank's ``[mb, T_loc, D]``
+    (reference l.184-238). ``blk`` leaves have no layer dim and hold this
+    rank's heads and FFN hidden over ``m_axis``; attention runs over
+    ``s_axis``. The FFN's ``b2`` is added after the residual, as the
+    reference does."""
+    mb, t_loc, _ = h.shape
+    heads_loc = cfg.n_heads // axis_size(m_axis)
     hd = cfg.d_model // cfg.n_heads
     attn_fn = _ATTENTION.get(cfg.attention)
     if attn_fn is None:
         raise ValueError(
             f"unknown attention mode {cfg.attention!r}; use ring/ulysses"
         )
-    x = _ln(h, blk["ln1_g"], blk["ln1_b"])
+    x = copy_to(_ln(h, blk["ln1_g"], blk["ln1_b"]), m_axis)
+    # separate projections: a fused [D, 3D] column shard would split at
+    # arbitrary offsets and scramble the q/k/v boundaries across ranks
     q = x @ blk["wq"]
     k = x @ blk["wk"]
     v = x @ blk["wv"]
 
     def split_heads(a):
-        return a.reshape(mb, t, cfg.n_heads, hd)
+        return a.reshape(mb, t_loc, heads_loc, hd)
 
     attn = attn_fn(split_heads(q), split_heads(k), split_heads(v),
-                   axis=None, causal=True).reshape(mb, t, cfg.n_heads * hd)
-    h = h + attn @ blk["wo"]
-    x = _ln(h, blk["ln2_g"], blk["ln2_b"])
+                   axis=s_axis, causal=True).reshape(mb, t_loc,
+                                                     heads_loc * hd)
+    h = h + psum(attn @ blk["wo"], m_axis)  # close the row-parallel wo
+    x = copy_to(_ln(h, blk["ln2_g"], blk["ln2_b"]), m_axis)
     f = torch.relu(x @ blk["w1"] + blk["b1"])
-    return h + f @ blk["w2"] + blk["b2"]
+    return h + psum(f @ blk["w2"], m_axis) + blk["b2"]
 
 
-def _embed(params: dict, seqs: torch.Tensor) -> torch.Tensor:
-    """Item embedding + position encoding → [B, T, D] (l.241-250)."""
-    x = vocab_parallel_lookup(params["emb"], seqs)
-    return x + params["pos"][: seqs.shape[1]][None]
+def _embed(params: dict, seqs: torch.Tensor, m_axis: Axis = None,
+           s_axis: Axis = None) -> torch.Tensor:
+    """Vocab-parallel item embedding + the position encoding at this
+    rank's global positions → ``[mb, T_loc, D]`` (l.241-250)."""
+    x = vocab_parallel_lookup(params["emb"], seqs, m_axis)
+    t_loc = seqs.shape[1]
+    t_off = axis_index(s_axis) * t_loc
+    return x + params["pos"][t_off:t_off + t_loc][None]
 
 
-def _trunk(params: dict, seqs: torch.Tensor,
-           cfg: SeqRecConfig) -> torch.Tensor:
-    """Embed + every block + final LN → [B, T, D] (l.253-290): a loop
-    over the stacked layers in place of the reference's ``lax.scan``."""
-    h = _embed(params, seqs)
+def _apply_stack(stack: dict, h: torch.Tensor, cfg: SeqRecConfig,
+                 m_axis: Axis, s_axis: Axis) -> torch.Tensor:
+    """Every layer of a stacked block tree, in order: a loop in place of
+    the reference's ``lax.scan``."""
+    for layer in range(stack["wq"].shape[0]):
+        h = _block({k: v[layer] for k, v in stack.items()}, h, cfg, m_axis,
+                   s_axis)
+    return h
+
+
+def _trunk(params: dict, seqs: torch.Tensor, cfg: SeqRecConfig,
+           m_axis: Axis = None, s_axis: Axis = None,
+           p_axis: Axis = None) -> torch.Tensor:
+    """Embed + every block + final LN → ``[mb, T_loc, D]`` (l.253-291).
+    With a pipe axis the rank's stage of the stack runs in
+    :func:`pipeline_apply`, the local rows cut into ``n_pipe``
+    microbatches where they divide (one otherwise)."""
+    h = _embed(params, seqs, m_axis, s_axis)
     blocks = params["blocks"]
-    for layer in range(cfg.n_layers):
-        h = _block({k: v[layer] for k, v in blocks.items()}, h, cfg)
+
+    def stage(stack, x):
+        return _apply_stack(stack, x, cfg, m_axis, s_axis)
+
+    if p_axis is None:
+        h = stage(blocks, h)
+    else:
+        n_pipe = axis_size(p_axis)
+        mb = h.shape[0]
+        m = n_pipe if mb % n_pipe == 0 else 1
+        hm = h.reshape(m, mb // m, *h.shape[1:])
+        h = pipeline_apply(blocks, hm, stage, axis=p_axis).reshape(h.shape)
     return _ln(h, params["lnf_g"], params["lnf_b"])
 
 
-def _vocab_parallel_ce(h, emb, targets, mask, m_axis: Optional[str] = None):
-    """Masked cross-entropy over the vocab logits (l.293-326, ``m_axis``
-    None): ``(sum_ce, sum_mask)``. The ``[B, T, V]`` logits and their
-    gradient exist whole on the device."""
-    if m_axis is not None:
-        raise NotImplementedError(
-            f"vocab axis {m_axis!r}: the port runs one device; the "
-            f"vocab-parallel cross-entropy is ROADMAP A7"
-        )
+def _vocab_parallel_ce(h, emb, targets, mask, m_axis: Axis = None):
+    """Masked cross-entropy over the vocab logits sharded over ``m_axis``
+    (l.293-326): ``(sum_ce, sum_mask)`` of this rank's positions. The
+    stability shift is the detached max gathered over the axis (it
+    cancels in the log-sum-exp), the exps are summed over the axis, and
+    the target's logit comes from the one shard that holds it. Without
+    an axis the same arithmetic on the whole vocabulary (torch's
+    ``logsumexp`` forward: ``log(Σ exp(x - max)) + max``). Each rank's
+    ``[B, T_loc, V_local]`` logits and their gradient exist whole on its
+    device."""
+    h = copy_to(h, m_axis)
     logits = torch.einsum("btd,vd->btv", h, emb)
-    z = torch.logsumexp(logits, dim=-1)
-    tgt = vocab_parallel_target_gather(logits, targets)
+    gmax = all_gather(logits.detach().amax(dim=-1)[None],
+                      m_axis).amax(dim=0)
+    sumexp = psum(torch.exp(logits - gmax[..., None]).sum(dim=-1), m_axis)
+    z = torch.log(sumexp) + gmax
+    tgt = vocab_parallel_target_gather(logits, targets, m_axis)
     ce = (z - tgt) * mask
     return ce.sum(), mask.sum()
 
 
-def _loss(params: dict, seqs, targets, mask, cfg: SeqRecConfig):
-    h = _trunk(params, seqs, cfg)
-    ce, denom = _vocab_parallel_ce(h, params["emb"], targets, mask)
+@dataclasses.dataclass(frozen=True)
+class MeshAxes:
+    """The process groups of a mesh's four axes (None: no such axis;
+    ``pipe`` is None unless it has more than one rank, as the reference's
+    ``p_axis``)."""
+
+    data: Axis = None
+    seq: Axis = None
+    model: Axis = None
+    pipe: Axis = None
+
+    @staticmethod
+    def of(mesh) -> "MeshAxes":
+        if mesh is None:
+            return MeshAxes()
+        pipe = mesh_axis_group(mesh, "pipe")
+        return MeshAxes(
+            data=mesh_axis_group(mesh, "data"),
+            seq=mesh_axis_group(mesh, "seq"),
+            model=mesh_axis_group(mesh, "model"),
+            pipe=pipe if axis_size(pipe) > 1 else None,
+        )
+
+
+def _loss(params: dict, seqs, targets, mask, cfg: SeqRecConfig,
+          axes: MeshAxes = MeshAxes()):
+    """The global masked mean cross-entropy (reference ``global_loss``,
+    l.510-535): this rank's sums, summed over data and seq."""
+    h = _trunk(params, seqs, cfg, axes.model, axes.seq, axes.pipe)
+    ce, denom = _vocab_parallel_ce(h, params["emb"], targets, mask,
+                                   axes.model)
+    ce = psum(psum(ce, axes.data), axes.seq)
+    denom = psum(psum(denom, axes.data), axes.seq)
     return ce / torch.clamp_min(denom, 1.0)
 
 
 def _train_step(params: dict, values, opt: dict, batch,
-                cfg: SeqRecConfig):
-    """One Adam step on ``batch = (seqs, targets, mask)``: ``values`` are
-    the leaves of the tree ``params`` (whose structure alone is read).
-    Returns the new leaves, the new optimizer state and the loss."""
+                cfg: SeqRecConfig, axes: MeshAxes = MeshAxes()):
+    """One Adam step on this rank's ``batch = (seqs, targets, mask)``:
+    ``values`` are the leaves of the tree ``params`` (whose structure
+    alone is read). The gradients are summed over data and seq (each
+    rank's backward gives its rows' and positions' part). Returns the new
+    leaves, the new optimizer state and the loss."""
     p = [v.detach().requires_grad_(True) for v in values]
-    loss = _loss(rebuild(params, p), *batch, cfg)
-    grads = torch.autograd.grad(loss, p)
+    loss = _loss(rebuild(params, p), *batch, cfg, axes)
+    grads = all_reduce_flat(torch.autograd.grad(loss, p),
+                            [axes.data, axes.seq])
     values, opt = adam_update(values, grads, opt, cfg.learning_rate)
     return values, opt, loss.detach()
+
+
+def param_specs(params: dict) -> dict:
+    """Partition specs from ``rules_for("seqrec")``: the item table by
+    rows over ``model``, heads and FFN hidden over ``model``, the layer
+    stack over ``pipe`` (reference ``param_specs``)."""
+    return match_partition_rules(rules_for("seqrec"), params,
+                                 on_unmatched="error")
 
 
 def _sync(device: torch.device) -> None:
@@ -270,33 +386,38 @@ def train_seqrec(
     device: DeviceLike = None,
 ) -> SeqRecModel:
     """Next-item training over padded histories, on ``device`` (CUDA
-    unless the caller asks for the CPU).
+    unless the caller asks for the CPU; under a mesh, this rank's
+    device).
 
     Args:
-        mesh: must be None (one device); a mesh is ROADMAP A7.
+        mesh: a ``DeviceMesh`` of the process group (``data``, ``seq``,
+            ``model`` and ``pipe`` all honored), or None for one device.
+            Every rank of the mesh calls this with the same arguments.
         sequences: [n, T] int32, item ids ≥ 1, 0 = pad (right-padded).
         n_items: vocabulary size (ids are 1..n_items; row 0 = pad).
         checkpoint/checkpoint_every: optional
             :class:`~pio_tpu_torch.workflow.checkpoint.CheckpointManager`
             and snapshot interval in steps; resumes from the newest
-            snapshot on restart.
+            snapshot on restart (each rank under its own ``rank<r>``
+            directory when the mesh has more than one).
         stats: optional dict: ``place_s`` (init and the epoch to the
             device), ``steps_s`` and ``n_stream`` (0), measured by
             synchronizing between phases.
 
+    Returns the model with the whole parameters on every rank.
+
     Raises:
-        DeviceBudgetExceeded: the params do not fit
+        ValueError: the mesh does not fit the model (reference l.381-407):
+            heads or FFN hidden not divisible by the model axis, layers by
+            the pipe axis, the per-device heads by the seq axis under
+            ulysses, or ``T`` padded to the seq axis past ``max_len``.
+        DeviceBudgetExceeded: this rank's params do not fit
             ``PIO_TPU_DEVICE_BUDGET_BYTES``, or (``stream`` other than
             "off") the staged epoch does not fit beside them: with
             ``batch_size`` 0 as in the reference, and with ``batch_size``
             > 0 where the reference streams row spans.
     """
     cfg = config
-    if mesh is not None:
-        raise NotImplementedError(
-            "train_seqrec over a mesh: the port runs one device; the "
-            "dp / sp / tp / ep / pp paths are ROADMAP A7"
-        )
     if cfg.stream not in ("auto", "on", "off"):
         raise ValueError(
             f"stream must be auto/on/off, got {cfg.stream!r}"
@@ -308,19 +429,39 @@ def train_seqrec(
         )
     if cfg.stream == "on":
         raise ValueError(
-            "stream='on': the port has no streamed epoch feed (ROADMAP A7); "
-            "use 'auto' or 'off'"
+            "stream='on': the port has no streamed epoch feed (ROADMAP "
+            "§A.3); use 'auto' or 'off'"
         )
+    axes = MeshAxes.of(mesh)
+    n_data, n_seq = axis_size(axes.data), axis_size(axes.seq)
+    n_model, n_pipe = axis_size(axes.model), axis_size(axes.pipe)
+    if cfg.n_heads % n_model:
+        raise ValueError("n_heads must divide by the model axis")
+    if cfg.ffn % n_model:
+        raise ValueError("ffn must divide by the model axis")
+    if cfg.n_layers % n_pipe:
+        raise ValueError("n_layers must divide by the pipe axis")
     if cfg.attention not in _ATTENTION:
         raise ValueError(
             f"unknown attention mode {cfg.attention!r}; use ring/ulysses"
+        )
+    if cfg.attention == "ulysses" and (cfg.n_heads // n_model) % n_seq:
+        raise ValueError(
+            "ulysses attention needs the per-device head count "
+            f"(n_heads {cfg.n_heads} / model axis {n_model} = "
+            f"{cfg.n_heads // n_model}) divisible by the seq axis "
+            f"({n_seq}); use ring attention or adjust n_heads"
         )
     dev = resolve_device(device)
 
     seqs = np.asarray(sequences, np.int32)
     n, t = seqs.shape
-    t_pad = min(t, cfg.max_len)
-    buf = np.zeros((n, t_pad), np.int32)
+    t_pad = _round_up(min(t, cfg.max_len), n_seq)
+    if t_pad > cfg.max_len:
+        raise ValueError(
+            f"max_len {cfg.max_len} not a multiple of seq axis {n_seq}"
+        )
+    buf = np.zeros((_round_up(n, n_data), t_pad), np.int32)
     if t <= t_pad:
         buf[:n, :t] = seqs
     else:
@@ -335,7 +476,7 @@ def train_seqrec(
     if cfg.batch_size > 0:
         # minibatch steps: contiguous row blocks with wraparound so every
         # step slices a full batch
-        B = min(cfg.batch_size, max(n, 1))
+        B = _round_up(min(cfg.batch_size, max(n, 1)), n_data)
         reps = _round_up(max(n, B), B)
         seqs = np.resize(seqs[:max(n, 1)], (reps, t_pad))
         n_batches = reps // B
@@ -346,20 +487,29 @@ def train_seqrec(
     targets = np.zeros_like(seqs)
     targets[:, :-1] = seqs[:, 1:]
     mask = ((targets > 0) & (seqs > 0)).astype(np.float32)
+    # this rank's rows of every batch and its positions
+    b_loc, t_loc = B // n_data, t_pad // n_seq
+    row0 = axis_index(axes.data) * b_loc
+    t0_ = axis_index(axes.seq) * t_loc
 
-    vocab = n_items + 1  # +1 for the pad row
+    vocab = _round_up(n_items + 1, n_model)  # +1 for the pad row
+
+    t0 = time.monotonic()
+    # drawn whole on a seeded CPU generator whatever the device and the
+    # rank, so that the card, the CPU and every rank start from one init
+    g = torch.Generator(device="cpu")
+    g.manual_seed(cfg.seed)
+    init = init_params(vocab, cfg, g)
+    specs = param_specs(init)
 
     # placement accounting before anything lands on the device
-    D, F, L, T = cfg.d_model, cfg.ffn, cfg.n_layers, cfg.max_len
-    params_nbytes = 4 * (
-        vocab * D + T * D + 2 * D
-        + L * (4 * D + 4 * D * D + 2 * D * F + F + D)
-    )
+    params_nbytes = per_device_nbytes(mesh, init, specs)
     assert_device_budget(
-        params_nbytes, 1, "seqrec params (single-device placement)"
+        params_nbytes, 1, "seqrec sharded params" if mesh is not None
+        else "seqrec params (single-device placement)"
     )
-    # seqs + targets (int32) + mask (float32)
-    staged_nbytes = 12 * seqs.shape[0] * t_pad
+    # seqs + targets (int32) + mask (float32), sharded over data × seq
+    staged_nbytes = -(-12 * seqs.shape[0] * t_pad // (n_data * n_seq))
     budget = device_budget_bytes()
     over = budget > 0 and params_nbytes + staged_nbytes > budget
     if over and cfg.stream != "off":
@@ -368,23 +518,22 @@ def train_seqrec(
             f"the params ({params_nbytes} B) under "
             f"PIO_TPU_DEVICE_BUDGET_BYTES={budget}"
             + ("; the reference streams row spans here, and the port's "
-               "streamed feed is ROADMAP A7 (stream='off' stages it all "
+               "streamed feed is ROADMAP §A.3 (stream='off' stages it all "
                "the same)" if cfg.batch_size > 0 else
                "; set batch_size > 0 so the feed can stream row spans "
-               "(ROADMAP A7)")
+               "(ROADMAP §A.3)")
         )
     if stats is not None:
         stats["n_stream"] = 0
 
-    t0 = time.monotonic()
-    # drawn on a seeded CPU generator whatever the device, so that the
-    # card and the CPU train from the same init
-    g = torch.Generator(device="cpu")
-    g.manual_seed(cfg.seed)
-    init = init_params(vocab, cfg, g)
-    params = rebuild(init, [v.to(dev) for v in leaves(init)])
+    local = local_shards(mesh, init, specs)
+    params = rebuild(local, [v.to(dev) for v in leaves(local)])
+    # full-batch: this rank's rows once; minibatch: every row, sliced to
+    # the rank's rows a step
+    rows = slice(row0, row0 + b_loc) if cfg.batch_size <= 0 else slice(None)
     seqs_d, targets_d, mask_d = (
-        torch.from_numpy(a).to(dev) for a in (seqs, targets, mask))
+        torch.from_numpy(np.ascontiguousarray(a[rows, t0_:t0_ + t_loc]))
+        .to(dev) for a in (seqs, targets, mask))
     if stats is not None:
         _sync(dev)
         stats["place_s"] = time.monotonic() - t0
@@ -406,13 +555,13 @@ def train_seqrec(
         with devicewatch.compile_span("train_step", key=key):
             for i in range(n_steps):
                 if cfg.batch_size > 0:
-                    start = ((step0 + i) % n_batches) * B
-                    batch = tuple(a[start:start + B]
+                    start = ((step0 + i) % n_batches) * B + row0
+                    batch = tuple(a[start:start + b_loc]
                                   for a in (seqs_d, targets_d, mask_d))
                 else:
                     batch = (seqs_d, targets_d, mask_d)
                 values, opt, loss = _train_step(params, values, opt, batch,
-                                                cfg)
+                                                cfg, axes)
                 if losses is not None:
                     losses.step(loss)
         return step0 + n_steps, rebuild(params, values), opt
@@ -422,17 +571,21 @@ def train_seqrec(
     fingerprint = state_fingerprint(
         "seqrec", dataclasses.replace(cfg, steps=0, stream="auto"),
         n_items, seqs.shape, int(seqs.sum()),
+        None if mesh is None else tuple(mesh.shape),
     )
     state = (0, params, adam_init(params))
     state = run_chunked_steps(
         state, cfg.steps, chunk_fn,
-        checkpoint=checkpoint, checkpoint_every=checkpoint_every,
-        fingerprint=fingerprint,
+        checkpoint=rank_checkpoint(checkpoint, mesh),
+        checkpoint_every=checkpoint_every, fingerprint=fingerprint,
     )
     fitted = state[1]
     if stats is not None:
         _sync(dev)
         stats["steps_s"] = time.monotonic() - t0
+    with torch.no_grad():
+        fitted = gather_shards(mesh, fitted, specs,
+                               rebuild(init, [v.shape for v in leaves(init)]))
     fitted["emb"] = fitted["emb"][: n_items + 1]
     if losses is not None:
         losses.close()

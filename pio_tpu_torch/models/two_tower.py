@@ -1,20 +1,36 @@
-"""Two-tower retrieval model on one device, in-batch softmax.
+"""Two-tower retrieval model, in-batch softmax, over the data and model
+axes.
 
-Counterpart of ``pio_tpu/models/two_tower.py`` for ``mesh=None`` (the
-reference's single-device path, which ``bench.py:1882`` measures): a user
-tower and an item tower, each ``embed → relu MLP → L2-normalized
-vector``; the score is their dot product; training is the in-batch
-sampled-softmax contrastive loss (each row's positive item, the other
-rows' items as negatives) under Adam.
+Counterpart of ``pio_tpu/models/two_tower.py``: a user tower and an item
+tower, each ``embed → relu MLP → L2-normalized vector``; the score is
+their dot product; training is the in-batch sampled-softmax contrastive
+loss (each row's positive item, the other rows' items as negatives) under
+Adam.
 
 The reference computes this as one XLA program (gathers, two dots, a
-logsumexp, optax's Adam inside ``lax.scan``); no Pallas kernel is on the
-path, so the port runs it as PyTorch ops: ``F.embedding`` for the gather
-(its CUDA backward sums in a fixed order, so a resumed run gives the same
-bits), ``torch.matmul`` for the dots in full f32 (TF32 stays off, as
-PyTorch's default has it), and :mod:`pio_tpu_torch.models.adam`. The
-dp / tp / ep mesh paths and the streamed epoch feed come with the
-multi-device slice (ROADMAP A7).
+logsumexp, optax's Adam inside ``lax.scan``, under ``shard_map`` with a
+mesh); no Pallas kernel is on the path, so the port runs it as PyTorch
+ops: ``F.embedding`` for the gather (its CUDA backward sums in a fixed
+order, so a resumed run gives the same bits), ``torch.matmul`` for the
+dots in full f32 (TF32 stays off, as PyTorch's default has it), and
+:mod:`pio_tpu_torch.models.adam`.
+
+Over a mesh (a ``DeviceMesh`` of the process group, one rank a device)
+the same code runs on every rank with the collectives of
+``parallel/collectives.py``:
+
+- **data**: a step's batch splits into contiguous rank-major chunks; the
+  item vectors are all-gathered for the in-batch negatives (labels
+  offset by ``axis_index(data)·b_loc``), the loss is summed over the axis
+  and divided by the global batch, and the gradients are summed over the
+  axis after the backward;
+- **model**: the tables shard by rows (vocab-parallel lookups), ``w1`` by
+  columns and ``w2`` by rows (Megatron), under ``rules_for("two_tower")``.
+
+Every rank draws the whole init on a seeded CPU generator and keeps its
+shards, so a group of one gives the single-device bits. The vector
+tables are computed for each data rank's rows and gathered to every
+rank. The streamed epoch feed is ROADMAP §A.3.
 
 Under a recording run (``obs/trainwatch.py``) each step's loss joins the
 step stream through the lagged drain (no added kernel or synchronization
@@ -26,7 +42,6 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Optional
 
 import numpy as np
 import torch
@@ -34,17 +49,33 @@ import torch
 from pio_tpu_torch import DeviceLike, resolve_device
 from pio_tpu_torch.models.adam import adam_init, adam_update, leaves, rebuild
 from pio_tpu_torch.obs import devicewatch, trainwatch
+from pio_tpu_torch.parallel.collectives import (
+    Axis,
+    all_gather,
+    all_reduce_flat,
+    axis_index,
+    axis_size,
+    copy_to,
+    psum,
+)
+from pio_tpu_torch.parallel.mesh import mesh_axis_group
 from pio_tpu_torch.parallel.partition import (
     DeviceBudgetExceeded,
     assert_device_budget,
     device_budget_bytes,
+    local_shards,
+    match_partition_rules,
+    per_device_nbytes,
+    rules_for,
 )
 from pio_tpu_torch.parallel.vocab import vocab_parallel_lookup
 from pio_tpu_torch.utils.numutil import round_up as _round_up
 from pio_tpu_torch.workflow.checkpoint import (
+    rank_checkpoint,
     run_chunked_steps,
     state_fingerprint,
 )
+
 
 @dataclasses.dataclass(frozen=True)
 class TwoTowerConfig:
@@ -61,7 +92,7 @@ class TwoTowerConfig:
     table_wire: str = "float32"
     #: epoch feed: "off" and "auto" stage the id arrays on the device;
     #: "auto" raises DeviceBudgetExceeded where the reference would
-    #: stream, and "on" (the streamed feed) raises (ROADMAP A7)
+    #: stream, and "on" (the streamed feed) raises (ROADMAP §A.3)
     stream: str = "auto"
 
 
@@ -110,45 +141,60 @@ def init_params(vu: int, vi: int, cfg: TwoTowerConfig,
             "item": init_tower(vi, cfg, generator)}
 
 
+def param_specs(params: dict) -> dict:
+    """Partition specs of both towers from ``rules_for("two_tower")``:
+    the tables by rows over ``model``, ``w1`` and ``b1`` by columns,
+    ``w2`` by rows (reference ``_tower_specs``)."""
+    return match_partition_rules(rules_for("two_tower"), params,
+                                 on_unmatched="error")
+
+
 def _tower_forward(params: dict, ids: torch.Tensor,
-                   axis: Optional[str] = None) -> torch.Tensor:
-    """Embed → relu MLP → unit vectors (reference l.114-135)."""
-    x = vocab_parallel_lookup(params["emb"], ids, axis)
-    h = torch.relu(x @ params["w1"] + params["b1"])
-    out = h @ params["w2"] + params["b2"]
+                   axis: Axis = None) -> torch.Tensor:
+    """Vocab-parallel embed → tp relu MLP → unit vectors (reference
+    l.114-135); ``params`` are this rank's blocks over ``axis``."""
+    x = copy_to(vocab_parallel_lookup(params["emb"], ids, axis), axis)
+    h = torch.relu(x @ params["w1"] + params["b1"])  # [B, H/m] columns
+    out = psum(h @ params["w2"], axis) + params["b2"]  # close the rows
     norm = torch.linalg.vector_norm(out, dim=-1, keepdim=True)
     return out / torch.clamp_min(norm, 1e-6)
 
 
 def _contrastive_loss(user_p: dict, item_p: dict, uids: torch.Tensor,
                       iids: torch.Tensor, cfg: TwoTowerConfig,
-                      d_axis: Optional[str] = None,
-                      m_axis: Optional[str] = None) -> torch.Tensor:
+                      d_axis: Axis = None,
+                      m_axis: Axis = None) -> torch.Tensor:
     """In-batch softmax cross-entropy at ``cfg.temperature`` (reference
-    l.138-167): row b's label is column b. The diagonal is read with
-    ``diagonal``, whose backward writes one value a row."""
-    if d_axis is not None:
-        raise NotImplementedError(
-            f"data axis {d_axis!r}: the port runs one device; the "
-            f"all-gathered negatives are ROADMAP A7"
-        )
+    l.138-168) over this rank's ``b_loc`` rows: the item vectors are
+    all-gathered over ``d_axis`` as negatives, row b's label is column
+    ``axis_index(d_axis)·b_loc + b``, and the loss is summed over the axis
+    and divided by the global batch. The label column is read with
+    ``take_along_dim``, whose backward writes one value a row."""
     u = _tower_forward(user_p, uids, m_axis)
     v = _tower_forward(item_p, iids, m_axis)
-    logits = cfg.temperature * (u @ v.T)
+    b_loc = u.shape[0]
+    v_all = all_gather(v, d_axis)
+    labels = axis_index(d_axis) * b_loc + torch.arange(b_loc,
+                                                       device=u.device)
+    logits = cfg.temperature * (u @ v_all.T)
     logz = torch.logsumexp(logits, dim=-1)
-    ce = logz - torch.diagonal(logits)
-    return ce.sum() / u.shape[0]
+    ce = logz - torch.take_along_dim(logits, labels[:, None], dim=1)[:, 0]
+    return psum(ce.sum(), d_axis) / (b_loc * axis_size(d_axis))
 
 
 def _train_step(params: dict, values, opt: dict, ub: torch.Tensor,
-                ib: torch.Tensor, cfg: TwoTowerConfig):
-    """One Adam step on the batch ``(ub, ib)``: ``values`` are the leaves
-    of the tree ``params`` (whose structure alone is read). Returns the
-    new leaves, the new optimizer state and the batch's loss."""
+                ib: torch.Tensor, cfg: TwoTowerConfig, d_axis: Axis = None,
+                m_axis: Axis = None):
+    """One Adam step on this rank's rows ``(ub, ib)`` of the batch:
+    ``values`` are the leaves of the tree ``params`` (whose structure
+    alone is read). The gradients are summed over ``d_axis`` (each rank's
+    backward gives its rows' part). Returns the new leaves, the new
+    optimizer state and the batch's loss."""
     p = [t.detach().requires_grad_(True) for t in values]
     tree = rebuild(params, p)
-    loss = _contrastive_loss(tree["user"], tree["item"], ub, ib, cfg)
-    grads = torch.autograd.grad(loss, p)
+    loss = _contrastive_loss(tree["user"], tree["item"], ub, ib, cfg,
+                             d_axis, m_axis)
+    grads = all_reduce_flat(torch.autograd.grad(loss, p), [d_axis])
     values, opt = adam_update(values, grads, opt, cfg.learning_rate)
     return values, opt, loss.detach()
 
@@ -156,6 +202,18 @@ def _train_step(params: dict, values, opt: dict, ub: torch.Tensor,
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _vectors(tower: dict, vocab: int, d_axis: Axis, m_axis: Axis,
+             dev: torch.device) -> torch.Tensor:
+    """The tower's unit vectors of ids ``[0, vocab)``: each data rank
+    computes its contiguous span of the ids (padded to a data multiple),
+    and the spans are gathered to every rank (reference ``vectors``)."""
+    n = axis_size(d_axis)
+    per = _round_up(vocab, n) // n
+    lo = axis_index(d_axis) * per
+    ids = torch.arange(lo, lo + per, device=dev)
+    return all_gather(_tower_forward(tower, ids, m_axis), d_axis)
 
 
 def train_two_tower(
@@ -171,15 +229,20 @@ def train_two_tower(
     device: DeviceLike = None,
 ) -> TwoTowerModel:
     """Train on positive (user, item) pairs; returns unit vector tables on
-    ``device`` (CUDA unless the caller asks for the CPU).
+    ``device`` (CUDA unless the caller asks for the CPU; under a mesh,
+    this rank's device), the same on every rank.
 
     Args:
-        mesh: must be None (one device); a mesh is ROADMAP A7.
+        mesh: a ``DeviceMesh`` of the process group (its ``data`` and
+            ``model`` axes are used; ``seq`` and ``pipe`` must be 1), or
+            None for one device. Every rank of the mesh calls this with
+            the same arguments.
         user_ids/item_ids: [n_pairs] int positive interaction pairs.
         checkpoint/checkpoint_every: optional
             :class:`~pio_tpu_torch.workflow.checkpoint.CheckpointManager`
             and snapshot interval in steps; resumes from the newest
-            snapshot on restart.
+            snapshot on restart (each rank under its own ``rank<r>``
+            directory when the mesh has more than one).
         stats: optional dict receiving the phase split, measured by
             synchronizing between phases: ``place_s`` (init and the ids to
             the device), ``steps_s``, ``tables_d2h_s`` (the vector tables
@@ -187,17 +250,12 @@ def train_two_tower(
             device, so no copy to the host is in it) and ``n_stream`` (0).
 
     Raises:
-        DeviceBudgetExceeded: the params do not fit
+        DeviceBudgetExceeded: this rank's params do not fit
             ``PIO_TPU_DEVICE_BUDGET_BYTES``, or with ``stream="auto"`` the
             staged ids do not fit beside them (the reference streams
             there; the port has no streamed feed).
     """
     cfg = config
-    if mesh is not None:
-        raise NotImplementedError(
-            "train_two_tower over a mesh: the port runs one device; the "
-            "dp / tp / ep paths are ROADMAP A7"
-        )
     if cfg.table_wire not in ("float32", "bfloat16"):
         raise ValueError(
             f"table_wire must be float32/bfloat16, got {cfg.table_wire!r}"
@@ -208,14 +266,20 @@ def train_two_tower(
         )
     if cfg.stream == "on":
         raise ValueError(
-            "stream='on': the port has no streamed epoch feed (ROADMAP A7); "
-            "use 'auto' or 'off'"
+            "stream='on': the port has no streamed epoch feed (ROADMAP "
+            "§A.3); use 'auto' or 'off'"
         )
     dev = resolve_device(device)
+    d_axis = mesh_axis_group(mesh, "data")
+    m_axis = mesh_axis_group(mesh, "model")
+    n_data, n_model = axis_size(d_axis), axis_size(m_axis)
 
-    vu = max(n_users, 1)
-    vi = max(n_items, 1)
-    batch = min(cfg.batch_size, len(user_ids))
+    # vocab rounded up so the tables shard evenly; batch to a data multiple
+    vu = _round_up(max(n_users, 1), n_model)
+    vi = _round_up(max(n_items, 1), n_model)
+    batch = _round_up(min(cfg.batch_size, len(user_ids)), n_data)
+    b_loc = batch // n_data
+    lo = axis_index(d_axis) * b_loc  # this rank's rows of every batch
 
     rng = np.random.default_rng(cfg.seed)
     perm = rng.permutation(len(user_ids))
@@ -228,15 +292,20 @@ def train_two_tower(
     iids = np.resize(iids, reps)
     n_batches = reps // batch
 
-    # placement accounting before anything lands on the device
-    def tower_nbytes(vocab):
-        E, H, O = cfg.embed_dim, cfg.hidden, cfg.out_dim
-        return 4 * (vocab * E + E * H + H + H * O + O)
+    t0 = time.monotonic()
+    # drawn whole on a seeded CPU generator whatever the device and the
+    # rank, so that the card, the CPU and every rank start from one init
+    g = torch.Generator(device="cpu")
+    g.manual_seed(cfg.seed)
+    init = init_params(vu, vi, cfg, g)
+    specs = param_specs(init)
 
-    params_nbytes = tower_nbytes(vu) + tower_nbytes(vi)
+    # placement accounting before anything lands on the device
+    params_nbytes = per_device_nbytes(mesh, init, specs)
     staged_nbytes = 2 * reps * 4  # uids + iids
     assert_device_budget(
-        params_nbytes, 1, "two_tower params (single-device placement)"
+        params_nbytes, 1, "two_tower sharded params" if mesh is not None
+        else "two_tower params (single-device placement)"
     )
     budget = device_budget_bytes()
     if (cfg.stream == "auto" and budget > 0
@@ -245,17 +314,12 @@ def train_two_tower(
             f"two_tower staged ids ({staged_nbytes} B) do not fit beside "
             f"the params ({params_nbytes} B) under "
             f"PIO_TPU_DEVICE_BUDGET_BYTES={budget}; the reference streams "
-            f"them here, and the port's streamed feed is ROADMAP A7 "
+            f"them here, and the port's streamed feed is ROADMAP §A.3 "
             f"(stream='off' stages them all the same)"
         )
 
-    t0 = time.monotonic()
-    # drawn on a seeded CPU generator whatever the device, so that the
-    # card and the CPU train from the same init
-    g = torch.Generator(device="cpu")
-    g.manual_seed(cfg.seed)
-    params = {tower: {k: v.to(dev) for k, v in tp.items()}
-              for tower, tp in init_params(vu, vi, cfg, g).items()}
+    local = local_shards(mesh, init, specs)
+    params = rebuild(local, [t.to(dev) for t in leaves(local)])
     uids_d = torch.from_numpy(uids).to(dev)
     iids_d = torch.from_numpy(iids).to(dev)
     if stats is not None:
@@ -279,10 +343,10 @@ def train_two_tower(
             "train_step", key=("two_tower", "chunk", batch, int(n))
         ):
             for i in range(n):
-                start = ((step0 + i) % n_batches) * batch
+                start = ((step0 + i) % n_batches) * batch + lo
                 values, opt, loss = _train_step(
-                    params, values, opt, uids_d[start:start + batch],
-                    iids_d[start:start + batch], cfg)
+                    params, values, opt, uids_d[start:start + b_loc],
+                    iids_d[start:start + b_loc], cfg, d_axis, m_axis)
                 if losses is not None:
                     losses.step(loss)
         return step0 + n, rebuild(params, values), opt
@@ -295,12 +359,13 @@ def train_two_tower(
                             stream="auto"),
         n_users, n_items,
         reps, int(uids.sum()), int(iids.sum()),
+        None if mesh is None else tuple(mesh.shape),
     )
     state = (0, params, adam_init(params))
     state = run_chunked_steps(
         state, cfg.steps, chunk_fn,
-        checkpoint=checkpoint, checkpoint_every=checkpoint_every,
-        fingerprint=fingerprint,
+        checkpoint=rank_checkpoint(checkpoint, mesh),
+        checkpoint_every=checkpoint_every, fingerprint=fingerprint,
     )
     fitted = state[1]
     if stats is not None:
@@ -309,8 +374,8 @@ def train_two_tower(
         t0 = time.monotonic()
 
     with torch.no_grad():
-        uv = _tower_forward(fitted["user"], torch.arange(vu, device=dev))
-        iv = _tower_forward(fitted["item"], torch.arange(vi, device=dev))
+        uv = _vectors(fitted["user"], vu, d_axis, m_axis, dev)
+        iv = _vectors(fitted["item"], vi, d_axis, m_axis, dev)
         if cfg.table_wire == "bfloat16":
             uv = uv.to(torch.bfloat16).float()
             iv = iv.to(torch.bfloat16).float()

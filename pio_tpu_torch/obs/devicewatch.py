@@ -40,8 +40,8 @@ Where the live read and the ledger disagree, the gap is exported as
 ``pio_tpu_device_estimate_drift_bytes{device}``.
 
 Not ported: the failpoints, trace exemplars (the tracer is not ported:
-:func:`_active_trace_id` is None) and the stream-feed and shard
-placements (ROADMAP A7).
+:func:`_active_trace_id` is None) and the stream feed's placements
+(ROADMAP §A.3).
 """
 
 from __future__ import annotations
@@ -76,7 +76,7 @@ COMPILE_SITES = (
     "bucket_warmup",     # deploy-time bucket ladder sweep (query server)
     "bucket_dispatch",   # a LIVE dispatch into a cold bucket (should be 0)
     "resident_scorer",   # device-resident scorer program per batch size
-    "stream_dispatch",   # streamed-feed chunk program (not ported, A7)
+    "stream_dispatch",   # streamed-feed chunk program (not ported, §A.3)
     "train_step",        # trainer chunk programs
 )
 

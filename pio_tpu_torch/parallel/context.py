@@ -23,7 +23,7 @@ import torch
 
 from pio_tpu_torch import DeviceLike, resolve_device
 from pio_tpu_torch.parallel import distributed
-from pio_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+from pio_tpu_torch.parallel.mesh import AXIS_ORDER, MeshSpec, build_mesh
 
 
 @dataclasses.dataclass
@@ -59,6 +59,10 @@ class ComputeContext:
     rank: int = 0
     batch_axis: str = "data"
     model_axis: str = "model"
+    #: the meshes of :meth:`mesh_for`, by axis sizes (shared by the
+    #: copies ``dataclasses.replace`` makes)
+    meshes: Dict[tuple, Any] = dataclasses.field(default_factory=dict,
+                                                  repr=False, compare=False)
 
     @staticmethod
     def create(seed: int = 0, device: DeviceLike = None,
@@ -77,6 +81,21 @@ class ComputeContext:
             device=dev, seed=seed, mesh=mesh, group=group,
             rank=torch.distributed.get_rank(group),
         )
+
+    def mesh_for(self, spec: MeshSpec):
+        """A ``DeviceMesh`` in ``spec``'s shape over this context's ranks
+        (None without a group), built once a shape: every rank calls
+        this in the same order, since building a mesh forms its axes'
+        groups."""
+        if self.mesh is None:
+            return None
+        sizes = spec.sizes(self.num_devices)
+        key = tuple(sizes[n] for n in AXIS_ORDER)
+        if key == tuple(self.mesh.shape):
+            return self.mesh
+        if key not in self.meshes:
+            self.meshes[key] = build_mesh(self.device.type, spec)
+        return self.meshes[key]
 
     @staticmethod
     def local(seed: int = 0, device: DeviceLike = None) -> "ComputeContext":

@@ -69,6 +69,14 @@ def build_mesh(device_type: str, spec: MeshSpec = MeshSpec()):
     )
 
 
+def mesh_axis_group(mesh, axis: str):
+    """The process group of a named axis of ``mesh`` (None without a
+    mesh): the axis argument of ``parallel/collectives.py``."""
+    if mesh is None:
+        return None
+    return mesh.get_group(axis)
+
+
 def mesh_axis_size(mesh, axis: str) -> int:
     """Size of a named axis (1 when the mesh lacks it or is None)."""
     if mesh is None:

@@ -323,6 +323,46 @@ def _rank_slice(t: torch.Tensor, spec, sizes: Dict[str, int],
     return t
 
 
+def local_shards(mesh, params: Any, specs: Any) -> Any:
+    """This rank's piece of every leaf of ``params`` under ``specs``
+    (its slices on the sharded dims, zero-padded to a multiple of the axis
+    sizes); the leaves as they are without a mesh."""
+    if mesh is None:
+        return params
+    sizes = _axis_sizes(mesh)
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    return tree_map2(
+        lambda leaf, spec: _rank_slice(
+            _as_tensor(leaf), spec_for_mesh(sizes, spec), sizes,
+            coord).contiguous(),
+        params, specs)
+
+
+def gather_shards(mesh, params: Any, specs: Any, shapes: Any) -> Any:
+    """The inverse of :func:`local_shards` on every rank: each leaf's
+    pieces gathered over the axes of its sharded dims (innermost axis
+    first, so the mixed-radix order comes back) and cut to ``shapes``
+    (a tree of the whole leaves' shapes). The leaves as they are without
+    a mesh."""
+    if mesh is None:
+        return params
+    from pio_tpu_torch.parallel.collectives import all_gather
+
+    sizes = _axis_sizes(mesh)
+
+    def whole(leaf, spec_shape):
+        spec, shape = spec_shape
+        for dim, entry in enumerate(spec_for_mesh(sizes, spec)):
+            for axis in reversed(_entry_axes(entry)):
+                if sizes[axis] > 1:
+                    leaf = all_gather(leaf.detach(), mesh.get_group(axis),
+                                      dim)
+        return leaf[tuple(slice(0, n) for n in shape)].contiguous()
+
+    return tree_map2(whole, params, tree_map2(
+        lambda spec, shape: (spec, shape), specs, shapes))
+
+
 def shard_params(
     where,
     params: Any,

@@ -43,7 +43,7 @@ tensors (``donated``, the reference's category name) in the active device
 watch's ledger and releases them when retired, and the first dispatch at
 each batch size counts as a ``resident_scorer`` compile
 (``obs/devicewatch.py``). Not ported: the reference's budget check, its
-failpoints and the row-sharded placement over a mesh.
+failpoints and the row-sharded placement over a mesh (ROADMAP §A.4).
 """
 
 from __future__ import annotations

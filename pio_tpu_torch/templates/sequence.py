@@ -1,6 +1,6 @@
 """Sequence-recommendation template — next-item prediction over histories.
 
-Counterpart of ``pio_tpu/templates/sequence.py`` on one device: the data
+Counterpart of ``pio_tpu/templates/sequence.py``: the data
 source assembles each user's time-ordered event stream (view, buy and
 rate events sorted by event time), the preparator packs the histories
 into a right-padded code matrix (code 0 is the pad), and the algorithm
@@ -21,9 +21,11 @@ engine.json:
 Query ``{"user": "u1", "num": 4}`` (or ``{"history": ["i1", "i2"], ...}``)
 → ``{"itemScores": [{"item": "i5", "score": 3.1}, ...]}``.
 
-Not ported yet: the mesh splits (``seq_parallel``, ``pipe_parallel``,
-``model_parallel``, read by the mesh path only, as in the reference) and
-the sharded-persistence opt-in (``ShardableModel``), both ROADMAP A7.
+Under a process group the model trains over a mesh of the group's ranks
+split by ``seq_parallel``, ``pipe_parallel`` and ``model_parallel``, the
+rest on data (reference l.252-266). The engine model is a
+``ShardableModel``: ``PIO_TPU_SHARDED_PERSIST=1`` persists its
+parameters as row shards.
 """
 
 from __future__ import annotations
@@ -54,6 +56,7 @@ from pio_tpu_torch.data.bimap import BiMap
 from pio_tpu_torch.models.als import top_n
 from pio_tpu_torch.models.seqrec import SeqRecConfig, SeqRecModel, train_seqrec
 from pio_tpu_torch.parallel.context import ComputeContext
+from pio_tpu_torch.parallel.mesh import MeshSpec
 from pio_tpu_torch.storage.registry import Storage
 from pio_tpu_torch.templates.common import (
     ItemScore,
@@ -63,6 +66,7 @@ from pio_tpu_torch.templates.common import (
     resolve_app,
 )
 from pio_tpu_torch.templates.similarproduct import HitRateMetric
+from pio_tpu_torch.workflow.shard_store import ShardableModel
 
 
 # --------------------------------------------------------------- data source
@@ -201,25 +205,51 @@ class SeqRecParams(Params):
     learning_rate: float = 1e-3
     steps: int = 300
     seed: int = 0
-    #: "ring" or "ulysses": on one device both are exact causal attention
+    #: sequence-parallel attention mode: "ring" or "ulysses" (all-to-all)
     attention: str = "ring"
     #: rows per optimizer step; 0 = full-batch
     batch_size: int = 0
     #: epoch feed: "off" and "auto" stage it on the device; "on" (the
-    #: streamed feed) is ROADMAP A7
+    #: streamed feed) is ROADMAP §A.3
     stream: str = "auto"
-    #: mesh splits, read by the mesh path only
+    #: mesh splits; the other ranks ride the data axis
     seq_parallel: int = 1
     pipe_parallel: int = 1
     model_parallel: int = 1
 
 
 @dataclasses.dataclass
-class SeqRecEngineModel:
+class SeqRecEngineModel(ShardableModel):
     model: SeqRecModel
     item_index: BiMap
     #: training-time histories for user-id queries
     user_histories: Dict[str, List[int]]
+
+    shard_template = "seqrec"
+
+    def shard_arrays(self):
+        """The layer-stacked parameters flat, under the ``/`` paths the
+        partition rules match (reference l.213-231)."""
+        out = {}
+        for k, v in self.model.params.items():
+            if isinstance(v, dict):
+                for k2, v2 in v.items():
+                    out[f"{k}/{k2}"] = v2
+            else:
+                out[k] = v
+        return out
+
+    def replace_shard_arrays(self, arrays):
+        params: Dict = {}
+        for name, arr in arrays.items():
+            if "/" in name:
+                outer, inner = name.split("/", 1)
+                params.setdefault(outer, {})[inner] = arr
+            else:
+                params[name] = arr
+        return dataclasses.replace(
+            self, model=dataclasses.replace(self.model, params=params)
+        )
 
 
 class SeqRecAlgorithm(Algorithm):
@@ -227,6 +257,20 @@ class SeqRecAlgorithm(Algorithm):
 
     params_class = SeqRecParams
     query_class = Query
+    splits_over_group = True
+
+    def _mesh(self, ctx: ComputeContext):
+        """The training mesh over the context's ranks: the seq, pipe and
+        model splits (each clipped to what the world leaves), the rest on
+        data; None without a group."""
+        if ctx.mesh is None:
+            return None
+        p: SeqRecParams = self.params
+        n = ctx.num_devices
+        sp = max(1, min(p.seq_parallel, n))
+        pp = max(1, min(p.pipe_parallel, n // sp))
+        mp = max(1, min(p.model_parallel, n // (sp * pp)))
+        return ctx.mesh_for(MeshSpec(data=-1, seq=sp, pipe=pp, model=mp))
 
     def train(
         self, ctx: ComputeContext, pd: PreparedData
@@ -235,7 +279,7 @@ class SeqRecAlgorithm(Algorithm):
         # train_seqrec keeps each row's newest max_len events (tail), the
         # same window predict scores
         model = train_seqrec(
-            None,
+            self._mesh(ctx),
             pd.sequences,
             n_items=len(pd.item_index),
             config=SeqRecConfig(

@@ -1,12 +1,18 @@
 """Two-tower retrieval template — neural personalized recommendation.
 
-Counterpart of ``pio_tpu/templates/twotower.py`` on one device: the
-recommendation template's data source and preparator (``rate`` and
-``buy`` events, dense codes), a two-tower model trained on the context's
-device (:mod:`pio_tpu_torch.models.two_tower`), and top-N serving from
-the user and item vector tables through the scorer resident on the
-model's device, with the recommendation template's routing
+Counterpart of ``pio_tpu/templates/twotower.py``: the recommendation
+template's data source and preparator (``rate`` and ``buy`` events, dense
+codes), a two-tower model trained on the context's device
+(:mod:`pio_tpu_torch.models.two_tower`), and top-N serving from the user
+and item vector tables through the scorer resident on the model's
+device, with the recommendation template's routing
 (``predict_user_topn``, ``batched_user_topn``).
+
+Under a process group the model trains over a mesh of the group's ranks,
+``model_parallel`` of them on the model axis and the rest on data
+(reference l.109-118). The engine model is a ``ShardableModel``
+(``PIO_TPU_SHARDED_PERSIST=1`` persists the vector tables as row shards;
+``PIO_TPU_MESH_SERVE=1`` shards the scorer over the serving mesh).
 
 engine.json:
 
@@ -21,16 +27,14 @@ engine.json:
 Query ``{"user": "u1", "num": 4}`` →
 ``{"itemScores": [{"item": "i5", "score": 0.93}, ...]}``, the
 recommendation template's wire shape.
-
-Not ported yet: the mesh split (``model_parallel``, read by the mesh path
-only, as in the reference) and the sharded-persistence opt-in
-(``ShardableModel``), both ROADMAP A7.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
+
+import torch
 
 from pio_tpu_torch.controller.components import Algorithm, FirstServing
 from pio_tpu_torch.controller.engine import (
@@ -50,6 +54,7 @@ from pio_tpu_torch.models.two_tower import (
     train_two_tower,
 )
 from pio_tpu_torch.parallel.context import ComputeContext
+from pio_tpu_torch.parallel.mesh import MeshSpec
 from pio_tpu_torch.templates.common import (
     DeviceScorerModel,
     PredictedResult,
@@ -65,6 +70,7 @@ from pio_tpu_torch.templates.recommendation import (
     predict_user_topn,
 )
 from pio_tpu_torch.templates.similarproduct import HitRateMetric
+from pio_tpu_torch.workflow.shard_store import ShardableModel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,20 +84,47 @@ class TwoTowerParams(Params):
     batch_size: int = 256
     seed: int = 0
     #: epoch feed: "off" and "auto" stage the batches on the device;
-    #: "on" (the streamed feed) is ROADMAP A7
+    #: "on" (the streamed feed) is ROADMAP §A.3
     stream: str = "auto"
-    #: mesh split: model axis size (tp/ep); read by the mesh path only
+    #: mesh split: model axis size (tp/ep); the other ranks ride data (dp)
     model_parallel: int = 1
 
 
 @dataclasses.dataclass
-class TwoTowerEngineModel(DeviceScorerModel):
+class TwoTowerEngineModel(DeviceScorerModel, ShardableModel):
+    """The vector tables with the id maps (reference l.76-95). Served over
+    a serving mesh, the sharded scorer holds the device copy and the
+    model keeps the host tables."""
+
     model: TwoTowerModel  # vector tables: tensors on the serving device
     user_index: BiMap
     item_index: BiMap
 
+    shard_template = "two_tower"
+
     def _scorer_factors(self):
         return self.model.user_vectors, self.model.item_vectors
+
+    def _release_device_tables(self, rows, cols) -> None:
+        self.model = dataclasses.replace(
+            self.model, user_vectors=torch.from_numpy(rows),
+            item_vectors=torch.from_numpy(cols))
+
+    def shard_arrays(self):
+        return {
+            "user_vectors": self.model.user_vectors,
+            "item_vectors": self.model.item_vectors,
+        }
+
+    def replace_shard_arrays(self, arrays):
+        return dataclasses.replace(
+            self,
+            model=dataclasses.replace(
+                self.model,
+                user_vectors=arrays["user_vectors"],
+                item_vectors=arrays["item_vectors"],
+            ),
+        )
 
 
 class TwoTowerAlgorithm(Algorithm):
@@ -99,13 +132,23 @@ class TwoTowerAlgorithm(Algorithm):
 
     params_class = TwoTowerParams
     query_class = Query
+    splits_over_group = True
+
+    def _mesh(self, ctx: ComputeContext):
+        """The training mesh over the context's ranks: ``model_parallel``
+        (clipped to the world) on model, the rest on data; None without
+        a group."""
+        if ctx.mesh is None:
+            return None
+        mp = max(1, min(self.params.model_parallel, ctx.num_devices))
+        return ctx.mesh_for(MeshSpec(data=-1, model=mp))
 
     def train(
         self, ctx: ComputeContext, pd: PreparedData
     ) -> TwoTowerEngineModel:
         p: TwoTowerParams = self.params
         model = train_two_tower(
-            None,
+            self._mesh(ctx),
             pd.user_codes,
             pd.item_codes,
             n_users=len(pd.user_index),

@@ -18,10 +18,10 @@ tables sharded over every local CUDA device (``PIO_TPU_MESH_SERVE``).
 ``train`` joins a process group when the env contract names one
 (``PIO_TPU_COORDINATOR``, ``PIO_TPU_NUM_PROCESSES``, ``PIO_TPU_PROCESS_ID``;
 one process a device, ``parallel/distributed.py``), rank 0 writing the
-run: ALS (recommendation, similar-product, e-commerce), the text MLP and
-logreg split their work over the ranks; the other algorithms (naive
-Bayes, two-tower, sequence, ...) train a whole copy on every rank until
-their multi-device paths are ported (ROADMAP A7). ``train --profile-dir
+run: ALS (recommendation, similar-product, e-commerce), the text MLP,
+logreg, two-tower and the sequence model split their work over the
+ranks; naive Bayes trains a whole copy on every rank, as the reference's
+has no multi-device path. ``train --profile-dir
 D`` writes a ``torch.profiler`` trace of the run into D, and ``train`` serves the run's ``/train.json``,
 ``/device.json`` and ``/metrics`` on a loopback sidecar (``--status-port``,
 else ``PIO_TPU_TRAIN_STATUS_PORT``: 0 an ephemeral port, printed at

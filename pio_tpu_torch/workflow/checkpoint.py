@@ -175,6 +175,20 @@ class CheckpointManager:
         """Nothing is in flight: every save has returned."""
 
 
+def rank_checkpoint(checkpoint: Optional[CheckpointManager],
+                    mesh) -> Optional[CheckpointManager]:
+    """A rank's own snapshot directory, ``<dir>/rank<r>``, under
+    ``checkpoint``'s when ``mesh`` (a ``DeviceMesh``) spans more than one
+    rank: each rank snapshots its own shards. The manager itself
+    otherwise."""
+    if checkpoint is None or mesh is None or mesh.size() <= 1:
+        return checkpoint
+    import torch.distributed as dist
+
+    return CheckpointManager(os.path.join(checkpoint.directory,
+                                          f"rank{dist.get_rank()}"))
+
+
 def state_fingerprint(*parts: Any) -> str:
     """Cheap run-identity digest from config reprs / shapes / data sums."""
     h = hashlib.sha256()

@@ -32,8 +32,9 @@ out as per-shard records and a shard manifest before the blob
 manifest), one shard a device of the run, and a load reassembles them on
 any device count. Under a process group every rank trains: an algorithm
 whose class sets ``splits_over_group`` (the ALS ones, the text MLP,
-logreg) splits its work over the ranks, and any other trains a whole copy
-on each rank (a warning names them). Only the coordinator (rank 0)
+logreg, two-tower and the sequence model) splits its work over the
+ranks, and naive Bayes trains a whole copy on each rank (a warning names
+it). Only the coordinator (rank 0)
 writes: the engine instance, the models, the run ledger row and the
 profile trace; the other ranks wait at a barrier and return the
 coordinator's instance id. Not ported yet: the reference's
@@ -158,8 +159,9 @@ def run_train(
         if whole:
             log.warning(
                 "process group of %d ranks: %s train a whole copy on every "
-                "rank and only rank 0's is kept (their multi-device paths "
-                "are not ported; ROADMAP A7)", ctx.world_size, whole)
+                "rank and only rank 0's is kept (naive Bayes has no "
+                "multi-device path, as in the reference)", ctx.world_size,
+                whole)
     if ctx.group is not None and not ctx.is_coordinator:
         return _run_train_rank(engine, engine_params, workflow_params, ctx)
     instances = Storage.get_meta_data_engine_instances()

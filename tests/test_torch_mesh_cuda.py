@@ -6,6 +6,8 @@ size). No JAX here: the references are the port's single-device paths.
   contract), both wires: bitwise the single-device factors on the card.
 - Data-parallel ``train_mlp`` in the same group: bitwise the
   single-device parameters, through the hand-written kernels.
+- ``train_two_tower`` and ``train_seqrec`` (ring and ulysses) over the
+  same group's mesh: bitwise the single-device tables and parameters.
 - The sharded top-N scorer over ``(cuda,) * 4`` against the unsharded
   one on the card: the same items where scores are more than 1e-5 apart,
   scores within 1e-5.
@@ -18,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from pio_tpu_torch.models import als, mlp
+from pio_tpu_torch.models import als, mlp, seqrec, two_tower
 from pio_tpu_torch.ops.topn import DeviceTopNScorer
 from pio_tpu_torch.parallel.context import ComputeContext
 
@@ -29,6 +31,9 @@ U, I = 301, 157
 ALS_CFG = dict(rank=16, iterations=5, reg=0.1, blocks_per_chunk=64)
 V, H, C, N, L = 500, 32, 5, 301, 24
 MLP_CFG = dict(hidden=H, iterations=20, learning_rate=0.05, reg=0.01)
+TT_CFG = dict(embed_dim=16, hidden=32, out_dim=16, steps=20, batch_size=128)
+SEQ_CFG = dict(d_model=32, n_heads=4, n_layers=2, ffn=64, max_len=16,
+               steps=10)
 
 
 @pytest.fixture(scope="module")
@@ -66,7 +71,21 @@ def one_rank(cuda_device):
         ("torch_ranks:als_task", {**als_task, "wire": "blocked"}),
         ("torch_ranks:mlp_task", dict(ids=ids, w=w, y=y, V=V, C=C,
                                       cfg=MLP_CFG, init=init)),
-    ], device="cuda", timeout=300)[0]
+        ("torch_ranks:twotower_task", dict(spec={}, u=u, i=i, U=U, I=I,
+                                           cfg=TT_CFG)),
+    ] + [("torch_ranks:seqrec_task", dict(
+        spec={}, seqs=_histories(), n_items=I,
+        cfg=dict(SEQ_CFG, attention=a))) for a in ("ring", "ulysses")],
+        device="cuda", timeout=300)[0]
+
+
+def _histories():
+    rng = np.random.default_rng(2)
+    seqs = np.zeros((40, 20), np.int32)
+    for r in range(40):
+        k = rng.integers(4, 21)
+        seqs[r, :k] = rng.integers(1, I + 1, k)
+    return seqs
 
 
 @pytest.mark.cuda
@@ -117,3 +136,31 @@ def test_sharded_scorer_on_the_card(cuda_device, monkeypatch):
         # a reordering only between candidates whose scores nearly tie
         assert np.all(np.abs(gv[differs] - wv[differs]) <= 1e-5)
         assert gi.max() < cols.shape[0]
+
+
+@pytest.mark.cuda
+def test_group_two_tower_is_the_single_device_path_on_the_card(one_rank,
+                                                               cuda_device):
+    u, i, _ = _ratings()
+    want = two_tower.train_two_tower(None, u, i, U, I,
+                                     two_tower.TwoTowerConfig(**TT_CFG),
+                                     device=cuda_device)
+    got_u, got_i = one_rank[3]
+    np.testing.assert_array_equal(got_u, want.user_vectors.cpu().numpy())
+    np.testing.assert_array_equal(got_i, want.item_vectors.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slot,attention", [(4, "ring"), (5, "ulysses")])
+def test_group_seqrec_is_the_single_device_path_on_the_card(
+        one_rank, cuda_device, slot, attention):
+    want = seqrec.train_seqrec(None, _histories(), I, seqrec.SeqRecConfig(
+        **SEQ_CFG, attention=attention), device=cuda_device)
+    got = one_rank[slot]
+    flat = {}
+    for k, v in want.params.items():
+        for k2, t in (v.items() if isinstance(v, dict) else [(None, v)]):
+            flat[k if k2 is None else f"{k}/{k2}"] = t.cpu().numpy()
+    assert got.keys() == flat.keys()
+    for k in flat:
+        np.testing.assert_array_equal(got[k], flat[k], err_msg=k)

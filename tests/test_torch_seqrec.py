@@ -13,12 +13,18 @@ the reference's ``jax.random`` init, carried across with
   ``seqrec_model_from_reference``: 1e-5 (O(10) scores: 1e-5 absolute is
   1e-6 relative).
 
-``stream="on"``, an exceeded device budget, a mesh and an axis raise.
-The card against the CPU is a ``cuda`` test.
+``stream="on"`` and an exceeded device budget raise. An axis of one
+rank (an in-process gloo group of one, ``tests/torch_ranks.py``) gives
+the results without an axis bit for bit, forward and backward, and so
+does a mesh of one rank for the trainer; ``tests/test_torch_mesh_*.py``
+hold the axes of 2 and 4 ranks. The card against the CPU is a ``cuda``
+test.
 """
 
 import dataclasses
+import os
 import pickle
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -47,6 +53,9 @@ from pio_tpu_torch.parallel.vocab import (
     vocab_parallel_lookup,
     vocab_parallel_target_gather,
 )
+
+sys.path.insert(0, os.path.dirname(__file__))
+from torch_ranks import group_of_one  # noqa: E402
 
 KW = dict(d_model=16, n_heads=2, n_layers=2, ffn=32, max_len=8)
 
@@ -99,15 +108,39 @@ def test_attention_matches_reference(name, causal):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
 
 
-def test_parallel_pieces_refuse_an_axis():
-    x = torch.zeros(1, 2, 1, 2)
-    for fn in (ring_attention, ulysses_attention):
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            fn(x, x, x, axis="seq")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        vocab_parallel_lookup(torch.zeros(3, 2), torch.zeros(1), "model")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        vocab_parallel_target_gather(torch.zeros(1, 3), torch.zeros(1), "model")
+def _piece_runs(name, axis):
+    """A parallel piece at ``axis``: its output and the gradients of
+    ``Σ <output, cotangent>`` with respect to its float inputs."""
+    rng = np.random.default_rng(5)
+    ids = torch.from_numpy(rng.integers(0, 7, (2, 5)))
+
+    def inputs(*shapes):
+        return [torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                .requires_grad_(True) for s in shapes]
+
+    if name in ("ring", "ulysses"):
+        fn = ring_attention if name == "ring" else ulysses_attention
+        xs = inputs(*[(2, 8, 2, 4)] * 3)
+        out = fn(*xs, axis=axis)
+    elif name == "lookup":
+        xs = inputs((7, 3))
+        out = vocab_parallel_lookup(xs[0], ids, axis)
+    else:
+        xs = inputs((2, 5, 7))
+        out = vocab_parallel_target_gather(xs[0], ids, axis)
+    cot = torch.from_numpy(rng.normal(size=out.shape).astype(np.float32))
+    return [out.detach()] + list(torch.autograd.grad((out * cot).sum(), xs))
+
+
+@pytest.mark.parametrize("name", ["ring", "ulysses", "lookup", "target"])
+def test_parallel_pieces_over_an_axis_of_one(name):
+    """An axis of one rank runs its collectives (gloo) and gives the bits
+    of no axis, the output and the gradients."""
+    want = _piece_runs(name, None)
+    with group_of_one() as ctx:
+        got = _piece_runs(name, ctx.group)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 def test_vocab_helpers_match_reference():
@@ -253,15 +286,28 @@ def test_options_that_raise():
     seqs = _seqs()
     for cfg, err, match in (
         (dict(stream="on"), ValueError, "batch_size > 0"),
-        (dict(stream="on", batch_size=2), ValueError, "ROADMAP A7"),
+        (dict(stream="on", batch_size=2), ValueError, "ROADMAP §A.3"),
         (dict(stream="never"), ValueError, "stream"),
         (dict(attention="flash"), ValueError, "attention"),
     ):
         with pytest.raises(err, match=match):
             T.train_seqrec(None, seqs, 5, T.SeqRecConfig(**KW, **cfg),
                            device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        T.train_seqrec(object(), seqs, 5, T.SeqRecConfig(**KW), device="cpu")
+
+
+@pytest.mark.parametrize("attention", ["ring", "ulysses"])
+def test_a_mesh_of_one_rank_is_the_single_device_path(attention):
+    """Over a mesh of one rank (every axis a gloo group of one) the
+    trainer gives the single-device parameters bit for bit."""
+    seqs = _seqs()
+    cfg = T.SeqRecConfig(**KW, steps=3, batch_size=3, attention=attention)
+    want = T.train_seqrec(None, seqs, 5, cfg, device="cpu")
+    with group_of_one() as ctx:
+        got = T.train_seqrec(ctx.mesh, seqs, 5, cfg, device="cpu")
+    a, b = _flat(want.params), _flat(got.params)
+    assert a.keys() == b.keys()
+    for k in a:
+        np.testing.assert_array_equal(b[k], a[k], err_msg=k)
 
 
 @pytest.mark.parametrize("batch_size", [0, 2], ids=["full", "minibatch"])

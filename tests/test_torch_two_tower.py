@@ -13,11 +13,16 @@ streams). Tolerances:
 - ``scores`` of a model carried across with
   ``twotower_model_from_reference``: 1e-5.
 
-``stream="on"``, an exceeded device budget and a mesh raise. The card
-against the CPU is a ``cuda`` test.
+``stream="on"`` and an exceeded device budget raise. A mesh of one rank
+(an in-process gloo group of one, ``tests/torch_ranks.py``) gives the
+single-device tables bit for bit; ``tests/test_torch_mesh_neural.py``
+holds meshes of 2 and 4 ranks. The card against the CPU is a ``cuda``
+test.
 """
 
 import dataclasses
+import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -32,6 +37,9 @@ from pio_tpu_torch.convert import (
 )
 from pio_tpu_torch.models import two_tower as T
 from pio_tpu_torch.parallel.partition import DeviceBudgetExceeded
+
+sys.path.insert(0, os.path.dirname(__file__))
+from torch_ranks import group_of_one  # noqa: E402
 
 KW = dict(embed_dim=8, hidden=16, out_dim=8)
 TOWER_KEYS = ("emb", "w1", "b1", "w2", "b2")
@@ -193,9 +201,9 @@ def test_scores_of_a_converted_model_match_reference():
                                ref.scores(ref.user_vectors[:3]), atol=1e-5)
 
 
-def test_stream_on_and_mesh_raise():
+def test_stream_on_and_bad_options_raise():
     u, i = _pairs(0)
-    with pytest.raises(ValueError, match="ROADMAP A7"):
+    with pytest.raises(ValueError, match="ROADMAP §A.3"):
         T.train_two_tower(None, u, i, 12, 10,
                           T.TwoTowerConfig(**KW, stream="on"), device="cpu")
     with pytest.raises(ValueError, match="stream"):
@@ -205,9 +213,18 @@ def test_stream_on_and_mesh_raise():
         T.train_two_tower(None, u, i, 12, 10,
                           T.TwoTowerConfig(**KW, table_wire="fp8"),
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        T.train_two_tower(object(), u, i, 12, 10, T.TwoTowerConfig(**KW),
-                          device="cpu")
+
+
+def test_a_mesh_of_one_rank_is_the_single_device_path():
+    """Over a mesh of one rank (its data and model axes gloo groups of
+    one) the trainer gives the single-device tables bit for bit."""
+    u, i = _pairs(0)
+    cfg = T.TwoTowerConfig(**KW, steps=5, batch_size=32)
+    want = T.train_two_tower(None, u, i, 12, 10, cfg, device="cpu")
+    with group_of_one() as ctx:
+        got = T.train_two_tower(ctx.mesh, u, i, 12, 10, cfg, device="cpu")
+    assert torch.equal(got.user_vectors, want.user_vectors)
+    assert torch.equal(got.item_vectors, want.item_vectors)
 
 
 def test_device_budget(monkeypatch):
@@ -221,7 +238,7 @@ def test_device_budget(monkeypatch):
     with pytest.raises(DeviceBudgetExceeded, match="two_tower params"):
         T.train_two_tower(None, u, i, 12, 10, cfg, device="cpu")
     monkeypatch.setenv("PIO_TPU_DEVICE_BUDGET_BYTES", str(params + 100))
-    with pytest.raises(DeviceBudgetExceeded, match="ROADMAP A7"):
+    with pytest.raises(DeviceBudgetExceeded, match="ROADMAP §A.3"):
         T.train_two_tower(None, u, i, 12, 10, cfg, device="cpu")
     # the reference streams at this budget
     with monkeypatch.context() as m:

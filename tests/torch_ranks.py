@@ -11,6 +11,7 @@ results. The children import only ``torch`` and ``pio_tpu_torch``.
 
 from __future__ import annotations
 
+import contextlib
 import importlib
 import multiprocessing as mp
 import os
@@ -224,3 +225,226 @@ def run_train_task(ctx, payload):
     variant = variant_from_dict(payload)
     engine, ep = build_engine(variant)
     return run_train(engine, ep, variant, ctx=ctx)
+
+
+# -- the neural templates over a mesh ------------------------------------------
+def _tensor_tree(tree):
+    """A nested dict of numpy arrays as CPU tensors."""
+    import numpy as np
+    import torch
+
+    return {k: _tensor_tree(v) if isinstance(v, dict)
+            else torch.from_numpy(np.array(v, np.float32))
+            for k, v in tree.items()}
+
+
+def _flat_numpy(tree, pre=""):
+    """A nested dict of tensors as ``{"a/b": numpy}``."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_numpy(v, pre + k + "/"))
+        else:
+            out[pre + k] = v.detach().cpu().numpy()
+    return out
+
+
+def _mesh(ctx, spec):
+    from pio_tpu_torch.parallel.mesh import MeshSpec
+
+    return ctx.mesh_for(MeshSpec(**spec))
+
+
+def twotower_task(ctx, payload):
+    """``train_two_tower`` over the mesh ``payload["spec"]`` of the rank's
+    group, from the given initial towers (the port's own without
+    ``init``), snapshotting every ``every`` steps under ``checkpoint``
+    when it names a directory; returns the (user, item) vector tables."""
+    from pio_tpu_torch.models import two_tower as T
+
+    mesh = _mesh(ctx, payload["spec"])
+    orig = T.init_params
+    if payload.get("init") is not None:
+        T.init_params = lambda vu, vi, cfg, generator: _tensor_tree(
+            payload["init"])
+    kw = {}
+    if payload.get("checkpoint"):
+        from pio_tpu_torch.workflow.checkpoint import CheckpointManager
+
+        kw = dict(checkpoint=CheckpointManager(payload["checkpoint"]),
+                  checkpoint_every=payload["every"])
+    try:
+        m = T.train_two_tower(mesh, payload["u"], payload["i"], payload["U"],
+                              payload["I"], T.TwoTowerConfig(**payload["cfg"]),
+                              device=ctx.device, **kw)
+    finally:
+        T.init_params = orig
+    return m.user_vectors.cpu().numpy(), m.item_vectors.cpu().numpy()
+
+
+def seqrec_task(ctx, payload):
+    """``train_seqrec`` over the mesh ``payload["spec"]``, from the given
+    initial parameters (the port's own without ``init``); returns the
+    parameters, flat (``blocks/wq``...)."""
+    from pio_tpu_torch.models import seqrec as S
+
+    mesh = _mesh(ctx, payload["spec"])
+    orig = S.init_params
+    if payload.get("init") is not None:
+        S.init_params = lambda vocab, cfg, generator: _tensor_tree(
+            payload["init"])
+    try:
+        m = S.train_seqrec(mesh, payload["seqs"], payload["n_items"],
+                           S.SeqRecConfig(**payload["cfg"]), device=ctx.device)
+    finally:
+        S.init_params = orig
+    return _flat_numpy(m.params)
+
+
+def seqrec_grad_task(ctx, payload):
+    """One step's loss and gradients of ``train_seqrec``'s loss over the
+    mesh ``payload["spec"]`` at the given parameters and full batch
+    (its whole padded rows and positions), each gradient gathered whole;
+    flat."""
+    import numpy as np
+    import torch
+
+    from pio_tpu_torch.models import seqrec as S
+    from pio_tpu_torch.models.adam import leaves, rebuild
+    from pio_tpu_torch.parallel import collectives as C
+    from pio_tpu_torch.parallel.partition import gather_shards, local_shards
+
+    mesh = _mesh(ctx, payload["spec"])
+    axes = S.MeshAxes.of(mesh)
+    cfg = S.SeqRecConfig(**payload["cfg"])
+    init = _tensor_tree(payload["init"])
+    specs = S.param_specs(init)
+    local = local_shards(mesh, init, specs)
+    p = [t.requires_grad_(True) for t in leaves(local)]
+    seqs, targets, mask = (np.asarray(payload[k]) for k in
+                           ("seqs", "targets", "mask"))
+    b_loc = seqs.shape[0] // C.axis_size(axes.data)
+    t_loc = seqs.shape[1] // C.axis_size(axes.seq)
+    r0 = C.axis_index(axes.data) * b_loc
+    c0 = C.axis_index(axes.seq) * t_loc
+    batch = [torch.from_numpy(np.ascontiguousarray(
+        a[r0:r0 + b_loc, c0:c0 + t_loc])) for a in (seqs, targets, mask)]
+    loss = S._loss(rebuild(local, p), *batch, cfg, axes)
+    grads = C.all_reduce_flat(torch.autograd.grad(loss, p),
+                              [axes.data, axes.seq])
+    whole = gather_shards(mesh, rebuild(local, grads), specs,
+                          rebuild(init, [t.shape for t in leaves(init)]))
+    return float(loss), _flat_numpy(whole)
+
+
+def pieces_task(ctx, payload):
+    """The parallel pieces over one axis of the rank's group (the mesh
+    ``payload["spec"]``, the axis ``payload["axis"]``): each piece's local
+    output and the gradients of ``Σ <output, cotangent>`` with respect to
+    its local inputs. The inputs and cotangents are the whole arrays;
+    each rank takes its slices here."""
+    import numpy as np
+    import torch
+
+    from pio_tpu_torch.parallel import collectives as C
+    from pio_tpu_torch.parallel.mesh import mesh_axis_group
+    from pio_tpu_torch.parallel.pipeline import pipeline_apply
+    from pio_tpu_torch.parallel.ring import ring_attention
+    from pio_tpu_torch.parallel.ulysses import ulysses_attention
+    from pio_tpu_torch.parallel.vocab import (
+        vocab_parallel_lookup,
+        vocab_parallel_target_gather,
+    )
+
+    axis = mesh_axis_group(_mesh(ctx, payload["spec"]), payload["axis"])
+    n, r = C.axis_size(axis), C.axis_index(axis)
+
+    def piece(a, dim):
+        a = torch.from_numpy(np.array(a, np.float32))
+        return a.chunk(n, dim)[r].contiguous().requires_grad_(True)
+
+    def whole(a):
+        return torch.from_numpy(np.array(a, np.float32)).requires_grad_(True)
+
+    def run(fn, inputs, cot):
+        out = fn(*inputs)
+        grads = torch.autograd.grad((out * cot).sum(), inputs)
+        return out.detach().numpy(), [g.numpy() for g in grads]
+
+    got = {}
+    for name, case in payload["cases"].items():
+        if name == "lookup":
+            ids = torch.from_numpy(case["ids"])
+            got[name] = run(lambda t: vocab_parallel_lookup(t, ids, axis),
+                            [piece(case["table"], 0)],
+                            torch.from_numpy(case["cot"]))
+        elif name == "target":
+            tg = torch.from_numpy(case["targets"])
+            got[name] = run(
+                lambda lg: vocab_parallel_target_gather(lg, tg, axis),
+                [piece(case["logits"], -1)], torch.from_numpy(case["cot"]))
+        elif name in ("ring", "ulysses"):
+            fn = ring_attention if name == "ring" else ulysses_attention
+            got[name] = run(
+                lambda q, k, v: fn(q, k, v, axis=axis,
+                                   causal=case["causal"]),
+                [piece(case[k], 1) for k in "qkv"],
+                torch.from_numpy(case["cot"]).chunk(n, 1)[r])
+        elif name == "pipeline":
+            def stage(p, x):
+                for layer in range(p["w"].shape[0]):
+                    x = torch.tanh(x @ p["w"][layer] + p["b"][layer])
+                return x
+
+            got[name] = run(
+                lambda w, b, x: pipeline_apply({"w": w, "b": b}, x, stage,
+                                               axis=axis),
+                [piece(case["w"], 0), piece(case["b"], 0), whole(case["x"])],
+                torch.from_numpy(case["cot"]))
+    return got
+
+
+@contextlib.contextmanager
+def group_of_one():
+    """An in-process gloo group of one rank (a ``HashStore``, no socket)
+    and its context, for the world-size-1 checks that need no spawn; the
+    group is destroyed on exit."""
+    import torch.distributed as dist
+
+    from pio_tpu_torch.parallel.context import ComputeContext
+    from pio_tpu_torch.parallel.mesh import build_mesh
+
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = build_mesh("cpu")
+        yield ComputeContext(device=__import__("torch").device("cpu"),
+                             mesh=mesh, group=mesh.get_group("data"))
+    finally:
+        dist.destroy_process_group()
+
+
+def template_task(ctx, payload):
+    """``run_train`` of the variant ``payload`` on the rank's group
+    twice, persisted whole and then with ``PIO_TPU_SHARDED_PERSIST=1``;
+    returns both instance ids and the warnings the runs logged."""
+    import logging
+
+    said = []
+
+    class Said(logging.Handler):
+        def emit(self, record):
+            said.append(record.getMessage())
+
+    handler = Said(level=logging.WARNING)
+    logger = logging.getLogger("pio_tpu_torch")
+    logger.addHandler(handler)
+    iids = []
+    try:
+        for sharded in ("0", "1"):
+            os.environ["PIO_TPU_SHARDED_PERSIST"] = sharded
+            iids.append(run_train_task(ctx, payload))
+    finally:
+        logger.removeHandler(handler)
+        os.environ.pop("PIO_TPU_SHARDED_PERSIST", None)
+    return {"iids": iids, "warnings": said}
