@@ -68,7 +68,7 @@ kernels (the forward, and the backward's bag scatter and bag dot):
    512) against the numpy host path and the card, and bitwise against
    numpy on factors whose dot products are exact;
 17. ``run_evaluation`` of ``recommendation_evaluation`` at MovieLens-100K's
-   shape (phase 13's events; 3 folds, a 2 x 2 rank x lambda grid) on the
+   shape (phase 13's events; 3 folds, ranks 8 and 16 at lambda 0.1) on the
    card and on the CPU: the same best params, MSE within EVAL_MSE_RTOL;
 18. implicit ``train_als`` at the similar-product configuration
    (``bench.py``'s ``_bench_similarproduct``: 5 M views, rank 16, alpha
@@ -84,10 +84,10 @@ kernels (the forward, and the backward's bag scatter and bag dot):
 20. the e-commerce template on those events plus 5,000 buys and the
    unavailable-items constraint: 8 requests, ``unseen_only``, the
    constraint changed between two identical queries, ``batch_predict``
-   of 1024, and a query's time with and without its live reads, on the
+   of 1024 (256 of them against the loop), and a query's time with and without its live reads, on the
    memory store and again with EVENTDATA on SQLite;
 21. ``run_evaluation`` of ``similarproduct_evaluation`` and
-   ``ecommerce_evaluation`` on those events (3 folds, rank 8 and 16), card
+   ``ecommerce_evaluation`` on those events (3 folds, rank 16), card
    and CPU;
 22. ``run_evaluation`` of ``textclassification_evaluation`` on phase 9's
    corpus (3 folds, hidden 64 and 128) on the card, its kernel launches
@@ -141,7 +141,7 @@ kernels (the forward, and the backward's bag scatter and bag dot):
 32. the two-tower template end to end on phase 13's events: ``run_train``,
    8 ``POST /queries.json`` against a CPU copy of the blob,
    ``batch_predict`` of 1024 against the loop, ``twotower_evaluation``
-   card against CPU at 100 steps a point;
+   card against CPU at out_dim 64, 100 steps;
 33. ``train_seqrec(None, ...)`` at ``bench.py``'s sequence shape (256
    histories, T 128, d 256, 8 heads, 4 layers, ffn 1,024, vocab 20,000, 30
    full-batch steps): tokens/s, the stats, peak memory, a step split into
@@ -228,7 +228,26 @@ kernels (the forward, and the backward's bag scatter and bag dot):
    one rank: the parameters and the first step's gradients); and the
    two-tower template on phase 30's tables persisted as 4 shard records
    and served with ``PIO_TPU_MESH_SERVE=1`` over (cuda:0,) x 4 (256
-   users' top-10 against the unsharded scorer).
+   users' top-10 against the unsharded scorer);
+43. the streamed epoch feed, the resident scorer's mesh and the
+   failpoints: ``train_two_tower`` at ``bench.py``'s shape streamed
+   (``stream="on"``, 8 spans, lookahead 2) against the staged run in
+   turns (the same bits; walls, ``h2d_bytes``, ``h2d_s``, the overlap
+   ratio of a recorded run, the pinned buffers a run, the card's busy
+   share), under a budget of the params + 1 MiB (``stream="auto"``: the
+   same bits, the peak within lookahead + 1 spans and a staged step's
+   temporaries) and at MovieLens-25M's 25,000,095 pairs; ``train_seqrec``
+   at phase 33's width in minibatches of 64, streamed against staged; the
+   classification template's resident scorer served with
+   ``PIO_TPU_MESH_SERVE=1`` over (cuda:0,) x 4 at 3 features
+   (``meshFallback``) and 256 (sharded): codes against the unsharded
+   scorer with near-ties counted, the residency block and the
+   ``resident`` ledger a shard, p50/p99 both ways, device memory over a
+   deploy and eight ``/reload``; and fault drills: ``stream.put=error:once``
+   (the streamed two-tower raises, the next run gives phase 30's bits) and
+   ``scorer.dispatch.solo=latency:20ms`` on phase 4's model (the p50 lifted
+   by 20 ms or more, ``/faults.json`` and ``/metrics`` counting the
+   triggers; the clean p50 beside phase 36's).
 
 The CLI phases write their homes under ``build/chip_smoke_homes/``
 (gitignored), made afresh each run; every server process is stopped
@@ -282,11 +301,13 @@ from pio_tpu_torch.models import als, logreg, markov_chain, mlp, naive_bayes  # 
 from pio_tpu_torch.models import adam, seqrec, two_tower  # noqa: E402
 from pio_tpu_torch.models.naive_bayes import train_multinomial_nb_bags  # noqa: E402
 from pio_tpu_torch.models.tfidf import TfIdfVectorizer  # noqa: E402
+from pio_tpu_torch import faults  # noqa: E402
 from pio_tpu_torch.obs import devicewatch, trainwatch  # noqa: E402
 from pio_tpu_torch.obs import profile as window  # noqa: E402
 from pio_tpu_torch import native  # noqa: E402
 from pio_tpu_torch.ops import _build  # noqa: E402
 from pio_tpu_torch.ops import embedding, topn  # noqa: E402
+from pio_tpu_torch.parallel import stream  # noqa: E402
 from pio_tpu_torch.parallel.context import ComputeContext  # noqa: E402
 from pio_tpu_torch.server import residency  # noqa: E402
 from pio_tpu_torch.server.http import PACKED_QUERY_CONTENT_TYPE  # noqa: E402
@@ -297,6 +318,7 @@ from pio_tpu_torch.storage.records import App  # noqa: E402
 from pio_tpu_torch.storage.registry import Storage  # noqa: E402
 from pio_tpu_torch.templates.classification import Query as CLSQuery  # noqa: E402
 from pio_tpu_torch.templates.classification import classification_evaluation  # noqa: E402
+from pio_tpu_torch.templates.classification import LogRegClassifierModel as TCLogRegModel  # noqa: E402
 from pio_tpu_torch.templates.common import business_rule_mask  # noqa: E402
 from pio_tpu_torch.templates.ecommerce import ECommAlgorithm  # noqa: E402
 from pio_tpu_torch.templates.ecommerce import Query as ECQuery  # noqa: E402
@@ -2206,11 +2228,13 @@ def phase_evaluation(args, smi) -> dict:
     """Phase 17: run_evaluation of recommendation_evaluation at
     MovieLens-100K's shape (phase 13's events) on the card and the CPU."""
     t_phase = time.monotonic()
+    # lambda 0.1 alone since PR 17 (0.05 and 0.1 before), for the
+    # script's time
     ev = recommendation_evaluation(REC_APP, eval_k=3, ranks=(8, 16),
-                                   lambdas=(0.05, 0.1), num_iterations=10)
+                                   lambdas=(0.1,), num_iterations=10)
     log(f"phase 17: run_evaluation of recommendation_evaluation at "
         f"MovieLens-100K's shape (phase 13's {REC_APP} events): 3 folds, "
-        f"rank x lambda grid (8, 16) x (0.05, 0.1), 10 iterations; {smi}")
+        f"rank x lambda grid (8, 16) x (0.1,), 10 iterations; {smi}")
     out = {}
     for name, dev in (("card", CARD), ("cpu", torch.device("cpu"))):
         ctx = ComputeContext.create(args.seed, device=dev)
@@ -2588,6 +2612,11 @@ def phase_sp_template(args, smi) -> dict:
                 last=ingested["last"], factor_err=err)
 
 
+#: phase 20's predict loop: the first 254 of the batch's queries and its
+#: two cold ones (the whole 1,024 until PR 17; cut for the script's time)
+EC_LOOP_QUERIES = 256
+
+
 def phase_ecomm_template(args, smi, sp) -> dict:
     """Phase 20: the e-commerce template end to end on phase 19's events."""
     t_phase = time.monotonic()
@@ -2712,15 +2741,20 @@ def phase_ecomm_template(args, smi, sp) -> dict:
     t0 = time.perf_counter()
     batch = dict(algo.batch_predict(model, qs))
     batch_ms = (time.perf_counter() - t0) * 1e3
+    # the loop over the first EC_LOOP_QUERIES and the two cold queries
+    # (each query ~18 ms of live reads: the whole batch's loop took 18 s)
     t0 = time.perf_counter()
-    loop = {k: algo.predict(model, q) for k, q in qs}
+    loop = {k: algo.predict(model, q)
+            for k, q in qs[:EC_LOOP_QUERIES - 2] + qs[-2:]}
     loop_ms = (time.perf_counter() - t0) * 1e3
     snapshot = algo._unavailable_items(model)
     for k, q in qs:
         code = model.user_index.get(q.user)
         full = model.item_factors @ model.user_factors[code] \
             if code is not None else algo._cold_scores(model, q)
-        for name, got in (("batch", batch[k]), ("loop", loop[k])):
+        for name, got in (("batch", batch[k]), ("loop", loop.get(k))):
+            if got is None:
+                continue
             if full is None:
                 ok = got.item_scores == ()
             else:
@@ -2733,8 +2767,8 @@ def phase_ecomm_template(args, smi, sp) -> dict:
             if not ok:
                 raise AssertionError(f"e-commerce {name} query {k}")
     log(f"  batch_predict of {N_REC_BATCH}: {batch_ms:.1f} ms; the predict "
-        f"loop {loop_ms:.1f} ms (host clock); both the top-10 of the "
-        f"model's scores within {BATCH_TOL}")
+        f"loop over {len(loop)} of them {loop_ms:.1f} ms (host clock); both "
+        f"the top-10 of the model's scores within {BATCH_TOL}")
 
     # what a query pays for its live reads (the memory store scans the
     # app's whole bucket on every find)
@@ -2820,18 +2854,23 @@ def run_sweep(name, ev, args) -> dict:
     return out
 
 
+#: phase 21's grid: rank 16 alone (8 and 16 until PR 17; each point took
+#: 10-15 s a sweep side, cut for the script's time)
+SP_EVAL_RANKS = (16,)
+
+
 def phase_sp_evaluation(args, smi) -> dict:
     """Phase 21: the similar-product and e-commerce sweeps, card and CPU."""
     t_phase = time.monotonic()
     log(f"phase 21: run_evaluation of similarproduct_evaluation and "
-        f"ecommerce_evaluation on phase 19-20's events: 3 folds, rank (8, "
-        f"16), 10 iterations, HitRate@10; {smi}")
+        f"ecommerce_evaluation on phase 19-20's events: 3 folds, rank "
+        f"{SP_EVAL_RANKS}, 10 iterations, HitRate@10; {smi}")
     out = {}
     for name, ev in (
             ("similarproduct_evaluation", similarproduct_evaluation(
-                SP_APP, eval_k=3, ranks=(8, 16))),
+                SP_APP, eval_k=3, ranks=SP_EVAL_RANKS)),
             ("ecommerce_evaluation", ecommerce_evaluation(
-                SP_APP, eval_k=3, ranks=(8, 16)))):
+                SP_APP, eval_k=3, ranks=SP_EVAL_RANKS))):
         out[name] = run_sweep(name, ev, args)
         compare_sweeps(name, out[name], HITRATE_TOL)
     log(f"  phase 21 {time.monotonic() - t_phase:.1f} s")
@@ -3836,6 +3875,9 @@ SEQ_HITRATE_TOL = 0.01
 # at 2 folds, 10 steps, d 16 and max_len 8 (a CPU step at the template's
 # shape takes ~0.5 s; 200 a point would not fit)
 TT_EVAL_STEPS = 100
+#: the two-tower sweep's grid: out_dim 64 alone (32 and 64 until PR 17;
+#: cut for the script's time, a point ~11 s a side)
+TT_EVAL_OUT_DIMS = (64,)
 SEQ_EVAL_CPU = dict(eval_k=2, layer_grid=(1, 2), steps=10, d_model=16,
                     max_len=8)
 NEURAL_APP = "movielens-100k-neural"
@@ -4148,8 +4190,8 @@ def phase_twotower_template(args, smi) -> None:
         "datasource": {"params": {"app_name": NEURAL_APP}},
         "algorithms": [{"name": "twotower", "params": {"seed": args.seed}}],
     }, TTQuery, bodies, batch)
-    out = run_sweep("twotower_evaluation",
-                    twotower_evaluation(NEURAL_APP, steps=TT_EVAL_STEPS), args)
+    out = run_sweep("twotower_evaluation", twotower_evaluation(
+        NEURAL_APP, steps=TT_EVAL_STEPS, out_dims=TT_EVAL_OUT_DIMS), args)
     compare_sweeps("twotower_evaluation", out, TT_HITRATE_TOL)
     log(f"  phase 32 {time.monotonic() - t_phase:.1f} s")
 
@@ -6681,6 +6723,487 @@ def phase_neural_mesh(args, smi, tt_model, seq_model) -> dict:
     return {"one_rank": one, "two_ranks": two, "serving": serving}
 
 
+# ---------------------------------------------------------------------------
+# phase 43: the streamed epoch feed, the resident scorer's mesh, the failpoints
+# ---------------------------------------------------------------------------
+#: the trainers' feed lookahead (models/two_tower.py, seqrec.py)
+STREAM_LOOKAHEAD = 2
+#: 43.1's span size: the 4,030,464 B staged ids of bench.py's shape in 8
+#: spans (n_stream = ceil(bytes / MB))
+TT_STREAM_MB = "0.5"
+#: MovieLens-25M's rating count, users and movies (bench.py:70-73)
+ML25M_RATINGS, ML25M_USERS, ML25M_ITEMS = 25_000_095, 162_541, 59_047
+#: 43.2: phase 33's shape in minibatches of 64 rows (4 a epoch), spans of
+#: one batch (12 x 64 x 128 B = 98,304 B)
+SEQ_STREAM_BATCH = 64
+SEQ_STREAM_MB = "0.05"
+#: 43.3: the wide classification case (PERF.md §7), its users, queries,
+#: reloads and the near-tie bound of a served code
+CLS_WIDE = 256
+N_CLS_MESH_QUERIES = 200
+N_CLS_MESH_BATCH = 1024
+N_CLS_RELOADS = 8
+#: a sharded logit against the unsharded one, relative to the magnitude
+#: of its dot product's terms (|x|·|W| + |b|): the partial sums of f32
+#: products in another order; and the top-two gap below which a code may
+#: flip (a near-tie, counted)
+CLS_TIE = 1e-5
+CLS_MESH = (CARD,) * 4
+#: 43.3: a /reload's device memory over the deploy's: the resident weights
+#: once (a second copy of the wide weights is 3 KiB, so the limit is the
+#: allocator's 512 B rounding of each live block: the scorers' and the
+#: model's, under a dozen)
+CLS_RELOAD_SLACK = 8 * 512
+#: 43.4: the injected latency, and the queries a drill sends
+FAULT_LATENCY_MS = 20
+N_FAULT_QUERIES = 64
+
+
+def stream_stats(stats: dict) -> str:
+    return json.dumps({k: (round(v, 6) if isinstance(v, float) else v)
+                       for k, v in stats.items()})
+
+
+def busy_share(fn) -> tuple:
+    """(the device's busy share of ``fn``'s wall, kernel ms, wall s): the
+    profiler's kernel time of one (warm) call over the host clock's wall
+    of that call."""
+    with profiled() as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ms = sum(e.self_device_time_total for e in _kernels(prof)) / 1e3
+    return ms / 1e3 / wall, ms, wall
+
+
+def streamed_pair(name, train_staged, train_streamed, same, smi) -> dict:
+    """Staged and streamed runs in turns, 3 each: (the walls, the median
+    of each), every streamed run the staged run's bits (``same``)."""
+    walls = {"staged": [], "streamed": []}
+    first = None
+    for _ in range(3):
+        staged, w = train_staged()
+        walls["staged"].append(w)
+        streamed, w = train_streamed()
+        walls["streamed"].append(w)
+        if not same(streamed, staged):
+            raise AssertionError(f"{name}: a streamed run differs from the "
+                                 f"staged run")
+        first = first or staged
+    med = {k: float(np.median(v)) for k, v in walls.items()}
+    log(f"  {name}: wall staged {med['staged']:.4f} s, streamed "
+        f"{med['streamed']:.4f} s (median of 3, host clock, in turns: "
+        f"{json.dumps({k: rounded(v) for k, v in walls.items()})}); the "
+        f"streamed bits are the staged bits; {smi}")
+    return {"walls": walls, "median": med, "model": first}
+
+
+def feed_readings(name, train, n_leaves, smi) -> dict:
+    """A streamed run's feed: its stats (serialized phases), the overlap
+    ratio of a recorded run, the pinned buffers one run allocates, and the
+    card's busy share of a run."""
+    stats = {}
+    train(stats=stats)
+    rec = trainwatch.StepRecorder(f"chip-smoke-{name}")
+    pinned0 = stream.pinned_buffers_allocated()
+    with trainwatch.recording(rec):
+        train()
+    pinned = stream.pinned_buffers_allocated() - pinned0
+    busy, kernel_ms, wall = busy_share(lambda: train())
+    log(f"  {name} streamed: stats {stream_stats(stats)}; recorded run: "
+        f"h2d_bytes {rec.h2d_bytes}, overlap ratio {rec.overlap_ratio}; "
+        f"pinned buffers a run {pinned}; the card busy {busy:.4f} of the "
+        f"wall ({kernel_ms:.2f} ms of kernels in {wall:.4f} s); {smi}")
+    # one feed a run (no snapshots): its ring, lookahead + 1 slots a leaf
+    if stats["n_stream"] < 2 or pinned != (STREAM_LOOKAHEAD + 1) * n_leaves:
+        raise AssertionError(f"{name}: the feed's stats or pinned ring")
+    return {"stats": stats, "overlap": rec.overlap_ratio,
+            "h2d_bytes_recorded": rec.h2d_bytes, "pinned": pinned,
+            "busy": busy}
+
+
+def tt_same(a, b) -> bool:
+    return torch.equal(a.user_vectors, b.user_vectors) and \
+        torch.equal(a.item_vectors, b.item_vectors)
+
+
+def stream_twotower(args, smi, tt_model) -> dict:
+    """43.1: two-tower at bench.py's shape, streamed."""
+    u, i = tt_pairs()
+    staged_cfg, on = tt_config(), tt_config(stream="on")
+    log(f"  43.1 two-tower at bench.py's shape streamed (stream='on', "
+        f"PIO_TPU_TRAIN_STREAM_MB={TT_STREAM_MB}, lookahead "
+        f"{STREAM_LOOKAHEAD}) against the staged run")
+    with knob("PIO_TPU_TRAIN_STREAM_MB", TT_STREAM_MB):
+        pair = streamed_pair(
+            "43.1 two-tower", lambda: tt_train(u, i, staged_cfg),
+            lambda: tt_train(u, i, on), tt_same, smi)
+        if not tt_same(pair["model"], tt_model):
+            raise AssertionError("43.1: the staged run is not phase 30's")
+        feed = feed_readings(
+            "43.1 two-tower", lambda stats=None: tt_train(
+                u, i, on, **({} if stats is None else {"stats": stats})),
+            2, smi)
+    if feed["stats"]["n_stream"] < 8:
+        raise AssertionError(f"43.1: n_stream {feed['stats']['n_stream']}")
+    if feed["stats"]["h2d_bytes"] != TT_STEPS * TT_BATCH * 8:
+        raise AssertionError("43.1: the feed did not ship every step's ids "
+                             "once")
+
+    # under a budget of the params + 1 MiB, "auto" streams: the same bits,
+    # and the peak above the run's resident state stays within
+    # lookahead + 1 spans and a staged step's temporaries
+    tree = two_tower.init_params(TT_USERS, TT_ITEMS, staged_cfg,
+                                 torch.Generator().manual_seed(0))
+    params_nbytes = sum(t.numel() * 4 for t in adam.leaves(tree))
+    del tree
+    staged_nbytes = 2 * 4 * (-(-TT_PAIRS // TT_BATCH) * TT_BATCH)
+
+    def peak_of(cfg, **kw):
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        model, wall = tt_train(u, i, cfg, **kw)
+        return model, wall, torch.cuda.max_memory_allocated() - base
+
+    _, _, staged_peak = peak_of(staged_cfg)
+    budget = params_nbytes + (1 << 20)
+    stats = {}
+    with knob("PIO_TPU_DEVICE_BUDGET_BYTES", str(budget)):
+        auto, auto_wall, auto_peak = peak_of(staged_cfg)
+        tt_train(u, i, staged_cfg, stats=stats)
+    n_stream = stats["n_stream"]
+    n_batches = staged_nbytes // (8 * TT_BATCH)
+    span = -(-n_batches // n_stream) * TT_BATCH * 8
+    temporaries = staged_peak - staged_nbytes
+    log(f"  43.1 PIO_TPU_DEVICE_BUDGET_BYTES = params {params_nbytes} B + "
+        f"1 MiB, stream='auto': n_stream {n_stream}, wall {auto_wall:.4f} s; "
+        f"peak memory_allocated above the start {auto_peak} B against the "
+        f"staged run's {staged_peak} B (its {staged_nbytes} B of ids "
+        f"resident, {temporaries} B the rest); {STREAM_LOOKAHEAD + 1} spans "
+        f"of {span} B + the rest = {temporaries + (STREAM_LOOKAHEAD + 1) * span}"
+        f" B; {smi}")
+    if not tt_same(auto, tt_model):
+        raise AssertionError("43.1: the run under the budget differs")
+    if n_stream < 4 or auto_peak > temporaries + \
+            (STREAM_LOOKAHEAD + 1) * span:
+        raise AssertionError("43.1: the streamed run under the budget held "
+                             "more than lookahead + 1 spans")
+
+    # MovieLens-25M's rating count, synthetic as bench.py makes them
+    rng = np.random.default_rng(args.seed)
+    u25 = rng.integers(0, ML25M_USERS, ML25M_RATINGS).astype(np.int32)
+    i25 = (rng.random(ML25M_RATINGS) ** 2 * ML25M_ITEMS).astype(np.int32)
+    epoch = 2 * 4 * ML25M_RATINGS
+    out25 = {}
+    for name, cfg in (("staged", tt_config(stream="off")), ("streamed", on)):
+        torch.cuda.synchronize()
+        h0 = stream._H2D_BYTES.value()
+        t0 = time.perf_counter()
+        m = two_tower.train_two_tower(None, u25, i25, ML25M_USERS,
+                                      ML25M_ITEMS, cfg, device=CARD)
+        torch.cuda.synchronize()
+        out25[name] = (m, time.perf_counter() - t0,
+                       int(stream._H2D_BYTES.value() - h0))
+        if not torch.isfinite(m.item_vectors).all():
+            raise AssertionError(f"43.1 25M {name}: vectors not finite")
+    if not tt_same(out25["staged"][0], out25["streamed"][0]):
+        raise AssertionError("43.1 25M: the streamed run differs")
+    shipped = out25["streamed"][2]
+    log(f"  43.1 {ML25M_RATINGS} pairs ({ML25M_USERS} users, {ML25M_ITEMS} "
+        f"items, synthetic as bench.py:74): wall staged "
+        f"{out25['staged'][1]:.3f} s, streamed {out25['streamed'][1]:.3f} s "
+        f"(host clock, one run each, the host's shuffle of the epoch in "
+        f"both); streamed h2d_bytes {shipped} against the staged epoch's "
+        f"{epoch} B; the same bits; {smi}")
+    if shipped != TT_STEPS * TT_BATCH * 8:
+        raise AssertionError("43.1 25M: the feed shipped more than the "
+                             "steps' ids")
+    return {"pair": pair, "feed": feed, "auto_peak": auto_peak,
+            "staged_peak": staged_peak, "walls25": {
+                k: v[1] for k, v in out25.items()}, "shipped25": shipped}
+
+
+def stream_seqrec(args, smi, seqs) -> dict:
+    """43.2: the sequence model at phase 33's width in minibatches,
+    streamed."""
+    cfg = seq_config(batch_size=SEQ_STREAM_BATCH)
+    on = dataclasses.replace(cfg, stream="on")
+    log(f"  43.2 train_seqrec at phase 33's width in minibatches of "
+        f"{SEQ_STREAM_BATCH} rows, streamed (PIO_TPU_TRAIN_STREAM_MB="
+        f"{SEQ_STREAM_MB}) against staged")
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(
+            adam.leaves(a.params), adam.leaves(b.params)))
+
+    with knob("PIO_TPU_TRAIN_STREAM_MB", SEQ_STREAM_MB):
+        pair = streamed_pair("43.2 sequence", lambda: seq_train(seqs, cfg),
+                             lambda: seq_train(seqs, on), same, smi)
+        feed = feed_readings(
+            "43.2 sequence", lambda stats=None: seq_train(
+                seqs, on, **({} if stats is None else {"stats": stats})),
+            3, smi)
+    if feed["stats"]["h2d_bytes"] != SEQ_STEPS * SEQ_STREAM_BATCH * SEQ_T \
+            * 12:
+        raise AssertionError("43.2: the feed did not ship every step's "
+                             "rows once")
+    if not all(torch.isfinite(t).all() for t in adam.leaves(
+            pair["model"].params)):
+        raise AssertionError("43.2: parameters not finite")
+    return {"pair": pair, "feed": feed}
+
+
+def cls_wide_model(args):
+    """The classification template's logreg at 256 features: trained on
+    the card over N_CLS_USERS synthetic rows (three plans, each with its
+    own hot features), the int8 wire."""
+    rng = np.random.default_rng(args.seed + 43)
+    y = (np.arange(N_CLS_USERS) % 3).astype(np.int32)
+    X = rng.integers(0, 3, (N_CLS_USERS, CLS_WIDE)).astype(np.float32)
+    for c in range(3):
+        X[y == c, c * 8:(c + 1) * 8] += 6
+    ctx = ComputeContext.local(args.seed, device=CARD)
+    lr = logreg.train_logreg(ctx, X, y, 3, logreg.LogRegConfig(
+        iterations=100, learning_rate=0.1, input_dtype="int8"))
+    return TCLogRegModel(lr, BiMap({p: k for k, p in enumerate(PLANS)}),
+                         CLS_WIDE), X
+
+
+def cls_variant(name, dim):
+    return variant_from_dict({
+        "id": f"cls-mesh-{name}", "engineFactory": "templates.classification",
+        "datasource": {"params": {
+            "app_name": CLS_APP, "attrs": [f"attr{j}" for j in range(dim)]}},
+        "algorithms": [{"name": "logreg", "params": {
+            "iterations": 100, "learning_rate": 0.1,
+            "input_dtype": "int8"}}]})
+
+
+def served_latency(port: int, bodies: list) -> tuple:
+    """(answers, p50 ms, p99 ms) of ``bodies`` in turn on one keep-alive
+    connection (host clock)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    answers, ms = [], []
+    for body in bodies:
+        t = time.perf_counter()
+        status, got = request(conn, "POST", "/queries.json", body)
+        ms.append((time.perf_counter() - t) * 1e3)
+        if status != 200:
+            raise AssertionError(f"{body}: HTTP {status} {got}")
+        answers.append(got)
+    conn.close()
+    return answers, float(np.percentile(ms, 50)), float(np.percentile(ms, 99))
+
+
+def cls_mesh_case(args, smi, name, variant, iid, model, X) -> dict:
+    """One stored classification instance served over CLS_MESH and
+    unsharded: codes of a batch and of HTTP answers against the unsharded
+    scorer's, the residency block, the resident ledger, p50/p99, a deploy
+    and N_CLS_RELOADS /reload with device memory a generation."""
+    dim = model.dim
+    rng = np.random.default_rng(args.seed + dim)
+    batch = X[rng.choice(len(X), N_CLS_MESH_BATCH, replace=False)]
+    # the scorers on their own: the sharded codes against the unsharded
+    with knob("PIO_TPU_SERVE_WIRE", "int8"):
+        one = residency.ResidentLinearScorer(
+            model.lr.weights, model.lr.bias, model.lr.feature_scales,
+            device=CARD)
+        many = residency.ResidentLinearScorer(
+            model.lr.weights, model.lr.bias, model.lr.feature_scales,
+            device=CARD, mesh=CLS_MESH)
+    want, got = one.score_codes(batch), many.score_codes(batch)
+    l1 = one._out_bufs[len(batch)]._buf
+    lm = many._out_bufs[len(batch)]._buf
+    # the terms' magnitude of each logit: |x_wire| @ |W_eff| + |b|
+    x_wire = torch.from_numpy(one.encode(batch)).to(CARD).float()
+    scale = x_wire.abs() @ one._w_dev.abs() + one._b_dev.abs()
+    err = float(((lm - l1).abs() / scale).max())
+    top2 = torch.topk(l1, 2, dim=1).values
+    ties = ((top2[:, 0] - top2[:, 1]) <= 2 * CLS_TIE * scale.max(dim=1)
+            .values).cpu().numpy()
+    differ = int((got != want).sum())
+    one.retire()
+    many.retire()
+    if err > CLS_TIE or (got != want)[~ties].any():
+        raise AssertionError(f"43.3 {name}: sharded logits or codes differ "
+                             f"({err} relative)")
+    bodies = [{"attrs": [float(v) for v in row]} for row in batch[
+        :N_CLS_MESH_QUERIES]]
+    out = {"logit_rel_err": err, "near_ties": int(ties.sum()),
+           "codes_differ": differ}
+    for mode, flag in (("unsharded", "0"), ("sharded", "1")):
+        with knob("PIO_TPU_MESH_SERVE", flag), \
+                knob("PIO_TPU_SERVE_WIRE", "int8"):
+            before = allocated()
+            server = deploy_query_server(variant, host="127.0.0.1", port=0,
+                                         instance_id=iid, device=CARD,
+                                         mesh_devices=CLS_MESH)
+            with server:
+                answers, p50, p99 = served_latency(server.port, bodies)
+                conn = http.client.HTTPConnection("127.0.0.1", server.port,
+                                                  timeout=60)
+                _, stats = request(conn, "GET", "/stats.json")
+                _, device = request(conn, "GET", "/device.json")
+                gens = [allocated() - before]
+                codes = set()
+                for _ in range(N_CLS_RELOADS if flag == "1" else 0):
+                    codes.add(request(conn, "POST", "/reload", {})[0])
+                    codes.add(request(conn, "POST", "/queries.json",
+                                      bodies[0])[0])
+                    gens.append(allocated() - before)
+                conn.close()
+        (entry,) = stats["residency"]["scorers"]
+        ledger = [r for r in device["placements"]
+                  if r["category"] == "resident"]
+        labels = [model.label_index.inverse[int(c)] for c in want[
+            :N_CLS_MESH_QUERIES]]
+        wrong = [k for k, (a, l) in enumerate(zip(answers, labels))
+                 if a["label"] != l and not ties[k]]
+        log(f"  43.3 {name} (D {dim}) {mode}: {len(bodies)} POST "
+            f"/queries.json p50 {p50:.3f} ms, p99 {p99:.3f} ms (host clock); "
+            f"residency entry {json.dumps({k: entry[k] for k in ('sharded', 'meshFallback', 'paramBytes', 'dispatches', 'h2dBytes')})}; "
+            f"resident ledger {json.dumps([(r['name'], r['bytes'], r['device']) for r in ledger])}; "
+            f"memory_allocated over the start after the deploy and each "
+            f"/reload {gens} B; {smi}")
+        if wrong:
+            raise AssertionError(f"43.3 {name} {mode}: answers {wrong[:3]} "
+                                 f"differ from the unsharded scorer")
+        sharded = flag == "1" and dim % len(CLS_MESH) == 0
+        if entry["sharded"] is not sharded or entry["meshFallback"] is not (
+                flag == "1" and not sharded) or len(ledger) != (
+                len(CLS_MESH) if sharded else 1):
+            raise AssertionError(f"43.3 {name} {mode}: residency {entry} "
+                                 f"or ledger {ledger}")
+        if codes - {200} or any(abs(g - gens[0]) > CLS_RELOAD_SLACK
+                                for g in gens):
+            raise AssertionError(f"43.3 {name}: a /reload left "
+                                 f"{gens} B or answered {codes}")
+        out[mode] = {"p50_ms": p50, "p99_ms": p99, "entry": entry,
+                     "ledger": len(ledger), "gens": gens}
+    log(f"  43.3 {name}: the sharded scorer's codes of {len(batch)} rows "
+        f"equal the unsharded scorer's except {differ} (near-ties within "
+        f"{CLS_TIE} of the terms' magnitude: {int(ties.sum())}); logits "
+        f"within {err:.3g} of |x|·|W| + |b|")
+    return out
+
+
+def cls_mesh(args, smi) -> dict:
+    """43.3: the classification template served over (cuda:0,) x 4."""
+    log(f"  43.3 the classification template's resident scorer served with "
+        f"PIO_TPU_MESH_SERVE=1 over {len(CLS_MESH)} x {CARD}, at phase 26's "
+        f"shape (D 3: no divisor of 4, so mesh_fallback) and at D "
+        f"{CLS_WIDE} (row-sharded)")
+    variant = cls_variant("d3", 3)
+    engine, ep = build_engine(variant)
+    ctx = ComputeContext.create(args.seed, device=CARD)
+    iid = run_train(engine, ep, variant, ctx=ctx)
+    (narrow,) = load_models_for_instance(iid, engine, ep, ctx)
+    rng = np.random.default_rng(args.seed + 3)
+    X3 = rng.integers(0, 9, (N_CLS_MESH_BATCH * 2, 3)).astype(np.float32)
+    out = {"d3": cls_mesh_case(args, smi, "d3", variant, iid, narrow, X3)}
+    wide, X = cls_wide_model(args)
+    variant = cls_variant("wide", CLS_WIDE)
+    out["wide"] = cls_mesh_case(args, smi, "wide", variant,
+                                store_instance(variant, [wide]), wide, X)
+    return out
+
+
+def fault_drills(args, smi, tt_model, gpu, queries, p50_36) -> dict:
+    """43.4: a failed chunk put in the streamed two-tower, and injected
+    latency at the solo dispatch of phase 4's model."""
+    u, i = tt_pairs()
+    on = tt_config(stream="on")
+    faults.uninstall()
+    with knob("PIO_TPU_TRAIN_STREAM_MB", TT_STREAM_MB):
+        faults.install("stream.put=error:once")
+        try:
+            tt_train(u, i, on)
+        except faults.FaultInjected as e:
+            raised = str(e)
+        else:
+            raise AssertionError("43.4: stream.put=error:once did not raise")
+        again, _ = tt_train(u, i, on)
+    counts = faults.trigger_counts()
+    faults.uninstall()
+    if not tt_same(again, tt_model) or counts != {("stream.put", "error"): 1}:
+        raise AssertionError(f"43.4: the run after the fault differs, or "
+                             f"the counts {counts}")
+    log(f"  43.4 stream.put=error:once: the streamed two-tower raised "
+        f"FaultInjected ({raised}); the next run is clean and gives "
+        f"phase 30's bits")
+
+    engine = get_engine_factory("templates.textclassification")()
+    ep = EngineParams(algorithm_params_list=(("mlp", MLPParams()),))
+    texts = queries[:N_FAULT_QUERIES]  # phase 36's bodies
+    bodies = [{"text": t} for t in texts]
+    spec = f"scorer.dispatch.solo=latency:{FAULT_LATENCY_MS}ms"
+    runs = {}
+    reset_counts()
+    for name, armed in (("clean", None), ("armed", spec)):
+        faults.uninstall()
+        if armed:
+            faults.install(armed)
+        server = create_query_server(engine, ep, [gpu], host="127.0.0.1",
+                                     port=0, device=CARD)
+        with server:
+            answers, p50, p99 = served_latency(server.port, bodies)
+            conn = http.client.HTTPConnection("127.0.0.1", server.port,
+                                              timeout=60)
+            _, snap = request(conn, "GET", "/faults.json")
+            conn.request("GET", "/metrics")
+            metrics = conn.getresponse().read().decode()
+            conn.close()
+        runs[name] = {"p50_ms": p50, "p99_ms": p99, "snapshot": snap,
+                      "answers": answers}
+        log(f"  43.4 {name} ({armed or 'no spec'}): {len(bodies)} solo "
+            f"queries of phase 4's model, p50 {p50:.3f} ms, p99 {p99:.3f} ms "
+            f"(host clock); /faults.json triggered "
+            f"{json.dumps(snap['triggered'])}; /metrics "
+            f"{[l for l in metrics.splitlines() if l.startswith('pio_tpu_fault_triggered_total')]}; {smi}")
+    launches = read_counts()
+    faults.uninstall()
+    lift = runs["armed"]["p50_ms"] - runs["clean"]["p50_ms"]
+    want_line = ('pio_tpu_fault_triggered_total{point="scorer.dispatch.solo",'
+                 f'action="latency"}} {len(bodies)}')
+    if lift < FAULT_LATENCY_MS or runs["armed"]["snapshot"]["triggered"] != [
+            {"point": "scorer.dispatch.solo", "action": "latency",
+             "count": len(bodies)}] or want_line not in metrics.splitlines() \
+            or runs["armed"]["answers"] != runs["clean"]["answers"]:
+        raise AssertionError(f"43.4: the latency drill: lift {lift} ms, "
+                             f"{runs['armed']['snapshot']}")
+    log(f"  43.4 the armed p50 {lift:.3f} ms above the clean one (>= "
+        f"{FAULT_LATENCY_MS}); the clean p50 {runs['clean']['p50_ms']:.3f} "
+        f"ms beside phase 36's 1-client p50 with the batcher off "
+        f"{p50_36:.3f} ms (its bodies cycle the same 64 texts); serving "
+        f"launches {json.dumps(launches)}")
+    return {"runs": runs, "launches": launches, "lift": lift}
+
+
+def phase_stream_mesh_faults(args, smi, tt_model, gpu, queries,
+                             p50_36) -> dict:
+    """Phase 43: the streamed epoch feed, the resident scorer's mesh and
+    the failpoints, on the card."""
+    t_phase = time.monotonic()
+    log(f"phase 43: the streamed epoch feed (two-tower and the sequence "
+        f"model), the resident scorer over a mesh, and fault drills; {smi}")
+    t0 = time.monotonic()
+    tt = stream_twotower(args, smi, tt_model)
+    t1 = time.monotonic()
+    seq = stream_seqrec(args, smi, seq_histories())
+    t2 = time.monotonic()
+    cls = cls_mesh(args, smi)
+    t3 = time.monotonic()
+    drills = fault_drills(args, smi, tt_model, gpu, queries, p50_36)
+    t4 = time.monotonic()
+    log(f"  phase 43 {t4 - t_phase:.1f} s: 43.1 {t1 - t0:.1f}, 43.2 "
+        f"{t2 - t1:.1f}, 43.3 {t3 - t2:.1f}, 43.4 {t4 - t3:.1f}; {smi}")
+    return {"tt": tt, "seq": seq, "cls": cls, "drills": drills,
+            "launches": drills["launches"]}
+
+
 def kernel_entry(name, source, replaces, launches, row) -> dict:
     """One kernel of the JSON line, from its main timed row."""
     return {
@@ -6855,6 +7378,13 @@ def main(argv=None) -> int:
     # the neural templates over a mesh: phase 30's tables and phase 33's
     # parameters are their single-device baselines
     phase_neural_mesh(args, smi, tt["model"], seq["model"])
+    # the streamed feed, the resident scorer's mesh and the failpoints:
+    # phase 30's tables and phase 36's solo p50 are their baselines; the
+    # drill's serving launches join the kernels' line
+    p43 = phase_stream_mesh_faults(args, smi, tt["model"], gpu, queries,
+                                   mb_text["runs"][("off", 1)]["p50_ms"])
+    for entry in summary:
+        entry["launches"] += p43["launches"][entry["name"]]
     log(f"text evaluation sweep launches (added to the kernels' line): "
         f"{json.dumps(text_eval)}")
     log(f"CLI train + deploy launches (added to the kernels' line): "

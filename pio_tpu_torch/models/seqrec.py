@@ -30,7 +30,17 @@ The loss's cross-entropy and mask are summed over data and seq, and
 the gradients over the same axes after the backward. Every rank draws
 the whole init on a seeded CPU generator and keeps its shards, so a
 group of one gives the single-device bits. The trained parameters are
-gathered whole to every rank. The streamed epoch feed is ROADMAP §A.3.
+gathered whole to every rank.
+
+**The epoch feed.** With ``batch_size > 0`` the epoch's ``(seqs,
+targets, mask)`` (12 bytes a position) are staged on the device whole,
+or streamed a span of batches at a time through
+:func:`~pio_tpu_torch.parallel.stream.stream_feed` (``stream="on"``, or
+``"auto"`` where the staged epoch does not fit
+``PIO_TPU_DEVICE_BUDGET_BYTES`` beside the params, as the reference
+chooses), each rank shipping its own block of rows and positions. The
+streamed run replays the staged batch order, so it gives the staged
+run's bits. Full-batch steps (``batch_size`` 0) have nothing to stream.
 
 Under a recording run (``obs/trainwatch.py``) each step's loss joins the
 step stream through the lagged drain (no added kernel or synchronization
@@ -72,6 +82,12 @@ from pio_tpu_torch.parallel.partition import (
     rules_for,
 )
 from pio_tpu_torch.parallel.pipeline import pipeline_apply
+from pio_tpu_torch.parallel.stream import (
+    epoch_spans,
+    n_spans,
+    span_bounds,
+    stream_feed,
+)
 from pio_tpu_torch.parallel.ring import ring_attention
 from pio_tpu_torch.parallel.ulysses import ulysses_attention
 from pio_tpu_torch.parallel.vocab import (
@@ -401,8 +417,10 @@ def train_seqrec(
             snapshot on restart (each rank under its own ``rank<r>``
             directory when the mesh has more than one).
         stats: optional dict: ``place_s`` (init and the epoch to the
-            device), ``steps_s`` and ``n_stream`` (0), measured by
-            synchronizing between phases.
+            device), ``steps_s`` and ``n_stream``, measured by
+            synchronizing between phases; a streamed run adds the feed's
+            phases, serialized to measure them (``h2d_s``, ``device_s``,
+            ``h2d_bytes``, ``encode_s``).
 
     Returns the model with the whole parameters on every rank.
 
@@ -412,10 +430,10 @@ def train_seqrec(
             the pipe axis, the per-device heads by the seq axis under
             ulysses, or ``T`` padded to the seq axis past ``max_len``.
         DeviceBudgetExceeded: this rank's params do not fit
-            ``PIO_TPU_DEVICE_BUDGET_BYTES``, or (``stream`` other than
-            "off") the staged epoch does not fit beside them: with
-            ``batch_size`` 0 as in the reference, and with ``batch_size``
-            > 0 where the reference streams row spans.
+            ``PIO_TPU_DEVICE_BUDGET_BYTES``, or with ``batch_size`` 0 (and
+            ``stream`` other than "off") the staged epoch does not fit
+            beside them, as in the reference (reference l.488-494); with
+            ``batch_size`` > 0 such an epoch streams.
     """
     cfg = config
     if cfg.stream not in ("auto", "on", "off"):
@@ -426,11 +444,6 @@ def train_seqrec(
         raise ValueError(
             "stream='on' needs batch_size > 0 (full-batch steps consume "
             "the whole dataset every step — nothing to stream)"
-        )
-    if cfg.stream == "on":
-        raise ValueError(
-            "stream='on': the port has no streamed epoch feed (ROADMAP "
-            "§A.3); use 'auto' or 'off'"
         )
     axes = MeshAxes.of(mesh)
     n_data, n_seq = axis_size(axes.data), axis_size(axes.seq)
@@ -512,28 +525,32 @@ def train_seqrec(
     staged_nbytes = -(-12 * seqs.shape[0] * t_pad // (n_data * n_seq))
     budget = device_budget_bytes()
     over = budget > 0 and params_nbytes + staged_nbytes > budget
-    if over and cfg.stream != "off":
+    streamed = cfg.batch_size > 0 and (
+        cfg.stream == "on" or (cfg.stream == "auto" and over))
+    if over and cfg.batch_size <= 0 and cfg.stream != "off":
         raise DeviceBudgetExceeded(
-            f"seqrec staged epoch ({staged_nbytes} B) does not fit beside "
-            f"the params ({params_nbytes} B) under "
-            f"PIO_TPU_DEVICE_BUDGET_BYTES={budget}"
-            + ("; the reference streams row spans here, and the port's "
-               "streamed feed is ROADMAP §A.3 (stream='off' stages it all "
-               "the same)" if cfg.batch_size > 0 else
-               "; set batch_size > 0 so the feed can stream row spans "
-               "(ROADMAP §A.3)")
+            f"seqrec staged epoch ({staged_nbytes} B/device) does not fit "
+            f"beside the params ({params_nbytes} B/device) under "
+            f"PIO_TPU_DEVICE_BUDGET_BYTES={budget}; set batch_size > 0 "
+            f"so the feed can stream row spans"
         )
+    # the span count from the whole epoch's bytes, its headroom from
+    # this device's block, as the reference counts them
+    n_stream = (n_spans(12 * seqs.shape[0] * t_pad, staged_nbytes,
+                        params_nbytes, n_batches) if streamed else 0)
     if stats is not None:
-        stats["n_stream"] = 0
+        stats["n_stream"] = n_stream
 
     local = local_shards(mesh, init, specs)
     params = rebuild(local, [v.to(dev) for v in leaves(local)])
-    # full-batch: this rank's rows once; minibatch: every row, sliced to
-    # the rank's rows a step
-    rows = slice(row0, row0 + b_loc) if cfg.batch_size <= 0 else slice(None)
-    seqs_d, targets_d, mask_d = (
-        torch.from_numpy(np.ascontiguousarray(a[rows, t0_:t0_ + t_loc]))
-        .to(dev) for a in (seqs, targets, mask))
+    if not streamed:
+        # full-batch: this rank's rows once; minibatch: every row, sliced
+        # to the rank's rows a step
+        rows = (slice(row0, row0 + b_loc) if cfg.batch_size <= 0
+                else slice(None))
+        seqs_d, targets_d, mask_d = (
+            torch.from_numpy(np.ascontiguousarray(a[rows, t0_:t0_ + t_loc]))
+            .to(dev) for a in (seqs, targets, mask))
     if stats is not None:
         _sync(dev)
         stats["place_s"] = time.monotonic() - t0
@@ -541,30 +558,68 @@ def train_seqrec(
 
     trainwatch.begin_algo(
         "seqrec", total_steps=cfg.steps, n_batches=n_batches,
+        streamed=streamed, n_stream=n_stream,
         per_device_bytes=params_nbytes,
     )
     # the lagged loss drain: None (no work) unless a run is recording
     losses = trainwatch.lagged_losses(dev, B, cfg.steps)
 
-    def chunk_fn(state, n_steps):
-        step0, params, opt = state
-        values = leaves(params)
-        # compile attribution: the first dispatch of each chunk length
-        key = (("seqrec", "staged", B, int(n_steps)) if cfg.batch_size > 0
-               else ("seqrec", "full", int(n_steps)))
-        with devicewatch.compile_span("train_step", key=key):
-            for i in range(n_steps):
-                if cfg.batch_size > 0:
-                    start = ((step0 + i) % n_batches) * B + row0
-                    batch = tuple(a[start:start + b_loc]
-                                  for a in (seqs_d, targets_d, mask_d))
-                else:
-                    batch = (seqs_d, targets_d, mask_d)
-                values, opt, loss = _train_step(params, values, opt, batch,
-                                                cfg, axes)
-                if losses is not None:
-                    losses.step(loss)
-        return step0 + n_steps, rebuild(params, values), opt
+    def run_steps(state, n_steps, batch_of):
+        """``n_steps`` steps on ``state`` (``[step0, params, opt]``,
+        updated in place: a streamed span must not hold the previous
+        span's parameters while it steps); step i trains on this rank's
+        block ``batch_of(step0, i)`` of (seqs, targets, mask)."""
+        step0, opt = state[0], state[2]
+        values = leaves(state[1])
+        skeleton = rebuild(state[1], [None] * len(values))
+        state[1] = state[2] = None
+        for i in range(n_steps):
+            values, opt, loss = _train_step(skeleton, values, opt,
+                                            batch_of(step0, i), cfg, axes)
+            if losses is not None:
+                losses.step(loss)
+        state[:] = [step0 + n_steps, rebuild(skeleton, values), opt]
+        return state
+
+    if streamed:
+        bounds = span_bounds(n_batches, n_stream)
+        # this rank's block of every batch, as [n_batches, b_loc, t_loc]
+        blocks = tuple(
+            a.reshape(n_batches, B, t_pad)[:, row0:row0 + b_loc,
+                                           t0_:t0_ + t_loc]
+            for a in (seqs, targets, mask))
+        span_rows = max(b - a for a, b in zip(bounds, bounds[1:]))
+
+        def chunk_fn(state, n_steps):
+            work = epoch_spans(state[0], n_steps, n_batches, bounds)
+            carry = list(state)
+            return tuple(stream_feed(
+                work,
+                encode=lambda span: tuple(blk[span[0]:span[1]]
+                                          for blk in blocks),
+                # step j of a span reads the span's batch j
+                dispatch=lambda st, d, i: run_steps(
+                    st, work[i][1] - work[i][0],
+                    lambda _s, j: tuple(a[j] for a in d)),
+                init_carry=lambda: carry,
+                lookahead=2, stats=stats, device=dev,
+                stage_bytes=(span_rows * b_loc * t_loc * 4,) * 3,
+            ))
+    else:
+        def batch_of(step0, i):
+            if cfg.batch_size <= 0:
+                return seqs_d, targets_d, mask_d
+            start = ((step0 + i) % n_batches) * B + row0
+            return tuple(a[start:start + b_loc]
+                         for a in (seqs_d, targets_d, mask_d))
+
+        def chunk_fn(state, n_steps):
+            # compile attribution: the first dispatch of each chunk length
+            key = (("seqrec", "staged", B, int(n_steps))
+                   if cfg.batch_size > 0 else ("seqrec", "full",
+                                               int(n_steps)))
+            with devicewatch.compile_span("train_step", key=key):
+                return tuple(run_steps(list(state), n_steps, batch_of))
 
     # steps excluded: resume with a different total must still match;
     # stream normalized: it does not shape the trained state

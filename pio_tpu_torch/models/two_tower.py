@@ -30,7 +30,17 @@ the same code runs on every rank with the collectives of
 Every rank draws the whole init on a seeded CPU generator and keeps its
 shards, so a group of one gives the single-device bits. The vector
 tables are computed for each data rank's rows and gathered to every
-rank. The streamed epoch feed is ROADMAP §A.3.
+rank.
+
+**The epoch feed.** The id arrays are staged on the device whole, or
+streamed a span of batches at a time through
+:func:`~pio_tpu_torch.parallel.stream.stream_feed` (``stream="on"``, or
+``"auto"`` where the staged ids do not fit
+``PIO_TPU_DEVICE_BUDGET_BYTES`` beside the params, as the reference
+chooses): ``n_stream`` spans of ``PIO_TPU_TRAIN_STREAM_MB``, raised to
+fit the budget's headroom, shipped two ahead. Each rank ships only its
+own ``b_loc`` rows of each batch. The streamed run replays the staged
+batch order, so it gives the staged run's bits.
 
 Under a recording run (``obs/trainwatch.py``) each step's loss joins the
 step stream through the lagged drain (no added kernel or synchronization
@@ -60,13 +70,18 @@ from pio_tpu_torch.parallel.collectives import (
 )
 from pio_tpu_torch.parallel.mesh import mesh_axis_group
 from pio_tpu_torch.parallel.partition import (
-    DeviceBudgetExceeded,
     assert_device_budget,
     device_budget_bytes,
     local_shards,
     match_partition_rules,
     per_device_nbytes,
     rules_for,
+)
+from pio_tpu_torch.parallel.stream import (
+    epoch_spans,
+    n_spans,
+    span_bounds,
+    stream_feed,
 )
 from pio_tpu_torch.parallel.vocab import vocab_parallel_lookup
 from pio_tpu_torch.utils.numutil import round_up as _round_up
@@ -90,9 +105,9 @@ class TwoTowerConfig:
     #: "bfloat16" rounds the vector tables through bf16 (the reference's
     #: readback wire); the tables stay float32 tensors
     table_wire: str = "float32"
-    #: epoch feed: "off" and "auto" stage the id arrays on the device;
-    #: "auto" raises DeviceBudgetExceeded where the reference would
-    #: stream, and "on" (the streamed feed) raises (ROADMAP §A.3)
+    #: epoch feed: "off" stages the id arrays on the device, "on" streams
+    #: them (parallel/stream.py), "auto" streams where the staged ids do
+    #: not fit the device budget beside the params
     stream: str = "auto"
 
 
@@ -247,13 +262,14 @@ def train_two_tower(
             synchronizing between phases: ``place_s`` (init and the ids to
             the device), ``steps_s``, ``tables_d2h_s`` (the vector tables
             computed and rounded to ``table_wire``: they stay on the
-            device, so no copy to the host is in it) and ``n_stream`` (0).
+            device, so no copy to the host is in it) and ``n_stream``.
+            A streamed run adds the feed's phases, serialized to measure
+            them (``h2d_s``, ``device_s``, ``h2d_bytes``, ``encode_s``).
 
     Raises:
         DeviceBudgetExceeded: this rank's params do not fit
-            ``PIO_TPU_DEVICE_BUDGET_BYTES``, or with ``stream="auto"`` the
-            staged ids do not fit beside them (the reference streams
-            there; the port has no streamed feed).
+            ``PIO_TPU_DEVICE_BUDGET_BYTES``. An epoch that does not fit
+            beside them streams instead (``stream="auto"``).
     """
     cfg = config
     if cfg.table_wire not in ("float32", "bfloat16"):
@@ -263,11 +279,6 @@ def train_two_tower(
     if cfg.stream not in ("auto", "on", "off"):
         raise ValueError(
             f"stream must be auto/on/off, got {cfg.stream!r}"
-        )
-    if cfg.stream == "on":
-        raise ValueError(
-            "stream='on': the port has no streamed epoch feed (ROADMAP "
-            "§A.3); use 'auto' or 'off'"
         )
     dev = resolve_device(device)
     d_axis = mesh_axis_group(mesh, "data")
@@ -308,48 +319,83 @@ def train_two_tower(
         else "two_tower params (single-device placement)"
     )
     budget = device_budget_bytes()
-    if (cfg.stream == "auto" and budget > 0
-            and params_nbytes + staged_nbytes > budget):
-        raise DeviceBudgetExceeded(
-            f"two_tower staged ids ({staged_nbytes} B) do not fit beside "
-            f"the params ({params_nbytes} B) under "
-            f"PIO_TPU_DEVICE_BUDGET_BYTES={budget}; the reference streams "
-            f"them here, and the port's streamed feed is ROADMAP §A.3 "
-            f"(stream='off' stages them all the same)"
-        )
+    streamed = cfg.stream == "on" or (
+        cfg.stream == "auto" and budget > 0
+        and params_nbytes + staged_nbytes > budget)
+    n_stream = (n_spans(staged_nbytes, staged_nbytes, params_nbytes,
+                        n_batches) if streamed else 0)
 
     local = local_shards(mesh, init, specs)
     params = rebuild(local, [t.to(dev) for t in leaves(local)])
-    uids_d = torch.from_numpy(uids).to(dev)
-    iids_d = torch.from_numpy(iids).to(dev)
+    if not streamed:
+        uids_d = torch.from_numpy(uids).to(dev)
+        iids_d = torch.from_numpy(iids).to(dev)
     if stats is not None:
         _sync(dev)
         stats["place_s"] = time.monotonic() - t0
-        stats["n_stream"] = 0
+        stats["n_stream"] = n_stream
         t0 = time.monotonic()
 
     trainwatch.begin_algo(
         "two_tower", total_steps=cfg.steps, n_batches=n_batches,
+        streamed=streamed, n_stream=n_stream,
         per_device_bytes=params_nbytes,
     )
     # the lagged loss drain: None (no work) unless a run is recording
     losses = trainwatch.lagged_losses(dev, batch, cfg.steps)
 
-    def chunk_fn(state, n):
-        step0, params, opt = state
-        values = leaves(params)
-        # compile attribution: the first dispatch of each chunk length
-        with devicewatch.compile_span(
-            "train_step", key=("two_tower", "chunk", batch, int(n))
-        ):
-            for i in range(n):
-                start = ((step0 + i) % n_batches) * batch + lo
-                values, opt, loss = _train_step(
-                    params, values, opt, uids_d[start:start + b_loc],
-                    iids_d[start:start + b_loc], cfg, d_axis, m_axis)
-                if losses is not None:
-                    losses.step(loss)
-        return step0 + n, rebuild(params, values), opt
+    def run_steps(state, n, rows_of):
+        """``n`` steps on ``state`` (``[step0, params, opt]``, updated in
+        place: a streamed span must not hold the previous span's
+        parameters while it steps); step i trains on this rank's rows
+        ``rows_of(step0, i)`` (the user ids, the item ids)."""
+        step0, opt = state[0], state[2]
+        values = leaves(state[1])
+        skeleton = rebuild(state[1], [None] * len(values))
+        state[1] = state[2] = None
+        for i in range(n):
+            ub, ib = rows_of(step0, i)
+            values, opt, loss = _train_step(
+                skeleton, values, opt, ub, ib, cfg, d_axis, m_axis)
+            if losses is not None:
+                losses.step(loss)
+        state[:] = [step0 + n, rebuild(skeleton, values), opt]
+        return state
+
+    if streamed:
+        bounds = span_bounds(n_batches, n_stream)
+        # this rank's rows of every batch, as [n_batches, b_loc] views
+        u_rows = uids.reshape(n_batches, batch)[:, lo:lo + b_loc]
+        i_rows = iids.reshape(n_batches, batch)[:, lo:lo + b_loc]
+        span_bytes = max(b - a for a, b in zip(bounds, bounds[1:])) \
+            * b_loc * 4
+
+        def chunk_fn(state, n):
+            work = epoch_spans(state[0], n, n_batches, bounds)
+            carry = list(state)
+            return tuple(stream_feed(
+                work,
+                encode=lambda span: (u_rows[span[0]:span[1]],
+                                     i_rows[span[0]:span[1]]),
+                # step j of a span reads the span's batch j
+                dispatch=lambda st, d, i: run_steps(
+                    st, work[i][1] - work[i][0],
+                    lambda _s, j: (d[0][j], d[1][j])),
+                init_carry=lambda: carry,
+                lookahead=2, stats=stats, device=dev,
+                stage_bytes=(span_bytes, span_bytes),
+            ))
+    else:
+        def staged_rows(step0, i):
+            start = ((step0 + i) % n_batches) * batch + lo
+            return uids_d[start:start + b_loc], iids_d[start:start + b_loc]
+
+        def chunk_fn(state, n):
+            # compile attribution: the first dispatch of each chunk length
+            with devicewatch.compile_span(
+                "train_step", key=("two_tower", "chunk", batch, int(n))
+            ):
+                return tuple(run_steps(list(state), n, staged_rows))
 
     # steps + table_wire + stream excluded: none shapes the trained state,
     # so resuming with another total or wire still matches the identity

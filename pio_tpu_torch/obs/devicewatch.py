@@ -39,9 +39,13 @@ Headroom is accounted against ``PIO_TPU_DEVICE_BUDGET_BYTES``:
 Where the live read and the ledger disagree, the gap is exported as
 ``pio_tpu_device_estimate_drift_bytes{device}``.
 
-Not ported: the failpoints, trace exemplars (the tracer is not ported:
-:func:`_active_trace_id` is None) and the stream feed's placements
-(ROADMAP §A.3).
+The streamed epoch feed (``parallel/stream.py``) books its in-flight
+chunks under ``stream`` (:func:`stream_carry`) and its chunk dispatches
+as ``stream_dispatch`` compiles. Failpoints: ``devicewatch.sample`` and
+``devicewatch.payload``.
+
+Not ported: trace exemplars (the tracer is not ported:
+:func:`_active_trace_id` is None).
 """
 
 from __future__ import annotations
@@ -54,6 +58,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from pio_tpu_torch.faults import failpoint
 from pio_tpu_torch.obs.metrics import REGISTRY, MetricsRegistry, monotonic_s
 from pio_tpu_torch.utils import knobs
 
@@ -76,7 +81,7 @@ COMPILE_SITES = (
     "bucket_warmup",     # deploy-time bucket ladder sweep (query server)
     "bucket_dispatch",   # a LIVE dispatch into a cold bucket (should be 0)
     "resident_scorer",   # device-resident scorer program per batch size
-    "stream_dispatch",   # streamed-feed chunk program (not ported, §A.3)
+    "stream_dispatch",   # streamed-feed chunk program (parallel/stream.py)
     "train_step",        # trainer chunk programs
 )
 
@@ -321,6 +326,20 @@ class DeviceWatch:
             for k in [k for k in self._ledger if k[0] == category]:
                 del self._ledger[k]
 
+    def stream_carry(self, delta: int, device: int = 0) -> None:
+        """Streamed-feed in-flight bytes: chunks add on put, release on
+        (non-retained) dispatch or feed finalize; floored at zero."""
+        with self._lock:
+            row = self._ledger.get(("stream", "carry"))
+            if row is None:
+                row = {
+                    "category": "stream", "key": "carry",
+                    "name": "stream carry", "bytes": 0,
+                    "device": int(device), "generation": self._generation,
+                }
+                self._ledger[("stream", "carry")] = row
+            row["bytes"] = max(0, row["bytes"] + int(delta))
+
     def ledger_bytes(self, device: Optional[int] = None) -> int:
         with self._lock:
             return sum(
@@ -376,6 +395,7 @@ class DeviceWatch:
         """One telemetry pass: read (or book-keep) the device's bytes,
         update the gauges, compute headroom and estimate drift. Host
         work and allocator counters only — never a sync."""
+        failpoint("devicewatch.sample")
         entries = self._device_stats()
         live = any(stats is not None for _, stats, _ in entries)
         rows: List[dict] = []
@@ -438,6 +458,7 @@ class DeviceWatch:
     def payload(self) -> dict:
         """The ``GET /device.json`` body (the reference's keys). Always
         samples inline: a scrape right after a placement must see it."""
+        failpoint("devicewatch.payload")
         self.sample()
         with self._lock:
             rows = [dict(r) for r in self._rows]
@@ -627,6 +648,12 @@ def ledger_clear(category: Optional[str] = None) -> None:
     w = _ACTIVE
     if w is not None:
         w.ledger_clear(category)
+
+
+def stream_carry(delta: int, device: int = 0) -> None:
+    w = _ACTIVE
+    if w is not None:
+        w.stream_carry(delta, device)
 
 
 def set_generation(gen: int) -> None:

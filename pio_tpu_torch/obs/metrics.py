@@ -19,9 +19,12 @@ ported. The text it renders is the reference's:
 from __future__ import annotations
 
 import bisect
+import logging
 import threading
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+log = logging.getLogger("pio_tpu_torch.obs.metrics")
 
 #: THE monotonic duration clock of the port (``perf_counter``: monotonic
 #: per the stdlib contract, and the finest clock CPython offers)
@@ -266,6 +269,7 @@ class MetricsRegistry:
     def __init__(self):
         self._lock = threading.Lock()
         self._metrics: Dict[str, _Metric] = {}
+        self._collectors: List[Callable[[], List[str]]] = []
 
     def _register(self, cls, name, help, labelnames, **kw) -> _Metric:
         with self._lock:
@@ -293,11 +297,26 @@ class MetricsRegistry:
             Histogram, name, help, labelnames, buckets=buckets
         )
 
+    def add_collector(self, fn: Callable[[], List[str]]) -> None:
+        """Append a callable producing extra exposition lines (rendered
+        after the registered families; the callable owns its HELP/TYPE),
+        e.g. the failpoints' trigger counter."""
+        with self._lock:
+            self._collectors.append(fn)
+
     def render(self) -> List[str]:
-        """Exposition lines for every family, in registration order."""
+        """Exposition lines for every family, in registration order,
+        then the collectors' lines."""
         with self._lock:
             metrics = list(self._metrics.values())
-        return [line for m in metrics for line in m.render()]
+            collectors = list(self._collectors)
+        lines = [line for m in metrics for line in m.render()]
+        for fn in collectors:
+            try:
+                lines.extend(fn())
+            except Exception:  # a broken collector must not kill /metrics
+                log.exception("metrics collector failed")
+        return lines
 
 
 #: process-wide default registry — the layers with no natural owner (the

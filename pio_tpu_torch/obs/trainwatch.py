@@ -28,7 +28,8 @@ The port's copy of ``pio_tpu/obs/trainwatch.py``:
   ledger and diffs consecutive runs with the direction-aware regression
   logic of :func:`delta_rows`.
 
-Not ported: the failpoints (faults are not ported).
+Failpoints: ``trainwatch.record``, ``trainwatch.payload`` and
+``trainwatch.append``.
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from pio_tpu_torch.faults import failpoint
 from pio_tpu_torch.obs.metrics import REGISTRY, monotonic_s
 
 #: steps retired by training loops, per algorithm
@@ -150,6 +152,7 @@ class StepRecorder:
                      dur_s: Optional[float] = None) -> None:
         """Report ``n`` retired steps (one drained chunk, or ALS's whole
         run with its edges as examples)."""
+        failpoint("trainwatch.record")
         with self._lock:
             algo = self.algo or "unknown"
             self.steps_done += int(n)
@@ -184,6 +187,7 @@ class StepRecorder:
 
     def payload(self) -> dict:
         """The ``/train.json`` body (the reference's keys)."""
+        failpoint("trainwatch.payload")
         with self._lock:
             now = monotonic_s()
             elapsed = now - self.started_s
@@ -535,6 +539,7 @@ def run_record(*, run_id: str, engine_id: str, status: str,
 
 def append_run(record: dict, path: Optional[str] = None) -> str:
     """Append one record to the engine's ledger; returns the path."""
+    failpoint("trainwatch.append")
     if path is None:
         path = runs_path(record.get("engine_id") or "unknown")
     os.makedirs(os.path.dirname(path), exist_ok=True)

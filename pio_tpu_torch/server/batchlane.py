@@ -2,7 +2,8 @@
 
 The port's copy of ``pio_tpu/server/batchlane.py``, with the same
 ``PIOLANE1`` layout, so that either package opens a segment the other
-created. Failpoints are not ported.
+created. Failpoints: ``batchlane.submit`` (a client's submission) and
+``batchlane.drain`` (one drainer cycle).
 
 The SO_REUSEPORT pool multiplies host-path QPS, but it FRAGMENTS batch
 occupancy: each worker process runs its own micro-batcher over 1/N of
@@ -79,6 +80,7 @@ from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 
+from pio_tpu_torch.faults import failpoint
 from pio_tpu_torch.utils import knobs
 
 log = logging.getLogger("pio_tpu_torch.batchlane")
@@ -386,6 +388,7 @@ class LaneClient:
         payload is written straight into the shm slot by post_request —
         this function never copies or re-encodes it. Raises
         :class:`LaneFallback` whenever the lane cannot answer."""
+        failpoint("batchlane.submit")
         if len(payload) > self._seg.payload_bytes:
             raise LaneFallback("oversize")
         slot = self._acquire_slot()
@@ -537,6 +540,7 @@ class LaneDrainer:
         """One collect→dispatch→respond cycle; returns requests served.
         Public so tests (and a pool-less embedding) can drive the lane
         without the thread."""
+        failpoint("batchlane.drain")
         pending = self._collect()
         if not pending:
             return 0

@@ -9,6 +9,7 @@ nothing of ``pio_tpu``), cut to the ingest and read routes:
     GET    /events/<id>.json          fetch one
     DELETE /events/<id>.json          delete one
     POST   /batch/events.json         ≤50 events, per-item statuses
+    GET    /faults.json               armed failpoints, trigger counts
 
 Auth: ``accessKey`` query param (or ``Authorization`` header); the key maps
 to an app and an optional event-name whitelist. ``channel`` selects a named
@@ -17,7 +18,7 @@ after the transaction that carries it committed, at the storage's
 durability mode (``PIO_TPU_DURABILITY``).
 
 Not ported yet: search, stats, metrics, traces, hotpath, logs, slo, qos,
-faults, storage, healthz/readyz, webhooks and plugins, the QoS gate with
+storage, healthz/readyz, webhooks and plugins, the QoS gate with
 its storage breaker, and the tracer (ROADMAP A).
 """
 
@@ -28,6 +29,7 @@ import threading
 import time
 from typing import Any, Optional, Tuple
 
+from pio_tpu_torch import faults
 from pio_tpu_torch.data.event import Event, EventValidationError
 from pio_tpu_torch.server.http import HTTPError, JsonHTTPServer, Request, Router
 from pio_tpu_torch.storage.registry import Storage
@@ -75,6 +77,7 @@ class EventServerService:
         r.add("GET", "/events/([^/]+)\\.json", self.get_event)
         r.add("DELETE", "/events/([^/]+)\\.json", self.delete_event)
         r.add("POST", "/batch/events\\.json", self.batch_events)
+        r.add("GET", "/faults\\.json", lambda req: (200, faults.snapshot()))
 
     # -- auth ---------------------------------------------------------------
     def invalidate_auth_cache(self) -> None:

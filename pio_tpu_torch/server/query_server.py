@@ -8,6 +8,7 @@ Counterpart of ``pio_tpu/server/query_server.py``. Routes:
     GET  /stats.json     residency, micro-batch, bucket, lane and pool blocks
     GET  /device.json    device memory, ledger and compile attribution
     GET  /metrics        Prometheus text of the device plane's families
+    GET  /faults.json    armed failpoints and their trigger counts
     GET  /debug/profile.json   the profile hook's status
     POST /debug/profile.json   ``?restart=1&n=N``: capture the next N
                          device executions into ``capture-NNNN``
@@ -68,12 +69,20 @@ the devices the process owns (``ops/topn.py``); ``/stats.json`` carries
 the ``sharding`` block (``{"enabled": false}`` when the gate is off),
 ``/metrics`` ``pio_tpu_shard_bytes_placed_total`` and
 ``pio_tpu_shard_gather_fallback_total``, and ``/device.json``'s ledger
-the shards under ``shard``. A placement that fails raises at deploy.
+the shards under ``shard``. A placement that fails raises at deploy. The
+mesh attaches to every loaded model before ``prepare_for_serving``, so
+the classification template's resident scorer row-shards its weights
+over it too (``server/residency.py``).
+
+**Failpoints** (``faults/``): ``shard.place`` before each mesh
+placement, ``scorer.dispatch.solo`` / ``.batch`` / ``.packed`` at the
+three dispatch paths; ``GET /faults.json`` answers the registry's
+snapshot and ``/metrics`` carries ``pio_tpu_fault_triggered_total``.
 
 Not ported: QoS (admission, deadlines, the batcher's deadline shedding),
 the tracer, the request and stage families of ``/metrics`` and the
-pool's shared metrics segment, the evloop front, feedback, plugins,
-failpoints and ``/deploy.json``.
+pool's shared metrics segment, the evloop front, feedback, plugins and
+``/deploy.json``.
 """
 
 from __future__ import annotations
@@ -90,9 +99,10 @@ from typing import Any, List, Optional, Sequence
 
 import torch
 
-from pio_tpu_torch import DeviceLike, resolve_device
+from pio_tpu_torch import DeviceLike, faults, resolve_device
 from pio_tpu_torch.controller.engine import Engine, EngineParams
 from pio_tpu_torch.controller.params import ParamsError, params_from_dict
+from pio_tpu_torch.faults import failpoint
 from pio_tpu_torch.obs import devicewatch
 from pio_tpu_torch.obs.health import Heartbeat, HealthMonitor
 from pio_tpu_torch.obs.metrics import MetricsRegistry
@@ -125,7 +135,6 @@ from pio_tpu_torch.server.http import (
 from pio_tpu_torch.storage.registry import Storage
 from pio_tpu_torch.utils import knobs
 from pio_tpu_torch.workflow.core_workflow import load_models_for_instance
-from pio_tpu_torch.workflow.shard_store import ShardableModel
 from pio_tpu_torch.workflow.deploy_common import (
     resolve_instance_id,
     resolve_query_class,
@@ -506,6 +515,7 @@ class QueryService:
         # resident scorers book into it; the sampler reads the
         # allocator's counters off the dispatch path
         self.obs = MetricsRegistry()
+        self.obs.add_collector(faults.exposition_lines)
         watch_device = self.device if self.device is not None else (
             ctx.device if ctx is not None else None)
         self.devwatch = devicewatch.DeviceWatch(registry=self.obs,
@@ -590,13 +600,16 @@ class QueryService:
         resident scorers, the warmed ladder) while the current one keeps
         serving, swap it in under ``_swap_lock``, and retire the outgoing
         generation once its readers have finished."""
-        # the mesh attaches before prepare_for_serving (inside
-        # algorithms_with_models), where the templates build their scorer
+        # the mesh attaches to every model before prepare_for_serving
+        # (inside algorithms_with_models), where the templates build their
+        # scorers (reference l.832-842)
         mesh = self._serving_mesh()
         if mesh is not None:
             for m in models:
-                if isinstance(m, ShardableModel):
+                try:
                     m.__dict__["_serve_mesh"] = mesh
+                except AttributeError:  # __slots__ model: no mesh channel
+                    pass
         pairs = engine.algorithms_with_models(engine_params, models)
         serving = engine.make_serving(engine_params)
         # a conflicting query-class config fails the load, not a query
@@ -659,8 +672,10 @@ class QueryService:
         eng = self._engine_label
         placed = []
         for _, m in pairs:
-            if "_serve_mesh" not in m.__dict__:
+            if ("_serve_mesh" not in getattr(m, "__dict__", {})
+                    or not hasattr(m, "scorer")):
                 continue
+            failpoint("shard.place")
             # prepare_for_serving built it over the mesh attached above
             sc = m.scorer(warmup=True)
             info = sc.sharding_info()
@@ -806,6 +821,7 @@ class QueryService:
         if gen is None:
             with self._reading() as held:
                 return self._predict_one(query, held)
+        failpoint("scorer.dispatch.solo")
         with self.profile_hook.capture():
             return self._predict_with(gen, query)
 
@@ -837,6 +853,7 @@ class QueryService:
         if gen is None:
             with self._reading() as held:
                 return self._predict_batch_bucketed(queries, held)
+        failpoint("scorer.dispatch.batch")
 
         def on_dispatch(n: int, bucket: int, fresh: bool) -> None:
             with self._lock:
@@ -967,6 +984,7 @@ class QueryService:
                 raise HTTPError(
                     400, "packed queries need exactly one int8 resident "
                          "scorer with its template's factories")
+            failpoint("scorer.dispatch.packed")
             try:
                 code = sc.score_wire(pq.codes.reshape(1, -1))[0]
                 result = sc.result_factory(int(code))
@@ -1168,6 +1186,7 @@ class QueryService:
               lambda req: (200, self.devwatch.payload()))
         r.add("GET", "/metrics",
               lambda req: (200, metrics_response(self.obs.render())))
+        r.add("GET", "/faults\\.json", lambda req: (200, faults.snapshot()))
         r.add("GET", "/debug/profile\\.json",
               lambda req: (200, self.profile_hook.to_dict()))
         r.add("POST", "/debug/profile\\.json", self.post_profile)

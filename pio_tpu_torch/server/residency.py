@@ -38,24 +38,44 @@ re-quantize round trip). A packed query answered so skips the template's
 serving passes results through unchanged (``FirstServing``). The query
 server serves packed frames only from a scorer that has both.
 
-Each scorer books its parameters (``resident``) and its standing output
-tensors (``donated``, the reference's category name) in the active device
-watch's ledger and releases them when retired, and the first dispatch at
-each batch size counts as a ``resident_scorer`` compile
-(``obs/devicewatch.py``). Not ported: the reference's budget check, its
-failpoints and the row-sharded placement over a mesh (ROADMAP §A.4).
+**Mesh placement** — with ``mesh`` (a tuple of two or more devices, the
+query server's serving mesh) ``W`` row-shards over the tuple on the
+contraction dimension D, ``D/n`` rows a device, as the reference's
+``P(axis, None)`` placement does (l.226-260). A dispatch slices the
+batch's columns to each shard, runs one product a shard on its device,
+sums the partial logits on the first device in shard order and adds the
+bias there (the reference closes with a ``psum``), then takes the argmax.
+A D that does not divide the tuple is placed whole on the first device
+and sets ``mesh_fallback``, as the reference does; that is still a
+placement on the mesh's first device, not the host. The products are
+``torch.mm``/``addmm``: the reference computes them with XLA, outside
+any Pallas kernel.
+
+Placement checks ``PIO_TPU_DEVICE_BUDGET_BYTES`` (the params over the
+shard count, or whole on one device) and raises
+:class:`~pio_tpu_torch.parallel.partition.DeviceBudgetExceeded`.
+Failpoints: ``scorer.h2d.ship`` before the batch crosses to the device,
+``scorer.donate.dispatch`` before the output tensor is taken.
+
+Each scorer books its parameters (``resident``, one entry a shard on
+that shard's device) and its standing output tensors (``donated``, the
+reference's category name) in the active device watch's ledger and
+releases them when retired, and the first dispatch at each batch size
+counts as a ``resident_scorer`` compile (``obs/devicewatch.py``).
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 from pio_tpu_torch import DeviceLike, resolve_device
+from pio_tpu_torch.faults import failpoint
 from pio_tpu_torch.obs import devicewatch
+from pio_tpu_torch.parallel.partition import assert_device_budget
 from pio_tpu_torch.utils import knobs
 
 WIRE_INT8 = "int8"
@@ -133,6 +153,7 @@ class ResidentLinearScorer:
         device: DeviceLike = None,
         query_factory: Optional[Callable[[np.ndarray], object]] = None,
         result_factory: Optional[Callable[[int], object]] = None,
+        mesh: Optional[Sequence[DeviceLike]] = None,
     ):
         W = np.asarray(weights, np.float32)  # [D, C]
         b = np.asarray(bias, np.float32)  # [C]
@@ -140,7 +161,6 @@ class ResidentLinearScorer:
             raise ValueError(
                 f"weights [D,C] / bias [C] expected, got {W.shape} {b.shape}"
             )
-        self.device = resolve_device(device)
         self.name = name
         self.in_dim = int(W.shape[0])
         self.n_classes = int(W.shape[1])
@@ -161,9 +181,36 @@ class ResidentLinearScorer:
         # X @ W == (X/s·s) @ W == X_q @ (s ⊙ W) up to quantization
         w_eff = self.scales[:, None] * W if self.wire == WIRE_INT8 else W
         # the one-time placement (a copy, on the CPU too): these tensors
-        # ARE the serving params
-        self._w_dev = torch.tensor(w_eff, device=self.device)
+        # ARE the serving params. Over a mesh of n devices W row-shards on
+        # D; a D that does not divide n sits whole on the first device
+        self.mesh_fallback = False
+        #: (device, first row, W rows) of each shard; one shard unsharded
+        self._shards = []
+        devices = (None if mesh is None
+                   else tuple(resolve_device(d) for d in mesh))
+        self.device = (devices[0] if devices else resolve_device(device))
+        if devices is not None and len(devices) > 1:
+            n = len(devices)
+            if self.in_dim % n == 0:
+                assert_device_budget(
+                    w_eff.nbytes + b.nbytes, n,
+                    f"resident scorer {name!r} mesh placement")
+                per = self.in_dim // n
+                self._shards = [
+                    (dev, s * per, torch.tensor(w_eff[s * per:(s + 1) * per],
+                                                device=dev))
+                    for s, dev in enumerate(devices)
+                ]
+            else:
+                self.mesh_fallback = True
+        if not self._shards:
+            assert_device_budget(w_eff.nbytes + b.nbytes, 1,
+                                 f"resident scorer {name!r} placement")
+            self._shards = [(self.device, 0,
+                             torch.tensor(w_eff, device=self.device))]
         self._b_dev = torch.tensor(b, device=self.device)
+        #: shards W was placed in (1: unsharded), kept after retire
+        self.n_shards = len(self._shards)
         self.placed_bytes = int(w_eff.nbytes + b.nbytes)
         #: per-bucket standing output tensors, keyed by batch size
         self._out_bufs: Dict[int, OutputBuffer] = {}
@@ -175,12 +222,29 @@ class ResidentLinearScorer:
         self.misses = 0
         self._on_h2d: Optional[Callable[[int], None]] = None
         self._on_dispatch: Optional[Callable[[str], None]] = None
-        # the device ledger: book the placement with the active watch;
-        # retire() releases it
+        # the device ledger: book the placement with the active watch,
+        # one entry a shard on its device (the bias with shard 0);
+        # retire() releases them
         self._dw_key = f"{name}#{id(self):x}"
-        devicewatch.ledger_place(
-            "resident", self._dw_key, self.placed_bytes, name=name
-        )
+        for s, (dev, _, w) in enumerate(self._shards):
+            extra = int(b.nbytes) if s == 0 else 0
+            devicewatch.ledger_place(
+                "resident", self._ledger_key(s), w.numel() * 4 + extra,
+                device=dev.index or 0,
+                name=name if not self.sharded else f"{name} shard {s}")
+
+    @property
+    def sharded(self) -> bool:
+        """Is W row-sharded over a mesh?"""
+        return self.n_shards > 1
+
+    @property
+    def _w_dev(self) -> Optional[torch.Tensor]:
+        """The whole resident W (None when sharded or retired)."""
+        return self._shards[0][2] if len(self._shards) == 1 else None
+
+    def _ledger_key(self, s: int) -> str:
+        return self._dw_key if not self.sharded else f"{self._dw_key}/{s}"
 
     # -- service wiring ----------------------------------------------------
     def bind(self, on_h2d=None, on_dispatch=None) -> "ResidentLinearScorer":
@@ -215,10 +279,11 @@ class ResidentLinearScorer:
         further dispatches."""
         with self._lock:
             self.retired = True
-            self._w_dev = None
+            self._shards = []
             self._b_dev = None
             self._out_bufs.clear()
-        devicewatch.ledger_release("resident", self._dw_key)
+        for s in range(self.n_shards):
+            devicewatch.ledger_release("resident", self._ledger_key(s))
         devicewatch.ledger_release("donated", self._dw_key)
 
     # -- wire encode -------------------------------------------------------
@@ -263,14 +328,23 @@ class ResidentLinearScorer:
                 f"wire batch [B,{self.in_dim}] expected, got {wire.shape}"
             )
         n = wire.shape[0]
-        x_dev = torch.from_numpy(np.ascontiguousarray(wire)).to(self.device)
+        failpoint("scorer.h2d.ship")
+        with self._lock:
+            shards, b = self._shards, self._b_dev
+        # each shard's columns of the batch to the shard's device
+        xs = [
+            torch.from_numpy(np.ascontiguousarray(
+                wire[:, lo:lo + w.shape[0]] if len(shards) > 1 else wire)
+            ).to(dev)
+            for dev, lo, w in shards
+        ]
         nbytes = int(wire.nbytes)
+        failpoint("scorer.donate.dispatch")
         with self._lock:
             if self.retired:
                 raise RuntimeError(
                     f"resident scorer {self.name!r} retired mid-dispatch"
                 )
-            w, b = self._w_dev, self._b_dev
             guard = self._out_bufs.pop(n, None)
             self.h2d_bytes += nbytes
         outcome = "hit" if guard is not None else "miss"
@@ -283,7 +357,15 @@ class ResidentLinearScorer:
         with devicewatch.compile_span(
             "resident_scorer", key=(n, self.in_dim, self.n_classes)
         ):
-            torch.addmm(b, x_dev.float(), w, out=buf)
+            if len(shards) == 1:
+                torch.addmm(b, xs[0].float(), shards[0][2], out=buf)
+            else:
+                # partial logits a shard, summed on the first device in
+                # shard order, then the bias (the reference's psum)
+                torch.mm(xs[0].float(), shards[0][2], out=buf)
+                for x, (_, _, w) in zip(xs[1:], shards[1:]):
+                    buf.add_(torch.mm(x.float(), w).to(self.device))
+                buf.add_(b)
             codes_dev = torch.argmax(buf, dim=1)
         codes = codes_dev.to(torch.int32).cpu().numpy()
         with self._lock:
@@ -312,7 +394,8 @@ class ResidentLinearScorer:
                 "inDim": self.in_dim,
                 "nClasses": self.n_classes,
                 "paramBytes": self.placed_bytes,
-                "sharded": False,
+                "sharded": self.sharded,
+                "meshFallback": self.mesh_fallback,
                 "retired": self.retired,
                 "dispatches": self.dispatches,
                 "h2dBytes": self.h2d_bytes,

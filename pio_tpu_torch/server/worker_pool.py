@@ -51,8 +51,13 @@ recommendation tables sharded over every local CUDA device (or the
 ``mesh_devices`` given), and the other workers stay off the card as with
 ``device_worker``. ``deploy --workers N --mesh-worker`` starts one.
 
+Failpoint ``worker.serve`` fires on every turn of a worker's serve loop
+(``worker.serve=crash:once`` kills one to exercise the respawn). A
+``--faults`` spec reaches the workers through ``PIO_TPU_FAULTS``, which
+they inherit and arm at import.
+
 Not ported: the shared metrics segment behind ``/metrics``, the evloop
-front, QoS, SLOs, feedback and failpoints.
+front, QoS, SLOs and feedback.
 """
 
 from __future__ import annotations
@@ -68,6 +73,7 @@ import urllib.error
 import urllib.request
 from typing import Optional
 
+from pio_tpu_torch.faults import failpoint
 from pio_tpu_torch.server.batchlane import BatchLaneSegment
 from pio_tpu_torch.utils import knobs
 from pio_tpu_torch.workflow.engine_json import EngineVariant
@@ -141,6 +147,9 @@ def _worker_main(spec: dict, idx: int, gen, shutdown_evt,
         # while registered as a sleeper corrupts the shared event. Each
         # turn beats the heartbeat that /healthz checks
         while not shutdown_evt.is_set():
+            # `worker.serve=crash:once` kills this worker mid-serve to
+            # exercise the supervisor's respawn
+            failpoint("worker.serve")
             service.heartbeat.beat()
             time.sleep(0.25)
     except KeyboardInterrupt:

@@ -1,7 +1,9 @@
 """Leader/follower cross-request write coalescing (group commit).
 
 The port's copy of ``pio_tpu/storage/groupcommit.py`` (the port imports
-nothing of ``pio_tpu``), without its tracing, failpoints and metrics, the
+nothing of ``pio_tpu``), with its failpoint (``groupcommit.flush.<store>``,
+inside the flush's try, so an injected error takes the solo-retry path)
+and without its tracing and metrics, the
 partial-flush outcome and outcome-count check of backends that cannot
 write a batch atomically or in order (SQLite's flush does both) and the
 liveness probe (the event server's ``/healthz``), which come with later
@@ -25,6 +27,8 @@ from __future__ import annotations
 import threading
 from typing import Any, Callable, List, Sequence
 
+from pio_tpu_torch.faults import failpoint
+
 
 class _Item:
     __slots__ = ("payload", "done", "result", "exc")
@@ -46,8 +50,11 @@ class GroupCommitter:
     per-payload errors re-raise in their own submitting thread.
     """
 
-    def __init__(self, flush: Callable[[Sequence[Any]], List[Any]]):
+    def __init__(self, flush: Callable[[Sequence[Any]], List[Any]],
+                 store: str = "unnamed"):
         self._flush = flush
+        #: names the failpoint ``groupcommit.flush.<store>``
+        self._store = store
         self._q: List[_Item] = []
         self._qlock = threading.Lock()
         self._commit_lock = threading.Lock()
@@ -80,6 +87,9 @@ class GroupCommitter:
         """One leader flush: every item of ``batch`` gets its result or
         its exception."""
         try:
+            # inside the try: an injected error takes the solo retry below,
+            # and an injected crash kills the leader mid-flush
+            failpoint(f"groupcommit.flush.{self._store}")
             results = self._flush([i.payload for i in batch])
             for i, r in zip(batch, results):
                 i.result = r

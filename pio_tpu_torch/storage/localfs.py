@@ -3,7 +3,8 @@
 The port's copy of ``pio_tpu/storage/localfs.py`` (the port imports nothing
 of ``pio_tpu``), with its durable rename inlined: the temporary file's bytes
 are synced before the rename publishes its name, and the directory after
-it. The reference's failpoint hook comes with the ops-plane slice.
+it. Failpoint ``storage.localfs.persist`` sits between the two, as the
+reference's does.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import os
 from typing import Optional
 
+from pio_tpu_torch.faults import failpoint
 from pio_tpu_torch.storage import base
 from pio_tpu_torch.storage.records import Model
 
@@ -31,6 +33,7 @@ class LocalFSModels(base.Models):
             f.write(model.models)
             f.flush()
             os.fsync(f.fileno())
+        failpoint("storage.localfs.persist")
         os.replace(tmp, path)
         fd = os.open(self.root, os.O_RDONLY)
         try:

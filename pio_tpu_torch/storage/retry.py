@@ -19,6 +19,8 @@ import sqlite3
 import time
 from typing import Callable, TypeVar
 
+from pio_tpu_torch.faults import FaultInjected
+
 T = TypeVar("T")
 
 ATTEMPTS = 3
@@ -32,7 +34,12 @@ _SQLITE_TRANSIENT = ("locked", "busy")
 
 def is_transient(exc: BaseException) -> bool:
     """``sqlite3.OperationalError`` mentioning busy/locked (SQLITE_BUSY /
-    SQLITE_LOCKED under WAL contention)."""
+    SQLITE_LOCKED under WAL contention), and
+    :class:`~pio_tpu_torch.faults.FaultInjected`: an injected ``error``
+    models exactly that class of failure, so a fault drill exercises the
+    retry."""
+    if isinstance(exc, FaultInjected):
+        return True
     if isinstance(exc, sqlite3.OperationalError):
         msg = str(exc).lower()
         return any(t in msg for t in _SQLITE_TRANSIENT)

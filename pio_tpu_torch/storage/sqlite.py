@@ -8,8 +8,9 @@ keeps concurrent server reads cheap.
 
 The port's copy of ``pio_tpu/storage/sqlite.py`` (the port imports nothing
 of ``pio_tpu``), with the same schema and version, so one ``pio.db`` is
-read and written by both packages. The commit failpoint of the group
-committer's flush comes with the ops-plane slice.
+read and written by both packages. Failpoints: the group committer's
+``groupcommit.flush.sqlite`` and ``storage.sqlite.commit`` between the
+event flush's ``executemany`` and its commit.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from typing import Iterable, List, Optional
 
 from pio_tpu_torch.data.datamap import DataMap
 from pio_tpu_torch.data.event import Event
+from pio_tpu_torch.faults import failpoint
 from pio_tpu_torch.storage import base
 from pio_tpu_torch.storage.durability import mode as _durability
 from pio_tpu_torch.storage.groupcommit import GroupCommitter
@@ -280,6 +282,11 @@ class SQLiteEvents(base.LEvents, base.PEvents):
                                 _EVENT_INSERT_SQL,
                                 [p[1] for p in payloads],
                             )
+                            # between executemany and commit: an error
+                            # here proves the rollback keeps the thread-
+                            # local connection clean; a crash proves WAL
+                            # recovery drops the uncommitted txn whole
+                            failpoint("storage.sqlite.commit")
                             conn.commit()
                         except Exception:
                             # leave nothing pending on the thread-local
@@ -290,7 +297,7 @@ class SQLiteEvents(base.LEvents, base.PEvents):
                             raise
                         return [p[0] for p in payloads]
 
-                    gc = GroupCommitter(flush)
+                    gc = GroupCommitter(flush, store="sqlite")
                     client._events_gc = gc
         self._gc = gc
 

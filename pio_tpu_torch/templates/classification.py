@@ -329,10 +329,13 @@ def _linear_resident(name, model, weights, bias, scales, device):
     template's factories: a Query from a dequantized feature row, and a
     class code straight to its label (both classifiers serve through
     FirstServing, whose supplement is the identity, so a wire-codes
-    dispatch answers as the full path would)."""
+    dispatch answers as the full path would). Over the query server's
+    serving mesh (``model._serve_mesh``, reference l.354) the scorer
+    row-shards its weights."""
     inv = model.label_index.inverse
     return ResidentLinearScorer(
         weights, bias, scales=scales, name=name, device=device,
+        mesh=model.__dict__.get("_serve_mesh"),
         query_factory=lambda x: Query(
             attrs=tuple(float(v) for v in np.asarray(x).reshape(-1))
         ),

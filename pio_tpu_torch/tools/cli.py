@@ -29,9 +29,14 @@ start; negative none). ``status --device cpu`` names the CUDA devices
 without opening one; under the env contract ``status`` joins the group
 and prints the rank and the world.
 
+``train``, ``deploy`` and ``eventserver`` take ``--faults SPEC`` (the
+failpoint grammar of ``pio_tpu_torch/faults``): the spec is parsed before
+anything starts, so a bad one exits 1, then exported as
+``PIO_TPU_FAULTS`` (pool workers arm from it) and installed.
+
 Not ported yet (ROADMAP A): the verbs blobserver, dashboard, fleet,
 route, rollout, adminserver, upgrade, run, lint, template list and app
-compact; the flags --slo, --qos, --faults and --feedback-app.
+compact; the flags --slo, --qos and --feedback-app.
 
 Usage: ``python -m pio_tpu_torch <verb> ...``
 """
@@ -42,6 +47,7 @@ import argparse
 import importlib
 import json
 import logging
+import os
 import sys
 import time
 import urllib.error
@@ -51,6 +57,7 @@ from typing import Optional
 import torch
 
 import pio_tpu_torch
+from pio_tpu_torch import faults
 from pio_tpu_torch.parallel import distributed
 from pio_tpu_torch.parallel.context import ComputeContext
 from pio_tpu_torch.storage.registry import Storage
@@ -66,6 +73,30 @@ def _out(s: str = ""):
 def _err(s: str) -> int:
     print(f"[ERROR] {s}", file=sys.stderr, flush=True)
     return 1
+
+
+def _arm_faults(args) -> None:
+    """``--faults SPEC``: parse it first, so that a bad spec exits 1
+    before anything starts; then export it for spawned workers (they arm
+    from ``PIO_TPU_FAULTS`` at import) and arm this process."""
+    spec = getattr(args, "faults", None) or None
+    if not spec:
+        return
+    try:
+        faults.parse_faults(spec)
+    except faults.FaultError as e:
+        raise SystemExit(_err(f"--faults: {e}"))
+    os.environ[faults.ENV_VAR] = spec
+    faults.install(spec)
+
+
+def _faults_flag(a, example: str) -> None:
+    a.add_argument(
+        "--faults", default=None, metavar="SPEC",
+        help=f"failpoint spec for fault drills, e.g. {example!r}; "
+             "actions error, latency, torn-write, crash; state on "
+             "/faults.json",
+    )
 
 
 def _resolve_app(name: str):
@@ -209,6 +240,7 @@ def cmd_train(args) -> int:
             "--checkpoint-dir has no effect without --checkpoint-every N "
             "(nothing would be snapshotted)"
         ))
+    _arm_faults(args)
     ctx = _context(args, args.seed)
     variant = load_variant(args.engine_json)
     engine, ep = build_engine(variant)
@@ -347,6 +379,7 @@ def cmd_eval(args) -> int:
 def cmd_eventserver(args) -> int:
     from pio_tpu_torch.server.event_server import create_event_server
 
+    _arm_faults(args)
     server = create_event_server(host=args.ip, port=args.port)
     _out(f"Event Server listening on {args.ip}:{server.port}")
     try:
@@ -362,6 +395,7 @@ def cmd_deploy(args) -> int:
     from pio_tpu_torch.server.query_server import deploy_query_server
     from pio_tpu_torch.workflow.engine_json import load_variant
 
+    _arm_faults(args)
     if args.workers > 1:
         return _deploy_pool(args, load_variant(args.engine_json))
     for flag in ("device_worker", "mesh_worker"):
@@ -723,6 +757,7 @@ def build_parser() -> argparse.ArgumentParser:
              "(default: PIO_TPU_TRAIN_STATUS_PORT or 0 = ephemeral, "
              "printed at start; negative disables)",
     )
+    _faults_flag(a, "stream.put=latency:20ms")
     _device_flag(a)
     a.set_defaults(fn=cmd_train)
 
@@ -793,6 +828,8 @@ def build_parser() -> argparse.ArgumentParser:
              "shards over (default: every local CUDA device); a device may "
              "repeat, e.g. cuda:0,cuda:0 on a one-card host",
     )
+    _faults_flag(a, "storage.sqlite.commit=latency:200ms,"
+                    "worker.serve=crash:once")
     _device_flag(a)
     a.set_defaults(fn=cmd_deploy)
 
@@ -816,6 +853,7 @@ def build_parser() -> argparse.ArgumentParser:
     a = sub.add_parser("eventserver", help="run the event ingestion server")
     a.add_argument("--ip", default="0.0.0.0")
     a.add_argument("--port", type=int, default=7070)
+    _faults_flag(a, "storage.sqlite.commit=error:0.1")
     a.set_defaults(fn=cmd_eventserver)
 
     a = sub.add_parser("import", help="import JSON-lines events")

@@ -89,6 +89,12 @@ _DEFAULTS = {
     # `1` persists shardable models as per-shard records + a shard
     # manifest
     "PIO_TPU_SHARDED_PERSIST": "0",
+    # -- the streamed epoch feed (parallel/stream.py) and the failpoints
+    # (faults/), the reference's names and defaults --
+    # streamed training-span chunk size, MB; <= 0 streams in one chunk
+    "PIO_TPU_TRAIN_STREAM_MB": "64",
+    # failpoint spec, e.g. `stream.put=error:once`; unset arms nothing
+    "PIO_TPU_FAULTS": "",
 }
 
 #: knobs whose value must be positive; another value reads as the default

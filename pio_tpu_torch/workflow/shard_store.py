@@ -20,7 +20,7 @@ concat + re-place (counted by ``pio_tpu_shard_reshard_total``): a model
 saved over 4 devices loads on 2 or 1 unchanged.
 
 Gate: ``PIO_TPU_SHARDED_PERSIST=1`` (default off: the single-blob path is
-unchanged).
+unchanged). Failpoint ``shard.reshard`` fires on a load that reshards.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from pio_tpu_torch.faults import failpoint
 from pio_tpu_torch.obs.metrics import REGISTRY
 from pio_tpu_torch.storage.records import Model
 from pio_tpu_torch.utils import knobs
@@ -227,6 +228,7 @@ def restore_sharded(
     algos = manifest.get("algos", [])
     saved_shape = manifest.get("mesh_shape") or [manifest.get("n_shards", 1)]
     if n_devices is not None and int(np.prod(saved_shape)) != int(n_devices):
+        failpoint("shard.reshard")
         _SHARD_RESHARD.inc()
         log.info(
             "resharding instance %s: saved on mesh %s, loading on %d "

@@ -114,7 +114,9 @@ def crud_script(key_of):
         ["app", "channel-new", "shop", "bad name!"],
         ["app", "channel-delete", "shop", "web"],
         ["app", "channel-delete", "shop", "nope"],
-        ["accesskey", "delete", key_of("blog")],
+        # "--": a generated key may begin with "-" (token_urlsafe draws it
+        # 1 time in 64), which argparse would read as an option
+        ["accesskey", "delete", "--", key_of("blog")],
         ["accesskey", "delete", "nope"],
         ["app", "data-delete", "shop"],
         ["app", "data-delete", "shop", "--channel", "nope"],

@@ -24,6 +24,10 @@ size); the JAX package on meshes of 2 and 4 of the host devices that
   so an element whose gradient is rounding noise can move either way);
 - two-tower over data 2 stopped after 8 steps and resumed from each
   rank's snapshot: the uninterrupted run's bits;
+- two-tower and the sequence model over data 2 with the streamed epoch
+  feed (``stream="on"``, spans of one batch): the staged 2-rank run's
+  bits, within ``1e-4`` of the reference's streamed run on a mesh of 2,
+  each rank shipping half of every span;
 - every rank holds the same bits.
 
 The templates: ``run_train`` of two-tower (``model_parallel`` 2) and the
@@ -76,6 +80,8 @@ SEQ_RUNS = {  # name: (world, mesh spec, config)
 GRAD_RUNS = {"model2": (2, dict(data=1, model=2)),
              "data2-model2": (4, dict(data=2, model=2)),
              "model2-pipe2": (4, dict(data=1, model=2, pipe=2))}
+#: spans of one batch (31 pairs x 8 B; 3 rows x 8 positions x 12 B)
+STREAM_ENV = {"PIO_TPU_TRAIN_STREAM_MB": "0.0002"}
 APP = "rec-test"
 TT_VARIANT = {
     "id": "tt-group", "engineFactory": "templates.twotower",
@@ -165,6 +171,18 @@ def _tasks(world, checkpoints):
                 spec=dict(data=2), u=u, i=i, U=U, I=I,
                 cfg=dict(TT_CFG, steps=steps), init=_tt_init(1),
                 checkpoint=str(checkpoints), every=4)))
+        # the streamed feed over the data axis (its env stays set in the
+        # rank, so these run last)
+        tasks += [
+            ("torch_ranks:twotower_task", dict(
+                spec=dict(data=2), u=u, i=i, U=U, I=I,
+                cfg=dict(TT_CFG, stream="on"), init=_tt_init(1),
+                env=STREAM_ENV, stats=True)),
+            ("torch_ranks:seqrec_task", dict(
+                spec=dict(data=2), seqs=_seqs(), n_items=5,
+                cfg=_seq_cfg(SEQ_RUNS["data2"][2], stream="on"),
+                init=_seq_init(), env=STREAM_ENV, stats=True)),
+        ]
     return tasks
 
 
@@ -175,7 +193,8 @@ def _slot(world, kind, name):
     names += [("seq", n) for n, v in SEQ_RUNS.items() if v[0] == world]
     names += [("grad", n) for n, v in GRAD_RUNS.items() if v[0] == world]
     names += [("template", "tt"), ("template", "seq"), ("resume", 8),
-              ("resume", 12)] if world == 2 else []
+              ("resume", 12), ("stream", "tt"),
+              ("stream", "seq")] if world == 2 else []
     return names.index((kind, name))
 
 
@@ -258,6 +277,56 @@ def test_two_tower_resumes_each_ranks_snapshot(ranks):
     for a, b in zip(resumed, whole):
         np.testing.assert_array_equal(a, b)
     _same_on_every_rank(ranks, 2, _slot(2, "resume", 12))
+
+
+@pytest.mark.parametrize("kind", ["tt", "seq"])
+def test_streamed_over_the_data_axis(ranks, monkeypatch, kind):
+    """2 gloo ranks over data 2 streamed: the staged 2-rank run's bits;
+    within 1e-4 of the reference's streamed run on a JAX mesh of 2; each
+    rank ships its own half of every batch."""
+    for k, v in STREAM_ENV.items():
+        monkeypatch.setenv(k, v)
+    mesh = _jax_mesh(dict(data=2), 2)
+    slot = _slot(2, "stream", kind)
+    if kind == "tt":
+        staged = ranks[2][0][_slot(2, "tt", "data2")]
+        u, i = _pairs()
+        ref_stats = {}
+        want = RT.train_two_tower(
+            mesh, u, i, U, I, RT.TwoTowerConfig(**TT_CFG, stream="on"),
+            stats=ref_stats)
+        got_u, got_i, stats = ranks[2][0][slot]
+        for a, b in zip((got_u, got_i), staged):
+            np.testing.assert_array_equal(a, b)
+        np.testing.assert_allclose(got_u, want.user_vectors, rtol=0,
+                                   atol=1e-4)
+        np.testing.assert_allclose(got_i, want.item_vectors, rtol=0,
+                                   atol=1e-4)
+        # 12 steps of 32 rows (31 padded to the data axis), 8 B a row
+        assert stats["h2d_bytes"] == 12 * 16 * 8
+    else:
+        staged = ranks[2][0][_slot(2, "seq", "data2")]
+        ref_stats = {}
+        want = _flat(RS.train_seqrec(mesh, _seqs(), 5, RS.SeqRecConfig(
+            **_seq_cfg(SEQ_RUNS["data2"][2], stream="on")),
+            stats=ref_stats).params)
+        got, stats = ranks[2][0][slot]
+        for k in want:
+            np.testing.assert_array_equal(got[k], staged[k], err_msg=k)
+            np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-4,
+                                       err_msg=k)
+        # 3 steps of 4 rows (3 padded) x 8 positions, 12 B a position
+        assert stats["h2d_bytes"] == 3 * 2 * 8 * 12
+    assert stats["n_stream"] == ref_stats["n_stream"] >= 2
+    # the reference ships each span replicated; each rank here its half
+    assert 2 * stats["h2d_bytes"] == ref_stats["h2d_bytes"]
+    other = ranks[2][1][slot]
+    for a, b in zip(other[:-1], ranks[2][0][slot][:-1]):
+        if isinstance(a, dict):
+            for k in a:
+                np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+        else:
+            np.testing.assert_array_equal(a, b)
 
 
 # ---------------------------------------------------------- the sequence

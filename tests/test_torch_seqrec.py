@@ -13,7 +13,11 @@ the reference's ``jax.random`` init, carried across with
   ``seqrec_model_from_reference``: 1e-5 (O(10) scores: 1e-5 absolute is
   1e-6 relative).
 
-``stream="on"`` and an exceeded device budget raise. An axis of one
+With ``batch_size > 0`` the streamed epoch feed (``stream="on"``, or
+``"auto"`` under a budget below the epoch) gives the staged run's bits
+and matches the reference's streamed run within the staged runs' 1e-4;
+``stream="on"`` without minibatches, params over the budget, and a
+full-batch epoch over it raise, as in the reference. An axis of one
 rank (an in-process gloo group of one, ``tests/torch_ranks.py``) gives
 the results without an axis bit for bit, forward and backward, and so
 does a mesh of one rank for the trainer; ``tests/test_torch_mesh_*.py``
@@ -286,7 +290,6 @@ def test_options_that_raise():
     seqs = _seqs()
     for cfg, err, match in (
         (dict(stream="on"), ValueError, "batch_size > 0"),
-        (dict(stream="on", batch_size=2), ValueError, "ROADMAP §A.3"),
         (dict(stream="never"), ValueError, "stream"),
         (dict(attention="flash"), ValueError, "attention"),
     ):
@@ -313,10 +316,12 @@ def test_a_mesh_of_one_rank_is_the_single_device_path(attention):
 @pytest.mark.parametrize("batch_size", [0, 2], ids=["full", "minibatch"])
 def test_device_budget(monkeypatch, batch_size):
     """Params over the budget raise; an epoch that does not fit beside
-    them raises under "auto" (full-batch as the reference; minibatch where
-    the reference streams) and stages under "off"."""
+    them raises full-batch, as the reference does, and streams with
+    minibatches, as the reference does, giving the staged bits; "off"
+    stages it all the same."""
     seqs = _seqs()
-    cfg = T.SeqRecConfig(**KW, steps=1, batch_size=batch_size)
+    cfg = T.SeqRecConfig(**KW, steps=5, batch_size=batch_size)
+    staged = T.train_seqrec(None, seqs, 5, cfg, device="cpu")
     D, F, L = 16, 32, 2
     params = 4 * (6 * D + 8 * D + 2 * D
                   + L * (4 * D + 4 * D * D + 2 * D * F + F + D))
@@ -324,17 +329,65 @@ def test_device_budget(monkeypatch, batch_size):
     with pytest.raises(DeviceBudgetExceeded, match="seqrec params"):
         T.train_seqrec(None, seqs, 5, cfg, device="cpu")
     monkeypatch.setenv("PIO_TPU_DEVICE_BUDGET_BYTES", str(params + 10))
-    with pytest.raises(DeviceBudgetExceeded, match="staged epoch"):
-        T.train_seqrec(None, seqs, 5, cfg, device="cpu")
     ref_cfg = R.SeqRecConfig(**KW, steps=1, batch_size=batch_size)
     if batch_size:
         R.train_seqrec(None, seqs, 5, ref_cfg)  # streams
+        stats = {}
+        got = T.train_seqrec(None, seqs, 5, cfg, device="cpu", stats=stats)
+        # 8 rows x 8 positions x 12 B over 10 B of headroom: a span a batch
+        assert stats["n_stream"] == 4
+        a, b = _flat(staged.params), _flat(got.params)
+        for k in a:
+            np.testing.assert_array_equal(b[k], a[k], err_msg=k)
     else:
+        with pytest.raises(DeviceBudgetExceeded, match="staged epoch"):
+            T.train_seqrec(None, seqs, 5, cfg, device="cpu")
         with pytest.raises(JaxBudgetExceeded, match="staged epoch"):
             R.train_seqrec(None, seqs, 5, ref_cfg)
     m = T.train_seqrec(None, seqs, 5, dataclasses.replace(cfg, stream="off"),
                        device="cpu")
     assert sum(t.numel() for t in leaves(m.params)) * 4 == params
+
+
+@pytest.mark.parametrize("stream_mb", ["0.0005", "64"])
+@pytest.mark.parametrize("steps", [3, 11])
+def test_streamed_run_is_the_staged_run(monkeypatch, stream_mb, steps):
+    """Minibatches streamed in spans of 1 batch and of 2: the staged bits;
+    the feed ships 12 bytes a position of every step's batch."""
+    monkeypatch.setenv("PIO_TPU_TRAIN_STREAM_MB", stream_mb)
+    seqs = _seqs(3, 13, 10, 5)
+    cfg = T.SeqRecConfig(**KW, steps=steps, batch_size=3, seed=4)
+    staged = T.train_seqrec(None, seqs, 5, cfg, device="cpu")
+    stats = {}
+    streamed = T.train_seqrec(None, seqs, 5,
+                              dataclasses.replace(cfg, stream="on"),
+                              device="cpu", stats=stats)
+    a, b = _flat(staged.params), _flat(streamed.params)
+    for k in a:
+        np.testing.assert_array_equal(b[k], a[k], err_msg=k)
+    assert stats["n_stream"] >= 2
+    assert stats["h2d_bytes"] == steps * 3 * 8 * 12
+    assert {"h2d_s", "device_s", "encode_s"} <= set(stats)
+
+
+@pytest.mark.parametrize("attention", ["ring", "ulysses"])
+def test_streamed_run_matches_reference_streamed(reference_init, monkeypatch,
+                                                 attention):
+    """Both packages streamed from the reference's init: the staged runs'
+    1e-4."""
+    monkeypatch.setenv("PIO_TPU_TRAIN_STREAM_MB", "0.0005")
+    seqs = _seqs()
+    cfg = dict(**KW, steps=15, batch_size=3, attention=attention, seed=2,
+               stream="on")
+    want = R.train_seqrec(None, seqs, 5, R.SeqRecConfig(**cfg),
+                          stats=(ref_stats := {}))
+    got = T.train_seqrec(None, seqs, 5, T.SeqRecConfig(**cfg), device="cpu",
+                         stats=(stats := {}))
+    assert stats["n_stream"] == ref_stats["n_stream"] >= 2
+    assert stats["h2d_bytes"] == ref_stats["h2d_bytes"]
+    a, b = _flat(want.params), _flat(got.params)
+    for k in a:
+        np.testing.assert_allclose(b[k], a[k], atol=1e-4, err_msg=k)
 
 
 # ------------------------------------------------------------------- the card
@@ -343,6 +396,19 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_card_streamed_is_the_card_staged(cuda_device, monkeypatch):
+    """On the card the streamed feed gives the staged run's bits."""
+    seqs = _seqs(4, 16, 12, 30)
+    cfg = T.SeqRecConfig(**KW, steps=15, batch_size=3)
+    staged = T.train_seqrec(None, seqs, 30, cfg, device=cuda_device)
+    monkeypatch.setenv("PIO_TPU_TRAIN_STREAM_MB", "0.0005")
+    got = T.train_seqrec(None, seqs, 30, dataclasses.replace(cfg, stream="on"),
+                         device=cuda_device)
+    for a, b in zip(leaves(staged.params), leaves(got.params)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -13,7 +13,10 @@ streams). Tolerances:
 - ``scores`` of a model carried across with
   ``twotower_model_from_reference``: 1e-5.
 
-``stream="on"`` and an exceeded device budget raise. A mesh of one rank
+The streamed epoch feed (``stream="on"``, or ``"auto"`` under a device
+budget below the epoch) gives the staged run's bits, and matches the
+reference's streamed run within the staged runs' 1e-4; params over the
+budget raise. A mesh of one rank
 (an in-process gloo group of one, ``tests/torch_ranks.py``) gives the
 single-device tables bit for bit; ``tests/test_torch_mesh_neural.py``
 holds meshes of 2 and 4 ranks. The card against the CPU is a ``cuda``
@@ -202,10 +205,17 @@ def test_scores_of_a_converted_model_match_reference():
 
 
 def test_stream_on_and_bad_options_raise():
+    """Bad options raise; ``stream="on"`` no longer does: it streams and
+    gives the staged bits."""
     u, i = _pairs(0)
-    with pytest.raises(ValueError, match="ROADMAP §A.3"):
-        T.train_two_tower(None, u, i, 12, 10,
-                          T.TwoTowerConfig(**KW, stream="on"), device="cpu")
+    cfg = T.TwoTowerConfig(**KW, steps=6, batch_size=32)
+    staged = T.train_two_tower(None, u, i, 12, 10, cfg, device="cpu")
+    stats = {}
+    streamed = T.train_two_tower(None, u, i, 12, 10,
+                                 dataclasses.replace(cfg, stream="on"),
+                                 device="cpu", stats=stats)
+    assert stats["n_stream"] >= 2
+    assert torch.equal(streamed.user_vectors, staged.user_vectors)
     with pytest.raises(ValueError, match="stream"):
         T.train_two_tower(None, u, i, 12, 10,
                           T.TwoTowerConfig(**KW, stream="maybe"), device="cpu")
@@ -229,28 +239,79 @@ def test_a_mesh_of_one_rank_is_the_single_device_path():
 
 def test_device_budget(monkeypatch):
     """Params over the budget raise, as in the reference; ids that do not
-    fit beside them raise under "auto" (the reference streams there) and
-    stage under "off"."""
+    fit beside them stream under "auto" where the reference streams, with
+    enough spans for each to fit the headroom, and give the staged bits;
+    "off" stages them all the same."""
     u, i = _pairs(0)
-    cfg = T.TwoTowerConfig(**KW, steps=2, batch_size=32)
+    cfg = T.TwoTowerConfig(**KW, steps=14, batch_size=32)
+    staged = T.train_two_tower(None, u, i, 12, 10, cfg, device="cpu")
     params = 4 * ((12 + 10) * 8 + 2 * (8 * 16 + 16 + 16 * 8 + 8))
     monkeypatch.setenv("PIO_TPU_DEVICE_BUDGET_BYTES", str(params - 1))
     with pytest.raises(DeviceBudgetExceeded, match="two_tower params"):
         T.train_two_tower(None, u, i, 12, 10, cfg, device="cpu")
-    monkeypatch.setenv("PIO_TPU_DEVICE_BUDGET_BYTES", str(params + 100))
-    with pytest.raises(DeviceBudgetExceeded, match="ROADMAP §A.3"):
-        T.train_two_tower(None, u, i, 12, 10, cfg, device="cpu")
-    # the reference streams at this budget
-    with monkeypatch.context() as m:
-        m.setenv("PIO_TPU_DEVICE_BUDGET_BYTES", str(params + 100))
-        R.train_two_tower(None, u, i, 12, 10, R.TwoTowerConfig(
-            **KW, steps=2, batch_size=32))
+    monkeypatch.setenv("PIO_TPU_DEVICE_BUDGET_BYTES", str(params + 800))
+    stats = {}
+    got = T.train_two_tower(None, u, i, 12, 10, cfg, device="cpu",
+                            stats=stats)
+    # 416 pairs: 13 batches of 32, 3328 B staged, 800 B of headroom
+    assert stats["n_stream"] == 5
+    assert torch.equal(got.user_vectors, staged.user_vectors)
+    assert torch.equal(got.item_vectors, staged.item_vectors)
+    assert stats["h2d_bytes"] == 14 * 32 * 2 * 4
+    # the reference streams at this budget, and trains
+    R.train_two_tower(None, u, i, 12, 10, R.TwoTowerConfig(
+        **KW, steps=2, batch_size=32))
     m = T.train_two_tower(None, u, i, 12, 10,
                           dataclasses.replace(cfg, stream="off"),
-                          device="cpu")
-    assert m.item_vectors.shape == (10, 8)
+                          device="cpu", stats=(off := {}))
+    assert off["n_stream"] == 0 and torch.equal(m.item_vectors,
+                                                staged.item_vectors)
     monkeypatch.setenv("PIO_TPU_DEVICE_BUDGET_BYTES", "0")
     T.train_two_tower(None, u, i, 12, 10, cfg, device="cpu")
+
+
+@pytest.mark.parametrize("stream_mb", ["0.0005", "0.002", "64"])
+@pytest.mark.parametrize("steps,batch,n_pairs", [
+    (15, 32, 400),   # 12.5 batches: the wraparound
+    (30, 32, 400),   # more than two epochs
+])
+def test_streamed_run_is_the_staged_run(monkeypatch, stream_mb, steps,
+                                        batch, n_pairs):
+    """Streamed in spans of 1, 4 and all 13 batches (``n_stream`` at
+    least 2), the run gives the staged bits; the feed's stats count every
+    step's ids once."""
+    monkeypatch.setenv("PIO_TPU_TRAIN_STREAM_MB", stream_mb)
+    u, i = _pairs(5, n=n_pairs)
+    cfg = T.TwoTowerConfig(**KW, steps=steps, batch_size=batch, seed=1)
+    staged = T.train_two_tower(None, u, i, 12, 10, cfg, device="cpu")
+    stats = {}
+    streamed = T.train_two_tower(None, u, i, 12, 10,
+                                 dataclasses.replace(cfg, stream="on"),
+                                 device="cpu", stats=stats)
+    assert torch.equal(streamed.user_vectors, staged.user_vectors)
+    assert torch.equal(streamed.item_vectors, staged.item_vectors)
+    assert stats["n_stream"] >= 2
+    assert stats["h2d_bytes"] == steps * batch * 2 * 4
+    assert {"h2d_s", "device_s", "encode_s"} <= set(stats)
+
+
+def test_streamed_run_matches_reference_streamed(reference_init,
+                                                 monkeypatch):
+    """Both packages streamed (``stream="on"``, spans of 2 batches) from
+    the reference's init: the staged runs' 1e-4."""
+    monkeypatch.setenv("PIO_TPU_TRAIN_STREAM_MB", "0.0005")
+    u, i = _pairs(0, n=400)
+    cfg = dict(**KW, steps=15, batch_size=32, seed=3, stream="on")
+    want = R.train_two_tower(None, u, i, 12, 10, R.TwoTowerConfig(**cfg),
+                             stats=(ref_stats := {}))
+    got = T.train_two_tower(None, u, i, 12, 10, T.TwoTowerConfig(**cfg),
+                            device="cpu", stats=(stats := {}))
+    assert stats["n_stream"] == ref_stats["n_stream"] >= 2
+    assert stats["h2d_bytes"] == ref_stats["h2d_bytes"]
+    np.testing.assert_allclose(got.user_vectors.numpy(), want.user_vectors,
+                               atol=1e-4)
+    np.testing.assert_allclose(got.item_vectors.numpy(), want.item_vectors,
+                               atol=1e-4)
 
 
 # ------------------------------------------------------------------- the card
@@ -275,3 +336,25 @@ def test_card_matches_cpu(cuda_device):
     np.testing.assert_allclose(card.item_vectors.cpu().numpy(),
                                cpu.item_vectors.numpy(), atol=1e-4)
     assert torch.equal(card.user_vectors, again.user_vectors)
+
+
+@pytest.mark.cuda
+def test_card_streamed_is_the_card_staged(cuda_device, monkeypatch):
+    """On the card the streamed feed (copy stream, pinned ring, events)
+    gives the staged run's bits, under ``stream="on"`` and under a budget
+    below the epoch."""
+    u, i = _pairs(6, 40, 30, 2000)
+    cfg = T.TwoTowerConfig(**KW, steps=40, batch_size=128)
+    staged = T.train_two_tower(None, u, i, 40, 30, cfg, device=cuda_device)
+    monkeypatch.setenv("PIO_TPU_TRAIN_STREAM_MB", "0.002")
+    on = T.train_two_tower(None, u, i, 40, 30,
+                           dataclasses.replace(cfg, stream="on"),
+                           device=cuda_device)
+    assert torch.equal(on.user_vectors, staged.user_vectors)
+    assert torch.equal(on.item_vectors, staged.item_vectors)
+    params = 4 * ((40 + 30) * 8 + 2 * (8 * 16 + 16 + 16 * 8 + 8))
+    monkeypatch.setenv("PIO_TPU_DEVICE_BUDGET_BYTES", str(params + 4096))
+    auto = T.train_two_tower(None, u, i, 40, 30, cfg, device=cuda_device,
+                             stats=(stats := {}))
+    assert stats["n_stream"] >= 4
+    assert torch.equal(auto.item_vectors, staged.item_vectors)

@@ -255,13 +255,23 @@ def _mesh(ctx, spec):
     return ctx.mesh_for(MeshSpec(**spec))
 
 
+def _task_env(payload) -> None:
+    """Set the payload's ``env`` knobs in this rank (they stay for the
+    rank's later tasks only where a task sets them again)."""
+    for k, v in (payload.get("env") or {}).items():
+        os.environ[k] = v
+
+
 def twotower_task(ctx, payload):
     """``train_two_tower`` over the mesh ``payload["spec"]`` of the rank's
     group, from the given initial towers (the port's own without
     ``init``), snapshotting every ``every`` steps under ``checkpoint``
-    when it names a directory; returns the (user, item) vector tables."""
+    when it names a directory, under the payload's ``env`` knobs; returns
+    the (user, item) vector tables, and the run's stats where ``stats``
+    is set."""
     from pio_tpu_torch.models import two_tower as T
 
+    _task_env(payload)
     mesh = _mesh(ctx, payload["spec"])
     orig = T.init_params
     if payload.get("init") is not None:
@@ -273,32 +283,39 @@ def twotower_task(ctx, payload):
 
         kw = dict(checkpoint=CheckpointManager(payload["checkpoint"]),
                   checkpoint_every=payload["every"])
+    stats = {} if payload.get("stats") else None
     try:
         m = T.train_two_tower(mesh, payload["u"], payload["i"], payload["U"],
                               payload["I"], T.TwoTowerConfig(**payload["cfg"]),
-                              device=ctx.device, **kw)
+                              device=ctx.device, stats=stats, **kw)
     finally:
         T.init_params = orig
-    return m.user_vectors.cpu().numpy(), m.item_vectors.cpu().numpy()
+    out = m.user_vectors.cpu().numpy(), m.item_vectors.cpu().numpy()
+    return out if stats is None else (*out, stats)
 
 
 def seqrec_task(ctx, payload):
     """``train_seqrec`` over the mesh ``payload["spec"]``, from the given
-    initial parameters (the port's own without ``init``); returns the
-    parameters, flat (``blocks/wq``...)."""
+    initial parameters (the port's own without ``init``), under the
+    payload's ``env`` knobs; returns the parameters, flat
+    (``blocks/wq``...), and the run's stats where ``stats`` is set."""
     from pio_tpu_torch.models import seqrec as S
 
+    _task_env(payload)
     mesh = _mesh(ctx, payload["spec"])
     orig = S.init_params
     if payload.get("init") is not None:
         S.init_params = lambda vocab, cfg, generator: _tensor_tree(
             payload["init"])
+    stats = {} if payload.get("stats") else None
     try:
         m = S.train_seqrec(mesh, payload["seqs"], payload["n_items"],
-                           S.SeqRecConfig(**payload["cfg"]), device=ctx.device)
+                           S.SeqRecConfig(**payload["cfg"]), device=ctx.device,
+                           stats=stats)
     finally:
         S.init_params = orig
-    return _flat_numpy(m.params)
+    return _flat_numpy(m.params) if stats is None else (
+        _flat_numpy(m.params), stats)
 
 
 def seqrec_grad_task(ctx, payload):
