@@ -60,8 +60,8 @@ kernels (the forward, and the backward's bag scatter and bag dot):
 14. the top-N scorer at full width on phase 11's factors, card against
    host path;
 15. ``train_als`` at MovieLens-25M's shape on the default route: the
-   native packer's wire against the numpy wire array for array, with
-   both host times; the default route once with its phases and peak
+   native packer's wire against the numpy wire array for array on the
+   first 5,000,000 ratings, with both host times; the default route once with its phases and peak
    memory (the native packer, phase 11's bits), and its wall time without
    stats (3 runs);
 16. the native host scorer at full width on phase 11's factors (B = 1, 64,
@@ -120,11 +120,13 @@ kernels (the forward, and the backward's bag scatter and bag dot):
    taking MovieLens-100K's shape (100,000 ``rate`` events) over HTTP in
    batches of 50 with one single event per 1,000 (events/s, p50/p99 a
    batch), the reference's codes on bad requests, ``export`` and
-   ``import`` into a second app (equal ``find``), ``train`` on the card,
+   ``import`` into a second app (equal ``find``; these two and the second
+   ``app new`` on a thread beside what follows), ``train`` on the card,
    ``deploy``, 20 ``POST /queries.json`` and ``batchpredict`` of 1024
-   against the CPU copy of the served blob, the CLI-trained factors
-   against ``run_train`` on the CPU over the events read back through
-   ``PEventStore``, ``status``, ``undeploy``; each verb's wall time;
+   (``status`` beside it) against the CPU copy of the served blob, the
+   CLI-trained factors against ``run_train`` on the CPU over the events
+   read back through ``PEventStore``, ``undeploy``; each verb's wall
+   time;
 29. text classification through ``pio_tpu_torch.tools.cli.main`` in this
    process: ``import`` of phase 9's corpus, ``train`` and ``deploy`` (on a
    thread, ended by ``undeploy``), 8 queries over HTTP against the CPU
@@ -155,8 +157,8 @@ kernels (the forward, and the backward's bag scatter and bag dot):
    ``sequence_evaluation`` card against CPU at a reduced depth;
 35. checkpoints on the card: both trainers of phases 30 and 33 stopped
    after their first snapshot and resumed, the same bits as the
-   uninterrupted runs; ``python -m pio_tpu_torch train
-   --checkpoint-every`` as a process on phase 28's SQLite home;
+   uninterrupted runs; ``pio train --checkpoint-every`` (the CLI's main
+   in this process) on phase 28's SQLite home;
 36. phase 4's text model served under concurrency: 1 and 32 keep-alive
    clients x 64 queries with the micro-batcher off and on (adaptive off,
    the window printed), every answer against the solo path and the CPU
@@ -185,11 +187,12 @@ kernels (the forward, and the backward's bag scatter and bag dot):
    (``/train.json`` advancing, the recorded losses the steps' own bits,
    the same kernels and synchronizing calls as without the recorder, the
    step time both ways); ``/device.json`` of phase 29's engine deployed
-   with the micro-batcher after 32 clients x 64 (``bytesInUse`` against
+   with the micro-batcher after 32 clients x 16 (``bytesInUse`` against
    ``torch.cuda.memory_allocated``, ``limitBytes`` against the card's
    total, ``bucket_warmup`` the ladder, ``bucket_dispatch`` 0) and ``pio
-   top --once`` on it; a ``deploy --workers 2 --device-worker`` pool (the
-   CPU worker's watch on the ledger, no CUDA context in it);
+   top --once`` on it; a ``deploy --workers 2 --device-worker`` pool,
+   started beside that and the next check (the CPU worker's watch on the
+   ledger, no CUDA context in it);
    ``PIO_TPU_PROFILE`` with 8 executions on a deploy with the
    micro-batcher, and a restart into ``capture-0001`` (the captures'
    forward launches against the dispatches': the ladder's warmup sweeps,
@@ -205,17 +208,19 @@ kernels (the forward, and the backward's bag scatter and bag dot):
    and the data-parallel ``train_mlp`` at the text defaults (phase 9's
    parameters bit for bit; the forward's and kernel A's launches, 200
    each, joining the kernels' line; the gradients' all_reduce a step);
-   two ranks on cuda:0 (NCCL's refusal recorded; over gloo, where it
+   two ranks on cuda:0 (NCCL's refusal recorded, its two ranks beside
+   the two gloo ranks; over gloo, where it
    carries CUDA tensors for all_reduce, reduce_scatter_tensor and
    all_gather_into_tensor, ALS at MovieLens-100K's shape and 5 steps of
    train_mlp against one rank); the recommendation template at
    MovieLens-25M's width with ``PIO_TPU_MESH_SERVE=1`` over (cuda:0,) x 4
-   (1,024 users' top-10 against the unsharded scorer, ``/stats.json``'s
-   ``sharding``, the ``shard`` ledger, device memory over eight
+   (256 users' top-10 against the unsharded scorer, ``/stats.json``'s
+   ``sharding``, the ``shard`` ledger, device memory over four
    ``/reload``, each generation's live blocks by the code that allocated
    them: the shards' requested bytes and the allocator's slack, and
-   nothing else); ``pio train`` with ``PIO_TPU_SHARDED_PERSIST=1`` on
-   SQLite and ``deploy --workers 2 --mesh-worker`` (worker 0 alone on the
+   nothing else); ``pio train`` (the CLI's main in this process) with
+   ``PIO_TPU_SHARDED_PERSIST=1`` on SQLite and ``deploy --workers 2
+   --mesh-worker`` (worker 0 alone on the
    card, sharded; worker 1 on the CPU);
 42. the neural templates over a mesh on the one card: in a 1-rank NCCL
    group, ``train_two_tower`` and ``train_seqrec`` (ring and ulysses)
@@ -243,11 +248,29 @@ kernels (the forward, and the backward's bag scatter and bag dot):
    (``meshFallback``) and 256 (sharded): codes against the unsharded
    scorer with near-ties counted, the residency block and the
    ``resident`` ledger a shard, p50/p99 both ways, device memory over a
-   deploy and eight ``/reload``; and fault drills: ``stream.put=error:once``
+   deploy and four ``/reload``; and fault drills: ``stream.put=error:once``
    (the streamed two-tower raises, the next run gives phase 30's bits) and
    ``scorer.dispatch.solo=latency:20ms`` on phase 4's model (the p50 lifted
    by 20 ms or more, ``/faults.json`` and ``/metrics`` counting the
-   triggers; the clean p50 beside phase 36's).
+   triggers; the clean p50 beside phase 36's);
+44. the event and model stores feeding training on the card, in this
+   process: the event server over SQLite and over the native event log
+   (``PIO_TPU_DURABILITY`` at its default) takes 20,000 of phase 28's
+   events in batches of 50 and 1,000 single posts (events/s, p50/p99 a
+   batch and a single post, ``os.cpu_count()``), every acknowledged event
+   read back (the store's count, ``find_frame``, ``get`` of 50); then
+   MovieLens-1M's shape (1,000,209 ratings over 6,040 users and 3,706
+   items, synthetic as ``bench.py``'s) written with ``write`` into the
+   memory store, the event log, parquet and searchable (each write's and
+   ``find_frame``'s wall), ``run_train`` of the recommendation template on
+   the card from each (rank 16, 10 iterations, lambda 0.1: the memory
+   store's factors bit for bit), persisted through localfs, blob on a
+   ``file://`` root and the blob daemon on ``http://127.0.0.1``, each
+   deployed and answering 64 queries as the localfs deployment does; 1% of
+   the event log's events deleted and the log compacted (its count and
+   ``find_frame`` against the memory store's after the same deletes);
+   ``GET /events/search.json`` on searchable (its hits against the
+   memory store's) and 501 on the event log.
 
 The CLI phases write their homes under ``build/chip_smoke_homes/``
 (gitignored), made afresh each run; every server process is stopped
@@ -258,8 +281,9 @@ device is available or any phase fails. The line before the last holds
 ``nvidia-smi``'s name and power limit, the one before it the kernels' JSON
 summary, the one before that the device programs of the recommendation,
 classification and neural paths
-(``{"programs": [...]}``), and the last line is ``{"ok": true, "device":
-{...}}``.
+(``{"programs": [...]}``), the one before that every phase's wall
+(``{"phase_walls_s": {...}}``), and the last line is ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -295,6 +319,7 @@ from pio_tpu_torch.controller.engine import EngineParams, get_engine_factory  # 
 from pio_tpu_torch.controller.params import params_from_dict, params_to_dict  # noqa: E402
 from pio_tpu_torch.convert import text_mlp_from_reference  # noqa: E402
 from pio_tpu_torch.data.bimap import BiMap  # noqa: E402
+from pio_tpu_torch.data.datamap import DataMap  # noqa: E402
 from pio_tpu_torch.data.event import Event  # noqa: E402
 from pio_tpu_torch.data.store import PEventStore  # noqa: E402
 from pio_tpu_torch.models import als, logreg, markov_chain, mlp, naive_bayes  # noqa: E402
@@ -314,7 +339,10 @@ from pio_tpu_torch.server.http import PACKED_QUERY_CONTENT_TYPE  # noqa: E402
 from pio_tpu_torch.server.query_server import QueryService, create_query_server  # noqa: E402
 from pio_tpu_torch.server.query_server import deploy_query_server  # noqa: E402
 from pio_tpu_torch.server.train_status import create_train_status_server  # noqa: E402
-from pio_tpu_torch.storage.records import App  # noqa: E402
+from pio_tpu_torch.server.blob_server import create_blob_server  # noqa: E402
+from pio_tpu_torch.server.event_server import create_event_server  # noqa: E402
+from pio_tpu_torch.storage import durability  # noqa: E402
+from pio_tpu_torch.storage.records import AccessKey, App  # noqa: E402
 from pio_tpu_torch.storage.registry import Storage  # noqa: E402
 from pio_tpu_torch.templates.classification import Query as CLSQuery  # noqa: E402
 from pio_tpu_torch.templates.classification import classification_evaluation  # noqa: E402
@@ -457,8 +485,24 @@ COUNTERS = {
 }
 
 
+#: (phase, its start on the monotonic clock) in the order the phases ran:
+#: a phase is the script's output from its "phase N:" line to the next one
+PHASE_STARTS: list = []
+_PHASE_LINE = re.compile(r"phase (\d+):")
+
+
 def log(msg: str) -> None:
+    m = _PHASE_LINE.match(msg)
+    if m:
+        PHASE_STARTS.append((int(m.group(1)), time.monotonic()))
     print(msg, flush=True)
+
+
+def phase_walls() -> dict:
+    """Each phase's wall in seconds (host clock), to now for the last."""
+    ends = [t for _, t in PHASE_STARTS[1:]] + [time.monotonic()]
+    return {str(n): round(end - t, 1)
+            for (n, t), end in zip(PHASE_STARTS, ends)}
 
 
 #: ~10 ms of device spin at the H100's clock: longer than the host takes to
@@ -919,8 +963,21 @@ def launched_twice(name: str, run, counter: str, launches: bool) -> torch.Tensor
     return out
 
 
-def check_scatter(name, g, ids, w, n_rows, dtype) -> dict:
-    """Bag scatter vs its plain version; then kernel/plain/library times."""
+def scatter_reference(g, ids, w, n_rows) -> torch.Tensor:
+    """Kernel A's reference: the plain version run on the CPU from the same
+    inputs, f32 (``index_add_`` there adds in slot order; on the card its
+    atomics add in an order that changes from run to run, by up to 7.6e-5
+    at every slot on one row, ``scripts/torch_bag_scatter_spread.py``).
+    A column's sum does not depend on the others, so a narrower ``g`` of
+    the same rows reads its columns off the full one."""
+    return embedding.embedding_bag_backward_table_plain(
+        g.cpu(), ids.cpu(), w.cpu(), n_rows)
+
+
+def check_scatter(name, g, ids, w, n_rows, dtype, ref=None) -> dict:
+    """Bag scatter vs its plain version (``ref``, :func:`scatter_reference`
+    of the same inputs where the caller has it); then kernel/plain/library
+    times."""
     B, L = ids.shape
     D = g.shape[1]
     plan = embedding.bag_plan(ids, w, n_rows)
@@ -931,14 +988,17 @@ def check_scatter(name, g, ids, w, n_rows, dtype) -> dict:
     def plain():
         return embedding.embedding_bag_backward_table_plain(g, ids, w, n_rows, dtype)
 
-    ref = plain().float()
+    # the plain version sums in f32 and casts to dtype
+    if ref is None:
+        ref = scatter_reference(g, ids, w, n_rows)
+    ref = ref.to(dtype).float()
     tol = BWD_TOL
     if dtype == torch.bfloat16 and ref.numel():
         tol = BF16_STEP * float(ref.abs().max())
     out = launched_twice(name, run, "BACKWARD_TABLE_LAUNCHES", n_rows * D > 0)
     row = {"case": name, "B": B, "L": L, "rows": n_rows, "D": D,
            "dtype": str(dtype)[6:],
-           "max_abs_err": max_err(name, out.float(), ref, tol), "tol": tol,
+           "max_abs_err": max_err(name, out.float().cpu(), ref, tol), "tol": tol,
            **slots_a_row(plan)}
     if n_rows * D:
         geo = embedding._scatter_geometry(g, n_rows, dtype)
@@ -973,16 +1033,17 @@ def check_scatter(name, g, ids, w, n_rows, dtype) -> dict:
     return row
 
 
-def scatter_d_sweep(g, ids, w, n_rows) -> dict:
+def scatter_d_sweep(g, ids, w, n_rows, ref) -> dict:
     """Kernel A over the same slots at each width of SWEEP_D (the first
-    columns of ``g``), f32, in turns: device ms by D."""
+    columns of ``g``), f32, in turns: device ms by D, each held to the
+    columns of ``ref`` (:func:`scatter_reference` of the full ``g``)."""
     plan = embedding.bag_plan(ids, w, n_rows)
     gs = {D: g[:, :D].contiguous() for D in SWEEP_D}
     for D, gD in gs.items():
         max_err(f"D sweep, D = {D}",
-                embedding.embedding_bag_backward_table(gD, ids, w, n_rows, plan=plan),
-                embedding.embedding_bag_backward_table_plain(gD, ids, w, n_rows),
-                BWD_TOL)
+                embedding.embedding_bag_backward_table(
+                    gD, ids, w, n_rows, plan=plan).cpu(),
+                ref[:, :D], BWD_TOL)
     times = timed_in_turns({D: (lambda gD=gD: embedding.embedding_bag_backward_table(
         gD, ids, w, n_rows, plan=plan)) for D, gD in gs.items()})
     return {"kernel_ms_by_D": times,
@@ -1063,11 +1124,13 @@ def phase_backward(rng, dev) -> dict:
     g_np = rng.standard_normal((B, D), dtype=np.float32)
     ids, w, g = card_tensors(dev, ids_np, w_np, g_np)
     table = torch.from_numpy(rng.standard_normal((V, D), dtype=np.float32)).to(dev)
-    scatter = [check_scatter("training f32", g, ids, w, V, torch.float32),
-               check_scatter("training bf16", g, ids, w, V, torch.bfloat16)]
+    ref = scatter_reference(g, ids, w, V)
+    scatter = [check_scatter("training f32", g, ids, w, V, torch.float32, ref),
+               check_scatter("training bf16", g, ids, w, V, torch.bfloat16,
+                             ref)]
     log("  kernel A, D sweep over the training slots (ms in proportion to D: "
         "bound by bytes; flat: bound by latency): "
-        + json.dumps(scatter_d_sweep(g, ids, w, V)))
+        + json.dumps(scatter_d_sweep(g, ids, w, V, ref)))
     log(f"  recorded, not measured in this run: kernel A's first design, D "
         f"sweep kernel_ms_by_D {json.dumps(PREV_D_SWEEP_MS)} (commit 9818f09, "
         f"NVIDIA H100 80GB HBM3 at 700 W)")
@@ -1242,9 +1305,9 @@ def step_parts(params0, ids, w, y, steps: int = 10, warmup: int = 3) -> dict:
     # the card's own kernel time in the same steps: the span less this is
     # time the card waited for the host
     n_profiled = 3
-    with profiled() as prof:
-        for _ in range(n_profiled):
-            one_step([torch.cuda.Event(enable_timing=True) for _ in range(5)])
+    _, prof = guarded(lambda: [
+        one_step([torch.cuda.Event(enable_timing=True) for _ in range(5)])
+        for _ in range(n_profiled)], retry=True)
     # every row with device time but the sentinels: copies and user
     # annotations count in a step's device-busy time
     kernels = sorted(
@@ -1402,12 +1465,16 @@ def synth_ratings(n_edges: int, n_users: int, n_items: int, seed: int,
 WINDOW_SENTINELS: list = []
 
 
+def _sentinels_seen(rows) -> int:
+    return sum(e.count for e in rows if window.is_sentinel(e.key))
+
+
 def _window_rows(prof) -> list:
     """The rows of a guarded CUDA-activity window (``profiled``) with
     device time, but for the window's sentinels. Raises if the sentinels
     say that the profiler dropped records inside the window."""
     rows = prof.key_averages()
-    seen = sum(e.count for e in rows if window.is_sentinel(e.key))
+    seen = _sentinels_seen(rows)
     WINDOW_SENTINELS.append(seen)
     if not window.window_complete(seen):
         raise AssertionError(
@@ -1443,12 +1510,30 @@ def profiled():
         window.close_window()
 
 
+def guarded(fn, retry: bool = False):
+    """(fn's result, the profiler of a guarded window around one call).
+    Late in a process the profiler now and then drops a whole end of a
+    window, which its sentinels tell. With ``retry``, for an ``fn`` that
+    leaves nothing behind (no stored run, no launch counted beyond the
+    window unless it resets the counters itself), such a window is
+    discarded and ``fn`` runs once more in a new one. The last window is
+    returned whatever its sentinels say, and ``_window_rows`` holds it to
+    them."""
+    for k in range(2 if retry else 1):
+        with profiled() as prof:
+            out = fn()
+        seen = _sentinels_seen(prof.key_averages())
+        if window.window_complete(seen) or not retry or k == 1:
+            return out, prof
+        log(f"  the profiler lost an end of a window ({seen} of "
+            f"{2 * window.SENTINELS} sentinel kernels): measured again")
+
+
 def count_kernels(fn):
     """(fn's result, device kernels it launched), from torch.profiler's
     CUDA activity in a guarded window; copies, fills and the window's
     sentinels are not counted."""
-    with profiled() as prof:
-        out = fn()
+    out, prof = guarded(fn)
     return out, sum(e.count for e in _kernels(prof))
 
 
@@ -1459,9 +1544,7 @@ def device_busy(fn, iters: int = 1):
     kernels (many small launches) is measured by its device work and not
     by the host's pace."""
     fn()
-    with profiled() as prof:
-        for _ in range(iters):
-            fn()
+    _, prof = guarded(lambda: [fn() for _ in range(iters)], retry=True)
     rows = _kernels(prof)
     ms = {e.key: e.self_device_time_total / iters / 1e3 for e in rows}
     return sum(e.count for e in rows) / iters, sum(ms.values()), ms
@@ -2111,6 +2194,12 @@ def exact_quarters(f: np.ndarray) -> np.ndarray:
     return (np.clip(np.round(f * 4), -8, 8) / 4).astype(np.float32)
 
 
+#: phase 15: the ratings (the first of phase 11's) on which the native
+#: packer's wire is held to the numpy packer's array for array; the numpy
+#: route took 16.6 s on all 25,000,000 on the H100's host
+PACK_CHECK_EDGES = 5_000_000
+
+
 def phase_als_route(args, smi, full) -> dict:
     """Phase 15: train_als at MovieLens-25M's shape on the default route,
     the native packer, against the numpy packer (PR 7's route)."""
@@ -2122,21 +2211,23 @@ def phase_als_route(args, smi, full) -> dict:
     log(f"phase 15: train_als at MovieLens-25M's shape on the default route "
         f"(the native packer, one shipment); {smi}")
 
-    # the host pack: the native wire against the numpy wire (PR 7's route)
+    # the host pack: the native wire against the numpy wire (PR 7's
+    # route), on the first PACK_CHECK_EDGES ratings
+    n = PACK_CHECK_EDGES
     t0 = time.monotonic()
-    native = als._encode_wire(u, i, r, U, I, cfg)
+    native = als._encode_wire(u[:n], i[:n], r[:n], U, I, cfg)
     native_s = time.monotonic() - t0
     with knob("PIO_TPU_NO_NATIVE", "1"):
         t0 = time.monotonic()
-        numpy_wire = als._encode_wire(u, i, r, U, I, cfg)
+        numpy_wire = als._encode_wire(u[:n], i[:n], r[:n], U, I, cfg)
         numpy_s = time.monotonic() - t0
     same_wire = native[1:] == numpy_wire[1:] and all(
         a.dtype == b.dtype and np.array_equal(a, b)
         for a, b in zip(native[0], numpy_wire[0]))
-    log(f"  host pack of the whole wire (sort, counts, encoders): native "
-        f"{native_s:.3f} s, numpy {numpy_s:.3f} s (host clock, "
-        f"{os.cpu_count()} cores); {native[4]} B ({native[2]}+{native[3]}); "
-        f"the {len(native[0])} arrays equal: {same_wire}")
+    log(f"  host pack of the wire of the first {n} ratings (sort, counts, "
+        f"encoders): native {native_s:.3f} s, numpy {numpy_s:.3f} s (host "
+        f"clock, {os.cpu_count()} cores); {native[4]} B ({native[2]}+"
+        f"{native[3]}); the {len(native[0])} arrays equal: {same_wire}")
     if not same_wire:
         raise AssertionError("the native wire differs from the numpy wire")
     del numpy_wire, native
@@ -3432,18 +3523,36 @@ def cli_env(home: str) -> dict:
     return env
 
 
+def cli_started(env: dict, *args):
+    """``python -m pio_tpu_torch <args>`` started: a function that waits
+    for its end and returns (stdout, wall s from the start). A non-zero
+    exit fails the phase."""
+    t0 = time.monotonic()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "pio_tpu_torch", *args], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def ended() -> tuple:
+        try:
+            out, err = proc.communicate(timeout=CLI_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise
+        wall = time.monotonic() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"pio {' '.join(args)} exited "
+                                 f"{proc.returncode}:\n{out[-2000:]}\n"
+                                 f"{err[-4000:]}")
+        return out, wall
+
+    return ended
+
+
 def cli(env: dict, *args) -> tuple:
     """``python -m pio_tpu_torch <args>`` to its end: (stdout, wall s).
     A non-zero exit fails the phase."""
-    t0 = time.monotonic()
-    out = subprocess.run(
-        [sys.executable, "-m", "pio_tpu_torch", *args], cwd=ROOT, env=env,
-        capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
-    wall = time.monotonic() - t0
-    if out.returncode != 0:
-        raise AssertionError(f"pio {' '.join(args)} exited {out.returncode}:"
-                             f"\n{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
-    return out.stdout, wall
+    return cli_started(env, *args)()
 
 
 @contextlib.contextmanager
@@ -3617,16 +3726,36 @@ def phase_cli_quickstart(args, smi) -> dict:
     log(f"  ingest over HTTP: {json.dumps(stats)}; bad requests answered "
         f"{codes}")
 
+    # export, app new and import of the copy touch the second app alone:
+    # they run on a thread beside train, deploy and the queries, and are
+    # checked after them
     exported = os.path.join(home, "export.jsonl")
-    out, walls["export"] = cli(env, "export", "--app", QS_APP,
-                               "--output", exported)
-    if f"Exported {ML100K_EDGES} events" not in out:
-        raise AssertionError(f"export: {out}")
-    _, walls["app new (copy)"] = cli(env, "app", "new", QS_COPY)
-    out, walls["import"] = cli(env, "import", "--app", QS_COPY,
-                               "--input", exported)
-    if f"Imported {ML100K_EDGES} events (0 failed)" not in out:
-        raise AssertionError(f"import: {out}")
+    copied = {}
+
+    def copy_app():
+        try:
+            out, copied["export"] = cli(env, "export", "--app", QS_APP,
+                                        "--output", exported)
+            if f"Exported {ML100K_EDGES} events" not in out:
+                raise AssertionError(f"export: {out}")
+            _, copied["app new (copy)"] = cli(env, "app", "new", QS_COPY)
+            out, copied["import"] = cli(env, "import", "--app", QS_COPY,
+                                        "--input", exported)
+            if f"Imported {ML100K_EDGES} events (0 failed)" not in out:
+                raise AssertionError(f"import: {out}")
+        except BaseException as e:
+            copied["error"] = e
+
+    copier = threading.Thread(target=copy_app, daemon=True)
+    copier.start()
+    try:
+        iid, queries, answers, ms, ppath, card, variant_dict = \
+            quickstart_serve(args, env, home, db, walls)
+    finally:
+        copier.join()
+    if "error" in copied:
+        raise copied.pop("error")
+    walls.update(copied)
     with sqlite_store(db):
         apps = Storage.get_meta_data_apps()
         le = Storage.get_levents()
@@ -3634,9 +3763,23 @@ def phase_cli_quickstart(args, smi) -> dict:
         orig, copy = ([e.to_api_dict() for e in le.find(app)] for app in (a, b))
     if orig != copy or len(orig) != ML100K_EDGES:
         raise AssertionError("the imported copy differs from the app")
-    log(f"  export -> import into a second app: {len(copy)} events, find "
-        f"equal event for event")
+    log(f"  export -> import into a second app (beside train and deploy): "
+        f"{len(copy)} events, find equal event for event")
+    log(f"  {N_QS_HTTP} POST /queries.json through the CLI-deployed server: "
+        f"host clock ms per request {rounded(ms)} (median "
+        f"{np.median(ms):.3f}); status lists {card} and all-OK storage")
+    quickstart_check(args, home, iid, queries, answers, ppath, variant_dict)
+    log(f"  wall s a verb (host clock, process start to exit; export, app "
+        f"new (copy) and import beside train and deploy, status beside "
+        f"batchpredict): "
+        f"{json.dumps({k: round(v, 3) for k, v in walls.items()})}")
+    log(f"  phase 28 {time.monotonic() - t_phase:.1f} s; {smi}")
+    return dict(walls=walls, ingest=stats, query_ms=ms)
 
+
+def quickstart_serve(args, env, home, db, walls) -> tuple:
+    """Phase 28's train, deploy, queries, batchpredict and status beside
+    it, and undeploy, each verb a process."""
     ej = os.path.join(home, "engine.json")
     variant_dict = {
         "id": "quickstart", "engineFactory": "templates.recommendation",
@@ -3686,10 +3829,13 @@ def phase_cli_quickstart(args, smi) -> dict:
                 f.write(json.dumps({"user": f"u{k % ML100K_USERS}",
                                     "num": 10}) + "\n")
         ppath = os.path.join(home, "predictions.jsonl")
-        out, walls["batchpredict"] = cli(env, "batchpredict", "--engine-json",
-                                         ej, "--input", qpath, "--output",
-                                         ppath)
-        out, walls["status"] = cli(env, "status")
+        status_ended = cli_started(env, "status")
+        try:
+            _, walls["batchpredict"] = cli(env, "batchpredict",
+                                           "--engine-json", ej, "--input",
+                                           qpath, "--output", ppath)
+        finally:
+            out, walls["status"] = status_ended()
         card = f"cuda:0 {torch.cuda.get_device_name(0)}"
         if card not in out or "(sanity check passed)" not in out \
                 or out.count("  OK  ") != 8:
@@ -3700,11 +3846,13 @@ def phase_cli_quickstart(args, smi) -> dict:
         walls["deploy exit after undeploy"] = time.monotonic() - t0
         if "undeployed" not in out or code != 0:
             raise AssertionError(f"undeploy: {out}; deploy exited {code}")
-    log(f"  {N_QS_HTTP} POST /queries.json through the CLI-deployed server: "
-        f"host clock ms per request {rounded(ms)} (median "
-        f"{np.median(ms):.3f}); status lists {card} and all-OK storage")
+    return iid, queries, answers, ms, ppath, card, variant_dict
 
-    # the answers against CPU copies, in this process, from the same files
+
+def quickstart_check(args, home, iid, queries, answers, ppath,
+                     variant_dict) -> None:
+    """Phase 28's answers and factors against CPU copies, in this
+    process, from the same files."""
     with cli_store(home):
         n_read = len(PEventStore.find(QS_APP))
         engine, ep = build_engine(variant_from_dict(variant_dict))
@@ -3738,10 +3886,6 @@ def phase_cli_quickstart(args, smi) -> dict:
                      blob, f"batchpredict line {k}")
     log(f"  the {N_QS_HTTP} answers and the {N_QS_BATCH} batchpredict lines "
         f"match the CPU copy of the served blob (check_served)")
-    log(f"  wall s a verb (host clock, process start to exit): "
-        f"{json.dumps({k: round(v, 3) for k, v in walls.items()})}")
-    log(f"  phase 28 {time.monotonic() - t_phase:.1f} s; {smi}")
-    return dict(walls=walls, ingest=stats, query_ms=ms)
 
 
 def phase_cli_text(args, smi) -> dict:
@@ -4473,14 +4617,15 @@ def resumed(name, train, uninterrupted, every, total, directory):
 def phase_checkpoints(args, smi, tt, seq) -> None:
     """Phase 35: both trainers stopped after their first snapshot and
     resumed on the card, against phases 30 and 33's uninterrupted runs;
-    then ``pio train --checkpoint-every`` as a process."""
+    then ``pio train --checkpoint-every`` through the CLI's main in this
+    process."""
     t_phase = time.monotonic()
     tt_every, seq_every = TT_STEPS // 3, SEQ_STEPS // 3
     log(f"phase 35: checkpoints on the card: train_two_tower at phase 30's "
         f"shape every {tt_every} of {TT_STEPS} steps, train_seqrec at phase "
         f"33's every {seq_every} of {SEQ_STEPS}, each stopped after its first "
-        f"snapshot and resumed; then python -m pio_tpu_torch train "
-        f"--checkpoint-every; {smi}")
+        f"snapshot and resumed; then pio train --checkpoint-every in this "
+        f"process; {smi}")
     home = fresh_home("checkpoints")
     u, i = tt_pairs()
     resumed(
@@ -4507,8 +4652,15 @@ def phase_checkpoints(args, smi, tt, seq) -> None:
                    "algorithms": [{"name": "twotower",
                                    "params": {"steps": 300}}]}, f)
     ck = os.path.join(home, "cli")
-    out, wall = cli(cli_env(qs_home), "train", "--engine-json", ej,
-                    "--checkpoint-every", "100", "--checkpoint-dir", ck)
+    said = io.StringIO()
+    t0 = time.monotonic()
+    with cli_store(qs_home), contextlib.redirect_stdout(said):
+        code = cli_main(["train", "--engine-json", ej, "--checkpoint-every",
+                         "100", "--checkpoint-dir", ck])
+    wall, out = time.monotonic() - t0, said.getvalue()
+    if code != 0:
+        raise AssertionError(f"pio train --checkpoint-every returned "
+                             f"{code}: {out[-2000:]}")
     snaps = sorted(os.listdir(os.path.join(ck, "algo0_twotower")))
     log(f"  pio train --checkpoint-every 100 (300 steps): {wall:.2f} s; "
         f"{out.strip().splitlines()[-1]}; snapshots {snaps}")
@@ -5099,6 +5251,8 @@ OPS_TT_RUNS = 1
 OPS_TT_COUNTED_STEPS = 20
 #: the pool of phase 40: the device worker and one CPU worker
 OPS_POOL_WORKERS = 2
+#: 40.3's and 40.5's queries a client
+OPS_PER_CLIENT = 16
 #: steps of the lagged drain timed alone, on a loss already on the card
 OPS_DRAIN_STEPS = 2000
 
@@ -5145,9 +5299,9 @@ def get_text(port: int, path: str) -> tuple:
 
 
 def kernel_counts(fn) -> dict:
-    """{kernel: launches} of a call, in a guarded profiler window."""
-    with profiled() as prof:
-        fn()
+    """{kernel: launches} of a call, in a guarded profiler window (``fn``
+    leaves nothing behind: a window that lost an end is measured again)."""
+    _, prof = guarded(fn, retry=True)
     return {e.key: e.count for e in _kernels(prof)}
 
 
@@ -5333,14 +5487,12 @@ def ops_step_stream(args, smi) -> None:
         raise AssertionError(f"the recorder added synchronizations: {added}")
 
 
-def ops_device_json(args, smi, text, reloaded) -> None:
+def ops_device_json(args, smi, text) -> None:
     """40.3: /device.json of phase 29's text engine deployed with the
-    micro-batcher after a 32-client load, ``pio top --once`` on it; and
-    in a ``deploy --workers 2 --device-worker`` pool, the CPU worker's
-    ledger and its lack of a CUDA context."""
+    micro-batcher after a 32-client load, ``pio top --once`` on it."""
     variant = variant_from_dict(text["variant"], path=text["engine_json"])
     texts, _ = synth_corpus(np.random.default_rng(args.seed + 40),
-                            PER_CLIENT, N_WORDS, coverage=False)
+                            OPS_PER_CLIENT, N_WORDS, coverage=False)
     bodies = [{"text": t} for t in texts]
     with cli_store(text["home"]), knob(MB_KNOBS[0], str(MB_WINDOW_US)), \
             knob(MB_KNOBS[1], "0"):
@@ -5348,7 +5500,7 @@ def ops_device_json(args, smi, text, reloaded) -> None:
                                      device=CARD)
     with server:
         ladder = list(server.service._buckets.buckets)
-        drive_load(server.port, bodies, N_CLIENTS, PER_CLIENT)
+        drive_load(server.port, bodies, N_CLIENTS, OPS_PER_CLIENT)
         status, body = get_text(server.port, "/device.json")
         allocated_now = torch.cuda.memory_allocated()
         payload = json.loads(body)
@@ -5361,7 +5513,7 @@ def ops_device_json(args, smi, text, reloaded) -> None:
     sites = payload["compiles"]["sites"]
     total = torch.cuda.get_device_properties(CARD).total_memory
     log(f"  40.3 /device.json of the deployed text engine after {N_CLIENTS} "
-        f"clients x {PER_CLIENT}: {json.dumps(row)}; memory_allocated "
+        f"clients x {OPS_PER_CLIENT}: {json.dumps(row)}; memory_allocated "
         f"{allocated_now}; compiles {json.dumps(sites)}; the ladder "
         f"{ladder}; {smi}")
     log("  pio top --once:\n    " + top.getvalue().rstrip().replace(
@@ -5382,6 +5534,13 @@ def ops_device_json(args, smi, text, reloaded) -> None:
             f"{len(ladder)}" not in metrics:
         raise AssertionError(f"/metrics {m_status}")
 
+
+@contextlib.contextmanager
+def ops_pool(reloaded):
+    """40.3's ``deploy --workers 2 --device-worker`` pool over phase 38's
+    instance, started on the way in (its processes come up beside the
+    work of the block); yields the check of the CPU worker's ledger and
+    its lack of a CUDA context, which ends the pool."""
     home, ej = reloaded["home"], reloaded["engine_json"]
     port = free_port()
     t0 = time.monotonic()
@@ -5389,27 +5548,34 @@ def ops_device_json(args, smi, text, reloaded) -> None:
                     "--ip", "127.0.0.1", "--port", str(port), "--workers",
                     str(OPS_POOL_WORKERS), "--device-worker", "--device",
                     CARD.type) as proc:
-        wait_listening(home, proc)
-        by_worker, rows = {}, {}
-        deadline = time.monotonic() + 60
-        while time.monotonic() < deadline and (
-                len(by_worker) < OPS_POOL_WORKERS
-                or len(rows) < OPS_POOL_WORKERS):
-            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
-            code, got = request(conn, "GET", "/")
-            conn.close()
-            if code == 200:
-                by_worker[got["worker"]] = got["pid"]
-            code, body = get_text(port, "/device.json")
-            if code == 200:
-                (r,) = json.loads(body)["devices"]
-                rows[r["device"]] = r
-        holders = {w: holds_card(pid) for w, pid in by_worker.items()}
-        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
-        code, _ = request(conn, "POST", "/undeploy", {})
+        yield lambda: ops_pool_check(home, port, proc, t0)
+
+
+def ops_pool_check(home: str, port: int, proc, t0: float) -> None:
+    """40.3's pool: each worker's /device.json row and whether it holds
+    the card, then /undeploy."""
+    wait_listening(home, proc)
+    by_worker, rows = {}, {}
+    deadline = time.monotonic() + 60
+    while time.monotonic() < deadline and (
+            len(by_worker) < OPS_POOL_WORKERS
+            or len(rows) < OPS_POOL_WORKERS):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+        code, got = request(conn, "GET", "/")
         conn.close()
-        rc = proc.wait(timeout=60)
-    log(f"  the pool of {OPS_POOL_WORKERS} ({time.monotonic() - t0:.1f} s): "
+        if code == 200:
+            by_worker[got["worker"]] = got["pid"]
+        code, body = get_text(port, "/device.json")
+        if code == 200:
+            (r,) = json.loads(body)["devices"]
+            rows[r["device"]] = r
+    holders = {w: holds_card(pid) for w, pid in by_worker.items()}
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    code, _ = request(conn, "POST", "/undeploy", {})
+    conn.close()
+    rc = proc.wait(timeout=60)
+    log(f"  40.3 the pool of {OPS_POOL_WORKERS} ({time.monotonic() - t0:.1f} s "
+        f"from its start, beside 40.3-40.4 in this process): "
         f"/device.json rows {json.dumps(rows)}; workers' pids "
         f"{json.dumps(by_worker)}, holding the card {json.dumps(holders)}; "
         f"/undeploy {code}, exit {rc}")
@@ -5492,11 +5658,11 @@ def ops_profile_hook(args, smi, text) -> None:
 
 def ops_sampler_cost(args, smi, text) -> None:
     """40.5: the sampler's cost: p50 and queries/s of phase 29's text
-    models served from 1 and 32 clients (x 16 queries), with
-    PIO_TPU_DEVICEWATCH=0 and on, in turns (off, on, on, off)."""
+    models served from 1 and 32 clients (x OPS_PER_CLIENT queries), with
+    PIO_TPU_DEVICEWATCH=0 and then on."""
     variant = variant_from_dict(text["variant"], path=text["engine_json"])
     texts, _ = synth_corpus(np.random.default_rng(args.seed + 42),
-                            PER_CLIENT, N_WORDS, coverage=False)
+                            OPS_PER_CLIENT, N_WORDS, coverage=False)
     bodies = [{"text": t} for t in texts]
     with cli_store(text["home"]):
         engine, ep = build_engine(variant)
@@ -5505,7 +5671,7 @@ def ops_sampler_cost(args, smi, text) -> None:
         models = load_models_for_instance(
             iid, engine, ep, ComputeContext.create(args.seed, device=CARD))
     out = {}
-    for flag in ("0", "1", "1", "0"):
+    for flag in ("0", "1"):
         with knob("PIO_TPU_DEVICEWATCH", flag):
             server = create_query_server(engine, ep, models, host="127.0.0.1",
                                          port=0, device=CARD)
@@ -5513,14 +5679,14 @@ def ops_sampler_cost(args, smi, text) -> None:
             sampling = server.service.devwatch._thread is not None
             for n_clients in (1, N_CLIENTS):
                 records, wall = drive_load(server.port, bodies, n_clients,
-                                           PER_CLIENT // 4)
+                                           OPS_PER_CLIENT)
                 out.setdefault((flag, n_clients), []).append(
                     latency(records, wall))
         if sampling != (flag == "1"):
             raise AssertionError(f"PIO_TPU_DEVICEWATCH={flag}: sampler "
                                  f"{sampling}")
     log(f"  40.5 the sampler (interval {knobs.knob_float(devicewatch.INTERVAL_ENV)}"
-        f" s), host clock, two runs each in turns: " + "; ".join(
+        f" s), host clock, one run each, off then on: " + "; ".join(
             f"PIO_TPU_DEVICEWATCH={f} {n} client(s): p50 "
             f"{[round(x['p50_ms'], 3) for x in runs]} ms, "
             f"{[round(x['qps']) for x in runs]} q/s"
@@ -5536,8 +5702,10 @@ def phase_ops_plane(args, smi, text, reloaded) -> dict:
     c0 = read_counts()
     ops_train_trace(args, smi, text)
     ops_step_stream(args, smi)
-    ops_device_json(args, smi, text, reloaded)
-    ops_profile_hook(args, smi, text)
+    with ops_pool(reloaded) as pool_check:
+        ops_device_json(args, smi, text)
+        ops_profile_hook(args, smi, text)
+        pool_check()
     ops_sampler_cost(args, smi, text)
     launches = counts_since(c0)
     log(f"  phase 40 launches (added to the kernels' line): "
@@ -5552,14 +5720,16 @@ MESH_ENV = ("PIO_TPU_COORDINATOR", "PIO_TPU_NUM_PROCESSES",
 #: the serving mesh of 41.4 and 41.5: four shards on the one card
 MESH_SHARDS = 4
 #: users answered in 41.4
-MESH_USERS = 1024
+#: 41.4's users answered (cut from 1,024 for the script's time)
+MESH_USERS = 256
 #: 41.4's score limit against the unsharded scorer: a rank-16 f32 dot in
 #: another product (~1e-6 of scores of O(5)); near-ties are counted
 MESH_SCORE_TOL = 1e-5
 #: 41.4's device memory a generation may hold beyond its padded tables
 MESH_EXTRA_LIMIT = 2 << 20
 #: 41.4's /reload count, over which the extra must not grow
-MESH_RELOADS = 8
+#: 41.4's reloads (cut from 8 for the script's time)
+MESH_RELOADS = 4
 #: 41.3's two ranks: the steps of train_mlp held to the 1-rank run at the
 #: CPU tests' limit (5 steps, 1e-5), and the gloo collectives probed
 MESH_MLP_STEPS = 5
@@ -5659,12 +5829,14 @@ def mesh_mlp(args, smi, ctx, text) -> dict:
         text["params"]
     name, params = ep.algorithm_params_list[0]
     algo = engine.algorithm_class_map[name](params)
-    reset_counts()
-    t0 = time.monotonic()
-    with profiled() as prof:
-        model = algo.train(ctx, pd)
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
+    def train():
+        reset_counts()
+        t0 = time.monotonic()
+        trained = algo.train(ctx, pd)
+        torch.cuda.synchronize()
+        return trained, time.monotonic() - t0
+
+    (model, wall), prof = guarded(train, retry=True)
     launches = read_counts()
     rows = {e.key: e.count for e in _kernels(prof)}
     in_window = {"embedding_bag": launches_of(rows, "embedding_bag_kernel"),
@@ -5787,11 +5959,15 @@ def mesh_ranks_work(ctx, out: str) -> dict:
                for k in ("w_in", "b_in", "w_out", "b_out")}}
 
 
-def spawn_ranks(task: str, world: int, home: str, seed: int) -> list:
+def ranks_started(task: str, world: int, home: str, seed: int,
+                  port: int = 0):
     """``world`` rank processes of this script running ``task`` on the
-    card, each stopped by its time limit; their npz results by rank."""
-    port = free_port()
+    card, their rendezvous on ``port`` (a free one if 0), started: a
+    function that waits for them (each stopped by its time limit) and
+    returns (their npz results by rank, s from the start)."""
+    port = port or free_port()
     procs, outs = [], []
+    t0 = time.monotonic()
     for rank in range(world):
         out = os.path.join(home, f"{task}-{rank}.npz")
         outs.append(out)
@@ -5804,28 +5980,38 @@ def spawn_ranks(task: str, world: int, home: str, seed: int) -> list:
             [sys.executable, os.path.abspath(__file__), "--mesh-rank", task,
              "--mesh-out", out], cwd=ROOT, env=env, stdout=log_f,
             stderr=subprocess.STDOUT), log_f))
-    deadline = time.monotonic() + MESH_RANK_TIMEOUT_S[task]
-    try:
-        for p, _ in procs:
-            p.wait(timeout=max(1.0, deadline - time.monotonic()))
-    except subprocess.TimeoutExpired:
-        pass
-    results = []
-    for rank, ((p, log_f), out) in enumerate(zip(procs, outs)):
-        hung = p.poll() is None
-        if hung:
-            p.kill()
-            p.wait(timeout=60)
-        log_f.close()
-        got = dict(np.load(out)) if os.path.exists(out) else {}
-        if hung:
-            got["error"] = (f"no answer in {MESH_RANK_TIMEOUT_S[task]} s; killed "
-                            f"({got.get('error', '')})")
-        elif not got:
-            with open(os.path.join(home, f"{task}-{rank}.log")) as f:
-                got["error"] = f"exited {p.returncode}: {f.read()[-600:]}"
-        results.append(got)
-    return results
+    deadline = t0 + MESH_RANK_TIMEOUT_S[task]
+
+    def ended() -> tuple:
+        try:
+            for p, _ in procs:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            pass
+        wall = time.monotonic() - t0
+        results = []
+        for rank, ((p, log_f), out) in enumerate(zip(procs, outs)):
+            hung = p.poll() is None
+            if hung:
+                p.kill()
+                p.wait(timeout=60)
+            log_f.close()
+            got = dict(np.load(out)) if os.path.exists(out) else {}
+            if hung:
+                got["error"] = (f"no answer in {MESH_RANK_TIMEOUT_S[task]} "
+                                f"s; killed ({got.get('error', '')})")
+            elif not got:
+                with open(os.path.join(home, f"{task}-{rank}.log")) as f:
+                    got["error"] = f"exited {p.returncode}: {f.read()[-600:]}"
+            results.append(got)
+        return results, wall
+
+    return ended
+
+
+def spawn_ranks(task: str, world: int, home: str, seed: int) -> list:
+    """:func:`ranks_started` to its end: the ranks' results."""
+    return ranks_started(task, world, home, seed)()[0]
 
 
 def mesh_two_ranks(args, smi, text) -> dict:
@@ -5843,15 +6029,17 @@ def mesh_two_ranks(args, smi, text) -> dict:
              V=pd.vectorizer.n_features, C=len(pd.label_index))
     shutil.copy(os.path.join(home, "gloo-0.npz.bags.npz"),
                 os.path.join(home, "gloo-1.npz.bags.npz"))
-    t0 = time.monotonic()
-    nccl = spawn_ranks("nccl-two", 2, home, args.seed)
-    nccl_s = time.monotonic() - t0
+    # the two groups at once, each on a rendezvous of its own
+    nccl_port = gloo_port = free_port()
+    while gloo_port == nccl_port:
+        gloo_port = free_port()
+    nccl_ended = ranks_started("nccl-two", 2, home, args.seed, nccl_port)
+    gloo_ended = ranks_started("gloo", 2, home, args.seed, gloo_port)
+    nccl, nccl_s = nccl_ended()
+    gloo, gloo_s = gloo_ended()
     nccl_str = [str(g.get("nccl", g.get("error", ""))) for g in nccl]
-    log(f"  41.3 NCCL, two ranks on cuda:0 ({nccl_s:.1f} s): rank 0 "
-        f"{nccl_str[0]!r}; rank 1 {nccl_str[1]!r}")
-    t0 = time.monotonic()
-    gloo = spawn_ranks("gloo", 2, home, args.seed)
-    gloo_s = time.monotonic() - t0
+    log(f"  41.3 NCCL, two ranks on cuda:0 ({nccl_s:.1f} s, beside the gloo "
+        f"ranks): rank 0 {nccl_str[0]!r}; rank 1 {nccl_str[1]!r}")
     probes = [json.loads(str(g["probes"])) if "probes" in g else
               {"error": str(g.get("error"))} for g in gloo]
     log(f"  41.3 gloo on CUDA tensors, two ranks on cuda:0 ({gloo_s:.1f} s): "
@@ -6106,8 +6294,9 @@ def mesh_serving(args, smi, factors) -> dict:
 
 
 def mesh_pool(args, smi) -> dict:
-    """41.5: ``python -m pio_tpu_torch train`` with PIO_TPU_SHARDED_PERSIST=1
-    on SQLite at MovieLens-100K's shape, the shard manifest verified, then
+    """41.5: ``pio train`` (the CLI's main, in this process) with
+    PIO_TPU_SHARDED_PERSIST=1 on SQLite at MovieLens-100K's shape, the
+    shard manifest verified, then
     ``deploy --workers 2 --mesh-worker`` over (cuda:0,) * 4: worker 0
     alone on the card, sharded; worker 1 on the CPU; answers checked
     against the CPU copy of the blob as 41.4's are."""
@@ -6133,9 +6322,17 @@ def mesh_pool(args, smi) -> dict:
                    "datasource": {"params": {"app_name": app}},
                    "algorithms": [{"name": "als", "params": ALS_PARAMS}]}, f)
     env = dict(cli_env(home), PIO_TPU_SHARDED_PERSIST="1")
-    out, train_s = cli(env, "train", "--engine-json", ej, "--device",
-                       CARD.type)
-    iid = re.search(r"engine instance (\S+)", out).group(1)
+    said = io.StringIO()
+    t0 = time.monotonic()
+    with cli_store(home), knob("PIO_TPU_SHARDED_PERSIST", "1"), \
+            contextlib.redirect_stdout(said):
+        code = cli_main(["train", "--engine-json", ej, "--device",
+                         CARD.type])
+    train_s = time.monotonic() - t0
+    if code != 0:
+        raise AssertionError(f"41.5 pio train returned {code}: "
+                             f"{said.getvalue()[-2000:]}")
+    iid = re.search(r"engine instance (\S+)", said.getvalue()).group(1)
     variant = variant_from_dict(json.load(open(ej)), path=ej)
     engine, ep = build_engine(variant)
     with cli_store(home):
@@ -6143,7 +6340,8 @@ def mesh_pool(args, smi) -> dict:
             Storage.get_model_data_models(), iid)
         cpu_model, = load_models_for_instance(
             iid, engine, ep, ComputeContext.local(0, device="cpu"))
-    log(f"  41.5 pio train (PIO_TPU_SHARDED_PERSIST=1): {train_s:.2f} s; "
+    log(f"  41.5 pio train (PIO_TPU_SHARDED_PERSIST=1, in this process): "
+        f"{train_s:.2f} s; "
         f"instance {iid}; the shard manifest's sha256s verify over "
         f"{verified} shard records")
     port = free_port()
@@ -6742,7 +6940,8 @@ SEQ_STREAM_MB = "0.05"
 CLS_WIDE = 256
 N_CLS_MESH_QUERIES = 200
 N_CLS_MESH_BATCH = 1024
-N_CLS_RELOADS = 8
+#: 43.3's reloads (cut from 8 for the script's time)
+N_CLS_RELOADS = 4
 #: a sharded logit against the unsharded one, relative to the magnitude
 #: of its dot product's terms (|x|·|W| + |b|): the partial sums of f32
 #: products in another order; and the top-two gap below which a code may
@@ -6768,11 +6967,13 @@ def busy_share(fn) -> tuple:
     """(the device's busy share of ``fn``'s wall, kernel ms, wall s): the
     profiler's kernel time of one (warm) call over the host clock's wall
     of that call."""
-    with profiled() as prof:
+    def timed():
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        return time.perf_counter() - t0
+
+    wall, prof = guarded(timed, retry=True)
     ms = sum(e.self_device_time_total for e in _kernels(prof)) / 1e3
     return ms / 1e3 / wall, ms, wall
 
@@ -7204,6 +7405,365 @@ def phase_stream_mesh_faults(args, smi, tt_model, gpu, queries,
             "launches": drills["launches"]}
 
 
+# ------------------------------------------------- phase 44: the event stores
+#: MovieLens-1M's shape (ratings, users, movies), synthetic as bench.py's
+ML1M_EDGES, ML1M_USERS, ML1M_ITEMS = 1_000_209, 6_040, 3_706
+#: 44.1: phase 28's rate events through the event server: these many in
+#: batches of QS_BATCH, then these many single posts
+P44_BATCHED, P44_SINGLES = 20_000, 1_000
+#: acknowledged events read back one by one with ``get`` (the event log's
+#: ``get`` scans the whole log)
+P44_SAMPLE = 50
+#: 44.2: queries a deployment answers
+P44_QUERIES = 64
+#: 44.3: one event in this many is deleted before ``compact``
+P44_DELETE_EVERY = 100
+P44_APP = "movielens-1m-synthetic"
+#: 44.2's stores, the memory store (the baseline) first, each with the
+#: model store its run persists to: localfs, blob on a file:// root, blob
+#: through the blob daemon
+P44_STORES = (("memory", "localfs"), ("eventlog", "blob-file"),
+              ("parquet", "blob-http"), ("searchable", "localfs"))
+
+
+@contextlib.contextmanager
+def store_config(repos: dict):
+    """The script's storage inside the block: each repository on a source
+    of its own, ``repo → (type, path)``; the registry's caches dropped on
+    the way in and out."""
+    with contextlib.ExitStack() as stack:
+        for repo, (type_, path) in repos.items():
+            src = f"P44{repo}"
+            stack.enter_context(
+                knob(f"PIO_STORAGE_REPOSITORIES_{repo}_SOURCE", src))
+            stack.enter_context(knob(f"PIO_STORAGE_SOURCES_{src}_TYPE", type_))
+            stack.enter_context(knob(f"PIO_STORAGE_SOURCES_{src}_PATH", path))
+        Storage.reset()
+        try:
+            yield
+        finally:
+            Storage.reset()
+
+
+def ingest_http(port: int, key: str, batched: list, singles: list) -> tuple:
+    """``batched`` in ``/batch/events.json`` requests of QS_BATCH, then
+    ``singles`` one ``POST /events.json`` each, on one keep-alive
+    connection: (stats, every acknowledged event id in body order)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    batch_ms, single_ms, ids = [], [], []
+    t0 = time.perf_counter()
+    for b in range(0, len(batched), QS_BATCH):
+        t = time.perf_counter()
+        status, got = request(conn, "POST", f"/batch/events.json?accessKey={key}",
+                              batched[b:b + QS_BATCH])
+        batch_ms.append((time.perf_counter() - t) * 1e3)
+        if status != 200 or any(r["status"] != 201 for r in got):
+            raise AssertionError(f"batch: HTTP {status} {got[:3]}")
+        ids += [r["eventId"] for r in got]
+    for body in singles:
+        t = time.perf_counter()
+        status, got = request(conn, "POST", f"/events.json?accessKey={key}",
+                              body)
+        single_ms.append((time.perf_counter() - t) * 1e3)
+        if status != 201:
+            raise AssertionError(f"single event: HTTP {status} {got}")
+        ids.append(got["eventId"])
+    wall = time.perf_counter() - t0
+    conn.close()
+    n = len(batched) + len(singles)
+    return {"events": n, "wall_s": wall, "events_per_s": n / wall,
+            "batch_ms_p50": float(np.percentile(batch_ms, 50)),
+            "batch_ms_p99": float(np.percentile(batch_ms, 99)),
+            "single_ms_p50": float(np.percentile(single_ms, 50)),
+            "single_ms_p99": float(np.percentile(single_ms, 99))}, ids
+
+
+def ingest_store(args, smi, type_: str, bodies: list) -> dict:
+    """44.1 on one store: the event server in this process over SQLite
+    metadata and ``type_`` events, the bodies ingested, then every
+    acknowledged event read back: the store's count and ``find_frame``,
+    and ``get`` of a sample against its body."""
+    home = fresh_home(f"p44_ingest_{type_}")
+    db = os.path.join(home, "pio.db")
+    events = db if type_ == "sqlite" else os.path.join(home, "eventlog")
+    with store_config({"METADATA": ("sqlite", db),
+                       "EVENTDATA": (type_, events)}):
+        app_id = Storage.get_meta_data_apps().insert(App(0, "p44-ingest"))
+        key = Storage.get_meta_data_access_keys().insert(AccessKey("", app_id))
+        server = create_event_server(host="127.0.0.1", port=0)
+        server.start()
+        try:
+            stats, ids = ingest_http(server.port, key, bodies[:P44_BATCHED],
+                                     bodies[P44_BATCHED:])
+        finally:
+            server.stop()
+        le = Storage.get_levents()
+        t = time.perf_counter()
+        frame = Storage.get_pevents().find_frame(app_id)
+        read_s = time.perf_counter() - t
+        count = le.count(app_id) if hasattr(le, "count") else len(frame)
+        if not (len(set(ids)) == len(ids) == len(bodies) == count == len(frame)):
+            raise AssertionError(
+                f"{type_}: {len(bodies)} sent, {len(set(ids))} acknowledged, "
+                f"count {count}, find_frame {len(frame)}")
+        rng = np.random.default_rng(args.seed + 44)
+        t = time.perf_counter()
+        for k in rng.choice(len(ids), P44_SAMPLE, replace=False):
+            e, body = le.get(ids[k], app_id), bodies[k]
+            if e is None or (e.entity_id, e.target_entity_id,
+                             e.properties.get("rating")) != (
+                    body["entityId"], body["targetEntityId"],
+                    body["properties"]["rating"]):
+                raise AssertionError(f"{type_}: event {ids[k]} read back "
+                                     f"as {e}, sent {body}")
+        get_ms = (time.perf_counter() - t) * 1e3 / P44_SAMPLE
+    log(f"  44.1 {type_}: {stats['events']} events ({P44_BATCHED} in "
+        f"batches of {QS_BATCH}, {P44_SINGLES} single) in "
+        f"{stats['wall_s']:.3f} s, {stats['events_per_s']:.1f} events/s; "
+        f"batch ms p50 {stats['batch_ms_p50']:.3f} p99 "
+        f"{stats['batch_ms_p99']:.3f}; single ms p50 "
+        f"{stats['single_ms_p50']:.3f} p99 {stats['single_ms_p99']:.3f}; "
+        f"every acknowledged event read back (count {count}, find_frame "
+        f"{len(frame)} in {read_s:.3f} s, get of {P44_SAMPLE} at "
+        f"{get_ms:.3f} ms each); host clock, "
+        f"os.cpu_count() {os.cpu_count()}; {smi}")
+    return stats
+
+
+def ml1m_events(seed: int) -> list:
+    """MovieLens-1M's shape as ``rate`` events (bench.py's generator), ids
+    and creation times fixed, one second apart. The events of a rating
+    share one properties map (a DataMap is immutable)."""
+    u, i, r = synth_ratings(ML1M_EDGES, ML1M_USERS, ML1M_ITEMS, seed, "half")
+    t0 = dt.datetime(2026, 4, 1, tzinfo=dt.timezone.utc)
+    props = {c: DataMap({"rating": c}) for c in set(r.tolist())}
+    return [Event("rate", "user", f"u{a}", "item", f"i{b}",
+                  properties=props[c],
+                  event_time=t0 + dt.timedelta(seconds=k),
+                  event_id=f"r{k:07d}", creation_time=t0)
+            for k, (a, b, c) in enumerate(zip(u.tolist(), i.tolist(),
+                                              r.tolist()))]
+
+
+def p44_queries(users: list, items: list) -> list:
+    rng = np.random.default_rng(64)
+    out = []
+    for k in range(P44_QUERIES):
+        body = {"user": users[int(rng.integers(len(users)))], "num": 10}
+        if k % 4 == 1:
+            body["blackList"] = [items[int(j)] for j in
+                                 rng.integers(len(items), size=5)]
+        if k == 0:
+            body["user"] = "stranger"
+        out.append(body)
+    return out
+
+
+@contextlib.contextmanager
+def timed_frames(pe):
+    """Each ``find_frame`` of ``pe``'s class inside the block timed: yields
+    the list of (wall s, events) it appends to."""
+    cls, reads = type(pe), []
+    real = cls.find_frame
+
+    def timed(self, *a, **kw):
+        t = time.perf_counter()
+        frame = real(self, *a, **kw)
+        reads.append((time.perf_counter() - t, len(frame)))
+        return frame
+
+    cls.find_frame = timed
+    try:
+        yield reads
+    finally:
+        cls.find_frame = real
+
+
+def store_train(args, smi, type_: str, models_type: str, home: str,
+                events: list, blob_url: str) -> dict:
+    """44.2 on one store: ``write`` the events, ``run_train`` on the card
+    from the store (its data source's ``find_frame`` timed), deploy the
+    persisted instance and answer P44_QUERIES queries."""
+    path = {"memory": home, "eventlog": os.path.join(home, "eventlog"),
+            "parquet": os.path.join(home, "parquet"),
+            "searchable": os.path.join(home, "search.db")}[type_]
+    models = {"localfs": ("localfs", os.path.join(home, f"models-{type_}")),
+              "blob-file": ("blob", "file://" + os.path.join(home, "blobs")),
+              "blob-http": ("blob", blob_url)}[models_type]
+    with store_config({"METADATA": ("memory", home),
+                       "EVENTDATA": (type_, path), "MODELDATA": models}):
+        app_id = Storage.get_meta_data_apps().insert(App(0, P44_APP))
+        pe = Storage.get_pevents()
+        t = time.perf_counter()
+        pe.write(events, app_id)
+        write_s = time.perf_counter() - t
+        variant = variant_from_dict({
+            "id": "p44-stores", "engineFactory": "templates.recommendation",
+            "datasource": {"params": {"app_name": P44_APP}},
+            "algorithms": [{"name": "als",
+                            "params": {**ALS_PARAMS, "seed": args.seed}}],
+        })
+        engine, ep = build_engine(variant)
+        ctx = ComputeContext.create(args.seed, device=CARD)
+        t = time.perf_counter()
+        with timed_frames(pe) as reads:
+            iid = run_train(engine, ep, variant, ctx=ctx)
+        train_s = time.perf_counter() - t
+        if [n for _, n in reads] != [ML1M_EDGES]:
+            raise AssertionError(f"{type_}: the run's find_frame read {reads}")
+        frame_s = reads[0][0]
+        inst = Storage.get_meta_data_engine_instances().get(iid)
+        if inst.env["device"] != str(CARD):
+            raise AssertionError(f"{type_}: run_train did not run on the card")
+        model = load_models_for_instance(iid, engine, ep, ctx)[0]
+        factors = (model.factors.user_factors.cpu(),
+                   model.factors.item_factors.cpu())
+        bodies = p44_queries(sorted(model.user_index.keys()),
+                             sorted(model.item_index.keys()))
+        server = deploy_query_server(variant, host="127.0.0.1", port=0,
+                                     instance_id=iid, device=CARD)
+        with server:
+            conn = http.client.HTTPConnection("127.0.0.1", server.port,
+                                              timeout=60)
+            answers = []
+            for body in bodies:
+                status, got = post(conn, json.dumps(body).encode())
+                if status != 200:
+                    raise AssertionError(f"{type_}: {body}: HTTP {status}")
+                answers.append(got)
+            conn.close()
+    log(f"  44.2 {type_}: write {write_s:.3f} s, find_frame {frame_s:.3f} s "
+        f"({ML1M_EDGES} events, the run's own read), run_train "
+        f"{train_s:.3f} s on the card "
+        f"(phases {json.dumps({k: v for k, v in inst.env.items() if k.startswith('phase_')})}), "
+        f"persisted to {models[0]} {models[1].split('?')[0]}, "
+        f"deployed, {P44_QUERIES} queries answered; host clock, "
+        f"os.cpu_count() {os.cpu_count()}; {smi}")
+    return {"store": pe, "app_id": app_id, "factors": factors,
+            "answers": answers, "path": path}
+
+
+def store_maintenance(args, smi, runs: dict, home: str, events: list) -> None:
+    """44.3: 1% of the event log's events deleted and the log compacted,
+    against the memory store after the same deletes; the search route on
+    the searchable store and its 501 on the event log."""
+    gone = [f"r{k:07d}" for k in range(0, ML1M_EDGES, P44_DELETE_EVERY)]
+    log_run, mem = runs["eventlog"], runs["memory"]
+    log_file = os.path.join(log_run["path"], f"app_{log_run['app_id']}.pel")
+    with store_config({"METADATA": ("memory", home),
+                       "EVENTDATA": ("eventlog", log_run["path"])}):
+        le, pe = Storage.get_levents(), Storage.get_pevents()
+        pe.delete(gone, log_run["app_id"])
+        size = os.path.getsize(log_file)
+        t = time.perf_counter()
+        reclaimed = le.compact(log_run["app_id"])
+        compact_s = time.perf_counter() - t
+        count = le.count(log_run["app_id"])
+        got = pe.find_frame(log_run["app_id"])
+    # the search below runs on the searchable store, which keeps every
+    # event: the pair of the first event, and how many events it has
+    user, item = events[0].entity_id, events[0].target_entity_id
+    pairs = sum(1 for e in events
+                if e.entity_id == user and e.target_entity_id == item)
+    mem["store"].delete(gone, mem["app_id"])
+    want = mem["store"].find_frame(mem["app_id"])
+    if not count == len(got) == len(want) == ML1M_EDGES - len(gone):
+        raise AssertionError(f"after {len(gone)} deletes: count {count}, "
+                             f"find_frame {len(got)}, memory {len(want)}")
+    for c in ("event", "entity_type", "entity_id", "target_entity_type",
+              "target_entity_id", "event_time_us"):
+        if not np.array_equal(getattr(got, c), getattr(want, c)):
+            raise AssertionError(f"compacted log's {c} differs from memory")
+    if list(got.properties) != list(want.properties):
+        raise AssertionError("compacted log's properties differ from memory")
+    if reclaimed <= 0 or os.path.getsize(log_file) != size - reclaimed:
+        raise AssertionError(f"compact reclaimed {reclaimed} of {size} B")
+    log(f"  44.3 eventlog: {len(gone)} deleted (tombstones), compact "
+        f"{compact_s:.3f} s reclaimed {reclaimed} of {size} B; count and "
+        f"find_frame equal the memory store's after the same deletes")
+    # the search route: searchable answers, the event log 501
+    codes = {}
+    for type_, path in (("searchable", runs["searchable"]["path"]),
+                        ("eventlog", log_run["path"])):
+        with store_config({"METADATA": ("memory", home),
+                           "EVENTDATA": (type_, path)}):
+            app_id = Storage.get_meta_data_apps().insert(App(0, P44_APP))
+            key = Storage.get_meta_data_access_keys().insert(
+                AccessKey("", app_id))
+            server = create_event_server(host="127.0.0.1", port=0)
+            server.start()
+            try:
+                conn = http.client.HTTPConnection("127.0.0.1", server.port,
+                                                  timeout=60)
+                path_ = f"/events/search.json?accessKey={key}"
+                t = time.perf_counter()
+                status, hits = request(
+                    conn, "GET", f"{path_}&q={user}%20AND%20{item}&limit=-1")
+                search_ms = (time.perf_counter() - t) * 1e3
+                codes[type_] = (status, request(conn, "GET", path_)[0])
+                conn.close()
+            finally:
+                server.stop()
+        if type_ == "searchable":
+            if status != 200 or len(hits) != pairs or any(
+                    (h["entityId"], h["targetEntityId"]) != (user, item)
+                    for h in hits):
+                raise AssertionError(f"search: HTTP {status}, {len(hits)} "
+                                     f"hits of {pairs}: {hits[:3]}")
+            found = len(hits)
+    if codes != {"searchable": (200, 400), "eventlog": (501, 400)}:
+        raise AssertionError(f"search route codes {codes}")
+    log(f"  44.3 GET /events/search.json: searchable 200 ({found} events of "
+        f"{user} on {item} in {search_ms:.1f} ms), 400 without q; eventlog "
+        f"501, 400 without q; {smi}")
+
+
+def phase_event_stores(args, smi) -> dict:
+    """Phase 44: the event and model stores feeding training on the card."""
+    t_phase = time.monotonic()
+    log(f"phase 44: the event stores: {P44_BATCHED + P44_SINGLES} of phase "
+        f"28's events over HTTP into SQLite and the event log; MovieLens-1M's "
+        f"shape ({ML1M_EDGES} ratings) written into the memory store, the "
+        f"event log, parquet and searchable, run_train on the card from each, "
+        f"persisted through localfs, blob (file://) and the blob daemon, "
+        f"deployed; 1% deleted and the log compacted; the search route; "
+        f"durability {durability.mode()}; {smi}")
+    bodies = rate_bodies(args.seed)[:P44_BATCHED + P44_SINGLES]
+    ingest = {t: ingest_store(args, smi, t, bodies) for t in ("sqlite", "eventlog")}
+    t1 = time.monotonic()
+    home = fresh_home("p44_stores")
+    t = time.perf_counter()
+    events = ml1m_events(args.seed + 44)
+    log(f"  44.2 {len(events)} events built in {time.perf_counter() - t:.3f} s")
+    blob = create_blob_server(os.path.join(home, "blobd"), host="127.0.0.1",
+                              port=0)
+    blob.start()
+    runs = {}
+    try:
+        for type_, models in P44_STORES:
+            runs[type_] = store_train(args, smi, type_, models, home, events,
+                                      f"http://127.0.0.1:{blob.port}")
+    finally:
+        blob.stop()
+    base = runs["memory"]
+    for type_, run in runs.items():
+        if not all(torch.equal(a, b) for a, b in zip(run["factors"],
+                                                     base["factors"])):
+            raise AssertionError(f"{type_}: factors differ from the memory "
+                                 f"store's run")
+        if run["answers"] != base["answers"]:
+            raise AssertionError(f"{type_}: answers differ from localfs's")
+    log(f"  44.2 the factors from eventlog, parquet and searchable are the "
+        f"memory store's bit for bit; the blob (file://) and blob daemon "
+        f"deployments answer the {P44_QUERIES} queries as localfs's")
+    t2 = time.monotonic()
+    store_maintenance(args, smi, runs, home, events)
+    t3 = time.monotonic()
+    log(f"  phase 44 {t3 - t_phase:.1f} s: 44.1 {t1 - t_phase:.1f}, 44.2 "
+        f"{t2 - t1:.1f}, 44.3 {t3 - t2:.1f}; {smi}")
+    return {"ingest": ingest}
+
+
 def kernel_entry(name, source, replaces, launches, row) -> dict:
     """One kernel of the JSON line, from its main timed row."""
     return {
@@ -7248,14 +7808,14 @@ def main(argv=None) -> int:
         t0 = time.monotonic()
         host_libs = pool.submit(lambda: (
             native.als_pack_lib(), native.topn_host_lib(),
-            time.monotonic() - t0))
+            native.event_log_lib(), time.monotonic() - t0))
         built = _build.build_all()
-        host_s = host_libs.result()[2]
+        host_s = host_libs.result()[-1]
     for name, b in built.items():
         log(f"  {name}: {b.path.name} built in {b.seconds:.1f} s")
         for line in b.log.splitlines():
             log(f"    {line}")
-    log(f"  native host libraries (als_pack, topn_host) ready in "
+    log(f"  native host libraries (als_pack, topn_host, event_log) ready in "
         f"{host_s:.1f} s")
 
     use_memory_storage()
@@ -7385,6 +7945,9 @@ def main(argv=None) -> int:
                                    mb_text["runs"][("off", 1)]["p50_ms"])
     for entry in summary:
         entry["launches"] += p43["launches"][entry["name"]]
+    # the event and model stores feeding training on the card: no
+    # hand-written kernel on this path
+    phase_event_stores(args, smi)
     log(f"text evaluation sweep launches (added to the kernels' line): "
         f"{json.dumps(text_eval)}")
     log(f"CLI train + deploy launches (added to the kernels' line): "
@@ -7396,6 +7959,7 @@ def main(argv=None) -> int:
         f"recorded {min(WINDOW_SENTINELS)}-{max(WINDOW_SENTINELS)} of "
         f"{2 * window.SENTINELS} each (a window lost records at an end "
         f"where fewer than {2 * window.SENTINELS})")
+    print(json.dumps({"phase_walls_s": phase_walls(), "device": smi}))
     print(json.dumps({"programs": full["rows"], "device": smi}))
     print(json.dumps({"kernels": summary}))
     print(smi)

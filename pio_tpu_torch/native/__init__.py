@@ -1,8 +1,11 @@
 """Native (C++) host libraries of the port, built with ``g++`` on first use.
 
-The port's copy of the reference's native builder, for the two libraries
+The port's copy of the reference's native build, for the three libraries
 the port runs:
 
+- ``event_log.cpp`` — the append-only binary event log with its filtered
+  scan, repair and compaction in C++ (:mod:`pio_tpu_torch.storage.eventlog`
+  wraps it as a storage backend);
 - ``als_pack.cpp`` — the ALS host side: the degree counts, the (user,
   item) edge sort, the rating and delta item wire encoders and the block
   packer (:mod:`pio_tpu_torch.models.als`);
@@ -148,6 +151,53 @@ def _declare_topn_host(lib: ctypes.CDLL) -> None:
         i32p, ctypes.c_int64, ctypes.c_int32, i64p, f32p,
     ]
     lib.topn_host_f32.restype = ctypes.c_int
+
+
+_NUM_STR = 9  # string columns in a PelResult (see event_log.cpp)
+
+
+class PelResult(ctypes.Structure):
+    """The columnar result of ``pel_scan`` (freed by ``pel_free_result``)."""
+
+    _fields_ = [
+        ("n", ctypes.c_int64),
+        ("time_us", ctypes.POINTER(ctypes.c_int64)),
+        ("ctime_us", ctypes.POINTER(ctypes.c_int64)),
+        # POINTER(c_char), not c_char_p: arenas are length-delimited binary
+        # (c_char_p would truncate at the first NUL on conversion)
+        ("arena", ctypes.POINTER(ctypes.c_char) * _NUM_STR),
+        ("off", ctypes.POINTER(ctypes.c_uint32) * _NUM_STR),
+    ]
+
+
+def _declare_event_log(lib: ctypes.CDLL) -> None:
+    lib.pel_append.argtypes = [
+        ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int64,
+        ctypes.c_int,  # do_sync (durability knob)
+    ]
+    lib.pel_append.restype = ctypes.c_int
+    lib.pel_scan.argtypes = [
+        ctypes.c_char_p,  # path
+        ctypes.c_char_p, ctypes.c_int,  # event_names set, count
+        ctypes.c_char_p, ctypes.c_char_p,  # entity_type, entity_id
+        ctypes.c_char_p, ctypes.c_char_p,  # target type/id
+        ctypes.c_char_p,  # event_id
+        ctypes.c_int64, ctypes.c_int64,  # start, until (us)
+        ctypes.c_int, ctypes.c_int64,  # reversed, limit
+        ctypes.POINTER(PelResult),
+    ]
+    lib.pel_scan.restype = ctypes.c_int
+    lib.pel_free_result.argtypes = [ctypes.POINTER(PelResult)]
+    lib.pel_free_result.restype = None
+    for name in ("pel_count", "pel_repair", "pel_compact"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_char_p]
+        fn.restype = ctypes.c_int64
+
+
+def event_log_lib() -> ctypes.CDLL:
+    """The event-log library (built on first use)."""
+    return _load("event_log", _declare_event_log)
 
 
 def als_pack_lib() -> ctypes.CDLL:

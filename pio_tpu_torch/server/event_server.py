@@ -6,6 +6,8 @@ nothing of ``pio_tpu``), cut to the ingest and read routes:
     GET    /                          alive check
     POST   /events.json               ingest one event (201 + eventId)
     GET    /events.json               filtered query (reversed by default)
+    GET    /events/search.json?q=...  BM25-ranked full-text search (the
+                                      searchable store; 501 elsewhere)
     GET    /events/<id>.json          fetch one
     DELETE /events/<id>.json          delete one
     POST   /batch/events.json         ≤50 events, per-item statuses
@@ -17,7 +19,7 @@ sub-stream (must exist; 400 otherwise). Every write is acknowledged only
 after the transaction that carries it committed, at the storage's
 durability mode (``PIO_TPU_DURABILITY``).
 
-Not ported yet: search, stats, metrics, traces, hotpath, logs, slo, qos,
+Not ported yet: stats, metrics, traces, hotpath, logs, slo, qos,
 storage, healthz/readyz, webhooks and plugins, the QoS gate with
 its storage breaker, and the tracer (ROADMAP A).
 """
@@ -74,6 +76,7 @@ class EventServerService:
         r.add("GET", "/", self.alive)
         r.add("POST", "/events\\.json", self.create_event)
         r.add("GET", "/events\\.json", self.find_events)
+        r.add("GET", "/events/search\\.json", self.search_events)
         r.add("GET", "/events/([^/]+)\\.json", self.get_event)
         r.add("DELETE", "/events/([^/]+)\\.json", self.delete_event)
         r.add("POST", "/batch/events\\.json", self.batch_events)
@@ -223,6 +226,30 @@ class EventServerService:
             limit=limit,
             reversed_order=p.get("reversed", "true").lower() != "false",
         )
+        return 200, [e.to_api_dict() for e in events]
+
+    def search_events(self, req: Request):
+        """GET /events/search.json?q=<fts query> — BM25-ranked full-text
+        search, available when the event store is the searchable backend
+        (the Elasticsearch analog's capability, over REST)."""
+        app_id, channel_id, _ = self._auth(req)
+        q = req.params.get("q")
+        if not q:
+            raise HTTPError(400, "missing query param q")
+        le = Storage.get_levents()
+        if not hasattr(le, "search"):
+            raise HTTPError(
+                501,
+                "the configured event store does not support search; "
+                "set the EVENTDATA source TYPE=searchable",
+            )
+        limit = _parse_limit(req.params)
+        from pio_tpu_torch.storage.searchable import SearchError
+
+        try:
+            events = le.search(app_id, q, channel_id=channel_id, limit=limit)
+        except SearchError as e:
+            raise HTTPError(400, str(e))
         return 200, [e.to_api_dict() for e in events]
 
 

@@ -15,8 +15,14 @@ bytes instead of an object, or a :class:`RawResponse` of another type
 (the Prometheus text of ``GET /metrics``). ``reuse_port`` sets ``SO_REUSEPORT`` before
 bind, so the processes of a serving pool share one port.
 
-Cut to what the ported routes use: no TLS, no event-loop front, no
-file or octet-stream (blob) bodies and no pre-body hook.
+The blob daemon's bodies: an ``application/octet-stream`` body is spooled
+off the socket in chunks (:attr:`Request.body_file`), up to
+:data:`MAX_BODY_BYTES` on a server built with ``large_uploads`` and to the
+JSON cap elsewhere; a :class:`FileResponse` streams a file out in constant
+memory; a ``pre_body`` hook (the daemon's auth) runs before any body byte
+is read.
+
+Cut to what the ported routes use: no TLS and no event-loop front.
 """
 
 from __future__ import annotations
@@ -24,9 +30,11 @@ from __future__ import annotations
 import hmac
 import json
 import logging
+import os
 import re
 import socket
 import socketserver
+import tempfile
 import threading
 from dataclasses import dataclass, field
 from http.server import ThreadingHTTPServer
@@ -38,6 +46,13 @@ log = logging.getLogger("pio_tpu_torch.server")
 #: JSON bodies are parsed in RAM; the reference caps them at 64 MiB
 #: (``PIO_TPU_MAX_JSON_BODY_MB``'s default)
 MAX_JSON_BODY_BYTES = 64 * 2 ** 20
+
+#: raw (octet-stream) uploads of a ``large_uploads`` server (the blob
+#: daemon's model artifacts); the reference's ``PIO_TPU_MAX_BODY_MB`` default
+MAX_BODY_BYTES = 4096 * 2 ** 20
+
+#: an octet-stream body spills from RAM to a temporary file above this
+_SPOOL_BYTES = 8 << 20
 
 #: idle/slowloris guard: a connection that produces no bytes for this
 #: long is closed (the reference's ``PIO_TPU_HTTP_IDLE_TIMEOUT_S`` default)
@@ -80,6 +95,9 @@ class Request:
     #: body bytes of a :data:`PACKED_QUERY_CONTENT_TYPE` request;
     #: ``body`` and ``raw_body`` stay empty for these requests
     packed: Optional[bytes] = None
+    #: an ``application/octet-stream`` body, spooled off the socket
+    #: (``raw_body`` stays empty); closed after the handler returns
+    body_file: Optional[Any] = None
 
     def header(self, name: str, default: Optional[str] = None):
         return self.headers.get(name.lower(), default)
@@ -101,6 +119,18 @@ class RawResponse:
 
     body: Any  # str or bytes
     content_type: str = "text/plain; charset=utf-8"
+
+
+@dataclass
+class FileResponse:
+    """Stream a file to the client in constant memory (the blob daemon's
+    GET path — a multi-GB model artifact must not be buffered per
+    request). The file is opened at response time; a vanished file
+    becomes a 404."""
+
+    path: str
+    content_type: str = "application/octet-stream"
+    chunk_size: int = 1 << 20
 
 
 #: Prometheus scrape content type (text format 0.0.4).
@@ -164,7 +194,7 @@ _REASONS = {
     403: "Forbidden", 404: "Not Found", 405: "Method Not Allowed",
     411: "Length Required", 413: "Content Too Large",
     431: "Request Header Fields Too Large", 500: "Internal Server Error",
-    503: "Service Unavailable",
+    501: "Not Implemented", 503: "Service Unavailable",
 }
 
 _ALLOWED_METHODS = frozenset(
@@ -172,8 +202,14 @@ _ALLOWED_METHODS = frozenset(
 )
 
 
-def _make_handler_class(router: Router, server_name: str):
-    """Per-connection handler with a hand-rolled HTTP/1.1 parser."""
+def _make_handler_class(router: Router, server_name: str,
+                        pre_body: Optional[Callable[[Request], None]] = None,
+                        large_uploads: bool = False):
+    """Per-connection handler with a hand-rolled HTTP/1.1 parser.
+
+    ``pre_body(req)`` (a request without its body) runs before any body
+    byte is read and may raise :class:`HTTPError`; ``large_uploads`` lets
+    octet-stream bodies up to :data:`MAX_BODY_BYTES` through."""
 
     class JsonHandler(socketserver.StreamRequestHandler):
         rbufsize = 64 * 1024
@@ -194,7 +230,39 @@ def _make_handler_class(router: Router, server_name: str):
                 pass
 
         # -- response writing ------------------------------------------
+        def _head(self, status: int, ctype: str, length: int) -> bytes:
+            head = (
+                f"HTTP/1.1 {status} {_REASONS.get(status, '')}\r\n"
+                f"Server: {server_name}\r\n"
+                f"Content-Type: {ctype}\r\n"
+                f"Content-Length: {length}\r\n"
+            )
+            if self.close_connection:
+                head += "Connection: close\r\n"
+            elif self.http10:
+                # an HTTP/1.0 client assumes close unless keep-alive is
+                # echoed back
+                head += "Connection: keep-alive\r\n"
+            return (head + "\r\n").encode("latin-1")
+
+        def _send_file(self, status: int, body: FileResponse):
+            try:
+                f = open(body.path, "rb")
+            except OSError:
+                self._respond(404, {"message": "no such blob"})
+                return
+            with f:
+                self.wfile.write(self._head(
+                    status, body.content_type, os.fstat(f.fileno()).st_size))
+                if self.command != "HEAD":
+                    while chunk := f.read(body.chunk_size):
+                        self.wfile.write(chunk)
+            self.wfile.flush()
+
         def _respond(self, status: int, body: Any):
+            if isinstance(body, FileResponse):
+                self._send_file(status, body)
+                return
             ctype = "application/json; charset=UTF-8"
             try:
                 if isinstance(body, RawResponse):
@@ -212,19 +280,7 @@ def _make_handler_class(router: Router, server_name: str):
                 log.exception("response not JSON-serializable")
                 status = 500
                 payload = b'{"message": "response not JSON-serializable"}'
-            head = (
-                f"HTTP/1.1 {status} {_REASONS.get(status, '')}\r\n"
-                f"Server: {server_name}\r\n"
-                f"Content-Type: {ctype}\r\n"
-                f"Content-Length: {len(payload)}\r\n"
-            )
-            if self.close_connection:
-                head += "Connection: close\r\n"
-            elif self.http10:
-                # an HTTP/1.0 client assumes close unless keep-alive is
-                # echoed back
-                head += "Connection: keep-alive\r\n"
-            out = (head + "\r\n").encode("latin-1")
+            out = self._head(status, ctype, len(payload))
             # HEAD carries Content-Length but no body bytes (RFC 9110)
             if self.command != "HEAD":
                 out += payload
@@ -320,20 +376,65 @@ def _make_handler_class(router: Router, server_name: str):
                 # read(-1) would mean read-to-EOF
                 self._reject(400, "bad Content-Length")
                 return
-            if length > MAX_JSON_BODY_BYTES:
-                # bodies are parsed in RAM: refuse and close instead of
-                # draining
-                self._reject(
-                    413, f"body exceeds {MAX_JSON_BODY_BYTES >> 20} MiB limit"
-                )
+            ctype = headers.get("content-type", "")
+            octet = ctype.lower().startswith("application/octet-stream")
+            limit = (MAX_BODY_BYTES if octet and large_uploads
+                     else MAX_JSON_BODY_BYTES)
+            if length > limit:
+                # bodies are parsed in RAM (or, for a large-upload
+                # server's octet-stream, spooled): refuse and close
+                # instead of draining
+                self._reject(413, f"body exceeds {limit >> 20} MiB limit")
                 return
-            raw = self.rfile.read(length) if length else b""
-            if len(raw) < length:
-                self._reject(400, "incomplete body")
-                return
+            if length and pre_body is not None:
+                # auth runs before any body byte is consumed, or an
+                # unauthenticated client could burn disk or RAM up to the
+                # body limit a request
+                try:
+                    pre_body(Request(
+                        method=method, path=path, params=params, body=None,
+                        headers=headers, client_addr=self.client_address[0],
+                    ))
+                except HTTPError as e:
+                    self._reject(e.status, e.message)  # body unread
+                    return
+                except Exception:  # boundary: answer, never drop
+                    log.exception("pre_body hook failed")
+                    self._reject(500, "internal server error")
+                    return
+            if length and headers.get("expect", "").lower().startswith(
+                    "100-continue"):
+                # invite the body only after the size cap and the
+                # pre-body auth passed
+                self.wfile.write(b"HTTP/1.1 100 Continue\r\n\r\n")
+                self.wfile.flush()
+            body_file = None
+            raw = b""
+            if length and octet:
+                # binary upload (blob daemon): spool off the socket in
+                # chunks, never holding a whole artifact in memory
+                body_file = tempfile.SpooledTemporaryFile(max_size=_SPOOL_BYTES)
+                remaining = length
+                while remaining:
+                    chunk = self.rfile.read(min(remaining, 1 << 20))
+                    if not chunk:
+                        break
+                    body_file.write(chunk)
+                    remaining -= len(chunk)
+                if remaining:
+                    # the client died mid-upload: a truncated body must
+                    # not be stored with a 201
+                    body_file.close()
+                    self._reject(400, "incomplete body")
+                    return
+                body_file.seek(0)
+            elif length:
+                raw = self.rfile.read(length)
+                if len(raw) < length:
+                    self._reject(400, "incomplete body")
+                    return
             body = None
             packed = None
-            ctype = headers.get("content-type", "")
             if raw and ctype.startswith(PACKED_QUERY_CONTENT_TYPE):
                 # packed binary query wire: the body is a lane frame
                 packed, raw = raw, b""
@@ -350,6 +451,7 @@ def _make_handler_class(router: Router, server_name: str):
                 method=method, path=path, params=params, body=body,
                 raw_body=raw, headers=headers,
                 client_addr=self.client_address[0], packed=packed,
+                body_file=body_file,
             )
             try:
                 status, out = router.dispatch(req)
@@ -358,6 +460,9 @@ def _make_handler_class(router: Router, server_name: str):
             except Exception:  # boundary: the server keeps answering
                 log.exception("unhandled error on %s %s", method, path)
                 status, out = 500, {"message": "internal server error"}
+            finally:
+                if body_file is not None:
+                    body_file.close()
             self._respond(status, out)
             if req.after_response is not None:
                 req.after_response()
@@ -382,9 +487,14 @@ class JsonHTTPServer:
     """Threaded server with programmatic start/stop (tests + CLI)."""
 
     def __init__(self, router: Router, host: str = "0.0.0.0", port: int = 0,
-                 name: str = "pio-tpu-torch", reuse_port: bool = False):
-        self._httpd = _Server((host, port), _make_handler_class(router, name),
-                              bind_and_activate=False)
+                 name: str = "pio-tpu-torch", reuse_port: bool = False,
+                 pre_body: Optional[Callable[[Request], None]] = None,
+                 large_uploads: bool = False):
+        self._httpd = _Server(
+            (host, port),
+            _make_handler_class(router, name, pre_body, large_uploads),
+            bind_and_activate=False,
+        )
         self._httpd.reuse_port = reuse_port
         try:
             self._httpd.server_bind()

@@ -225,6 +225,13 @@ class PEventsAdapter(PEvents):
     def find(self, app_id, channel_id=None, **filters) -> List[Event]:
         return self._b.find(app_id, channel_id=channel_id, **filters)
 
+    def find_frame(self, app_id, **filters):
+        # a backend with a columnar read of its own (the event log's
+        # native scan) keeps it on the bulk path
+        if hasattr(self._b, "find_frame"):
+            return self._b.find_frame(app_id, **filters)
+        return super().find_frame(app_id, **filters)
+
     def aggregate_properties(self, app_id, entity_type, channel_id=None,
                              start_time=None, until_time=None,
                              required=None) -> dict:

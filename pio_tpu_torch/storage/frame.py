@@ -10,6 +10,7 @@ comes with the multi-device slice.
 from __future__ import annotations
 
 import datetime as _dt
+import json
 from typing import Iterable, List, Optional, Tuple
 
 import numpy as np
@@ -25,6 +26,13 @@ def _to_micros(t: _dt.datetime) -> int:
     """Epoch microseconds, in integer arithmetic (a float conversion
     truncates 1 us low far from 1970)."""
     return (t - _EPOCH) // _US
+
+
+def json_objects(texts) -> list:
+    """The JSON texts of a properties column parsed in one call: a whole
+    column as one JSON array, several times faster than a ``json.loads``
+    a row, with the same values."""
+    return json.loads("[" + ",".join(texts) + "]")
 
 
 class EventFrame:

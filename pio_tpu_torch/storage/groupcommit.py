@@ -1,13 +1,13 @@
 """Leader/follower cross-request write coalescing (group commit).
 
 The port's copy of ``pio_tpu/storage/groupcommit.py`` (the port imports
-nothing of ``pio_tpu``), with its failpoint (``groupcommit.flush.<store>``,
-inside the flush's try, so an injected error takes the solo-retry path)
-and without its tracing and metrics, the
-partial-flush outcome and outcome-count check of backends that cannot
-write a batch atomically or in order (SQLite's flush does both) and the
-liveness probe (the event server's ``/healthz``), which come with later
-slices.
+nothing of ``pio_tpu``): its failpoint (``groupcommit.flush.<store>``,
+inside the flush's try, so an injected error takes the solo-retry path),
+the partial-flush outcome of backends that cannot write a batch
+atomically (the event log's appends across several files), the
+outcome-count check and the liveness ``probe``; without its tracing and
+metrics, which wait for the event server's ``/traces.json`` and
+``/metrics``.
 
 This is the classic database group-commit protocol, chosen over a
 dedicated committer thread because it is free for serial traffic: a lone
@@ -30,6 +30,32 @@ from typing import Any, Callable, List, Sequence
 from pio_tpu_torch.faults import failpoint
 
 
+class PartialFlushOutcome(Exception):
+    """Raised BY a flush callable whose backend cannot make a multi-
+    payload write all-or-nothing (e.g. appends across several log
+    files): carries one outcome per payload — a result, or an Exception
+    for the payloads that failed. The committer assigns them verbatim
+    instead of blind-retrying, which would duplicate the payloads that
+    already landed."""
+
+    def __init__(self, outcomes):
+        super().__init__("partial flush")
+        self.outcomes = outcomes
+
+
+class FlushProtocolError(RuntimeError):
+    """A flush (or PartialFlushOutcome) returned a different number of
+    outcomes than payloads. The committer cannot tell which payloads
+    landed — zip would silently mark the tail done with result=None
+    (success with nothing written), and a blind solo retry could
+    duplicate the ones that did land — so the whole batch fails."""
+
+    def __init__(self, got: int, expected: int):
+        super().__init__(
+            f"flush returned {got} outcomes for {expected} payloads"
+        )
+
+
 class _Item:
     __slots__ = ("payload", "done", "result", "exc")
 
@@ -47,7 +73,11 @@ class GroupCommitter:
     transaction — nothing persisted if it raises) and return one result
     per payload, in order. If a batched flush raises, each payload is
     retried ALONE so one poisoned write cannot fail its batch-mates;
-    per-payload errors re-raise in their own submitting thread.
+    per-payload errors re-raise in their own submitting thread. A
+    backend that cannot make the batched write all-or-nothing must
+    instead raise :class:`PartialFlushOutcome` with per-payload
+    outcomes — the committer then assigns them without retrying (a blind
+    retry would duplicate the payloads that already landed).
     """
 
     def __init__(self, flush: Callable[[Sequence[Any]], List[Any]],
@@ -90,12 +120,47 @@ class GroupCommitter:
             # inside the try: an injected error takes the solo retry below,
             # and an injected crash kills the leader mid-flush
             failpoint(f"groupcommit.flush.{self._store}")
-            results = self._flush([i.payload for i in batch])
+            # list() before the length check: a generator return would
+            # raise TypeError on len() after the flush already committed,
+            # and the solo retry below would then duplicate every payload
+            results = list(self._flush([i.payload for i in batch]))
+            if len(results) != len(batch):
+                raise FlushProtocolError(len(results), len(batch))
             for i, r in zip(batch, results):
                 i.result = r
+        except FlushProtocolError as proto:
+            for i in batch:
+                i.exc = proto
+        except PartialFlushOutcome as partial:
+            if len(partial.outcomes) != len(batch):
+                proto = FlushProtocolError(len(partial.outcomes), len(batch))
+                for i in batch:
+                    i.exc = proto
+            else:
+                for i, outcome in zip(batch, partial.outcomes):
+                    if isinstance(outcome, Exception):
+                        i.exc = outcome
+                    else:
+                        i.result = outcome
         except Exception:
             for i in batch:  # isolate the poisoned payload
                 try:
                     i.result = self._flush([i.payload])[0]
                 except Exception as exc:
                     i.exc = exc
+
+    def probe(self, timeout: float = 0.5):
+        """Liveness check: try to take the commit lock within ``timeout``.
+
+        Group commit is leader/follower — there is no dedicated thread
+        whose aliveness a probe could check. What can wedge is the commit
+        lock itself (a leader stuck inside a hung backend flush holds it
+        forever, and every later submit spins behind it), so the probe
+        measures exactly that: lock acquirable → healthy; ``timeout``
+        elapsed → a flush has been in flight at least that long."""
+        if self._commit_lock.acquire(timeout=timeout):
+            self._commit_lock.release()
+            return True, "commit lock acquirable"
+        return False, (
+            f"commit lock held > {timeout}s (flush in flight or wedged)"
+        )

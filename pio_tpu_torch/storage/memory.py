@@ -74,7 +74,9 @@ class MemLEvents(base.LEvents, base.PEvents):
     def insert(self, event: Event, app_id, channel_id=None) -> str:
         with self._lock:
             eid = event.event_id or Event.new_event_id()
-            self._bucket(app_id, channel_id)[eid] = event.with_event_id(eid)
+            # an Event is frozen: one that carries its id is stored as is
+            self._bucket(app_id, channel_id)[eid] = (
+                event if event.event_id == eid else event.with_event_id(eid))
             return eid
 
     def get(self, event_id, app_id, channel_id=None) -> Optional[Event]:

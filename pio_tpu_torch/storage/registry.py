@@ -1,7 +1,8 @@
 """Storage registry — env-var-driven backend wiring.
 
 The port's copy of ``pio_tpu/storage/registry.py`` (the port imports
-nothing of ``pio_tpu``), cut to the backends ported so far. Three
+nothing of ``pio_tpu``), with every backend of the reference but the
+partitioned log. Three
 repositories (METADATA, EVENTDATA, MODELDATA) each bound to a named source;
 sources declare a backend type, in the same ``PIO_STORAGE_*`` scheme:
 
@@ -15,11 +16,26 @@ sources declare a backend type, in the same ``PIO_STORAGE_*`` scheme:
 
 Unset → the quickstart defaults under ``$PIO_TPU_HOME`` (default
 ``~/.pio_tpu``): SQLite at ``pio.db`` for metadata and events, localfs
-under ``models`` for models. Backend types: ``sqlite`` (every repository),
-``memory`` (every repository) and ``localfs`` (models only). The other
-types of the reference — ``parquet``, ``eventlog``, ``partlog``,
-``searchable`` and ``blob`` — raise :class:`StorageConfigError` as not yet
-ported: there is no quiet fallback.
+under ``models`` for models. Backend types, with the reference's
+repository rules:
+
+- ``sqlite`` and ``memory``: every repository;
+- ``eventlog`` (events only): the native C++ append-only log, the
+  at-scale event store (``PATH`` a directory, default
+  ``$PIO_TPU_HOME/eventlog``);
+- ``parquet`` (events, bulk PEvents only): Parquet shards (``PATH`` a
+  directory, default ``$PIO_TPU_HOME/events``); ``get_levents`` refuses it;
+- ``searchable`` (aliases ``fts`` and ``elasticsearch``): SQLite + FTS5
+  search over events, apps and run metadata, for METADATA and EVENTDATA
+  (and the plain model table for MODELDATA); ``PATH`` a database file,
+  default ``$PIO_TPU_HOME/pio-search.db``;
+- ``localfs`` (models only);
+- ``blob`` (models only): content-addressed, URI-schemed (``PATH``
+  ``file:///dir`` or ``http://host:port`` of ``pio blobserver``; default
+  ``file://$PIO_TPU_HOME/blobmodels``).
+
+``partlog``, the reference's partitioned, replicated log, is not ported:
+it raises :class:`StorageConfigError`, with no quiet fallback.
 """
 
 from __future__ import annotations
@@ -56,7 +72,7 @@ from pio_tpu_torch.storage.sqlite import (
 REPOSITORIES = ("METADATA", "EVENTDATA", "MODELDATA")
 
 #: backend types of the reference that the port does not have yet
-NOT_PORTED = ("parquet", "eventlog", "partlog", "searchable", "blob")
+NOT_PORTED = ("partlog",)
 
 
 class StorageConfigError(base.StorageError):
@@ -106,8 +122,8 @@ def _source_config(repo: str) -> _SourceConfig:
     if cfg.type in NOT_PORTED:
         raise StorageConfigError(
             f"{repo}: backend {cfg.type!r} (source {cfg.name}) is not yet "
-            f"ported to pio_tpu_torch; use 'sqlite' or 'memory'"
-            + (" or 'localfs'" if repo == "MODELDATA" else "")
+            f"ported to pio_tpu_torch; use 'eventlog' for an append-only "
+            f"event log, or 'sqlite' or 'memory'"
         )
     return cfg
 
@@ -116,7 +132,7 @@ class Storage:
     """Process-wide registry with per-config caching (thread-safe)."""
 
     _lock = threading.RLock()
-    _clients: Dict[str, SQLiteClient] = {}
+    _clients: Dict[str, object] = {}
     _mem: Dict[str, object] = {}
     _facades: Dict[str, object] = {}  # hot-path store facades (reset-scoped)
     _reset_hooks: list = []  # weakref-wrapped callables
@@ -153,6 +169,28 @@ class Storage:
             return cls._clients[key]
 
     @classmethod
+    def _searchable_client(cls, cfg: _SourceConfig):
+        from pio_tpu_torch.storage.searchable import SearchableClient
+
+        path = cfg.path or os.path.join(pio_home(), "pio-search.db")
+        key = f"searchable:{path}"
+        with cls._lock:
+            if key not in cls._clients:
+                cls._clients[key] = SearchableClient(path)
+            return cls._clients[key]
+
+    @classmethod
+    def _eventlog(cls, cfg: _SourceConfig):
+        from pio_tpu_torch.storage.eventlog import EventLogEvents
+
+        path = cfg.path or os.path.join(pio_home(), "eventlog")
+        key = f"eventlog:{path}"
+        with cls._lock:
+            if key not in cls._clients:
+                cls._clients[key] = EventLogEvents(path)
+            return cls._clients[key]
+
+    @classmethod
     def _memory(cls, kind: str, factory):
         with cls._lock:
             if kind not in cls._mem:
@@ -178,17 +216,26 @@ class Storage:
 
     # -- metadata stores ----------------------------------------------------
     @classmethod
-    def _meta(cls, sqlite_cls, mem_kind: str, mem_factory):
+    def _meta(cls, sqlite_cls, mem_kind: str, mem_factory,
+              searchable_cls_name: str = ""):
         cfg = _source_config("METADATA")
         if cfg.type == "sqlite":
             return sqlite_cls(cls._sqlite_client(cfg))
         if cfg.type == "memory":
             return cls._memory(mem_kind, mem_factory)
+        if cfg.type == "searchable":
+            # the same relational traits + FTS5 search() where the store
+            # has a searchable body (apps, run records); imported lazily
+            from pio_tpu_torch.storage import searchable
+
+            impl = (getattr(searchable, searchable_cls_name)
+                    if searchable_cls_name else sqlite_cls)
+            return impl(cls._searchable_client(cfg))
         raise StorageConfigError(f"backend {cfg.type!r} cannot serve METADATA")
 
     @classmethod
     def get_meta_data_apps(cls) -> base.Apps:
-        return cls._meta(SQLiteApps, "apps", MemApps)
+        return cls._meta(SQLiteApps, "apps", MemApps, "SearchableApps")
 
     @classmethod
     def get_meta_data_access_keys(cls) -> base.AccessKeys:
@@ -201,26 +248,32 @@ class Storage:
     @classmethod
     def get_meta_data_engine_instances(cls) -> base.EngineInstances:
         return cls._meta(
-            SQLiteEngineInstances, "engine_instances", MemEngineInstances
+            SQLiteEngineInstances, "engine_instances", MemEngineInstances,
+            "SearchableEngineInstances",
         )
 
     @classmethod
     def get_meta_data_evaluation_instances(cls) -> base.EvaluationInstances:
         return cls._meta(
             SQLiteEvaluationInstances, "evaluation_instances",
-            MemEvaluationInstances,
+            MemEvaluationInstances, "SearchableEvaluationInstances",
         )
 
     @classmethod
     def sqlite_clients(cls) -> Dict[str, SQLiteClient]:
         """repository label → SQLiteClient for every repository configured
-        on the sqlite backend (opening a client applies pending schema
-        migrations); raises StorageConfigError on misconfiguration."""
+        on the sqlite or searchable backend (opening a client applies
+        pending schema migrations): the surface of `pio upgrade`; raises
+        StorageConfigError on misconfiguration."""
         out: Dict[str, SQLiteClient] = {}
         for repo in REPOSITORIES:
             cfg = _source_config(repo)
             if cfg.type == "sqlite":
                 out[repo] = cls._sqlite_client(cfg)
+            elif cfg.type == "searchable":
+                # the searchable store rides the same schema and migration
+                # ladder: `pio upgrade` must see it too
+                out[repo] = cls._searchable_client(cfg)
         return out
 
     # -- event stores -------------------------------------------------------
@@ -257,6 +310,17 @@ class Storage:
             return SQLiteEvents(cls._sqlite_client(cfg))
         if cfg.type == "memory":
             return cls._memory("levents", MemLEvents)
+        if cfg.type == "eventlog":
+            return cls._eventlog(cfg)
+        if cfg.type == "searchable":
+            from pio_tpu_torch.storage.searchable import SearchableEvents
+
+            return SearchableEvents(cls._searchable_client(cfg))
+        if cfg.type == "parquet":
+            raise StorageConfigError(
+                "parquet backend is bulk-only (PEvents); pair it with sqlite "
+                "or memory LEvents via a second source"
+            )
         raise StorageConfigError(f"backend {cfg.type!r} cannot serve EVENTDATA")
 
     @classmethod
@@ -266,6 +330,16 @@ class Storage:
             return SQLitePEvents(SQLiteEvents(cls._sqlite_client(cfg)))
         if cfg.type == "memory":
             return MemPEvents(cls._memory("levents", MemLEvents))
+        if cfg.type == "eventlog":
+            return base.PEventsAdapter(cls._eventlog(cfg))
+        if cfg.type == "searchable":
+            from pio_tpu_torch.storage.searchable import SearchableEvents
+
+            return SQLitePEvents(SearchableEvents(cls._searchable_client(cfg)))
+        if cfg.type == "parquet":
+            from pio_tpu_torch.storage.parquet import ParquetPEvents
+
+            return ParquetPEvents(cfg.path or os.path.join(pio_home(), "events"))
         raise StorageConfigError(f"backend {cfg.type!r} cannot serve EVENTDATA")
 
     # -- model store --------------------------------------------------------
@@ -278,6 +352,17 @@ class Storage:
             return cls._memory("models", MemModels)
         if cfg.type == "localfs":
             return LocalFSModels(cfg.path or os.path.join(pio_home(), "models"))
+        if cfg.type == "searchable":
+            # model blobs have no searchable body; the plain sqlite trait
+            # over the same file serves them
+            return SQLiteModels(cls._searchable_client(cfg))
+        if cfg.type == "blob":
+            from pio_tpu_torch.storage.blobstore import (
+                BlobModels, open_blob_backend,
+            )
+
+            uri = cfg.path or "file://" + os.path.join(pio_home(), "blobmodels")
+            return BlobModels(open_blob_backend(uri))
         raise StorageConfigError(f"backend {cfg.type!r} cannot serve MODELDATA")
 
     # -- health -------------------------------------------------------------
@@ -293,8 +378,16 @@ class Storage:
             "METADATA/evaluation_instances": cls.get_meta_data_evaluation_instances,
             "EVENTDATA/pevents": cls.get_pevents,
             "MODELDATA/models": cls.get_model_data_models,
-            "EVENTDATA/levents": cls.get_levents,
         }
+        # parquet serves the bulk interface only — probing LEvents there
+        # would flag a correctly configured deployment as broken. A broken
+        # EVENTDATA config must still be reported, not raised.
+        try:
+            eventdata_type = _source_config("EVENTDATA").type
+        except StorageConfigError:
+            eventdata_type = None
+        if eventdata_type != "parquet":
+            checks["EVENTDATA/levents"] = cls.get_levents
         out = {}
         for name, fn in checks.items():
             try:

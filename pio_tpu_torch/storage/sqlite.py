@@ -10,11 +10,16 @@ The port's copy of ``pio_tpu/storage/sqlite.py`` (the port imports nothing
 of ``pio_tpu``), with the same schema and version, so one ``pio.db`` is
 read and written by both packages. Failpoints: the group committer's
 ``groupcommit.flush.sqlite`` and ``storage.sqlite.commit`` between the
-event flush's ``executemany`` and its commit.
+event flush's ``executemany`` and its commit. Unlike the reference, the
+events' ``find_frame`` reads its columns straight from the rows (the same
+frame, without an Event object a row), a connection keeps its statement
+journals and temp tables in memory, and a bulk ``write`` holds a large page
+cache until its commit (the same rows, far fewer write calls).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import sqlite3
@@ -22,11 +27,14 @@ import threading
 import uuid
 from typing import Iterable, List, Optional
 
+import numpy as np
+
 from pio_tpu_torch.data.datamap import DataMap
 from pio_tpu_torch.data.event import Event
 from pio_tpu_torch.faults import failpoint
 from pio_tpu_torch.storage import base
 from pio_tpu_torch.storage.durability import mode as _durability
+from pio_tpu_torch.storage.frame import EventFrame, json_objects
 from pio_tpu_torch.storage.groupcommit import GroupCommitter
 from pio_tpu_torch.storage.records import (
     AccessKey,
@@ -227,6 +235,11 @@ class SQLiteClient:
             # (~64 MB WAL ceiling) amortizes it — readers are unaffected,
             # the WAL is part of the database
             c.execute("PRAGMA wal_autocheckpoint=16384")
+            # statement journals and temp tables in memory: a statement
+            # that may fire a trigger (the searchable store's REPLACE)
+            # otherwise journals every page it touches to a temp file,
+            # about 9 write calls a row of a bulk write
+            c.execute("PRAGMA temp_store=MEMORY")
             self._local.conn = c
         return c
 
@@ -235,6 +248,24 @@ class SQLiteClient:
         if c is not None:
             c.close()
             self._local.conn = None
+
+
+#: the page cache a bulk write holds (KiB): SQLite's default 2 MB spills
+#: dirty pages to the WAL a few at a time all through a large transaction
+BULK_CACHE_KIB = 256 * 1024
+
+
+@contextlib.contextmanager
+def bulk_cache(conn: sqlite3.Connection):
+    """A page cache of BULK_CACHE_KIB on ``conn`` inside the block (the
+    connection's own size restored after): a bulk write's pages stay in
+    memory until its commit writes them once."""
+    (old,) = conn.execute("PRAGMA cache_size").fetchone()
+    conn.execute(f"PRAGMA cache_size=-{BULK_CACHE_KIB}")
+    try:
+        yield conn
+    finally:
+        conn.execute(f"PRAGMA cache_size={old}")
 
 
 def _chan(channel_id) -> int:
@@ -365,21 +396,12 @@ class SQLiteEvents(base.LEvents, base.PEvents):
         conn.commit()
         return cur.rowcount > 0
 
-    def find(
-        self,
-        app_id,
-        channel_id=None,
-        start_time=None,
-        until_time=None,
-        entity_type=None,
-        entity_id=None,
-        event_names=None,
-        target_entity_type=None,
-        target_entity_id=None,
-        limit=None,
-        reversed_order=False,
-    ) -> List[Event]:
-        sql = ["SELECT * FROM events WHERE app_id=? AND channel_id=?"]
+    def _select(self, columns: str, app_id, channel_id=None, start_time=None,
+                until_time=None, entity_type=None, entity_id=None,
+                event_names=None, target_entity_type=None,
+                target_entity_id=None, limit=None, reversed_order=False):
+        """The rows of ``columns`` that pass the filters, in time order."""
+        sql = [f"SELECT {columns} FROM events WHERE app_id=? AND channel_id=?"]
         args: list = [app_id, _chan(channel_id)]
         if start_time is not None:
             sql.append("AND event_time_us >= ?")
@@ -409,8 +431,48 @@ class SQLiteEvents(base.LEvents, base.PEvents):
         if limit is not None and limit >= 0:
             sql.append("LIMIT ?")
             args.append(limit)
-        cur = self._c.conn().execute(" ".join(sql), args)
-        return [_row_to_event(r) for r in cur.fetchall()]
+        return self._c.conn().execute(" ".join(sql), args).fetchall()
+
+    def find(
+        self,
+        app_id,
+        channel_id=None,
+        start_time=None,
+        until_time=None,
+        entity_type=None,
+        entity_id=None,
+        event_names=None,
+        target_entity_type=None,
+        target_entity_id=None,
+        limit=None,
+        reversed_order=False,
+    ) -> List[Event]:
+        rows = self._select(
+            "*", app_id, channel_id, start_time, until_time, entity_type,
+            entity_id, event_names, target_entity_type, target_entity_id,
+            limit, reversed_order,
+        )
+        return [_row_to_event(r) for r in rows]
+
+    def find_frame(self, app_id, channel_id=None, **filters) -> EventFrame:
+        """Columnar bulk read straight from the rows: the frame
+        ``EventFrame.from_events(find(...))`` gives, without an Event a
+        row (times truncate to the millisecond, as an Event's do)."""
+        rows = self._select(
+            "event, entity_type, entity_id, coalesce(target_entity_type, ''),"
+            " coalesce(target_entity_id, ''), properties, event_time_us",
+            app_id, channel_id, **filters,
+        )
+        cols = list(zip(*rows)) if rows else [()] * 7
+        return EventFrame(
+            event=np.array(cols[0], dtype=object),
+            entity_type=np.array(cols[1], dtype=object),
+            entity_id=np.array(cols[2], dtype=object),
+            target_entity_type=np.array(cols[3], dtype=object),
+            target_entity_id=np.array(cols[4], dtype=object),
+            properties=json_objects(cols[5]),
+            event_time_us=np.array(cols[6], dtype=np.int64) // 1000 * 1000,
+        )
 
     def remove(self, app_id, channel_id=None) -> bool:
         conn = self._c.conn()
@@ -429,8 +491,9 @@ class SQLiteEvents(base.LEvents, base.PEvents):
                       channel_id)
             for event in events
         ]
-        conn.executemany(_EVENT_INSERT_SQL, rows)
-        conn.commit()
+        with bulk_cache(conn):
+            conn.executemany(_EVENT_INSERT_SQL, rows)
+            conn.commit()
 
     def delete_bulk(self, event_ids, app_id, channel_id=None) -> None:
         conn = self._c.conn()

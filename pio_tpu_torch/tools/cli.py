@@ -4,8 +4,9 @@ Console.scala``, UNVERIFIED path; see SURVEY.md).
 The port's copy of ``pio_tpu/tools/cli.py`` (the port imports nothing of
 ``pio_tpu``), with the quickstart's verbs: app, accesskey, train, eval,
 eventserver, deploy, undeploy, batchpredict, import, export, status,
-version; and the ops plane's: runs, top, shell. Arguments, output lines
-and exit codes are the reference's.
+version; the ops plane's: runs, top, shell; and the stores': app compact,
+upgrade (``--rebuild-search-index``) and blobserver. Arguments, output
+lines and exit codes are the reference's.
 ``train``, ``deploy``, ``batchpredict`` and ``eval`` take ``--device
 {cuda,cpu}`` (default ``cuda``): without a card the default exits non-zero
 with :func:`~pio_tpu_torch.resolve_device`'s message, never carrying on
@@ -34,9 +35,9 @@ failpoint grammar of ``pio_tpu_torch/faults``): the spec is parsed before
 anything starts, so a bad one exits 1, then exported as
 ``PIO_TPU_FAULTS`` (pool workers arm from it) and installed.
 
-Not ported yet (ROADMAP A): the verbs blobserver, dashboard, fleet,
-route, rollout, adminserver, upgrade, run, lint, template list and app
-compact; the flags --slo, --qos and --feedback-app.
+Not ported yet (ROADMAP A): the verbs dashboard, fleet, route, rollout,
+adminserver, run, lint and template list; the flags --slo, --qos and
+--feedback-app.
 
 Usage: ``python -m pio_tpu_torch <verb> ...``
 """
@@ -155,18 +156,55 @@ def cmd_app_delete(args) -> int:
         Storage.get_meta_data_access_keys().delete(k.key)
     for c in Storage.get_meta_data_channels().get_by_app_id(app.id):
         Storage.get_meta_data_channels().delete(c.id)
-        Storage.get_levents().remove(app.id, c.id)
-    Storage.get_levents().remove(app.id, None)
+        _delete_events(app.id, c.id)
+    _delete_events(app.id, None)
     Storage.get_meta_data_apps().delete(app.id)
     _out(f"App {args.name!r} deleted")
     return 0
 
 
+def _delete_events(app_id, channel_id):
+    from pio_tpu_torch.storage.registry import StorageConfigError
+
+    try:
+        Storage.get_levents().remove(app_id, channel_id)
+    except StorageConfigError:
+        # bulk-only backend (parquet) has no LEvents; delete via PEvents
+        pe = Storage.get_pevents()
+        ids = [e.event_id for e in pe.find(app_id, channel_id=channel_id)]
+        if ids:
+            pe.delete(ids, app_id, channel_id)
+
+
 def cmd_app_data_delete(args) -> int:
     app = _resolve_app(args.name)
-    Storage.get_levents().remove(app.id, _channel_id(app.id, args.channel))
+    _delete_events(app.id, _channel_id(app.id, args.channel))
     _out(f"Event data deleted for app {args.name!r}"
          + (f" channel {args.channel!r}" if args.channel else ""))
+    return 0
+
+
+def cmd_app_compact(args) -> int:
+    """Reclaim space in the event store: eventlog drops tombstones and
+    shadowed upserts, parquet merges shards. No-op for backends without a
+    compact operation."""
+    from pio_tpu_torch.storage.registry import StorageConfigError
+
+    app = _resolve_app(args.name)
+    channel_id = _channel_id(app.id, args.channel)
+    try:
+        backend = Storage.get_levents()
+    except StorageConfigError:
+        # bulk-only backend (parquet) has no LEvents side
+        backend = Storage.get_pevents()
+    if not hasattr(backend, "compact"):
+        _out(f"backend {type(backend).__name__} does not need compaction")
+        return 0
+    n = backend.compact(app.id, channel_id)
+    _out(
+        f"compacted app {args.name!r}"
+        + (f": reclaimed {n} bytes" if n is not None else "")
+    )
     return 0
 
 
@@ -382,6 +420,25 @@ def cmd_eventserver(args) -> int:
     _arm_faults(args)
     server = create_event_server(host=args.ip, port=args.port)
     _out(f"Event Server listening on {args.ip}:{server.port}")
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        _out("shutting down")
+    finally:
+        server.stop()
+    return 0
+
+
+def cmd_blobserver(args) -> int:
+    """Run the blob daemon — the remote Models endpoint (the HDFS/S3
+    slot). Point MODELDATA at it: PIO_STORAGE_SOURCES_<N>_TYPE=blob,
+    PIO_STORAGE_SOURCES_<N>_PATH=http://host:port[?accessKey=…]."""
+    from pio_tpu_torch.server.blob_server import create_blob_server
+
+    server = create_blob_server(
+        args.root, host=args.ip, port=args.port, access_key=args.access_key
+    )
+    _out(f"Blob server serving {args.root} on {args.ip}:{server.port}")
     try:
         server.serve_forever()
     except KeyboardInterrupt:
@@ -665,6 +722,51 @@ def cmd_shell(args) -> int:
     return 0
 
 
+def cmd_upgrade(args) -> int:
+    """Migrate configured SQLite storage to this build's schema
+    (reference ``pio upgrade``). Opening a database applies pending
+    migrations, so this verb touches every configured store and reports
+    the stamped schema version. ``--rebuild-search-index`` also drops and
+    refills every searchable store's FTS index — required after an
+    out-of-band VACUUM (which may renumber the implicit rowids the index
+    is keyed on)."""
+    import sqlite3
+
+    from pio_tpu_torch.storage.base import StorageError
+    from pio_tpu_torch.storage.sqlite import SCHEMA_VERSION, SQLiteClient
+
+    try:
+        clients = Storage.sqlite_clients()
+    except StorageError as e:  # schema newer than build, or misconfig
+        return _err(str(e))
+    except sqlite3.Error as e:  # failed migration SQL, locked db, ...
+        return _err(f"migration failed: {e}")
+    if not clients:
+        _out("no SQLite stores configured; nothing to migrate")
+        return 0
+    seen_paths = set()
+    rebuilt_paths = set()
+    for label, client in clients.items():
+        v = SQLiteClient.schema_version(client.conn())
+        note = " (same file as above)" if client.path in seen_paths else ""
+        seen_paths.add(client.path)
+        _out(
+            f"  {label}: {client.path} at schema v{v} "
+            f"(current v{SCHEMA_VERSION}){note}"
+        )
+        rebuild = getattr(client, "rebuild_index", None)
+        if (args.rebuild_search_index and callable(rebuild)
+                and client.path not in rebuilt_paths):
+            try:
+                rebuild()
+            except sqlite3.Error as e:  # locked or corrupt db: clean error
+                return _err(f"index rebuild failed for {label}: {e}")
+            rebuilt_paths.add(client.path)
+            _out(f"  {label}: FTS index rebuilt")
+    _out("storage schema up to date")
+    return 0
+
+
 def cmd_version(args) -> int:
     _out(pio_tpu_torch.__version__)
     return 0
@@ -707,6 +809,10 @@ def build_parser() -> argparse.ArgumentParser:
     a.add_argument("name")
     a.add_argument("--channel", default=None)
     a.set_defaults(fn=cmd_app_data_delete)
+    a = app.add_parser("compact")
+    a.add_argument("name")
+    a.add_argument("--channel", default=None)
+    a.set_defaults(fn=cmd_app_compact)
     a = app.add_parser("channel-new")
     a.add_argument("app")
     a.add_argument("channel")
@@ -856,6 +962,17 @@ def build_parser() -> argparse.ArgumentParser:
     _faults_flag(a, "storage.sqlite.commit=error:0.1")
     a.set_defaults(fn=cmd_eventserver)
 
+    a = sub.add_parser(
+        "blobserver", help="run the blob daemon (remote Models endpoint)"
+    )
+    a.add_argument("--root", required=True,
+                   help="directory the daemon serves blobs from")
+    a.add_argument("--ip", default="0.0.0.0")
+    a.add_argument("--port", type=int, default=7088)
+    a.add_argument("--access-key", default=None,
+                   help="require this bearer key on every request")
+    a.set_defaults(fn=cmd_blobserver)
+
     a = sub.add_parser("import", help="import JSON-lines events")
     a.add_argument("--app", required=True)
     a.add_argument("--input", required=True)
@@ -892,6 +1009,15 @@ def build_parser() -> argparse.ArgumentParser:
     )
     a.set_defaults(fn=cmd_top)
     sub.add_parser("version").set_defaults(fn=cmd_version)
+    a = sub.add_parser(
+        "upgrade", help="migrate storage to this build's schema"
+    )
+    a.add_argument(
+        "--rebuild-search-index", action="store_true",
+        help="drop + refill searchable stores' FTS indexes "
+             "(run after an out-of-band VACUUM)",
+    )
+    a.set_defaults(fn=cmd_upgrade)
     sub.add_parser(
         "shell", help="interactive Python shell with stores preloaded"
     ).set_defaults(fn=cmd_shell)

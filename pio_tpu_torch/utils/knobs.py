@@ -95,6 +95,9 @@ _DEFAULTS = {
     "PIO_TPU_TRAIN_STREAM_MB": "64",
     # failpoint spec, e.g. `stream.put=error:once`; unset arms nothing
     "PIO_TPU_FAULTS": "",
+    # -- the event and model stores (storage/blobstore.py) --
+    # bearer key an `http://` blob backend sends to the blob daemon
+    "PIO_TPU_BLOB_ACCESS_KEY": "",
 }
 
 #: knobs whose value must be positive; another value reads as the default

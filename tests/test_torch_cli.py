@@ -667,3 +667,139 @@ def test_quickstart_through_processes(tmp_path):
             if p.poll() is None:
                 p.kill()
             p.wait(timeout=30)
+
+
+# ---------------------------------------------------- the stores' verbs
+def store_env(monkeypatch, root, type_):
+    """EVENTDATA on ``type_`` under ``root`` (metadata stays on SQLite)."""
+    monkeypatch.setenv("PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE", "EV")
+    monkeypatch.setenv("PIO_STORAGE_SOURCES_EV_TYPE", type_)
+    monkeypatch.setenv("PIO_STORAGE_SOURCES_EV_PATH", str(
+        root / ("search.db" if type_ == "searchable" else "events")))
+
+
+def compact_script(fn, capsys, src):
+    out = [run(fn, ["app", "new", "qs"], capsys)]
+    out.append(run(fn, ["import", "--app", "qs", "--input", src], capsys))
+    # the same ids again: each record shadows its first write
+    out.append(run(fn, ["import", "--app", "qs", "--input", src], capsys))
+    out.append(run(fn, ["app", "compact", "qs"], capsys))
+    out.append(run(fn, ["app", "compact", "qs"], capsys))
+    out.append(run(fn, ["app", "compact", "qs", "--channel", "nope"], capsys))
+    out.append(run(fn, ["app", "compact", "nope"], capsys))
+    out.append(run(fn, ["app", "data-delete", "qs"], capsys))
+    out.append(run(fn, ["app", "delete", "qs"], capsys))
+    return out
+
+
+@pytest.mark.parametrize("type_", ["eventlog", "parquet", "sqlite"])
+def test_app_compact_matches_reference(homes, tmp_path, capsys, monkeypatch,
+                                       type_):
+    src = write_lines(tmp_path / "in.jsonl", api_lines(40))
+    outs = {}
+    for name, fn in (("ref", jax_main), ("port", main)):
+        root = homes(name)
+        if type_ != "sqlite":
+            store_env(monkeypatch, root, type_)
+        Storage.reset()
+        JaxStorage.reset()
+        outs[name] = compact_script(fn, capsys, src)
+    assert outs["port"] == outs["ref"]
+    codes = [c for c, _, _ in outs["port"]]
+    assert codes == [0, 0, 0, 0, 0, 1, 1, 0, 0]
+    said = outs["port"][3][1]
+    if type_ == "eventlog":
+        assert said.startswith("compacted app 'qs': reclaimed ")
+        assert int(said.split()[-2]) > 0 and "reclaimed 0" in outs["port"][4][1]
+    elif type_ == "parquet":
+        assert said == "compacted app 'qs'\n"
+    else:
+        assert said == "backend SQLiteEvents does not need compaction\n"
+
+
+def upgrade_script(fn, capsys, root):
+    out = [run(fn, ["upgrade"], capsys)]
+    out.append(run(fn, ["app", "new", "shop", "--description", "gold"],
+                   capsys))
+    out.append(run(fn, ["upgrade", "--rebuild-search-index"], capsys))
+    return [(c, o.replace(str(root), "<home>"), e) for c, o, e in out]
+
+
+@pytest.mark.parametrize("type_", ["sqlite", "searchable", "memory"])
+def test_upgrade_matches_reference(homes, capsys, monkeypatch, type_):
+    outs = {}
+    for name, fn in (("ref", jax_main), ("port", main)):
+        root = homes(name)
+        if type_ != "sqlite":
+            for repo in ("METADATA", "EVENTDATA"):
+                monkeypatch.setenv(
+                    f"PIO_STORAGE_REPOSITORIES_{repo}_SOURCE", "S")
+            monkeypatch.setenv("PIO_STORAGE_SOURCES_S_TYPE", type_)
+            monkeypatch.setenv("PIO_STORAGE_SOURCES_S_PATH",
+                               str(root / "s.db"))
+        Storage.reset()
+        JaxStorage.reset()
+        outs[name] = upgrade_script(fn, capsys, root)
+    assert outs["port"] == outs["ref"]
+    last = outs["port"][-1][1]
+    if type_ == "searchable":
+        assert "METADATA: FTS index rebuilt" in last
+        assert "EVENTDATA: FTS index rebuilt" not in last  # the same file
+        assert [a.name for a in Storage.get_meta_data_apps().search("gold")] \
+            == ["shop"]
+    elif type_ == "memory":
+        assert last == "no SQLite stores configured; nothing to migrate\n"
+    else:
+        assert "FTS" not in last and "storage schema up to date" in last
+
+
+def blobserver_run(package, root, tmp_path):
+    """``python -m <package> blobserver`` as a process: its first line,
+    a model through the ``http://`` blob store, a wrong key refused, then
+    SIGINT; returns (exit code, output with the port masked, what was
+    read back)."""
+    import signal
+
+    from pio_tpu_torch.storage.blobstore import BlobModels, open_blob_backend
+    from pio_tpu_torch.storage.records import Model
+
+    port = free_port()
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("PIO_STORAGE_")}
+    env.update(PYTHONPATH=REPO, PIO_TPU_HOME=str(tmp_path / package))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", package, "blobserver", "--root", str(root),
+         "--ip", "127.0.0.1", "--port", str(port), "--access-key", "k1"],
+        env=env, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    try:
+        first = proc.stdout.readline()
+        url = f"http://127.0.0.1:{port}"
+        models = BlobModels(open_blob_backend(url + "?accessKey=k1"))
+        models.insert(Model("inst-1", b"model bytes" * 1000))
+        got = models.get("inst-1").models
+        with pytest.raises(Exception, match="401"):
+            BlobModels(open_blob_backend(url + "?accessKey=bad")).get("inst-1")
+        proc.send_signal(signal.SIGINT)
+        rest, _ = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return proc.returncode, (first + rest).replace(str(port), "<port>"), got
+
+
+def test_blobserver_matches_reference(tmp_path):
+    code, out, got = blobserver_run("pio_tpu_torch", tmp_path / "port",
+                                        tmp_path)
+    ref_code, ref_out, ref_got = blobserver_run(
+        "pio_tpu", tmp_path / "ref", tmp_path)
+    assert (code, got) == (ref_code, ref_got) == (0, b"model bytes" * 1000)
+    assert out.replace(str(tmp_path / "port"), "<root>") == \
+        ref_out.replace(str(tmp_path / "ref"), "<root>")
+    assert out.startswith("Blob server serving ") and "shutting down" in out
+    # the roots hold the same keys and bytes
+    def keys(root):
+        return sorted(str(p.relative_to(root)) for p in root.rglob("*")
+                      if p.is_file())
+    assert keys(tmp_path / "port") == keys(tmp_path / "ref")

@@ -268,3 +268,66 @@ def test_reset_runs_live_hooks_and_drops_dead_ones(fresh):
     gc.collect()
     Storage.reset()
     assert all(ref() is not None for ref in Storage._reset_hooks)
+
+
+# ------------------------------------------------- /events/search.json
+def search_script():
+    s = "/events/search.json?accessKey=" + KEY
+    return [
+        ("POST", "/batch/events.json?accessKey=" + KEY,
+         [rate(k, eventId=f"ev-s{k}",
+               properties={"rating": float(1 + k % 5),
+                           "note": "gold" if k % 3 else "plain"})
+          for k in range(12)]),
+        ("POST", "/events.json?accessKey=" + KEY + "&channel=web",
+         rate(20, eventId="ev-sw", properties={"note": "gold"})),
+        ("GET", s + "&q=gold", None),
+        ("GET", s + "&q=gold&limit=2", None),
+        ("GET", s + "&q=gold%20AND%20u1", None),
+        ("GET", s + "&q=plain%20OR%20u3&limit=-1", None),
+        ("GET", s + "&q=gold&channel=web", None),
+        ("GET", s + "&q=nothinglikethis", None),
+        ("GET", s, None),
+        ("GET", s + "&q=", None),
+        ("GET", s + "&q=gold%20AND", None),
+        ("GET", s + "&q=nosuchcolumn%3Ax", None),
+        ("GET", s + "&q=gold&limit=-2", None),
+        ("GET", "/events/search.json?accessKey=nope&q=gold", None),
+        ("GET", "/events/ev-s1.json?accessKey=" + KEY, None),
+    ]
+
+
+def search_run(monkeypatch, home, storage, classes, create, type_):
+    monkeypatch.setenv("PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE", "EV")
+    monkeypatch.setenv("PIO_STORAGE_SOURCES_EV_TYPE", type_)
+    monkeypatch.setenv("PIO_STORAGE_SOURCES_EV_PATH", str(
+        home / ("s.db" if type_ == "searchable" else "ev")))
+    monkeypatch.setenv("PIO_TPU_HOME", str(home))
+    seed_meta(storage, *classes)
+    server = create(host="127.0.0.1", port=0)
+    server.start()
+    try:
+        return send(server.port, search_script())
+    finally:
+        server.stop()
+
+
+@pytest.mark.parametrize("type_", ["searchable", "eventlog", "sqlite"])
+def test_search_route_matches_reference(fresh, monkeypatch, type_):
+    want = search_run(monkeypatch, fresh / "ref", JaxStorage,
+                          (JaxApp, JaxAccessKey, JaxChannel), jax_create, type_)
+    got = search_run(monkeypatch, fresh / "port", Storage,
+                         (App, AccessKey, Channel), create_event_server, type_)
+    assert [s for s, _ in got] == [s for s, _ in want]
+    for k, (g, w) in enumerate(zip(got, want)):
+        assert normalize(g) == normalize(w), (k, search_script()[k][:2])
+    codes = [s for s, _ in got[2:14]]
+    if type_ == "searchable":
+        assert codes == [200] * 6 + [400] * 5 + [401]
+        hits = [e["eventId"] for e in got[2][1]]
+        assert len(hits) == 8 and "ev-sw" not in hits  # its channel only
+        assert [e["eventId"] for e in got[6][1]] == ["ev-sw"]
+    else:
+        # a store that cannot search: 501 once the query is well formed
+        assert codes == [501] * 6 + [400, 400, 501, 501, 501, 401]
+    assert got[14][0] == 200  # an event id still resolves past the route

@@ -165,6 +165,11 @@ SITES = {
         "groupcommit.flush.*"]),
     "storage/sqlite.py": ("storage/sqlite.py", ["storage.sqlite.commit"]),
     "storage/localfs.py": ("storage/localfs.py", ["storage.localfs.persist"]),
+    "storage/eventlog.py": ("storage/eventlog.py", [
+        "eventlog.append.before_write", "eventlog.append.after_write",
+        "eventlog.flush.before_write", "eventlog.scan"]),
+    "storage/blobstore.py": ("storage/blobstore.py", [
+        "storage.blobstore.persist"]),
     "workflow/shard_store.py": ("workflow/shard_store.py", [
         "shard.reshard"]),
     "parallel/stream.py": ("parallel/stream.py", [

@@ -410,11 +410,27 @@ def test_host_pickler_copies_every_tensor_to_the_host(monkeypatch):
 
 # ----------------------------------------------------------------- storage
 @pytest.mark.parametrize("type_", ["searchable", "parquet", "eventlog"])
-def test_registry_refuses_backends_not_ported(monkeypatch, type_):
+def test_registry_refuses_backends_not_ported(monkeypatch, tmp_path, type_):
+    """``partlog`` is the one backend of the reference left unported: it
+    raises, beside each of these, which the registry now builds with the
+    reference's rules (parquet serves the bulk PEvents only)."""
     monkeypatch.setenv("PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE", "DB")
-    monkeypatch.setenv("PIO_STORAGE_SOURCES_DB_TYPE", type_)
-    with pytest.raises(StorageConfigError, match="not yet ported"):
-        Storage.get_levents()
+    monkeypatch.setenv("PIO_STORAGE_SOURCES_DB_PATH",
+                       str(tmp_path / ("db" if type_ == "searchable" else "d")))
+    Storage.reset()
+    try:
+        monkeypatch.setenv("PIO_STORAGE_SOURCES_DB_TYPE", "partlog")
+        with pytest.raises(StorageConfigError, match="not yet ported"):
+            Storage.get_levents()
+        monkeypatch.setenv("PIO_STORAGE_SOURCES_DB_TYPE", type_)
+        assert Storage.get_pevents() is not None
+        if type_ == "parquet":
+            with pytest.raises(StorageConfigError, match="bulk-only"):
+                Storage.get_levents()
+        else:
+            assert Storage.get_levents() is not None
+    finally:
+        Storage.reset()
 
 
 def test_registry_unset_defaults_are_sqlite_and_localfs(tmp_home, monkeypatch):
