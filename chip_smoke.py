@@ -90,7 +90,7 @@ kernels (the forward, and the backward's bag scatter and bag dot):
    ``ecommerce_evaluation`` on those events (3 folds, rank 16), card
    and CPU;
 22. ``run_evaluation`` of ``textclassification_evaluation`` on phase 9's
-   corpus (3 folds, hidden 64 and 128) on the card, its kernel launches
+   corpus (2 folds, hidden 64 and 128) on the card, its kernel launches
    added to the kernels' line; then card against CPU on a tenth of it at
    hidden 64 and 2 folds;
 23. ``train_logreg`` at the classification benchmark's width
@@ -255,11 +255,11 @@ kernels (the forward, and the backward's bag scatter and bag dot):
    triggers; the clean p50 beside phase 36's);
 44. the event and model stores feeding training on the card, in this
    process: the event server over SQLite and over the native event log
-   (``PIO_TPU_DURABILITY`` at its default) takes 20,000 of phase 28's
-   events in batches of 50 and 1,000 single posts (events/s, p50/p99 a
+   (``PIO_TPU_DURABILITY`` at its default) takes 10,000 of phase 28's
+   events in batches of 50 and 500 single posts (events/s, p50/p99 a
    batch and a single post, ``os.cpu_count()``), every acknowledged event
    read back (the store's count, ``find_frame``, ``get`` of 50); then
-   MovieLens-1M's shape (1,000,209 ratings over 6,040 users and 3,706
+   half of MovieLens-1M's ratings (500,104 over its 6,040 users and 3,706
    items, synthetic as ``bench.py``'s) written with ``write`` into the
    memory store, the event log, parquet and searchable (each write's and
    ``find_frame``'s wall), ``run_train`` of the recommendation template on
@@ -270,7 +270,36 @@ kernels (the forward, and the backward's bag scatter and bag dot):
    the event log's events deleted and the log compacted (its count and
    ``find_frame`` against the memory store's after the same deletes);
    ``GET /events/search.json`` on searchable (its hits against the
-   memory store's) and 501 on the event log.
+   memory store's) and 501 on the event log;
+45. the request plane of both servers on phase 4's model, in this
+   process: 45.1 1,024 queries on one keep-alive connection, each with
+   ``X-Pio-Trace: smoke45-<i>/caller``, under two SLOs and a QoS spec that
+   admits them all (every answer echoes its id and is bit for bit the
+   solo path's, phase 5's among them; the profiler's forward launches
+   equal the queries; the traces' stages in order; ``attributedFraction``
+   within 0.01 of 1; on 32 more, each ``execute.device`` span no shorter
+   than its forward kernel's CUDA-event time and inside ``execute``; the
+   ``served query`` record under each sampled id in ``/logs.json``; p50,
+   p99 and the stages' p50s beside phase 36's solo p50; the tracer's own
+   cost a request); 45.2 32 clients x 64 under ``inflight=2,queue=4`` (and
+   a rate), the batcher off then on (the counts of 200, 429 and 503, each
+   shed with ``Retry-After``, ``/qos.json``'s sheds adding up to them,
+   every 200 the solo answer, the forward launches equal to the executed
+   requests or the batches' dispatches, every ``microbatch`` trace linking
+   its members); 45.3 a spent deadline shed with nothing launched,
+   ``scorer.dispatch.solo=error`` until the breaker opens, cached queries
+   answered from the stale cache bit for bit under ``X-Pio-Degraded``,
+   others 503 ``breaker``, nothing launched, then the probes closing it
+   (``/qos.json`` open, half-open, closed); 45.4 64 queries with a
+   feedback app (each answer's ``prId``, 64 ``predict`` events of
+   ``pio_pr`` with query and prediction); 45.5 the event server on SQLite
+   with a QoS gate: 5,000 of phase 28's events in batches of 50 (events/s
+   beside phase 44.1's), 200 single posts from 4 clients (their traces'
+   ``store.flush``, ``store.commit_wait`` where they queued, linked from
+   the committer's flush traces), ``/metrics``' group-commit and retry
+   families (one retry forced), a Segment.io webhook stored, the other
+   routes answering, and a storage failpoint opening the storage breaker
+   (503 with ``Retry-After``).
 
 The CLI phases write their homes under ``build/chip_smoke_homes/``
 (gitignored), made afresh each run; every server process is stopped
@@ -362,7 +391,7 @@ from pio_tpu_torch.templates.twotower import twotower_evaluation  # noqa: E402
 from pio_tpu_torch.templates.similarproduct import Query as SPQuery  # noqa: E402
 from pio_tpu_torch.templates.similarproduct import SimilarProductAlgorithm as SPAlgorithm  # noqa: E402
 from pio_tpu_torch.templates.similarproduct import known_codes, similarproduct_evaluation  # noqa: E402
-from pio_tpu_torch.tools.cli import main as cli_main  # noqa: E402
+from pio_tpu_torch.tools.cli import main as _cli_main  # noqa: E402
 from pio_tpu_torch.templates.textclassification import (  # noqa: E402
     MLPAlgorithm,
     MLPParams,
@@ -380,6 +409,9 @@ from pio_tpu_torch.workflow.core_workflow import (  # noqa: E402
 )
 from pio_tpu_torch.utils import knobs  # noqa: E402
 from pio_tpu_torch.workflow.engine_json import build_engine, variant_from_dict  # noqa: E402
+from pio_tpu_torch.workflow.deploy_common import to_jsonable  # noqa: E402
+from pio_tpu_torch.obs.metrics import MetricsRegistry  # noqa: E402
+from pio_tpu_torch.obs.tracing import Tracer  # noqa: E402
 from pio_tpu_torch.workflow.params import WorkflowParams  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, f32 outside the
@@ -791,7 +823,7 @@ def post(conn: http.client.HTTPConnection, body: bytes):
     return resp.status, json.loads(resp.read())
 
 
-def phase_http(gpu, cpu, queries) -> int:
+def phase_http(gpu, cpu, queries) -> tuple:
     log(f"phase 5: {N_HTTP} POST /queries.json through the query server")
     engine = get_engine_factory("templates.textclassification")()
     ep = EngineParams(algorithm_params_list=(("mlp", MLPParams()),))
@@ -830,7 +862,7 @@ def phase_http(gpu, cpu, queries) -> int:
         f"process {rounded(pred_ms)}; featurization alone {rounded(feat_ms)}")
     if launches < N_HTTP:
         raise AssertionError(f"served path launched the kernel {launches} times")
-    return launches
+    return launches, answers
 
 
 def host_ms(fn) -> float:
@@ -2994,13 +3026,18 @@ class _FastEvalLog(logging.Handler):
             self.counts = record.args
 
 
+#: phase 22's folds on the card: 2 (was 3; cut for the script's time)
+TEXT_EVAL_K = 2
+
+
 def phase_text_evaluation(args, smi) -> dict:
     """Phase 22: the text-classification sweep on phase 9's corpus."""
     t_phase = time.monotonic()
     log(f"phase 22: run_evaluation of textclassification_evaluation on phase "
-        f"9's corpus ({N_DOCS} documents): 3 folds, hidden (64, 128), on the "
-        f"card; {smi}")
-    ev = textclassification_evaluation(APP, eval_k=3, hiddens=(64, 128))
+        f"9's corpus ({N_DOCS} documents): {TEXT_EVAL_K} folds, hidden (64, "
+        f"128), on the card; {smi}")
+    ev = textclassification_evaluation(APP, eval_k=TEXT_EVAL_K,
+                                       hiddens=(64, 128))
     ev.engine.preparator_class = _CountingTextPreparator
     handler = _FastEvalLog()
     logger = logging.getLogger("pio_tpu_torch.evaluation")
@@ -3025,7 +3062,7 @@ def phase_text_evaluation(args, smi) -> dict:
         f"FastEval cache {hits} hits / {misses} misses; accuracy by hidden "
         f"{acc}, best index {res.best_index}; kernel launches "
         f"{json.dumps(launches)}")
-    if _CountingTextPreparator.calls != 3:
+    if _CountingTextPreparator.calls != TEXT_EVAL_K:
         raise AssertionError("the sweep did not prepare once a fold")
     if not (launches["embedding_bag"] and
             launches["embedding_bag_backward_table"]):
@@ -3886,6 +3923,23 @@ def quickstart_check(args, home, iid, queries, answers, ppath,
                      blob, f"batchpredict line {k}")
     log(f"  the {N_QS_HTTP} answers and the {N_QS_BATCH} batchpredict lines "
         f"match the CPU copy of the served blob (check_served)")
+
+
+def cli_main(argv) -> int:
+    """The CLI's main in this process, its console logging undone once it
+    returns: ``main`` gives the root logger a stderr handler and the
+    ``pio_tpu_torch`` tree a level, which would print every query the
+    later phases serve into this script's output (and time the prints).
+    The structured-log ring keeps recording."""
+    root, tree = logging.getLogger(), logging.getLogger("pio_tpu_torch")
+    handlers, level = list(root.handlers), tree.level
+    try:
+        return _cli_main(argv)
+    finally:
+        for h in root.handlers[:]:
+            if h not in handlers:
+                root.removeHandler(h)
+        tree.setLevel(level)
 
 
 def phase_cli_text(args, smi) -> dict:
@@ -5028,6 +5082,11 @@ def phase_reload_under_load(args, smi) -> dict:
             "placement": placement}
 
 
+#: the queries a client sends in each of phase 38's four residency runs:
+#: 32 (was 64; cut for the script's time)
+P38_PER_CLIENT = 32
+
+
 def resident_vs_mirror(variant, home, iid, bodies, smi) -> dict:
     """The newest instance under N_CLIENTS clients with its resident
     scorer on the card and with the host mirror, each with the batcher
@@ -5052,7 +5111,7 @@ def resident_vs_mirror(variant, home, iid, bodies, smi) -> dict:
                                                  port=0, device=CARD)
                 with server:
                     records, wall = drive_load(server.port, bodies,
-                                               N_CLIENTS, PER_CLIENT)
+                                               N_CLIENTS, P38_PER_CLIENT)
                 for (i, _), answer in distinct_answers(records).items():
                     if answer != want[resident][i]:
                         raise AssertionError(
@@ -5062,7 +5121,7 @@ def resident_vs_mirror(variant, home, iid, bodies, smi) -> dict:
                 where = "the card" if resident == "1" else "the host mirror"
                 log(f"  scoring on {where}, batcher "
                     f"{'on' if window != '0' else 'off'}, {N_CLIENTS} "
-                    f"clients x {PER_CLIENT}: p50 {lat['p50_ms']:.3f} ms, "
+                    f"clients x {P38_PER_CLIENT}: p50 {lat['p50_ms']:.3f} ms, "
                     f"p99 {lat['p99_ms']:.3f} ms, {lat['qps']:.0f} "
                     f"queries/s; answers equal the CPU copy; {smi}")
                 out[(resident, window)] = lat
@@ -7408,9 +7467,14 @@ def phase_stream_mesh_faults(args, smi, tt_model, gpu, queries,
 # ------------------------------------------------- phase 44: the event stores
 #: MovieLens-1M's shape (ratings, users, movies), synthetic as bench.py's
 ML1M_EDGES, ML1M_USERS, ML1M_ITEMS = 1_000_209, 6_040, 3_706
+#: 44.2-44.3's ratings: half of MovieLens-1M's over its users and movies
+#: (was all 1,000,209; cut for the script's time, the stores' and the
+#: trainers' checks unchanged)
+P44_RATINGS = ML1M_EDGES // 2
 #: 44.1: phase 28's rate events through the event server: these many in
-#: batches of QS_BATCH, then these many single posts
-P44_BATCHED, P44_SINGLES = 20_000, 1_000
+#: batches of QS_BATCH, then these many single posts (were 20,000 and
+#: 1,000; cut for the script's time)
+P44_BATCHED, P44_SINGLES = 10_000, 500
 #: acknowledged events read back one by one with ``get`` (the event log's
 #: ``get`` scans the whole log)
 P44_SAMPLE = 50
@@ -7534,7 +7598,7 @@ def ml1m_events(seed: int) -> list:
     """MovieLens-1M's shape as ``rate`` events (bench.py's generator), ids
     and creation times fixed, one second apart. The events of a rating
     share one properties map (a DataMap is immutable)."""
-    u, i, r = synth_ratings(ML1M_EDGES, ML1M_USERS, ML1M_ITEMS, seed, "half")
+    u, i, r = synth_ratings(P44_RATINGS, ML1M_USERS, ML1M_ITEMS, seed, "half")
     t0 = dt.datetime(2026, 4, 1, tzinfo=dt.timezone.utc)
     props = {c: DataMap({"rating": c}) for c in set(r.tolist())}
     return [Event("rate", "user", f"u{a}", "item", f"i{b}",
@@ -7609,7 +7673,7 @@ def store_train(args, smi, type_: str, models_type: str, home: str,
         with timed_frames(pe) as reads:
             iid = run_train(engine, ep, variant, ctx=ctx)
         train_s = time.perf_counter() - t
-        if [n for _, n in reads] != [ML1M_EDGES]:
+        if [n for _, n in reads] != [P44_RATINGS]:
             raise AssertionError(f"{type_}: the run's find_frame read {reads}")
         frame_s = reads[0][0]
         inst = Storage.get_meta_data_engine_instances().get(iid)
@@ -7633,7 +7697,7 @@ def store_train(args, smi, type_: str, models_type: str, home: str,
                 answers.append(got)
             conn.close()
     log(f"  44.2 {type_}: write {write_s:.3f} s, find_frame {frame_s:.3f} s "
-        f"({ML1M_EDGES} events, the run's own read), run_train "
+        f"({P44_RATINGS} events, the run's own read), run_train "
         f"{train_s:.3f} s on the card "
         f"(phases {json.dumps({k: v for k, v in inst.env.items() if k.startswith('phase_')})}), "
         f"persisted to {models[0]} {models[1].split('?')[0]}, "
@@ -7647,7 +7711,7 @@ def store_maintenance(args, smi, runs: dict, home: str, events: list) -> None:
     """44.3: 1% of the event log's events deleted and the log compacted,
     against the memory store after the same deletes; the search route on
     the searchable store and its 501 on the event log."""
-    gone = [f"r{k:07d}" for k in range(0, ML1M_EDGES, P44_DELETE_EVERY)]
+    gone = [f"r{k:07d}" for k in range(0, P44_RATINGS, P44_DELETE_EVERY)]
     log_run, mem = runs["eventlog"], runs["memory"]
     log_file = os.path.join(log_run["path"], f"app_{log_run['app_id']}.pel")
     with store_config({"METADATA": ("memory", home),
@@ -7667,7 +7731,7 @@ def store_maintenance(args, smi, runs: dict, home: str, events: list) -> None:
                 if e.entity_id == user and e.target_entity_id == item)
     mem["store"].delete(gone, mem["app_id"])
     want = mem["store"].find_frame(mem["app_id"])
-    if not count == len(got) == len(want) == ML1M_EDGES - len(gone):
+    if not count == len(got) == len(want) == P44_RATINGS - len(gone):
         raise AssertionError(f"after {len(gone)} deletes: count {count}, "
                              f"find_frame {len(got)}, memory {len(want)}")
     for c in ("event", "entity_type", "entity_id", "target_entity_type",
@@ -7722,8 +7786,9 @@ def phase_event_stores(args, smi) -> dict:
     """Phase 44: the event and model stores feeding training on the card."""
     t_phase = time.monotonic()
     log(f"phase 44: the event stores: {P44_BATCHED + P44_SINGLES} of phase "
-        f"28's events over HTTP into SQLite and the event log; MovieLens-1M's "
-        f"shape ({ML1M_EDGES} ratings) written into the memory store, the "
+        f"28's events over HTTP into SQLite and the event log; half of "
+        f"MovieLens-1M's ratings ({P44_RATINGS} over {ML1M_USERS} users and "
+        f"{ML1M_ITEMS} items) written into the memory store, the "
         f"event log, parquet and searchable, run_train on the card from each, "
         f"persisted through localfs, blob (file://) and the blob daemon, "
         f"deployed; 1% deleted and the log compacted; the search route; "
@@ -7762,6 +7827,601 @@ def phase_event_stores(args, smi) -> dict:
     log(f"  phase 44 {t3 - t_phase:.1f} s: 44.1 {t1 - t_phase:.1f}, 44.2 "
         f"{t2 - t1:.1f}, 44.3 {t3 - t2:.1f}; {smi}")
     return {"ingest": ingest}
+
+
+# ------------------------------------------- phase 45: the request plane
+#: 45.1: queries on one connection, and the ones timed by CUDA events
+P45_QUERIES, P45_TIMED = 1024, 32
+#: 45.1: GPU cycles spun ahead of a timed launch's start event (about
+#: 0.3 ms at the H100's clock, longer than the host's launch path)
+P45_SPIN_CYCLES = 500_000
+#: 45.1's SLOs and a QoS spec that admits its traffic
+P45_SLOS = ["p99=50ms:99.9", "availability=99.9"]
+P45_ADMIT_ALL = "inflight=64,queue=64"
+#: 45.2: the overload's admission (and a rate, for 429s beside the 503s)
+P45_OVERLOAD = "inflight=2,queue=4,rps=300,burst=50"
+#: 45.3: the breaker's window, cooldown and probes, the cache's size
+P45_BREAKER = ("inflight=8,queue=8,cache=256,fail_window=4,fail_rate=0.5,"
+               "cooldown=2s,probes=2")
+P45_COOLDOWN_S = 2.0
+P45_CACHED = 16
+#: 45.4: queries served with a feedback app
+P45_FEEDBACK = 64
+P45_FEEDBACK_APP = "smoke45-feedback"
+#: 45.5: phase 28's events in batches of QS_BATCH, and single posts from
+#: these many clients
+P45_EVENTS, P45_SINGLE_CLIENTS, P45_SINGLES = 5_000, 4, 50
+P45_INGEST_QOS = ("inflight=32,queue=256,key_rps=1000000,fail_window=4,"
+                  "fail_rate=0.5,cooldown=30s,probes=1")
+#: top-level query stages, in order (the port's QUERY_STAGES)
+P45_STAGES = ["accept", "admit", "parse", "queue", "execute", "serialize",
+              "write"]
+
+
+def call(conn, method: str, path: str, body=None, headers=None) -> tuple:
+    """(status, lowercased headers, decoded body) of one request."""
+    data = None if body is None else (
+        body if isinstance(body, bytes) else json.dumps(body).encode())
+    conn.request(method, path, data,
+                 {"Content-Type": "application/json", **(headers or {})})
+    resp = conn.getresponse()
+    raw = resp.read()
+    try:
+        out = json.loads(raw)
+    except ValueError:
+        out = raw.decode()
+    return resp.status, {k.lower(): v for k, v in resp.getheaders()}, out
+
+
+def top_stages(trace: dict) -> list:
+    return [x["stage"] for x in trace["spans"] if "." not in x["stage"]]
+
+
+def p45_traced(smi, engine, ep, gpu, texts, want, http_answers,
+               p50_36) -> dict:
+    """45.1: traced serving of phase 4's model under SLOs and QoS."""
+    server = create_query_server(engine, ep, [gpu], host="127.0.0.1",
+                                 port=0, device=CARD, slos=P45_SLOS,
+                                 qos=P45_ADMIT_ALL)
+    with server:
+        conn = http.client.HTTPConnection("127.0.0.1", server.port,
+                                          timeout=60)
+        records, counted = [], []
+
+        def serve_all():
+            # a window that lost an end runs this again: start afresh
+            records.clear()
+            c0 = read_counts()["embedding_bag"]
+            for i, t in enumerate(texts):
+                t0 = time.perf_counter()
+                status, headers, got = call(
+                    conn, "POST", "/queries.json", {"text": t},
+                    {"X-Pio-Trace": f"smoke45-{i}/caller"})
+                records.append((status, headers.get("x-pio-trace"), got,
+                                (time.perf_counter() - t0) * 1e3))
+            counted[:] = [read_counts()["embedding_bag"] - c0]
+
+        _, prof = guarded(serve_all, retry=True)
+        counted = counted[0]
+        profiled_launches = launches_of(
+            {e.key: e.count for e in _kernels(prof)}, "embedding_bag_kernel")
+        # 32 more, each forward kernel timed by CUDA events around its
+        # launch on the current stream. A spin of P45_SPIN_CYCLES ahead of
+        # the start event holds the stream until the host has enqueued the
+        # kernel, so the events bracket the kernel's device time and not
+        # the host's launch latency (which an idle stream would show)
+        launch, timed = embedding._launch, []
+
+        def timed_launch(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(P45_SPIN_CYCLES)
+            start.record()
+            out = launch(*a, **kw)
+            end.record()
+            timed.append((start, end))
+            return out
+
+        embedding._launch = timed_launch
+        try:
+            for i in range(P45_TIMED):
+                status, headers, _ = call(
+                    conn, "POST", "/queries.json", {"text": texts[i]},
+                    {"X-Pio-Trace": f"smoke45-timed-{i}"})
+                if status != 200:
+                    raise AssertionError(f"45.1 timed query {i}: {status}")
+        finally:
+            embedding._launch = launch
+        torch.cuda.synchronize()
+        kernel_ms = [a.elapsed_time(b) for a, b in timed]
+        device_spans = []
+        for i in range(P45_TIMED):
+            _, _, tr = call(conn, "GET", f"/traces.json?id=smoke45-timed-{i}")
+            spans = {x["stage"]: x for x in tr["traces"][0]["spans"]}
+            device_spans.append((spans["execute.device"], spans["execute"]))
+        _, _, ring = call(conn, "GET", "/traces.json?n=128&order=recent")
+        _, _, hot = call(conn, "GET", "/debug/hotpath.json")
+        _, _, slo = call(conn, "GET", "/slo.json")
+        sample = [P45_QUERIES - 1 - 7 * k for k in range(8)]
+        logs = {i: call(conn, "GET",
+                        f"/logs.json?trace_id=smoke45-{i}")[2]["logs"]
+                for i in sample}
+        conn.close()
+    # the checks, after the timed requests
+    if counted != P45_QUERIES or profiled_launches != P45_QUERIES:
+        raise AssertionError(f"45.1: {P45_QUERIES} queries, the wrapper "
+                             f"counted {counted} forward launches, the "
+                             f"profiler {profiled_launches}")
+    for i, (status, echoed, got, _) in enumerate(records):
+        if status != 200 or echoed != f"smoke45-{i}" or got != want[i]:
+            raise AssertionError(f"45.1 query {i}: {status}, echoed "
+                                 f"{echoed}, {got} against {want[i]}")
+    if [r[2] for r in records[:len(http_answers)]] != http_answers:
+        raise AssertionError("45.1: answers differ from phase 5's")
+    for t in ring["traces"]:
+        if top_stages(t) != P45_STAGES:
+            raise AssertionError(f"45.1 trace {t['id']}: {top_stages(t)}")
+    frac = hot["attributedFraction"]
+    if abs(frac - 1.0) > 0.01:
+        raise AssertionError(f"45.1: attributedFraction {frac}")
+    for k, ((dev, ex), ms) in enumerate(zip(device_spans, kernel_ms)):
+        inside = (dev["startMs"] >= ex["startMs"] - 0.001
+                  and dev["startMs"] + dev["durMs"]
+                  <= ex["startMs"] + ex["durMs"] + 0.002)
+        if dev["durMs"] < ms or not inside:
+            raise AssertionError(f"45.1 timed {k}: execute.device {dev}, "
+                                 f"execute {ex}, kernel {ms:.6f} ms")
+    for i, entries in logs.items():
+        if not any(e["msg"].startswith("served query") for e in entries):
+            raise AssertionError(f"45.1: /logs.json has no served-query "
+                                 f"record under smoke45-{i}: {entries}")
+    ms = np.array([r[3] for r in records])
+    stage_p50 = {x["stage"]: x["p50Ms"] for x in hot["stages"]
+                 + hot["substages"]}
+    log(f"  45.1 {P45_QUERIES} traced queries on one connection: every "
+        f"answer 200, its id echoed, bit for bit the solo path's (phase 5's "
+        f"{len(http_answers)} among them); forward launches {counted} "
+        f"(wrapper) = {profiled_launches} (profiler); the ring's "
+        f"{len(ring['traces'])} traces staged {P45_STAGES}; "
+        f"attributedFraction {frac}; SLOs "
+        f"{[(x['name'], x['errorBudgetRemaining']) for x in slo['slos']]}; "
+        f"the served-query record under {len(logs)} sampled ids")
+    log(f"  45.1 host clock: p50 {np.percentile(ms, 50):.3f} ms, p99 "
+        f"{np.percentile(ms, 99):.3f} ms; stage p50s (ms, bucket-"
+        f"interpolated) {json.dumps(stage_p50)}; phase 36's 1-client p50 "
+        f"with the batcher off {p50_36:.3f} ms; {smi}")
+    log(f"  45.1 {P45_TIMED} timed: forward kernel (CUDA events) "
+        f"{min(kernel_ms):.6f}-{max(kernel_ms):.6f} ms, execute.device "
+        f"{min(d['durMs'] for d, _ in device_spans):.3f}-"
+        f"{max(d['durMs'] for d, _ in device_spans):.3f} ms (with the "
+        f"{P45_SPIN_CYCLES}-cycle spin ahead of each timed launch), each "
+        f"inside its execute span")
+    return {"p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99)), "hotpath": hot,
+            "kernel_ms": kernel_ms}
+
+
+def tracer_cost(n: int = 20_000) -> float:
+    """Host µs a request of the tracer's own work: a trace with the
+    query path's nine spans (each a histogram observe) on a registry."""
+    tracer = Tracer("query", registry=MetricsRegistry(),
+                    stages=tuple(P45_STAGES) + ("admit.queue",
+                                                "execute.device"),
+                    extra_labels={"engine_id": ""})
+    t0 = time.perf_counter()
+    for _ in range(n):
+        with tracer.trace("query", trace_id="cost") as tr:
+            tr.rebase(0.0001)
+            for stage in ("accept", "admit.queue", "admit", "parse",
+                          "queue", "execute.device", "execute",
+                          "serialize", "write"):
+                tr.add_span(stage, 1e-5, rel_start_s=0.0)
+        tr.extend_total()
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def drive_mixed(port: int, texts: list, n_clients: int, per_client: int,
+                tag: str) -> list:
+    """``n_clients`` keep-alive clients at once, each ``per_client``
+    queries with ``X-Pio-Trace: <tag>-<k>-<n>``; every status accepted:
+    ``[(text index, status, Retry-After, answer)]``."""
+    records, errors = [], []
+    lock = threading.Lock()
+
+    def client(k):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        try:
+            for n in range(per_client):
+                i = (k + n) % len(texts)
+                status, headers, got = call(
+                    conn, "POST", "/queries.json", {"text": texts[i]},
+                    {"X-Pio-Trace": f"{tag}-{k}-{n}"})
+                with lock:
+                    records.append((i, status, headers.get("retry-after"),
+                                    got))
+        except Exception as e:  # noqa: BLE001 (reported below)
+            errors.append(f"client {k}: {e!r}")
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(k,), daemon=True)
+               for k in range(n_clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=CLI_TIMEOUT_S)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"45.2 clients failed: {errors[:3]}")
+    return records
+
+
+def p45_overload(smi, engine, ep, gpu, texts, want) -> dict:
+    """45.2: 32 clients x 64 against a small admission, batcher off/on."""
+    out = {}
+    launches = 0
+    for mode, window in (("off", "0"), ("on", str(MB_WINDOW_US))):
+        with knob(MB_KNOBS[0], window), knob(MB_KNOBS[1], "0"):
+            server = create_query_server(engine, ep, [gpu],
+                                         host="127.0.0.1", port=0,
+                                         device=CARD, qos=P45_OVERLOAD)
+        with server:
+            svc = server.service
+            d0 = dict(svc.bucket_dispatches)
+            c0 = read_counts()["embedding_bag"]
+            records = drive_mixed(server.port, texts, N_CLIENTS, PER_CLIENT,
+                                  f"smoke45{mode}")
+            run_launches = read_counts()["embedding_bag"] - c0
+            dispatches = sum(svc.bucket_dispatches[b] - d0.get(b, 0)
+                             for b in svc.bucket_dispatches)
+            conn = http.client.HTTPConnection("127.0.0.1", server.port,
+                                              timeout=60)
+            _, _, qos = call(conn, "GET", "/qos.json")
+            _, _, ring = call(conn, "GET", "/traces.json?n=128&order=recent")
+            conn.close()
+        codes = collections.Counter(r[1] for r in records)
+        sheds = sum(qos["shed"].values())
+        bad = [r for r in records if r[1] in (429, 503) and not r[2]]
+        # batcher off: the solo path's bits; on: a batch's bags through
+        # another launch plan and head shape, held as phase 36 holds them
+        wrong = [(i, got) for i, status, _, got in records
+                 if status == 200 and (got != want[i] if mode == "off" else (
+                     got["label"] != want[i]["label"] or abs(
+                         got["confidence"] - want[i]["confidence"])
+                     > CONF_TOL))]
+        other = set(codes) - {200, 429, 503}
+        executed = codes[200]
+        want_launches = executed if mode == "off" else dispatches
+        if bad or wrong or other or sheds != codes[429] + codes[503] \
+                or run_launches != want_launches:
+            raise AssertionError(
+                f"45.2 batcher {mode}: codes {dict(codes)}, sheds {qos['shed']}"
+                f", {len(bad)} without Retry-After, {len(wrong)} 200s not the "
+                f"solo answer, launches {run_launches} against "
+                f"{want_launches} (dispatches {dispatches})")
+        batches = [t for t in ring["traces"] if t["kind"] == "microbatch"]
+        if mode == "on":
+            if not batches or any(
+                    len(t["links"]) != t["meta"]["batch"]
+                    or not all(x.startswith("smoke45on-") for x in t["links"])
+                    for t in batches):
+                raise AssertionError(f"45.2: microbatch traces {batches[:2]}")
+        launches += run_launches
+        out[mode] = {"codes": dict(codes), "shed": qos["shed"],
+                     "launches": run_launches, "dispatches": dispatches,
+                     "microbatch_traces": len(batches)}
+        log(f"  45.2 batcher {mode}, {N_CLIENTS} clients x {PER_CLIENT} "
+            f"under {P45_OVERLOAD}: 200 {codes[200]}, 429 {codes[429]}, "
+            f"503 {codes[503]}, each shed with Retry-After; /qos.json shed "
+            f"{json.dumps(qos['shed'])} (sum {sheds}); every 200 the solo "
+            f"answer; forward launches {run_launches} = "
+            f"{'the executed requests' if mode == 'off' else 'the dispatches'}"
+            f" ({want_launches}); microbatch traces in the ring "
+            f"{len(batches)}, each linking its members; {smi}")
+    out["launches"] = launches
+    return out
+
+
+def p45_breaker(smi, engine, ep, gpu, texts, want) -> dict:
+    """45.3: a spent deadline, the scorer breaker and the stale cache."""
+    server = create_query_server(engine, ep, [gpu], host="127.0.0.1",
+                                 port=0, device=CARD, qos=P45_BREAKER)
+    states = []
+    with server:
+        conn = http.client.HTTPConnection("127.0.0.1", server.port,
+                                          timeout=60)
+
+        def query(i, headers=None):
+            return call(conn, "POST", "/queries.json", {"text": texts[i]},
+                        headers)
+
+        def state():
+            return call(conn, "GET", "/qos.json")[2]
+
+        c0 = read_counts()["embedding_bag"]
+        spent = query(0, {"X-Pio-Deadline-Ms": "0.001"})
+        if spent[0] != 503 or spent[2] != {
+                "message": "overloaded: deadline"} or "retry-after" not in \
+                spent[1] or read_counts()["embedding_bag"] != c0 \
+                or state()["shed"]["deadline"] != 1:
+            raise AssertionError(f"45.3 spent deadline: {spent}")
+        cached = [query(i) for i in range(P45_CACHED)]
+        if any(c[0] != 200 or c[2] != want[i] for i, c in enumerate(cached)):
+            raise AssertionError("45.3: the cached queries' answers")
+        faults.install("scorer.dispatch.solo=error")
+        try:
+            fails, k = [], P45_CACHED
+            while state()["breakers"]["scorer"]["state"] != "open":
+                fails.append(query(k)[0])
+                k += 1
+                if len(fails) > 20:
+                    raise AssertionError("45.3: the breaker never opened")
+            states.append(state()["breakers"]["scorer"])
+            c1 = read_counts()["embedding_bag"]
+            degraded = [query(i) for i in range(P45_CACHED)]
+            shed = [query(P45_CACHED + 100 + i) for i in range(4)]
+            open_launches = read_counts()["embedding_bag"] - c1
+        finally:
+            faults.uninstall()
+        for i, d in enumerate(degraded):
+            if d[0] != 200 or d[1].get("x-pio-degraded") != "stale-cache" \
+                    or d[2] != cached[i][2]:
+                raise AssertionError(f"45.3 degraded {i}: {d}")
+        if any(x[0] != 503 or x[2] != {"message": "overloaded: breaker"}
+               or "retry-after" not in x[1] for x in shed) \
+                or open_launches or set(fails) != {500}:
+            raise AssertionError(f"45.3 while open: {shed}, launches "
+                                 f"{open_launches}, fails {fails}")
+        time.sleep(P45_COOLDOWN_S + 0.1)
+        states.append(state()["breakers"]["scorer"])
+        probes = [query(P45_CACHED + 200 + i) for i in range(2)]
+        states.append(state()["breakers"]["scorer"])
+        final = state()
+        conn.close()
+        launches = read_counts()["embedding_bag"] - c0
+    if [x["state"] for x in states] != ["open", "half_open", "closed"] \
+            or any(p[0] != 200 for p in probes):
+        raise AssertionError(f"45.3 transitions: {states}, probes "
+                             f"{[p[0] for p in probes]}")
+    log(f"  45.3 a {spent[1]['retry-after']}-second Retry-After on the spent "
+        f"deadline (shed reason deadline, nothing launched); "
+        f"scorer.dispatch.solo=error: {len(fails)} failing queries (500) "
+        f"opened the breaker; while open, {len(degraded)} cached queries 200 "
+        f"under X-Pio-Degraded: stale-cache, bit for bit their earlier "
+        f"answers, {len(shed)} others 503 breaker with Retry-After, "
+        f"{open_launches} launches; /qos.json scorer "
+        f"{' -> '.join(x['state'] for x in states)} after a "
+        f"{P45_COOLDOWN_S} s cooldown and {len(probes)} probes; shed "
+        f"{json.dumps(final['shed'])}, degraded {final['degraded']}; {smi}")
+    return {"launches": launches, "states": states}
+
+
+def p45_feedback(smi, engine, ep, gpu, texts, want) -> dict:
+    """45.4: feedback: every answer's prId and predict event."""
+    app_id = Storage.get_meta_data_apps().insert(App(0, P45_FEEDBACK_APP))
+    server = create_query_server(engine, ep, [gpu], host="127.0.0.1",
+                                 port=0, device=CARD, feedback=True,
+                                 feedback_app_id=app_id)
+    c0 = read_counts()["embedding_bag"]
+    with server:
+        conn = http.client.HTTPConnection("127.0.0.1", server.port,
+                                          timeout=60)
+        answers = [call(conn, "POST", "/queries.json", {"text": texts[i]})
+                   for i in range(P45_FEEDBACK)]
+        conn.close()
+    launches = read_counts()["embedding_bag"] - c0
+    events = {e.entity_id: e for e in Storage.get_levents().find(app_id)}
+    for i, (status, _, got) in enumerate(answers):
+        e = events.get(got.get("prId"))
+        plain = {k: v for k, v in got.items() if k != "prId"}
+        if status != 200 or plain != want[i] or e is None \
+                or (e.event, e.entity_type, e.pr_id) != (
+                    "predict", "pio_pr", got["prId"]) \
+                or e.properties["query"] != {"text": texts[i]} \
+                or e.properties["prediction"] != got:
+            raise AssertionError(f"45.4 query {i}: {status} {got}, event {e}")
+    if len(events) != P45_FEEDBACK:
+        raise AssertionError(f"45.4: {len(events)} predict events")
+    log(f"  45.4 {P45_FEEDBACK} queries with feedback app "
+        f"{P45_FEEDBACK_APP!r}: each answer carries its prId, and "
+        f"{len(events)} predict events of pio_pr hold its query and "
+        f"prediction; {smi}")
+    return {"launches": launches}
+
+
+def p45_ingest(args, smi, ingest_44) -> dict:
+    """45.5: the event server's request plane on SQLite."""
+    home = fresh_home("p45_ingest")
+    db = os.path.join(home, "pio.db")
+    bodies = rate_bodies(args.seed)[:P45_EVENTS]
+    with store_config({"METADATA": ("sqlite", db),
+                       "EVENTDATA": ("sqlite", db)}):
+        app_id = Storage.get_meta_data_apps().insert(App(0, "p45-ingest"))
+        key = Storage.get_meta_data_access_keys().insert(AccessKey("", app_id))
+        server = create_event_server(host="127.0.0.1", port=0,
+                                     slos=P45_SLOS, qos=P45_INGEST_QOS)
+        server.start()
+        try:
+            conn = http.client.HTTPConnection("127.0.0.1", server.port,
+                                              timeout=60)
+            t0 = time.perf_counter()
+            for b in range(0, len(bodies), QS_BATCH):
+                status, _, got = call(
+                    conn, "POST", f"/batch/events.json?accessKey={key}",
+                    bodies[b:b + QS_BATCH],
+                    {"X-Pio-Trace": f"ev45-{b // QS_BATCH}"})
+                if status != 200 or any(r["status"] != 201 for r in got):
+                    raise AssertionError(f"45.5 batch {b}: {status}")
+            rate = len(bodies) / (time.perf_counter() - t0)
+            batch_traces = [call(conn, "GET", f"/traces.json?id=ev45-{n}")
+                            [2]["traces"][0] for n in (0, 50, 99)]
+            t0 = time.perf_counter()
+
+            def singles(k):
+                c = http.client.HTTPConnection("127.0.0.1", server.port,
+                                               timeout=60)
+                try:
+                    for n in range(P45_SINGLES):
+                        status, _, _ = call(
+                            c, "POST", f"/events.json?accessKey={key}",
+                            {**bodies[n], "entityId": f"s{k}"},
+                            {"X-Pio-Trace": f"ev45s-{k}-{n}"})
+                        if status != 201:
+                            raise AssertionError(f"45.5 single: {status}")
+                finally:
+                    c.close()
+
+            with concurrent.futures.ThreadPoolExecutor(P45_SINGLE_CLIENTS) \
+                    as ex:
+                for f in [ex.submit(singles, k)
+                          for k in range(P45_SINGLE_CLIENTS)]:
+                    f.result(timeout=CLI_TIMEOUT_S)
+            singles_s = time.perf_counter() - t0
+            # the newest single posts' traces, and the flush traces of
+            # the committer's ring (64) that carried them
+            single_traces = [
+                t for t in call(conn, "GET", "/traces.json?n=128&commits=0"
+                                "&order=recent")[2]["traces"]
+                if t["id"].startswith("ev45s-")]
+            commits = {}
+            for t in single_traces:
+                cid = t["meta"]["commit"]
+                if cid not in commits:
+                    status, _, got = call(conn, "GET",
+                                          f"/traces.json?id={cid}")
+                    commits[cid] = got["traces"][0] if status == 200 \
+                        else None
+            # one transient commit error, retried away: the batched
+            # flush fails, and the payload's solo flush fails once more
+            faults.install("groupcommit.flush.sqlite=error:once,"
+                           "storage.sqlite.commit=error:once")
+            try:
+                retried = call(conn, "POST", f"/events.json?accessKey={key}",
+                               bodies[0])
+            finally:
+                faults.uninstall()
+            hook = call(conn, "POST",
+                        f"/webhooks/segmentio.json?accessKey={key}",
+                        {"type": "track", "event": "signup",
+                         "userId": "smoke45", "properties": {"plan": "pro"}})
+            routes = {r: call(conn, "GET", r)[0] for r in (
+                "/stats.json", "/storage.json", "/healthz", "/readyz",
+                "/qos.json", "/slo.json", "/debug/hotpath.json",
+                "/logs.json", "/plugins.json")}
+            metrics = call(conn, "GET", "/metrics")[2]
+            # the storage breaker: every commit fails until it opens
+            faults.install("storage.sqlite.commit=error")
+            try:
+                codes = []
+                while True:
+                    status, headers, got = call(
+                        conn, "POST", f"/events.json?accessKey={key}",
+                        bodies[1])
+                    codes.append(status)
+                    if status == 503 or len(codes) > 10:
+                        break
+            finally:
+                faults.uninstall()
+            qos = call(conn, "GET", "/qos.json")[2]
+            conn.close()
+        finally:
+            server.stop()
+        stored = Storage.get_levents().get(hook[2]["eventId"], app_id)
+    for t in batch_traces:
+        if top_stages(t) != ["accept", "admit", "validate", "store", "write"]:
+            raise AssertionError(f"45.5 batch trace {t}")
+    waited = linked = 0
+    for t in single_traces:
+        names = [x["stage"] for x in t["spans"]]
+        waited += "store.commit_wait" in names
+        commit = commits[t["meta"]["commit"]]
+        if commit is not None:
+            if t["id"] not in commit["links"]:
+                raise AssertionError(f"45.5: {t['id']} not linked from "
+                                     f"{commit}")
+            linked += 1
+        if top_stages(t) != ["accept", "admit", "parse", "validate",
+                             "store", "write"] or "store.flush" not in names:
+            raise AssertionError(f"45.5 single trace {t}")
+    if len(single_traces) < 100 or linked < 32:
+        raise AssertionError(f"45.5: {len(single_traces)} single traces in "
+                             f"the ring, {linked} linked from a commit trace")
+    families = {line.split()[2] for line in metrics.splitlines()
+                if line.startswith("# TYPE ")}
+    retry_lines = [line for line in metrics.splitlines()
+                   if line.startswith("pio_tpu_storage_retries_total{")]
+    need = {"pio_tpu_groupcommit_flush_seconds",
+            "pio_tpu_groupcommit_batch_size", "pio_tpu_storage_retries_total",
+            "pio_tpu_event_stage_seconds", "pio_tpu_qos_shed_total"}
+    if retried[0] != 201 or not need <= families or not retry_lines \
+            or hook[0] != 201 or stored is None or stored.event != "signup" \
+            or any(c != 200 for c in routes.values()) or codes[-1] != 503 \
+            or "retry-after" not in headers \
+            or qos["breakers"]["storage"]["state"] != "open":
+        raise AssertionError(
+            f"45.5: retried {retried[0]}, families missing "
+            f"{need - families}, webhook {hook[0]} stored {stored}, routes "
+            f"{routes}, breaker codes {codes}, {qos['breakers']}")
+    log(f"  45.5 the event server on SQLite with a QoS gate: {len(bodies)} "
+        f"events in batches of {QS_BATCH} at {rate:.1f} events/s (phase "
+        f"44.1's SQLite {ingest_44:.1f}; host clock, os.cpu_count() "
+        f"{os.cpu_count()}); batch traces {['/'.join(top_stages(t)) for t in batch_traces[:1]]} "
+        f"(a batch is one write outside the group committer, as in the "
+        f"reference); {P45_SINGLE_CLIENTS * P45_SINGLES} single posts of "
+        f"{P45_SINGLE_CLIENTS} clients in {singles_s:.3f} s: the ring's "
+        f"{len(single_traces)} each with store.flush, {linked} linked from "
+        f"the committer's {sum(c is not None for c in commits.values())} "
+        f"flush traces still in its ring, {waited} with store.commit_wait "
+        f"(queued at least 100 us behind another leader); /metrics {sorted(need)} ({retry_lines}); the Segment.io "
+        f"webhook stored {stored.event!r}; {sorted(routes)} 200; "
+        f"storage.sqlite.commit=error: codes {codes}, the storage breaker "
+        f"open with Retry-After {headers['retry-after']}; {smi}")
+    return {"events_per_s": rate, "commit_waits": waited}
+
+
+def phase_request_plane(args, smi, gpu, queries, http_answers, p50_36,
+                        ingest_44) -> dict:
+    """Phase 45: the request plane of both servers on phase 4's model."""
+    t_phase = time.monotonic()
+    log(f"phase 45: the request plane: traced serving of phase 4's model "
+        f"under SLOs and QoS, overload, deadline, breaker and stale cache, "
+        f"feedback, and the event server's; {smi}")
+    engine = get_engine_factory("templates.textclassification")()
+    ep = EngineParams(algorithm_params_list=(("mlp", MLPParams()),))
+    algo = MLPAlgorithm()
+    texts = queries[:P45_QUERIES]
+    faults.uninstall()
+    walls = {}
+    t = time.monotonic()
+    # the solo path's answers, the bits every served answer must have: in
+    # this process, before the counts start (their launches compare)
+    want = [to_jsonable(algo.predict(gpu, Query(text=x))) for x in texts]
+    reset_counts()
+    traced = p45_traced(smi, engine, ep, gpu, texts, want, http_answers,
+                        p50_36)
+    walls["45.1"] = time.monotonic() - t
+    cost_us = tracer_cost()
+    log(f"  45.1 the tracer's own work: {cost_us:.3f} us a request (a "
+        f"trace, nine spans and their histogram observes; host clock, "
+        f"{tracer_cost.__defaults__[0]} in a loop); {smi}")
+    t = time.monotonic()
+    overload = p45_overload(smi, engine, ep, gpu, texts[:PER_CLIENT],
+                            want[:PER_CLIENT])
+    walls["45.2"] = time.monotonic() - t
+    t = time.monotonic()
+    p45_breaker(smi, engine, ep, gpu, texts, want)
+    walls["45.3"] = time.monotonic() - t
+    t = time.monotonic()
+    p45_feedback(smi, engine, ep, gpu, texts, want)
+    walls["45.4"] = time.monotonic() - t
+    t = time.monotonic()
+    p45_ingest(args, smi, ingest_44)
+    walls["45.5"] = time.monotonic() - t
+    launches = read_counts()
+    log(f"  phase 45 launches (added to the kernels' line): "
+        f"{json.dumps(launches)}; walls {json.dumps({k: round(v, 1) for k, v in walls.items()})}; "
+        f"phase 45 {time.monotonic() - t_phase:.1f} s")
+    return {"launches": launches, "traced": traced, "overload": overload,
+            "tracer_us": cost_us}
 
 
 def kernel_entry(name, source, replaces, launches, row) -> dict:
@@ -7827,7 +8487,7 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(args.seed)
     shapes = phase_kernels(rng, dev)
     gpu, cpu, queries = phase_model(args)
-    http_launches = phase_http(gpu, cpu, queries)
+    http_launches, http_answers = phase_http(gpu, cpu, queries)
     batch_launches, qs = phase_batch(gpu, cpu, queries)
     log(f"phase 7: kernel launches on the served path: {http_launches} "
         f"(HTTP) + {batch_launches} (batch + loop)")
@@ -7947,7 +8607,14 @@ def main(argv=None) -> int:
         entry["launches"] += p43["launches"][entry["name"]]
     # the event and model stores feeding training on the card: no
     # hand-written kernel on this path
-    phase_event_stores(args, smi)
+    stores = phase_event_stores(args, smi)
+    # the request plane of both servers on phase 4's model: its served
+    # launches join the kernels' line
+    p45 = phase_request_plane(args, smi, gpu, queries, http_answers,
+                              mb_text["runs"][("off", 1)]["p50_ms"],
+                              stores["ingest"]["sqlite"]["events_per_s"])
+    for entry in summary:
+        entry["launches"] += p45["launches"][entry["name"]]
     log(f"text evaluation sweep launches (added to the kernels' line): "
         f"{json.dumps(text_eval)}")
     log(f"CLI train + deploy launches (added to the kernels' line): "

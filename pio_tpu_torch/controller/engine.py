@@ -15,6 +15,7 @@ Engine factories register by name (``@register_engine``) or resolve as
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib
 import logging
@@ -38,6 +39,7 @@ from pio_tpu_torch.controller.params import (
 )
 from pio_tpu_torch.obs import trainwatch
 from pio_tpu_torch.obs.metrics import monotonic_s
+from pio_tpu_torch.obs.tracing import active_trace
 from pio_tpu_torch.parallel.context import ComputeContext
 
 log = logging.getLogger("pio_tpu_torch.engine")
@@ -151,7 +153,9 @@ class Engine:
         ``timings``, when given, is filled with per-phase wall seconds
         (``read``, ``prepare``, ``train:<i>_<algo>``), as the reference's;
         an active trainwatch recorder follows each phase by name
-        (``train.<i>_<algo>``) and its seconds (``/train.json``).
+        (``train.<i>_<algo>``) and its seconds (``/train.json``), and
+        each phase is a span of that name on the active trace, if any, so
+        its log records carry ``(trace_id, span)``.
         With ``ctx.checkpoint_base`` and ``ctx.checkpoint_every`` set, each
         algorithm trains with a ``CheckpointManager`` of its own under
         ``<checkpoint_base>/algo<i>_<name>``, closed when it returns.
@@ -162,11 +166,15 @@ class Engine:
             # timings keys keep the reference's colon form
             span_name = name.replace(":", ".")
             trainwatch.set_phase(span_name)
+            tr = active_trace()
             t0 = monotonic_s()
-            out = fn()
-            if ctx.device.type == "cuda":
-                # the card runs behind the host: a phase ends with its work
-                torch.cuda.synchronize(ctx.device)
+            with (tr.span(span_name) if tr is not None
+                  else contextlib.nullcontext()):
+                out = fn()
+                if ctx.device.type == "cuda":
+                    # the card runs behind the host: a phase ends with
+                    # its work
+                    torch.cuda.synchronize(ctx.device)
             dur = round(monotonic_s() - t0, 3)
             if timings is not None:
                 timings[name] = dur

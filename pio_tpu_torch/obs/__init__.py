@@ -15,9 +15,20 @@ The port's copy of ``pio_tpu/obs`` limited to what it has ported:
 - **Profiler traces** (:mod:`~pio_tpu_torch.obs.profile`): the serving
   hook (``PIO_TPU_PROFILE``) and ``run_train``'s whole-run trace, on
   ``torch.profiler``.
+- **Stage tracing** (:mod:`~pio_tpu_torch.obs.tracing`): context-manager
+  spans, the ``X-Pio-Trace`` header, a ring of recent traces behind
+  ``GET /traces.json`` and per-stage histograms; the hot-path budget
+  over them (:mod:`~pio_tpu_torch.obs.hotpath`, ``/debug/hotpath.json``).
+- **Structured logs** (:mod:`~pio_tpu_torch.obs.slog`): one-line JSON
+  records carrying the enclosing trace's id, a ring behind
+  ``GET /logs.json`` and ``pio_tpu_log_messages_total``.
+- **SLO engine** (:mod:`~pio_tpu_torch.obs.slo`): declared objectives
+  (``p99=50ms:99.9``) as multi-window burn rates, ``GET /slo.json`` and
+  the ``pio_tpu_slo_*`` gauges.
 
-Not ported: the tracer, structured logs, the SLO engine, the hot-path
-attribution and the pool's shared metrics segment (ROADMAP A2, A6).
+Not ported: the pool's shared metrics segment (``obs/shm``), the
+text-format parser (``obs/promparse``) and the fleet aggregator
+(``obs/fleet``), ROADMAP §A.6.
 """
 
 from __future__ import annotations
@@ -29,12 +40,29 @@ from pio_tpu_torch.obs.metrics import (
     Histogram,
     MetricsRegistry,
     REGISTRY,
+    RequestWindow,
     escape_help,
     escape_label_value,
     monotonic_s,
 )
 from pio_tpu_torch.obs import devicewatch, trainwatch
 from pio_tpu_torch.obs.health import Heartbeat, HealthMonitor
+from pio_tpu_torch.obs.hotpath import hotpath_payload
+from pio_tpu_torch.obs.slo import (
+    SLOEngine,
+    SLObjective,
+    parse_duration_s,
+    parse_slo,
+)
+from pio_tpu_torch.obs.tracing import (
+    TRACE_HEADER,
+    Trace,
+    Tracer,
+    active_trace,
+    add_active_span,
+    format_trace_header,
+    parse_trace_header,
+)
 
 __all__ = [
     "DEFAULT_LATENCY_BUCKETS",
@@ -45,9 +73,22 @@ __all__ = [
     "Histogram",
     "MetricsRegistry",
     "REGISTRY",
+    "RequestWindow",
+    "SLOEngine",
+    "SLObjective",
+    "TRACE_HEADER",
+    "Trace",
+    "Tracer",
+    "active_trace",
+    "add_active_span",
     "devicewatch",
     "escape_help",
     "escape_label_value",
+    "format_trace_header",
+    "hotpath_payload",
     "monotonic_s",
+    "parse_duration_s",
+    "parse_slo",
+    "parse_trace_header",
     "trainwatch",
 ]

@@ -44,8 +44,8 @@ chunks under ``stream`` (:func:`stream_carry`) and its chunk dispatches
 as ``stream_dispatch`` compiles. Failpoints: ``devicewatch.sample`` and
 ``devicewatch.payload``.
 
-Not ported: trace exemplars (the tracer is not ported:
-:func:`_active_trace_id` is None).
+A first dispatch's compile record carries the enclosing request trace's
+id as its exemplar (:func:`_active_trace_id`).
 """
 
 from __future__ import annotations
@@ -148,8 +148,11 @@ _register_families(REGISTRY)
 
 
 def _active_trace_id() -> Optional[str]:
-    """The enclosing request trace's id: None, the tracer is not ported."""
-    return None
+    """The enclosing request trace's id (None outside a trace)."""
+    from pio_tpu_torch.obs.tracing import active_trace
+
+    h = active_trace()
+    return h.trace_id if h is not None else None
 
 
 def shape_key(tree: Any) -> tuple:

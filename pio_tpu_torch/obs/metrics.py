@@ -2,8 +2,9 @@
 exposition.
 
 The port's copy of ``pio_tpu/obs/metrics.py``, cut to one process: the
-pool's shared-memory mirror (``obs/shm``) and the request window are not
-ported. The text it renders is the reference's:
+pool's shared-memory mirror (``obs/shm``) is not ported, so a cell's pool
+value is its local value and ``pool=`` arguments are accepted and read
+locally. The text it renders is the reference's:
 
 - one ``# HELP``/``# TYPE`` pair per metric family, HELP text escaped
   (``\\`` and newline — label values additionally escape ``"``);
@@ -61,6 +62,27 @@ def _fmt(v: float) -> str:
     return str(int(f)) if f.is_integer() and abs(f) < 2 ** 53 else repr(f)
 
 
+def bucket_quantile(edges: Sequence[float], buckets: Sequence[int],
+                    count: int, q: float) -> Optional[float]:
+    """Quantile ``q`` of a histogram given as its finite bucket edges and
+    per-bucket (not cumulative) counts, linear within the winning bucket."""
+    if count == 0:
+        return None
+    rank = q * count
+    cum = 0
+    for k, c in enumerate(buckets):
+        prev_cum = cum
+        cum += c
+        if cum >= rank and c > 0:
+            lo = edges[k - 1] if k > 0 else 0.0
+            if k >= len(edges):  # +Inf bucket
+                return edges[-1] if edges else lo
+            hi = edges[k]
+            frac = (rank - prev_cum) / c
+            return lo + (hi - lo) * min(max(frac, 0.0), 1.0)
+    return edges[-1] if edges else None
+
+
 def _label_str(names: Sequence[str], values: Sequence[str]) -> str:
     if not names:
         return ""
@@ -87,12 +109,18 @@ class _Cell:
         with self._lock:
             self._v += v
 
+    _add = inc
+
     def _set(self, v: float) -> None:
         with self._lock:
             self._v = v
 
     @property
     def value(self) -> float:
+        return self._v
+
+    def _pool_value(self) -> float:
+        """The pool-wide value: the local one (no shared segment)."""
         return self._v
 
 
@@ -203,10 +231,13 @@ class _HistogramCell:
             if exemplar is not None:
                 self._exemplars[idx] = (str(exemplar), v)
 
-    def _snapshot(self):
+    def _snapshot(self, pool: bool = False) -> Tuple[List[int], float, int]:
         with self._lock:
-            return (list(self._buckets), self._sum, self._count,
-                    dict(self._exemplars))
+            return list(self._buckets), self._sum, self._count
+
+    def _exemplar_snapshot(self) -> Dict[int, Tuple[str, float]]:
+        with self._lock:
+            return dict(self._exemplars)
 
     @property
     def count(self) -> int:
@@ -215,6 +246,21 @@ class _HistogramCell:
     @property
     def sum(self) -> float:
         return self._sum
+
+    def count_le(self, threshold: float,
+                 pool: bool = True) -> Tuple[int, int]:
+        """``(observations <= threshold, total observations)``: the
+        good/total pair of a latency SLO. The threshold snaps down to a
+        bucket edge (cumulative buckets cannot see inside a bucket)."""
+        buckets, _sum, count = self._snapshot(pool)
+        k = bisect.bisect_right(self._edges, threshold)
+        return sum(buckets[:k]), count
+
+    def quantile(self, q: float, pool: bool = False) -> Optional[float]:
+        """Bucket-interpolated quantile (linear within the winning bucket;
+        the +Inf bucket clamps to its lower edge)."""
+        buckets, _sum, count = self._snapshot(pool)
+        return bucket_quantile(self._edges, buckets, count, q)
 
 
 class Histogram(_Metric):
@@ -241,7 +287,8 @@ class Histogram(_Metric):
         out = []
         edges = [_fmt(e) for e in self.buckets] + ["+Inf"]
         for values, cell in list(self._cells.items()):
-            buckets, sum_, count, exemplars = cell._snapshot()
+            buckets, sum_, count = cell._snapshot()
+            exemplars = cell._exemplar_snapshot()
             cum = 0
             for k, (edge, c) in enumerate(zip(edges, buckets)):
                 cum += c
@@ -261,6 +308,70 @@ class Histogram(_Metric):
             out.append(f"{self.name}_sum{base} {_fmt(sum_)}")
             out.append(f"{self.name}_count{base} {count}")
         return out
+
+
+class RequestWindow:
+    """Cumulative request stats plus a bounded ring of timestamped
+    samples for ``?window=`` views (``/stats.json`` of the event server):
+    count, errors and the sum stay exact; percentiles come from the ring."""
+
+    def __init__(self, cap: int = 8192):
+        self._lock = threading.Lock()
+        self._cap = cap
+        self._ring: List[Tuple[float, float, bool]] = []  # (t, ms, error)
+        self._pos = 0
+        self.count = 0
+        self.errors = 0
+        self.total_ms = 0.0
+
+    def record(self, ms: float, error: bool = False) -> None:
+        with self._lock:
+            self.count += 1
+            if error:
+                self.errors += 1
+            self.total_ms += ms
+            item = (monotonic_s(), ms, error)
+            if len(self._ring) < self._cap:
+                self._ring.append(item)
+            else:
+                self._ring[self._pos] = item
+                self._pos = (self._pos + 1) % self._cap
+
+    def to_dict(self) -> dict:
+        """Exact cumulative count, errors and mean; percentiles over the
+        ring (the newest ``cap`` requests)."""
+        with self._lock:
+            xs = sorted(ms for _, ms, _ in self._ring)
+            count, errors, total = self.count, self.errors, self.total_ms
+        n = len(xs)
+        q = lambda f: round(xs[min(int(f * n), n - 1)], 3) if n else None
+        return {
+            "requestCount": count,
+            "errorCount": errors,
+            "avgMs": round(total / count, 3) if count else None,
+            "p50Ms": q(0.50),
+            "p95Ms": q(0.95),
+            "p99Ms": q(0.99),
+        }
+
+    def window(self, window_s: float) -> dict:
+        """count, errors, mean and p50/p95/p99 over the trailing
+        ``window_s`` seconds (bounded by the ring)."""
+        cutoff = monotonic_s() - window_s
+        with self._lock:
+            xs = [(ms, err) for t, ms, err in self._ring if t >= cutoff]
+        xs.sort(key=lambda p: p[0])
+        n = len(xs)
+        q = lambda f: xs[min(int(f * n), n - 1)][0] if n else None
+        return {
+            "windowSeconds": window_s,
+            "requestCount": n,
+            "errorCount": sum(1 for _, err in xs if err),
+            "avgMs": (sum(ms for ms, _ in xs) / n) if n else None,
+            "p50Ms": q(0.50),
+            "p95Ms": q(0.95),
+            "p99Ms": q(0.99),
+        }
 
 
 class MetricsRegistry:
@@ -303,6 +414,17 @@ class MetricsRegistry:
         e.g. the failpoints' trigger counter."""
         with self._lock:
             self._collectors.append(fn)
+
+    def render_prefixed(self, prefixes) -> List[str]:
+        """Exposition lines of the families whose name starts with one of
+        ``prefixes``: the bridge a server adds as a collector to show a
+        slice of the process-global registry (the storage layer's group
+        commit and retry families) on its own ``/metrics``."""
+        pfx = tuple(prefixes)
+        with self._lock:
+            metrics = [m for m in self._metrics.values()
+                       if m.name.startswith(pfx)]
+        return [line for m in metrics for line in m.render()]
 
     def render(self) -> List[str]:
         """Exposition lines for every family, in registration order,

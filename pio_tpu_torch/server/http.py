@@ -12,7 +12,13 @@ more for the client's delayed ACK).
 A body sent as :data:`PACKED_QUERY_CONTENT_TYPE` reaches the handler
 untouched as :attr:`Request.packed`; a handler may answer ready JSON
 bytes instead of an object, or a :class:`RawResponse` of another type
-(the Prometheus text of ``GET /metrics``). ``reuse_port`` sets ``SO_REUSEPORT`` before
+(the Prometheus text of ``GET /metrics``) or with extra headers
+(:func:`json_response`: ``X-Pio-Trace``, ``X-Pio-Degraded``). An
+:class:`HTTPError` may carry headers too (``Retry-After`` on a shed).
+The request records :attr:`Request.read_s`, its read and parse off the
+socket (a trace's ``accept`` stage), and a handler may set
+:attr:`Request.on_written`, called with the write's seconds once the
+answer is flushed (the ``write`` stage). ``reuse_port`` sets ``SO_REUSEPORT`` before
 bind, so the processes of a serving pool share one port.
 
 The blob daemon's bodies: an ``application/octet-stream`` body is spooled
@@ -40,6 +46,9 @@ from dataclasses import dataclass, field
 from http.server import ThreadingHTTPServer
 from typing import Any, Callable, Dict, List, Optional, Tuple
 from urllib.parse import parse_qs
+
+from pio_tpu_torch.obs import slog
+from pio_tpu_torch.obs.metrics import monotonic_s
 
 log = logging.getLogger("pio_tpu_torch.server")
 
@@ -98,6 +107,14 @@ class Request:
     #: an ``application/octet-stream`` body, spooled off the socket
     #: (``raw_body`` stays empty); closed after the handler returns
     body_file: Optional[Any] = None
+    #: seconds spent reading and parsing this request off the socket
+    #: (first request-line byte to body parsed): the "accept" stage of a
+    #: latency waterfall; keep-alive idle before the request line excluded
+    read_s: float = 0.0
+    #: handler-settable hook called with the response write's seconds
+    #: once the reply is flushed: the "write" stage (the handler has
+    #: returned by then, so tracing needs a callback)
+    on_written: Optional[Callable[[float], None]] = None
 
     def header(self, name: str, default: Optional[str] = None):
         return self.headers.get(name.lower(), default)
@@ -115,10 +132,20 @@ Handler = Callable[[Request], Tuple[int, Any]]
 
 @dataclass
 class RawResponse:
-    """Non-JSON handler output: a text or bytes body of its own type."""
+    """Handler output of its own type, or with extra headers: a text or
+    bytes body."""
 
     body: Any  # str or bytes
     content_type: str = "text/plain; charset=utf-8"
+    headers: Dict[str, str] = field(default_factory=dict)
+
+
+def json_response(body: Any, headers: Dict[str, str]) -> RawResponse:
+    """A JSON body that carries extra headers (a plain dict answer
+    cannot): ``X-Pio-Trace``, ``X-Pio-Degraded``, ``Retry-After``."""
+    return RawResponse(json.dumps(body),
+                       content_type="application/json; charset=UTF-8",
+                       headers=headers)
 
 
 @dataclass
@@ -145,9 +172,11 @@ def metrics_response(lines: List[str]) -> RawResponse:
 
 
 def int_param(params: Dict[str, str], name: str, default: int,
-              lo: Optional[int] = None) -> int:
+              lo: Optional[int] = None, hi: Optional[int] = None) -> int:
     """A validated integer query param: not an integer, or below ``lo``,
-    answers 400 (a typo'd ``?n=`` must not fall back to the default)."""
+    answers 400 (a typo'd ``?n=`` must not fall back to the default);
+    above ``hi`` it clamps (asking for more than a ring holds is
+    well-defined)."""
     raw = params.get(name)
     if raw is None:
         return default
@@ -157,16 +186,53 @@ def int_param(params: Dict[str, str], name: str, default: int,
         raise HTTPError(400, f"query param {name}={raw!r} is not an integer")
     if lo is not None and v < lo:
         raise HTTPError(400, f"query param {name}={v} is below {lo}")
+    if hi is not None and v > hi:
+        v = hi
     return v
 
 
-class HTTPError(Exception):
-    """Handler-raised error, answered as ``{"message": ...}``."""
+def float_param(params: Dict[str, str], name: str, default: float,
+                lo: Optional[float] = None) -> float:
+    """A validated float query param, :func:`int_param`'s contract
+    (``/stats.json?window=abc`` is a 400, not the cumulative view)."""
+    raw = params.get(name)
+    if raw is None:
+        return default
+    try:
+        v = float(raw)
+    except (TypeError, ValueError):
+        raise HTTPError(400, f"query param {name}={raw!r} is not a number")
+    if v != v:  # NaN compares unequal to itself
+        raise HTTPError(400, f"query param {name} must be a finite number")
+    if lo is not None and v < lo:
+        raise HTTPError(400, f"query param {name} must be >= {lo:g}")
+    return v
 
-    def __init__(self, status: int, message: str):
+
+def logs_route(req: "Request"):
+    """``GET /logs.json`` of every server: the newest structured log
+    entries (``?n=``, clamped to the ring), filtered by minimum ``level``,
+    exact ``trace_id`` and ``logger`` prefix."""
+    n = int_param(req.params, "n", 100, lo=0, hi=slog.ring().cap)
+    try:
+        return 200, slog.logs_payload(
+            n=n, level=req.params.get("level"),
+            trace_id=req.params.get("trace_id"),
+            logger=req.params.get("logger"))
+    except ValueError as e:
+        raise HTTPError(400, str(e))
+
+
+class HTTPError(Exception):
+    """Handler-raised error, answered as ``{"message": ...}``; ``headers``
+    (optional) go out on the answer (``Retry-After`` on a 429 or 503)."""
+
+    def __init__(self, status: int, message: str,
+                 headers: Optional[Dict[str, str]] = None):
         super().__init__(message)
         self.status = status
         self.message = message
+        self.headers = dict(headers) if headers else {}
 
 
 class Router:
@@ -193,6 +259,7 @@ _REASONS = {
     200: "OK", 201: "Created", 400: "Bad Request", 401: "Unauthorized",
     403: "Forbidden", 404: "Not Found", 405: "Method Not Allowed",
     411: "Length Required", 413: "Content Too Large",
+    429: "Too Many Requests",
     431: "Request Header Fields Too Large", 500: "Internal Server Error",
     501: "Not Implemented", 503: "Service Unavailable",
 }
@@ -230,13 +297,16 @@ def _make_handler_class(router: Router, server_name: str,
                 pass
 
         # -- response writing ------------------------------------------
-        def _head(self, status: int, ctype: str, length: int) -> bytes:
+        def _head(self, status: int, ctype: str, length: int,
+                  extra=()) -> bytes:
             head = (
                 f"HTTP/1.1 {status} {_REASONS.get(status, '')}\r\n"
                 f"Server: {server_name}\r\n"
                 f"Content-Type: {ctype}\r\n"
                 f"Content-Length: {length}\r\n"
             )
+            for name, value in extra:
+                head += f"{name}: {value}\r\n"
             if self.close_connection:
                 head += "Connection: close\r\n"
             elif self.http10:
@@ -264,9 +334,11 @@ def _make_handler_class(router: Router, server_name: str,
                 self._send_file(status, body)
                 return
             ctype = "application/json; charset=UTF-8"
+            extra = ()
             try:
                 if isinstance(body, RawResponse):
                     ctype = body.content_type
+                    extra = body.headers.items()
                     payload = (body.body if isinstance(body.body, bytes)
                                else body.body.encode("utf-8"))
                 elif isinstance(body, bytes):
@@ -280,7 +352,7 @@ def _make_handler_class(router: Router, server_name: str,
                 log.exception("response not JSON-serializable")
                 status = 500
                 payload = b'{"message": "response not JSON-serializable"}'
-            out = self._head(status, ctype, len(payload))
+            out = self._head(status, ctype, len(payload), extra)
             # HEAD carries Content-Length but no body bytes (RFC 9110)
             if self.command != "HEAD":
                 out += payload
@@ -299,6 +371,7 @@ def _make_handler_class(router: Router, server_name: str,
             line = self.rfile.readline(65537)
             if not line:
                 return False  # client closed the keep-alive connection
+            t_accept = monotonic_s()
             if len(line) > 65536:
                 return self._reject(400, "request line too long")
             line = line.strip()
@@ -354,10 +427,11 @@ def _make_handler_class(router: Router, server_name: str,
                 self.close_connection = "keep-alive" not in conn_tok
             else:
                 self.close_connection = "close" in conn_tok
-            self._dispatch(method, target, headers)
+            self._dispatch(method, target, headers, t_accept)
             return not self.close_connection
 
-        def _dispatch(self, method: str, target: str, headers: Dict[str, str]):
+        def _dispatch(self, method: str, target: str, headers: Dict[str, str],
+                      t_accept: Optional[float] = None):
             path, _, query = target.partition("?")
             params = (
                 {k: v[0] for k, v in parse_qs(query).items()} if query else {}
@@ -453,17 +527,27 @@ def _make_handler_class(router: Router, server_name: str,
                 client_addr=self.client_address[0], packed=packed,
                 body_file=body_file,
             )
+            if t_accept is not None:
+                req.read_s = monotonic_s() - t_accept
             try:
                 status, out = router.dispatch(req)
             except HTTPError as e:
-                status, out = e.status, {"message": e.message}
+                status = e.status
+                out = (json_response({"message": e.message}, e.headers)
+                       if e.headers else {"message": e.message})
             except Exception:  # boundary: the server keeps answering
                 log.exception("unhandled error on %s %s", method, path)
                 status, out = 500, {"message": "internal server error"}
             finally:
                 if body_file is not None:
                     body_file.close()
+            t_write = monotonic_s()
             self._respond(status, out)
+            if req.on_written is not None:
+                try:
+                    req.on_written(monotonic_s() - t_write)
+                except Exception:  # a tracing hook must not drop the link
+                    log.exception("on_written hook failed")
             if req.after_response is not None:
                 req.after_response()
 

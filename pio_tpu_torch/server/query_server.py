@@ -7,7 +7,15 @@ Counterpart of ``pio_tpu/server/query_server.py``. Routes:
                          as ``application/x-pio-query-i8``) → serving
     GET  /stats.json     residency, micro-batch, bucket, lane and pool blocks
     GET  /device.json    device memory, ledger and compile attribution
-    GET  /metrics        Prometheus text of the device plane's families
+    GET  /metrics        Prometheus text: requests, stages, SLO, QoS and
+                         the device plane's families
+    GET  /traces.json    recent request and micro-batch traces (``?slow=1``
+                         the slow ring, ``?id=`` one trace, ``?n=``)
+    GET  /logs.json      structured-log ring (``?level=&trace_id=&n=``)
+    GET  /slo.json       burn rates of the declared SLOs
+    GET  /qos.json       admission-control state
+    GET  /debug/hotpath.json   per-stage latency budget of the query path
+    GET  /plugins.json   installed plugins
     GET  /faults.json    armed failpoints and their trigger counts
     GET  /debug/profile.json   the profile hook's status
     POST /debug/profile.json   ``?restart=1&n=N``: capture the next N
@@ -79,10 +87,28 @@ placement, ``scorer.dispatch.solo`` / ``.batch`` / ``.packed`` at the
 three dispatch paths; ``GET /faults.json`` answers the registry's
 snapshot and ``/metrics`` carries ``pio_tpu_fault_triggered_total``.
 
-Not ported: QoS (admission, deadlines, the batcher's deadline shedding),
-the tracer, the request and stage families of ``/metrics`` and the
-pool's shared metrics segment, the evloop front, feedback, plugins and
-``/deploy.json``.
+**The request plane.** Every query is a trace of :data:`QUERY_STAGES`
+(accept, admit, parse, queue, execute, serialize, write: they tile the
+request, so ``/debug/hotpath.json`` attributes its milliseconds), with
+``execute.device`` around the models' predictions, which end with their
+answers on the host. A caller's ``X-Pio-Trace`` id (and parent span) is
+adopted and every answer echoes the id. The micro-batcher's worker opens
+one ``microbatch`` trace a batch, linking its members' ids, and the
+batch's ``execute.device`` lands there. With a QoS policy (``qos=``,
+``PIO_TPU_QOS`` or the variant's ``qos`` block), a query passes the
+engine bucket and the concurrency limit (``X-Pio-Priority``), carries
+its ``X-Pio-Deadline-Ms`` into the batcher, which sheds it before the
+dispatch once it is spent, and calls the scorer through a circuit
+breaker; a shed query answers 429 (rate) or 503 with ``Retry-After``,
+or 200 from the stale cache under ``X-Pio-Degraded: stale-cache``, and
+launches nothing. ``slos=`` (or ``PIO_TPU_SLO``) declares objectives
+read by ``/slo.json``. The plugins' output blockers and sniffers see
+each answer, and with ``feedback`` each answer carries a ``prId`` and is
+written to the feedback app as a ``predict`` event of entity type
+``pio_pr``.
+
+Not ported: the pool's shared metrics segment (so a pool refuses a rate
+budget, ``server/worker_pool.py``), the evloop front and ``/deploy.json``.
 """
 
 from __future__ import annotations
@@ -94,19 +120,33 @@ import json
 import logging
 import os
 import threading
-import time
 from typing import Any, List, Optional, Sequence
+
+import uuid
 
 import torch
 
 from pio_tpu_torch import DeviceLike, faults, resolve_device
 from pio_tpu_torch.controller.engine import Engine, EngineParams
 from pio_tpu_torch.controller.params import ParamsError, params_from_dict
+from pio_tpu_torch.data.event import Event
 from pio_tpu_torch.faults import failpoint
-from pio_tpu_torch.obs import devicewatch
+from pio_tpu_torch.obs import devicewatch, slog
 from pio_tpu_torch.obs.health import Heartbeat, HealthMonitor
-from pio_tpu_torch.obs.metrics import MetricsRegistry
+from pio_tpu_torch.obs.hotpath import hotpath_payload
+from pio_tpu_torch.obs.metrics import MetricsRegistry, monotonic_s
 from pio_tpu_torch.obs.profile import DeviceProfileHook
+from pio_tpu_torch.obs.slo import (
+    engine_for_specs,
+    slo_payload,
+    slow_threshold_s,
+)
+from pio_tpu_torch.obs.tracing import (
+    TRACE_HEADER,
+    Tracer,
+    add_active_span,
+    parse_trace_header,
+)
 from pio_tpu_torch.parallel.context import ComputeContext
 from pio_tpu_torch.server import residency
 from pio_tpu_torch.server.batchlane import (
@@ -123,15 +163,32 @@ from pio_tpu_torch.server.bucketcache import (
     BucketExecutionCache,
     dispatch_bucketed,
 )
+from pio_tpu_torch.qos import (
+    DEADLINE_HEADER,
+    DEGRADED_HEADER,
+    DEGRADED_VALUE,
+    PRIORITY_HEADER,
+    Deadline,
+    DeadlineExceeded,
+    QoSGate,
+    cache_key,
+    qos_payload,
+    resolve_policy,
+    retry_after_header,
+)
 from pio_tpu_torch.server.http import (
     HTTPError,
     JsonHTTPServer,
+    RawResponse,
     Request,
     Router,
     int_param,
+    json_response,
     keys_equal,
+    logs_route,
     metrics_response,
 )
+from pio_tpu_torch.server.plugins import installed_plugins
 from pio_tpu_torch.storage.registry import Storage
 from pio_tpu_torch.utils import knobs
 from pio_tpu_torch.workflow.core_workflow import load_models_for_instance
@@ -143,6 +200,25 @@ from pio_tpu_torch.workflow.deploy_common import (
 from pio_tpu_torch.workflow.engine_json import EngineVariant, build_engine
 
 log = logging.getLogger("pio_tpu_torch.query_server")
+
+#: query-path plugin hooks (``server/plugins.py``): output blockers veto
+#: an answer with ValueError (a 400), sniffers observe it
+QUERY_BLOCKERS: List = []
+QUERY_SNIFFERS: List = []
+
+#: query-path trace stages, in request order: socket read (the HTTP
+#: layer), QoS admission, JSON binding + serving.supplement, the wait
+#: before the dispatch (the micro-batch queue), the models' execution, the
+#: answer's serialization (to_jsonable, hooks, feedback), the write. They
+#: TILE the request: their durations sum to the end-to-end latency, which
+#: /debug/hotpath.json budgets against.
+QUERY_STAGES = (
+    "accept", "admit", "parse", "queue", "execute", "serialize", "write",
+)
+
+#: dotted substages attribute time WITHIN a top-level stage (left out of
+#: the budget sums): the admission queue's wait and the device dispatch
+QUERY_SUBSTAGES = ("admit.queue", "execute.device")
 
 #: sentinel: the micro-batch dispatch failed; the waiting request thread
 #: runs the per-query fallback itself (see _MicroBatcher.submit)
@@ -174,11 +250,16 @@ class _MicroBatcher:
 
     If a batch dispatch fails, every member falls back to the per-query
     path in its own thread, so one poisoned query cannot fail its
-    batch-mates. The reference's QoS deadlines are not ported: a member
-    waits out the window whatever its budget.
+    batch-mates. A member's deadline bounds the collection window, and a
+    member whose deadline is spent by the drain is shed before the
+    dispatch (``DeadlineExceeded`` in its own thread): nothing launches
+    for it.
     """
 
     MAX_BATCH = 512
+    #: dispatch this far BEFORE the tightest queued deadline: waking at
+    #: the exact expiry would shed the member the bound exists to protect
+    DEADLINE_SLACK_S = 0.05
     #: probe sample size per regime before the mode decision
     PROBE_QUERIES = 96
 
@@ -221,7 +302,7 @@ class _MicroBatcher:
         if not self.bypassed:
             return True
         if self._reprobe_s <= 0 \
-                or time.monotonic() - self._decided_at < self._reprobe_s:
+                or monotonic_s() - self._decided_at < self._reprobe_s:
             return False
         with self._probe_lock:
             if not self.bypassed:  # another thread re-armed first
@@ -234,22 +315,36 @@ class _MicroBatcher:
                  self._reprobe_s)
         return True
 
-    def submit(self, query, gen=None):
+    def submit(self, query, gen=None, span_sink=None, deadline=None):
         """Serve one query through the current regime on ``gen``, the
         generation the caller parsed it with and holds as a reader;
         blocks until done. If the batch dispatch failed, the per-query
-        predict runs here, in the request's own thread."""
+        predict runs here, in the request's own thread.
+
+        ``span_sink`` (the request's trace handle) receives the queue and
+        execute spans, measured where they happen: the worker thread
+        computes each member's queue wait at the drain and the shared
+        dispatch's duration. ``deadline`` (a :class:`~pio_tpu_torch.qos.
+        Deadline`) rides along: the worker sheds a member whose budget
+        elapsed in the queue (raised here as ``DeadlineExceeded``) and
+        never holds the window past the tightest queued deadline."""
         mode = self._mode
         if mode == "off" or mode == "probe_solo":
-            t0 = time.monotonic()
+            t0 = monotonic_s()
             out = self._service._predict_one(query, gen)
+            dt_s = monotonic_s() - t0
+            if span_sink is not None:
+                span_sink.add_span("queue", 0.0)
+                span_sink.add_span("execute", dt_s)
             if mode == "probe_solo":
-                self._note_probe("solo", time.monotonic() - t0)
+                self._note_probe("solo", dt_s)
             return out
-        t0 = time.monotonic()
+        t0 = monotonic_s()
         # query, result, error, done, enqueue time, worker-filled notes,
-        # generation
-        pend = [query, None, None, threading.Event(), t0, {}, gen]
+        # generation, deadline, member trace id (the batch trace links
+        # its members)
+        pend = [query, None, None, threading.Event(), t0, {}, gen, deadline,
+                span_sink.trace_id if span_sink is not None else None]
         with self._cv:
             if self._stopped:
                 raise HTTPError(503, "undeployed")
@@ -259,9 +354,21 @@ class _MicroBatcher:
         if mode == "probe_batch" and not pend[5].get("fresh_bucket"):
             # a dispatch into a cold bucket is a one-off transient, not
             # the steady state the probe compares
-            self._note_probe("batch", time.monotonic() - t0)
+            self._note_probe("batch", monotonic_s() - t0)
+        if span_sink is not None and "queue_s" in pend[5]:
+            span_sink.add_span("queue", pend[5]["queue_s"])
+        if span_sink is not None and "batch_id" in pend[5]:
+            # back-link: the member's waterfall names the batch trace
+            # whose execute span it shared
+            span_sink.note(microbatch=pend[5]["batch_id"])
         if pend[2] is _BATCH_FAILED:
-            return self._service._predict_one(pend[0], gen)
+            t1 = monotonic_s()
+            out = self._service._predict_one(pend[0], gen)
+            if span_sink is not None:
+                span_sink.add_span("execute", monotonic_s() - t1)
+            return out
+        if span_sink is not None and "execute_s" in pend[5]:
+            span_sink.add_span("execute", pend[5]["execute_s"])
         if pend[2] is not None:
             raise pend[2]
         return pend[1]
@@ -287,7 +394,7 @@ class _MicroBatcher:
                 )
                 if self._mode == "off":
                     self.bypassed = True
-                    self._decided_at = time.monotonic()
+                    self._decided_at = monotonic_s()
 
     @property
     def mode(self) -> str:
@@ -345,13 +452,24 @@ class _MicroBatcher:
                 if self._stopped and not self._queue:
                     return
             # collection window: let concurrent request threads pile on,
-            # but don't idle when a full batch is already waiting
+            # but don't idle when a full batch is already waiting, and
+            # never wait past the tightest queued deadline (every enqueue
+            # notifies, so a tighter newcomer re-shortens the wait)
             if self._window_s > 0:
-                window_end = time.monotonic() + self._window_s
+                window_end = monotonic_s() + self._window_s
                 with self._cv:
                     while not self._stopped \
                             and len(self._queue) < self.MAX_BATCH:
-                        wait_s = window_end - time.monotonic()
+                        wait_s = window_end - monotonic_s()
+                        tightest = min(
+                            (p[7].remaining_s() for p in self._queue
+                             if p[7] is not None),
+                            default=None,
+                        )
+                        if tightest is not None:
+                            wait_s = min(
+                                wait_s, tightest - self.DEADLINE_SLACK_S
+                            )
                         if wait_s <= 0:
                             break
                         self._cv.wait(wait_s)
@@ -360,7 +478,23 @@ class _MicroBatcher:
                 del self._queue[: len(batch)]
             if not batch:
                 continue
-            t_drain = time.monotonic()
+            # stage attribution: everything before the drain is each
+            # member's queue wait, the shared dispatch its execute time
+            t_drain = monotonic_s()
+            for p in batch:
+                p[5]["queue_s"] = max(t_drain - p[4], 0.0)
+            # deadline shedding: a member whose budget elapsed in the
+            # queue fails here, before the models run
+            live = []
+            for p in batch:
+                if p[7] is not None and p[7].expired():
+                    p[2] = DeadlineExceeded("deadline elapsed in queue")
+                    p[3].set()
+                else:
+                    live.append(p)
+            batch = live
+            if not batch:
+                continue
             self.batches += 1
             self.batched_queries += len(batch)
             self.max_batch = max(self.max_batch, len(batch))
@@ -381,12 +515,20 @@ class _MicroBatcher:
                 for i, p in enumerate(batch):
                     by_gen.setdefault(id(p[6]), (p[6], []))[1].append(i)
                 results = [None] * len(batch)
-                for gen, idx in by_gen.values():
-                    got = self._service._predict_batch(
-                        [queries[i] for i in idx], gen)
-                    for i, r in zip(idx, got):
-                        results[i] = r
-                exec_s = time.monotonic() - t_drain
+                # ONE trace a batch, linking every member's trace: "which
+                # requests shared this dispatch" is answerable from
+                # /traces.json; the device time lands on it as
+                # execute.device through the active-trace contextvar
+                with self._service.tracer.trace(
+                    "microbatch", links=[p[8] for p in batch if p[8]],
+                    batch=len(batch),
+                ) as btr:
+                    for gen, idx in by_gen.values():
+                        got = self._service._predict_batch(
+                            [queries[i] for i in idx], gen)
+                        for i, r in zip(idx, got):
+                            results[i] = r
+                exec_s = monotonic_s() - t_drain
                 bucket = cache.bucket_for(len(batch))
                 samples = self._bucket_samples.get(bucket)
                 if samples is None:
@@ -395,10 +537,12 @@ class _MicroBatcher:
                     )
                 for p, r in zip(batch, results):
                     p[1] = r
+                    p[5]["execute_s"] = exec_s
+                    p[5]["batch_id"] = btr.trace_id
                     if fresh:
                         p[5]["fresh_bucket"] = True
                     else:
-                        samples.append(t_drain - p[4] + exec_s)
+                        samples.append(p[5]["queue_s"] + exec_s)
             except Exception:
                 log.exception(
                     "micro-batch dispatch failed; per-query fallback "
@@ -453,7 +597,11 @@ class QueryService:
     (None for models handed over in memory); ``variant`` and ``ctx``,
     given for a stored instance, let ``/reload`` load the newest one.
     ``admin_key``, when set, is the key ``/reload`` and ``/undeploy``
-    need; they are otherwise loopback-only."""
+    need; they are otherwise loopback-only. ``feedback`` with
+    ``feedback_app_id`` writes every answer back as a ``predict`` event;
+    ``slos`` (specs, else ``PIO_TPU_SLO``) and ``qos`` (a spec or policy,
+    else ``PIO_TPU_QOS``, else the variant's ``qos`` block) configure the
+    SLO engine and the QoS gate."""
 
     def __init__(self, engine: Engine, engine_params: EngineParams,
                  models: Sequence[Any], device: DeviceLike = None,
@@ -461,8 +609,14 @@ class QueryService:
                  admin_key: Optional[str] = None,
                  variant: Optional[EngineVariant] = None,
                  ctx: Optional[ComputeContext] = None,
-                 mesh_devices: Optional[Sequence[DeviceLike]] = None):
+                 mesh_devices: Optional[Sequence[DeviceLike]] = None,
+                 feedback: bool = False,
+                 feedback_app_id: Optional[int] = None,
+                 slos: Optional[List[str]] = None,
+                 qos: Any = None):
         self.variant = variant
+        self.feedback = feedback
+        self.feedback_app_id = feedback_app_id
         self._mesh_devices = (None if mesh_devices is None
                               else tuple(mesh_devices))
         #: the current generation's sharding block (None: not sharded)
@@ -515,6 +669,9 @@ class QueryService:
         # resident scorers book into it; the sampler reads the
         # allocator's counters off the dispatch path
         self.obs = MetricsRegistry()
+        eng = variant.engine_id if variant is not None else ""
+        self._engine_label = eng
+        self._init_request_plane(slos, qos)
         self.obs.add_collector(faults.exposition_lines)
         watch_device = self.device if self.device is not None else (
             ctx.device if ctx is not None else None)
@@ -527,8 +684,6 @@ class QueryService:
             cuda=watch_device is not None and watch_device.type == "cuda")
         # mesh-sharded serving (PIO_TPU_MESH_SERVE): the families exist
         # before the first placement
-        eng = variant.engine_id if variant is not None else ""
-        self._engine_label = eng
         self._shard_bytes_placed_total = self.obs.counter(
             "pio_tpu_shard_bytes_placed_total",
             "Model parameter bytes placed sharded across the serving "
@@ -550,6 +705,58 @@ class QueryService:
         if window_us > 0:
             self._batcher = _MicroBatcher(self, window_us / 1e6,
                                           adaptive=adaptive)
+
+    def _init_request_plane(self, slos, qos) -> None:
+        """The request and stage families, the tracer, the log ring, the
+        SLO engine and the QoS gate with its scorer breaker."""
+        eng = self._engine_label
+        self._queries_total = self.obs.counter(
+            "pio_tpu_queries_total", "Queries served", ("engine_id",))
+        self._query_errors_total = self.obs.counter(
+            "pio_tpu_query_errors_total", "Queries that errored",
+            ("engine_id",))
+        #: full-request latency: the latency SLO's source
+        self._request_cell = self.obs.histogram(
+            "pio_tpu_request_seconds",
+            "Full-request wall seconds of /queries.json", ("engine_id",),
+        ).labels(eng)
+        #: accept to write, stamped after the write: what the client saw,
+        #: and the denominator of the /debug/hotpath.json budget
+        self._e2e_cell = self.obs.histogram(
+            "pio_tpu_e2e_seconds",
+            "End-to-end wall seconds of /queries.json (socket read "
+            "through response write)", ("engine_id",),
+        ).labels(eng)
+        # bound once: every request bumps them
+        self._queries_cell = self._queries_total.labels(eng)
+        self._errors_cell = self._query_errors_total.labels(eng)
+        self.tracer = Tracer(
+            "query", registry=self.obs,
+            stages=QUERY_STAGES + QUERY_SUBSTAGES,
+            extra_labels={"engine_id": eng},
+        )
+        # tail capture: PIO_TPU_SLOW_TRACE_MS, the tightest latency SLO,
+        # or the live p99 once there is enough signal
+        self.tracer.slow_threshold_fn = lambda: slow_threshold_s(
+            self.slo, self._e2e_cell)
+        slog.install()
+        self.obs.add_collector(slog.exposition_lines)
+        if slos is None:
+            slos = [x for x in knobs.knob_str("PIO_TPU_SLO").split(",")
+                    if x.strip()]
+        self.slo = None
+        if slos:
+            self.slo = engine_for_specs(
+                slos, self.obs,
+                availability_source=self._availability_good_total,
+                latency_cell_getter=lambda: self._request_cell,
+            )
+        policy = resolve_policy(
+            qos, self.variant.variant if self.variant is not None else None)
+        self.qos = (QoSGate(policy, self.obs, scope="queryserver")
+                    if policy is not None else None)
+        self._scorer_breaker = (self.qos.breaker("scorer")
+                                if self.qos is not None else None)
 
     # -- generations ---------------------------------------------------------
     @property
@@ -790,7 +997,7 @@ class QueryService:
             log.info("no algorithm provided a warmup query; buckets warm "
                      "on first dispatch")
             return []
-        t0 = time.monotonic()
+        t0 = monotonic_s()
         warmed = []
         for b in self._buckets.buckets:
             try:
@@ -806,7 +1013,7 @@ class QueryService:
                 log.exception("bucket %d warmup dispatch failed", b)
                 break
         log.info("bucket warmup: buckets %s in %.0f ms", warmed,
-                 (time.monotonic() - t0) * 1e3)
+                 (monotonic_s() - t0) * 1e3)
         return warmed
 
     # -- dispatch ------------------------------------------------------------
@@ -822,8 +1029,14 @@ class QueryService:
             with self._reading() as held:
                 return self._predict_one(query, held)
         failpoint("scorer.dispatch.solo")
+        t_dev = monotonic_s()
         with self.profile_hook.capture():
-            return self._predict_with(gen, query)
+            out = self._predict_with(gen, query)
+        # on whatever trace is active here: the request's (solo and
+        # fallback paths); a no-op untraced. The predictions end with
+        # their answers on the host, so the span closes after the card
+        add_active_span("execute.device", monotonic_s() - t_dev)
+        return out
 
     @staticmethod
     def _run_batch(pairs, serving, queries: list) -> list:
@@ -865,8 +1078,13 @@ class QueryService:
                 self.devwatch.record_compile("bucket_dispatch")
 
         def run(qs):
+            t_dev = monotonic_s()
             with self.profile_hook.capture():
-                return self._run_batch(gen.pairs, gen.serving, qs)
+                out = self._run_batch(gen.pairs, gen.serving, qs)
+            # one observation a dispatch, on the active trace: the
+            # micro-batch trace, or the lane drainer's untraced call
+            add_active_span("execute.device", monotonic_s() - t_dev)
+            return out
 
         return dispatch_bucketed(self._buckets, queries, run,
                                  on_dispatch=on_dispatch)
@@ -885,44 +1103,263 @@ class QueryService:
         except ParamsError as e:
             raise HTTPError(400, str(e))
 
-    def query(self, raw: bytes) -> Any:
-        """Answer one JSON query body: through the batch lane in a pool
-        sibling, through the micro-batcher where it is on, else inline."""
-        if not self._deployed:
-            raise HTTPError(503, "undeployed")
-        self._pool_sync()
+    @staticmethod
+    def _decode(raw: bytes) -> Any:
         if not raw:
             raise HTTPError(400, "query body required")
         try:
-            body = json.loads(raw)
+            return json.loads(raw)
         except (UnicodeDecodeError, json.JSONDecodeError) as e:
             raise HTTPError(400, f"invalid JSON: {e}")
-        # one generation parses, supplements and predicts the query
-        with self._reading() as gen:
-            query = gen.serving.supplement(
-                self._parse_query(body, gen.query_class))
+
+    def query(self, raw: bytes) -> Any:
+        """Answer one JSON query body in process (the route's path, with
+        no socket): the answer, or the route's ``HTTPError``."""
+        return self._answer(Request("POST", "/queries.json", {}, None,
+                                    raw_body=raw))[1]
+
+    def _shed(self, body, reason: str, retry_after_s: float):
+        """A shed decision as an answer: the stale cache's answer to
+        ``body`` (200 under ``X-Pio-Degraded``) where degradation is on
+        and it has one, else 429 (rate reasons) or 503 with
+        ``Retry-After``. ``pio_tpu_qos_shed_total`` counts only the
+        refusals; degraded answers have their own counter."""
+        if self.qos.stale is not None and body is not None:
+            cached = self.qos.stale.get(cache_key(body))
+            if cached is not None:
+                self.qos.count_degraded()
+                return 200, cached, {DEGRADED_HEADER: DEGRADED_VALUE}
+        self.qos.count_shed(reason)
+        status = 429 if reason in ("rate_limit", "key_rate_limit") else 503
+        raise HTTPError(status, f"overloaded: {reason}",
+                        headers=retry_after_header(retry_after_s))
+
+    def _admit(self, req: Request, body):
+        """QoS admission of one request: ``(admission, breaker call,
+        deadline, shed answer or None)``. The deadline counts from
+        receipt; a malformed one is the client's error."""
+        try:
+            deadline = Deadline.from_header(
+                req.header(DEADLINE_HEADER),
+                default_ms=self.qos.policy.deadline_ms)
+        except ValueError as e:
+            raise HTTPError(400, str(e))
+        timeout_s = (max(deadline.remaining_s(), 0.0)
+                     if deadline is not None else None)
+        adm = self.qos.admit(priority=req.header(PRIORITY_HEADER),
+                             timeout_s=timeout_s)
+        if not adm.ok:
+            return adm, None, deadline, self._shed(
+                body, adm.reason, adm.retry_after_s)
+        bcall = None
+        if self._scorer_breaker is not None:
+            bcall = self._scorer_breaker.acquire()
+            if not bcall.allowed:
+                # the admission's slot goes back before the shed raises
+                # (release is once only: the caller's is then a no-op)
+                adm.release()
+                return adm, bcall, deadline, self._shed(
+                    body, "breaker", bcall.retry_after_s)
+        return adm, bcall, deadline, None
+
+    def _open_trace(self, tr, req: Request, pre_s: float, adm) -> float:
+        """Head of a query's waterfall: the trace opens after admission,
+        so rebase it to the socket read and record accept and admit (and
+        the admission queue's wait, the tail of admit). Returns the
+        admit stage's end."""
+        tr.rebase(pre_s)
+        tr.add_span("accept", req.read_s, rel_start_s=0.0)
+        if adm is not None and adm.queue_wait_s > 0:
+            tr.add_span("admit.queue", adm.queue_wait_s,
+                        rel_start_s=max(pre_s - adm.queue_wait_s, 0.0))
+        # end-aligned to now: the trace-open and rebase work stays inside
+        # the budget instead of falling between spans
+        rel_admit_end = tr.elapsed_s
+        tr.add_span("admit", rel_admit_end - req.read_s,
+                    rel_start_s=req.read_s)
+        return rel_admit_end
+
+    def _close_trace(self, tr, req: Request, rel_ser: float) -> None:
+        """Tail of a query's waterfall: serialize, end-aligned to now,
+        and the write, stamped once the answer is flushed (with the
+        end-to-end latency, one clock read for both)."""
+        rel_done_s = tr.elapsed_s
+        tr.add_span("serialize", rel_done_s - rel_ser, rel_start_s=rel_ser)
+
+        def written(write_s: float, _tr=tr, _rel=rel_done_s):
+            done_s = _tr.elapsed_s
+            _tr.add_span("write", done_s - _rel, rel_start_s=_rel)
+            _tr.extend_total()
+            self._e2e_cell.observe(done_s, exemplar=_tr.trace_id)
+
+        req.on_written = written
+
+    def _account(self, t0: float, trace_id, error: bool) -> None:
+        self._request_cell.observe(monotonic_s() - t0, exemplar=trace_id)
+        self._queries_cell.inc()
+        if error:
+            self._errors_cell.inc()
+
+    def _answer(self, req: Request):
+        """The JSON query path, admitted, traced and dispatched through
+        the batch lane in a pool sibling, through the micro-batcher where
+        it is on, else inline: ``(status, answer, headers)``. A shed
+        answers from the stale cache or raises its 429/503."""
+        if not self._deployed:
+            raise HTTPError(503, "undeployed")
+        self._pool_sync()
+        t0 = monotonic_s()
+        error = True
+        adm = bcall = deadline = trace_id = None
+        # adopt the caller's trace id and span, so one id names the
+        # whole waterfall
+        in_tid, in_parent = parse_trace_header(req.header(TRACE_HEADER))
+        try:
+            if self.qos is not None:
+                body = req.body
+                if body is None and req.raw_body:
+                    try:
+                        body = json.loads(req.raw_body)
+                    except (UnicodeDecodeError, json.JSONDecodeError):
+                        body = None  # parse answers the 400 below
+                adm, bcall, deadline, shed = self._admit(req, body)
+                if shed is not None:
+                    error = False
+                    return shed
+            t_admitted = monotonic_s()
+            with self.tracer.trace("query", trace_id=in_tid,
+                                   parent=in_parent) as tr:
+                trace_id = tr.trace_id
+                rel_admit_end = self._open_trace(
+                    tr, req, req.read_s + (t_admitted - t0), adm)
+                body = self._decode(req.raw_body)
+                # one generation parses, supplements and predicts it
+                with self._reading() as gen:
+                    query = gen.serving.supplement(
+                        self._parse_query(body, gen.query_class))
+                    rel_parse_end = tr.elapsed_s
+                    tr.add_span("parse", rel_parse_end - rel_admit_end,
+                                rel_start_s=rel_admit_end)
+                    try:
+                        if deadline is not None and deadline.expired():
+                            # spent before the dispatch: nothing launches
+                            raise DeadlineExceeded("deadline elapsed")
+                        result, rel_ser = self._dispatch(
+                            tr, rel_parse_end, body, query, gen, deadline)
+                    except DeadlineExceeded:
+                        error = False
+                        return self._shed(body, "deadline", 0.0)
+                    except HTTPError:
+                        raise
+                    except ValueError as e:
+                        # a query the model cannot take, e.g. the wrong
+                        # number of attributes: the client's error
+                        raise HTTPError(400, str(e))
+                    except Exception:
+                        if bcall is not None:
+                            bcall.failure()
+                        raise
+                if bcall is not None:
+                    bcall.success()
+                out = self._finish(body, to_jsonable(result))
+                error = False
+                with self._lock:
+                    self.request_count += 1
+                # inside the trace: the record carries its id, joining
+                # /logs.json?trace_id= to /traces.json
+                log.info("served query engine=%s ms=%.3f",
+                         self._engine_label, (monotonic_s() - t0) * 1e3)
+                self._close_trace(tr, req, rel_ser)
+                # echo the id: an untraced caller learns which trace its
+                # request minted, a traced one sees it adopted
+                return 200, out, {TRACE_HEADER: tr.trace_id}
+        finally:
+            if bcall is not None:
+                # exits that never reached the scorer release a half-open
+                # probe grant; a no-op after success() or failure()
+                bcall.cancel()
+            if adm is not None:
+                adm.release()
+            self._account(t0, trace_id, error)
+
+    def _dispatch(self, tr, rel_parse_end: float, body, query,
+                  gen: _Generation, deadline):
+        """Serve a parsed query on ``gen``, recording queue and execute
+        (the micro-batcher records them from its worker; the lane and the
+        inline predict here): ``(result, the execute stage's end)``, where
+        serialize begins."""
+        if self._lane_client is None and self._batcher is not None \
+                and self._batcher.active():
+            result = self._batcher.submit(query, gen, span_sink=tr,
+                                          deadline=deadline)
+            return result, tr.elapsed_s
+        # no batcher: "queue" is the bookkeeping between parse and the
+        # dispatch, end-aligned so the stages tile
+        rel_exec = tr.elapsed_s
+        tr.add_span("queue", rel_exec - rel_parse_end,
+                    rel_start_s=rel_parse_end)
+        if self._lane_client is not None:
+            timeout_s = None
+            if deadline is not None:
+                timeout_s = max(0.005, min(self._lane_client.timeout_s,
+                                           deadline.remaining_s() - 0.01))
+            result = self._lane_submit(body, query, gen, timeout_s)
+        else:
+            result = self._predict_one(query, gen)
+        rel_end = tr.elapsed_s
+        tr.add_span("execute", rel_end - rel_exec, rel_start_s=rel_exec)
+        return result, rel_end
+
+    def _finish(self, body, out):
+        """An answer's serialization tail: the output blockers (a
+        ValueError vetoes it with a 400), feedback with its ``prId``, the
+        sniffers, and the stale cache's feed."""
+        for blocker in QUERY_BLOCKERS:
             try:
-                if self._lane_client is not None:
-                    result = self._lane_submit(body, query, gen)
-                elif self._batcher is not None and self._batcher.active():
-                    result = self._batcher.submit(query, gen)
-                else:
-                    result = self._predict_one(query, gen)
+                blocker(body, out)
             except ValueError as e:
-                # a query the model cannot take, e.g. the wrong number of
-                # attributes: the client's error
                 raise HTTPError(400, str(e))
-        out = to_jsonable(result)
-        with self._lock:
-            self.request_count += 1
+        if self.feedback:
+            pr_id = uuid.uuid4().hex
+            if isinstance(out, dict):
+                out = {**out, "prId": pr_id}
+            self._log_feedback(body, out, pr_id)
+        for sniffer in QUERY_SNIFFERS:
+            try:
+                sniffer(body, out)
+            except Exception:
+                log.exception("query sniffer failed")
+        if self.qos is not None and self.qos.stale is not None:
+            self.qos.stale.put(cache_key(body), out)
         return out
 
-    def _lane_submit(self, body, query, gen: _Generation):
+    def _log_feedback(self, query_body, result, pr_id: str) -> None:
+        """The reference's feedback loop: the answer back into the event
+        store as a ``predict`` event on entity ``pio_pr``/``prId``."""
+        if self.feedback_app_id is None:
+            return
+        try:
+            Storage.get_levents().insert(
+                Event(
+                    event="predict",
+                    entity_type="pio_pr",
+                    entity_id=pr_id,
+                    properties={"query": query_body, "prediction": result},
+                    pr_id=pr_id,
+                ),
+                self.feedback_app_id,
+            )
+        except Exception:
+            log.exception("feedback logging failed")
+
+    def _lane_submit(self, body, query, gen: _Generation,
+                     timeout_s: Optional[float] = None):
         """Ship a query to the device worker over the lane; any lane
         trouble serves it locally on ``gen``, counted by reason."""
         try:
             result = self._lane_client.submit(
-                body, packed=self._lane_pack(query, gen))
+                body, timeout_s=timeout_s,
+                packed=self._lane_pack(query, gen))
         except LaneFallback as lf:
             self._note_lane_fallback(lf.reason)
             return self._predict_one(query, gen)
@@ -949,28 +1386,86 @@ class QueryService:
         except ValueError:
             return None  # e.g. the wrong arity: the JSON path says so
 
-    def _query_packed(self, frame: bytes) -> bytes:
+    def _query_packed(self, req: Request):
         """The packed int8 wire: the body is a lane frame, validated
         structurally and shipped to the device worker as it is, or served
-        locally. Answers the JSON bytes of the result."""
+        locally; admitted and traced as a JSON query, with "parse" only
+        the frame check (a shed has no stale-cache key: 429/503). Answers
+        the JSON bytes of the result."""
         if not self._deployed:
             raise HTTPError(503, "undeployed")
         self._pool_sync()
-        if not packed_frame_ok(frame):
-            raise HTTPError(400, "malformed packed query frame")
-        resp = None
-        if self._lane_client is not None:
-            try:
-                resp = self._lane_client.submit_packed(frame)
+        t0 = monotonic_s()
+        error = True
+        adm = bcall = deadline = trace_id = None
+        in_tid, in_parent = parse_trace_header(req.header(TRACE_HEADER))
+        frame = req.packed
+        try:
+            if not packed_frame_ok(frame):
+                raise HTTPError(400, "malformed packed query frame")
+            if self.qos is not None:
+                # no stale-cache key for a binary body: a shed raises
+                adm, bcall, deadline, _ = self._admit(req, None)
+            t_admitted = monotonic_s()
+            with self.tracer.trace("query", trace_id=in_tid,
+                                   parent=in_parent) as tr:
+                trace_id = tr.trace_id
+                rel_admit_end = self._open_trace(
+                    tr, req, req.read_s + (t_admitted - t0), adm)
+                rel_parse_end = tr.elapsed_s
+                tr.add_span("parse", rel_parse_end - rel_admit_end,
+                            rel_start_s=rel_admit_end)
+                try:
+                    if deadline is not None and deadline.expired():
+                        raise DeadlineExceeded("deadline elapsed")
+                    rel_exec = tr.elapsed_s
+                    tr.add_span("queue", rel_exec - rel_parse_end,
+                                rel_start_s=rel_parse_end)
+                    resp = None
+                    if self._lane_client is not None:
+                        timeout_s = None
+                        if deadline is not None:
+                            timeout_s = max(0.005, min(
+                                self._lane_client.timeout_s,
+                                deadline.remaining_s() - 0.01))
+                        try:
+                            resp = self._lane_client.submit_packed(
+                                frame, timeout_s=timeout_s)
+                            with self._lock:
+                                self.lane_counts["enqueued"] += 1
+                        except LaneFallback as lf:
+                            self._note_lane_fallback(lf.reason)
+                    if resp is None:
+                        resp = self._query_packed_local(frame)
+                    rel_ser = tr.elapsed_s
+                    tr.add_span("execute", rel_ser - rel_exec,
+                                rel_start_s=rel_exec)
+                except DeadlineExceeded:
+                    error = False
+                    return self._shed(None, "deadline", 0.0)
+                except HTTPError:
+                    raise
+                except Exception:
+                    if bcall is not None:
+                        bcall.failure()
+                    raise
+                if bcall is not None:
+                    bcall.success()
+                error = False
                 with self._lock:
-                    self.lane_counts["enqueued"] += 1
-            except LaneFallback as lf:
-                self._note_lane_fallback(lf.reason)
-        if resp is None:
-            resp = self._query_packed_local(frame)
-        with self._lock:
-            self.request_count += 1
-        return resp
+                    self.request_count += 1
+                log.info("served packed query engine=%s ms=%.3f",
+                         self._engine_label, (monotonic_s() - t0) * 1e3)
+                self._close_trace(tr, req, rel_ser)
+                return 200, RawResponse(
+                    resp, content_type="application/json; charset=UTF-8",
+                    headers={TRACE_HEADER: tr.trace_id})
+        finally:
+            if bcall is not None:
+                bcall.cancel()
+            if adm is not None:
+                adm.release()
+            self._account(t0, trace_id, error)
 
     def _query_packed_local(self, frame: bytes) -> bytes:
         """Serve a packed frame here: its codes ARE the int8 scorer's
@@ -1012,6 +1507,9 @@ class QueryService:
         self._pool_shutdown = shutdown_evt
         self._seen_gen = gen.value
         self.health.add_liveness("event_loop", self.heartbeat.check)
+        # pool-unique trace ids (query-w<i>-<n>) and worker-stamped logs
+        self.tracer.set_worker(idx)
+        slog.set_worker(idx)
 
     def enable_batch_lane(self, path: str, doorbell, resp_events,
                           device: bool) -> None:
@@ -1161,7 +1659,14 @@ class QueryService:
         if self._pool_idx is not None:
             out["worker"] = self._pool_idx
             out["poolSize"] = self._pool_size
+        stages = self.tracer.stage_summary(QUERY_STAGES)
+        if stages:
+            out["stages"] = stages
         return out
+
+    def _availability_good_total(self):
+        total = self._queries_cell.value
+        return total - self._errors_cell.value, total
 
     def status(self) -> dict:
         self._pool_sync()
@@ -1186,6 +1691,14 @@ class QueryService:
               lambda req: (200, self.devwatch.payload()))
         r.add("GET", "/metrics",
               lambda req: (200, metrics_response(self.obs.render())))
+        r.add("GET", "/traces\\.json", self.get_traces)
+        r.add("GET", "/logs\\.json", logs_route)
+        r.add("GET", "/slo\\.json",
+              lambda req: (200, slo_payload(self.slo)))
+        r.add("GET", "/qos\\.json", lambda req: (200, qos_payload(self.qos)))
+        r.add("GET", "/debug/hotpath\\.json", self.get_hotpath)
+        r.add("GET", "/plugins\\.json",
+              lambda req: (200, installed_plugins()))
         r.add("GET", "/faults\\.json", lambda req: (200, faults.snapshot()))
         r.add("GET", "/debug/profile\\.json",
               lambda req: (200, self.profile_hook.to_dict()))
@@ -1199,8 +1712,33 @@ class QueryService:
 
     def _route_query(self, req: Request):
         if req.packed is not None:
-            return 200, self._query_packed(req.packed)
-        return 200, self.query(req.raw_body)
+            return self._query_packed(req)
+        status, out, headers = self._answer(req)
+        return status, json_response(out, headers)
+
+    def get_traces(self, req: Request):
+        """Recent traces, slowest first (``?order=recent`` newest first);
+        ``?slow=1`` the slow ring; ``?id=`` one trace (404 when in no
+        ring); ``?n=`` how many."""
+        n = int_param(req.params, "n", 20, lo=0, hi=self.tracer._ring_cap)
+        tid = req.params.get("id")
+        if tid:
+            found = self.tracer.find(tid)
+            if found is None:
+                raise HTTPError(404, f"trace {tid} not in any ring")
+            return 200, {"traces": [found]}
+        if req.params.get("slow") in ("1", "true"):
+            return 200, {"traces": self.tracer.slow(n)}
+        slowest = req.params.get("order", "slowest") != "recent"
+        return 200, {"traces": self.tracer.recent(n, slowest=slowest)}
+
+    def get_hotpath(self, req: Request):
+        """Per-stage latency budget (count, mean, p50/p95 and the
+        fraction of the end-to-end mean the stages attribute)."""
+        return 200, hotpath_payload(
+            self.tracer, self._e2e_cell,
+            stage_order=QUERY_STAGES + QUERY_SUBSTAGES, pool=False,
+            slow_threshold_s=slow_threshold_s(self.slo, self._e2e_cell))
 
     def healthz(self, req: Request):
         ok, report = self.health.liveness()
@@ -1301,16 +1839,26 @@ def create_query_server(
     port: int = 8000,
     device: DeviceLike = None,
     mesh_devices: Optional[Sequence[DeviceLike]] = None,
+    feedback: bool = False,
+    feedback_app_id: Optional[int] = None,
+    slos: Optional[List[str]] = None,
+    qos: Any = None,
 ) -> QueryServer:
     """A query server (not yet started) over in-memory ``models``; port 0
     picks a free port (read it back from :attr:`QueryServer.port`).
     ``device`` is the resident scorers' serving device; ``mesh_devices``
     the serving mesh of ``PIO_TPU_MESH_SERVE=1`` (default: every local
-    CUDA device). ``/reload`` answers 400: there is no stored instance to
-    reload."""
-    return QueryServer(QueryService(engine, engine_params, models, device,
-                                    mesh_devices=mesh_devices),
-                       host, port)
+    CUDA device); ``feedback``, ``feedback_app_id``, ``slos`` and ``qos``
+    as :class:`QueryService` takes them. The plugin modules of
+    ``PIO_TPU_PLUGINS`` load first. ``/reload`` answers 400: there is no
+    stored instance to reload."""
+    from pio_tpu_torch.server.plugins import load_plugins_from_env
+
+    load_plugins_from_env()
+    return QueryServer(QueryService(
+        engine, engine_params, models, device, mesh_devices=mesh_devices,
+        feedback=feedback, feedback_app_id=feedback_app_id, slos=slos,
+        qos=qos), host, port)
 
 
 def deploy_query_server(
@@ -1322,6 +1870,10 @@ def deploy_query_server(
     admin_key: Optional[str] = None,
     reuse_port: bool = False,
     mesh_devices: Optional[Sequence[DeviceLike]] = None,
+    feedback: bool = False,
+    feedback_app_id: Optional[int] = None,
+    slos: Optional[List[str]] = None,
+    qos: Any = None,
 ) -> QueryServer:
     """A query server (not yet started) over a stored engine instance, the
     way ``pio deploy`` builds it (the reference's ``create_query_server(
@@ -1333,7 +1885,12 @@ def deploy_query_server(
     variant's newest instance the same way; ``reuse_port`` lets the
     processes of a serving pool share ``port``. ``mesh_devices`` is the
     serving mesh of ``PIO_TPU_MESH_SERVE=1`` (default: every local CUDA
-    device). A server is one process: it joins no process group."""
+    device); ``feedback``, ``feedback_app_id``, ``slos`` and ``qos`` as
+    :class:`QueryService` takes them, the plugins of ``PIO_TPU_PLUGINS``
+    loaded first. A server is one process: it joins no process group."""
+    from pio_tpu_torch.server.plugins import load_plugins_from_env
+
+    load_plugins_from_env()
     engine, engine_params = build_engine(variant)
     instance_id = resolve_instance_id(variant, instance_id)
     ctx = ComputeContext.local(device=device)
@@ -1343,6 +1900,7 @@ def deploy_query_server(
     service = QueryService(
         engine, engine_params, models, device=ctx.device,
         instance_id=instance_id, admin_key=admin_key, variant=variant,
-        ctx=ctx, mesh_devices=mesh_devices,
+        ctx=ctx, mesh_devices=mesh_devices, feedback=feedback,
+        feedback_app_id=feedback_app_id, slos=slos, qos=qos,
     )
     return QueryServer(service, host, port, reuse_port=reuse_port)

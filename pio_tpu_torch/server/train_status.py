@@ -12,13 +12,14 @@ small HTTP server of its own, on the port's ``server/http.py``:
 - ``GET /metrics`` — the process-global registry: the run's
   ``pio_tpu_train_*`` and ``pio_tpu_device_*``/``pio_tpu_xla_*``
   families;
+- ``GET /logs.json`` — the structured-log ring (``obs/slog.py``), whose
+  records inside a traced phase carry its trace id and span;
 - ``GET /healthz`` / ``GET /readyz`` — alive; ready while a run is
   recording.
 
 It reads the process-global state rather than holding its own: the run
 is driven in the same process, and the sidecar's thread must see
 whatever run is live, including one that starts after the server.
-``/logs.json`` is not ported (structured logs are not).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from pio_tpu_torch.server.http import (
     JsonHTTPServer,
     Request,
     Router,
+    logs_route,
     metrics_response,
 )
 
@@ -46,6 +48,7 @@ class TrainStatusService:
         self.router = Router()
         self.router.add("GET", "/train\\.json", self.train_json)
         self.router.add("GET", "/device\\.json", self.device_json)
+        self.router.add("GET", "/logs\\.json", logs_route)
         self.router.add("GET", "/metrics", self.get_metrics)
         self.router.add("GET", "/healthz", self.healthz)
         self.router.add("GET", "/readyz", self.readyz)

@@ -56,8 +56,17 @@ Failpoint ``worker.serve`` fires on every turn of a worker's serve loop
 ``--faults`` spec reaches the workers through ``PIO_TPU_FAULTS``, which
 they inherit and arm at import.
 
-Not ported: the shared metrics segment behind ``/metrics``, the evloop
-front, QoS, SLOs and feedback.
+Each worker serves with the pool's SLOs, QoS policy and feedback app
+(``slos``, ``qos``, ``feedback_app_id``), its trace ids namespaced
+``query-w<i>-<n>``. ``inflight``, ``queue``, ``deadline``, ``cache`` and
+the breaker are a worker's own, as in the reference; a rate budget
+(``rps=`` or ``key_rps=``) is refused under more than one worker with
+``ValueError``: the reference shares one budget across the pool through
+the shared metrics segment (``obs/shm``), which the port has not ported,
+and N budgets would admit N times the rate.
+
+Not ported: the shared metrics segment behind ``/metrics`` and the evloop
+front.
 """
 
 from __future__ import annotations
@@ -74,6 +83,7 @@ import urllib.request
 from typing import Optional
 
 from pio_tpu_torch.faults import failpoint
+from pio_tpu_torch.qos import resolve_policy
 from pio_tpu_torch.server.batchlane import BatchLaneSegment
 from pio_tpu_torch.utils import knobs
 from pio_tpu_torch.workflow.engine_json import EngineVariant
@@ -125,6 +135,9 @@ def _worker_main(spec: dict, idx: int, gen, shutdown_evt,
         instance_id=instance_id, device=device,
         admin_key=spec.get("admin_key"), reuse_port=True,
         mesh_devices=spec.get("mesh_devices") if owns_device else None,
+        feedback=spec.get("feedback_app_id") is not None,
+        feedback_app_id=spec.get("feedback_app_id"),
+        slos=spec.get("slos"), qos=spec.get("qos"),
     )
     service = server.service
     service.enable_pool(idx, spec["n_workers"], gen, shutdown_evt)
@@ -166,7 +179,10 @@ class ServingPool:
     pool without a device (or mesh) worker serves on the CPU, so it needs
     ``device="cpu"`` and raises ``ValueError`` otherwise. ``mesh_worker``
     makes worker 0 the device worker serving sharded over ``mesh_devices``
-    (default: every local CUDA device)."""
+    (default: every local CUDA device). ``slos``, ``qos`` and
+    ``feedback_app_id`` reach every worker; a ``qos`` (or ``PIO_TPU_QOS``,
+    or the variant's ``qos`` block) with a rate budget raises
+    ``ValueError`` under more than one worker."""
 
     def __init__(
         self,
@@ -180,9 +196,21 @@ class ServingPool:
         device: Optional[str] = None,
         mesh_worker: bool = False,
         mesh_devices=None,
+        slos=None,
+        qos: Optional[str] = None,
+        feedback_app_id: Optional[int] = None,
     ):
         if n_workers < 1:
             raise ValueError("n_workers must be >= 1")
+        policy = resolve_policy(qos, variant.variant)
+        if n_workers > 1 and policy is not None \
+                and (policy.rps or policy.key_rps):
+            raise ValueError(
+                "a QoS rate budget (rps= or key_rps=) needs one pool-wide "
+                "budget, kept in the shared metrics segment (obs/shm), "
+                "which the port has not ported: each of the "
+                f"{n_workers} workers would admit the whole rate; drop "
+                "rps=/key_rps= or serve with --workers 1")
         device_worker = device_worker or mesh_worker
         if not device_worker and str(device) != "cpu":
             # every worker of a pool without a device worker serves on
@@ -224,6 +252,9 @@ class ServingPool:
             "mesh_devices": (None if mesh_devices is None
                              else [str(d) for d in mesh_devices]),
             "device": None if device is None else str(device),
+            "slos": None if slos is None else list(slos),
+            "qos": qos,
+            "feedback_app_id": feedback_app_id,
         }
         self.n_workers = n_workers
         self._procs: list = []

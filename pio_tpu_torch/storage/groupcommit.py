@@ -5,9 +5,12 @@ nothing of ``pio_tpu``): its failpoint (``groupcommit.flush.<store>``,
 inside the flush's try, so an injected error takes the solo-retry path),
 the partial-flush outcome of backends that cannot write a batch
 atomically (the event log's appends across several files), the
-outcome-count check and the liveness ``probe``; without its tracing and
-metrics, which wait for the event server's ``/traces.json`` and
-``/metrics``.
+outcome-count check, the liveness ``probe``, and its tracing and metrics:
+each leader flush is a trace of :data:`COMMIT_TRACER` linking its members'
+request traces, each member's own trace gets ``store.commit_wait`` and
+``store.flush`` spans, and ``pio_tpu_groupcommit_flush_seconds`` /
+``pio_tpu_groupcommit_batch_size`` meter the flushes on the process-global
+registry (the event server shows them on its ``/metrics``).
 
 This is the classic database group-commit protocol, chosen over a
 dedicated committer thread because it is free for serial traffic: a lone
@@ -28,6 +31,33 @@ import threading
 from typing import Any, Callable, List, Sequence
 
 from pio_tpu_torch.faults import failpoint
+from pio_tpu_torch.obs.metrics import REGISTRY, monotonic_s
+from pio_tpu_torch.obs.slog import current_trace_id
+from pio_tpu_torch.obs.tracing import Tracer, active_trace
+
+#: leader flush duration + coalescing effectiveness, labelled by the
+#: owning store (process-global registry: storage has no HTTP surface of
+#: its own; the event server re-exposes these)
+_FLUSH_SECONDS = REGISTRY.histogram(
+    "pio_tpu_groupcommit_flush_seconds",
+    "Group-commit leader flush duration",
+    ("store",),
+)
+_BATCH_SIZE = REGISTRY.histogram(
+    "pio_tpu_groupcommit_batch_size",
+    "Payloads coalesced per group-commit flush",
+    ("store",),
+    buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256),
+)
+
+#: one trace per leader flush, LINKING the member request traces — the
+#: join point of the event path's waterfall ("which requests rode this
+#: flush, and which flush did request X wait on"). Feeds
+#: ``pio_tpu_commit_stage_seconds``; the event server merges this ring
+#: into its ``/traces.json``.
+COMMIT_TRACER = Tracer(
+    "commit", registry=REGISTRY, stages=("store.flush",), ring=64,
+)
 
 
 class PartialFlushOutcome(Exception):
@@ -57,13 +87,20 @@ class FlushProtocolError(RuntimeError):
 
 
 class _Item:
-    __slots__ = ("payload", "done", "result", "exc")
+    __slots__ = ("payload", "done", "result", "exc", "trace_id",
+                 "t_submit", "flush_s", "commit_id")
 
     def __init__(self, payload):
         self.payload = payload
         self.done = threading.Event()
         self.result = None
         self.exc: Any = None
+        # trace propagation: the submitting request's trace id rides the
+        # item so the leader's flush trace can link its batch-mates
+        self.trace_id = current_trace_id()
+        self.t_submit = monotonic_s()
+        self.flush_s = 0.0          # stamped by the leader
+        self.commit_id = None       # the flush trace that carried us
 
 
 class GroupCommitter:
@@ -104,11 +141,42 @@ class GroupCommitter:
                 with self._qlock:
                     batch = self._q
                     self._q = []
-                self._flush_batch(batch)
+                t_flush = monotonic_s()
+                _BATCH_SIZE.observe(len(batch), store=self._store)
+                # the leader's flush gets its own trace LINKING every
+                # member request
+                member_ids = [i.trace_id for i in batch if i.trace_id]
+                with COMMIT_TRACER.trace(
+                    "commit", links=member_ids,
+                    store=self._store, batch=len(batch),
+                ) as ctr:
+                    self._flush_batch(batch)
+                    flush_s = monotonic_s() - t_flush
+                    ctr.add_span("store.flush", flush_s, rel_start_s=0.0)
+                    if any(i.exc is not None for i in batch):
+                        ctr.mark_error()
+                _FLUSH_SECONDS.observe(flush_s, store=self._store)
                 for i in batch:
+                    i.flush_s = flush_s
+                    i.commit_id = ctr.trace_id
                     i.done.set()
             finally:
                 self._commit_lock.release()
+        # attribute the submit on the SUBMITTING request's waterfall:
+        # commit_wait (queued behind another leader's flush) + flush
+        handle = active_trace()
+        if handle is not None:
+            total_s = monotonic_s() - item.t_submit
+            flush_s = min(item.flush_s, total_s)
+            wait_s = max(total_s - flush_s, 0.0)
+            rel = handle.elapsed_s - total_s
+            if wait_s >= 100e-6:
+                handle.add_span("store.commit_wait", wait_s,
+                                rel_start_s=rel)
+            handle.add_span("store.flush", flush_s,
+                            rel_start_s=rel + wait_s)
+            if item.commit_id:
+                handle.note(commit=item.commit_id)
         if item.exc is not None:
             raise item.exc
         return item.result

@@ -35,9 +35,19 @@ failpoint grammar of ``pio_tpu_torch/faults``): the spec is parsed before
 anything starts, so a bad one exits 1, then exported as
 ``PIO_TPU_FAULTS`` (pool workers arm from it) and installed.
 
+``deploy`` and ``eventserver`` take ``--slo SPEC`` (repeatable:
+``p99=50ms:99.9``, ``availability=99.9``, an optional ``/6h`` window) and
+``--qos SPEC`` (``rps=500,queue=64,deadline=100ms``; keys rps, burst,
+key_rps, key_burst, inflight, queue, deadline, cache, fail_rate,
+fail_window, probes, cooldown): each is parsed before anything starts, so
+a bad one exits 1, then exported as ``PIO_TPU_SLO`` / ``PIO_TPU_QOS`` for
+pool workers. ``deploy --workers N`` (N > 1) with ``rps=`` or ``key_rps=``
+exits 1: the port has no pool-wide budget yet. ``deploy --feedback-app
+NAME`` writes every answer back into that app as a ``predict`` event.
+``PIO_TPU_PLUGINS`` names plugin modules the servers load at start.
+
 Not ported yet (ROADMAP A): the verbs dashboard, fleet, route, rollout,
-adminserver, run, lint and template list; the flags --slo, --qos and
---feedback-app.
+adminserver, run, lint and template list.
 
 Usage: ``python -m pio_tpu_torch <verb> ...``
 """
@@ -89,6 +99,50 @@ def _arm_faults(args) -> None:
         raise SystemExit(_err(f"--faults: {e}"))
     os.environ[faults.ENV_VAR] = spec
     faults.install(spec)
+
+
+def _request_plane(args) -> tuple:
+    """``--slo`` and ``--qos``: parse them first, so that a bad spec exits
+    1 before anything starts; then export them for spawned workers.
+    Returns ``(slos or None, qos or None)``."""
+    from pio_tpu_torch.obs.slo import parse_slo
+    from pio_tpu_torch.qos import parse_qos
+
+    slos = list(getattr(args, "slo", None) or []) or None
+    qos = getattr(args, "qos", None) or None
+    for spec in slos or ():
+        try:
+            parse_slo(spec)
+        except ValueError as e:
+            raise SystemExit(_err(f"--slo: {e}"))
+    if qos:
+        try:
+            parse_qos(qos)
+        except ValueError as e:
+            raise SystemExit(_err(f"--qos: {e}"))
+    if slos:
+        os.environ["PIO_TPU_SLO"] = ",".join(slos)
+    if qos:
+        os.environ["PIO_TPU_QOS"] = qos
+    return slos, qos
+
+
+def _request_plane_flags(a) -> None:
+    a.add_argument(
+        "--slo", action="append", default=[], metavar="SPEC",
+        help="declare a serving SLO, repeatable: p99=50ms:99.9 (99.9%% of "
+             "requests within 50 ms) or availability=99.9, optional "
+             "/WINDOW suffix (e.g. /6h); evaluated on /slo.json and "
+             "exported as pio_tpu_slo_* gauges",
+    )
+    a.add_argument(
+        "--qos", default=None, metavar="SPEC",
+        help="admission control, e.g. 'rps=500,queue=64,deadline=100ms' "
+             "(keys: rps, burst, key_rps, key_burst, inflight, queue, "
+             "deadline, cache, fail_rate, fail_window, probes, cooldown); "
+             "excess load is shed with 429/503 + Retry-After, state on "
+             "/qos.json",
+    )
 
 
 def _faults_flag(a, example: str) -> None:
@@ -417,8 +471,10 @@ def cmd_eval(args) -> int:
 def cmd_eventserver(args) -> int:
     from pio_tpu_torch.server.event_server import create_event_server
 
+    slos, qos = _request_plane(args)
     _arm_faults(args)
-    server = create_event_server(host=args.ip, port=args.port)
+    server = create_event_server(host=args.ip, port=args.port, slos=slos,
+                                 qos=qos)
     _out(f"Event Server listening on {args.ip}:{server.port}")
     try:
         server.serve_forever()
@@ -452,9 +508,13 @@ def cmd_deploy(args) -> int:
     from pio_tpu_torch.server.query_server import deploy_query_server
     from pio_tpu_torch.workflow.engine_json import load_variant
 
+    slos, qos = _request_plane(args)
     _arm_faults(args)
+    feedback_app_id = (_resolve_app(args.feedback_app).id
+                       if args.feedback_app else None)
     if args.workers > 1:
-        return _deploy_pool(args, load_variant(args.engine_json))
+        return _deploy_pool(args, load_variant(args.engine_json), slos, qos,
+                            feedback_app_id)
     for flag in ("device_worker", "mesh_worker"):
         if getattr(args, flag):
             return _err(f"--{flag.replace('_', '-')} needs --workers > 1")
@@ -467,6 +527,10 @@ def cmd_deploy(args) -> int:
         instance_id=args.engine_instance_id,
         device=device,
         admin_key=args.admin_key,
+        feedback=feedback_app_id is not None,
+        feedback_app_id=feedback_app_id,
+        slos=slos,
+        qos=qos,
     )
     _out(
         f"Query Server for instance {server.service.instance_id} "
@@ -485,10 +549,12 @@ def cmd_deploy(args) -> int:
 POOL_READY_S = 120.0
 
 
-def _deploy_pool(args, variant) -> int:
+def _deploy_pool(args, variant, slos=None, qos=None,
+                 feedback_app_id=None) -> int:
     """``deploy --workers N``: a supervised SO_REUSEPORT pool. The device
     is resolved in the device worker, never here (one process holds the
-    card); without a card its startup fails and this exits 1."""
+    card); without a card its startup fails and this exits 1, and so does
+    a QoS rate budget, which the port cannot share across workers."""
     from pio_tpu_torch.server.worker_pool import ServingPool
 
     try:
@@ -499,6 +565,7 @@ def _deploy_pool(args, variant) -> int:
             mesh_worker=args.mesh_worker,
             mesh_devices=(args.mesh_devices.split(",")
                           if args.mesh_devices else None),
+            slos=slos, qos=qos, feedback_app_id=feedback_app_id,
         )
     except ValueError as e:
         return _err(str(e))
@@ -907,6 +974,10 @@ def build_parser() -> argparse.ArgumentParser:
     a.add_argument("--port", type=int, default=8000)
     a.add_argument("--engine-instance-id", default=None)
     a.add_argument(
+        "--feedback-app", default=None,
+        help="app name to log prediction feedback events into",
+    )
+    a.add_argument(
         "--admin-key", default=None,
         help="access key required by /reload and /undeploy; without one "
              "they are loopback-only",
@@ -934,6 +1005,7 @@ def build_parser() -> argparse.ArgumentParser:
              "shards over (default: every local CUDA device); a device may "
              "repeat, e.g. cuda:0,cuda:0 on a one-card host",
     )
+    _request_plane_flags(a)
     _faults_flag(a, "storage.sqlite.commit=latency:200ms,"
                     "worker.serve=crash:once")
     _device_flag(a)
@@ -959,6 +1031,7 @@ def build_parser() -> argparse.ArgumentParser:
     a = sub.add_parser("eventserver", help="run the event ingestion server")
     a.add_argument("--ip", default="0.0.0.0")
     a.add_argument("--port", type=int, default=7070)
+    _request_plane_flags(a)
     _faults_flag(a, "storage.sqlite.commit=error:0.1")
     a.set_defaults(fn=cmd_eventserver)
 

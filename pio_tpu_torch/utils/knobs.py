@@ -98,6 +98,21 @@ _DEFAULTS = {
     # -- the event and model stores (storage/blobstore.py) --
     # bearer key an `http://` blob backend sends to the blob daemon
     "PIO_TPU_BLOB_ACCESS_KEY": "",
+    # -- the request plane (obs/slo.py, slog.py, tracing.py, qos/,
+    # server/plugins.py), the reference's names and defaults --
+    # comma-separated SLO specs, e.g. `p99=50ms:99.9,availability=99.9`
+    "PIO_TPU_SLO": "",
+    # admission-control spec, e.g. `rps=500,queue=64,deadline=100ms`
+    "PIO_TPU_QOS": "",
+    # slow-trace capture threshold, ms (0: the tightest latency SLO, else
+    # the live p99 once there are 64 requests)
+    "PIO_TPU_SLOW_TRACE_MS": "0",
+    # `1` renders every log record as one JSON line on stderr
+    "PIO_TPU_LOG_JSON": "",
+    # entries of the structured-log ring behind /logs.json
+    "PIO_TPU_LOG_RING": "512",
+    # comma-separated plugin modules imported at server start
+    "PIO_TPU_PLUGINS": "",
 }
 
 #: knobs whose value must be positive; another value reads as the default

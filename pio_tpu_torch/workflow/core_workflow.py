@@ -37,8 +37,10 @@ ranks, and naive Bayes trains a whole copy on each rank (a warning names
 it). Only the coordinator (rank 0)
 writes: the engine instance, the models, the run ledger row and the
 profile trace; the other ranks wait at a barrier and return the
-coordinator's instance id. Not ported yet: the reference's
-PersistentModel opt-out and the train tracer (ROADMAP A).
+coordinator's instance id. Each run is a trace of :data:`TRAIN_TRACER`
+whose spans are its phases (``Engine.train``'s and ``persist``), so the
+log records of a phase carry the run's trace id. Not ported yet: the
+reference's PersistentModel opt-out (ROADMAP A).
 """
 
 from __future__ import annotations
@@ -67,7 +69,8 @@ from pio_tpu_torch.controller.evaluation import (
 )
 from pio_tpu_torch.controller.params import params_to_dict, params_to_json
 from pio_tpu_torch.obs import devicewatch, trainwatch
-from pio_tpu_torch.obs.metrics import monotonic_s
+from pio_tpu_torch.obs.metrics import REGISTRY, monotonic_s
+from pio_tpu_torch.obs.tracing import Tracer
 from pio_tpu_torch.obs.profile import trace
 from pio_tpu_torch.parallel import distributed
 from pio_tpu_torch.parallel.context import ComputeContext
@@ -83,6 +86,17 @@ from pio_tpu_torch.workflow import shard_store
 from pio_tpu_torch.workflow.params import WorkflowParams
 
 log = logging.getLogger("pio_tpu_torch.workflow")
+
+#: the training-run tracer (process-global registry): every run lands in
+#: its ring and feeds pio_tpu_train_stage_seconds, labelled by the
+#: phases (read / prepare / train.<i>_<algo> / persist). Wide buckets:
+#: reads take milliseconds, a large ALS run minutes.
+TRAIN_TRACER = Tracer(
+    "train", registry=REGISTRY,
+    stages=("read", "prepare", "persist"),
+    buckets=(0.01, 0.05, 0.1, 0.5, 1.0, 5.0, 10.0, 30.0, 60.0,
+             300.0, 1800.0, 7200.0),
+)
 
 #: Models-store id suffix of the checksum manifest written next to each
 #: pickled blob: {"sha256": ..., "size": ...}. Blob first, manifest second,
@@ -270,7 +284,9 @@ def run_train(
         # serves its payload as /device.json while steps stream
         with trainwatch.recording(recorder), devicewatch.watching(
             devicewatch.DeviceWatch(device=ctx.device)
-        ):
+        ), TRAIN_TRACER.trace(
+            "train", instanceId=instance_id, engineId=variant.engine_id
+        ) as tr:
             with contextlib.ExitStack() as stack:
                 if workflow_params.profile_dir:
                     # a torch.profiler trace of the whole train
@@ -295,26 +311,29 @@ def run_train(
 
             recorder.set_phase("persist")
             t_persist = monotonic_s()
-            models_store = Storage.get_model_data_models()
-            blob_models = list(models)
-            if shard_store.sharded_persist_enabled():
-                # shard records + shard manifest before the blob, which
-                # keeps placeholders: a torn persist leaves shards without
-                # a blob, never a blob naming missing shards
-                blob_models = shard_store.save_sharded(
-                    models_store, instance_id, blob_models,
-                    n_shards=ctx.num_devices, mesh_shape=[ctx.num_devices],
+            with tr.span("persist"):
+                models_store = Storage.get_model_data_models()
+                blob_models = list(models)
+                if shard_store.sharded_persist_enabled():
+                    # shard records + shard manifest before the blob,
+                    # which keeps placeholders: a torn persist leaves
+                    # shards without a blob, never a blob naming missing
+                    # shards
+                    blob_models = shard_store.save_sharded(
+                        models_store, instance_id, blob_models,
+                        n_shards=ctx.num_devices,
+                        mesh_shape=[ctx.num_devices],
+                    )
+                blob = serialize_models(blob_models)
+                models_store.insert(Model(id=instance_id, models=blob))
+                manifest = _json.dumps(
+                    {"sha256": hashlib.sha256(blob).hexdigest(),
+                     "size": len(blob)},
+                    sort_keys=True,
+                ).encode()
+                models_store.insert(
+                    Model(id=instance_id + MANIFEST_SUFFIX, models=manifest)
                 )
-            blob = serialize_models(blob_models)
-            models_store.insert(Model(id=instance_id, models=blob))
-            manifest = _json.dumps(
-                {"sha256": hashlib.sha256(blob).hexdigest(),
-                 "size": len(blob)},
-                sort_keys=True,
-            ).encode()
-            models_store.insert(
-                Model(id=instance_id + MANIFEST_SUFFIX, models=manifest)
-            )
             timings["persist"] = round(monotonic_s() - t_persist, 3)
             recorder.set_phase_seconds("persist", timings["persist"])
             recorder.set_phase("done")

@@ -52,6 +52,12 @@ from pio_tpu.templates.classification import Query as JaxQuery
 from pio_tpu.workflow import build_engine as jax_build_engine
 from pio_tpu.workflow import run_train as jax_run_train
 from pio_tpu.workflow import variant_from_dict as jax_variant_from_dict
+# the storage layer's families live on the process-global registry from
+# import on, in both packages; the port's storage is imported by this
+# process, so the reference's is too, for the sidecars' /metrics to
+# compare like with like
+import pio_tpu.storage.groupcommit  # noqa: E402,F401
+import pio_tpu.storage.retry  # noqa: E402,F401
 from pio_tpu_torch.data.event import Event
 from pio_tpu_torch.obs import devicewatch as pdw
 from pio_tpu_torch.obs import trainwatch as ptw
