@@ -299,7 +299,32 @@ kernels (the forward, and the backward's bag scatter and bag dot):
    the committer's flush traces), ``/metrics``' group-commit and retry
    families (one retry forced), a Segment.io webhook stored, the other
    routes answering, and a storage failpoint opening the storage breaker
-   (503 with ``Retry-After``).
+   (503 with ``Retry-After``);
+46. the pool plane and the router over phase 29's text engine, each server
+   a ``python -m pio_tpu_torch`` process on phase 29's home: a single
+   ``deploy``, a pool of 4 with ``--device-worker``, a second such pool
+   under ``--qos rps=100,burst=50`` and ``eventserver``, started together;
+   both pools with a 5 s lane timeout; 46.1 32 clients x 64 through the
+   pool (every answer within CONF_TOL of the single process's, p50, p99
+   and queries/s; no query of either pool served on a sibling's CPU: no
+   lane fallback, worker 0 drained every query the siblings answered),
+   every worker's ``/stats.json`` pool totals and ``/metrics`` the
+   requests sent, stripe
+   generations 1; the busiest sibling killed, its respawn at generation 2
+   with the pool's totals kept; 32 clients for 3 s against the QoS pool
+   admit burst + R x t, not 4 budgets (the 429s with ``Retry-After``);
+   46.2 ``fleet`` over the pool, the single process and the event server
+   (every member up, its federated ``pio_tpu_queries_total`` the members'
+   own), ``dashboard`` (the serving view's pool-wide total) and
+   ``adminserver`` (an app made and deleted), every route 200; 46.3
+   ``route`` over the pool and the single process (each routed answer the
+   direct one, both members used, the ms it adds), a candidate query
+   server in this process, ``rollout --start`` of phase 40.1's instance
+   twice: one whose candidate burns its SLO rolls back leaving both
+   replicas' ``/deploy.json`` as they were, one promotes and flips both to
+   the next generation after ``verify_instance``; the forward launches of
+   every server (their ``/stats.json`` ``kernelLaunches``) join the
+   kernels' line.
 
 The CLI phases write their homes under ``build/chip_smoke_homes/``
 (gitignored), made afresh each run; every server process is stopped
@@ -8424,6 +8449,645 @@ def phase_request_plane(args, smi, gpu, queries, http_answers, p50_36,
             "tracer_us": cost_us}
 
 
+# ------------------------------- phase 46: the pool plane and the router
+#: 46.1: the pool's workers, and the distinct text queries every load sends
+P46_WORKERS = 4
+P46_BODIES = 64
+#: 46.1: the rate budget of the second pool (queries/s and burst), well
+#: under a 4-worker text pool's rate (phase 39's classification pool served
+#: 1,177-1,814 queries/s; 46.1 measures this pool's own), and how long its
+#: 32 clients push against it
+P46_RPS, P46_BURST, P46_QOS_S = 100.0, 50.0, 3.0
+#: 46.1: how long a sibling waits for worker 0's lane answer in both pools
+#: (``PIO_TPU_LANE_TIMEOUT_S``, 0.25 s by default), seconds. A query that
+#: outwaits it is served on the sibling's own CPU, which 46.1 fails; the
+#: default is shorter than the text pool's p99 under 32 clients
+P46_LANE_TIMEOUT_S = 5.0
+#: 46.2: the fleet's and the router's scrape interval, seconds
+P46_INTERVAL = "0.5"
+#: 46.3: a terminal rollout stage within this many seconds
+P46_ROLLOUT_S = 60.0
+P46_TERMINAL = ("promoted", "rolled_back", "failed")
+_SAMPLE = re.compile(r"^(\w+)(\{[^}]*\})? (\S+)")
+
+
+@contextlib.contextmanager
+def served(env: dict, log_path: str, *args):
+    """``python -m pio_tpu_torch <args>`` as a server process, its output
+    in ``log_path``; killed on the way out if it is still running."""
+    with open(log_path, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "pio_tpu_torch", *args], cwd=ROOT, env=env,
+            stdout=f, stderr=subprocess.STDOUT)
+    try:
+        yield proc
+    except BaseException:
+        with open(log_path) as f:
+            log(f"  {' '.join(args[:2])} log, last lines:\n"
+                f"{f.read()[-3000:]}")
+        raise
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait(timeout=60)
+
+
+_LISTENING = re.compile(r"listening on [\w.:]+:(\d+)")
+
+
+def listening_port(log_path: str, proc) -> int:
+    """The port a server started with ``--port 0`` bound, from its
+    "listening on IP:PORT" line (a pool prints it once every worker,
+    worker 0 included, is ready); fail once it exited or after
+    POOL_TIMEOUT_S. Port 0 lets the kernel pick: a port chosen ahead
+    could be taken by another process's ephemeral socket meanwhile."""
+    deadline = time.monotonic() + POOL_TIMEOUT_S
+    while time.monotonic() < deadline:
+        if proc.poll() is not None:
+            raise AssertionError(f"{log_path}: exited {proc.returncode}")
+        with open(log_path) as f:
+            m = _LISTENING.search(f.read())
+        if m:
+            return int(m.group(1))
+        time.sleep(0.2)
+    raise AssertionError(f"{log_path}: not listening in {POOL_TIMEOUT_S} s")
+
+
+def wait_healthy(port: int, proc, path: str = "/healthz") -> None:
+    """Until the server answers ``GET path`` 200 (or its process exits)."""
+    deadline = time.monotonic() + CLI_TIMEOUT_S
+    while time.monotonic() < deadline:
+        if proc.poll() is not None:
+            raise AssertionError(f"the server exited with {proc.returncode}")
+        try:
+            if get_text(port, path)[0] == 200:
+                return
+        except OSError:
+            pass
+        time.sleep(0.2)
+    raise AssertionError(f"no healthy server on :{port} after "
+                         f"{CLI_TIMEOUT_S} s")
+
+
+def get_json(port: int, path: str) -> tuple:
+    """(status, decoded JSON) of one GET on a fresh connection."""
+    status, body = get_text(port, path)
+    return status, json.loads(body)
+
+
+def send(port: int, method: str, path: str, body=None) -> tuple:
+    """(status, headers, answer) of one request on a fresh connection."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request(method, path, None if body is None
+                     else json.dumps(body).encode(),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        raw = resp.read().decode()
+        try:
+            got = json.loads(raw)
+        except ValueError:
+            got = raw
+        return resp.status, dict(resp.getheaders()), got
+    finally:
+        conn.close()
+
+
+def samples(text: str, family: str) -> dict:
+    """{label set: value} of one family in an exposition text."""
+    out = {}
+    for line in text.splitlines():
+        m = _SAMPLE.match(line)
+        if m and m.group(1) == family:
+            out[m.group(2) or ""] = float(m.group(3))
+    return out
+
+
+def close_answer(got: dict, want: dict, where: str) -> None:
+    """The same label, the confidence within CONF_TOL (a batched dispatch
+    and a solo one sum the same f32 products in another order)."""
+    if got["label"] != want["label"] \
+            or abs(got["confidence"] - want["confidence"]) > CONF_TOL:
+        raise AssertionError(f"{where}: {got} against {want}")
+
+
+def timed_answers(port: int, bodies: list) -> tuple:
+    """Each body once on one keep-alive connection: (answers, host ms)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    answers, ms = [], []
+    try:
+        for b in bodies:
+            t = time.perf_counter()
+            code, got = request(conn, "POST", "/queries.json", b)
+            ms.append((time.perf_counter() - t) * 1e3)
+            if code != 200:
+                raise AssertionError(f"query on :{port}: {code} {got}")
+            answers.append(got)
+    finally:
+        conn.close()
+    return answers, ms
+
+
+def drive_for(port: int, bodies: list, n_clients: int, seconds: float):
+    """``n_clients`` keep-alive clients sending bodies in turn for
+    ``seconds``: ([(body index, status, answer, Retry-After)], wall s)."""
+    records, errors = [], []
+    lock = threading.Lock()
+    stop = time.monotonic() + seconds
+
+    def client(k):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        n = 0
+        try:
+            while time.monotonic() < stop:
+                i = (k + n) % len(bodies)
+                conn.request("POST", "/queries.json",
+                             json.dumps(bodies[i]).encode(),
+                             {"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                answer = json.loads(resp.read())
+                with lock:
+                    records.append((i, resp.status, answer,
+                                    resp.getheader("Retry-After")))
+                n += 1
+        except Exception as e:  # noqa: BLE001 (reported below)
+            errors.append(f"client {k}: {e!r}")
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(k,), daemon=True)
+               for k in range(n_clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=CLI_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"load clients failed: {errors[:3]}")
+    return records, wall
+
+
+def p46_instances(text) -> tuple:
+    """Phase 29's variant and its two newest COMPLETED text instances in
+    phase 29's home: phase 29's ``pio train`` (the incumbent) and phase
+    40.1's ``run_train`` (the candidate)."""
+    variant = variant_from_dict(text["variant"], path=text["engine_json"])
+    with cli_store(text["home"]):
+        done = Storage.get_meta_data_engine_instances().get_completed(
+            variant.engine_id, variant.engine_version, variant.path)
+    done = sorted(done, key=lambda i: i.start_time)
+    if len(done) < 2:
+        raise AssertionError(f"phase 29's home holds {len(done)} COMPLETED "
+                             f"text instances, not 2")
+    return variant, done[-2].id, done[-1].id
+
+
+def every_worker_again(port: int, path: str, key, want=None) -> dict:
+    """:func:`every_worker` over the pool, again while a connection still
+    lands on a killed worker's socket (reset) until its respawn listens."""
+    deadline = time.monotonic() + POOL_TIMEOUT_S
+    while True:
+        try:
+            return every_worker(port, path, key, want=want,
+                                n_workers=P46_WORKERS)
+        except (OSError, http.client.HTTPException):
+            if time.monotonic() > deadline:
+                raise
+            time.sleep(0.2)
+
+
+def lane_of(stats: dict, where: str) -> dict:
+    """A ``--device-worker`` pool's lane from every worker's
+    ``/stats.json``: each sibling's enqueued and fallen-back queries (a
+    fallback is a query the sibling served itself, on the CPU: the card
+    is worker 0's alone) against the queries it answered, and worker 0's
+    drained count. Logged here; :func:`lane_faults` judges it."""
+    lane = {w: s.get("batchLane", {}) for w, s in stats.items()}
+    sib = range(1, P46_WORKERS)
+    out = {"where": where, "drained": lane[0].get("drained", 0),
+           "enqueued": {w: lane[w].get("enqueued", 0) for w in sib},
+           "answered": {w: stats[w]["requestCount"] for w in sib},
+           "fallbacks": {w: lane[w].get("fallbacks", {}) for w in sib}}
+    log(f"  46.1 {where}'s lane: worker 0 drained {out['drained']}; the "
+        f"siblings enqueued {out['enqueued']} of the queries they answered "
+        f"{out['answered']}, fallbacks by reason {out['fallbacks']}")
+    return out
+
+
+def lane_faults(lane: dict) -> list:
+    """What is wrong with a pool's lane: any sibling's fallback, a sibling
+    that answered a query it did not enqueue, or fewer drained than the
+    siblings enqueued."""
+    fell = sum(sum(f.values()) for f in lane["fallbacks"].values())
+    bad = []
+    if fell:
+        bad.append(f"{lane['where']}: {fell} queries served on a "
+                   f"sibling's CPU {lane['fallbacks']}")
+    if lane["enqueued"] != lane["answered"]:
+        bad.append(f"{lane['where']}: enqueued {lane['enqueued']}, "
+                   f"answered {lane['answered']}")
+    if lane["drained"] < sum(lane["enqueued"].values()):
+        bad.append(f"{lane['where']}: drained {lane['drained']} < "
+                   f"enqueued {sum(lane['enqueued'].values())}")
+    return bad
+
+
+def pool_totals(port: int, family: str, n: int = 8) -> list:
+    """``family``'s samples on ``n`` scrapes of the pool's port (the kernel
+    picks a worker for each connection)."""
+    return [samples(get_text(port, "/metrics")[1], family) for _ in range(n)]
+
+
+def p46_pool(smi, env, home, ej, iid_a, bodies, want, ports) -> dict:
+    """46.1: the pool serves 32 clients; pool-wide totals on every worker;
+    a killed sibling's respawn adopts its stripe; the QoS pool admits one
+    budget; every query of both pools ran on the card."""
+    p1, p2 = ports["pool"], ports["qos_pool"]
+    records, wall = drive_load(p1, bodies, N_CLIENTS, PER_CLIENT)
+    for (i, _), answer in distinct_answers(records).items():
+        close_answer(answer, want[i], f"46.1 pool body {i}")
+    lat = latency(records, wall)
+    sent = N_CLIENTS * PER_CLIENT
+    stats = every_worker(p1, "/stats.json", "worker",
+                         n_workers=P46_WORKERS)
+    counts = {w: s["pool"]["requestCount"] for w, s in stats.items()}
+    own = {w: s["requestCount"] for w, s in stats.items()}
+    lanes = [lane_of(stats, "the pool")]
+    scraped = {json.dumps(t, sort_keys=True)
+               for t in pool_totals(p1, "pio_tpu_queries_total")}
+    gens = samples(get_text(p1, "/metrics")[1],
+                   "pio_tpu_pool_stripe_generation")
+    log(f"  46.1 the pool ({P46_WORKERS} workers, --device-worker) served "
+        f"{lat['n']} "
+        f"queries of {N_CLIENTS} clients, each within {CONF_TOL} of the "
+        f"single process's answer; p50 {lat['p50_ms']:.3f} ms, p99 "
+        f"{lat['p99_ms']:.3f} ms, {lat['qps']:.1f} queries/s (host clock); "
+        f"/stats.json pool requestCount by worker {counts} (their own "
+        f"{own}); /metrics pio_tpu_queries_total on 8 scrapes {scraped}; "
+        f"stripe generations {gens}; {smi}")
+    if set(counts.values()) != {sent} or sum(own.values()) != sent \
+            or len(scraped) != 1 \
+            or list(json.loads(scraped.pop()).values()) != [float(sent)] \
+            or sorted(gens.values()) != [1.0] * P46_WORKERS:
+        raise AssertionError("46.1: the workers' pool totals are not the "
+                             "requests sent")
+    # kill the busiest sibling: its respawn adopts the stripe (generation
+    # 2), so the pool's totals keep its requests
+    status = every_worker(p1, "/", "worker", n_workers=P46_WORKERS)
+    victim = max(range(1, P46_WORKERS), key=lambda w: own[w])
+    old_pid = status[victim]["pid"]
+    t0 = time.monotonic()
+    os.kill(old_pid, 9)
+    status = every_worker_again(p1, "/", "worker",
+                                want=lambda s: s["worker"] != victim
+                                or s["pid"] != old_pid)
+    respawn_s = time.monotonic() - t0
+    gens = samples(get_text(p1, "/metrics")[1],
+                   "pio_tpu_pool_stripe_generation")
+    stats = every_worker_again(p1, "/stats.json", "worker")
+    after = {w: s["pool"]["requestCount"] for w, s in stats.items()}
+    log(f"  46.1 worker {victim} (pid {old_pid}, {own[victim]} of the "
+        f"requests) killed, respawned as pid {status[victim]['pid']} in "
+        f"{respawn_s:.1f} s; stripe generations {gens}; pool requestCount "
+        f"by worker {after}")
+    if gens.get(f'{{worker="{victim}"}}') != 2.0 or own[victim] <= 0 \
+            or set(after.values()) != {sent}:
+        raise AssertionError("46.1: the respawn did not adopt its stripe")
+    # the second pool, under --qos rps=R: one budget, not one a worker
+    qrec, qwall = drive_for(p2, bodies, N_CLIENTS, P46_QOS_S)
+    codes = collections.Counter(s for _, s, _, _ in qrec)
+    for i, s, answer, _ in qrec:
+        if s == 200:
+            close_answer(answer, want[i], f"46.1 QoS pool body {i}")
+    sheds = [ra for _, s, _, ra in qrec if s == 429]
+    budget = P46_BURST + P46_RPS * qwall
+    qstats = every_worker(p2, "/stats.json", "worker", n_workers=P46_WORKERS)
+    lanes.append(lane_of(qstats, "the QoS pool"))
+    admitted = samples(get_text(p2, "/metrics")[1],
+                       "pio_tpu_qos_admitted_total")
+    log(f"  46.1 the pool under --qos rps={P46_RPS:g},burst={P46_BURST:g} "
+        f"(R well under the first pool's {lat['qps']:.0f} queries/s), "
+        f"{N_CLIENTS} clients for {qwall:.2f} s: statuses {dict(codes)} "
+        f"({len(qrec) / qwall:.0f} requests/s offered), admitted "
+        f"{codes[200]} against burst + R*t = {budget:.1f} ({P46_WORKERS} "
+        f"budgets would be {P46_WORKERS * budget:.1f}); /metrics admitted "
+        f"{admitted}; each worker's own answered "
+        f"{ {w: s['requestCount'] for w, s in qstats.items()} } requests; "
+        f"{smi}")
+    if set(codes) - {200, 429} or not sheds or None in sheds \
+            or codes[200] > budget + P46_WORKERS \
+            or codes[200] < 0.8 * P46_RPS * qwall \
+            or list(admitted.values()) != [float(codes[200])]:
+        raise AssertionError(f"46.1: the QoS pool admitted {codes[200]} "
+                             f"against one budget of {budget:.1f}")
+    # every query either pool answered ran on the card: through worker 0's
+    # lane, or in worker 0 itself
+    bad = [b for lane in lanes for b in lane_faults(lane)]
+    if bad:
+        raise AssertionError(f"46.1: the lane: {bad}")
+    return {"latency": lat, "respawn_s": respawn_s, "lanes": lanes,
+            "qos": {"admitted": codes[200], "budget": budget,
+                    "wall_s": qwall, "offered": len(qrec)}}
+
+
+def p46_fleet(smi, env, home, ports, members: dict) -> dict:
+    """46.2: ``fleet`` over the pool, the single process and the event
+    server; ``dashboard`` and ``adminserver``; every route's status, and
+    the fleet's sums against the members' own ``/metrics``."""
+    targets = ",".join(f"127.0.0.1:{p}" for p in members.values())
+    logs = {k: os.path.join(home, f"p46_{k}.log")
+            for k in ("fleet", "dashboard", "admin")}
+    with served(env, logs["fleet"], "fleet", "--targets", targets, "--ip",
+                "127.0.0.1", "--port", "0", "--interval",
+                P46_INTERVAL) as fleet, \
+            served(env, logs["dashboard"], "dashboard", "--ip", "127.0.0.1",
+                   "--port", "0", "--query-url",
+                   f"http://127.0.0.1:{ports['pool']}", "--fleet-targets",
+                   targets) as dash, \
+            served(env, logs["admin"], "adminserver", "--ip", "127.0.0.1",
+                   "--port", "0") as adm:
+        pf, pdash, padm = (listening_port(logs[k], proc) for k, proc in (
+            ("fleet", fleet), ("dashboard", dash), ("admin", adm)))
+        for port, proc, path in ((pf, fleet, "/healthz"),
+                                 (pdash, dash, "/healthz"),
+                                 (padm, adm, "/")):
+            wait_healthy(port, proc, path)
+        own = {name: samples(get_text(p, "/metrics")[1],
+                             "pio_tpu_queries_total")
+               for name, p in members.items()}
+        # two full scrape passes after the members' own reading (no
+        # traffic in between): the federated samples are theirs
+        status, fj = get_json(pf, "/fleet.json")
+        passes = min(m["scrapes"] for m in fj["members"])
+        deadline = time.monotonic() + 30
+        while min(m["scrapes"] for m in fj["members"]) < passes + 2:
+            if time.monotonic() > deadline:
+                raise AssertionError("46.2: the fleet stopped scraping")
+            time.sleep(0.1)
+            status, fj = get_json(pf, "/fleet.json")
+        fed = samples(get_text(pf, "/metrics")[1], "pio_tpu_queries_total")
+        routes = {f"fleet {p}": get_text(pf, p)[0]
+                  for p in ("/", "/fleet.json", "/metrics", "/healthz",
+                            "/readyz")}
+        routes.update({f"dashboard {p}": get_text(pdash, p)[0] for p in (
+            "/", "/instances.json", "/serving.html", "/fleet.html",
+            "/fleet.json", "/training.html", "/devices.html", "/metrics",
+            "/logs.json", "/healthz", "/readyz")})
+        routes.update({f"admin {p}": get_text(padm, p)[0]
+                       for p in ("/", "/cmd/status", "/cmd/app")})
+        serving = get_text(pdash, "/serving.html")[1]
+        apps = get_json(padm, "/cmd/app")[1]
+        made = send(padm, "POST", "/cmd/app", {"name": "smoke46"})
+        dropped = send(padm, "DELETE", "/cmd/app/smoke46")
+    want_fed = {}
+    for name, port in members.items():
+        for labels, v in own[name].items():
+            member = f'pio_tpu_member="127.0.0.1:{port}"'
+            key = ("{" + member + "}" if not labels
+                   else labels[:-1] + "," + member + "}")
+            want_fed[key] = v
+    statuses = {m["member"]: m["status"] for m in fj["members"]}
+    pool_total = sum(own["pool"].values())
+    log(f"  46.2 fleet members {statuses}; the members' own "
+        f"pio_tpu_queries_total {own}; the fleet's federated {fed}; "
+        f"routes {json.dumps(routes)}; admin apps "
+        f"{sorted(a['name'] for a in apps['apps'])}, POST {made[0]}, "
+        f"DELETE {dropped[0]}; {smi}")
+    names = [a["name"] for a in apps["apps"]]
+    if set(statuses.values()) != {"up"} or fed != want_fed \
+            or any(code != 200 for code in routes.values()) \
+            or f"<td>{int(pool_total)}</td>" not in serving \
+            or APP not in names or made[0] != 201 or dropped[0] != 200:
+        raise AssertionError("46.2: fleet, dashboard or admin disagree")
+    return {"routes": routes, "federated": fed}
+
+
+def rollout_until_done(pr: int, drive) -> tuple:
+    """Drive traffic until the router's rollout is terminal:
+    (its ``/rollout.json``, seconds to get there)."""
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < P46_ROLLOUT_S:
+        drive()
+        ro = get_json(pr, "/rollout.json")[1]
+        if ro["stage"] in P46_TERMINAL:
+            return ro, time.monotonic() - t0
+    raise AssertionError(f"46.3: rollout still {ro['stage']} after "
+                         f"{P46_ROLLOUT_S} s")
+
+
+def p46_router(smi, env, home, variant, iid_a, iid_b, bodies, want, ports,
+               direct_ms) -> dict:
+    """46.3: ``route`` in front of the pool and the single process; a
+    rollout whose candidate burns its SLO rolls back, then one promotes
+    instance B onto both replicas."""
+    p1, pd = ports["pool"], ports["single"]
+    route_log = os.path.join(home, "p46_route.log")
+    rollout_knobs = ["--judge-interval", "0.2", "--judge-fast", "2",
+                     "--judge-slow", "4", "--burn-limit", "2",
+                     "--mismatch-limit", "1.0", "--shadow-rate", "1.0"]
+    with served(env, route_log, "route", "--targets",
+                f"127.0.0.1:{p1},127.0.0.1:{pd}", "--ip", "127.0.0.1",
+                "--port", "0", "--interval", P46_INTERVAL) as router, \
+            cli_store(home):
+        pr = listening_port(route_log, router)
+        wait_alive(pr, router)
+        deadline = time.monotonic() + 30
+        while get_text(pr, "/readyz")[0] != 200:
+            if time.monotonic() > deadline:
+                raise AssertionError("46.3: the router never got ready")
+            time.sleep(0.1)
+        conn = http.client.HTTPConnection("127.0.0.1", pr, timeout=60)
+        members, routed_ms = [], []
+        try:
+            for k, b in enumerate(bodies):
+                t = time.perf_counter()
+                conn.request("POST", "/queries.json", json.dumps(b).encode(),
+                             {"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                got = json.loads(resp.read())
+                routed_ms.append((time.perf_counter() - t) * 1e3)
+                members.append(resp.getheader("X-Pio-Router-Member"))
+                if resp.status != 200:
+                    raise AssertionError(f"46.3 routed query: {got}")
+                close_answer(got, want[k], f"46.3 routed body {k}")
+        finally:
+            conn.close()
+        added = float(np.median(routed_ms) - np.median(direct_ms))
+        log(f"  46.3 {len(bodies)} queries through the router on one "
+            f"connection, each the direct answer; members "
+            f"{dict(collections.Counter(members))}; p50 "
+            f"{np.median(routed_ms):.3f} ms against "
+            f"{np.median(direct_ms):.3f} direct: {added:.3f} ms added a "
+            f"query (host clock); {smi}")
+        if len(set(members)) != 2:
+            raise AssertionError(f"46.3: the router used members {members}")
+        # the candidate: a query server in this process on the card
+        cand = deploy_query_server(variant, host="127.0.0.1", port=0,
+                                   instance_id=iid_a, device=CARD).start()
+        try:
+            before = {p: get_json(p, "/deploy.json")[1] for p in (p1, pd)}
+            url = f"http://127.0.0.1:{pr}"
+            target = f"127.0.0.1:{cand.port}"
+            k = [0]
+
+            def through_router(bad: bool):
+                def drive():
+                    b = bodies[k[0] % len(bodies)]
+                    k[0] += 1
+                    send(pr, "POST", "/queries.json", b)
+                    if bad:  # a query the candidate cannot take: an error
+                        send(cand.port, "POST", "/queries.json", {"txt": 1})
+                return drive
+
+            # a rollout the SLO gate fails: aborted, the old generation kept
+            if cli_main(["rollout", "--url", url, "--start", iid_b,
+                         "--targets", target, "--shadow-min-samples",
+                         "100000", *rollout_knobs]) != 0:
+                raise AssertionError("46.3: rollout --start failed")
+            failed, failed_s = rollout_until_done(pr, through_router(True))
+            kept = {p: get_json(p, "/deploy.json")[1] for p in (p1, pd)}
+            log(f"  46.3 a rollout of {iid_b} whose candidate burns its "
+                f"SLO: {failed['stage']} in {failed_s:.2f} s, trail "
+                f"{[e['signal'] for e in failed['trail']]}; the replicas' "
+                f"/deploy.json before {before} and after {kept}")
+            if failed["stage"] != "rolled_back" or "slo_burn" not in [
+                    e["signal"] for e in failed["trail"]] or kept != before:
+                raise AssertionError("46.3: the failing rollout did not "
+                                     "roll back to the old generation")
+            # a rollout that promotes instance B onto both replicas
+            t0 = time.monotonic()
+            if cli_main(["rollout", "--url", url, "--start", iid_b,
+                         "--targets", target, "--shadow-min-samples", "16",
+                         "--shadow-hold", "0", "--canary-fraction", "1.0",
+                         "--canary-hold", "0", "--canary-min-requests", "0",
+                         *rollout_knobs]) != 0:
+                raise AssertionError("46.3: rollout --start failed")
+            done, _ = rollout_until_done(pr, through_router(False))
+            rollout_s = time.monotonic() - t0
+            report = io.StringIO()
+            with contextlib.redirect_stdout(report):
+                status_rc = cli_main(["rollout", "--url", url])
+            # a pool's siblings follow the shared generation at their next
+            # request (GET / is one); then every scrape is instance B's
+            workers = every_worker(p1, "/", "worker", n_workers=P46_WORKERS,
+                                   want=lambda s: s["engineInstanceId"]
+                                   == iid_b)
+            flipped = {pd: [get_json(pd, "/deploy.json")[1]],
+                       p1: [get_json(p1, "/deploy.json")[1]
+                            for _ in range(2 * P46_WORKERS)]}
+            shadow = done.get("shadow") or {}
+        finally:
+            cand.close()
+    signals = [e["signal"] for e in done["trail"]]
+    log(f"  46.3 a rollout of {iid_b}: {done['stage']} in {rollout_s:.2f} s "
+        f"(host clock, start to promoted), trail {signals}, shadow "
+        f"{shadow.get('samples')} samples at mismatch rate "
+        f"{shadow.get('mismatchRate')}; /deploy.json after (the pool's "
+        f"on {2 * P46_WORKERS} connections) {flipped}; pool "
+        f"workers on {sorted({s['engineInstanceId'] for s in workers.values()})}"
+        f"; pio rollout:\n    "
+        + report.getvalue().rstrip().replace("\n", "\n    "))
+    if done["stage"] != "promoted" or status_rc != 0 \
+            or "candidate_verified" not in signals \
+            or "all_verified" not in signals \
+            or any(got["engineInstanceId"] != iid_b
+                   or got["generation"] != before[p]["generation"] + 1
+                   for p in (p1, pd) for got in flipped[p]):
+        raise AssertionError("46.3: the rollout did not flip both replicas")
+    return {"added_ms": added, "rollout_s": rollout_s,
+            "failed_rollout_s": failed_s}
+
+
+def phase_pool_plane(args, smi, text) -> dict:
+    """Phase 46: the pool plane and the router over phase 29's text
+    engine, each server a process of ``python -m pio_tpu_torch``."""
+    t_phase = time.monotonic()
+    log(f"phase 46: the pool plane and the router over phase 29's text "
+        f"engine: a pool of {P46_WORKERS} with --device-worker from "
+        f"{N_CLIENTS} clients (pool-wide totals, a respawn's stripe, one "
+        f"--qos budget), fleet, dashboard and adminserver, route over the "
+        f"pool and a single deploy, two rollouts; {smi}")
+    variant, iid_a, iid_b = p46_instances(text)
+    home, ej = text["home"], text["engine_json"]
+    env = cli_env(home)
+    texts, _ = synth_corpus(np.random.default_rng(args.seed + 46),
+                            P46_BODIES, N_WORDS, coverage=False)
+    bodies = [{"text": t} for t in texts]
+    c0 = read_counts()
+    log_of = {k: os.path.join(home, f"p46_{k}.log")
+              for k in ("single", "pool", "qos_pool", "events")}
+    deploy = ["deploy", "--engine-json", ej, "--engine-instance-id", iid_a,
+              "--ip", "127.0.0.1"]
+    pool = ["--workers", str(P46_WORKERS), "--device-worker"]
+    pool_env = {**env, "PIO_TPU_LANE_TIMEOUT_S": str(P46_LANE_TIMEOUT_S)}
+    t0 = time.monotonic()
+    with served(env, log_of["single"], *deploy, "--port", "0") as single, \
+            served(pool_env, log_of["pool"], *deploy, "--port", "0",
+                   *pool) as p1, \
+            served(pool_env, log_of["qos_pool"], *deploy, "--port", "0",
+                   *pool, "--qos",
+                   f"rps={P46_RPS:g},burst={P46_BURST:g}") as p2, \
+            served(env, log_of["events"], "eventserver", "--ip",
+                   "127.0.0.1", "--port", "0") as events:
+        ports = {k: listening_port(log_of[k], proc) for k, proc in (
+            ("single", single), ("pool", p1), ("qos_pool", p2),
+            ("events", events))}
+        wait_alive(ports["single"], single)
+        wait_alive(ports["events"], events)
+        up_s = time.monotonic() - t0
+        status = get_json(ports["single"], "/")[1]
+        want, direct_ms = timed_answers(ports["single"], bodies)
+        log(f"  46 the single process, both pools and the event server up "
+            f"in {up_s:.1f} s (host clock, started together); instances "
+            f"{iid_a} (serving) and {iid_b} (the rollouts' candidate); the "
+            f"single process on {status['engineInstanceId']}, its "
+            f"{len(bodies)} answers on one connection p50 "
+            f"{np.median(direct_ms):.3f} ms")
+        walls = {}
+        t = time.monotonic()
+        pooled = p46_pool(smi, env, home, ej, iid_a, bodies, want, ports)
+        walls["46.1"] = time.monotonic() - t
+        qos_w0 = every_worker(ports["qos_pool"], "/stats.json", "worker",
+                              n_workers=P46_WORKERS)[0]["kernelLaunches"]
+        send(ports["qos_pool"], "POST", "/undeploy", {})
+        t = time.monotonic()
+        p46_fleet(smi, env, home, ports, {
+            "pool": ports["pool"], "single": ports["single"],
+            "events": ports["events"]})
+        walls["46.2"] = time.monotonic() - t
+        t = time.monotonic()
+        routed = p46_router(smi, env, home, variant, iid_a, iid_b, bodies,
+                            want, ports, direct_ms)
+        walls["46.3"] = time.monotonic() - t
+        pool_w0 = every_worker(ports["pool"], "/stats.json", "worker",
+                               n_workers=P46_WORKERS)[0]["kernelLaunches"]
+        single_k = get_json(ports["single"], "/stats.json")[1][
+            "kernelLaunches"]
+        codes = [send(ports[k], "POST", "/undeploy", {})[0]
+                 for k in ("pool", "single")]
+        rcs = [proc.wait(timeout=60) for proc in (p1, single, p2)]
+    here = counts_since(c0)
+    launches = {k: here[k] + pool_w0[k] + qos_w0[k] + single_k[k]
+                for k in here}
+    log(f"  46 forward launches: the pool's worker 0 "
+        f"{pool_w0['embedding_bag']}, the QoS pool's "
+        f"{qos_w0['embedding_bag']}, the single process "
+        f"{single_k['embedding_bag']}, the candidate in this process "
+        f"{here['embedding_bag']}; /undeploy {codes}, the deploys exited "
+        f"{rcs}")
+    if codes != [200, 200] or rcs != [0, 0, 0] \
+            or min(pool_w0["embedding_bag"], qos_w0["embedding_bag"],
+                   single_k["embedding_bag"], here["embedding_bag"]) <= 0:
+        raise AssertionError("46: a server did not launch the forward "
+                             "kernel or did not end cleanly")
+    log(f"  phase 46 launches (added to the kernels' line): "
+        f"{json.dumps(launches)}; walls "
+        f"{json.dumps({k: round(v, 1) for k, v in walls.items()})}; "
+        f"phase 46 {time.monotonic() - t_phase:.1f} s")
+    return {"launches": launches, "pool": pooled, "router": routed}
+
+
 def kernel_entry(name, source, replaces, launches, row) -> dict:
     """One kernel of the JSON line, from its main timed row."""
     return {
@@ -8615,6 +9279,12 @@ def main(argv=None) -> int:
                               stores["ingest"]["sqlite"]["events_per_s"])
     for entry in summary:
         entry["launches"] += p45["launches"][entry["name"]]
+    # the pool plane and the router over phase 29's text engine (and phase
+    # 40.1's second instance of it): the servers' forward launches, read
+    # from their /stats.json, join the kernels' line
+    p46 = phase_pool_plane(args, smi, text)
+    for entry in summary:
+        entry["launches"] += p46["launches"][entry["name"]]
     log(f"text evaluation sweep launches (added to the kernels' line): "
         f"{json.dumps(text_eval)}")
     log(f"CLI train + deploy launches (added to the kernels' line): "

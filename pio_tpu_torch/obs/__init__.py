@@ -26,9 +26,14 @@ The port's copy of ``pio_tpu/obs`` limited to what it has ported:
   (``p99=50ms:99.9``) as multi-window burn rates, ``GET /slo.json`` and
   the ``pio_tpu_slo_*`` gauges.
 
-Not ported: the pool's shared metrics segment (``obs/shm``), the
-text-format parser (``obs/promparse``) and the fleet aggregator
-(``obs/fleet``), ROADMAP §A.6.
+- **Cross-worker aggregation** (:mod:`~pio_tpu_torch.obs.shm`): in a
+  serving pool each worker mirrors its counters and histogram buckets
+  into its stripe of one mmapped segment, so a scrape of any worker
+  reports pool-wide totals (the reference's byte layout).
+- **Fleet telemetry**: :mod:`~pio_tpu_torch.obs.promparse` (the text
+  format's parser, merge and render) and :mod:`~pio_tpu_torch.obs.fleet`
+  (the aggregator behind ``pio fleet``, the dashboard's fleet panel and
+  the serving router).
 """
 
 from __future__ import annotations

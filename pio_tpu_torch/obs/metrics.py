@@ -1,10 +1,12 @@
 """Metrics registry — Counter / Gauge / Histogram with Prometheus text
 exposition.
 
-The port's copy of ``pio_tpu/obs/metrics.py``, cut to one process: the
-pool's shared-memory mirror (``obs/shm``) is not ported, so a cell's pool
-value is its local value and ``pool=`` arguments are accepted and read
-locally. The text it renders is the reference's:
+The port's copy of ``pio_tpu/obs/metrics.py``. In a serving pool
+(``server/worker_pool.py``) every counter and histogram cell registered
+before :meth:`MetricsRegistry.bind_pool_segment` mirrors its value into
+the worker's stripe of the pool's shared segment (``obs/shm.py``), so a
+scrape of any worker reports pool-wide totals; gauges, exemplars and cells
+created after the bind stay local. The text it renders is the reference's:
 
 - one ``# HELP``/``# TYPE`` pair per metric family, HELP text escaped
   (``\\`` and newline — label values additionally escape ``"``);
@@ -93,13 +95,26 @@ def _label_str(names: Sequence[str], values: Sequence[str]) -> str:
 
 
 class _Cell:
-    """One (metric, label-values) combination: a locked value."""
+    """One (metric, label-values) combination: a locked local value with
+    an optional mirror in the pool's shared segment."""
 
-    __slots__ = ("_lock", "_v")
+    __slots__ = ("_lock", "_v", "_seg", "_widx", "_slot")
 
     def __init__(self):
         self._lock = threading.Lock()
         self._v = 0.0
+        self._seg = None
+        self._widx = None
+        self._slot = None
+
+    def _bind(self, seg, widx: int, slot: int) -> None:
+        """Mirror into slot ``slot`` of worker stripe ``widx``. The stripe
+        may already carry a value (a respawned worker binding its
+        predecessor's stripe): adopt it, so pool totals survive a crash."""
+        with self._lock:
+            self._v += seg.read(widx, slot)
+            self._seg, self._widx, self._slot = seg, widx, slot
+            seg.set(widx, slot, self._v)
 
     def inc(self, v: float = 1.0) -> None:
         """Bound-cell fast path: hot code resolves ``labels()`` once and
@@ -108,20 +123,27 @@ class _Cell:
         down)."""
         with self._lock:
             self._v += v
+            if self._seg is not None:
+                self._seg.set(self._widx, self._slot, self._v)
 
     _add = inc
 
     def _set(self, v: float) -> None:
         with self._lock:
             self._v = v
+            if self._seg is not None:
+                self._seg.set(self._widx, self._slot, self._v)
 
     @property
     def value(self) -> float:
+        """This process's value."""
         return self._v
 
     def _pool_value(self) -> float:
-        """The pool-wide value: the local one (no shared segment)."""
-        return self._v
+        """The pool-wide value: every stripe's slot summed when bound."""
+        if self._seg is None:
+            return self._v
+        return self._seg.sum_slot(self._slot)
 
 
 class _Metric:
@@ -161,23 +183,23 @@ class _Metric:
         """The zero-label cell (for label-less families)."""
         return self.labels()
 
-    def samples(self) -> List[str]:
+    def samples(self, pool: bool = True) -> List[str]:
         raise NotImplementedError
 
-    def render(self) -> List[str]:
+    def render(self, pool: bool = True) -> List[str]:
         lines = [
             f"# HELP {self.name} {escape_help(self.help)}",
             f"# TYPE {self.name} {self.typ}",
         ]
-        lines.extend(self.samples())
+        lines.extend(self.samples(pool=pool))
         return lines
 
 
 class _ScalarMetric(_Metric):
-    def samples(self) -> List[str]:
+    def samples(self, pool: bool = True) -> List[str]:
         return [
             f"{self.name}{_label_str(self.labelnames, values)} "
-            f"{_fmt(cell.value)}"
+            f"{_fmt(cell._pool_value() if pool else cell.value)}"
             for values, cell in list(self._cells.items())
         ]
 
@@ -191,10 +213,15 @@ class Counter(_ScalarMetric):
         (self.labels(**labels) if labels else self._default_cell()).inc(v)
 
     def value(self, *values) -> float:
-        return self.labels(*values).value
+        """The pool-wide value of one cell (the local one when unbound)."""
+        return self.labels(*values)._pool_value()
 
 
 class Gauge(_ScalarMetric):
+    """Gauges stay local in a pool: a worker's uptime or queue depth
+    summed over the stripes would mean nothing, so the registry never
+    binds them."""
+
     typ = "gauge"
 
     def set(self, v: float, **labels) -> None:
@@ -208,11 +235,13 @@ class Gauge(_ScalarMetric):
 
 
 class _HistogramCell:
-    """Fixed cumulative buckets + sum + count. Each bucket remembers its
-    most recent exemplar (an id and the observed value)."""
+    """Fixed cumulative buckets + sum + count, with an optional mirror in
+    the pool's shared segment (the buckets, the sum and the count each
+    take a slot). Each bucket remembers its most recent exemplar (an id
+    and the observed value); exemplars are strings and stay local."""
 
     __slots__ = ("_lock", "_edges", "_buckets", "_sum", "_count",
-                 "_exemplars")
+                 "_exemplars", "_seg", "_widx", "_slot0")
 
     def __init__(self, edges: Tuple[float, ...]):
         self._lock = threading.Lock()
@@ -221,6 +250,27 @@ class _HistogramCell:
         self._sum = 0.0
         self._count = 0
         self._exemplars: Dict[int, Tuple[str, float]] = {}  # idx -> (id, v)
+        self._seg = None
+        self._widx = None
+        self._slot0 = None
+
+    def n_slots(self) -> int:
+        return len(self._buckets) + 2  # buckets + sum + count
+
+    def _bind(self, seg, widx: int, slot0: int) -> None:
+        """Mirror into slots ``slot0..`` of stripe ``widx``, adopting what
+        the stripe already holds (as :meth:`_Cell._bind`)."""
+        with self._lock:
+            nb = len(self._buckets)
+            for k in range(nb):
+                self._buckets[k] += int(seg.read(widx, slot0 + k))
+            self._sum += seg.read(widx, slot0 + nb)
+            self._count += int(seg.read(widx, slot0 + nb + 1))
+            self._seg, self._widx, self._slot0 = seg, widx, slot0
+            for k, c in enumerate(self._buckets):
+                seg.set(widx, slot0 + k, float(c))
+            seg.set(widx, slot0 + nb, self._sum)
+            seg.set(widx, slot0 + nb + 1, float(self._count))
 
     def observe(self, v: float, exemplar: Optional[str] = None) -> None:
         idx = bisect.bisect_left(self._edges, v)
@@ -230,8 +280,22 @@ class _HistogramCell:
             self._count += 1
             if exemplar is not None:
                 self._exemplars[idx] = (str(exemplar), v)
+            if self._seg is not None:
+                nb = len(self._buckets)
+                self._seg.set(self._widx, self._slot0 + idx,
+                              float(self._buckets[idx]))
+                self._seg.set(self._widx, self._slot0 + nb, self._sum)
+                self._seg.set(self._widx, self._slot0 + nb + 1,
+                              float(self._count))
 
     def _snapshot(self, pool: bool = False) -> Tuple[List[int], float, int]:
+        """Buckets, sum and count: every stripe's summed when ``pool`` and
+        bound, else this process's."""
+        if pool and self._seg is not None:
+            nb = len(self._buckets)
+            seg, s0 = self._seg, self._slot0
+            return ([int(seg.sum_slot(s0 + k)) for k in range(nb)],
+                    seg.sum_slot(s0 + nb), int(seg.sum_slot(s0 + nb + 1)))
         with self._lock:
             return list(self._buckets), self._sum, self._count
 
@@ -250,8 +314,9 @@ class _HistogramCell:
     def count_le(self, threshold: float,
                  pool: bool = True) -> Tuple[int, int]:
         """``(observations <= threshold, total observations)``: the
-        good/total pair of a latency SLO. The threshold snaps down to a
-        bucket edge (cumulative buckets cannot see inside a bucket)."""
+        good/total pair of a latency SLO, pool-wide when bound. The
+        threshold snaps down to a bucket edge (cumulative buckets cannot
+        see inside a bucket)."""
         buckets, _sum, count = self._snapshot(pool)
         k = bisect.bisect_right(self._edges, threshold)
         return sum(buckets[:k]), count
@@ -283,11 +348,11 @@ class Histogram(_Metric):
         (self.labels(**labels) if labels
          else self._default_cell()).observe(v, exemplar=exemplar)
 
-    def samples(self) -> List[str]:
+    def samples(self, pool: bool = True) -> List[str]:
         out = []
         edges = [_fmt(e) for e in self.buckets] + ["+Inf"]
         for values, cell in list(self._cells.items()):
-            buckets, sum_, count = cell._snapshot()
+            buckets, sum_, count = cell._snapshot(pool)
             exemplars = cell._exemplar_snapshot()
             cum = 0
             for k, (edge, c) in enumerate(zip(edges, buckets)):
@@ -375,12 +440,15 @@ class RequestWindow:
 
 
 class MetricsRegistry:
-    """Ordered family registry."""
+    """Ordered family registry, with the pool segment's binding and extra
+    exposition collectors."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._metrics: Dict[str, _Metric] = {}
         self._collectors: List[Callable[[], List[str]]] = []
+        self._segment = None
+        self._worker_idx: Optional[int] = None
 
     def _register(self, cls, name, help, labelnames, **kw) -> _Metric:
         with self._lock:
@@ -415,7 +483,39 @@ class MetricsRegistry:
         with self._lock:
             self._collectors.append(fn)
 
-    def render_prefixed(self, prefixes) -> List[str]:
+    # -- pool mode -------------------------------------------------------
+    def bind_pool_segment(self, segment, worker_idx: int) -> None:
+        """Mirror every counter and histogram cell registered so far into
+        stripe ``worker_idx`` of ``segment``.
+
+        Slots go by registration order, so every worker of a pool, which
+        runs the same service set-up, computes the same layout. Cells
+        created after the bind stay local (the servers create their pool
+        cells in ``__init__``); gauges are never bound. A layout wider
+        than a stripe raises ``ValueError``."""
+        with self._lock:
+            self._segment = segment
+            self._worker_idx = worker_idx
+            slot = 0
+            for m in self._metrics.values():
+                if isinstance(m, Gauge):
+                    continue
+                for cell in m._cells.values():
+                    need = (cell.n_slots()
+                            if isinstance(cell, _HistogramCell) else 1)
+                    if slot + need > segment.slots_per_worker:
+                        raise ValueError(
+                            f"pool metrics segment too small: need > "
+                            f"{segment.slots_per_worker} slots")
+                    cell._bind(segment, worker_idx, slot)
+                    slot += need
+
+    @property
+    def pool_bound(self) -> bool:
+        return self._segment is not None
+
+    # -- exposition ------------------------------------------------------
+    def render_prefixed(self, prefixes, pool: bool = True) -> List[str]:
         """Exposition lines of the families whose name starts with one of
         ``prefixes``: the bridge a server adds as a collector to show a
         slice of the process-global registry (the storage layer's group
@@ -424,15 +524,16 @@ class MetricsRegistry:
         with self._lock:
             metrics = [m for m in self._metrics.values()
                        if m.name.startswith(pfx)]
-        return [line for m in metrics for line in m.render()]
+        return [line for m in metrics for line in m.render(pool=pool)]
 
-    def render(self) -> List[str]:
-        """Exposition lines for every family, in registration order,
-        then the collectors' lines."""
+    def render(self, pool: bool = True) -> List[str]:
+        """Exposition lines for every family, in registration order
+        (pool-wide values of bound cells when ``pool``), then the
+        collectors' lines."""
         with self._lock:
             metrics = list(self._metrics.values())
             collectors = list(self._collectors)
-        lines = [line for m in metrics for line in m.render()]
+        lines = [line for m in metrics for line in m.render(pool=pool)]
         for fn in collectors:
             try:
                 lines.extend(fn())

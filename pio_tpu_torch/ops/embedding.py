@@ -47,6 +47,13 @@ BACKWARD_TABLE_LAUNCHES = 0
 BACKWARD_WEIGHTS_LAUNCHES = 0
 _COUNT_LOCK = threading.Lock()
 
+
+def launch_counts() -> dict:
+    """This process's launches of each CUDA kernel so far, by kernel."""
+    return {"embedding_bag": KERNEL_LAUNCHES,
+            "embedding_bag_backward_table": BACKWARD_TABLE_LAUNCHES,
+            "embedding_bag_backward_weights": BACKWARD_WEIGHTS_LAUNCHES}
+
 _TABLE_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _KERNELS = {}  # table dtype suffix → bound ctypes function
 _BWD_KERNELS = {}  # (kind, table dtype suffix) → bound ctypes function

@@ -3,11 +3,15 @@
 The port's copy of ``pio_tpu/qos/limiter.py`` (the port imports nothing of
 ``pio_tpu``), its locks plain ``threading`` ones.
 
-The reference makes a bucket pool-wide through the observability
-shared-memory segment (``obs/shm``): each worker mirrors its admissions
-into its stripe and deducts its peers'. The port has no shared segment
-yet, so a cell's pool value is its own and a bucket is one process's;
-``deploy --workers N`` refuses a rate budget rather than run N of them.
+A bucket is pool-wide through the observability shared-memory segment
+(``obs/shm.py``), single-writer per stripe: each worker keeps a local
+bucket refilled at the whole pool's rate, mirrors its admissions into its
+stripe through a pool-bound counter cell, and before deciding deducts the
+admissions its peers made since it last looked (the pool sum minus what
+it already counted). Every worker converges on one bucket level, so
+``--workers N`` shares one budget; the race is one in-flight admission a
+peer, not N times the rate. Per-key buckets stay a process's own, as in
+the reference.
 """
 
 from __future__ import annotations

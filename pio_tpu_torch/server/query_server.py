@@ -5,7 +5,8 @@ Counterpart of ``pio_tpu/server/query_server.py``. Routes:
     GET  /               status (engine instance, start time, requests)
     POST /queries.json   typed query (JSON, or a packed int8 frame sent
                          as ``application/x-pio-query-i8``) → serving
-    GET  /stats.json     residency, micro-batch, bucket, lane and pool blocks
+    GET  /stats.json     residency, micro-batch, bucket, lane and pool
+                         blocks, and the process's kernel launches
     GET  /device.json    device memory, ledger and compile attribution
     GET  /metrics        Prometheus text: requests, stages, SLO, QoS and
                          the device plane's families
@@ -23,6 +24,8 @@ Counterpart of ``pio_tpu/server/query_server.py``. Routes:
     GET  /healthz        liveness (accept loop, batcher, lane, heartbeat)
     GET  /readyz         readiness (engine loaded, instance in storage)
     POST /reload         hot swap to the newest COMPLETED instance
+    GET  /deploy.json    served instance, manifest sha256s, swap generation
+    POST /deploy.json    verified swap to ``engineInstanceId`` (router)
     POST /undeploy       stop serving (the whole pool in pool mode)
 
 The body parses into the algorithms' query dataclass (400 on bad JSON or
@@ -107,8 +110,14 @@ each answer, and with ``feedback`` each answer carries a ``prId`` and is
 written to the feedback app as a ``predict`` event of entity type
 ``pio_pr``.
 
-Not ported: the pool's shared metrics segment (so a pool refuses a rate
-budget, ``server/worker_pool.py``), the evloop front and ``/deploy.json``.
+**The pool plane and the router.** In a pool (``enable_pool`` with the
+supervisor's segment) ``/metrics`` reports pool-wide totals and carries
+``pio_tpu_pool_stripe_generation``, ``/stats.json`` a ``pool`` block, and
+readiness needs the stripe. ``GET /deploy.json`` reports the served
+instance, its manifest's sha256s and the swap generation; ``POST
+/deploy.json`` is the router's verified swap (``router/deploy.py``).
+
+Not ported: the evloop front.
 """
 
 from __future__ import annotations
@@ -136,6 +145,7 @@ from pio_tpu_torch.obs.health import Heartbeat, HealthMonitor
 from pio_tpu_torch.obs.hotpath import hotpath_payload
 from pio_tpu_torch.obs.metrics import MetricsRegistry, monotonic_s
 from pio_tpu_torch.obs.profile import DeviceProfileHook
+from pio_tpu_torch.obs.shm import PoolMetricsSegment
 from pio_tpu_torch.obs.slo import (
     engine_for_specs,
     slo_payload,
@@ -147,6 +157,7 @@ from pio_tpu_torch.obs.tracing import (
     add_active_span,
     parse_trace_header,
 )
+from pio_tpu_torch.ops.embedding import launch_counts
 from pio_tpu_torch.parallel.context import ComputeContext
 from pio_tpu_torch.server import residency
 from pio_tpu_torch.server.batchlane import (
@@ -554,6 +565,20 @@ class _MicroBatcher:
                 p[3].set()
 
 
+def stripe_generation_lines(seg: PoolMetricsSegment) -> List[str]:
+    """``pio_tpu_pool_stripe_generation`` of every worker stripe, read from
+    the shared segment at each scrape."""
+    lines = [
+        "# HELP pio_tpu_pool_stripe_generation Pool metrics stripe "
+        "ownership generation per worker slot (bumped at every respawn; "
+        "negative = retired, totals frozen)",
+        "# TYPE pio_tpu_pool_stripe_generation gauge",
+    ]
+    for w, g in enumerate(seg.generations()):
+        lines.append(f'pio_tpu_pool_stripe_generation{{worker="{w}"}} {g}')
+    return lines
+
+
 class _Generation:
     """One deployed generation and its reader count (under the service's
     ``_swap_lock``). ``resident`` is its (model, scorer) placements."""
@@ -640,6 +665,9 @@ class QueryService:
         #: sync holds it across the load it runs
         self._load_lock = threading.RLock()
         self._gen: Optional[_Generation] = None
+        #: swaps installed so far (``GET /deploy.json``): a rollout reads
+        #: it to see that a member's generation flipped
+        self._swap_generation = 0
         self._deployed = True
         self._batcher: Optional[_MicroBatcher] = None
         # pool mode (server/worker_pool.py), wired by enable_pool()
@@ -829,6 +857,7 @@ class QueryService:
         with self._swap_lock:
             self._sharding_info = sharding
             outgoing, self._gen = self._gen, gen
+            self._swap_generation += 1
             self._buckets.install(warmed)
             if outgoing is not None:
                 outgoing.swapped = True
@@ -1496,20 +1525,45 @@ class QueryService:
                 self._parse_query(body, gen.query_class)), gen)
 
     # -- pool mode and the batch lane ---------------------------------------
-    def enable_pool(self, idx: int, size: int, gen, shutdown_evt) -> None:
+    def enable_pool(self, idx: int, size: int, gen, shutdown_evt,
+                    metrics_path: Optional[str] = None) -> None:
         """Wire this worker into a serving pool: ``gen`` is the shared
         generation counter (a ``/reload`` on any worker bumps it; the
         others reload before their next request), ``shutdown_evt`` the
-        shared event ``/undeploy`` sets to bring the pool down."""
+        shared event ``/undeploy`` sets to bring the pool down.
+
+        ``metrics_path`` is the supervisor's shared metrics segment
+        (``obs/shm.py``): binding this worker's stripe makes its
+        ``/metrics`` report pool-wide totals and its rate budget the
+        pool's. Readiness needs the stripe (``pool_stripe``): a worker
+        without it would under-report every pool-wide scrape. A segment
+        that cannot be opened raises."""
         self._pool_idx = idx
         self._pool_size = size
         self._pool_gen = gen
         self._pool_shutdown = shutdown_evt
         self._seen_gen = gen.value
         self.health.add_liveness("event_loop", self.heartbeat.check)
+        self.health.add_readiness("pool_stripe", self._check_pool_stripe)
         # pool-unique trace ids (query-w<i>-<n>) and worker-stamped logs
         self.tracer.set_worker(idx)
         slog.set_worker(idx)
+        if metrics_path:
+            seg = PoolMetricsSegment.open(metrics_path)
+            self.obs.bind_pool_segment(seg, idx)
+            # read at every scrape: the supervisor, another process,
+            # bumps a stripe's generation at a respawn and negates it at
+            # retirement
+            self.obs.add_collector(lambda: stripe_generation_lines(seg))
+            if self.qos is not None:
+                # the admitted cells are live in the stripes now: history
+                # from before the bind must not drain the bucket
+                self.qos.on_pool_bound()
+
+    def _check_pool_stripe(self):
+        if self.obs.pool_bound:
+            return True, f"stripe {self._pool_idx} bound"
+        return False, "shared metrics segment not bound"
 
     def enable_batch_lane(self, path: str, doorbell, resp_events,
                           device: bool) -> None:
@@ -1659,14 +1713,26 @@ class QueryService:
         if self._pool_idx is not None:
             out["worker"] = self._pool_idx
             out["poolSize"] = self._pool_size
+            if self.obs.pool_bound:
+                # pool-wide totals (this block's other numbers are the
+                # worker's own)
+                out["pool"] = {
+                    "requestCount": int(self._queries_cell._pool_value()),
+                    "errorCount": int(self._errors_cell._pool_value()),
+                }
         stages = self.tracer.stage_summary(QUERY_STAGES)
         if stages:
             out["stages"] = stages
+        # the process's hand-written kernel launches: what a caller outside
+        # the process (a pool's device worker) reads to see its path ran
+        # through them
+        out["kernelLaunches"] = launch_counts()
         return out
 
     def _availability_good_total(self):
-        total = self._queries_cell.value
-        return total - self._errors_cell.value, total
+        """Good and total queries, pool-wide in a pool (the SLO's view)."""
+        total = self._queries_cell._pool_value()
+        return total - self._errors_cell._pool_value(), total
 
     def status(self) -> dict:
         self._pool_sync()
@@ -1707,6 +1773,8 @@ class QueryService:
         r.add("GET", "/healthz", self.healthz)
         r.add("GET", "/readyz", self.readyz)
         r.add("POST", "/reload", self.reload)
+        r.add("POST", "/deploy\\.json", self.deploy_verified)
+        r.add("GET", "/deploy\\.json", self.deploy_report)
         r.add("POST", "/undeploy", self.undeploy)
         return r
 
@@ -1774,11 +1842,74 @@ class QueryService:
         sibling reloads before its next request."""
         self._check_admin(req)
         self._load(None)
+        self._bump_pool_generation()
+        return 200, {"engineInstanceId": self.instance_id}
+
+    def _bump_pool_generation(self) -> None:
+        """In a pool, every sibling reloads before its next request."""
         if self._pool_gen is not None:
             with self._pool_gen.get_lock():
                 self._pool_gen.value += 1
                 self._seen_gen = self._pool_gen.value
-        return 200, {"engineInstanceId": self.instance_id}
+
+    def deploy_verified(self, req: Request):
+        """``POST /deploy.json``: the router's verified swap. The body is
+        ``{engineInstanceId, manifest}``; every shard record the manifest
+        names is hashed again from this member's store (sha256 and size)
+        before the swap, and a mismatch answers 409 while the current
+        generation keeps serving. Then the instance swaps in as by
+        ``/reload`` (pool siblings follow through the shared generation,
+        which loads the newest COMPLETED instance)."""
+        from pio_tpu_torch.router.deploy import (
+            DeployVerifyError,
+            verify_instance,
+        )
+
+        self._check_admin(req)
+        body = req.body if isinstance(req.body, dict) else {}
+        instance_id = body.get("engineInstanceId")
+        if not instance_id:
+            raise HTTPError(400, "engineInstanceId is required")
+        try:
+            report = verify_instance(Storage.get_model_data_models(),
+                                     instance_id,
+                                     expected=body.get("manifest"))
+        except DeployVerifyError as e:
+            raise HTTPError(409, f"deploy verification failed: {e}") from e
+        self._load(instance_id)
+        self._bump_pool_generation()
+        report["engineInstanceId"] = self.instance_id
+        report["verified"] = True
+        return 200, report
+
+    def deploy_report(self, req: Request):
+        """``GET /deploy.json``: the instance this member serves, its
+        manifest's sha256 set (empty for an unsharded blob) and the swap
+        generation: a rollout's incumbent discovery, and the witness that
+        a rollback left the shas where the rollout found them."""
+        from pio_tpu_torch.router.deploy import (
+            load_manifest,
+            manifest_digests,
+        )
+
+        shas = []
+        try:
+            manifest = load_manifest(Storage.get_model_data_models(),
+                                     self.instance_id)
+            if manifest is not None:
+                shas = sorted(sha for sha, _size
+                              in manifest_digests(manifest).values())
+        except Exception:
+            log.exception("no manifest digests for instance %s",
+                          self.instance_id)
+        with self._swap_lock:
+            generation = self._swap_generation
+        return 200, {
+            "engineInstanceId": self.instance_id,
+            "engineId": self._engine_label,
+            "manifestSha256": shas,
+            "generation": generation,
+        }
 
     def undeploy(self, req: Request):
         """Stop serving once this answer is written (reference parity:

@@ -31,7 +31,15 @@ Pool semantics (shared ``multiprocessing`` primitives):
 - **/undeploy** on any worker sets a shared shutdown event; the
   supervisor stops every worker.
 - **/stats.json** reports one worker's numbers, with ``worker`` and
-  ``poolSize`` (the kernel picks the worker of a connection).
+  ``poolSize`` (the kernel picks the worker of a connection), and the
+  pool-wide ``pool`` totals.
+- **/metrics** on any worker reports pool-wide totals: the supervisor
+  creates one shared metrics segment (``obs/shm.py``), every worker
+  mirrors its counter and histogram cells into its own stripe, and a
+  scrape sums the stripes. A respawned worker adopts its predecessor's
+  stripe (the supervisor bumps its generation, exported as
+  ``pio_tpu_pool_stripe_generation``), and a worker out of respawn budget
+  leaves its stripe retired (a negative generation), its totals kept.
 - Each worker also serves its routes on a loopback sidecar port; the
   supervisor polls its ``/healthz``, kills a worker after
   ``_HEALTH_FAILS_TO_KILL`` failures in a row, and respawns dead workers
@@ -59,14 +67,15 @@ they inherit and arm at import.
 Each worker serves with the pool's SLOs, QoS policy and feedback app
 (``slos``, ``qos``, ``feedback_app_id``), its trace ids namespaced
 ``query-w<i>-<n>``. ``inflight``, ``queue``, ``deadline``, ``cache`` and
-the breaker are a worker's own, as in the reference; a rate budget
-(``rps=`` or ``key_rps=``) is refused under more than one worker with
-``ValueError``: the reference shares one budget across the pool through
-the shared metrics segment (``obs/shm``), which the port has not ported,
-and N budgets would admit N times the rate.
+the breaker are a worker's own, as in the reference. The ``rps=`` budget
+is the pool's: each worker's bucket refills at the whole rate, mirrors its
+admissions into its stripe and deducts its peers' (``qos/limiter.py``).
+An ``rps=`` budget without the segment raises ``ValueError`` (N workers
+would admit N times the rate); otherwise a segment that cannot be made is
+logged and every worker reports itself not ready (``pool_stripe``), as in
+the reference.
 
-Not ported: the shared metrics segment behind ``/metrics`` and the evloop
-front.
+Not ported: the evloop front.
 """
 
 from __future__ import annotations
@@ -83,6 +92,7 @@ import urllib.request
 from typing import Optional
 
 from pio_tpu_torch.faults import failpoint
+from pio_tpu_torch.obs.shm import PoolMetricsSegment
 from pio_tpu_torch.qos import resolve_policy
 from pio_tpu_torch.server.batchlane import BatchLaneSegment
 from pio_tpu_torch.utils import knobs
@@ -140,7 +150,8 @@ def _worker_main(spec: dict, idx: int, gen, shutdown_evt,
         slos=spec.get("slos"), qos=spec.get("qos"),
     )
     service = server.service
-    service.enable_pool(idx, spec["n_workers"], gen, shutdown_evt)
+    service.enable_pool(idx, spec["n_workers"], gen, shutdown_evt,
+                        metrics_path=spec.get("metrics_path"))
     if spec.get("lane_path") and lane_doorbell is not None:
         service.enable_batch_lane(spec["lane_path"], lane_doorbell,
                                   lane_resp_events, device=owns_device)
@@ -181,8 +192,9 @@ class ServingPool:
     makes worker 0 the device worker serving sharded over ``mesh_devices``
     (default: every local CUDA device). ``slos``, ``qos`` and
     ``feedback_app_id`` reach every worker; a ``qos`` (or ``PIO_TPU_QOS``,
-    or the variant's ``qos`` block) with a rate budget raises
-    ``ValueError`` under more than one worker."""
+    or the variant's ``qos`` block) with a rate budget is one budget for
+    the pool, kept in the shared metrics segment; where the segment
+    cannot be made such a pool raises ``ValueError``."""
 
     def __init__(
         self,
@@ -203,14 +215,9 @@ class ServingPool:
         if n_workers < 1:
             raise ValueError("n_workers must be >= 1")
         policy = resolve_policy(qos, variant.variant)
-        if n_workers > 1 and policy is not None \
-                and (policy.rps or policy.key_rps):
-            raise ValueError(
-                "a QoS rate budget (rps= or key_rps=) needs one pool-wide "
-                "budget, kept in the shared metrics segment (obs/shm), "
-                "which the port has not ported: each of the "
-                f"{n_workers} workers would admit the whole rate; drop "
-                "rps=/key_rps= or serve with --workers 1")
+        # per-key buckets are a process's own in the reference too: only
+        # the engine bucket needs the shared segment
+        rate_budget = policy is not None and bool(policy.rps)
         device_worker = device_worker or mesh_worker
         if not device_worker and str(device) != "cpu":
             # every worker of a pool without a device worker serves on
@@ -273,6 +280,29 @@ class ServingPool:
         #: each worker's loopback sidecar port (0: not yet up)
         self._health_ports = self._ctx.Array("i", [0] * n_workers)
         self._health_fails = [0] * n_workers
+        # the shared metrics segment: every worker mirrors its counters
+        # into its own stripe, so a scrape of any worker sums the pool,
+        # and the rps= budget is the pool's (qos/limiter.py)
+        self._metrics_seg: Optional[PoolMetricsSegment] = None
+        try:
+            fd, seg_path = tempfile.mkstemp(prefix="pio-tpu-pool-metrics-",
+                                            suffix=".shm")
+            os.close(fd)
+            try:
+                self._metrics_seg = PoolMetricsSegment.create(seg_path,
+                                                              n_workers)
+            except BaseException:
+                os.unlink(seg_path)
+                raise
+            self._spec["metrics_path"] = seg_path
+        except (OSError, ValueError) as e:
+            if rate_budget and n_workers > 1:
+                raise ValueError(
+                    f"the pool's shared metrics segment cannot be made "
+                    f"({e}): without it each of the {n_workers} workers "
+                    f"would admit the whole rps= budget") from e
+            log.exception("pool metrics segment creation failed; workers "
+                          "expose per-worker metrics and are not ready")
         # the cross-worker batch lane: only where ONE worker owns the card
         # and there are siblings to aggregate (PIO_TPU_BATCH_LANE=0 turns
         # it off); a lane that cannot be created raises
@@ -299,6 +329,10 @@ class ServingPool:
         self._health_ports[idx] = 0  # a stale port from a previous life
         self._health_fails[idx] = 0
         self._spawned_at[idx] = time.monotonic()
+        if self._metrics_seg is not None:
+            # the first spawn takes the stripe at generation 1, each
+            # respawn bumps it: a scraper tells adoption from traffic
+            self._metrics_seg.bump_generation(idx)
         p = self._ctx.Process(
             target=_worker_main,
             args=(self._spec, idx, self._gen, self._shutdown,
@@ -416,6 +450,9 @@ class ServingPool:
             log.error("worker %d died %d times (reason %s); not respawning",
                       i, self._respawns[i][reason], reason)
             self._retired[i] = True
+            if self._metrics_seg is not None:
+                # frozen, still summed: retirement keeps the pool totals
+                self._metrics_seg.retire_stripe(i)
             return
         self._respawns[i][reason] = self._respawns[i].get(reason, 0) + 1
         delay = min(_RESPAWN_BACKOFF_CAP_S, _RESPAWN_BACKOFF_BASE_S
@@ -466,6 +503,9 @@ class ServingPool:
         if self._anchor is not None:
             self._anchor.close()
             self._anchor = None
+        if self._metrics_seg is not None:
+            self._metrics_seg.unlink()
+            self._metrics_seg = None
         if self._lane_seg is not None:
             self._lane_seg.unlink()
             self._lane_seg = None

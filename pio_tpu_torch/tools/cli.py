@@ -41,13 +41,26 @@ anything starts, so a bad one exits 1, then exported as
 key_rps, key_burst, inflight, queue, deadline, cache, fail_rate,
 fail_window, probes, cooldown): each is parsed before anything starts, so
 a bad one exits 1, then exported as ``PIO_TPU_SLO`` / ``PIO_TPU_QOS`` for
-pool workers. ``deploy --workers N`` (N > 1) with ``rps=`` or ``key_rps=``
-exits 1: the port has no pool-wide budget yet. ``deploy --feedback-app
-NAME`` writes every answer back into that app as a ``predict`` event.
-``PIO_TPU_PLUGINS`` names plugin modules the servers load at start.
+pool workers while the verb runs. Under ``deploy --workers N`` an
+``rps=`` budget is the pool's (the shared metrics segment). ``deploy
+--feedback-app NAME`` writes every answer back into that app as a
+``predict`` event. ``PIO_TPU_PLUGINS`` names plugin modules the servers
+load at start.
 
-Not ported yet (ROADMAP A): the verbs dashboard, fleet, route, rollout,
-adminserver, run, lint and template list.
+The pool plane and the router: ``fleet --targets H:P,...`` (the
+aggregator: ``/fleet.json``, the federated ``/metrics``), ``dashboard``
+(``/serving.html`` over ``--query-url``, the fleet panel over
+``--fleet-targets``, the train panel over ``--train-url`` or
+``PIO_TPU_TRAIN_STATUS_URL``), ``adminserver`` (apps and keys over
+REST), ``route --targets H:P,...`` (the serving router, ``/router.json``;
+``route --deploy IID --url U`` pushes a verified deploy through a running
+router) and ``rollout --url U --start IID | --abort`` (the
+shadow, canary and promote controller of a running router). None of these
+touches a device: they serve, scrape and forward over HTTP, and the
+members they front serve on the card. ``--targets`` falls back to
+``PIO_TPU_FLEET_TARGETS``; none exits 1.
+
+Not ported yet (ROADMAP A): the verbs run, lint and template list.
 
 Usage: ``python -m pio_tpu_torch <verb> ...``
 """
@@ -55,6 +68,7 @@ Usage: ``python -m pio_tpu_torch <verb> ...``
 from __future__ import annotations
 
 import argparse
+import contextlib
 import importlib
 import json
 import logging
@@ -504,6 +518,212 @@ def cmd_blobserver(args) -> int:
     return 0
 
 
+def cmd_dashboard(args) -> int:
+    from pio_tpu_torch.server.dashboard import create_dashboard
+
+    server = create_dashboard(
+        host=args.ip, port=args.port, query_url=args.query_url,
+        fleet_targets=args.fleet_targets, train_url=args.train_url,
+    )
+    _out(f"Dashboard listening on {args.ip}:{server.port}")
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        _out("shutting down")
+    finally:
+        server.stop()
+    return 0
+
+
+def cmd_fleet(args) -> int:
+    """Run the fleet telemetry aggregator: scrape every ``--targets``
+    member, serve the federated ``/metrics`` and the ``/fleet.json``
+    cluster status the router steers by."""
+    from pio_tpu_torch.obs.fleet import TARGETS_ENV, parse_targets
+    from pio_tpu_torch.server.fleetd import create_fleet_server
+
+    targets = args.targets or knobs.knob_str(TARGETS_ENV)
+    if not parse_targets(targets):
+        return _err("no fleet targets: pass --targets host:port,... or set "
+                    f"{TARGETS_ENV}")
+    server = create_fleet_server(
+        targets, host=args.ip, port=args.port, interval_s=args.interval,
+    )
+    server.service.agg.start()
+    members = ", ".join(m.name for m in server.service.agg.members())
+    _out(f"Fleet aggregator listening on {args.ip}:{server.port} "
+         f"(members: {members})")
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        _out("shutting down")
+    finally:
+        server.service.agg.stop()
+        server.stop()
+    return 0
+
+
+def _route_deploy(args) -> int:
+    """``route --deploy IID``: push a manifest-verified deploy through the
+    router at ``--url``; exit 0 only if every member verified."""
+    import urllib.error
+    import urllib.request
+
+    body = json.dumps({"engineInstanceId": args.deploy}).encode()
+    headers = {"Content-Type": "application/json; charset=utf-8"}
+    if args.admin_key:
+        headers["Authorization"] = f"Bearer {args.admin_key}"
+    req = urllib.request.Request(args.url.rstrip("/") + "/deploy",
+                                 data=body, headers=headers, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=args.timeout) as resp:
+            report = json.loads(resp.read().decode("utf-8"))
+    except urllib.error.HTTPError as e:
+        return _err(f"deploy failed: HTTP {e.code}: "
+                    f"{e.read().decode('utf-8', 'replace')[:500]}")
+    except Exception as e:
+        return _err(f"deploy failed: cannot reach router at {args.url}: "
+                    f"{e}")
+    for row in report.get("members", []):
+        _out(f"  {row['member']}: {row['outcome']}")
+    ok = report.get("verified") == len(report.get("members", []))
+    _out(f"instance {report.get('engineInstanceId')}: "
+         f"{report.get('verified')}/{len(report.get('members', []))} "
+         f"member(s) verified")
+    return 0 if ok else 1
+
+
+def cmd_route(args) -> int:
+    """Run the serving-router daemon, or with ``--deploy`` push a
+    manifest-verified deploy through a running one."""
+    if args.deploy:
+        return _route_deploy(args)
+    from pio_tpu_torch.obs.fleet import TARGETS_ENV, parse_targets
+    from pio_tpu_torch.server.routerd import create_router_server
+
+    targets = args.targets or knobs.knob_str(TARGETS_ENV)
+    if not parse_targets(targets):
+        return _err("no serving members: pass --targets host:port,... or "
+                    f"set {TARGETS_ENV}")
+    server = create_router_server(
+        parse_targets(targets), host=args.ip, port=args.port,
+        partitions=args.partitions, interval_s=args.interval,
+        admin_key=args.admin_key, timeout_s=args.timeout,
+    )
+    server.service.start()
+    members = ", ".join(m.name for m in server.service.agg.members())
+    _out(f"Serving router listening on {args.ip}:{server.port} "
+         f"(members: {members})")
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        _out("shutting down")
+    finally:
+        server.service.stop()
+        server.stop()
+    return 0
+
+
+#: ``rollout --start`` flags → the ``POST /rollout`` body's keys
+_ROLLOUT_KNOBS = (
+    ("shadow_rate", "shadowRate"),
+    ("shadow_min_samples", "shadowMinSamples"),
+    ("shadow_hold", "shadowHoldSeconds"),
+    ("canary_fraction", "canaryFraction"),
+    ("canary_hold", "canaryHoldSeconds"),
+    ("canary_min_requests", "canaryMinRequests"),
+    ("judge_interval", "judgeIntervalSeconds"),
+    ("judge_fast", "judgeFastSeconds"),
+    ("judge_slow", "judgeSlowSeconds"),
+    ("burn_limit", "burnLimit"),
+    ("mismatch_limit", "mismatchLimit"),
+    ("incumbent", "incumbentInstance"),
+)
+
+
+def _print_rollout(ro: dict) -> None:
+    _out(f"stage: {ro.get('stage')}")
+    if ro.get("stage") == "idle":
+        return
+    _out(f"candidate: {ro.get('candidateInstance')}  "
+         f"incumbent: {ro.get('incumbentInstance')}")
+    shadow = ro.get("shadow") or {}
+    _out(f"shadow: {shadow.get('samples', 0)} samples, "
+         f"mismatch rate {shadow.get('mismatchRate', 0.0)}, "
+         f"{shadow.get('dropped', 0)} dropped")
+    canary = ro.get("canary") or {}
+    _out(f"canary: {canary.get('requests', 0)} requests at fraction "
+         f"{canary.get('fraction')}")
+    judge = ro.get("judge") or {}
+    _out(f"judge: {judge.get('ticks', 0)} ticks, last verdict "
+         f"{judge.get('lastVerdict')}, burn {judge.get('burnRates')}")
+    for entry in ro.get("trail") or []:
+        window = f" [{entry['window']}]" if entry.get("window") else ""
+        detail = f" — {entry['detail']}" if entry.get("detail") else ""
+        _out(f"  {entry.get('from')} -> {entry.get('to')}: "
+             f"{entry.get('signal')}{window}{detail}")
+
+
+def cmd_rollout(args) -> int:
+    """Drive the rollout controller of a running router: start a
+    shadow, canary and promote rollout, abort one, or print the live
+    stage and the decision trail."""
+    import urllib.error
+    import urllib.request
+
+    base = args.url.rstrip("/")
+    headers = {"Content-Type": "application/json; charset=utf-8"}
+    if args.admin_key:
+        headers["Authorization"] = f"Bearer {args.admin_key}"
+
+    def call(method: str, path: str, body: Optional[dict] = None):
+        data = json.dumps(body).encode() if body is not None else None
+        req = urllib.request.Request(base + path, data=data,
+                                     headers=headers, method=method)
+        with urllib.request.urlopen(req, timeout=args.timeout) as resp:
+            return json.loads(resp.read().decode("utf-8"))
+
+    try:
+        if args.start:
+            body = {"engineInstanceId": args.start,
+                    "targets": args.targets or "", "by": "pio rollout"}
+            for attr, key in _ROLLOUT_KNOBS:
+                val = getattr(args, attr)
+                if val is not None:
+                    body[key] = val
+            ro = call("POST", "/rollout", body).get("rollout") or {}
+            _out(f"rollout #{ro.get('generation')} of {args.start} "
+                 f"started: stage {ro.get('stage')}")
+            return 0
+        if args.abort:
+            ro = call("POST", "/rollout/abort", {}).get("rollout") or {}
+            _out(f"rollout aborted: stage {ro.get('stage')}")
+            return 0
+        ro = call("GET", "/rollout.json")
+    except urllib.error.HTTPError as e:
+        return _err(f"rollout request failed: HTTP {e.code}: "
+                    f"{e.read().decode('utf-8', 'replace')[:500]}")
+    except Exception as e:
+        return _err(f"cannot reach router at {base}: {e}")
+    _print_rollout(ro)
+    return 0
+
+
+def cmd_adminserver(args) -> int:
+    from pio_tpu_torch.server.admin import create_admin_server
+
+    server = create_admin_server(host=args.ip, port=args.port,
+                                 admin_key=args.admin_key)
+    _out(f"Admin API listening on {args.ip}:{server.port}")
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        _out("shutting down")
+    finally:
+        server.stop()
+    return 0
+
+
 def cmd_deploy(args) -> int:
     from pio_tpu_torch.server.query_server import deploy_query_server
     from pio_tpu_torch.workflow.engine_json import load_variant
@@ -554,7 +774,8 @@ def _deploy_pool(args, variant, slos=None, qos=None,
     """``deploy --workers N``: a supervised SO_REUSEPORT pool. The device
     is resolved in the device worker, never here (one process holds the
     card); without a card its startup fails and this exits 1, and so does
-    a QoS rate budget, which the port cannot share across workers."""
+    a QoS rate budget where the pool's shared metrics segment, which keeps
+    the one budget of the pool, cannot be made."""
     from pio_tpu_torch.server.worker_pool import ServingPool
 
     try:
@@ -848,6 +1069,133 @@ def _device_flag(a) -> None:
     )
 
 
+def _pool_plane_parsers(sub) -> None:
+    """``dashboard``, ``fleet``, ``route``, ``rollout`` and
+    ``adminserver``: the reference's flags and defaults."""
+    a = sub.add_parser("dashboard", help="run the evaluation dashboard")
+    a.add_argument("--ip", default="0.0.0.0")
+    a.add_argument("--port", type=int, default=9000)
+    a.add_argument(
+        "--query-url", default="http://127.0.0.1:8000",
+        help="query server (or any pool worker) whose /metrics the "
+             "/serving.html view scrapes")
+    a.add_argument(
+        "--fleet-targets", default=None, metavar="HOST:PORT,...",
+        help="enable the embedded /fleet.html panel scraping these "
+             "members (default: PIO_TPU_FLEET_TARGETS)")
+    a.add_argument(
+        "--train-url", default=None, metavar="URL",
+        help="trainer status sidecar whose /train.json the "
+             "/training.html view follows (default: "
+             "PIO_TPU_TRAIN_STATUS_URL)")
+    a.set_defaults(fn=cmd_dashboard)
+
+    a = sub.add_parser("fleet", help="run the fleet telemetry aggregator")
+    a.add_argument("--ip", default="0.0.0.0")
+    a.add_argument("--port", type=int, default=7000)
+    a.add_argument(
+        "--targets", default=None, metavar="HOST:PORT,...",
+        help="comma list of member servers to scrape (falls back to "
+             "PIO_TPU_FLEET_TARGETS)")
+    a.add_argument(
+        "--interval", type=float, default=None, metavar="SECONDS",
+        help="scrape interval (default 5s, jittered; also "
+             "PIO_TPU_FLEET_INTERVAL_S)")
+    a.set_defaults(fn=cmd_fleet)
+
+    a = sub.add_parser(
+        "route", help="run the serving router (multi-host front tier)")
+    a.add_argument("--ip", default="0.0.0.0")
+    a.add_argument("--port", type=int, default=8500)
+    a.add_argument(
+        "--targets", default=None, metavar="HOST:PORT,...",
+        help="comma list of serving members to route across (falls back "
+             "to PIO_TPU_FLEET_TARGETS)")
+    a.add_argument(
+        "--partitions", type=int, default=None, metavar="N",
+        help="partition count for entity co-location (affinity engages "
+             "when it matches the member count)")
+    a.add_argument(
+        "--interval", type=float, default=None, metavar="SECONDS",
+        help="member scrape interval (default 5s, jittered; also "
+             "PIO_TPU_FLEET_INTERVAL_S)")
+    a.add_argument(
+        "--timeout", type=float, default=5.0, metavar="SECONDS",
+        help="upstream forward timeout per attempt (default 5s)")
+    a.add_argument(
+        "--admin-key", default=None,
+        help="bearer key for /deploy (loopback-only without one); also "
+             "sent member-ward on deploy pushes")
+    a.add_argument(
+        "--deploy", default=None, metavar="INSTANCE_ID",
+        help="client mode: push a manifest-verified rollout of this "
+             "engine instance through the router at --url, then exit")
+    a.add_argument(
+        "--url", default="http://127.0.0.1:8500", metavar="URL",
+        help="router base URL for --deploy (default localhost:8500)")
+    a.set_defaults(fn=cmd_route)
+
+    a = sub.add_parser(
+        "rollout",
+        help="progressive delivery: shadow/canary a candidate instance "
+             "through a running router")
+    a.add_argument(
+        "--url", default="http://127.0.0.1:8500", metavar="URL",
+        help="router base URL (default localhost:8500)")
+    a.add_argument(
+        "--start", default=None, metavar="INSTANCE_ID",
+        help="start a rollout of this candidate engine instance")
+    a.add_argument(
+        "--abort", action="store_true",
+        help="abort the live rollout (immediate incumbent rollback)")
+    a.add_argument(
+        "--targets", default=None, metavar="HOST:PORT,...",
+        help="candidate serving members for --start")
+    a.add_argument(
+        "--incumbent", default=None, metavar="INSTANCE_ID",
+        help="pin the incumbent instance (default: discovered from the "
+             "ring members' GET /deploy.json)")
+    a.add_argument("--shadow-rate", type=float, default=None,
+                   metavar="FRACTION",
+                   help="fraction of live traffic mirrored (default 0.25)")
+    a.add_argument("--shadow-min-samples", type=int, default=None,
+                   metavar="N")
+    a.add_argument("--shadow-hold", type=float, default=None,
+                   metavar="SECONDS")
+    a.add_argument("--canary-fraction", type=float, default=None,
+                   metavar="FRACTION",
+                   help="keyspace fraction served by the candidate "
+                        "during canary (default 0.1)")
+    a.add_argument("--canary-hold", type=float, default=None,
+                   metavar="SECONDS")
+    a.add_argument("--canary-min-requests", type=int, default=None,
+                   metavar="N")
+    a.add_argument("--judge-interval", type=float, default=None,
+                   metavar="SECONDS")
+    a.add_argument("--judge-fast", type=float, default=None,
+                   metavar="SECONDS", help="fast burn window (default 30s)")
+    a.add_argument("--judge-slow", type=float, default=None,
+                   metavar="SECONDS",
+                   help="slow burn window (default 120s)")
+    a.add_argument("--burn-limit", type=float, default=None,
+                   metavar="RATE")
+    a.add_argument("--mismatch-limit", type=float, default=None,
+                   metavar="FRACTION")
+    a.add_argument("--admin-key", default=None,
+                   help="bearer key when the router requires one")
+    a.add_argument("--timeout", type=float, default=10.0, metavar="SECONDS")
+    a.set_defaults(fn=cmd_rollout)
+
+    a = sub.add_parser("adminserver", help="run the admin REST API")
+    a.add_argument("--ip", default="0.0.0.0")
+    a.add_argument("--port", type=int, default=7071)
+    a.add_argument(
+        "--admin-key", default=None,
+        help="access key required for mutating routes; without one they "
+             "are loopback-only")
+    a.set_defaults(fn=cmd_adminserver)
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="pio-tpu-torch",
@@ -1046,6 +1394,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="require this bearer key on every request")
     a.set_defaults(fn=cmd_blobserver)
 
+    _pool_plane_parsers(sub)
+
     a = sub.add_parser("import", help="import JSON-lines events")
     a.add_argument("--app", required=True)
     a.add_argument("--input", required=True)
@@ -1109,10 +1459,44 @@ def _configure_logging(verbosity: int) -> None:
     logging.getLogger("pio_tpu_torch").setLevel(level)
 
 
+#: the variables a verb exports for the processes it spawns (``--slo``,
+#: ``--qos``, ``--faults``); :func:`main` gives them back when it returns
+EXPORTED_ENV = ("PIO_TPU_SLO", "PIO_TPU_QOS", faults.ENV_VAR)
+
+
+@contextlib.contextmanager
+def verb_scope():
+    """What a verb sets up for itself and its workers lasts until the
+    block ends: the exports (``EXPORTED_ENV``) are given back, and a
+    fault registry the verb armed (``--faults``) is disarmed, or re-armed
+    with the spec it had before."""
+    saved = {k: os.environ.get(k) for k in EXPORTED_ENV}
+    armed = faults.snapshot()["spec"]
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        if faults.snapshot()["spec"] != armed:
+            if armed:
+                faults.install(armed)
+            else:
+                faults.uninstall()
+
+
 def main(argv=None) -> int:
+    """Run one verb in :func:`verb_scope`: its exports and its fault
+    registry last while it runs, for the workers it spawns, and are
+    undone when it returns. A verb run in a longer-lived process (a test,
+    a script driving ``main``) leaves no ``--qos`` or ``--faults`` behind
+    for what that process does later."""
     args = build_parser().parse_args(argv)
     _configure_logging(-1 if args.quiet else args.verbose)
-    return args.fn(args)
+    with verb_scope():
+        return args.fn(args)
 
 
 if __name__ == "__main__":

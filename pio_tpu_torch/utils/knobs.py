@@ -113,13 +113,28 @@ _DEFAULTS = {
     "PIO_TPU_LOG_RING": "512",
     # comma-separated plugin modules imported at server start
     "PIO_TPU_PLUGINS": "",
+    # -- the pool plane and the router (obs/fleet.py, server/dashboard.py,
+    # router/), the reference's names and defaults --
+    # comma-separated `name=host:port` members to scrape or route across
+    "PIO_TPU_FLEET_TARGETS": "",
+    # fleet scrape period, seconds
+    "PIO_TPU_FLEET_INTERVAL_S": "5.0",
+    # the dashboard's trainer status sidecar (its /train.json)
+    "PIO_TPU_TRAIN_STATUS_URL": "",
+    # SLO burn rate above which the router sheds a member
+    "PIO_TPU_ROUTER_BURN_LIMIT": "2.0",
+    # replication lag where the router's scoring starts to penalise
+    "PIO_TPU_ROUTER_LAG_SOFT_BYTES": "67108864.0",
+    # hedged second request delay, milliseconds; 0 disables
+    "PIO_TPU_ROUTER_HEDGE_MS": "0.0",
 }
 
 #: knobs whose value must be positive; another value reads as the default
 _POSITIVE = frozenset({
     "PIO_TPU_LANE_SLOTS", "PIO_TPU_LANE_SLOT_BYTES",
     "PIO_TPU_LANE_TIMEOUT_S", "PIO_TPU_HEARTBEAT_MAX_AGE_S",
-    "PIO_TPU_PROFILE_EXECUTIONS",
+    "PIO_TPU_PROFILE_EXECUTIONS", "PIO_TPU_FLEET_INTERVAL_S",
+    "PIO_TPU_ROUTER_BURN_LIMIT", "PIO_TPU_ROUTER_LAG_SOFT_BYTES",
 })
 
 

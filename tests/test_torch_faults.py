@@ -174,6 +174,12 @@ SITES = {
         "shard.reshard"]),
     "parallel/stream.py": ("parallel/stream.py", [
         "stream.encode", "stream.put", "stream.dispatch"]),
+    "router/core.py": ("router/core.py", [
+        "router.pick", "router.forward", "router.forward.hedge"]),
+    "router/deploy.py": ("router/deploy.py", ["router.verify"]),
+    "router/rollout.py": ("router/rollout.py", [
+        "rollout.mirror", "rollout.judge", "rollout.promote",
+        "rollout.rollback"]),
 }
 
 
@@ -334,11 +340,23 @@ def test_good_faults_spec_is_exported_and_installed(monkeypatch):
     from pio_tpu_torch.tools import cli
 
     monkeypatch.delenv("PIO_TPU_FAULTS", raising=False)
-    cli._arm_faults(argparse.Namespace(faults="worker.serve=latency:0us"))
-    assert os.environ["PIO_TPU_FAULTS"] == "worker.serve=latency:0us"
-    assert F.snapshot()["enabled"] is True
-    cli._arm_faults(argparse.Namespace(faults=None))  # no flag: untouched
-    assert F.snapshot()["spec"] == "worker.serve=latency:0us"
+    # in a verb's scope, as cli.main runs a verb: armed while it lasts,
+    # disarmed and unexported after, for the later tests of this process
+    with cli.verb_scope():
+        cli._arm_faults(argparse.Namespace(faults="worker.serve=latency:0us"))
+        assert os.environ["PIO_TPU_FAULTS"] == "worker.serve=latency:0us"
+        assert F.snapshot()["enabled"] is True
+        cli._arm_faults(argparse.Namespace(faults=None))  # no flag: untouched
+        assert F.snapshot()["spec"] == "worker.serve=latency:0us"
+    assert F.snapshot()["enabled"] is False
+    assert "PIO_TPU_FAULTS" not in os.environ
+    # a registry armed before the scope is armed as it was after it
+    F.install("a=latency:0us")
+    with cli.verb_scope():
+        cli._arm_faults(argparse.Namespace(faults="b=error"))
+        assert F.snapshot()["spec"] == "b=error"
+    assert F.snapshot()["spec"] == "a=latency:0us"
+    F.uninstall()
     parser = cli.build_parser()
     for verb in ("train", "deploy", "eventserver"):
         args = parser.parse_args([verb, "--faults", "a=error"])

@@ -128,3 +128,45 @@ def test_chip_smoke_fails_alone(tmp_path):
     out = _run_smoke(tmp_path)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+#: the pool plane and the router, each under the reference's name
+POOL_PLANE_MODULES = (
+    "obs/shm.py", "obs/promparse.py", "obs/fleet.py", "server/fleetd.py",
+    "server/dashboard.py", "server/admin.py", "server/routerd.py",
+    "router/__init__.py", "router/ring.py", "router/core.py",
+    "router/deploy.py", "router/rollout.py",
+)
+
+
+@pytest.mark.parametrize("module", POOL_PLANE_MODULES)
+def test_pool_plane_module_stands_alone(module):
+    """Each has its reference counterpart, and imports neither ``jax`` nor
+    ``pio_tpu`` (also held by the walk above, which covers every file)."""
+    path = REPO / "pio_tpu_torch" / module
+    assert (REPO / "pio_tpu" / module).exists()
+    bad = [mod for _, mod in _imports(path) if _forbidden(mod)]
+    assert bad == []
+
+
+def test_cli_verbs_leave_no_exports_behind(monkeypatch, tmp_path, capsys):
+    """``--qos`` / ``--slo`` / ``--faults`` are exported for the workers a
+    verb spawns, and given back when the verb returns, so a process that
+    runs a verb in-line serves its later servers without them."""
+    from pio_tpu_torch import faults
+    from pio_tpu_torch.tools import cli
+
+    for name in cli.EXPORTED_ENV:
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.chdir(tmp_path)
+    from pio_tpu_torch.workflow.engine_json import EngineJsonError
+
+    assert faults.snapshot()["enabled"] is False
+    # no engine.json: the verb fails after exporting and arming its specs
+    with pytest.raises(EngineJsonError):
+        cli.main(["deploy", "--device", "cpu", "--qos", "rps=5",
+                  "--slo", "p99=50ms:99.9",
+                  "--faults", "worker.serve=latency:0us"])
+    capsys.readouterr()
+    assert [os.environ.get(n) for n in cli.EXPORTED_ENV] == [None] * 3
+    assert faults.snapshot()["enabled"] is False

@@ -22,8 +22,9 @@ port the same arrays in memory. Then, the same requests to each:
   webhooks storing the same events, an input blocker rejecting the same
   event, and the storage breaker tripping;
 - ``deploy`` / ``eventserver`` with a bad ``--slo`` or ``--qos`` exit 1
-  (the port in process, the reference as two processes), and ``deploy
-  --workers 2`` with a rate budget exits 1 in the port.
+  (the port in process, the reference as two processes);
+- two pool workers of each package bound to a shared metrics segment
+  admit one rate budget for the pool, with the reference's statuses.
 
 Holding a slot uses an event, never a sleep: no verdict depends on a
 wall-clock rate.
@@ -33,6 +34,7 @@ import argparse
 import contextlib
 import http.client
 import json
+import multiprocessing
 import os
 import pathlib
 import subprocess
@@ -817,11 +819,17 @@ def test_bad_request_plane_spec_exits_1_in_the_port(tmp_path, capsys,
 def test_good_specs_are_exported(monkeypatch):
     monkeypatch.delenv("PIO_TPU_SLO", raising=False)
     monkeypatch.delenv("PIO_TPU_QOS", raising=False)
-    slos, qos = p_cli._request_plane(argparse.Namespace(
-        slo=["p99=50ms:99.9", "availability=99.9"], qos="inflight=2"))
-    assert slos == ["p99=50ms:99.9", "availability=99.9"]
-    assert os.environ["PIO_TPU_SLO"] == "p99=50ms:99.9,availability=99.9"
-    assert os.environ["PIO_TPU_QOS"] == qos == "inflight=2"
+    # in a verb's scope, as cli.main runs a verb: exported while it lasts,
+    # given back after (a pool the later tests of this process start must
+    # not serve under inflight=2)
+    with p_cli.verb_scope():
+        slos, qos = p_cli._request_plane(argparse.Namespace(
+            slo=["p99=50ms:99.9", "availability=99.9"], qos="inflight=2"))
+        assert slos == ["p99=50ms:99.9", "availability=99.9"]
+        assert os.environ["PIO_TPU_SLO"] == "p99=50ms:99.9,availability=99.9"
+        assert os.environ["PIO_TPU_QOS"] == qos == "inflight=2"
+    assert "PIO_TPU_SLO" not in os.environ
+    assert "PIO_TPU_QOS" not in os.environ
     parser = p_cli.build_parser()
     for verb in ("deploy", "eventserver"):
         args = parser.parse_args([verb, "--slo", "a=1", "--qos", "b=2"])
@@ -830,15 +838,73 @@ def test_good_specs_are_exported(monkeypatch):
                              ).feedback_app == "x"
 
 
-@pytest.mark.parametrize("qos", ["rps=5", "inflight=1,key_rps=9"])
-def test_pool_rate_budget_is_refused_by_the_port(tmp_path, capsys,
-                                                 monkeypatch, qos):
-    monkeypatch.chdir(tmp_path)
-    (tmp_path / "engine.json").write_text(json.dumps(VARIANT))
-    code = p_cli.main(["deploy", "--workers", "2", "--device", "cpu",
-                       "--qos", qos])
-    assert code == 1
-    assert "obs/shm" in capsys.readouterr().err
+@contextlib.contextmanager
+def pooled_query_servers(text, qos, tmp_path):
+    """Two pool workers of each package in this process, each bound to
+    its stripe of its package's shared metrics segment (as
+    ``ServingPool`` binds them): ``{"port": [port0, port1], "reference":
+    [...]}``. The log handlers' worker stamps are given back after."""
+    from pio_tpu.obs import slog as r_slog
+    from pio_tpu.obs.shm import PoolMetricsSegment as RSegment
+    from pio_tpu_torch.obs import slog as p_slog
+    from pio_tpu_torch.obs.shm import PoolMetricsSegment as PSegment
+
+    stamps = [(m, m.install().worker) for m in (p_slog, r_slog)]
+    segs = {"port": PSegment.create(str(tmp_path / "p.shm"), 2),
+            "reference": RSegment.create(str(tmp_path / "r.shm"), 2)}
+    stack = contextlib.ExitStack()
+    ports = {"port": [], "reference": []}
+    try:
+        for w in range(2):
+            servers = stack.enter_context(query_servers(text, qos=qos))
+            for name, (port, service) in servers.items():
+                service.enable_pool(w, 2, multiprocessing.Value("L", 0),
+                                    threading.Event(),
+                                    metrics_path=segs[name].path)
+                ports[name].append(port)
+        yield ports
+    finally:
+        stack.close()
+        for seg in segs.values():
+            seg.unlink()
+        for mod, worker in stamps:
+            mod.install().worker = worker
+
+
+@pytest.mark.parametrize("qos,admitted", [
+    ("rps=0.01,burst=3", 3),
+    # the query server's requests carry no access key, so a key budget
+    # admits everything, in the reference's pool as in one process
+    ("inflight=4,key_rps=0.01,key_burst=1", 12),
+])
+def test_pool_enforces_one_rate_budget_like_reference(text, tmp_path, qos,
+                                                     admitted):
+    """Twelve queries spread over the two workers of a pool: the pool
+    admits one budget (the burst, not twice it), the same answers and
+    statuses as the reference's pool, and either worker's ``/metrics``
+    counts the pool's admissions and requests."""
+    with pooled_query_servers(text, qos, tmp_path) as ports:
+        got = {name: [] for name in ports}
+        for name, (p0, p1) in ports.items():
+            clients = [Client(p0), Client(p1)]
+            for k in range(12):
+                status, _, body = post_query(clients[k % 2],
+                                             text.queries[k])
+                got[name].append((status, body.get("label")))
+            scraped = [c("GET", "/metrics")[2] for c in clients]
+            for c in clients:
+                c.close()
+            for body in scraped:
+                lines = body.splitlines()
+                assert (f'pio_tpu_queries_total{{engine_id="{APP}"}} 12'
+                        in lines or 'pio_tpu_queries_total{engine_id=""} '
+                        "12" in lines), name
+                if admitted < 12:
+                    assert ('pio_tpu_qos_admitted_total{scope="queryserver"}'
+                            f" {admitted}") in lines
+    assert [s for s, _ in got["port"]] == [200] * admitted + [429] * (
+        12 - admitted)
+    assert got["port"] == got["reference"]
 
 
 def test_bad_specs_exit_1_in_the_reference(tmp_path):
