@@ -84,7 +84,7 @@ kernels (the forward, and the backward's bag scatter and bag dot):
 20. the e-commerce template on those events plus 5,000 buys and the
    unavailable-items constraint: 8 requests, ``unseen_only``, the
    constraint changed between two identical queries, ``batch_predict``
-   of 1024 (256 of them against the loop), and a query's time with and without its live reads, on the
+   of 1024 (128 of them against the loop), and a query's time with and without its live reads, on the
    memory store and again with EVENTDATA on SQLite;
 21. ``run_evaluation`` of ``similarproduct_evaluation`` and
    ``ecommerce_evaluation`` on those events (3 folds, rank 16), card
@@ -160,7 +160,7 @@ kernels (the forward, and the backward's bag scatter and bag dot):
    uninterrupted runs; ``pio train --checkpoint-every`` (the CLI's main
    in this process) on phase 28's SQLite home;
 36. phase 4's text model served under concurrency: 1 and 32 keep-alive
-   clients x 64 queries with the micro-batcher off and on (adaptive off,
+   clients x 32 queries with the micro-batcher off and on (adaptive off,
    the window printed), every answer against the solo path and the CPU
    copy through the plain version, p50/p99, batches, ``maxBatch``,
    dispatches a bucket and ``retraces`` after warmup (0); the adaptive
@@ -259,7 +259,7 @@ kernels (the forward, and the backward's bag scatter and bag dot):
    events in batches of 50 and 500 single posts (events/s, p50/p99 a
    batch and a single post, ``os.cpu_count()``), every acknowledged event
    read back (the store's count, ``find_frame``, ``get`` of 50); then
-   half of MovieLens-1M's ratings (500,104 over its 6,040 users and 3,706
+   a quarter of MovieLens-1M's ratings (250,052 over its 6,040 users and 3,706
    items, synthetic as ``bench.py``'s) written with ``write`` into the
    memory store, the event log, parquet and searchable (each write's and
    ``find_frame``'s wall), ``run_train`` of the recommendation template on
@@ -281,7 +281,7 @@ kernels (the forward, and the backward's bag scatter and bag dot):
    than its forward kernel's CUDA-event time and inside ``execute``; the
    ``served query`` record under each sampled id in ``/logs.json``; p50,
    p99 and the stages' p50s beside phase 36's solo p50; the tracer's own
-   cost a request); 45.2 32 clients x 64 under ``inflight=2,queue=4`` (and
+   cost a request); 45.2 32 clients x 32 under ``inflight=2,queue=4`` (and
    a rate), the batcher off then on (the counts of 200, 429 and 503, each
    shed with ``Retry-After``, ``/qos.json``'s sheds adding up to them,
    every 200 the solo answer, the forward launches equal to the executed
@@ -304,7 +304,7 @@ kernels (the forward, and the backward's bag scatter and bag dot):
    a ``python -m pio_tpu_torch`` process on phase 29's home: a single
    ``deploy``, a pool of 4 with ``--device-worker``, a second such pool
    under ``--qos rps=100,burst=50`` and ``eventserver``, started together;
-   both pools with a 5 s lane timeout; 46.1 32 clients x 64 through the
+   both pools with a 5 s lane timeout; 46.1 32 clients x 32 through the
    pool (every answer within CONF_TOL of the single process's, p50, p99
    and queries/s; no query of either pool served on a sibling's CPU: no
    lane fallback, worker 0 drained every query the siblings answered),
@@ -324,7 +324,21 @@ kernels (the forward, and the backward's bag scatter and bag dot):
    replicas' ``/deploy.json`` as they were, one promotes and flips both to
    the next generation after ``verify_instance``; the forward launches of
    every server (their ``/stats.json`` ``kernelLaunches``) join the
-   kernels' line.
+   kernels' line;
+47. the HTTP fronts: 47.1 phase 4's model in this process on the threaded
+   and the evloop front (``PIO_TPU_HTTP_FRONT``), 1 and 32 keep-alive
+   clients x 32 each (p50, p99, queries/s; every answer within CONF_TOL
+   of phase 5's), and a pipelined burst of 16 on one connection on each
+   front, answered in order; 47.2 phase 39's classification pool of 4
+   with ``--device-worker`` again, ``PIO_TPU_HTTP_FRONT=evloop`` in the
+   verb's environment and a 5 s lane timeout, JSON and packed int8 frames
+   from 32 clients (every answer the CPU copy's, no lane fallback on any
+   worker, the evloop families in ``/metrics``; beside phase 39's threaded
+   numbers); 47.3 TLS with a certificate minted by the ``openssl``
+   binary: a threaded query server over HTTPS answers phase 4's queries
+   with the same bits as plain HTTP, ``evloop`` with TLS configured serves
+   threaded, and a plain-text client gets no answer. 47's forward
+   launches (``/stats.json`` ``kernelLaunches``) join the kernels' line.
 
 The CLI phases write their homes under ``build/chip_smoke_homes/``
 (gitignored), made afresh each run; every server process is stopped
@@ -357,6 +371,7 @@ import os
 import re
 import shutil
 import socket
+import ssl
 import subprocess
 import sys
 import threading
@@ -2760,9 +2775,10 @@ def phase_sp_template(args, smi) -> dict:
                 last=ingested["last"], factor_err=err)
 
 
-#: phase 20's predict loop: the first 254 of the batch's queries and its
-#: two cold ones (the whole 1,024 until PR 17; cut for the script's time)
-EC_LOOP_QUERIES = 256
+#: phase 20's predict loop: the first 126 of the batch's queries and its
+#: two cold ones (the whole 1,024 at first, then 256; cut for the
+#: script's time)
+EC_LOOP_QUERIES = 128
 
 
 def phase_ecomm_template(args, smi, sp) -> dict:
@@ -4751,7 +4767,8 @@ def phase_checkpoints(args, smi, tt, seq) -> None:
 # ---------------------------- serving under concurrency (phases 36-39)
 #: a load: concurrent keep-alive clients, and the queries each one sends
 N_CLIENTS = 32
-PER_CLIENT = 64
+#: 32 (was 64; cut for the script's time, every run and check kept)
+PER_CLIENT = 32
 #: the micro-batcher's collection window in the measured runs, µs: about
 #: one batched text dispatch at B = 32, so clients whose answers went out
 #: together are back in the queue before the next batch leaves
@@ -5108,8 +5125,8 @@ def phase_reload_under_load(args, smi) -> dict:
 
 
 #: the queries a client sends in each of phase 38's four residency runs:
-#: 32 (was 64; cut for the script's time)
-P38_PER_CLIENT = 32
+#: 16 (64 at first, then 32; cut for the script's time)
+P38_PER_CLIENT = 16
 
 
 def resident_vs_mirror(variant, home, iid, bodies, smi) -> dict:
@@ -5321,7 +5338,7 @@ def phase_pool(args, smi, reloaded) -> dict:
             raise AssertionError(f"/undeploy {code}, the pool exited {rc}")
     log(f"  phase 39 {time.monotonic() - t_phase:.1f} s")
     return {"latency": lat, "drained": drained, "fallbacks": fallbacks,
-            "holders": sorted(holders)}
+            "holders": sorted(holders), "instance": new}
 
 
 # ------------------------------------------- the device ops plane (phase 40)
@@ -7492,10 +7509,10 @@ def phase_stream_mesh_faults(args, smi, tt_model, gpu, queries,
 # ------------------------------------------------- phase 44: the event stores
 #: MovieLens-1M's shape (ratings, users, movies), synthetic as bench.py's
 ML1M_EDGES, ML1M_USERS, ML1M_ITEMS = 1_000_209, 6_040, 3_706
-#: 44.2-44.3's ratings: half of MovieLens-1M's over its users and movies
-#: (was all 1,000,209; cut for the script's time, the stores' and the
-#: trainers' checks unchanged)
-P44_RATINGS = ML1M_EDGES // 2
+#: 44.2-44.3's ratings: a quarter of MovieLens-1M's over its users and
+#: movies (all 1,000,209 at first, then half; cut for the script's time,
+#: the stores' and the trainers' checks unchanged)
+P44_RATINGS = ML1M_EDGES // 4
 #: 44.1: phase 28's rate events through the event server: these many in
 #: batches of QS_BATCH, then these many single posts (were 20,000 and
 #: 1,000; cut for the script's time)
@@ -8081,7 +8098,7 @@ def drive_mixed(port: int, texts: list, n_clients: int, per_client: int,
 
 
 def p45_overload(smi, engine, ep, gpu, texts, want) -> dict:
-    """45.2: 32 clients x 64 against a small admission, batcher off/on."""
+    """45.2: 32 clients x 32 against a small admission, batcher off/on."""
     out = {}
     launches = 0
     for mode, window in (("off", "0"), ("on", str(MB_WINDOW_US))):
@@ -8657,7 +8674,7 @@ def every_worker_again(port: int, path: str, key, want=None) -> dict:
             time.sleep(0.2)
 
 
-def lane_of(stats: dict, where: str) -> dict:
+def lane_of(stats: dict, where: str, tag: str = "46.1") -> dict:
     """A ``--device-worker`` pool's lane from every worker's
     ``/stats.json``: each sibling's enqueued and fallen-back queries (a
     fallback is a query the sibling served itself, on the CPU: the card
@@ -8669,7 +8686,7 @@ def lane_of(stats: dict, where: str) -> dict:
            "enqueued": {w: lane[w].get("enqueued", 0) for w in sib},
            "answered": {w: stats[w]["requestCount"] for w in sib},
            "fallbacks": {w: lane[w].get("fallbacks", {}) for w in sib}}
-    log(f"  46.1 {where}'s lane: worker 0 drained {out['drained']}; the "
+    log(f"  {tag} {where}'s lane: worker 0 drained {out['drained']}; the "
         f"siblings enqueued {out['enqueued']} of the queries they answered "
         f"{out['answered']}, fallbacks by reason {out['fallbacks']}")
     return out
@@ -9088,6 +9105,225 @@ def phase_pool_plane(args, smi, text) -> dict:
     return {"launches": launches, "pool": pooled, "router": routed}
 
 
+# ------------------------------------------------- the HTTP fronts (phase 47)
+#: phase 47.1's pipelined burst on one connection
+P47_BURST = 16
+#: the fronts of phase 47.1, in the order they run
+P47_FRONTS = ("threaded", "evloop")
+
+
+def http_burst(port: int, bodies: list) -> list:
+    """``bodies`` as one pipelined burst of ``POST /queries.json`` on one
+    connection (the last asks to close): the decoded answers, in order."""
+    blob = b""
+    for n, b in enumerate(bodies):
+        data = json.dumps(b).encode()
+        close = b"Connection: close\r\n" if n == len(bodies) - 1 else b""
+        blob += (b"POST /queries.json HTTP/1.1\r\nHost: c\r\nContent-Type: "
+                 b"application/json\r\nContent-Length: %d\r\n%s\r\n%s"
+                 % (len(data), close, data))
+    with socket.create_connection(("127.0.0.1", port), timeout=60) as s:
+        s.sendall(blob)
+        raw = b""
+        while chunk := s.recv(1 << 16):
+            raw += chunk
+    out = []
+    while raw:
+        head, _, raw = raw.partition(b"\r\n\r\n")
+        lines = head.split(b"\r\n")
+        length = next(int(ln.split(b":")[1]) for ln in lines
+                      if ln.lower().startswith(b"content-length:"))
+        if int(lines[0].split()[1]) != 200:
+            raise AssertionError(f"burst answer {len(out)}: {lines[0]!r}")
+        out.append(json.loads(raw[:length]))
+        raw = raw[length:]
+    return out
+
+
+def p47_fronts(smi, gpu, bodies, http_answers) -> dict:
+    """47.1: phase 4's model on each front in this process."""
+    engine = get_engine_factory("templates.textclassification")()
+    ep = EngineParams(algorithm_params_list=(("mlp", MLPParams()),))
+    out = {}
+    for front in P47_FRONTS:
+        with knob("PIO_TPU_HTTP_FRONT", front):
+            server = create_query_server(engine, ep, [gpu], host="127.0.0.1",
+                                         port=0, device=CARD)
+        if server.front != front:
+            raise AssertionError(f"47.1: asked for {front}, got "
+                                 f"{server.front}")
+        with server:
+            for n_clients in (1, N_CLIENTS):
+                records, wall = drive_load(server.port, bodies, n_clients,
+                                           PER_CLIENT)
+                for i, _, answer, _ in records:
+                    close_answer(answer, http_answers[i],
+                                  f"47.1 {front} body {i}")
+                lat = latency(records, wall)
+                out[(front, n_clients)] = lat
+                log(f"  47.1 {front} front, {n_clients} client(s) x "
+                    f"{PER_CLIENT}: p50 {lat['p50_ms']:.3f} ms, p99 "
+                    f"{lat['p99_ms']:.3f} ms, {lat['qps']:.0f} queries/s "
+                    f"(host clock); {smi}")
+            burst = [bodies[k % len(bodies)] for k in range(P47_BURST)]
+            got = http_burst(server.port, burst)
+            if len(got) != P47_BURST:
+                raise AssertionError(f"47.1 {front}: {len(got)} answers to "
+                                     f"a burst of {P47_BURST}")
+            for k, answer in enumerate(got):
+                close_answer(answer, http_answers[k % len(bodies)],
+                              f"47.1 {front} burst answer {k}")
+            conn = http.client.HTTPConnection("127.0.0.1", server.port,
+                                              timeout=60)
+            out[(front, "plain")] = [post(conn, json.dumps(b).encode())[1]
+                                     for b in bodies]
+            conn.close()
+            out[(front, "stats")] = server.service.stats()
+        log(f"  47.1 {front} front: a pipelined burst of {P47_BURST} on one "
+            f"connection answered in order, each within {CONF_TOL} of "
+            f"phase 5's")
+    return out
+
+
+def p47_pool(smi, args, reloaded, pool39) -> dict:
+    """47.2: phase 39's pool of 4 again, on the evloop front."""
+    home, ej = reloaded["home"], reloaded["engine_json"]
+    variant = variant_from_dict(POOL_VARIANT, path=ej)
+    bodies = pool_bodies(args.seed + 47)
+    with cli_store(home):
+        mirror = cpu_mirror(variant, pool39["instance"])
+    want = [mirror.query(json.dumps(b).encode()) for b in bodies]
+    frames = [mirror.pack_query_body(b) for b in bodies]
+    mirror.close()
+    env = {**cli_env(home), "PIO_TPU_HTTP_FRONT": "evloop",
+           "PIO_TPU_LANE_TIMEOUT_S": str(P46_LANE_TIMEOUT_S)}
+    port = free_port()
+    t0 = time.monotonic()
+    with cli_server(env, home, "deploy", "--engine-json", ej, "--ip",
+                    "127.0.0.1", "--port", str(port), "--workers",
+                    str(POOL_WORKERS), "--device-worker", "--device",
+                    CARD.type) as proc:
+        wait_listening(home, proc)
+        up_s = time.monotonic() - t0
+        records, wall = drive_load(port, bodies, N_CLIENTS, PER_CLIENT,
+                                   frames=frames)
+        for (i, _), answer in distinct_answers(records).items():
+            if answer != want[i]:
+                raise AssertionError(f"47.2 body {i}: {answer} vs the CPU "
+                                     f"copy {want[i]}")
+        stats = every_worker(port, "/stats.json", "worker")
+        lane = lane_of(stats, "the evloop pool", tag="47.2")
+        families = [samples(get_text(port, "/metrics")[1], fam)
+                    for fam in ("pio_tpu_http_connections_active",
+                                "pio_tpu_http_pipelined_total")]
+        lat = latency(records, wall)
+        t39 = pool39["latency"]
+        log(f"  47.2 the evloop pool up in {up_s:.1f} s (host clock); "
+            f"{lat['n']} answers (JSON and packed int8) equal the CPU copy; "
+            f"p50 {lat['p50_ms']:.3f} ms, p99 {lat['p99_ms']:.3f} ms, "
+            f"{lat['qps']:.0f} queries/s; phase 39's threaded pool p50 "
+            f"{t39['p50_ms']:.3f} ms, p99 {t39['p99_ms']:.3f} ms, "
+            f"{t39['qps']:.0f} queries/s; /metrics {families}; {smi}")
+        bad = lane_faults(lane)
+        if bad or lane["drained"] <= 0 or not all(families):
+            raise AssertionError(f"47.2: {bad}, drained {lane['drained']}, "
+                                 f"evloop families {families}")
+        code = send(port, "POST", "/undeploy", {})[0]
+        rc = proc.wait(timeout=60)
+        if code != 200 or rc != 0:
+            raise AssertionError(f"47.2 /undeploy {code}, the pool exited "
+                                 f"{rc}")
+    return {"latency": lat, "lane": lane}
+
+
+def p47_tls(smi, gpu, bodies, plain) -> dict:
+    """47.3: TLS on the threaded front, from a certificate minted by the
+    openssl binary."""
+    home = fresh_home("tls")
+    cert, key = os.path.join(home, "cert.pem"), os.path.join(home, "key.pem")
+    subprocess.run(["openssl", "req", "-x509", "-newkey", "rsa:2048",
+                    "-nodes", "-keyout", key, "-out", cert, "-days", "1",
+                    "-subj", "/CN=localhost"], capture_output=True,
+                   check=True, timeout=120)
+    engine = get_engine_factory("templates.textclassification")()
+    ep = EngineParams(algorithm_params_list=(("mlp", MLPParams()),))
+    client_ctx = ssl.create_default_context()
+    client_ctx.check_hostname = False
+    client_ctx.verify_mode = ssl.CERT_NONE
+    out = {}
+    with knob("PIO_TPU_SSL_CERTFILE", cert), knob("PIO_TPU_SSL_KEYFILE", key):
+        for asked in P47_FRONTS:
+            with knob("PIO_TPU_HTTP_FRONT", asked):
+                server = create_query_server(engine, ep, [gpu],
+                                             host="127.0.0.1", port=0,
+                                             device=CARD)
+            if server.front != "threaded" or not server.tls:
+                raise AssertionError(f"47.3: {asked} with TLS gave the "
+                                     f"{server.front} front, tls "
+                                     f"{server.tls}")
+            with server:
+                conn = http.client.HTTPSConnection(
+                    "127.0.0.1", server.port, timeout=60, context=client_ctx)
+                got = [post(conn, json.dumps(b).encode())[1] for b in bodies]
+                conn.close()
+                with socket.create_connection(("127.0.0.1", server.port),
+                                              timeout=30) as s:
+                    s.sendall(b"GET / HTTP/1.1\r\nHost: c\r\n\r\n")
+                    try:
+                        refused = s.recv(64)
+                    except (ConnectionResetError, socket.timeout):
+                        refused = b""
+            if got != plain:
+                raise AssertionError(f"47.3 {asked}: HTTPS answers {got} "
+                                     f"are not the plain answers {plain}")
+            if refused.startswith(b"HTTP/1.1 200"):
+                raise AssertionError("47.3: a plain-text client was answered")
+            out[asked] = got
+            log(f"  47.3 PIO_TPU_HTTP_FRONT={asked} with TLS: served on the "
+                f"threaded front over HTTPS, {len(got)} answers the plain "
+                f"HTTP bits; a plain-text client got {refused[:16]!r}")
+    return out
+
+
+def phase_fronts(args, smi, gpu, queries, http_answers, reloaded,
+                 pool39) -> dict:
+    """Phase 47: the HTTP fronts and TLS."""
+    t_phase = time.monotonic()
+    log(f"phase 47: the HTTP fronts: phase 4's model on the threaded and "
+        f"the evloop front from 1 and {N_CLIENTS} clients and a pipelined "
+        f"burst of {P47_BURST}, phase 39's pool of {POOL_WORKERS} on the "
+        f"evloop front, TLS on the threaded front; {smi}")
+    bodies = [{"text": t} for t in queries[:N_HTTP]]
+    reset_counts()
+    walls = {}
+    t = time.monotonic()
+    fronts = p47_fronts(smi, gpu, bodies, http_answers)
+    walls["47.1"] = time.monotonic() - t
+    t = time.monotonic()
+    pooled = p47_pool(smi, args, reloaded, pool39)
+    walls["47.2"] = time.monotonic() - t
+    t = time.monotonic()
+    plain = fronts[("threaded", "plain")]
+    if fronts[("evloop", "plain")] != plain:
+        raise AssertionError("47.1: the fronts' answers differ in their bits")
+    p47_tls(smi, gpu, bodies, plain)
+    walls["47.3"] = time.monotonic() - t
+    launches = read_counts()
+    stats_launches = fronts[("evloop", "stats")]["kernelLaunches"]
+    log(f"  47 forward launches {launches['embedding_bag']} (the evloop "
+        f"server's /stats.json kernelLaunches after 47.1's fronts: "
+        f"{stats_launches['embedding_bag']})")
+    if stats_launches["embedding_bag"] <= 0:
+        raise AssertionError("47: the fronts launched no forward kernel")
+    log(f"  phase 47 launches (added to the kernels' line): "
+        f"{json.dumps(launches)}; walls "
+        f"{json.dumps({k: round(v, 1) for k, v in walls.items()})}; "
+        f"phase 47 {time.monotonic() - t_phase:.1f} s")
+    return {"launches": launches, "fronts": {
+        f"{k[0]}/{k[1]}": v for k, v in fronts.items()
+        if isinstance(k[1], int)}, "pool": pooled}
+
+
 def kernel_entry(name, source, replaces, launches, row) -> dict:
     """One kernel of the JSON line, from its main timed row."""
     return {
@@ -9246,7 +9482,7 @@ def main(argv=None) -> int:
     summary[0]["shapes"] += mb_text["rows"]
     phase_rec_microbatch(args, smi, full["factors"])
     reloaded = phase_reload_under_load(args, smi)
-    phase_pool(args, smi, reloaded)
+    pool39 = phase_pool(args, smi, reloaded)
     # the device ops plane on phase 29's engine and phase 38's store; its
     # launches join the kernels' line
     ops = phase_ops_plane(args, smi, text, reloaded)
@@ -9285,6 +9521,12 @@ def main(argv=None) -> int:
     p46 = phase_pool_plane(args, smi, text)
     for entry in summary:
         entry["launches"] += p46["launches"][entry["name"]]
+    # the HTTP fronts and TLS over phase 4's model and phase 39's pool:
+    # their forward launches join the kernels' line
+    p47 = phase_fronts(args, smi, gpu, queries, http_answers, reloaded,
+                       pool39)
+    for entry in summary:
+        entry["launches"] += p47["launches"][entry["name"]]
     log(f"text evaluation sweep launches (added to the kernels' line): "
         f"{json.dumps(text_eval)}")
     log(f"CLI train + deploy launches (added to the kernels' line): "

@@ -3,10 +3,10 @@
 Counterpart of ``pio_tpu/controller/components.py``. A component receives
 a :class:`~pio_tpu_torch.parallel.context.ComputeContext` (the device and
 seed) where the reference's receive the mesh. Every component is
-constructed with its Params instance: ``cls(params)``. The reference's
-``PersistentModel`` opt-out is not ported: every model of the port
-persists as a pickled blob of host values
-(:mod:`pio_tpu_torch.workflow.core_workflow`).
+constructed with its Params instance: ``cls(params)``. A model persists
+as a pickled blob of host values
+(:mod:`pio_tpu_torch.workflow.core_workflow`) unless it is a
+:class:`PersistentModel` whose ``save`` handles it.
 """
 
 from __future__ import annotations
@@ -103,6 +103,25 @@ class Algorithm(Component, Generic[PD, M, Q, P]):
         serving device), or None: the model serves as it is. The query
         server places it when it is built, where residency is enabled."""
         return None
+
+
+class PersistentModel(abc.ABC):
+    """Opt-in custom model persistence (reference ``PersistentModel`` /
+    ``PersistentModelLoader``). ``run_train`` calls :meth:`save`; a model
+    that handles itself returns True and the Models store's blob keeps
+    None in its place, False falls back to the blob. A load calls the
+    algorithm's ``model_class.load`` with the same instance id."""
+
+    @abc.abstractmethod
+    def save(self, instance_id: str, params: Params,
+             ctx: ComputeContext) -> bool:
+        """Persist; return True if handled (False -> fall back to blob)."""
+
+    @classmethod
+    @abc.abstractmethod
+    def load(cls, instance_id: str, params: Params,
+             ctx: ComputeContext) -> "PersistentModel":
+        ...
 
 
 class Serving(Component, Generic[Q, P]):

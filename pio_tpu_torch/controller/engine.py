@@ -271,6 +271,11 @@ def register_engine(name: str):
     return deco
 
 
+def engine_factory_names() -> List[str]:
+    """The registered factory names, sorted."""
+    return sorted(_ENGINE_REGISTRY)
+
+
 def get_engine_factory(name: str) -> EngineFactory:
     """Resolve a factory: registry name, then ``module:attr`` import, then
     the port's module of that name (``templates.textclassification`` is

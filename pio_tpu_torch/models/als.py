@@ -437,12 +437,15 @@ def _sort_edges_by_user(user_idx, item_idx, rating,
 
 
 def _choose_item_wire(i_sorted, counts_u, I_pad, n_edges,
-                      item_wire: str = "auto"):
+                      item_wire: Optional[str] = None):
     """The denser lossless item wire: uint16/24/32 planes or 12-bit
     deltas over the (user, item)-sorted adjacency, sized without building
-    it. ``item_wire`` "delta12" or "planes" asks for one where it applies
-    (the tests hold the two against each other).
+    it. ``item_wire`` "delta12" or "planes" asks for one where it applies;
+    None reads ``PIO_TPU_ALS_ITEM_WIRE`` (``auto``, ``delta12``,
+    ``planes``), as the reference does.
     Returns (item_wire, n_ovf, edge_item_bytes)."""
+    if item_wire is None:
+        item_wire = knobs.knob_str("PIO_TPU_ALS_ITEM_WIRE")
     plane_width = 2 if I_pad < 65536 else (3 if I_pad < 2 ** 24 else 4)
     n_ovf = None
     if I_pad < 65536 and item_wire in ("auto", "delta12"):
@@ -844,7 +847,7 @@ def _layouts(user_idx, item_idx, n_users: int, n_items: int,
 
 
 def _encode_wire(user_idx, item_idx, rating, n_users: int, n_items: int,
-                 config: ALSConfig, item_wire: str = "auto",
+                 config: ALSConfig, item_wire: Optional[str] = None,
                  n_shards: int = 1):
     """:func:`train_als`'s host side: the layouts' sizes (over
     ``n_shards`` ranks), the (user, item) edge sort and the wire encoders.

@@ -21,8 +21,8 @@ Routes (keys are percent-encoded path remainders; bodies are raw bytes):
 
 Auth: optional shared key — ``create_blob_server(..., access_key=...)``
 requires ``Authorization: Bearer <key>`` (or ``?accessKey=``) on every
-route, checked before a body is read. No TLS (the port's HTTP layer has
-none).
+route, checked before a body is read. TLS from ``PIO_TPU_SSL_CERTFILE`` /
+``PIO_TPU_SSL_KEYFILE``, as on every threaded server of the port.
 
 Start one with the CLI: ``python -m pio_tpu_torch blobserver --root DIR``.
 """

@@ -23,12 +23,28 @@ bind, so the processes of a serving pool share one port.
 
 The blob daemon's bodies: an ``application/octet-stream`` body is spooled
 off the socket in chunks (:attr:`Request.body_file`), up to
-:data:`MAX_BODY_BYTES` on a server built with ``large_uploads`` and to the
-JSON cap elsewhere; a :class:`FileResponse` streams a file out in constant
-memory; a ``pre_body`` hook (the daemon's auth) runs before any body byte
-is read.
+:data:`MAX_BODY_MB` on a server built with ``large_uploads`` and to
+:data:`MAX_JSON_BODY_MB` elsewhere; a :class:`FileResponse` streams a file
+out in constant memory; a ``pre_body`` hook (the daemon's auth) runs
+before any body byte is read.
 
-Cut to what the ported routes use: no TLS and no event-loop front.
+**Knobs**, read as the reference reads them: the body caps
+(``PIO_TPU_MAX_BODY_MB``, ``PIO_TPU_MAX_JSON_BODY_MB``) when this module
+is imported, the listen backlog (``PIO_TPU_HTTP_BACKLOG``) and the idle
+timeout (``PIO_TPU_HTTP_IDLE_TIMEOUT_S``, 30 s) when a server is built.
+
+**TLS.** ``PIO_TPU_SSL_CERTFILE`` (and ``PIO_TPU_SSL_KEYFILE``, unless the
+certificate file bundles the key) switch every server built on
+:class:`JsonHTTPServer` to HTTPS: the event server, the query server's
+threaded front, the blob daemon, admin, the dashboard, ``fleetd``,
+``routerd`` and the trainer's sidecar. Each connection is wrapped in its
+own thread, never in the accept loop. ``ssl_context=None`` forces plain
+HTTP.
+
+The query server may serve from the selectors event loop of
+:mod:`pio_tpu_torch.server.evfront` instead (``PIO_TPU_HTTP_FRONT=
+evloop``); both fronts share the :class:`Router` and :class:`Request`
+contract and the knobs above.
 """
 
 from __future__ import annotations
@@ -40,6 +56,7 @@ import os
 import re
 import socket
 import socketserver
+import ssl
 import tempfile
 import threading
 from dataclasses import dataclass, field
@@ -49,27 +66,34 @@ from urllib.parse import parse_qs
 
 from pio_tpu_torch.obs import slog
 from pio_tpu_torch.obs.metrics import monotonic_s
+from pio_tpu_torch.utils import knobs
 
 log = logging.getLogger("pio_tpu_torch.server")
 
-#: JSON bodies are parsed in RAM; the reference caps them at 64 MiB
-#: (``PIO_TPU_MAX_JSON_BODY_MB``'s default)
-MAX_JSON_BODY_BYTES = 64 * 2 ** 20
+#: Reject request bodies above this many MiB with 413 (an unbounded body
+#: is a trivial memory or disk DoS on any server facing a network)
+MAX_BODY_MB = knobs.knob_float("PIO_TPU_MAX_BODY_MB")
 
-#: raw (octet-stream) uploads of a ``large_uploads`` server (the blob
-#: daemon's model artifacts); the reference's ``PIO_TPU_MAX_BODY_MB`` default
-MAX_BODY_BYTES = 4096 * 2 ** 20
+#: Structured (JSON, form, packed) bodies are parsed in RAM, so they get a
+#: far tighter cap than the blob daemon's raw uploads
+MAX_JSON_BODY_MB = knobs.knob_float("PIO_TPU_MAX_JSON_BODY_MB")
 
 #: an octet-stream body spills from RAM to a temporary file above this
 _SPOOL_BYTES = 8 << 20
 
-#: idle/slowloris guard: a connection that produces no bytes for this
-#: long is closed (the reference's ``PIO_TPU_HTTP_IDLE_TIMEOUT_S`` default)
-IDLE_TIMEOUT_S = 60.0
 
-#: listen backlog (socketserver's default of 5 overflows under a
-#: 16-client connect burst; the reference's ``PIO_TPU_HTTP_BACKLOG``)
-BACKLOG = 128
+def http_backlog() -> int:
+    """Listen backlog of both fronts, read when a server is built
+    (socketserver's default of 5 overflows under a 16-client connect
+    burst, and the dropped SYNs retransmit after about a second)."""
+    return knobs.knob_int("PIO_TPU_HTTP_BACKLOG")
+
+
+def http_idle_timeout_s() -> float:
+    """The idle and slowloris guard of both fronts: a connection that
+    produces no bytes for this long is closed. Read when a server is
+    built."""
+    return knobs.knob_float("PIO_TPU_HTTP_IDLE_TIMEOUT_S")
 
 
 #: Content type of the packed int8 query wire: the request body IS a
@@ -101,9 +125,11 @@ class Request:
     #: socket — for actions that must not race the reply (e.g. /undeploy
     #: stopping the server)
     after_response: Optional[Callable[[], None]] = None
-    #: body bytes of a :data:`PACKED_QUERY_CONTENT_TYPE` request;
+    #: body bytes of a :data:`PACKED_QUERY_CONTENT_TYPE` request: ``bytes``
+    #: from the threaded front, a ``memoryview`` into the connection's read
+    #: buffer from the event loop (valid only during the handler call);
     #: ``body`` and ``raw_body`` stay empty for these requests
-    packed: Optional[bytes] = None
+    packed: Optional[Any] = None
     #: an ``application/octet-stream`` body, spooled off the socket
     #: (``raw_body`` stays empty); closed after the handler returns
     body_file: Optional[Any] = None
@@ -276,13 +302,16 @@ def _make_handler_class(router: Router, server_name: str,
 
     ``pre_body(req)`` (a request without its body) runs before any body
     byte is read and may raise :class:`HTTPError`; ``large_uploads`` lets
-    octet-stream bodies up to :data:`MAX_BODY_BYTES` through."""
+    octet-stream bodies up to :data:`MAX_BODY_MB` through."""
 
     class JsonHandler(socketserver.StreamRequestHandler):
         rbufsize = 64 * 1024
         wbufsize = 64 * 1024
         disable_nagle_algorithm = True
-        timeout = IDLE_TIMEOUT_S
+        # the socket timeout is the idle and slowloris guard: a keep-alive
+        # connection (or a stalled read) silent this long raises and the
+        # thread exits. Read once, when the server is built
+        timeout = http_idle_timeout_s()
 
         command = ""  # current request method (HEAD gates body writes)
         http10 = False  # current request is HTTP/1.0 (keep-alive echo)
@@ -450,15 +479,20 @@ def _make_handler_class(router: Router, server_name: str,
                 # read(-1) would mean read-to-EOF
                 self._reject(400, "bad Content-Length")
                 return
+            if length > MAX_BODY_MB * 2 ** 20:
+                # an over-limit body cannot be drained cheaply: close
+                self._reject(413, f"body exceeds {MAX_BODY_MB:g} MiB limit")
+                return
             ctype = headers.get("content-type", "")
             octet = ctype.lower().startswith("application/octet-stream")
-            limit = (MAX_BODY_BYTES if octet and large_uploads
-                     else MAX_JSON_BODY_BYTES)
-            if length > limit:
-                # bodies are parsed in RAM (or, for a large-upload
-                # server's octet-stream, spooled): refuse and close
-                # instead of draining
-                self._reject(413, f"body exceeds {limit >> 20} MiB limit")
+            if length and (not octet or not large_uploads) \
+                    and length > MAX_JSON_BODY_MB * 2 ** 20:
+                # structured bodies are parsed in RAM; so is an octet-stream
+                # body unless the server opted into large uploads (the blob
+                # daemon, whose pre_body auth runs before any body byte)
+                self._reject(
+                    413, f"body exceeds {MAX_JSON_BODY_MB:g} MiB limit "
+                         f"for {ctype.lower() or 'structured'} content")
                 return
             if length and pre_body is not None:
                 # auth runs before any body byte is consumed, or an
@@ -554,9 +588,36 @@ def _make_handler_class(router: Router, server_name: str,
     return JsonHandler
 
 
+def ssl_context_from_env() -> Optional[ssl.SSLContext]:
+    """TLS from the environment, or None for plain HTTP:
+    ``PIO_TPU_SSL_CERTFILE`` and ``PIO_TPU_SSL_KEYFILE`` (PEM paths; the
+    key file may be left unset where the certificate bundles the key)."""
+    cert = knobs.knob_str("PIO_TPU_SSL_CERTFILE")
+    if not cert:
+        return None
+    ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+    ctx.load_cert_chain(cert, knobs.knob_str("PIO_TPU_SSL_KEYFILE") or None)
+    return ctx
+
+
+#: the default of ``ssl_context``: "none given, consult the environment".
+#: Distinct from None, which forces plain HTTP even where ``PIO_TPU_SSL_*``
+#: is set (a loopback endpoint beside a public HTTPS server)
+SSL_FROM_ENV: Any = object()
+
+
 class _Server(ThreadingHTTPServer):
+    """TLS wrapped per connection, in the connection's own thread.
+
+    Wrapping the listening socket would run the blocking handshake in the
+    one accept loop, where a client that connects and never sends its
+    ClientHello stalls every other connection; ``finish_request`` runs in
+    the connection's thread, so a stalled handshake costs only that
+    thread."""
+
     daemon_threads = True
-    request_queue_size = BACKLOG
+    ssl_ctx: Optional[ssl.SSLContext] = None
+    handshake_timeout = 30.0
     #: SO_REUSEPORT before bind: N worker processes share one port, the
     #: kernel balancing connections across them (the serving pool)
     reuse_port = False
@@ -566,26 +627,61 @@ class _Server(ThreadingHTTPServer):
             self.socket.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
         super().server_bind()
 
+    def finish_request(self, request, client_address):
+        if self.ssl_ctx is None:
+            super().finish_request(request, client_address)
+            return
+        prev = request.gettimeout()
+        try:
+            request.settimeout(self.handshake_timeout)
+            tls_sock = self.ssl_ctx.wrap_socket(request, server_side=True)
+            tls_sock.settimeout(prev)
+        except (OSError, ssl.SSLError) as e:  # a bad or absent handshake
+            log.debug("TLS handshake failed from %s: %s", client_address, e)
+            try:
+                request.close()
+            except OSError:
+                pass
+            return
+        try:
+            super().finish_request(tls_sock, client_address)
+        finally:
+            # wrap_socket detached the original socket, so the outer
+            # shutdown_request cannot close this descriptor: close it here
+            try:
+                tls_sock.close()
+            except OSError:
+                pass
+
 
 class JsonHTTPServer:
-    """Threaded server with programmatic start/stop (tests + CLI)."""
+    """Threaded server with programmatic start/stop (tests + CLI).
+    ``ssl_context`` is :data:`SSL_FROM_ENV` (TLS where
+    ``PIO_TPU_SSL_CERTFILE`` is set), an ``ssl.SSLContext``, or None for
+    plain HTTP; :attr:`tls` says which it serves."""
 
     def __init__(self, router: Router, host: str = "0.0.0.0", port: int = 0,
                  name: str = "pio-tpu-torch", reuse_port: bool = False,
                  pre_body: Optional[Callable[[Request], None]] = None,
-                 large_uploads: bool = False):
+                 large_uploads: bool = False,
+                 ssl_context: Any = SSL_FROM_ENV):
         self._httpd = _Server(
             (host, port),
             _make_handler_class(router, name, pre_body, large_uploads),
             bind_and_activate=False,
         )
         self._httpd.reuse_port = reuse_port
+        self._httpd.request_queue_size = http_backlog()
         try:
             self._httpd.server_bind()
             self._httpd.server_activate()
         except BaseException:
             self._httpd.server_close()
             raise
+        ctx = (ssl_context_from_env() if ssl_context is SSL_FROM_ENV
+               else ssl_context)
+        self.tls = ctx is not None
+        self._httpd.ssl_ctx = ctx
         self._thread: Optional[threading.Thread] = None
         self._serving = False
         self._stopped = False

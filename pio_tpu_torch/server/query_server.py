@@ -117,7 +117,15 @@ readiness needs the stripe. ``GET /deploy.json`` reports the served
 instance, its manifest's sha256s and the swap generation; ``POST
 /deploy.json`` is the router's verified swap (``router/deploy.py``).
 
-Not ported: the evloop front.
+**The fronts.** ``PIO_TPU_HTTP_FRONT`` picks the HTTP front when a server
+is built: ``threaded`` (the default, a thread a connection, TLS from
+``PIO_TPU_SSL_CERTFILE``) or ``evloop`` (one selectors loop,
+``server/evfront.py``). Another value warns and serves threaded, and so
+does ``evloop`` where TLS is configured (the loop has no TLS path). On
+the evloop front the handlers run in the loop, so the micro-batcher is
+bypassed (its ``submit`` parks the calling thread for the batch window,
+and that thread is the loop); a pool's batch lane still applies, its wait
+bounded by ``PIO_TPU_LANE_TIMEOUT_S``.
 """
 
 from __future__ import annotations
@@ -194,6 +202,7 @@ from pio_tpu_torch.server.http import (
     Request,
     Router,
     int_param,
+    ssl_context_from_env,
     json_response,
     keys_equal,
     logs_route,
@@ -648,7 +657,10 @@ class QueryService:
         self._sharding_info: Optional[dict] = None
         self.ctx = ctx
         self.admin_key = admin_key
-        self.server: Optional[JsonHTTPServer] = None
+        self.server: Optional["QueryServer"] = None
+        #: set by mark_evloop_front() when the evloop front serves: the
+        #: micro-batcher is bypassed there
+        self._evloop_front = False
         self.start_time = dt.datetime.now(dt.timezone.utc)
         self._lock = threading.Lock()
         self.request_count = 0
@@ -1318,7 +1330,9 @@ class QueryService:
         inline predict here): ``(result, the execute stage's end)``, where
         serialize begins."""
         if self._lane_client is None and self._batcher is not None \
-                and self._batcher.active():
+                and self._batcher.active() and not self._evloop_front:
+            # (bypassed on the evloop front: submit parks the calling
+            # thread for the batch window, and that thread is the loop)
             result = self._batcher.submit(query, gen, span_sink=tr,
                                           deadline=deadline)
             return result, tr.elapsed_s
@@ -1629,6 +1643,13 @@ class QueryService:
             self._load(None)
             self._seen_gen = target
 
+    def mark_evloop_front(self) -> None:
+        """The evloop front runs handlers inline in its loop: bypass the
+        micro-batcher, whose ``submit`` parks the calling thread for the
+        batch window. The pool's lane still applies; its wait is bounded
+        by the lane timeout."""
+        self._evloop_front = True
+
     # -- health --------------------------------------------------------------
     def _http_loop_alive(self):
         t = getattr(self.server, "_thread", None)
@@ -1938,18 +1959,70 @@ class QueryService:
         return 200, {"message": "undeployed"}
 
 
-class QueryServer(JsonHTTPServer):
-    """A running query server: :attr:`port`, :meth:`start`,
-    :meth:`serve_forever`, :meth:`close` (which also stops the batcher
-    and retires the service's resident scorers)."""
+def _choose_front() -> str:
+    """``PIO_TPU_HTTP_FRONT`` as the reference reads it: ``threaded`` or
+    ``evloop``; another value warns and serves threaded, and so does
+    ``evloop`` where TLS is configured (only the threaded front
+    terminates it)."""
+    front = knobs.knob_str("PIO_TPU_HTTP_FRONT").lower() or "threaded"
+    if front not in ("threaded", "evloop"):
+        log.warning("PIO_TPU_HTTP_FRONT=%r is not threaded|evloop; using "
+                    "threaded", front)
+        front = "threaded"
+    if front == "evloop" and ssl_context_from_env() is not None:
+        log.warning("PIO_TPU_HTTP_FRONT=evloop ignored: TLS is configured "
+                    "and only the threaded front terminates it")
+        front = "threaded"
+    return front
+
+
+class QueryServer:
+    """A running query server on the front ``PIO_TPU_HTTP_FRONT`` picks
+    (:attr:`front`, ``"threaded"`` or ``"evloop"``; :attr:`http` the front
+    itself): :attr:`port`, :attr:`tls`, :meth:`start`,
+    :meth:`serve_forever`, :meth:`stop`, and :meth:`close`, which also
+    stops the batcher and retires the service's resident scorers."""
 
     def __init__(self, service: QueryService, host: str, port: int,
                  reuse_port: bool = False):
-        super().__init__(service.router(), host, port,
-                         name="pio-tpu-torch-queryserver",
-                         reuse_port=reuse_port)
+        self.front = _choose_front()
+        if self.front == "evloop":
+            from pio_tpu_torch.server.evfront import EvLoopHTTPServer
+
+            self.http = EvLoopHTTPServer(
+                service.router(), host, port,
+                name="pio-tpu-torch-queryserver", ssl_context=None,
+                reuse_port=reuse_port, registry=service.obs)
+            service.mark_evloop_front()
+        else:
+            self.http = JsonHTTPServer(
+                service.router(), host, port,
+                name="pio-tpu-torch-queryserver", reuse_port=reuse_port)
+        self.tls = self.http.tls
         self.service = service
         service.server = self
+
+    @property
+    def port(self) -> int:
+        return self.http.port
+
+    @property
+    def _thread(self):
+        """The front's serving thread (the liveness probe reads it)."""
+        return self.http._thread
+
+    def start(self) -> "QueryServer":
+        """Serve in a background thread."""
+        self.http.start()
+        return self
+
+    def serve_forever(self) -> None:
+        """Serve in this thread until :meth:`stop` (from another)."""
+        self.http.serve_forever()
+
+    def stop(self) -> None:
+        """Stop serving; idempotent."""
+        self.http.stop()
 
     def close(self) -> None:
         self.stop()

@@ -75,7 +75,17 @@ would admit N times the rate); otherwise a segment that cannot be made is
 logged and every worker reports itself not ready (``pool_stripe``), as in
 the reference.
 
-Not ported: the evloop front.
+**The front.** ``http_front`` (``threaded`` or ``evloop``) is set as
+``PIO_TPU_HTTP_FRONT`` in every worker before its server is built; None
+leaves each worker the variable it inherits. It must be one front for the
+whole pool: the evloop front registers metric families, and the shared
+stripe's slots need one registration order in every worker. With
+``evloop`` each worker runs one loop on the shared ``SO_REUSEPORT`` port.
+The loopback sidecar stays threaded and plain HTTP whatever the front and
+``PIO_TPU_SSL_*`` say: the supervisor's ``/healthz`` probe must get an
+answer while the main front's loop is busy, and it speaks plain HTTP
+(the reference's sidecar takes TLS from the environment, which would
+fail that probe).
 """
 
 from __future__ import annotations
@@ -136,6 +146,9 @@ def _worker_main(spec: dict, idx: int, gen, shutdown_evt,
     from pio_tpu_torch.server.http import JsonHTTPServer
     from pio_tpu_torch.server.query_server import deploy_query_server
 
+    if spec.get("http_front"):
+        # one front for the whole pool (ServingPool's docstring)
+        os.environ["PIO_TPU_HTTP_FRONT"] = spec["http_front"]
     variant = EngineVariant(**spec["variant"])
     # a respawn after a pool-wide /reload joins its siblings on the
     # newest COMPLETED instance, not the originally pinned one
@@ -158,9 +171,11 @@ def _worker_main(spec: dict, idx: int, gen, shutdown_evt,
     server.start()
     # the pool shares ONE port, so the supervisor cannot address a given
     # worker through it: each worker also serves its routes on a
-    # loopback port, published through the shared array
+    # loopback port, published through the shared array. It stays on the
+    # threaded front, in plain HTTP, whatever the main front is
     sidecar = JsonHTTPServer(service.router(), "127.0.0.1", 0,
-                             name=f"pio-tpu-torch-health-{idx}")
+                             name=f"pio-tpu-torch-health-{idx}",
+                             ssl_context=None)
     sidecar.start()
     if health_ports is not None:
         health_ports[idx] = sidecar.port
@@ -194,7 +209,9 @@ class ServingPool:
     ``feedback_app_id`` reach every worker; a ``qos`` (or ``PIO_TPU_QOS``,
     or the variant's ``qos`` block) with a rate budget is one budget for
     the pool, kept in the shared metrics segment; where the segment
-    cannot be made such a pool raises ``ValueError``."""
+    cannot be made such a pool raises ``ValueError``. ``http_front``
+    (``threaded``, ``evloop`` or None) is every worker's front (the
+    module's docstring)."""
 
     def __init__(
         self,
@@ -211,6 +228,7 @@ class ServingPool:
         slos=None,
         qos: Optional[str] = None,
         feedback_app_id: Optional[int] = None,
+        http_front: Optional[str] = None,
     ):
         if n_workers < 1:
             raise ValueError("n_workers must be >= 1")
@@ -262,6 +280,7 @@ class ServingPool:
             "slos": None if slos is None else list(slos),
             "qos": qos,
             "feedback_app_id": feedback_app_id,
+            "http_front": http_front,
         }
         self.n_workers = n_workers
         self._procs: list = []

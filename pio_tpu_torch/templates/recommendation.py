@@ -21,9 +21,10 @@ Query ``{"user": "u1", "num": 4}`` →
 
 Evaluation (``pio eval``): :func:`recommendation_evaluation` is a k-fold
 sweep over a rank × lambda grid scored by :class:`SquaredErrorMetric`,
-run by ``pio_tpu_torch.workflow.core_workflow.run_evaluation``. Not ported
-yet: the sharded-persistence opt-in (``ShardableModel``, with the
-multi-device slice).
+run by ``pio_tpu_torch.workflow.core_workflow.run_evaluation``.
+:class:`ALSModel` is a ``ShardableModel``: under
+``PIO_TPU_SHARDED_PERSIST=1`` its factor tables persist as per-shard
+records and a shard manifest (``workflow/shard_store.py``).
 """
 
 from __future__ import annotations

@@ -60,7 +60,15 @@ touches a device: they serve, scrape and forward over HTTP, and the
 members they front serve on the card. ``--targets`` falls back to
 ``PIO_TPU_FLEET_TARGETS``; none exits 1.
 
-Not ported yet (ROADMAP A): the verbs run, lint and template list.
+``template list`` prints the bundled engine factories; ``run
+module:function [args...]`` calls a user entry point with the port
+importable and storage configured (the passthrough list as its one
+argument, or no argument where it takes none; an int it returns is the
+exit code). The front of ``deploy`` is the knob ``PIO_TPU_HTTP_FRONT``
+(``threaded`` or ``evloop``), which every pool worker inherits; there is
+no flag for it, as in the reference.
+
+Not ported yet (ROADMAP A): the verb lint.
 
 Usage: ``python -m pio_tpu_torch <verb> ...``
 """
@@ -441,15 +449,15 @@ def cmd_runs(args) -> int:
     return 0
 
 
-def _import_attr(spec: str):
-    """Resolve ``module:attr``; zero-arg callables are invoked to produce
-    the object (the eval-verb convention)."""
+def _import_attr(spec: str, call: bool = True):
+    """Resolve ``module:attr``; with ``call`` (the eval-verb convention),
+    zero-arg callables are invoked to produce the object."""
     mod_name, _, attr = spec.partition(":")
     mod = importlib.import_module(mod_name)
     if not attr:
         return mod
     obj = getattr(mod, attr)
-    return obj() if callable(obj) else obj
+    return obj() if call and callable(obj) else obj
 
 
 def cmd_eval(args) -> int:
@@ -1055,6 +1063,55 @@ def cmd_upgrade(args) -> int:
     return 0
 
 
+def cmd_template_list(args) -> int:
+    """List the bundled engine factories (the reference's ``pio template
+    list``; the templates ship in the package)."""
+    import pkgutil
+
+    import pio_tpu_torch.templates as templates
+    from pio_tpu_torch.controller.engine import engine_factory_names
+
+    for m in pkgutil.iter_modules(templates.__path__):
+        # importing a template module registers its factory
+        importlib.import_module(f"{templates.__name__}.{m.name}")
+    for name in engine_factory_names():
+        _out(name)
+    return 0
+
+
+def cmd_run(args) -> int:
+    """Run a user entry point with the port importable and storage
+    configured (the reference's ``pio run <main class> -- args``): the
+    target is ``module:function``, called with the passthrough argument
+    list (or with none where it takes none)."""
+    import inspect
+
+    # a console-script install does not put the invocation directory on
+    # sys.path as `python -m` does, and a script there is the usual target
+    if "" not in sys.path and os.getcwd() not in sys.path:
+        sys.path.insert(0, os.getcwd())
+    target = _import_attr(args.target, call=False)
+    if not callable(target):
+        return _err(f"{args.target!r} is not callable")
+    argv = list(args.args)
+    try:
+        params = inspect.signature(target).parameters.values()
+        takes_args = any(
+            p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD,
+                       p.VAR_POSITIONAL)
+            for p in params
+        )
+    except (TypeError, ValueError):  # some C-implemented callables
+        takes_args = bool(argv)
+    if argv and not takes_args:
+        return _err(
+            f"{args.target!r} accepts no positional arguments but "
+            f"passthrough args were given: {argv}"
+        )
+    out = target(argv) if takes_args else target()
+    return out if isinstance(out, int) else 0
+
+
 def cmd_version(args) -> int:
     _out(pio_tpu_torch.__version__)
     return 0
@@ -1444,6 +1501,19 @@ def build_parser() -> argparse.ArgumentParser:
     sub.add_parser(
         "shell", help="interactive Python shell with stores preloaded"
     ).set_defaults(fn=cmd_shell)
+    t = sub.add_parser("template", help="bundled engine templates"
+                       ).add_subparsers(dest="template_verb", required=True)
+    t.add_parser("list").set_defaults(fn=cmd_template_list)
+    a = sub.add_parser(
+        "run", help="run a module:function entry point with the framework"
+    )
+    a.add_argument("target", help="entry point as module:function")
+    a.add_argument(
+        "args", nargs=argparse.REMAINDER,
+        help="passthrough arguments (everything after the target, "
+             "flag-like tokens included)",
+    )
+    a.set_defaults(fn=cmd_run)
     return p
 
 

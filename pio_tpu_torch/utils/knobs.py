@@ -8,10 +8,9 @@ of reading as unset.
 
 from __future__ import annotations
 
-import logging
 import os
 
-log = logging.getLogger("pio_tpu_torch.utils.knobs")
+from pio_tpu_torch.utils import envutil
 
 #: name → the value an unset (or empty) variable means
 _DEFAULTS = {
@@ -127,6 +126,27 @@ _DEFAULTS = {
     "PIO_TPU_ROUTER_LAG_SOFT_BYTES": "67108864.0",
     # hedged second request delay, milliseconds; 0 disables
     "PIO_TPU_ROUTER_HEDGE_MS": "0.0",
+    # -- the HTTP fronts (server/http.py, server/evfront.py), the
+    # reference's names and defaults --
+    # the query server's front: `threaded` or `evloop`
+    "PIO_TPU_HTTP_FRONT": "threaded",
+    # listen(2) backlog of both fronts, read when a server is built
+    "PIO_TPU_HTTP_BACKLOG": "128",
+    # a connection silent this long is closed, seconds (both fronts)
+    "PIO_TPU_HTTP_IDLE_TIMEOUT_S": "30.0",
+    # pipelined requests the evloop front serves between two flushes
+    "PIO_TPU_HTTP_MAX_PIPELINE": "16",
+    # cap on any request body, MiB (read when server/http.py is imported)
+    "PIO_TPU_MAX_BODY_MB": "4096.0",
+    # cap on a structured (JSON, form, packed) body, MiB (read at import)
+    "PIO_TPU_MAX_JSON_BODY_MB": "64.0",
+    # PEM certificate of every threaded server; unset serves plain HTTP
+    "PIO_TPU_SSL_CERTFILE": "",
+    # PEM private key (unset: the certificate file bundles it)
+    "PIO_TPU_SSL_KEYFILE": "",
+    # -- ALS (models/als.py) --
+    # the item side of the ALS edge wire: `auto`, `delta12` or `planes`
+    "PIO_TPU_ALS_ITEM_WIRE": "auto",
 }
 
 #: knobs whose value must be positive; another value reads as the default
@@ -135,6 +155,9 @@ _POSITIVE = frozenset({
     "PIO_TPU_LANE_TIMEOUT_S", "PIO_TPU_HEARTBEAT_MAX_AGE_S",
     "PIO_TPU_PROFILE_EXECUTIONS", "PIO_TPU_FLEET_INTERVAL_S",
     "PIO_TPU_ROUTER_BURN_LIMIT", "PIO_TPU_ROUTER_LAG_SOFT_BYTES",
+    "PIO_TPU_HTTP_BACKLOG", "PIO_TPU_HTTP_IDLE_TIMEOUT_S",
+    "PIO_TPU_HTTP_MAX_PIPELINE", "PIO_TPU_MAX_BODY_MB",
+    "PIO_TPU_MAX_JSON_BODY_MB",
 })
 
 
@@ -154,25 +177,15 @@ def knob_str(name: str) -> str:
 
 
 def knob_int(name: str) -> int:
-    """The knob as an integer. A value that is not one logs a warning and
-    reads as the declared default, as the reference's ``env_int`` does."""
-    return _number(name, int)
+    """The knob as an integer: :func:`envutil.env_int` with the declared
+    default and positivity (a value that is not one warns and reads as the
+    default, as the reference's ``knob_int`` does)."""
+    return envutil.env_int(name, int(_DEFAULTS[name]),
+                           positive=name in _POSITIVE)
 
 
 def knob_float(name: str) -> float:
-    """The knob as a float, with :func:`knob_int`'s fallback (NaN reads
-    as the default too)."""
-    return _number(name, float)
-
-
-def _number(name: str, kind):
-    raw = knob_str(name)
-    try:
-        v = kind(raw)
-    except ValueError:
-        v = None
-    if v is None or v != v or (name in _POSITIVE and v <= 0):
-        log.warning("%s=%r is not a valid %s; using %s", name, raw,
-                    kind.__name__, _DEFAULTS[name])
-        return kind(_DEFAULTS[name])
-    return v
+    """The knob as a float: :func:`envutil.env_float`, with
+    :func:`knob_int`'s fallback (NaN reads as the default too)."""
+    return envutil.env_float(name, float(_DEFAULTS[name]),
+                             positive=name in _POSITIVE)

@@ -39,8 +39,12 @@ writes: the engine instance, the models, the run ledger row and the
 profile trace; the other ranks wait at a barrier and return the
 coordinator's instance id. Each run is a trace of :data:`TRAIN_TRACER`
 whose spans are its phases (``Engine.train``'s and ``persist``), so the
-log records of a phase carry the run's trace id. Not ported yet: the
-reference's PersistentModel opt-out (ROADMAP A).
+log records of a phase carry the run's trace id. A model that is a
+:class:`~pio_tpu_torch.controller.components.PersistentModel` persists
+itself (its ``save`` returning True), and the blob keeps None in its
+place; a ``save`` that returns False falls back to the blob. A load gets
+such a model from its algorithm's ``model_class.load``, from the same
+instance as the blob.
 """
 
 from __future__ import annotations
@@ -60,6 +64,7 @@ import numpy as np
 import torch
 
 from pio_tpu_torch import DeviceLike
+from pio_tpu_torch.controller.components import PersistentModel
 from pio_tpu_torch.controller.engine import Engine, EngineParams
 from pio_tpu_torch.controller.evaluation import (
     EngineParamsGenerator,
@@ -312,8 +317,17 @@ def run_train(
             recorder.set_phase("persist")
             t_persist = monotonic_s()
             with tr.span("persist"):
+                # a PersistentModel handles itself (save() True); every
+                # other model goes into the Models store's pickled blob
+                persisted_externally = [
+                    isinstance(m, PersistentModel)
+                    and bool(m.save(instance_id, algo_params, ctx))
+                    for (_, algo_params), m in zip(
+                        engine_params.algorithm_params_list, models)
+                ]
                 models_store = Storage.get_model_data_models()
-                blob_models = list(models)
+                blob_models = [None if ext else m for ext, m
+                               in zip(persisted_externally, models)]
                 if shard_store.sharded_persist_enabled():
                     # shard records + shard manifest before the blob,
                     # which keeps placeholders: a torn persist leaves
@@ -483,6 +497,8 @@ def load_models_for_instance(
                 "serving last known good instance %s in place of %s",
                 cand.id, instance_id,
             )
+            # PersistentModel loads below come from the same instance as
+            # the blob, or externally persisted models would mix runs
             instance_id = cand.id
             break
         if models is None:
@@ -494,7 +510,21 @@ def load_models_for_instance(
             f"instance {instance_id!r} holds {len(models)} model(s); the "
             f"engine params name algorithms {names}"
         )
-    return models
+    out = []
+    for (name, algo_params), blob_model in zip(
+            engine_params.algorithm_params_list, models):
+        if blob_model is not None:
+            out.append(blob_model)
+            continue
+        algo_cls = engine.algorithm_class_map[name]
+        model_cls = getattr(algo_cls, "model_class", None)
+        if model_cls is None or not issubclass(model_cls, PersistentModel):
+            raise RuntimeError(
+                f"algorithm {name!r}: model was persisted externally but "
+                f"{algo_cls.__name__} declares no PersistentModel model_class"
+            )
+        out.append(model_cls.load(instance_id, algo_params, ctx))
+    return out
 
 
 def run_evaluation(

@@ -634,3 +634,34 @@ def test_card_bfloat16_products_match_cpu(cuda_device, implicit):
                                atol=1e-5)
     np.testing.assert_allclose(bg.cpu().numpy(), b.numpy(), rtol=1e-5,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("knob", ["planes", "delta12", "auto"])
+def test_item_wire_knob_is_read_like_reference(knob, monkeypatch):
+    """``PIO_TPU_ALS_ITEM_WIRE`` picks the item wire in both packages: at
+    MovieLens-100K's shape (100,000 seeded ratings over 943 x 1,682) the
+    port's ``encoding`` and ``wire_bytes`` equal the reference's exactly,
+    and the trainer from the reference's init gives its factors (the
+    tolerance of ``test_train_als_runs_the_reference_pipeline``)."""
+    monkeypatch.setenv("PIO_TPU_NO_NATIVE", "1")
+    monkeypatch.setenv("PIO_TPU_ALS_ITEM_WIRE", knob)
+    rng = np.random.default_rng(100)
+    U, I, E = 943, 1682, 100_000
+    u = rng.integers(0, U, E).astype(np.int32)
+    i = rng.integers(0, I, E).astype(np.int32)
+    r = (rng.integers(1, 11, E) * 0.5).astype(np.float32)
+    cfg = dict(rank=4, iterations=2, reg=0.1, seed=3)
+    want_stats = {}
+    want = R.train_als(JaxContext.local(), u, i, r, U, I, R.ALSConfig(**cfg),
+                       stats=want_stats)
+    P0, Q0 = _reference_init(3, U, I, 4)
+    inits = iter([_t(P0), _t(Q0)])
+    monkeypatch.setattr(T, "_init_factors", lambda *a: next(inits))
+    stats = {}
+    got = T.train_als(_ctx(), u, i, r, U, I, T.ALSConfig(**cfg), stats=stats)
+    assert stats["encoding"] == want_stats["encoding"]
+    assert stats["encoding"].endswith(
+        {"planes": "+planes", "delta12": "+delta12", "auto": ""}[knob])
+    assert stats["wire_bytes"] == want_stats["wire_bytes"]
+    np.testing.assert_allclose(got.user_factors, want.user_factors, atol=1e-4)
+    np.testing.assert_allclose(got.item_factors, want.item_factors, atol=1e-4)
