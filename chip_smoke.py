@@ -255,14 +255,15 @@ kernels (the forward, and the backward's bag scatter and bag dot):
    triggers; the clean p50 beside phase 36's);
 44. the event and model stores feeding training on the card, in this
    process: the event server over SQLite and over the native event log
-   (``PIO_TPU_DURABILITY`` at its default) takes 10,000 of phase 28's
-   events in batches of 50 and 500 single posts (events/s, p50/p99 a
+   (``PIO_TPU_DURABILITY`` at its default) takes 5,000 of phase 28's
+   events in batches of 50 and 250 single posts (events/s, p50/p99 a
    batch and a single post, ``os.cpu_count()``), every acknowledged event
    read back (the store's count, ``find_frame``, ``get`` of 50); then
    a quarter of MovieLens-1M's ratings (250,052 over its 6,040 users and 3,706
    items, synthetic as ``bench.py``'s) written with ``write`` into the
-   memory store, the event log, parquet and searchable (each write's and
-   ``find_frame``'s wall), ``run_train`` of the recommendation template on
+   memory store, the event log, parquet, searchable and the partitioned
+   log (4 partitions replicated to one follower on loopback; each write's
+   and ``find_frame``'s wall), ``run_train`` of the recommendation template on
    the card from each (rank 16, 10 iterations, lambda 0.1: the memory
    store's factors bit for bit), persisted through localfs, blob on a
    ``file://`` root and the blob daemon on ``http://127.0.0.1``, each
@@ -270,7 +271,13 @@ kernels (the forward, and the backward's bag scatter and bag dot):
    the event log's events deleted and the log compacted (its count and
    ``find_frame`` against the memory store's after the same deletes);
    ``GET /events/search.json`` on searchable (its hits against the
-   memory store's) and 501 on the event log;
+   memory store's) and 501 on the event log; 44.4 the partitioned log's
+   follower drained (the drain's seconds; its sidecar's ``/storage.json``
+   positions the leader's committed bytes), the leader stopped, the
+   mirror promoted into a fresh root, reopened and trained from on the
+   card (the memory store's factors bit for bit; the failover's seconds),
+   then 1,000 users' ``$set`` written and ``compact``ed (the snapshot
+   reads as the full fold, the ratings as the memory store's);
 45. the request plane of both servers on phase 4's model, in this
    process: 45.1 1,024 queries on one keep-alive connection, each with
    ``X-Pio-Trace: smoke45-<i>/caller``, under two SLOs and a QoS spec that
@@ -410,7 +417,9 @@ from pio_tpu_torch.server.query_server import deploy_query_server  # noqa: E402
 from pio_tpu_torch.server.train_status import create_train_status_server  # noqa: E402
 from pio_tpu_torch.server.blob_server import create_blob_server  # noqa: E402
 from pio_tpu_torch.server.event_server import create_event_server  # noqa: E402
+from pio_tpu_torch.server.fleetd import create_follower_status_server  # noqa: E402
 from pio_tpu_torch.storage import durability  # noqa: E402
+from pio_tpu_torch.storage.partlog import failover, replication  # noqa: E402
 from pio_tpu_torch.storage.records import AccessKey, App  # noqa: E402
 from pio_tpu_torch.storage.registry import Storage  # noqa: E402
 from pio_tpu_torch.templates.classification import Query as CLSQuery  # noqa: E402
@@ -7515,8 +7524,8 @@ ML1M_EDGES, ML1M_USERS, ML1M_ITEMS = 1_000_209, 6_040, 3_706
 P44_RATINGS = ML1M_EDGES // 4
 #: 44.1: phase 28's rate events through the event server: these many in
 #: batches of QS_BATCH, then these many single posts (were 20,000 and
-#: 1,000; cut for the script's time)
-P44_BATCHED, P44_SINGLES = 10_000, 500
+#: 1,000, then 10,000 and 500; cut for the script's time)
+P44_BATCHED, P44_SINGLES = 5_000, 250
 #: acknowledged events read back one by one with ``get`` (the event log's
 #: ``get`` scans the whole log)
 P44_SAMPLE = 50
@@ -7529,7 +7538,13 @@ P44_APP = "movielens-1m-synthetic"
 #: model store its run persists to: localfs, blob on a file:// root, blob
 #: through the blob daemon
 P44_STORES = (("memory", "localfs"), ("eventlog", "blob-file"),
-              ("parquet", "blob-http"), ("searchable", "localfs"))
+              ("parquet", "blob-http"), ("searchable", "localfs"),
+              ("partlog", "localfs"))
+#: 44.2's partitioned log: its partitions, replicated to one follower on
+#: loopback (acks required at ``commit`` durability: 1)
+P44_PARTITIONS, P44_MIN_ACKS = 4, 1
+#: 44.4: users given a ``$set`` on the promoted log before ``compact``
+P44_SET_USERS = 1_000
 
 
 @contextlib.contextmanager
@@ -7692,7 +7707,8 @@ def store_train(args, smi, type_: str, models_type: str, home: str,
     persisted instance and answer P44_QUERIES queries."""
     path = {"memory": home, "eventlog": os.path.join(home, "eventlog"),
             "parquet": os.path.join(home, "parquet"),
-            "searchable": os.path.join(home, "search.db")}[type_]
+            "searchable": os.path.join(home, "search.db"),
+            "partlog": os.path.join(home, "partlog")}[type_]
     models = {"localfs": ("localfs", os.path.join(home, f"models-{type_}")),
               "blob-file": ("blob", "file://" + os.path.join(home, "blobs")),
               "blob-http": ("blob", blob_url)}[models_type]
@@ -7703,27 +7719,8 @@ def store_train(args, smi, type_: str, models_type: str, home: str,
         t = time.perf_counter()
         pe.write(events, app_id)
         write_s = time.perf_counter() - t
-        variant = variant_from_dict({
-            "id": "p44-stores", "engineFactory": "templates.recommendation",
-            "datasource": {"params": {"app_name": P44_APP}},
-            "algorithms": [{"name": "als",
-                            "params": {**ALS_PARAMS, "seed": args.seed}}],
-        })
-        engine, ep = build_engine(variant)
-        ctx = ComputeContext.create(args.seed, device=CARD)
-        t = time.perf_counter()
-        with timed_frames(pe) as reads:
-            iid = run_train(engine, ep, variant, ctx=ctx)
-        train_s = time.perf_counter() - t
-        if [n for _, n in reads] != [P44_RATINGS]:
-            raise AssertionError(f"{type_}: the run's find_frame read {reads}")
-        frame_s = reads[0][0]
-        inst = Storage.get_meta_data_engine_instances().get(iid)
-        if inst.env["device"] != str(CARD):
-            raise AssertionError(f"{type_}: run_train did not run on the card")
-        model = load_models_for_instance(iid, engine, ep, ctx)[0]
-        factors = (model.factors.user_factors.cpu(),
-                   model.factors.item_factors.cpu())
+        variant, engine, ep, iid, inst, model, factors, frame_s, train_s = \
+            train_from_store(args, type_, pe)
         bodies = p44_queries(sorted(model.user_index.keys()),
                              sorted(model.item_index.keys()))
         server = deploy_query_server(variant, host="127.0.0.1", port=0,
@@ -7746,7 +7743,147 @@ def store_train(args, smi, type_: str, models_type: str, home: str,
         f"deployed, {P44_QUERIES} queries answered; host clock, "
         f"os.cpu_count() {os.cpu_count()}; {smi}")
     return {"store": pe, "app_id": app_id, "factors": factors,
-            "answers": answers, "path": path}
+            "answers": answers, "path": path, "write_s": write_s}
+
+
+def train_from_store(args, type_: str, pe):
+    """``run_train`` of the recommendation template on the card from the
+    configured event store (its data source's one ``find_frame`` timed),
+    and the persisted model loaded back."""
+    variant = variant_from_dict({
+        "id": "p44-stores", "engineFactory": "templates.recommendation",
+        "datasource": {"params": {"app_name": P44_APP}},
+        "algorithms": [{"name": "als",
+                        "params": {**ALS_PARAMS, "seed": args.seed}}],
+    })
+    engine, ep = build_engine(variant)
+    ctx = ComputeContext.create(args.seed, device=CARD)
+    t = time.perf_counter()
+    with timed_frames(pe) as reads:
+        iid = run_train(engine, ep, variant, ctx=ctx)
+    train_s = time.perf_counter() - t
+    if [n for _, n in reads] != [P44_RATINGS]:
+        raise AssertionError(f"{type_}: the run's find_frame read {reads}")
+    inst = Storage.get_meta_data_engine_instances().get(iid)
+    if inst.env["device"] != str(CARD):
+        raise AssertionError(f"{type_}: run_train did not run on the card")
+    model = load_models_for_instance(iid, engine, ep, ctx)[0]
+    factors = (model.factors.user_factors.cpu(),
+               model.factors.item_factors.cpu())
+    return (variant, engine, ep, iid, inst, model, factors, reads[0][0],
+            train_s)
+
+
+@contextlib.contextmanager
+def partlog_leader_env(follower):
+    """44.2's partitioned log inside the block: P44_PARTITIONS partitions
+    replicated to ``follower`` with P44_MIN_ACKS acks at ``commit``."""
+    with knob("PIO_TPU_PARTLOG_PARTITIONS", str(P44_PARTITIONS)), \
+            knob("PIO_TPU_PARTLOG_REPLICAS", f"127.0.0.1:{follower.port}"), \
+            knob("PIO_TPU_REPL_MIN_ACKS", str(P44_MIN_ACKS)):
+        yield
+
+
+def partlog_failover(args, smi, runs: dict, home: str, follower) -> dict:
+    """44.4: the follower drains the leader's stream (its sidecar's
+    ``/storage.json`` positions equal the leader's committed bytes); the
+    leader stops; the follower's mirror is promoted into a fresh root,
+    reopened and trained from on the card (the memory store's bits); the
+    promoted log takes ``$set`` writes and ``compact``, and its reads
+    agree before and after and with the memory store's."""
+    run, base = runs["partlog"], runs["memory"]
+    leader = run["store"]._b
+    committed = {k: leader.committed(k) for k in range(leader.partitions)}
+    t = time.perf_counter()
+    deadline = t + 120
+    while follower.positions(leader.partitions) != committed:
+        if time.perf_counter() > deadline:
+            raise AssertionError(
+                f"follower at {follower.positions(leader.partitions)}, "
+                f"leader committed {committed}")
+        time.sleep(0.01)
+    drain_s = time.perf_counter() - t
+    topo = leader.topology()
+    sidecar = create_follower_status_server(follower).start()
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", sidecar.port,
+                                          timeout=60)
+        status, side = request(conn, "GET", "/storage.json")
+        conn.close()
+    finally:
+        sidecar.stop()
+    want = {str(k): v for k, v in committed.items()}
+    if status != 200 or side["role"] != "follower" or \
+            side["positions"] != want:
+        raise AssertionError(f"follower sidecar: HTTP {status} {side}, "
+                             f"leader committed {want}")
+    acked = topo["replication"]["min_acked"]
+    if acked != want:
+        raise AssertionError(f"leader's min_acked {acked}, committed {want}")
+    leader.close()  # the leader stops
+    dest = os.path.join(home, "partlog-promoted")
+    t = time.perf_counter()
+    election = failover.promote([follower.root], dest)["election"]
+    promote_s = time.perf_counter() - t
+    if {k: e["position"] for k, e in election.items()} != committed:
+        raise AssertionError(f"promoted positions {election}, leader "
+                             f"committed {committed}")
+    with store_config({"METADATA": ("memory", home),
+                       "EVENTDATA": ("partlog", dest),
+                       "MODELDATA": ("localfs",
+                                     os.path.join(home, "models-promoted"))}):
+        app_id = Storage.get_meta_data_apps().insert(App(0, P44_APP))
+        if app_id != run["app_id"]:
+            raise AssertionError(f"app {app_id}, the leader's {run['app_id']}")
+        t = time.perf_counter()
+        pe = Storage.get_pevents()
+        reopen_s = time.perf_counter() - t
+        *_, factors, frame_s, train_s = train_from_store(args, "partlog", pe)
+        if not all(torch.equal(a, b) for a, b in zip(factors,
+                                                     base["factors"])):
+            raise AssertionError("promoted partlog: factors differ from the "
+                                 "memory store's run")
+        log_ = pe._b
+        t0 = dt.datetime(2026, 5, 1, tzinfo=dt.timezone.utc)
+        sets = [Event("$set", "user", f"u{u}",
+                      properties=DataMap({"segment": u % 7, "tier": "a"}),
+                      event_time=t0 + dt.timedelta(seconds=u),
+                      event_id=f"s{u:05d}", creation_time=t0)
+                for u in range(P44_SET_USERS)]
+        pe.write(sets, app_id)
+        folded = log_.aggregate_properties(app_id, "user")
+        t = time.perf_counter()
+        compacted = log_.compact()
+        compact_s = time.perf_counter() - t
+        snap = log_.aggregate_properties(app_id, "user")
+        rates = pe.find_frame(app_id, event_names=["rate"])
+    mem = base["frame"]
+    if sum(compacted.values()) != P44_SET_USERS or len(folded) != \
+            P44_SET_USERS or {k: (v.to_dict(), v.first_updated,
+                                 v.last_updated) for k, v in snap.items()} \
+            != {k: (v.to_dict(), v.first_updated, v.last_updated)
+                for k, v in folded.items()}:
+        raise AssertionError(f"compact folded {compacted}: the snapshot "
+                             f"reads differ from the full fold")
+    for c in ("event", "entity_id", "target_entity_id", "event_time_us"):
+        if not np.array_equal(getattr(rates, c), getattr(mem, c)):
+            raise AssertionError(f"compacted partlog's {c} differs from "
+                                 f"the memory store's")
+    events_per_s = P44_RATINGS / run["write_s"]
+    log(f"  44.4 partlog ({P44_PARTITIONS} partitions, 1 follower, "
+        f"min_acks {P44_MIN_ACKS}, durability {durability.mode()}): "
+        f"write {events_per_s:.1f} events/s; replication drained "
+        f"{drain_s:.3f} s after the write ({sum(committed.values())} B); "
+        f"the follower sidecar's /storage.json positions are the leader's "
+        f"committed bytes; failover {promote_s + reopen_s:.3f} s (promote "
+        f"{promote_s:.3f}, reopen and replay {reopen_s:.3f}); run_train "
+        f"from the promoted log {train_s:.3f} s (find_frame {frame_s:.3f}) "
+        f"gives the memory store's factors bit for bit; compact "
+        f"{compact_s:.3f} s folded {P44_SET_USERS} users' $set, the "
+        f"snapshot reads as the full fold, the ratings as the memory "
+        f"store's; host clock, os.cpu_count() {os.cpu_count()}; {smi}")
+    return {"events_per_s": events_per_s, "drain_s": drain_s,
+            "failover_s": promote_s + reopen_s}
 
 
 def store_maintenance(args, smi, runs: dict, home: str, events: list) -> None:
@@ -7828,12 +7965,14 @@ def phase_event_stores(args, smi) -> dict:
     """Phase 44: the event and model stores feeding training on the card."""
     t_phase = time.monotonic()
     log(f"phase 44: the event stores: {P44_BATCHED + P44_SINGLES} of phase "
-        f"28's events over HTTP into SQLite and the event log; half of "
+        f"28's events over HTTP into SQLite and the event log; a quarter of "
         f"MovieLens-1M's ratings ({P44_RATINGS} over {ML1M_USERS} users and "
         f"{ML1M_ITEMS} items) written into the memory store, the "
-        f"event log, parquet and searchable, run_train on the card from each, "
+        f"event log, parquet, searchable and the partitioned log (replicated "
+        f"to one follower), run_train on the card from each, "
         f"persisted through localfs, blob (file://) and the blob daemon, "
-        f"deployed; 1% deleted and the log compacted; the search route; "
+        f"deployed; 1% deleted and the log compacted; the search route; the "
+        f"partitioned log failed over to its follower and trained from; "
         f"durability {durability.mode()}; {smi}")
     bodies = rate_bodies(args.seed)[:P44_BATCHED + P44_SINGLES]
     ingest = {t: ingest_store(args, smi, t, bodies) for t in ("sqlite", "eventlog")}
@@ -7845,14 +7984,33 @@ def phase_event_stores(args, smi) -> dict:
     blob = create_blob_server(os.path.join(home, "blobd"), host="127.0.0.1",
                               port=0)
     blob.start()
+    follower = replication.FollowerServer(os.path.join(home, "follower"))
     runs = {}
     try:
+        return p44_stores_and_failover(args, smi, t_phase, t1, home, events,
+                                       blob, follower, runs, ingest)
+    finally:
+        if "partlog" in runs:
+            runs["partlog"]["store"]._b.close()
+        follower.stop()
+
+
+def p44_stores_and_failover(args, smi, t_phase, t1, home, events, blob,
+                            follower, runs, ingest) -> dict:
+    """44.2-44.4 with the blob daemon and the partitioned log's follower
+    up: the stores, their maintenance, the partitioned log's failover."""
+    try:
         for type_, models in P44_STORES:
-            runs[type_] = store_train(args, smi, type_, models, home, events,
-                                      f"http://127.0.0.1:{blob.port}")
+            with (partlog_leader_env(follower) if type_ == "partlog"
+                  else contextlib.nullcontext()):
+                runs[type_] = store_train(
+                    args, smi, type_, models, home, events,
+                    f"http://127.0.0.1:{blob.port}")
     finally:
         blob.stop()
     base = runs["memory"]
+    # 44.4 compares with the memory store's events before 44.3's deletes
+    base["frame"] = base["store"].find_frame(base["app_id"])
     for type_, run in runs.items():
         if not all(torch.equal(a, b) for a, b in zip(run["factors"],
                                                      base["factors"])):
@@ -7860,15 +8018,17 @@ def phase_event_stores(args, smi) -> dict:
                                  f"store's run")
         if run["answers"] != base["answers"]:
             raise AssertionError(f"{type_}: answers differ from localfs's")
-    log(f"  44.2 the factors from eventlog, parquet and searchable are the "
-        f"memory store's bit for bit; the blob (file://) and blob daemon "
-        f"deployments answer the {P44_QUERIES} queries as localfs's")
+    log(f"  44.2 the factors from eventlog, parquet, searchable and partlog "
+        f"are the memory store's bit for bit; the blob (file://) and blob "
+        f"daemon deployments answer the {P44_QUERIES} queries as localfs's")
     t2 = time.monotonic()
     store_maintenance(args, smi, runs, home, events)
     t3 = time.monotonic()
-    log(f"  phase 44 {t3 - t_phase:.1f} s: 44.1 {t1 - t_phase:.1f}, 44.2 "
-        f"{t2 - t1:.1f}, 44.3 {t3 - t2:.1f}; {smi}")
-    return {"ingest": ingest}
+    partlog = partlog_failover(args, smi, runs, home, follower)
+    t4 = time.monotonic()
+    log(f"  phase 44 {t4 - t_phase:.1f} s: 44.1 {t1 - t_phase:.1f}, 44.2 "
+        f"{t2 - t1:.1f}, 44.3 {t3 - t2:.1f}, 44.4 {t4 - t3:.1f}; {smi}")
+    return {"ingest": ingest, "partlog": partlog}
 
 
 # ------------------------------------------- phase 45: the request plane

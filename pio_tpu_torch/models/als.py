@@ -75,6 +75,7 @@ import numpy as np
 import torch
 
 from pio_tpu_torch.obs import trainwatch
+from pio_tpu_torch.obs.metrics import monotonic_s
 from pio_tpu_torch.parallel import distributed
 from pio_tpu_torch.parallel.context import ComputeContext
 from pio_tpu_torch.utils import knobs
@@ -935,7 +936,7 @@ def train_als(
         per_device_bytes=(U_pad + I_pad) * K * 4 // world,
     )
 
-    t0 = time.monotonic()
+    t0 = monotonic_s()
     if blocked:
         _, _, counts_u, _, shapes = _layouts(
             user_idx, item_idx, n_users, n_items, config, world)
@@ -950,13 +951,13 @@ def train_als(
         encoding = f"{rating_wire}+{item_wire}"
     if stats is not None:
         stats["packer"] = "numpy" if _native_packer() is None else "native"
-        stats["pack_s"] = time.monotonic() - t0
+        stats["pack_s"] = monotonic_s() - t0
         stats["wire_bytes"] = wire_bytes
         stats["encoding"] = encoding
         stats["n_stream"] = 1
         stats["world"] = world
 
-    t0 = time.monotonic()
+    t0 = monotonic_s()
     gen = torch.Generator(device="cpu")
     gen.manual_seed(int(config.seed))
     P0 = _init_factors(U_pad, K, gen).to(dev)
@@ -977,8 +978,8 @@ def train_als(
         )
     if stats is not None:
         _sync(dev)
-        stats["h2d_s"] = time.monotonic() - t0
-    t0 = time.monotonic()
+        stats["h2d_s"] = monotonic_s() - t0
+    t0 = monotonic_s()
     if not blocked:
         by_user, by_item = (
             blocks_of(t, rank, world) for t in _decode_pack(
@@ -987,7 +988,7 @@ def train_als(
                            shapes[3], group)
     if stats is not None:
         _sync(dev)
-        stats["device_s"] = time.monotonic() - t0
+        stats["device_s"] = monotonic_s() - t0
     factors = ALSFactors(
         user_factors=P.cpu().numpy()[:n_users],
         item_factors=Q.cpu().numpy()[:n_items],

@@ -31,13 +31,13 @@ piece (the reference streams it above ``PIO_TPU_LOGREG_STREAM_MB``).
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from pio_tpu_torch.obs.metrics import monotonic_s
 from pio_tpu_torch.parallel import distributed
 
 #: name → parameter, in the reference's pytree order
@@ -211,11 +211,11 @@ def train_logreg(
 
     scales = feature_scales(X)
     wire_scales = scales if config.input_dtype == "int8" else None
-    t0 = time.monotonic()
+    t0 = monotonic_s()
     wire = encode_wire(X, config.input_dtype, wire_scales)
     if stats is not None:
-        stats["pack_s"] = time.monotonic() - t0
-    t0 = time.monotonic()
+        stats["pack_s"] = monotonic_s() - t0
+    t0 = monotonic_s()
     # one piece a rank: this rank's rows of the batch padded to a world
     # multiple, mask 0 on the padding (every row without a group; the
     # reference streams only off the mesh, l.231)
@@ -233,23 +233,23 @@ def train_logreg(
                init_params(d, n_classes, config.seed).items()}
     if stats is not None:
         _sync(dev)
-        stats["h2d_s"] = time.monotonic() - t0
+        stats["h2d_s"] = monotonic_s() - t0
         # what crosses the link: the features and the int32 labels (the
         # mask is made on the device)
         stats["wire_bytes"] = int(wire.numel() * wire.element_size()
                                   + y.nbytes)
         stats["n_stream"] = 1
-        t0 = time.monotonic()
+        t0 = monotonic_s()
     fitted = _fit(params0, X_dev, y_dev, mask, s_dev, config,
                   group=ctx.group)
     if stats is not None:
         _sync(dev)
-        stats["device_s"] = time.monotonic() - t0
-        t0 = time.monotonic()
+        stats["device_s"] = monotonic_s() - t0
+        t0 = monotonic_s()
     # one pull of both arrays: the bias rides behind the weights
     wb = torch.cat([fitted["w"], fitted["b"][None, :]]).cpu().numpy()
     if stats is not None:
-        stats["d2h_s"] = time.monotonic() - t0
+        stats["d2h_s"] = monotonic_s() - t0
     return LogRegModel(
         weights=np.ascontiguousarray(wb[:d]), bias=wb[d].copy(),
         n_classes=n_classes, feature_scales=scales,

@@ -52,7 +52,6 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-import time
 from typing import Optional
 
 import numpy as np
@@ -61,6 +60,7 @@ import torch
 from pio_tpu_torch import DeviceLike, resolve_device
 from pio_tpu_torch.models.adam import adam_init, adam_update, leaves, rebuild
 from pio_tpu_torch.obs import devicewatch, trainwatch
+from pio_tpu_torch.obs.metrics import monotonic_s
 from pio_tpu_torch.parallel.collectives import (
     Axis,
     all_gather,
@@ -507,7 +507,7 @@ def train_seqrec(
 
     vocab = _round_up(n_items + 1, n_model)  # +1 for the pad row
 
-    t0 = time.monotonic()
+    t0 = monotonic_s()
     # drawn whole on a seeded CPU generator whatever the device and the
     # rank, so that the card, the CPU and every rank start from one init
     g = torch.Generator(device="cpu")
@@ -553,8 +553,8 @@ def train_seqrec(
             .to(dev) for a in (seqs, targets, mask))
     if stats is not None:
         _sync(dev)
-        stats["place_s"] = time.monotonic() - t0
-        t0 = time.monotonic()
+        stats["place_s"] = monotonic_s() - t0
+        t0 = monotonic_s()
 
     trainwatch.begin_algo(
         "seqrec", total_steps=cfg.steps, n_batches=n_batches,
@@ -637,7 +637,7 @@ def train_seqrec(
     fitted = state[1]
     if stats is not None:
         _sync(dev)
-        stats["steps_s"] = time.monotonic() - t0
+        stats["steps_s"] = monotonic_s() - t0
     with torch.no_grad():
         fitted = gather_shards(mesh, fitted, specs,
                                rebuild(init, [v.shape for v in leaves(init)]))

@@ -51,7 +51,6 @@ in a step), and the first dispatch of each chunk length counts as a
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 import torch
@@ -59,6 +58,7 @@ import torch
 from pio_tpu_torch import DeviceLike, resolve_device
 from pio_tpu_torch.models.adam import adam_init, adam_update, leaves, rebuild
 from pio_tpu_torch.obs import devicewatch, trainwatch
+from pio_tpu_torch.obs.metrics import monotonic_s
 from pio_tpu_torch.parallel.collectives import (
     Axis,
     all_gather,
@@ -303,7 +303,7 @@ def train_two_tower(
     iids = np.resize(iids, reps)
     n_batches = reps // batch
 
-    t0 = time.monotonic()
+    t0 = monotonic_s()
     # drawn whole on a seeded CPU generator whatever the device and the
     # rank, so that the card, the CPU and every rank start from one init
     g = torch.Generator(device="cpu")
@@ -332,9 +332,9 @@ def train_two_tower(
         iids_d = torch.from_numpy(iids).to(dev)
     if stats is not None:
         _sync(dev)
-        stats["place_s"] = time.monotonic() - t0
+        stats["place_s"] = monotonic_s() - t0
         stats["n_stream"] = n_stream
-        t0 = time.monotonic()
+        t0 = monotonic_s()
 
     trainwatch.begin_algo(
         "two_tower", total_steps=cfg.steps, n_batches=n_batches,
@@ -416,8 +416,8 @@ def train_two_tower(
     fitted = state[1]
     if stats is not None:
         _sync(dev)
-        stats["steps_s"] = time.monotonic() - t0
-        t0 = time.monotonic()
+        stats["steps_s"] = monotonic_s() - t0
+        t0 = monotonic_s()
 
     with torch.no_grad():
         uv = _vectors(fitted["user"], vu, d_axis, m_axis, dev)
@@ -427,7 +427,7 @@ def train_two_tower(
             iv = iv.to(torch.bfloat16).float()
     if stats is not None:
         _sync(dev)
-        stats["tables_d2h_s"] = time.monotonic() - t0
+        stats["tables_d2h_s"] = monotonic_s() - t0
         stats["table_wire"] = cfg.table_wire
     if losses is not None:
         # the last chunks' losses, read once the tables are in flight

@@ -106,6 +106,9 @@ def _load(name: str, declare) -> ctypes.CDLL:
     with _lock:
         lib = _cache.get(name)
         if lib is None:
+            # first-use compile fills the cache: serializing the build
+            # under _lock is the point (one compiler run per library)
+            # pio: disable=lock-blocking-call
             lib = ctypes.CDLL(str(build_library(name)))
             declare(lib)
             _cache[name] = lib

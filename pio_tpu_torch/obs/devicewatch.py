@@ -458,6 +458,7 @@ class DeviceWatch:
             )
 
     # -- payload ------------------------------------------------------------
+    # pio: endpoint=/device.json
     def payload(self) -> dict:
         """The ``GET /device.json`` body (the reference's keys). Always
         samples inline: a scrape right after a placement must see it."""
@@ -487,6 +488,7 @@ class DeviceWatch:
         max_in_use = max((r["bytesInUse"] for r in rows), default=0)
         return {
             "mode": mode,
+            # pio: disable=wallclock-duration (asOf is a true timestamp)
             "asOf": time.time(),
             "uptimeS": round(monotonic_s() - self._started_at, 3),
             "intervalS": self.interval_s,

@@ -21,9 +21,9 @@ the full per-check report.
 from __future__ import annotations
 
 import threading
-import time
 from typing import Callable, Dict, List, Optional, Tuple
 
+from pio_tpu_torch.obs.metrics import monotonic_s
 
 
 class Heartbeat:
@@ -34,13 +34,13 @@ class Heartbeat:
 
     def __init__(self, max_age_s: float = 30.0):
         self.max_age_s = float(max_age_s)
-        self._last = time.monotonic()
+        self._last = monotonic_s()
 
     def beat(self) -> None:
-        self._last = time.monotonic()
+        self._last = monotonic_s()
 
     def age_s(self) -> float:
-        return time.monotonic() - self._last
+        return monotonic_s() - self._last
 
     def check(self) -> Tuple[bool, str]:
         age = self.age_s()

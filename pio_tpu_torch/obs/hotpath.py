@@ -54,6 +54,7 @@ def _merge_snapshots(cells, pool: bool) -> Tuple[List[int], float, int]:
     return buckets, total, count
 
 
+# pio: endpoint=/debug/hotpath.json
 def hotpath_payload(tracer, e2e_cell, stage_order: Sequence[str] = (),
                     pool: bool = True,
                     slow_threshold_s: Optional[float] = None) -> dict:

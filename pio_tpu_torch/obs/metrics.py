@@ -402,6 +402,7 @@ class RequestWindow:
                 self._ring[self._pos] = item
                 self._pos = (self._pos + 1) % self._cap
 
+    # pio: endpoint=/stats.json
     def to_dict(self) -> dict:
         """Exact cumulative count, errors and mean; percentiles over the
         ring (the newest ``cap`` requests)."""
@@ -419,6 +420,7 @@ class RequestWindow:
             "p99Ms": q(0.99),
         }
 
+    # pio: endpoint=/stats.json
     def window(self, window_s: float) -> dict:
         """count, errors, mean and p50/p95/p99 over the trailing
         ``window_s`` seconds (bounded by the ring)."""

@@ -234,6 +234,7 @@ class SLOEngine:
         ws.add(slo.window_s)
         return sorted(ws)
 
+    # pio: endpoint=/slo.json
     def evaluate(self, now: Optional[float] = None,
                  take_sample: bool = True) -> dict:
         """The ``GET /slo.json`` body: per objective, cumulative totals,
@@ -325,6 +326,7 @@ def engine_for_specs(
     return eng
 
 
+# pio: endpoint=/slo.json
 def slo_payload(engine: Optional[SLOEngine]) -> dict:
     """The ``GET /slo.json`` body of a server (``configured`` false and no
     objectives without an engine)."""

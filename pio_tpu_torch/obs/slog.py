@@ -249,6 +249,7 @@ def exposition_lines() -> List[str]:
     return _LOG_MESSAGES.render()
 
 
+# pio: endpoint=/logs.json
 def logs_payload(n: int = 100, level: Optional[str] = None,
                  trace_id: Optional[str] = None,
                  logger: Optional[str] = None) -> Dict[str, object]:

@@ -127,7 +127,7 @@ class Trace:
         self.trace_id = trace_id
         self.kind = kind
         # display timestamp for /traces.json; durations use t0 below
-        self.wall_time = time.time()
+        self.wall_time = time.time()  # pio: disable=wallclock-duration
         self.t0 = monotonic_s()
         self.total_s: Optional[float] = None
         self.spans: List[Tuple[str, float, float]] = []  # (stage, rel_s, dur)

@@ -46,6 +46,7 @@ import torch
 
 from pio_tpu_torch.faults import failpoint
 from pio_tpu_torch.obs.metrics import REGISTRY, monotonic_s
+from pio_tpu_torch.utils import knobs
 
 #: steps retired by training loops, per algorithm
 _STEPS = REGISTRY.counter(
@@ -185,6 +186,7 @@ class StepRecorder:
 
     # -- reads (sidecar / registry side) --------------------------------
 
+    # pio: endpoint=/train.json
     def payload(self) -> dict:
         """The ``/train.json`` body (the reference's keys)."""
         failpoint("trainwatch.payload")
@@ -496,7 +498,7 @@ RUN_FIELDS: Tuple[Tuple[str, str], ...] = (
 
 def runs_path(engine_id: str) -> str:
     # the home storage/registry.py's pio_home() reads
-    home = os.environ.get("PIO_TPU_HOME") or os.path.expanduser("~/.pio_tpu")
+    home = knobs.knob_str("PIO_TPU_HOME") or os.path.expanduser("~/.pio_tpu")
     return os.path.join(home, "runs", f"{engine_id}.jsonl")
 
 

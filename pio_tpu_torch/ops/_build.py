@@ -100,6 +100,9 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Built]:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
             cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+            # the nvcc builds start together and are awaited under _LOCK
+            # on purpose: one build of each kernel per process
+            # pio: disable=lock-blocking-call
             procs[name] = (path, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True,

@@ -14,9 +14,9 @@ thundering herd.
 
 from __future__ import annotations
 
-import threading
 from typing import Callable, Optional, Tuple
 
+from pio_tpu_torch.analysis.runtime import make_lock
 from pio_tpu_torch.obs.metrics import monotonic_s
 
 CLOSED, OPEN, HALF_OPEN = "closed", "open", "half_open"
@@ -102,7 +102,7 @@ class CircuitBreaker:
         self.probes = max(int(probes), 1)
         self._clock = clock
         self._on_change = on_state_change
-        self._lock = threading.Lock()
+        self._lock = make_lock("qos.breaker")
         self._state = CLOSED
         self._outcomes = []  # bounded ring of bools (True = failure)
         self._opened_at = 0.0
@@ -226,6 +226,7 @@ class CircuitBreaker:
         if len(self._outcomes) > self.window:
             del self._outcomes[0]
 
+    # pio: endpoint=/qos.json
     def snapshot(self) -> dict:
         with self._lock:
             self._maybe_half_open_locked()

@@ -63,6 +63,7 @@ class StaleCache:
         with self._lock:
             return len(self._d)
 
+    # pio: endpoint=/qos.json
     def stats(self) -> dict:
         with self._lock:
             return {

@@ -14,9 +14,9 @@ handler turns into a 429/503 + ``Retry-After`` or a stale-cache serve.
 from __future__ import annotations
 
 import math
-import threading
 from typing import Dict, Optional
 
+from pio_tpu_torch.analysis.runtime import make_lock
 from pio_tpu_torch.obs.metrics import monotonic_s
 from pio_tpu_torch.qos.breaker import STATE_CODES, CircuitBreaker
 from pio_tpu_torch.qos.degrade import StaleCache
@@ -139,7 +139,7 @@ class QoSGate:
         if policy.cache:
             self.stale = StaleCache(policy.cache)
         self._breakers: Dict[str, CircuitBreaker] = {}
-        self._breaker_lock = threading.Lock()
+        self._breaker_lock = make_lock("qos.gate.breakers")
 
     # -- pool --------------------------------------------------------------
     def on_pool_bound(self) -> None:
@@ -229,6 +229,7 @@ class QoSGate:
         self.degraded_total.inc(scope=self.scope)
 
     # -- /qos.json ---------------------------------------------------------
+    # pio: endpoint=/qos.json
     def snapshot(self) -> dict:
         out = {
             "enabled": True,

@@ -16,10 +16,10 @@ the reference.
 
 from __future__ import annotations
 
-import threading
 from collections import OrderedDict
 from typing import Callable, Optional, Tuple
 
+from pio_tpu_torch.analysis.runtime import make_condition, make_lock
 from pio_tpu_torch.obs.metrics import monotonic_s
 
 
@@ -41,7 +41,7 @@ class TokenBucket:
         self.burst = max(float(burst), 1.0)
         self._cell = cell
         self._clock = clock
-        self._lock = threading.Lock()
+        self._lock = make_lock("qos.bucket")
         self._tokens = self.burst
         self._last = clock()
         #: pool-wide admitted total already deducted from ``_tokens``
@@ -103,7 +103,7 @@ class KeyedBuckets:
         self.burst = max(float(burst), 1.0)
         self.max_keys = max_keys
         self._clock = clock
-        self._lock = threading.Lock()
+        self._lock = make_lock("qos.keyed_buckets")
         self._buckets: "OrderedDict[str, TokenBucket]" = OrderedDict()
 
     def _bucket(self, key: str) -> TokenBucket:
@@ -143,7 +143,7 @@ class ConcurrencyLimiter:
         self.max_inflight = int(max_inflight)
         self.max_queue = max(int(max_queue), 0)
         self._clock = clock
-        self._cond = threading.Condition()
+        self._cond = make_condition("qos.limiter")
         self._inflight = 0
         self._waiting = 0
 

@@ -83,6 +83,7 @@ class QoSPolicy:
             return self.key_burst
         return max(self.key_rps or 0.0, 1.0)
 
+    # pio: endpoint=/qos.json
     def to_dict(self) -> Dict[str, Any]:
         d = dataclasses.asdict(self)
         d["priorities"] = dict(PRIORITY_FLOORS)

@@ -75,12 +75,12 @@ import mmap
 import os
 import struct
 import threading
-import time
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 
 from pio_tpu_torch.faults import failpoint
+from pio_tpu_torch.obs.metrics import monotonic_s
 from pio_tpu_torch.utils import knobs
 
 log = logging.getLogger("pio_tpu_torch.batchlane")
@@ -396,12 +396,12 @@ class LaneClient:
             raise LaneFallback("full")
         seq = self._seg.post_request(self._idx, slot, payload)
         self._doorbell.set()
-        deadline = time.monotonic() + (timeout_s or self._timeout_s)
+        deadline = monotonic_s() + (timeout_s or self._timeout_s)
         while True:
             got = self._seg.read_response(self._idx, slot, seq)
             if got is not None:
                 break
-            if time.monotonic() >= deadline:
+            if monotonic_s() >= deadline:
                 # leave the slot in flight; _acquire_slot reclaims it
                 # once the drainer responds
                 with self._alloc_lock:

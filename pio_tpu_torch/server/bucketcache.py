@@ -24,9 +24,9 @@ the warmed set at once, evicting the old generation's entries.
 from __future__ import annotations
 
 import logging
-import threading
 from typing import Callable, List, Optional, Sequence, Tuple
 
+from pio_tpu_torch.analysis.runtime import make_lock
 from pio_tpu_torch.utils import knobs
 
 log = logging.getLogger("pio_tpu_torch.bucketcache")
@@ -72,7 +72,7 @@ class BucketExecutionCache:
         if any(b < 1 for b in self.buckets):
             raise ValueError(f"bucket sizes must be >= 1: {self.buckets}")
         self.max_bucket = self.buckets[-1]
-        self._lock = threading.Lock()
+        self._lock = make_lock("query.bucket_cache")
         #: buckets the CURRENT model generation has dispatched once
         self._warmed: frozenset = frozenset()
         self.generation = 0

@@ -47,11 +47,11 @@ from __future__ import annotations
 
 import datetime as _dt
 import logging
-import threading
 from contextlib import nullcontext
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from pio_tpu_torch import faults
+from pio_tpu_torch.analysis.runtime import make_lock
 from pio_tpu_torch.data.event import Event, EventValidationError
 from pio_tpu_torch.obs import (
     REGISTRY, HealthMonitor, MetricsRegistry, RequestWindow, TRACE_HEADER,
@@ -85,9 +85,12 @@ log = logging.getLogger("pio_tpu_torch.eventserver")
 
 #: the process-global families of the storage layer this server's
 #: ``/metrics`` shows: the group committer's flushes and batch sizes, its
-#: flush traces' stage histogram, and the retry counter
+#: flush traces' stage histogram, the retry counter, and the partitioned
+#: log's appends and follower acks (the storage layer has no server
+#: instance of its own, so a failover drill watches them here)
 STORAGE_METRIC_PREFIXES = (
     "pio_tpu_groupcommit_", "pio_tpu_commit_", "pio_tpu_storage_retries_",
+    "pio_tpu_partlog_", "pio_tpu_repl_",
 )
 
 MAX_BATCH = 50
@@ -116,7 +119,7 @@ class _Stats:
     and the JSON stats can never disagree."""
 
     def __init__(self, counter=None):
-        self._lock = threading.Lock()
+        self._lock = make_lock("event.stats")
         self._counter = counter
         self.start_time = _dt.datetime.now(_dt.timezone.utc)
         # (app_id, event, entity_type, status) -> count
@@ -258,7 +261,7 @@ class EventServerService:
         )
         self._auth_cache: dict = {}
         self._auth_gen = 0  # bumped by invalidation; fences re-caching
-        self._auth_cache_lock = threading.Lock()
+        self._auth_cache_lock = make_lock("event.auth_cache")
         # a Storage.reset() within AUTH_CACHE_TTL_S must not keep serving
         # AccessKey records from the store that was just dropped
         Storage.add_reset_hook(self.invalidate_auth_cache)
@@ -384,9 +387,9 @@ class EventServerService:
 
     def get_storage(self, req: Request):
         """Event-store topology. Backends that can describe themselves
-        do so via a duck-typed ``topology()`` (the reference's
-        partitioned log; the port has none yet); everything else reports
-        just its type."""
+        (the partitioned log's partition table, replication positions
+        and snapshot watermarks) do so via a duck-typed ``topology()``;
+        everything else reports just its type."""
         try:
             lev = Storage.get_levents()
         except Exception as e:

@@ -123,6 +123,7 @@ def clear_plugins() -> None:
     query_server.QUERY_SNIFFERS.clear()
 
 
+# pio: endpoint=/plugins.json
 def installed_plugins() -> Dict[str, List[dict]]:
     """Listing for ``GET /plugins.json`` (reference plugins route)."""
 

@@ -383,6 +383,7 @@ class ResidentLinearScorer:
         return codes
 
     # -- introspection -----------------------------------------------------
+    # pio: endpoint=/stats.json
     def to_dict(self) -> dict:
         """The scorer's entry in ``GET /stats.json``'s residency block."""
         with self._lock:

@@ -102,6 +102,7 @@ import urllib.request
 from typing import Optional
 
 from pio_tpu_torch.faults import failpoint
+from pio_tpu_torch.obs.metrics import monotonic_s
 from pio_tpu_torch.obs.shm import PoolMetricsSegment
 from pio_tpu_torch.qos import resolve_policy
 from pio_tpu_torch.server.batchlane import BatchLaneSegment
@@ -347,7 +348,7 @@ class ServingPool:
     def _spawn(self, idx: int):
         self._health_ports[idx] = 0  # a stale port from a previous life
         self._health_fails[idx] = 0
-        self._spawned_at[idx] = time.monotonic()
+        self._spawned_at[idx] = monotonic_s()
         if self._metrics_seg is not None:
             # the first spawn takes the stripe at generation 1, each
             # respawn bumps it: a scraper tells adoption from traffic
@@ -387,8 +388,8 @@ class ServingPool:
         device worker, until worker 0 itself is ready: its death during
         startup raises, since the pool would otherwise serve without the
         card."""
-        deadline = time.monotonic() + timeout
-        while time.monotonic() < deadline:
+        deadline = monotonic_s() + timeout
+        while monotonic_s() < deadline:
             if self._shutdown.is_set():
                 raise RuntimeError("pool shut down during startup")
             if all(not p.is_alive() for p in self._procs):
@@ -485,12 +486,12 @@ class ServingPool:
         """Supervise until /undeploy (or :meth:`stop`): respawn dead
         workers within budget, kill and respawn workers that fail
         /healthz, then stop everything once the event fires."""
-        next_health = time.monotonic() + health_poll_s
+        next_health = monotonic_s() + health_poll_s
         while not self._shutdown.is_set():
-            if time.monotonic() >= next_health:
-                next_health = time.monotonic() + health_poll_s
+            if monotonic_s() >= next_health:
+                next_health = monotonic_s() + health_poll_s
                 self._health_sweep()
-            now = time.monotonic()
+            now = monotonic_s()
             for i, p in enumerate(self._procs):
                 if p.is_alive() or self._shutdown.is_set():
                     continue

@@ -34,6 +34,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
+from pio_tpu_torch.analysis.runtime import make_lock, make_rlock
 from pio_tpu_torch.data.datamap import DataMap
 from pio_tpu_torch.data.event import Event
 from pio_tpu_torch.faults import failpoint
@@ -52,7 +53,7 @@ _I64_MAX = 2 ** 63 - 1
 #: app's log never blocks other apps. (Cross-process access is not
 #: coordinated.)
 _file_locks: dict = {}
-_file_locks_guard = threading.Lock()
+_file_locks_guard = make_lock("eventlog.locks_guard")
 
 
 def _column_strings(arena: bytes, offsets: list) -> list:
@@ -71,7 +72,7 @@ def _lock_for(path: str) -> threading.RLock:
     # re-entrant so delete() can hold it across its get + tombstone append
     key = os.path.realpath(path)
     with _file_locks_guard:
-        return _file_locks.setdefault(key, threading.RLock())
+        return _file_locks.setdefault(key, make_rlock(f"eventlog.file:{key}"))
 
 
 def _to_us(t: Optional[_dt.datetime], default: int) -> int:

@@ -30,6 +30,7 @@ from __future__ import annotations
 import threading
 from typing import Any, Callable, List, Sequence
 
+from pio_tpu_torch.analysis.runtime import make_lock
 from pio_tpu_torch.faults import failpoint
 from pio_tpu_torch.obs.metrics import REGISTRY, monotonic_s
 from pio_tpu_torch.obs.slog import current_trace_id
@@ -123,8 +124,8 @@ class GroupCommitter:
         #: names the failpoint ``groupcommit.flush.<store>``
         self._store = store
         self._q: List[_Item] = []
-        self._qlock = threading.Lock()
-        self._commit_lock = threading.Lock()
+        self._qlock = make_lock(f"groupcommit.{store}.qlock")
+        self._commit_lock = make_lock(f"groupcommit.{store}.commit")
 
     def submit(self, payload):
         item = _Item(payload)

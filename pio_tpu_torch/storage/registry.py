@@ -34,8 +34,10 @@ repository rules:
   ``file:///dir`` or ``http://host:port`` of ``pio blobserver``; default
   ``file://$PIO_TPU_HOME/blobmodels``).
 
-``partlog``, the reference's partitioned, replicated log, is not ported:
-it raises :class:`StorageConfigError`, with no quiet fallback.
+- ``partlog`` (events only): the partitioned, replicated event log
+  (``PATH`` a directory, default ``$PIO_TPU_HOME/partlog``; partitions,
+  segment size and followers from ``PIO_TPU_PARTLOG_*`` /
+  ``PIO_TPU_REPL_*``).
 """
 
 from __future__ import annotations
@@ -68,11 +70,9 @@ from pio_tpu_torch.storage.sqlite import (
     SQLiteModels,
     SQLitePEvents,
 )
+from pio_tpu_torch.utils import knobs
 
 REPOSITORIES = ("METADATA", "EVENTDATA", "MODELDATA")
-
-#: backend types of the reference that the port does not have yet
-NOT_PORTED = ("partlog",)
 
 
 class StorageConfigError(base.StorageError):
@@ -83,7 +83,7 @@ _homes_made: set = set()
 
 
 def pio_home() -> str:
-    home = os.environ.get("PIO_TPU_HOME") or os.path.join(
+    home = knobs.knob_str("PIO_TPU_HOME") or os.path.join(
         os.path.expanduser("~"), ".pio_tpu"
     )
     if home not in _homes_made:  # once per path — this sits on the
@@ -119,12 +119,6 @@ def _source_config(repo: str) -> _SourceConfig:
         cfg = _SourceConfig("DEFAULT_FS", "localfs", None)
     else:
         cfg = _SourceConfig("DEFAULT_SQLITE", "sqlite", None)
-    if cfg.type in NOT_PORTED:
-        raise StorageConfigError(
-            f"{repo}: backend {cfg.type!r} (source {cfg.name}) is not yet "
-            f"ported to pio_tpu_torch; use 'eventlog' for an append-only "
-            f"event log, or 'sqlite' or 'memory'"
-        )
     return cfg
 
 
@@ -188,6 +182,17 @@ class Storage:
         with cls._lock:
             if key not in cls._clients:
                 cls._clients[key] = EventLogEvents(path)
+            return cls._clients[key]
+
+    @classmethod
+    def _partlog(cls, cfg: _SourceConfig):
+        from pio_tpu_torch.storage.partlog import PartitionedEventLog
+
+        path = cfg.path or os.path.join(pio_home(), "partlog")
+        key = f"partlog:{path}"
+        with cls._lock:
+            if key not in cls._clients:
+                cls._clients[key] = PartitionedEventLog(path)
             return cls._clients[key]
 
     @classmethod
@@ -312,6 +317,8 @@ class Storage:
             return cls._memory("levents", MemLEvents)
         if cfg.type == "eventlog":
             return cls._eventlog(cfg)
+        if cfg.type == "partlog":
+            return cls._partlog(cfg)
         if cfg.type == "searchable":
             from pio_tpu_torch.storage.searchable import SearchableEvents
 
@@ -332,6 +339,8 @@ class Storage:
             return MemPEvents(cls._memory("levents", MemLEvents))
         if cfg.type == "eventlog":
             return base.PEventsAdapter(cls._eventlog(cfg))
+        if cfg.type == "partlog":
+            return base.PEventsAdapter(cls._partlog(cfg))
         if cfg.type == "searchable":
             from pio_tpu_torch.storage.searchable import SearchableEvents
 

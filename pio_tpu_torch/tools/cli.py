@@ -68,7 +68,10 @@ exit code). The front of ``deploy`` is the knob ``PIO_TPU_HTTP_FRONT``
 (``threaded`` or ``evloop``), which every pool worker inherits; there is
 no flag for it, as in the reference.
 
-Not ported yet (ROADMAP A): the verb lint.
+``lint [paths]`` runs the port's static analysis (``pio_tpu_torch/
+analysis``) over the port and its tests (``--json``, ``--list-rules``,
+``--changed``/``--base``, ``--dump-{failpoints,callgraph,effects,
+contracts}``); it exits 0 when clean and 1 on findings.
 
 Usage: ``python -m pio_tpu_torch <verb> ...``
 """
@@ -1117,6 +1120,97 @@ def cmd_version(args) -> int:
     return 0
 
 
+def cmd_lint(args) -> int:
+    """The port's static analysis (see ``pio_tpu_torch/analysis``): the
+    serving stack's concurrency and naming conventions as AST rules, over
+    the port and its tests by default. Exit 0 = clean, 1 = findings."""
+    from pio_tpu_torch.analysis import all_rules, run_lint
+    from pio_tpu_torch.analysis.core import (
+        collect_files,
+        default_paths,
+        parse_module,
+        render_json,
+        render_text,
+    )
+    from pio_tpu_torch.analysis.rules_convention import failpoint_inventory
+
+    if args.list_rules:
+        for rid, rule in sorted(all_rules().items()):
+            print(f"{rid:24s} [{rule.family}] {rule.description}")
+        return 0
+
+    paths = args.paths or default_paths()
+    if args.dump_failpoints or args.dump_callgraph or args.dump_effects \
+            or args.dump_contracts:
+        modules = []
+        for path in collect_files(paths):
+            parsed = parse_module(path)
+            if hasattr(parsed, "tree"):   # skip unparsable files
+                modules.append(parsed)
+        if args.dump_failpoints:
+            payload = {"failpoints": failpoint_inventory(modules)}
+        elif args.dump_callgraph:
+            from pio_tpu_torch.analysis.effects import callgraph_inventory
+            payload = {"callgraph": callgraph_inventory(modules)}
+        elif args.dump_contracts:
+            from pio_tpu_torch.analysis.contracts import contracts_inventory
+            from pio_tpu_torch.analysis.core import LintContext
+            payload = contracts_inventory(modules, LintContext())
+        else:
+            from pio_tpu_torch.analysis.effects import (
+                effects_inventory,
+                frame_inventory,
+            )
+            payload = effects_inventory(modules)
+            payload["frames"] = frame_inventory(modules)
+        print(json.dumps(payload, indent=2, sort_keys=True))
+        return 0
+
+    only = None
+    if args.changed:
+        only = _changed_py_files(args.base)
+        if only is not None and not only:
+            print("pio lint: no changed python or knob-table files")
+            return 0
+
+    rule_ids = args.rules.split(",") if args.rules else None
+    try:
+        findings = run_lint(paths, rule_ids=rule_ids, only=only)
+    except ValueError as exc:
+        print(f"pio lint: {exc}", file=sys.stderr)
+        return 2
+    print(render_json(findings) if args.json else render_text(findings))
+    return 1 if findings else 0
+
+
+def _changed_py_files(base: str):
+    """``git diff --name-only <base>`` filtered to .py plus the port's
+    ``.md`` files, as absolute paths — or None (fall back to a full lint)
+    when git is unavailable. The knob table ``pio_tpu_torch/KNOBS.md`` is
+    a linted contract surface (knob-doc-drift), so a change to it alone
+    must still re-lint contracts instead of early-exiting."""
+    import subprocess
+    try:
+        out = subprocess.run(
+            ["git", "diff", "--name-only", base, "--"],
+            capture_output=True, text=True, check=True,
+        ).stdout
+        top = subprocess.run(
+            ["git", "rev-parse", "--show-toplevel"],
+            capture_output=True, text=True, check=True,
+        ).stdout.strip()
+    except (OSError, subprocess.CalledProcessError) as exc:
+        print(f"pio lint: --changed unavailable ({exc}); linting all",
+              file=sys.stderr)
+        return None
+    return [
+        os.path.join(top, line)
+        for line in out.splitlines()
+        if line.endswith(".py")
+        or (line.endswith(".md") and line.startswith("pio_tpu_torch/"))
+    ]
+
+
 # -------------------------------------------------------------------- parser
 def _device_flag(a) -> None:
     a.add_argument(
@@ -1514,6 +1608,56 @@ def build_parser() -> argparse.ArgumentParser:
              "flag-like tokens included)",
     )
     a.set_defaults(fn=cmd_run)
+
+    a = sub.add_parser(
+        "lint",
+        help="project-native static analysis (concurrency + conventions)",
+    )
+    a.add_argument(
+        "paths", nargs="*",
+        help="files/directories to lint (default: pio_tpu_torch and the "
+             "port's tests, tests/test_torch_*.py and tests/torch_*.py)",
+    )
+    a.add_argument("--json", action="store_true", help="JSON findings")
+    a.add_argument(
+        "--rules", default=None, metavar="ID[,ID…]",
+        help="run only these rule ids",
+    )
+    a.add_argument(
+        "--list-rules", action="store_true",
+        help="print the rule catalog and exit",
+    )
+    a.add_argument(
+        "--dump-failpoints", action="store_true",
+        help="machine-readable inventory of failpoint() call sites "
+             "(cross-check chaos specs against real points)",
+    )
+    a.add_argument(
+        "--dump-callgraph", action="store_true",
+        help="resolved call edges (caller -> callees) as JSON",
+    )
+    a.add_argument(
+        "--dump-effects", action="store_true",
+        help="hot-path roots, per-function effect summaries and "
+             "frame-family census as JSON",
+    )
+    a.add_argument(
+        "--dump-contracts", action="store_true",
+        help="extracted cross-surface inventory as JSON: endpoint "
+             "payload keys with producers/consumers, X-Pio-* header "
+             "flows, and PIO_TPU_* knob sites joined against the "
+             "port's knob registry",
+    )
+    a.add_argument(
+        "--changed", action="store_true",
+        help="report findings only for files in `git diff --name-only "
+             "<base>` (whole tree still loads for call-graph context)",
+    )
+    a.add_argument(
+        "--base", default="HEAD", metavar="REV",
+        help="diff base for --changed (default: HEAD)",
+    )
+    a.set_defaults(fn=cmd_lint)
     return p
 
 

@@ -305,7 +305,7 @@ def test_idle_timeout_default_and_fallback_match_reference(raw,
         got = p_http.http_idle_timeout_s()
         handler = p_http._make_handler_class(_router("port"), "t")
     assert got == ref == 30.0 == handler.timeout
-    assert p_knobs._DEFAULTS["PIO_TPU_HTTP_IDLE_TIMEOUT_S"] == "30.0"
+    assert p_knobs.get("PIO_TPU_HTTP_IDLE_TIMEOUT_S").default == 30.0
 
 
 @pytest.mark.parametrize("raw,want", [("7", 7), ("abc", 128), ("0", 128)])

@@ -16,7 +16,7 @@ content-addressed blob store, on the CPU at a small size.
 - ``IntervalSyncer`` and ``replace_durable`` under ``commit``, ``batch``
   and ``os``; the group committer's partial-flush outcome and ``probe``.
 - The failpoints by name, and the registry's wiring of every type and
-  alias against the reference's, ``partlog`` refused.
+  alias against the reference's, ``partlog`` included.
 - The recommendation template trained on the CPU from each store gives
   the memory store's factors bit for bit.
 """
@@ -58,7 +58,7 @@ from pio_tpu_torch.storage.groupcommit import (
     GroupCommitter,
     PartialFlushOutcome,
 )
-from pio_tpu_torch.storage.registry import Storage, StorageConfigError
+from pio_tpu_torch.storage.registry import Storage
 from pio_tpu_torch.workflow.core_workflow import load_models_for_instance, run_train
 from pio_tpu_torch.workflow.engine_json import build_engine, variant_from_dict
 
@@ -584,14 +584,11 @@ def test_registry_wires_every_type_as_the_reference(type_, tmp_path,
         for getter in GETTERS:
             got = wiring(Storage, getter, type_, tmp_path, monkeypatch)
             want = wiring(JaxStorage, getter, type_, tmp_path, monkeypatch)
-            if type_ == "partlog":
-                assert got == "StorageConfigError"
-            else:
-                assert got == want, getter
+            assert got == want, getter
         # every repository is on this source now
         if type_ == "partlog":
-            with pytest.raises(StorageConfigError, match="not yet ported"):
-                Storage.get_pevents()
+            assert type(Storage.get_pevents()._b).__name__ == \
+                "PartitionedEventLog"
         elif type_ in ("searchable", "fts", "elasticsearch"):
             clients = Storage.sqlite_clients()
             assert sorted(clients) == sorted(JaxStorage.sqlite_clients()) == \

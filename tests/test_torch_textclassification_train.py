@@ -411,17 +411,19 @@ def test_host_pickler_copies_every_tensor_to_the_host(monkeypatch):
 # ----------------------------------------------------------------- storage
 @pytest.mark.parametrize("type_", ["searchable", "parquet", "eventlog"])
 def test_registry_refuses_backends_not_ported(monkeypatch, tmp_path, type_):
-    """``partlog`` is the one backend of the reference left unported: it
-    raises, beside each of these, which the registry now builds with the
-    reference's rules (parquet serves the bulk PEvents only)."""
+    """No backend of the reference is refused any more: ``partlog``
+    builds, beside each of these, with the reference's rules (parquet
+    serves the bulk PEvents only)."""
     monkeypatch.setenv("PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE", "DB")
-    monkeypatch.setenv("PIO_STORAGE_SOURCES_DB_PATH",
-                       str(tmp_path / ("db" if type_ == "searchable" else "d")))
+    monkeypatch.setenv("PIO_STORAGE_SOURCES_DB_PATH", str(tmp_path / "pl"))
     Storage.reset()
     try:
         monkeypatch.setenv("PIO_STORAGE_SOURCES_DB_TYPE", "partlog")
-        with pytest.raises(StorageConfigError, match="not yet ported"):
-            Storage.get_levents()
+        assert type(Storage.get_levents()).__name__ == "PartitionedEventLog"
+        Storage.reset()
+        monkeypatch.setenv("PIO_STORAGE_SOURCES_DB_PATH",
+                           str(tmp_path / ("db" if type_ == "searchable"
+                                           else "d")))
         monkeypatch.setenv("PIO_STORAGE_SOURCES_DB_TYPE", type_)
         assert Storage.get_pevents() is not None
         if type_ == "parquet":
